@@ -5,18 +5,27 @@
 
 Phases, in order; each prints one line and any failure raises:
   1. environment: the card's name and power limit, torch/CUDA versions;
-  2. build both CUDA kernels from ``llm_speech_summarization_tpu_torch/
-     kernels/csrc`` with nvcc;
+  2. build the four CUDA kernels from ``llm_speech_summarization_tpu_torch/
+     kernels/csrc`` with nvcc, one process per source, all at once;
   3. flash attention (B1) against its plain version at the main path's two
-     shapes (LLM prefill, HuBERT self-attention);
+     shapes (LLM prefill, HuBERT self-attention), and the one PyTorch call
+     that computes the same attention (timed only);
   4. fused decode (B2) against its plain version, including the in-place
      cache writes, at T=1 and T=3;
-  5. the slice at a small kernel-legal width on the card and on the CPU,
-     from the same weights;
-  6. the full-width ``llama3_hubert.yaml`` main path through
-     ``generate_audio_response_batch(es)``, with the kernels' launch counts
-     checked against what the engine ran.
-Then one JSON line per kernel summary and the final status line.
+  5. paged decode attention (B4) and fused paged decode + page write (B5)
+     against their plain versions at the serving shape, page writes
+     bit-exact;
+  6. the slice at a small kernel-legal width on the card and on the CPU,
+     from the same weights: the batch path, then a paged ``SlotDecoder``
+     teacher-forced through admissions and plain and speculative chunks;
+  7. the full-width ``llama3_hubert.yaml`` batch path through
+     ``generate_audio_response_batch(es)``;
+  8. the full-width serving path: ``SummarizationServer`` over HTTP with
+     the paged cache, then with speculative chunks, then with the dense
+     cache.
+Every main-path run is driven with the launch counts set to 0 just before it
+and checked just after against what the engine and decoder ran. Then the
+card line, one JSON line with every kernel's summary, and the status line.
 
 Needs one CUDA card of compute capability 9.0; exits nonzero otherwise.
 """
@@ -36,6 +45,25 @@ LOGIT_TOL = 5e-2  # bf16 CPU vs card logit delta allowed per step (phase 5)
 EMBED_TOL = 6e-2  # atol = rtol for the spliced embeds, CPU vs card (phase 5)
 B1_TOL = 3e-2  # |kernel - plain| on valid rows: ~4 bf16 ulps at |out| <= 2
 B2_ATOL = B2_RTOL = 2e-2  # kernel keeps p in float32, plain rounds p * v_scale to bf16
+# B4/B5 are held to their plain version run in float32 on the same inputs:
+# the kernel computes in float32 too, so what is left is its bf16 output
+# rounding (at most 2^-8 relative, a third of this bound). The outputs of a
+# row that attends ~450 positions are ~0.03 in size, so the bound scales
+# with each output; the phases also show it rejects a shifted pad or length,
+# a dropped page, shifted scales and swapped tables
+PAGED_ATOL, PAGED_RTOL = 1e-3, 1e-2
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call is the larger
+# of its bytes over the memory rate and its bf16 operations over the
+# tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+
+
+def bound_ms(n_bytes: float, flops: float):
+    """(least milliseconds the card could take, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def card_line() -> str:
@@ -66,22 +94,36 @@ def call_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 20) -> float:
+def device_ms(torch, fn, reps: int = 20, sessions: int = 3, tries: int = 8) -> float:
     """Device milliseconds per call of ``fn``: the summed duration of the
-    GPU work it launched (torch.profiler), without host dispatch gaps."""
+    GPU work it launched (torch.profiler), without host dispatch gaps.
+    A profiling session now and then loses device events, which lowers
+    its sum and its event count, so a session counts only if it recorded
+    as many device events as the fullest session, a whole number per
+    call; the median of ``sessions`` such sessions, out of at most
+    ``tries``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type.name == "CUDA")
-    if us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / 1e3 / reps
+    runs = []  # (device events, device microseconds) per session
+
+    def complete():
+        most = max(n for n, _ in runs)
+        return [us for n, us in runs if n == most and n % reps == 0 and n > 0]
+
+    while not runs or (len(runs) < tries and len(complete()) < sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        runs.append((len(events), sum(e.time_range.end - e.time_range.start for e in events)))
+    full = complete()
+    if len(full) < sessions:
+        raise AssertionError(f"device_ms: {len(full)} of {len(runs)} profiling sessions recorded "
+                             f"every device event (events per session: {[n for n, _ in runs]})")
+    return statistics.median(full) / 1e3 / reps
 
 
 def timings(torch, kernel_fn, plain_fn) -> dict:
@@ -108,11 +150,18 @@ def phase_env(torch) -> str:
 
 
 def phase_build(card):
-    from llm_speech_summarization_tpu_torch.kernels import build, flash_attention, fused_decode
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llm_speech_summarization_tpu_torch.kernels import (
+        build, flash_attention, fused_decode, fused_paged, paged_attention,
+    )
 
     t0 = time.perf_counter()
-    flash_attention._lib()
-    fused_decode._lib()
+    mods = (flash_attention, fused_decode, paged_attention, fused_paged)
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        for fut in [pool.submit(m._lib) for m in mods]:
+            fut.result()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()}, card=card)
 
@@ -153,10 +202,41 @@ def phase_flash(torch, card):
             raise AssertionError(f"B1 {name}: max |err| {err} > {B1_TOL}")
         t = timings(torch, lambda: flash_attention_fwd(q, k, v, starts, ends, causal=c["causal"]),
                     lambda: flash_attention_reference(q, k, v, starts, ends, causal=c["causal"]))
+        t["library_ms"] = device_ms(torch, _sdpa_call(torch, q, k, v, rows, c["causal"]))
+        n_bytes, flops = _flash_work(c, T)
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, flops)
         results[name] = dict(max_abs_err=err, **t)
         emit("flash_attention", case=name, shape=[B, T, c["Hq"], c["Hkv"], c["Dh"]],
-             causal=c["causal"], max_abs_err=err, tol=B1_TOL, **t, card=card)
+             causal=c["causal"], max_abs_err=err, tol=B1_TOL, bytes=n_bytes, flops=flops, **t,
+             card=card)
     return results
+
+
+def _sdpa_call(torch, q, k, v, rows, causal):
+    """``scaled_dot_product_attention`` over the same windows and GQA
+    grouping, as a yardstick (the port never calls it)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # (B, H, T, Dh)
+    T = q.shape[1]
+    mask = rows[:, None, None, :].expand(-1, 1, T, T)
+    if causal:
+        mask = mask & torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=kt.shape[1] != qt.shape[1])
+
+
+def _flash_work(c, T):
+    """(bytes, flops) of one B1 call: q, k, v read and out written once in
+    bf16; 2 flops per multiply-add of q.k and p.v over the valid
+    (query, key) pairs of each window."""
+    B, Hq, Hkv, Dh = c["B"], c["Hq"], c["Hkv"], c["Dh"]
+    n_bytes = 2 * B * T * Dh * (2 * Hq + 2 * Hkv)
+    pairs = 0
+    for s0, e0 in zip(c["starts"], c["ends"]):
+        n = e0 - s0
+        pairs += n * (n + 1) // 2 if c["causal"] else n * n
+    return float(n_bytes), float(4 * Dh * Hq * pairs)
 
 
 def phase_fused(torch, card):
@@ -205,10 +285,198 @@ def phase_fused(torch, card):
         t = timings(torch, lambda: fused_decode(q, *got_bufs, kn, vn, pads, offs, layer,
                                                 max_offset=int(offs_np.max())),
                     lambda: fused_decode_reference(q, *ref_bufs, kn, vn, pads, offs, layer))
+        # bytes: the valid int8 cache slots of k and v with their bf16
+        # scales, q, the fresh k/v, the output and the written slots
+        valid = np.clip(offs_np - pads.cpu().numpy(), 0, None).astype(np.int64)
+        n_bytes = (valid.sum() * Hkv * (2 * Dh + 4) + 2 * B * T * (2 * Hq + 2 * Hkv) * Dh
+                   + B * T * Hkv * 2 * (Dh + 2))
+        flops = 4 * Dh * Hq * T * (valid.sum() + B * (T + 1) / 2)
+        t["bound_ms"], t["bound_by"] = bound_ms(float(n_bytes), float(flops))
         results[T] = dict(max_abs_err=err, **t)
         emit("fused_decode", T=T, shape=[L, B, Hq, Hkv, S, Dh], max_abs_err=err,
-             atol=B2_ATOL, rtol=B2_RTOL, cache_writes="bit-exact", **t, card=card)
+             atol=B2_ATOL, rtol=B2_RTOL, cache_writes="bit-exact", bytes=float(n_bytes),
+             flops=float(flops), **t, card=card)
     return results
+
+
+PAGED_SHAPE = dict(B=16, Hq=24, Hkv=8, Dh=128, ps=128, mp=7, L=2)
+PAGED_SEED = 4  # B4 and B5 read the same pages
+PAGED_T_MAX = 4  # lengths leave room for this many fresh tokens at every T
+
+
+def _paged_case(torch, seed, T, write, device="cuda"):
+    """The serving shape, int8 pools with scattered pages, pad rows (one
+    past the first page), rows at page boundaries, a row with only the
+    fresh block; with ``write`` (B5) also a row at length == ps * mp and a
+    released row (table of zeros). Pools, scales, table, pads and lengths
+    come from ``seed`` alone, so every T (and B5) reads the same pages;
+    q and the fresh k/v from ``(seed, T)``."""
+    c = PAGED_SHAPE
+    B, Hq, Hkv, Dh, ps, mp, L = (c[k] for k in ("B", "Hq", "Hkv", "Dh", "ps", "mp", "L"))
+    if not 1 <= T <= PAGED_T_MAX:
+        raise ValueError(f"T={T} outside 1..{PAGED_T_MAX}")
+    dev = torch.device(device)
+    P = 1 + B * mp
+    rng = np.random.RandomState(seed)
+
+    def bf(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+
+    kp = torch.from_numpy(rng.randint(-127, 128, size=(L, P, Hkv, ps, Dh)).astype(np.int8)).to(dev)
+    vp = torch.from_numpy(rng.randint(-127, 128, size=(L, P, Hkv, ps, Dh)).astype(np.int8)).to(dev)
+    # scales keep |int8 x scale| <= ~1.5, the size of real k/v (a scale is
+    # absmax / 127)
+    ks, vs = (bf(0.002 + 0.01 * rng.rand(L, P, Hkv, ps)) for _ in range(2))
+    table = (1 + rng.permutation(B * mp)).reshape(B, mp).astype(np.int32)
+    pads = rng.randint(0, 5, size=(B,)).astype(np.int32)
+    pads[2] = ps + 2  # the window starts on the second page
+    lengths = rng.randint(pads + 1, mp * ps - PAGED_T_MAX + 1).astype(np.int32)
+    lengths[0], lengths[1] = ps, 2 * ps  # length % ps == 0
+    lengths[3] = pads[3]  # nothing cached: only the fresh block
+    lengths[4] = mp * ps - PAGED_T_MAX  # the last slots of the table
+    if write:
+        lengths[5] = mp * ps  # past the table: the token goes to page 0
+        table[6] = 0  # a released row
+    fresh = np.random.RandomState([seed, T])
+    q, kn, vn = (bf(fresh.randn(B, T, h, Dh)) for h in (Hq, Hkv, Hkv))
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return q, kp, vp, ks, vs, to(table), to(lengths), to(pads), kn, vn, lengths, pads, table
+
+
+def _paged_work(lengths, pads, T, write):
+    """(bytes, flops) one call needs at PAGED_SHAPE: the valid positions'
+    int8 k/v and bf16 scales, q, the fresh k/v and the output, plus the
+    written slots (B5); 2 flops per multiply-add of q.k and p.v."""
+    c = PAGED_SHAPE
+    B, Hq, Hkv, Dh, ps, mp = (c[k] for k in ("B", "Hq", "Hkv", "Dh", "ps", "mp"))
+    valid = np.clip(np.minimum(lengths, ps * mp) - pads, 0, None).astype(np.int64)
+    n_bytes = valid.sum() * Hkv * (2 * Dh + 2 * 2) + 2 * B * T * (2 * Hq + 2 * Hkv) * Dh
+    if write:
+        n_bytes += B * Hkv * 2 * (Dh + 2)
+    fresh_pairs = B * Hq * T * (T + 1) // 2
+    flops = 4 * Dh * (Hq * T * valid.sum() + fresh_pairs)
+    return float(n_bytes), float(flops)
+
+
+def _paged_check(torch, what, got, plain, exact_fn, rows, lens, pads, ks, vs, table):
+    """Hold ``got`` to the float32 plain version ``exact_fn()`` within
+    PAGED_ATOL + PAGED_RTOL * |exact| on ``rows``, and show that bound
+    rejects faults a kernel could make: ``exact_fn`` run with a pad or a
+    length shifted by one, each row's first page dropped, the k or v
+    scales shifted one slot, the tables of rows 0 and 1 swapped. Returns
+    the check's numbers."""
+    exact = exact_fn()
+    bound = PAGED_ATOL + PAGED_RTOL * exact.abs()
+
+    def worst(x):  # largest |x - exact| in units of the bound, on ``rows``
+        return ((x.float() - exact).abs() / bound)[rows].max().item()
+
+    ratio = worst(got)
+    err = (got.float() - exact)[rows].abs().max().item()
+    if not torch.isfinite(got).all() or not ratio <= 1:
+        per_row = (got.float() - exact).abs().amax(dim=(1, 2, 3)).tolist()
+        raise AssertionError(f"{what}: out differs from the float32 plain version by {ratio} x "
+                             f"the bound (max |err| {err}; per row {per_row})")
+    ps = PAGED_SHAPE["ps"]
+    live = (lens > pads).int()
+    mutants = {
+        "pad+1": dict(pads=pads + live),
+        "length-1": dict(lens=lens - live),
+        "first page dropped": dict(pads=torch.where(lens - pads > ps, (pads // ps + 1) * ps,
+                                                    pads).int()),
+        "k scale shifted": dict(ks=torch.roll(ks, 1, dims=-1)),
+        "v scale shifted": dict(vs=torch.roll(vs, 1, dims=-1)),
+        "tables swapped": dict(table=table[[1, 0] + list(range(2, table.shape[0]))].contiguous()),
+    }
+    rejected = {name: worst(exact_fn(**kw)) for name, kw in mutants.items()}
+    if min(rejected.values()) <= 1:
+        raise AssertionError(f"{what}: the bound does not reject every fault: {rejected}")
+    a = exact[rows].abs()
+    return dict(max_abs_err=err, err_over_bound=ratio,
+                err_vs_bf16_plain=(got.float() - plain.float())[rows].abs().max().item(),
+                out_rms=a.pow(2).mean().sqrt().item(), out_median_abs=a.median().item(),
+                faults_over_bound=rejected)
+
+
+def phase_paged(torch, card):
+    """B4 against its plain version at the speculative-verification shape
+    (T = spec_k + 1 = 4), reading layer 1 of (L, ...) pools in place."""
+    from llm_speech_summarization_tpu_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_reference,
+    )
+
+    T, layer = 4, 1
+    (q, kp, vp, ks, vs, table, lens, pads, kn, vn,
+     lens_np, pads_np, _) = _paged_case(torch, PAGED_SEED, T, write=False)
+    args = (q, kp[layer], vp[layer], table, lens, pads, kn, vn, ks[layer], vs[layer])
+    snap = [t.clone() for t in (kp, vp, ks, vs)]
+    got = paged_decode_attention(*args)
+    plain = paged_reference(*args)
+
+    def exact_fn(table=table, lens=lens, pads=pads, ks=ks, vs=vs):
+        return paged_reference(q.float(), kp[layer], vp[layer], table, lens, pads, kn.float(),
+                               vn.float(), ks[layer], vs[layer])
+
+    rows = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    check = _paged_check(torch, "B4", got, plain, exact_fn, rows, lens, pads, ks, vs, table)
+    for t, s0 in zip((kp, vp, ks, vs), snap):
+        if not torch.equal(t, s0):
+            raise AssertionError("B4 wrote into the pools")
+    t = timings(torch, lambda: paged_decode_attention(*args), lambda: paged_reference(*args))
+    n_bytes, flops = _paged_work(lens_np, pads_np, T, write=False)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    emit("paged_attention", T=T, shape=PAGED_SHAPE, **check, atol=PAGED_ATOL, rtol=PAGED_RTOL,
+         bytes=n_bytes, flops=flops, bound_ms=b_ms, bound_by=b_by, **t, card=card)
+    return dict(max_abs_err=check["max_abs_err"], bound_ms=b_ms, bound_by=b_by, **t)
+
+
+def phase_fused_paged(torch, card):
+    """B5 against its plain version at the decode shape (T = 1, L = 2):
+    outputs close, page writes bit-exact outside page 0, nothing else
+    changed."""
+    from llm_speech_summarization_tpu_torch.kernels.fused_paged import (
+        _write_targets, fused_paged_decode, fused_paged_reference,
+    )
+
+    layer = 1
+    (q, kp, vp, ks, vs, table, lens, pads, kn, vn,
+     lens_np, pads_np, table_np) = _paged_case(torch, PAGED_SEED, 1, write=True)
+    snap = [t.clone() for t in (kp, vp, ks, vs)]
+    got_bufs = [t.clone() for t in snap]
+    ref_bufs = [t.clone() for t in snap]
+    got = fused_paged_decode(q, *got_bufs, table, lens, pads, kn, vn, layer)
+    plain = fused_paged_reference(q, *ref_bufs, table, lens, pads, kn, vn, layer)
+
+    def exact_fn(table=table, lens=lens, pads=pads, ks=snap[2], vs=snap[3]):
+        return fused_paged_reference(q.float(), snap[0].clone(), snap[1].clone(), ks.clone(),
+                                     vs.clone(), table, lens, pads, kn.float(), vn.float(), layer)
+
+    # the released row reads page 0 while other rows write it: compare the rest
+    rows = torch.from_numpy((table_np != 0).all(axis=1)).cuda()
+    check = _paged_check(torch, "B5", got, plain, exact_fn, rows, lens, pads, snap[2], snap[3],
+                         table)
+    pid, slot = _write_targets(table, lens, PAGED_SHAPE["ps"])
+    written = torch.zeros(snap[2].shape, dtype=torch.bool, device="cuda")  # (L, P, Hkv, ps)
+    written[layer, pid, :, slot] = True
+    written[:, 0] = True  # page 0 takes the boundary and released rows' tokens
+    n_written = int((pid != 0).sum())
+    for name, g, r, s0 in zip(("k_pool", "v_pool", "k_scale", "v_scale"), got_bufs, ref_bufs,
+                              snap):
+        if not torch.equal(g[:, 1:], r[:, 1:]):
+            raise AssertionError(f"B5: {name} differs from the plain version's write outside "
+                                 f"page 0 at {int((g[:, 1:] != r[:, 1:]).sum())} elements")
+        if not torch.equal(g[~written], s0[~written]):
+            raise AssertionError(f"B5: {name} changed outside the written slots")
+        if torch.equal(g[:, 1:][written[:, 1:]], s0[:, 1:][written[:, 1:]]):
+            raise AssertionError(f"B5: {name} was not written")
+    t = timings(torch, lambda: fused_paged_decode(q, *got_bufs, table, lens, pads, kn, vn, layer),
+                lambda: fused_paged_reference(q, *ref_bufs, table, lens, pads, kn, vn, layer))
+    n_bytes, flops = _paged_work(lens_np, pads_np, 1, write=True)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    emit("fused_paged", T=1, shape=PAGED_SHAPE, **check, atol=PAGED_ATOL, rtol=PAGED_RTOL,
+         page_writes="bit-exact outside page 0", rows_written=n_written, bytes=n_bytes,
+         flops=flops, bound_ms=b_ms, bound_by=b_by, **t, card=card)
+    return dict(max_abs_err=check["max_abs_err"], bound_ms=b_ms, bound_by=b_by, **t)
 
 
 def _to(tree, device):
@@ -295,13 +563,107 @@ def phase_slice(torch, card):
          prefill_logit_max_abs_err=prefill_err, decode_logit_max_abs_err=step_err,
          logit_tol=LOGIT_TOL, decided_checked=checked, decisions=decisions,
          engine_streams_equal=text_c == text_g, card=card)
+    return cpu, gpu, llm_cfg
+
+
+def phase_serving_small(torch, card, cpu, gpu, llm_cfg):
+    """A paged int8 ``SlotDecoder`` on the CPU (plain versions) and one on
+    the card (kernels B1, B4, B5), same weights and prompts: two waves
+    admitted (the second mid-flight), chunks of one step or one speculative
+    round, the CPU decoder's state copied into the card's after each (teacher
+    forcing), and every chunk's logits held within LOGIT_TOL; a decided
+    token (top-2 margin above 2 * LOGIT_TOL) may not flip."""
+    from llm_speech_summarization_tpu_torch.infer.slots import SlotDecoder
+
+    texts = ["summarize the meeting notes", "a short one", "what was decided about the budget",
+             "list the action items, with owners and dates"]
+    e_c, m_c = cpu.build_text_prompt_batch(texts)
+    T = e_c.shape[1]
+    fields = ("offsets", "pad_lens", "last_token", "done", "tokens", "n_emitted", "budgets")
+    report = {}
+    for spec_k in (0, 3):
+        decs = []
+        for eng, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            d = SlotDecoder(eng.llm_params, llm_cfg, eos_id=eng.tokenizer.eos_id, n_slots=4,
+                            max_prompt_len=T, max_new_tokens=24, cache_dtype=torch.int8,
+                            paged=True, num_pages=1 + 4 * 4, spec_k=spec_k, device=dev)
+            seen = []
+            fwd = d._forward
+
+            def recording(ids, positions, fwd=fwd, seen=seen):
+                out = fwd(ids, positions)
+                seen[:] = [out.logits.float().cpu()]
+                return out
+
+            d._forward = recording
+            decs.append((d, seen))
+        (dc, seen_c), (dg, seen_g) = decs
+
+        def teacher_force():
+            for f in fields:
+                getattr(dg.state, f).copy_(getattr(dc.state, f))
+            dg._mirror = tuple(x.copy() for x in dc._mirror)
+            dg._bound = dc._bound.copy()
+
+        err, checked, chunks = 0.0, 0, 0
+        for wave, rows in enumerate(((0, 1), (2, 3))):
+            for d in (dc, dg):
+                d.admit(e_c[list(rows)].to(d.device), m_c[list(rows)].to(d.device), list(rows),
+                        [24, 20])
+            teacher_force()
+            for _ in range(6 if wave == 0 else 12):
+                for d in (dc, dg):
+                    d.decode_chunk(1, spec=spec_k > 0)
+                if dc.last_chunk_steps == 0:
+                    break
+                lc, lg = seen_c[0], seen_g[0]
+                err = max(err, (lc - lg).abs().max().item())
+                top2 = torch.topk(lc, 2, dim=-1).values
+                decided = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_TOL
+                if not (lc.argmax(-1)[decided] == lg.argmax(-1)[decided]).all():
+                    raise AssertionError(f"serving_small spec_k={spec_k}: the card flipped a "
+                                         f"decided token")
+                checked += int(decided.sum())
+                chunks += 1
+                teacher_force()
+        if not err <= LOGIT_TOL:
+            raise AssertionError(f"serving_small spec_k={spec_k}: logits differ by {err} > "
+                                 f"{LOGIT_TOL}")
+        if checked == 0:
+            raise AssertionError(f"serving_small spec_k={spec_k}: no decided token checked")
+        report[spec_k] = dict(logit_max_abs_err=err, decided_checked=checked, chunks=chunks,
+                              card_counts=dict(dg.counts))
+    emit("serving_small", page_size=128, prompt_len=T, logit_tol=LOGIT_TOL,
+         runs={str(k): v for k, v in report.items()}, card=card)
+
+
+def _wrappers():
+    from llm_speech_summarization_tpu_torch.kernels.flash_attention import flash_attention_fwd
+    from llm_speech_summarization_tpu_torch.kernels.fused_decode import fused_decode
+    from llm_speech_summarization_tpu_torch.kernels.fused_paged import fused_paged_decode
+    from llm_speech_summarization_tpu_torch.kernels.paged_attention import paged_decode_attention
+
+    return {"flash_attention": flash_attention_fwd, "fused_decode": fused_decode,
+            "paged_attention": paged_decode_attention, "fused_paged": fused_paged_decode}
+
+
+def reset_launches() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got} != expected {want}")
 
 
 def phase_full(torch, card):
     from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
     from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
-    from llm_speech_summarization_tpu_torch.kernels.flash_attention import flash_attention_fwd
-    from llm_speech_summarization_tpu_torch.kernels.fused_decode import fused_decode
     from llm_speech_summarization_tpu_torch.models.llama import init_kv_cache, llama_forward
 
     torch.cuda.reset_peak_memory_stats()
@@ -319,8 +681,7 @@ def phase_full(torch, card):
     torch.cuda.synchronize()
 
     # --- the main path, counted: every launch here comes from the engine
-    flash_attention_fwd.launches = 0
-    fused_decode.launches = 0
+    reset_launches()
     eng.counts.clear()
     t0 = time.perf_counter()
     texts = eng.generate_audio_response_batch(clips, max_new_tokens=max_new)
@@ -330,15 +691,14 @@ def phase_full(torch, card):
     texts2 = eng.generate_audio_response_batches([clips, clips], max_new_tokens=max_new)
     torch.cuda.synchronize()
     batches_s = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention_fwd.launches,
-                "fused_decode": fused_decode.launches}
+    launches = read_launches()
     counts = dict(eng.counts)
     # ---
-    want_b1 = enc_layers * counts["encoder_forwards"] + llm_layers * counts["prefills"]
-    want_b2 = llm_layers * counts["decode_steps"]
-    if launches["flash_attention"] != want_b1 or launches["fused_decode"] != want_b2:
-        raise AssertionError(f"launch counts {launches} != expected B1 {want_b1}, B2 {want_b2} "
-                             f"from engine counts {counts}")
+    check_launches("full batch path", launches, {
+        "flash_attention": enc_layers * counts["encoder_forwards"]
+        + llm_layers * counts["prefills"],
+        "fused_decode": llm_layers * counts["decode_steps"],
+        "paged_attention": 0, "fused_paged": 0})
     if len(texts) != 8 or len(texts2) != 2 or any(len(t) != 8 for t in texts2):
         raise AssertionError("full: wrong number of responses")
 
@@ -380,7 +740,137 @@ def phase_full(torch, card):
          encoder_ms=enc_ms, prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
          launches=launches, engine_counts=counts, card=card)
-    return launches
+    return launches, eng
+
+
+def _http(port, path, body=None, stream=False):
+    """(status, JSON body) of a GET or POST on 127.0.0.1; with ``stream``,
+    (status, ndjson objects, seconds from the request to the first delta)."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if not stream:
+            return resp.status, json.loads(resp.read())
+        objs, first = [], None
+        for line in resp:
+            if line.strip():
+                objs.append(json.loads(line))
+                if first is None and "delta" in objs[-1]:
+                    first = time.perf_counter() - t0
+        return resp.status, objs, first
+
+
+def _serve_burst(torch, card, eng, name, requests, **server_kw):
+    """Start a server on an ephemeral port, warm it with one request, set
+    every launch count to 0, send ``requests`` ((path, body, stream)
+    tuples) at once, read /metrics, drain, and check the launches against
+    the decoder's and engine's own counts."""
+    import threading
+
+    from llm_speech_summarization_tpu_torch.serve.server import SummarizationServer
+
+    srv = SummarizationServer(eng, host="127.0.0.1", port=0, continuous=True, **server_kw)
+    srv.start_background()
+    try:
+        status, _ = _http(srv.port, "/v1/text_response", {"text": "warm up", "max_new_tokens": 2})
+        if status != 200:
+            raise AssertionError(f"{name}: warm-up request failed with {status}")
+        dec = srv.batcher.decoder
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        eng.counts.clear()
+        dec.counts.clear()
+        srv.batcher.chunk_seconds, srv.batcher.chunk_steps_run = 0.0, 0
+        srv.batcher.first_token_s.clear()
+        results = [None] * len(requests)
+
+        def send(i, path, body, stream):
+            results[i] = _http(srv.port, path, body, stream)
+
+        threads = [threading.Thread(target=send, args=(i, *r)) for i, r in enumerate(requests)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        counts, eng_counts = dict(dec.counts), dict(eng.counts)
+        _, metrics = _http(srv.port, "/metrics")
+    finally:
+        drained = srv.drain(timeout=60)
+    if not drained:
+        raise AssertionError(f"{name}: the server did not drain")
+    for (path, body, stream), res in zip(requests, results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"{name}: a request to {path} failed: {res}")
+        final = res[1][-1] if stream else res[1]
+        if not isinstance(final.get("response"), str):
+            raise AssertionError(f"{name}: no response in {final}")
+        if stream and "".join(o.get("delta", "") for o in res[1][:-1]) != final["response"]:
+            raise AssertionError(f"{name}: streamed deltas do not add up to the response")
+    L = eng.llm_cfg.num_layers
+    enc_layers = eng.encoder_setup.encoder_cfg.num_layers
+    paged = server_kw.get("paged", False)
+    steps, rounds = counts.get("steps", 0), counts.get("spec_rounds", 0)
+    check_launches(name, launches, {
+        "flash_attention": L * counts.get("prefills", 0)
+        + enc_layers * eng_counts.get("encoder_forwards", 0),
+        "fused_decode": 0 if paged else L * (steps + rounds),
+        "paged_attention": L * rounds if paged else 0,
+        "fused_paged": L * steps if paged else 0})
+    firsts = sorted(r[2] for (_, _, stream), r in zip(requests, results)
+                    if stream and r[2] is not None)
+    out = dict(requests=len(requests), wall_s=wall, requests_per_s=len(requests) / wall,
+               p50_first_delta_s=statistics.median(firsts) if firsts else None,
+               p50_first_token_s=metrics.get("first_token_s_p50"),
+               decode_ms_per_step=metrics.get("decode_ms_per_step"),
+               chunks=metrics.get("batches_run"),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, decoder_counts=counts, engine_counts=eng_counts,
+               server_kw={k: v for k, v in server_kw.items() if k != "device"})
+    emit("serving_full", name=name, **out, card=card)
+    return out
+
+
+def phase_serving_full(torch, card, eng):
+    """The full-width serving path on ``llama3_hubert.yaml``: 12 concurrent
+    6-10 s audio requests (two streamed, two sampled with fixed seeds) and
+    one text request on the paged int8 cache; 4 greedy requests with
+    speculative chunks (spec_k=3); 4 on the dense cache."""
+    rng = np.random.RandomState(7)
+    clips = [(0.1 * rng.randn(int(16000 * rng.uniform(6.0, 10.0)))).astype(np.float32)
+             for _ in range(12)]
+
+    def audio(i, **extra):
+        return ("/v1/audio_summary", {"audio": clips[i].tolist(), "max_new_tokens": 32, **extra},
+                bool(extra.get("stream")))
+
+    burst = [audio(0, stream=True), audio(1, stream=True),
+             audio(2, temperature=0.8, top_k=50, seed=11),
+             audio(3, temperature=0.8, top_p=0.9, seed=12)]
+    burst += [audio(i) for i in range(4, 12)]
+    burst.append(("/v1/text_response", {"text": "Summarize the call in one line.",
+                                        "max_new_tokens": 32}, False))
+    common = dict(n_slots=16, max_new_tokens=64, device="cuda")
+    runs = {
+        "paged": _serve_burst(torch, card, eng, "paged", burst, paged=True, **common),
+        "paged_spec3": _serve_burst(torch, card, eng, "paged_spec3",
+                                    [audio(i) for i in range(4)], paged=True, spec_k=3,
+                                    **common),
+        "dense": _serve_burst(torch, card, eng, "dense", [audio(i) for i in range(4)],
+                              paged=False, **common),
+    }
+    if runs["paged"]["launches"]["fused_paged"] == 0:
+        raise AssertionError("serving: the paged path never launched B5")
+    if runs["paged_spec3"]["launches"]["paged_attention"] == 0:
+        raise AssertionError("serving: the speculative paged path never launched B4")
+    return runs
 
 
 def main() -> int:
@@ -397,24 +887,40 @@ def main() -> int:
     phase_build(card)
     flash = phase_flash(torch, card)
     fused = phase_fused(torch, card)
-    phase_slice(torch, card)
-    launches = phase_full(torch, card)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    paged = phase_paged(torch, card)
+    fpaged = phase_fused_paged(torch, card)
+    phase_serving_small(torch, card, *phase_slice(torch, card))
+    launches, eng = phase_full(torch, card)
+    serving = phase_serving_full(torch, card, eng)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "llm_speech_summarization_tpu"))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked}")
+    # launches: the sum over the main-path runs (batch path, three servers)
+    for run in serving.values():
+        for k, v in run["launches"].items():
+            launches[k] += v
+    csrc = "llm_speech_summarization_tpu_torch/kernels/csrc/"
+    kpkg = "llm_speech_summarization_tpu/kernels/"
+
+    def entry(name, source, replaces, key, res, errs):
+        return {"name": name, "route": "cuda", "source": csrc + source,
+                "replaces": kpkg + replaces, "launches": launches[key],
+                "max_abs_err": max(errs), "ms": res["ms"], "plain_ms": res["plain_ms"],
+                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "library_ms": res.get("library_ms")}
+
     kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "llm_speech_summarization_tpu_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "llm_speech_summarization_tpu/kernels/flash_attention.py:37",
-         "launches": launches["flash_attention"],
-         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
-         "ms": flash["llm_prefill"]["ms"], "plain_ms": flash["llm_prefill"]["plain_ms"]},
-        {"name": "fused_decode", "route": "cuda",
-         "source": "llm_speech_summarization_tpu_torch/kernels/csrc/fused_decode.cu",
-         "replaces": "llm_speech_summarization_tpu/kernels/fused_decode.py:375",
-         "launches": launches["fused_decode"],
-         "max_abs_err": max(r["max_abs_err"] for r in fused.values()),
-         "ms": fused[1]["ms"], "plain_ms": fused[1]["plain_ms"]},
+        entry("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:37",
+              "flash_attention", flash["llm_prefill"], [r["max_abs_err"] for r in flash.values()]),
+        entry("fused_decode", "fused_decode.cu", "fused_decode.py:375", "fused_decode", fused[1],
+              [r["max_abs_err"] for r in fused.values()]),
+        entry("paged_decode_attention", "paged_attention.cu", "paged_attention.py:115",
+              "paged_attention", paged, [paged["max_abs_err"]]),
+        entry("fused_paged_decode", "fused_paged.cu", "fused_paged.py:118", "fused_paged",
+              fpaged, [fpaged["max_abs_err"]]),
     ]
+    kernels[0]["sdpa_ms"] = kernels[0]["library_ms"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

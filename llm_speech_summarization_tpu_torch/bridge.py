@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX package's parameter pytrees, with numpy leaves
-(``jax.tree.map(np.asarray, tree)``), → the port's tensors, and back.
+"""Bridge: the JAX package's parameter pytrees and decoder state, with
+numpy leaves (``jax.tree.map(np.asarray, tree)``), → the port's tensors,
+and back.
 
 Keys and layouts are kept as they are: the stacked ``(L, in, out)`` Llama
 layers, fused ``wqkv`` / ``w_gateup``, int8 weights with their bf16
@@ -14,6 +15,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .infer.paged import PagedKVCache
+from .infer.slots import SlotState
 from .models.llama import KVCache
 
 
@@ -65,3 +68,27 @@ def kv_cache_from_numpy(k, v, k_scale: Optional[Any] = None, v_scale: Optional[A
 def params_to_numpy(tree):
     """Port tensors → numpy leaves (bfloat16 as float32), for comparisons."""
     return _map(tree, tensor_to_numpy)
+
+
+def paged_cache_from_numpy(cache, device=None) -> PagedKVCache:
+    """A JAX ``PagedKVCache`` with numpy leaves → the port's, each field in
+    its own storage."""
+    conv = lambda a: None if a is None else tensor_from_numpy(a, device)  # noqa: E731
+    return PagedKVCache(*(conv(getattr(cache, f)) for f in PagedKVCache._fields))
+
+
+def slot_state_from_numpy(state, device=None) -> SlotState:
+    """A JAX ``SlotState`` with numpy leaves (dense or paged cache) → the
+    port's. The uint32 seed words widen to int64; a paged cache's lengths
+    and pads become the state's offsets and pads tensors themselves, as in
+    the port's decoder."""
+    t = {f: tensor_from_numpy(getattr(state, f), device)
+         for f in SlotState._fields if f != "cache"}
+    t["rng"] = t["rng"].to(torch.int64)
+    if hasattr(state.cache, "k_pool"):
+        cache = paged_cache_from_numpy(state.cache, device)._replace(
+            lengths=t["offsets"], pad_lens=t["pad_lens"])
+    else:
+        c = state.cache
+        cache = kv_cache_from_numpy(c.k, c.v, c.k_scale, c.v_scale, device)
+    return SlotState(cache=cache, **t)

@@ -1,17 +1,19 @@
 """LLMSpeechTextInference — the product inference API (port of
-``infer/engine.py``, the single-device greedy path).
+``infer/engine.py``, the single-device path).
 
   * ``generate_text_response(_batch)``: templated text prompts;
   * ``generate_audio_response(_batch)``: audio (+ optional text) prompts,
-    HuBERT → projector → ``[prefix | mid | suffix]`` splice → greedy decode;
+    HuBERT → projector → ``[prefix | mid | suffix]`` splice → decode;
   * ``generate_audio_response_batches``: a stream of batches, run one after
     another (the JAX engine's one-deep upload pipeline is later work).
 
-Batches are padded to a power of two rows, audio to 1600-sample (100 ms)
-buckets, prompts to ``BUCKET``-token lengths and ``max_new_tokens`` to
-``DECODE_BUCKET``, as the JAX engine does. Not ported yet: meshes (tensor
-parallel serving), speculative decoding, temperature and per-request
-sampling, the Whisper encoder and the ctc_pool projector.
+Decoding is greedy, sampled at the engine's temperature / top-k / top-p,
+sampled per request (``sampling``), or, with ``speculative_k > 0`` and a
+greedy batch, self-speculative. Batches are padded to a power of two rows,
+audio to 1600-sample (100 ms) buckets, prompts to ``BUCKET``-token lengths
+and ``max_new_tokens`` to ``DECODE_BUCKET``, as the JAX engine does. Not
+ported yet: meshes (tensor parallel serving), checkpoint loading, the
+Whisper encoder and the ctc_pool projector.
 """
 
 from __future__ import annotations
@@ -23,10 +25,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from llm_speech_summarization_tpu.utils.prompts import prompt_template_for
-from llm_speech_summarization_tpu.utils.tokenizer import load_tokenizer
-
 from ..configs import Config
+from ..device import resolve_device
 from ..models.audio_encoder import (
     audio_embed_buffer_len,
     audio_encoder_forward,
@@ -42,7 +42,10 @@ from ..models.llama import (
     quantize_llama_params,
 )
 from ..ops.splice import concat_mid_buffers, splice_sequences
-from .generate import greedy_generate
+from ..utils.prompts import prompt_template_for
+from ..utils.tokenizer import load_tokenizer
+from .generate import greedy_generate, speculative_generate
+from .sampling import pack_sampling_params, sampling_tensors
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
 # prompt lengths round up to BUCKET tokens (the 10 s prompt prefills at
@@ -77,33 +80,41 @@ class LLMSpeechTextInference:
         encoder_cfg: Optional[HubertConfig] = None,
         device=None,
         temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
         repetition_penalty: float = 1.0,
         mesh=None,
         speculative_k: int = 0,
     ):
-        """``device`` defaults to CUDA when present. Without given
+        """``device=None`` means the CUDA card, and raises RuntimeError
+        without one; pass ``device="cpu"`` for the plain path. Without given
         parameters, the engine initializes its own from two
         ``torch.Generator``s on ``device`` seeded from
         ``config.seed_everything`` (LLM, then encoder) and, when
         ``llm_weight_dtype`` is int8, fuses and quantizes the LLM it owns;
         caller-given trees are used as they are. ``llm_cfg`` and
-        ``encoder_cfg`` override the presets the config names."""
+        ``encoder_cfg`` override the presets the config names.
+        ``speculative_k > 0`` decodes greedy batches self-speculatively
+        (not with a repetition penalty or a temperature)."""
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh)", "item 11")
-        if speculative_k > 0:
-            raise _not_ported("speculative decoding", "item 9")
-        if temperature > 0.0:
-            raise _not_ported("temperature sampling", "item 5")
         if config.model.llm_checkpoint or config.model.encoder_checkpoint:
             raise _not_ported("checkpoint loading", "item 12")
         self.config = config
-        self.device = torch.device(device if device is not None
-                                   else ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
         self.repetition_penalty = repetition_penalty
+        self.speculative_k = speculative_k
+        # draws of the engine-wide temperature (per-request sampling keys
+        # its own counter hash instead)
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed_everything)
         self.dtype = _DTYPES[config.model.compute_dtype]
         self.cache_dtype = _DTYPES[config.model.kv_cache_dtype or config.model.compute_dtype]
         param_dtype = _DTYPES[config.model.param_dtype]
-        # "encoder_forwards", "prefills", "decode_steps": what the engine ran
+        # "encoder_forwards", "prefills", "decode_steps", "spec_rounds": what
+        # the engine ran
         self.counts: Counter = Counter()
 
         self.llm_cfg = llm_cfg or llama_preset(config.model.llm_preset or config.model.llm_type)
@@ -152,23 +163,33 @@ class LLMSpeechTextInference:
 
     def _generate_from_embeds(self, embeds, attn_mask, max_new_tokens: int,
                               sampling=None) -> List[str]:
-        """Greedy prefill + decode, then detokenize. ``sampling`` (per-request
-        ``(temperature, top_k, top_p, seed) | None`` like the JAX engine's) is
-        refused unless every entry is None (greedy)."""
-        if sampling is not None and any(s is not None for s in sampling):
-            raise _not_ported("per-request sampling", "item 5")
-        tokens, lens = greedy_generate(
-            self.llm_params,
-            self.llm_cfg,
-            embeds.to(self.dtype),
-            attn_mask,
-            max_new_tokens=_round_up(max_new_tokens, DECODE_BUCKET),
-            eos_id=self.tokenizer.eos_id,
-            repetition_penalty=self.repetition_penalty,
-            cache_dtype=self.cache_dtype,
-            num_steps=max_new_tokens,
-            counts=self.counts,
-        )
+        """Prefill + decode, then detokenize. ``sampling``: optional
+        per-request ``[(temperature, top_k, top_p, seed) | None, ...]``
+        (length = real batch; padded rows greedy)."""
+        packed = pack_sampling_params(sampling, embeds.shape[0])
+        bucket = _round_up(max_new_tokens, DECODE_BUCKET)
+        common = dict(eos_id=self.tokenizer.eos_id, cache_dtype=self.cache_dtype,
+                      num_steps=max_new_tokens, counts=self.counts)
+        if (packed is None and self.speculative_k > 0 and self.temperature <= 0.0
+                and self.repetition_penalty == 1.0):
+            tokens, lens, _ = speculative_generate(
+                self.llm_params, self.llm_cfg, embeds.to(self.dtype), attn_mask,
+                max_new_tokens=bucket, k=self.speculative_k, **common)
+        else:
+            tokens, lens = greedy_generate(
+                self.llm_params,
+                self.llm_cfg,
+                embeds.to(self.dtype),
+                attn_mask,
+                max_new_tokens=bucket,
+                temperature=self.temperature,
+                top_k=self.top_k,
+                top_p=self.top_p,
+                repetition_penalty=self.repetition_penalty,
+                generator=self.generator,
+                sampling=None if packed is None else sampling_tensors(packed, self.device),
+                **common,
+            )
         tokens = tokens.cpu().numpy()
         lens = lens.cpu().numpy()
         return [

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -81,6 +82,17 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     _loaded[key] = lib
     return lib
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: the serving path launches kernels
+    from two threads (the prompt builder and the scheduler), and a bare
+    ``+= 1`` may lose a count between them."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check_status(status: int, what: str) -> None:

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8.cuh"
+
 namespace {
 
 constexpr int NT = 256;
@@ -106,8 +108,8 @@ __device__ __forceinline__ void stage_chunk(const int8_t* __restrict__ slab,
 }
 
 __device__ __forceinline__ float dot4(uint32_t packed, float4 q) {
-  return q.x * (float)(int8_t)(packed & 0xffu) + q.y * (float)(int8_t)((packed >> 8) & 0xffu) +
-         q.z * (float)(int8_t)((packed >> 16) & 0xffu) + q.w * (float)(int8_t)(packed >> 24);
+  const float4 k = int8x4_to_float4(packed);
+  return q.x * k.x + q.y * k.y + q.z * k.z + q.w * k.w;
 }
 
 template <int DH, int MAXR>

@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from ..ops.attention import dot_product_attention, make_attention_bias
-from .build import check_status, load_library
+from .build import check_status, count_launch, load_library
 
 SOURCES = ("flash_attention.cu",)
 
@@ -109,6 +109,6 @@ def _launch(q, k, v, starts, ends, causal):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     starts.data_ptr(), ends.data_ptr(), B, T, Hq, Hkv, Dh, strides,
                     int(causal), Dh ** -0.5, stream)
-    flash_attention_fwd.launches += 1
+    count_launch(flash_attention_fwd)
     check_status(status, "flash_attention_fwd")
     return out

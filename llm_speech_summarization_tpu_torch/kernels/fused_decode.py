@@ -26,9 +26,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import check_status, load_library
+from .build import check_status, count_launch, load_library
 
-SOURCES = ("fused_decode.cu",)
+SOURCES = ("fused_decode.cu", "int8.cuh")
 NEG_INF = -1e30
 MAX_ROWS = 32  # T * (Hq / Hkv) query rows per block
 MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use on sm_90
@@ -165,6 +165,17 @@ def _storage_span(t: torch.Tensor) -> Tuple[int, int]:
     return start, start + t.untyped_storage().nbytes()
 
 
+def check_separate_storage(what: str, tensors) -> None:
+    """Raise if two of ``tensors`` share storage: a kernel writes them in
+    place, and two that overlap would corrupt each other."""
+    spans = [_storage_span(t) for t in tensors]
+    for i in range(len(spans)):
+        for j in range(i + 1, len(spans)):
+            if spans[i][0] < spans[j][1] and spans[j][0] < spans[i][1]:
+                raise ValueError(f"{what}: the caches and scale tensors must not share "
+                                 "storage (in-place writes would corrupt each other)")
+
+
 def _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offsets, layer,
             max_offset):
     if k_cache.dtype != torch.int8 or k_scale is None or v_scale is None:
@@ -190,12 +201,7 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offse
         if t.dtype != torch.bfloat16 or t.shape != (L, B, Hkv, S) or not t.is_contiguous():
             raise ValueError(f"fused_decode: {name} must be a contiguous ({L}, {B}, {Hkv}, {S}) "
                              f"bfloat16 tensor")
-    spans = [_storage_span(t) for t in (k_cache, v_cache, k_scale, v_scale)]
-    for i in range(4):
-        for j in range(i + 1, 4):
-            if spans[i][0] < spans[j][1] and spans[j][0] < spans[i][1]:
-                raise ValueError("fused_decode: the caches and scale tensors must not share "
-                                 "storage (in-place writes would corrupt each other)")
+    check_separate_storage("fused_decode", (k_cache, v_cache, k_scale, v_scale))
     for name, t, heads in (("q", q, Hq), ("k_new", k_new, Hkv), ("v_new", v_new, Hkv)):
         if t.dtype != torch.bfloat16 or t.shape != (B, T, heads, Dh) or t.stride(-1) != 1:
             raise ValueError(f"fused_decode: {name} must be ({B}, {T}, {heads}, {Dh}) bfloat16 "
@@ -224,6 +230,6 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offse
             v_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pad_lens.data_ptr(),
             offsets.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, S, Dh, int(layer), strides,
             Dh ** -0.5, stream)
-    fused_decode.launches += 1
+    count_launch(fused_decode)
     check_status(status, "fused_decode")
     return out

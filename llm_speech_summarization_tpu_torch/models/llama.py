@@ -6,16 +6,20 @@ stacked per-layer ``(L, in, out)`` weights, optionally fused (``wqkv``,
 ``w_gateup``) and int8-quantized with per-out-channel ``*_scale`` leaves.
 The forward is a Python loop over layers.
 
-Attention goes through the two kernels of this slice, and the tensor's
-device picks the version: prefill (and the cache-free forward) calls
+Attention goes through hand-written kernels, and the tensors' device
+picks the version: prefill (and the cache-free forward) calls
 ``flash_attention_fwd`` with the left-pad window ``[pad, T)``; a decode
-step calls ``fused_decode``, which attends the cache window ``[pad,
-offset)`` plus the fresh tokens and writes them into the cache in place.
-On CPU their plain versions are the JAX package's ``"bias"`` and
-``decode_xla_q`` formulations.
+step over the dense cache calls ``fused_decode``, which attends the cache
+window ``[pad, offset)`` plus the fresh tokens and writes them into the
+cache in place. Over the paged cache (``infer/paged.py``), a T == 1 step
+calls ``fused_paged_decode`` (attention + in-place page write) and a
+T > 1 verification forward calls ``paged_decode_attention``, after which
+``write_tokens`` writes the fresh tokens. On CPU the plain versions are the
+JAX package's ``"bias"``, ``decode_xla_q`` and ``paged_reference``
+formulations.
 
-Not ported yet: training/remat, ring attention, tensor parallelism, the
-paged cache (ROADMAP queue A, items 8-11).
+Not ported yet: training/remat, ring attention, tensor parallelism
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -25,8 +29,11 @@ from typing import Any, Dict, NamedTuple, Optional, Union
 
 import torch
 
+from ..infer.paged import PagedKVCache, write_tokens
 from ..kernels.flash_attention import flash_attention_fwd
 from ..kernels.fused_decode import _quantize_kv, fused_decode
+from ..kernels.fused_paged import fused_paged_decode
+from ..kernels.paged_attention import paged_decode_attention
 from ..ops.norms import rms_norm
 from ..ops.rope import Llama3RopeScaling, apply_rope_cached, rope_cos_sin, rope_inv_freq
 
@@ -244,10 +251,11 @@ def llama_forward(
     inputs_embeds: Optional[torch.Tensor] = None,
     attn_mask: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
-    kv_cache: Optional[KVCache] = None,
+    kv_cache: Union[KVCache, PagedKVCache, None] = None,
     cache_offset: Union[int, torch.Tensor, None] = None,
     kv_pad_lens: Optional[torch.Tensor] = None,
     last_logit_only: bool = False,
+    cache_offset_bound: Optional[int] = None,
 ) -> LlamaOutput:
     """Run the decoder.
 
@@ -259,7 +267,13 @@ def llama_forward(
       * decode: ``kv_cache`` + ``cache_offset`` + ``kv_pad_lens``; valid
         cache slots are [pad, offset), the T >= 1 fresh tokens attend
         causally and are written at [offset, offset + T). Fresh tokens are
-        real: ``attn_mask`` must be None here.
+        real: ``attn_mask`` must be None here. ``cache_offset`` may be a
+        per-row (B,) tensor; ``cache_offset_bound``, a host-side upper
+        bound of it, must then be given (no device value is read);
+      * paged decode: ``kv_cache`` a ``PagedKVCache`` whose ``lengths`` and
+        ``pad_lens`` give each row's cached window [pad, length); the T >= 1
+        fresh tokens attend it plus themselves causally and are written at
+        [length, length + T) of the row's pages. ``attn_mask`` must be None.
 
     The cache is updated in place and also returned. Logits are float32:
     the final hidden state and the head are upcast to float32 before the
@@ -282,7 +296,8 @@ def llama_forward(
     B, T, _ = x.shape
     dev = x.device
 
-    is_decode = kv_cache is not None and kv_pad_lens is not None
+    is_paged = isinstance(kv_cache, PagedKVCache)
+    is_decode = is_paged or (kv_cache is not None and kv_pad_lens is not None)
     if is_decode and attn_mask is not None:
         raise ValueError("a decode step treats its fresh tokens as real: pass attn_mask=None")
     if attn_mask is None:
@@ -295,12 +310,18 @@ def llama_forward(
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=dev)
     rope_cos, rope_sin = rope_cos_sin(positions, inv_freq)
 
-    if kv_cache is not None and cache_offset is None:
+    if kv_cache is not None and not is_paged and cache_offset is None:
         raise ValueError("a forward with a kv_cache needs cache_offset")
-    if is_decode:
+    if is_paged:
+        lengths = kv_cache.lengths.to(device=dev, dtype=torch.int32).contiguous()
+        pad_lens = kv_cache.pad_lens.to(device=dev, dtype=torch.int32).contiguous()
+        fresh_k, fresh_v = [], []
+    elif is_decode:
         if isinstance(cache_offset, torch.Tensor):
+            if cache_offset_bound is None:
+                raise ValueError("a per-row cache_offset needs its host-side cache_offset_bound")
             offsets = torch.broadcast_to(cache_offset.to(device=dev, dtype=torch.int32), (B,))
-            max_offset = int(offsets.max())
+            max_offset = int(cache_offset_bound)
         else:
             max_offset = int(cache_offset)
             offsets = torch.full((B,), max_offset, dtype=torch.int32, device=dev)
@@ -313,7 +334,23 @@ def llama_forward(
     layers = params["layers"]
     for i in range(cfg.num_layers):
         lp = {name: w[i] for name, w in layers.items()}
-        if is_decode:
+        if is_paged and T == 1:
+            def attend(q, k, v, i=i):
+                return fused_paged_decode(
+                    q, kv_cache.k_pool, kv_cache.v_pool, kv_cache.k_scale, kv_cache.v_scale,
+                    kv_cache.page_table, lengths, pad_lens, k, v, i,
+                )
+        elif is_paged:
+            def attend(q, k, v, i=i):
+                quant = kv_cache.quantized
+                fresh_k.append(k)
+                fresh_v.append(v)
+                return paged_decode_attention(
+                    q, kv_cache.k_pool[i], kv_cache.v_pool[i], kv_cache.page_table, lengths,
+                    pad_lens, k, v, kv_cache.k_scale[i] if quant else None,
+                    kv_cache.v_scale[i] if quant else None,
+                )
+        elif is_decode:
             def attend(q, k, v, i=i):
                 return fused_decode(
                     q, kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, k, v,
@@ -325,6 +362,11 @@ def llama_forward(
         x, k, v = _block(cfg, lp, x, rope_cos, rope_sin, attend)
         if kv_cache is not None and not is_decode:
             _write_cache(kv_cache, i, int(cache_offset), k, v)
+    if is_paged and T > 1:
+        # the verification tokens go into the pages after the layer loop,
+        # as in the JAX package (lengths are not advanced)
+        write_tokens(kv_cache._replace(lengths=lengths), torch.stack(fresh_k),
+                     torch.stack(fresh_v))
 
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if last_logit_only:

@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from llm_speech_summarization_tpu.configs import load_config
+from llm_speech_summarization_tpu.configs import load_config as jax_load_config
 from llm_speech_summarization_tpu.infer.engine import LLMSpeechTextInference as JaxEngine
 from llm_speech_summarization_tpu.models import llama as jllama
 from llm_speech_summarization_tpu_torch import bridge
+from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
 from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
 from llm_speech_summarization_tpu_torch.infer.generate import (
     _apply_repetition_penalty,
@@ -27,7 +28,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN_DIR = ROOT / "tests" / "goldens"
-TINY_YAML = ROOT / "llm_speech_summarization_tpu" / "configs" / "yaml" / "tiny_test.yaml"
+JAX_TINY_YAML = ROOT / "llm_speech_summarization_tpu" / "configs" / "yaml" / "tiny_test.yaml"
+TINY_YAML = YAML_DIR / "tiny_test.yaml"  # the port's own copy
 # float32 logit delta between the two packages' decode steps (summation
 # order only); a token may differ only where the top-2 margin is below twice it
 LOGIT_DELTA = 1e-4
@@ -88,19 +90,20 @@ def test_repetition_penalty_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def _configs():
-    base = load_config(str(TINY_YAML))
-    q8 = load_config(str(TINY_YAML))
+def _configs(load, path):
+    base = load(str(path))
+    q8 = load(str(path))
     q8.model.kv_cache_dtype = "int8"
     q8.model.llm_weight_dtype = "int8"
     return {"tiny_test": base, "tiny_int8": q8}
 
 
 def _engines(name):
-    cfg = _configs()[name]
-    je = JaxEngine(cfg)
+    """The JAX engine from the JAX package's config, the port's engine from
+    the port's copy of the same YAML, with the JAX engine's weights."""
+    je = JaxEngine(_configs(jax_load_config, JAX_TINY_YAML)[name])
     te = LLMSpeechTextInference(
-        cfg, device="cpu",
+        _configs(load_config, TINY_YAML)[name], device="cpu",
         llm_params=bridge.llama_params_from_numpy(np_tree(je.llm_params)),
         audio_encoder_params=bridge.encoder_params_from_numpy(np_tree(je.audio_encoder_params)),
     )
@@ -203,20 +206,33 @@ def test_engine_prompt_ids_golden():
     assert te.suffix_ids.tolist() == ids["suffix_ids"]
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(speculative_k=2),
-                                    dict(temperature=0.7)])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(llm_checkpoint="/ckpt/llm"),
+                                    dict(encoder_checkpoint="/ckpt/encoder")])
 def test_engine_unported_options_raise(kwargs):
+    """Meshes and checkpoints are still refused (sampling and speculative
+    decoding are ported)."""
+    cfg = load_config(str(TINY_YAML))
+    kwargs = dict(kwargs)
+    for key in ("llm_checkpoint", "encoder_checkpoint"):
+        if key in kwargs:
+            setattr(cfg.model, key, kwargs.pop(key))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMSpeechTextInference(load_config(str(TINY_YAML)), device="cpu", **kwargs)
+        LLMSpeechTextInference(cfg, device="cpu", **kwargs)
 
 
 def test_engine_per_request_sampling_raises():
+    """Per-request sampling runs: a seeded request replays, all-greedy
+    entries are the greedy path, and a malformed entry raises."""
     te = LLMSpeechTextInference(load_config(str(TINY_YAML)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.generate_audio_response_batch(_clips()[:1], max_new_tokens=2,
-                                         sampling=[(0.7, 0, 1.0, 3)])
-    # all-greedy entries are the greedy path
-    assert len(te.generate_text_response_batch(["hi"], max_new_tokens=2, sampling=[None])) == 1
+    spec = [(0.7, 0, 1.0, 3), None]
+    a = te.generate_text_response_batch(["hi", "there"], max_new_tokens=6, sampling=spec)
+    b = te.generate_text_response_batch(["hi", "there"], max_new_tokens=6, sampling=spec)
+    greedy = te.generate_text_response_batch(["hi", "there"], max_new_tokens=6)
+    assert a == b and a[1] == greedy[1]
+    assert te.generate_text_response_batch(["hi"], max_new_tokens=6, sampling=[None]) \
+        == greedy[:1]
+    with pytest.raises(ValueError):
+        te.generate_text_response_batch(["hi"], max_new_tokens=2, sampling=[(0.7, 3)])
 
 
 def _imports(path):
@@ -228,24 +244,53 @@ def _imports(path):
             yield node.module
 
 
-SHARED = ("llm_speech_summarization_tpu.utils.prompts", "llm_speech_summarization_tpu.utils.tokenizer",
-          "llm_speech_summarization_tpu.configs")
-
-
-@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "profile_script"])
 def test_port_imports_no_jax(target):
-    """No module of the port imports jax, or any part of the JAX package
-    besides its framework-free host modules; chip_smoke.py imports neither."""
-    if target == "package":
-        files = sorted((ROOT / "llm_speech_summarization_tpu_torch").rglob("*.py"))
-        allowed = SHARED
-    else:
-        files = [ROOT / "chip_smoke.py"]
-        allowed = ()
+    """No module of the port, chip_smoke.py or the profile script imports
+    jax or any part of the JAX package: the port keeps its own copies."""
+    files = {
+        "package": sorted((ROOT / "llm_speech_summarization_tpu_torch").rglob("*.py")),
+        "chip_smoke": [ROOT / "chip_smoke.py"],
+        "profile_script": [ROOT / "scripts" / "torch_profile_main_path.py"],
+    }[target]
     assert files
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), f"{f}: {mod}"
-            if root == "llm_speech_summarization_tpu":
-                assert mod in allowed, f"{f} imports {mod}"
+            assert root != "llm_speech_summarization_tpu", f"{f} imports {mod}"
+
+
+def test_speculative_helpers_match_jax():
+    """The n-gram drafter and the accept/commit core, on random histories
+    with repeats, EOS inside the verified window and budget caps."""
+    from llm_speech_summarization_tpu.infer.generate import (
+        _ngram_propose as jax_propose,
+        commit_verified_drafts as jax_commit,
+    )
+    from llm_speech_summarization_tpu_torch.infer.generate import (
+        _ngram_propose,
+        commit_verified_drafts,
+    )
+
+    rng = np.random.RandomState(5)
+    B, S, k, eos = 6, 24, 3, 2
+    tokens = rng.randint(0, 5, size=(B, S)).astype(np.int32)  # a small alphabet repeats
+    t = np.array([0, 2, 3, 9, 17, 24], np.int32)
+    last = tokens[np.arange(B), np.maximum(t - 1, 0)]
+    draft = _ngram_propose(torch.from_numpy(tokens), torch.from_numpy(t), torch.from_numpy(last), k)
+    want = jax_propose(jnp.asarray(tokens), jnp.asarray(t), jnp.asarray(last), k)
+    np.testing.assert_array_equal(draft.numpy(), np.asarray(want))
+
+    preds = rng.randint(0, 5, size=(B, k + 1)).astype(np.int32)
+    preds[:, :2] = draft.numpy()[:, :2]  # some agreement to accept
+    budgets = np.array([24, 5, 24, 10, 18, 24], np.int32)
+    done = np.array([False, False, True, False, False, False])
+    got = commit_verified_drafts(torch.from_numpy(preds), draft, torch.from_numpy(tokens.copy()),
+                                 torch.from_numpy(t), torch.from_numpy(budgets),
+                                 torch.from_numpy(done), torch.from_numpy(last), eos)
+    want = jax_commit(jnp.asarray(preds), jnp.asarray(draft.numpy()), jnp.asarray(tokens),
+                      jnp.asarray(t), jnp.asarray(budgets), jnp.asarray(done), jnp.asarray(last),
+                      eos)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

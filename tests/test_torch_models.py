@@ -89,11 +89,18 @@ def test_bridge_encoder_and_cache():
     assert len({x.untyped_storage().data_ptr() for x in c}) == 4
 
 
-def _tiny_config(**model):
-    from llm_speech_summarization_tpu.configs import load_config
+def _tiny_config(port=False, **model):
+    """tiny_test.yaml through the JAX package's loader, or through the
+    port's loader and its own copy of the file (``port=True``)."""
+    if port:
+        from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
 
-    path = os.path.join(os.path.dirname(__file__), "..", "llm_speech_summarization_tpu",
-                        "configs", "yaml", "tiny_test.yaml")
+        path = str(YAML_DIR / "tiny_test.yaml")
+    else:
+        from llm_speech_summarization_tpu.configs import load_config
+
+        path = os.path.join(os.path.dirname(__file__), "..", "llm_speech_summarization_tpu",
+                            "configs", "yaml", "tiny_test.yaml")
     cfg = load_config(path)
     for k, v in model.items():
         setattr(cfg.model.audio_encoder, k, v)
@@ -123,9 +130,8 @@ def test_hubert_forward_matches_jax():
 
 @pytest.mark.parametrize("method", ["pool", "stack"])
 def test_audio_encoder_forward_matches_jax(method):
-    jcfg = _tiny_config(downsample_method=method)
-    jsetup = jae.encoder_setup_from_config(jcfg)
-    tsetup = tae.encoder_setup_from_config(jcfg)
+    jsetup = jae.encoder_setup_from_config(_tiny_config(downsample_method=method))
+    tsetup = tae.encoder_setup_from_config(_tiny_config(port=True, downsample_method=method))
     p = jae.init_audio_encoder(jax.random.PRNGKey(4), jsetup, dtype=jnp.float32)
     wav, lens = _wav(1)
     want, want_lens = jae.audio_encoder_forward(p, jsetup, jnp.asarray(wav), jnp.asarray(lens))
@@ -159,7 +165,7 @@ def test_embed_buffer_len_from_frame_arithmetic(N):
     p = jae.init_audio_encoder(jax.random.PRNGKey(0), setup, dtype=jnp.float32)
     out, _ = jax.eval_shape(lambda w: jae.audio_encoder_forward(p, setup, w),
                             jax.ShapeDtypeStruct((1, N), jnp.float32))
-    assert tae.audio_embed_buffer_len(tae.encoder_setup_from_config(_tiny_config()), N) \
+    assert tae.audio_embed_buffer_len(tae.encoder_setup_from_config(_tiny_config(port=True)), N) \
         == out.shape[1]
 
 
@@ -225,10 +231,26 @@ def test_decode_rejects_explicit_mask():
                              cache_offset=0, kv_pad_lens=torch.zeros((1,), dtype=torch.int32))
 
 
+def test_per_row_decode_offsets_need_a_host_bound():
+    """A per-row offset tensor comes with a host-side bound: the forward
+    reads no device value to size the decode kernel's cache window."""
+    cfg = tllama.llama_preset("tiny")
+    tp = bridge.llama_params_from_numpy(np_tree(_jax_llama()[1]))
+    cache = tllama.init_kv_cache(cfg, 2, 8, dtype=torch.int8)
+    kw = dict(input_ids=torch.zeros((2, 1), dtype=torch.int32), kv_cache=cache,
+              cache_offset=torch.tensor([3, 5], dtype=torch.int32),
+              kv_pad_lens=torch.zeros((2,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="cache_offset_bound"):
+        tllama.llama_forward(tp, cfg, **kw)
+    out = tllama.llama_forward(tp, cfg, cache_offset_bound=5, **kw)
+    assert out.logits.shape == (2, 1, cfg.vocab_size) and torch.isfinite(out.logits).all()
+
+
 @pytest.mark.parametrize("base,method", [("whisper", "pool"), ("hubert", "ctc_pool")])
 def test_unported_encoders_raise(base, method):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tae.encoder_setup_from_config(_tiny_config(base=base, downsample_method=method))
+        tae.encoder_setup_from_config(_tiny_config(port=True, base=base,
+                                                   downsample_method=method))
 
 
 def test_dequantize_kv_matches_jax():

@@ -158,8 +158,8 @@ def test_concat_mid_buffers():
 
 def test_splice_layout_golden():
     """The full-size llama3 splice layout golden, through the port."""
-    from llm_speech_summarization_tpu.utils.prompts import prompt_template_for
-    from llm_speech_summarization_tpu.utils.tokenizer import ByteTokenizer
+    from llm_speech_summarization_tpu_torch.utils.prompts import prompt_template_for
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
 
     with open(os.path.join(GOLDEN_DIR, "splice_layout_llama3.json")) as f:
         g = json.load(f)
