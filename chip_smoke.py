@@ -5,27 +5,39 @@
 
 Phases, in order; each prints one line and any failure raises:
   1. environment: the card's name and power limit, torch/CUDA versions;
-  2. build the four CUDA kernels from ``llm_speech_summarization_tpu_torch/
-     kernels/csrc`` with nvcc, one process per source, all at once;
+  2. build the five CUDA kernel libraries from ``llm_speech_summarization_tpu_
+     torch/kernels/csrc`` with nvcc, one process per library, all at once;
   3. flash attention (B1) against its plain version at the main path's two
      shapes (LLM prefill, HuBERT self-attention), and the one PyTorch call
      that computes the same attention (timed only);
-  4. fused decode (B2) against its plain version, including the in-place
+  4. the training attention kernels, B1 with its log-sum-exp and the
+     backward B6 (dq; dk/dv), against their plain versions run in float32
+     at the two training shapes (the LLM at the trainer's spliced length,
+     HuBERT at 499 frames), with injected faults the bound must reject,
+     bit-identical repeats, and SDPA forward + backward as the yardstick;
+  5. fused decode (B2) against its plain version, including the in-place
      cache writes, at T=1 and T=3;
-  5. paged decode attention (B4) and fused paged decode + page write (B5)
+  6. paged decode attention (B4) and fused paged decode + page write (B5)
      against their plain versions at the serving shape, page writes
      bit-exact;
-  6. the slice at a small kernel-legal width on the card and on the CPU,
+  7. the slice at a small kernel-legal width on the card and on the CPU,
      from the same weights: the batch path, then a paged ``SlotDecoder``
      teacher-forced through admissions and plain and speculative chunks;
-  7. the full-width ``llama3_hubert.yaml`` batch path through
+  8. one KD train step at that width on the CPU and on the card, from the
+     same weights and batch;
+  9. the full-width ``llama3_hubert.yaml`` batch path through
      ``generate_audio_response_batch(es)``;
-  8. the full-width serving path: ``SummarizationServer`` over HTTP with
+ 10. the full-width serving path: ``SummarizationServer`` over HTTP with
      the paged cache, then with speculative chunks, then with the dense
-     cache.
+     cache;
+ 11. the full-width trainer (``Trainer(...).train()`` on synthetic data): a
+     few KD steps and the closing ``validate()``, then a second trainer
+     that resumes from its checkpoint and takes one more step, and one
+     profiled step for the device-busy share.
 Every main-path run is driven with the launch counts set to 0 just before it
-and checked just after against what the engine and decoder ran. Then the
-card line, one JSON line with every kernel's summary, and the status line.
+and checked just after against what the engine, decoder or trainer ran.
+Then the card line, one JSON line with every kernel's summary, and the
+status line.
 
 Needs one CUDA card of compute capability 9.0; exits nonzero otherwise.
 """
@@ -57,6 +69,36 @@ PAGED_ATOL, PAGED_RTOL = 1e-3, 1e-2
 # tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# B1 + LSE and B6 are held to their plain versions run in float32 on the
+# same bf16 inputs. The lse is float32 on both sides (different summation
+# order only): LSE_ATOL + LSE_RTOL * |lse|. The backward rounds p and ds to
+# bf16 before their products (as the TPU kernels do) and its outputs to
+# bf16; a CPU emulation of exactly that rounding at these shapes gave up to
+# 0.21 of the bound below, which scales with each element and with its
+# row's RMS (cancellation in a row's sum makes single elements small):
+# BWD_RTOL * |ref| + BWD_ATOL * rms(ref row) + BWD_FLOOR * rms(ref). The
+# floor covers rows whose whole gradient is cancellation noise: a query
+# that sees one key has ds = dO.v - rowsum(dO * out) with out = v, about
+# 1e-6 either way, summed in another order by the kernel's dp. The phase
+# shows the bound rejects an end off by one, a causal frontier off by one,
+# the lse of the neighbouring row, and dk/dv of one q head of the group.
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+BWD_RTOL, BWD_ATOL, BWD_FLOOR = 2e-2, 5e-2, 1e-3
+
+
+# train_small: one KD step on the CPU (plain versions) and on the card
+# (kernels) from the same weights and batch, both in bf16 with float32
+# master encoder weights; TF32 off for matmuls and cuDNN convolutions on the
+# card. bf16 activations are rounded at other places by the two backends, so
+# the losses agree to TRAIN_LOSS_RTOL and grad_norm to TRAIN_GNORM_RTOL. A
+# first AdamW step moves each parameter by about lr * sign(g): at least
+# TRAIN_SIGN_AGREE of the parameters the CPU step moves by more than lr / 2
+# must move the same way on the card, by the same amount within lr / 4.
+TRAIN_LOSS_RTOL = 2e-2
+TRAIN_GNORM_RTOL = 3e-2
+TRAIN_SIGN_AGREE = 0.9
+
+
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -94,14 +136,17 @@ def call_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 20, sessions: int = 3, tries: int = 8) -> float:
+def device_ms(torch, fn, reps: int = 20, sessions: int = 3, tries: int = 8,
+              whole: bool = True) -> float:
     """Device milliseconds per call of ``fn``: the summed duration of the
     GPU work it launched (torch.profiler), without host dispatch gaps.
     A profiling session now and then loses device events, which lowers
     its sum and its event count, so a session counts only if it recorded
     as many device events as the fullest session, a whole number per
-    call; the median of ``sessions`` such sessions, out of at most
-    ``tries``."""
+    call (``whole=False`` drops that second rule for calls of many
+    kernels, where a session was seen to record one event fewer than a
+    whole number per call every time); the median of ``sessions`` such
+    sessions, out of at most ``tries``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -110,14 +155,23 @@ def device_ms(torch, fn, reps: int = 20, sessions: int = 3, tries: int = 8) -> f
 
     def complete():
         most = max(n for n, _ in runs)
-        return [us for n, us in runs if n == most and n % reps == 0 and n > 0]
+        return [us for n, us in runs if n == most and (n % reps == 0 or not whole) and n > 0]
 
     while not runs or (len(runs) < tries and len(complete()) < sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        # a warm-up cycle first: a session that starts tracing on the timed
+        # calls themselves was seen to miss their first kernel
+        events = []
+
+        def keep(p, events=events):  # the active cycle's device events
+            events.extend(e for e in p.events() if e.device_type.name == "CUDA")
+
+        with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=keep,
+                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         runs.append((len(events), sum(e.time_range.end - e.time_range.start for e in events)))
     full = complete()
     if len(full) < sessions:
@@ -150,7 +204,7 @@ def phase_env(torch) -> str:
 
 
 def phase_build(card):
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel library, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from llm_speech_summarization_tpu_torch.kernels import (
@@ -158,9 +212,10 @@ def phase_build(card):
     )
 
     t0 = time.perf_counter()
-    mods = (flash_attention, fused_decode, paged_attention, fused_paged)
-    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
-        for fut in [pool.submit(m._lib) for m in mods]:
+    libs = (flash_attention._lib, flash_attention._bwd_lib, fused_decode._lib,
+            paged_attention._lib, fused_paged._lib)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        for fut in [pool.submit(lib) for lib in libs]:
             fut.result()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()}, card=card)
@@ -637,14 +692,499 @@ def phase_serving_small(torch, card, cpu, gpu, llm_cfg):
          runs={str(k): v for k, v in report.items()}, card=card)
 
 
+def _train_total_len():
+    """The spliced length of the full-width trainer on 10 s audio."""
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.models.audio_encoder import (
+        encoder_setup_from_config,
+    )
+    from llm_speech_summarization_tpu_torch.train.trainer import spliced_length
+    from llm_speech_summarization_tpu_torch.utils.prompts import prompt_template_for
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import load_tokenizer
+
+    cfg = load_config(str(YAML_DIR / "llama3_hubert.yaml"))
+    tok = load_tokenizer(cfg.model.llm_type, cfg.model.tokenizer_path)
+    tpl = prompt_template_for(cfg.model.llm_type)
+    return spliced_length(cfg, encoder_setup_from_config(cfg),
+                          len(tok.encode(tpl.prefix, add_bos=True)),
+                          len(tok.encode(tpl.suffix, add_bos=False)), 160000)
+
+
+def _dense_mutant(torch, q, k, v, g, lse, delta, starts, ends, causal, frontier):
+    """The plain forward lse and backward with the causal frontier moved by
+    ``frontier`` keys (a fault a kernel could make), float32."""
+    from llm_speech_summarization_tpu_torch.ops.attention import NEG_INF
+
+    B, T, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, T, Hkv, G, Dh).float()
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * Dh ** -0.5
+    pos = torch.arange(T, device=q.device)
+    keys = (pos[None, :] >= starts[:, None]) & (pos[None, :] < ends[:, None])
+    mask = keys[:, None, None, None]
+    if causal:
+        mask = mask & (pos[None, :] <= pos[:, None] + frontier)
+    sm = torch.where(mask, s, NEG_INF)
+    m = sm.amax(-1, keepdim=True)
+    lse_f = (m + torch.log(torch.exp(sm - m).sum(-1, keepdim=True).clamp(min=1e-30)))[..., 0]
+    p = torch.exp(torch.where(mask, s - lse.reshape(B, Hkv, G, T, 1), NEG_INF))
+    dog = g.reshape(B, T, Hkv, G, Dh).float()
+    dp = torch.einsum("bthgd,bshd->bhgts", dog, v.float())
+    ds = p * (dp - delta.reshape(B, Hkv, G, T, 1))
+    dq = torch.einsum("bhgts,bshd->bthgd", ds, k.float()).reshape(B, T, Hq, Dh) * Dh ** -0.5
+    dk = torch.einsum("bhgts,bthgd->bshd", ds, qg) * Dh ** -0.5
+    dv = torch.einsum("bhgts,bthgd->bshd", p, dog)
+    return lse_f.reshape(B, Hq, T), dq, dk, dv
+
+
+def _row_ratio(torch, got, ref, rows=None):
+    """Largest |got - ref| over the bound BWD_RTOL |ref| + BWD_ATOL rms(row)
+    + BWD_FLOOR rms(ref) (NaN counts as infinitely far), on ``rows`` of
+    (B, T) when given."""
+    ref = ref.float()
+    sel = ref[rows] if rows is not None else ref
+    bound = (BWD_RTOL * ref.abs() + BWD_ATOL * ref.pow(2).mean(-1, keepdim=True).sqrt()
+             + BWD_FLOOR * sel.pow(2).mean().sqrt() + 1e-12)
+    r = torch.nan_to_num((got.float() - ref).abs() / bound, nan=float("inf"))
+    return (r[rows] if rows is not None else r).max().item()
+
+
+def _sdpa_train_calls(torch, q, k, v, g, rows, causal):
+    """``scaled_dot_product_attention`` forward, and forward + backward,
+    over the same windows (k/v repeated to the q heads), as yardsticks."""
+    import torch.nn.functional as F
+
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous().requires_grad_()
+              for x in (k, v))
+    gt = g.transpose(1, 2).contiguous()
+    T = q.shape[1]
+    mask = rows[:, None, None, :].expand(-1, 1, T, T)
+    if causal:
+        mask = mask & torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+
+    def fwd():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            torch.autograd.grad(fwd(), (qt, kt, vt), gt)
+
+    return fwd, fwd_bwd
+
+
+def _train_attn_work(c, T):
+    """(bytes, flops) of B1 + LSE, B6 dq and B6 dk/dv at case ``c``: each
+    input read once and each output written once (bf16 tensors, float32 lse
+    and delta), 2 flops per multiply-add over the valid (query, key) pairs:
+    two products in the forward, three for dq (s, dp, dq), four for dk/dv
+    (s, dp, dv, dk)."""
+    B, Hq, Hkv, Dh = c["B"], c["Hq"], c["Hkv"], c["Dh"]
+    pairs = 0
+    for s0, e0 in zip(c["starts"], c["ends"]):
+        n = e0 - s0
+        pairs += n * (n + 1) // 2 if c["causal"] else n * n
+    qo = 2 * B * T * Hq * Dh  # one (B, T, Hq, Dh) bf16 tensor
+    kv = 2 * B * T * Hkv * Dh
+    rowf = 4 * B * Hq * T  # one (B, Hq, T) float32 tensor
+    return {
+        "fwd_lse": (float(2 * qo + 2 * kv + rowf), float(4 * Dh * Hq * pairs)),
+        "dq": (float(3 * qo + 2 * kv + 2 * rowf), float(6 * Dh * Hq * pairs)),
+        "dkv": (float(2 * qo + 4 * kv + 2 * rowf), float(8 * Dh * Hq * pairs)),
+    }
+
+
+def phase_flash_train(torch, card):
+    """B1 + LSE and B6 (dq, dk/dv) against their float32 plain versions at
+    the two training shapes, the injected faults, bit-identical repeats,
+    and device times beside the plain versions and SDPA."""
+    from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_bwd_reference,
+        flash_attention_fwd_lse, flash_attention_lse_reference,
+    )
+
+    T_llm = _train_total_len()
+    rng = np.random.RandomState(3)
+    dev = torch.device("cuda")
+    cases = {
+        "llm_train": dict(B=4, T=T_llm, Hq=24, Hkv=8, Dh=128, causal=True,
+                          starts=[0, T_llm // 2, 37, 130], ends=[T_llm] * 4),
+        "hubert_train": dict(B=4, T=499, Hq=16, Hkv=16, Dh=64, causal=False,
+                             starts=[0] * 4, ends=[499, 300, 411, 77]),
+    }
+    results = {}
+    for name, c in cases.items():
+        B, T, causal = c["B"], c["T"], c["causal"]
+        def bf(*shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+        q = bf(B, T, c["Hq"], c["Dh"])
+        k, v = bf(B, T, c["Hkv"], c["Dh"]), bf(B, T, c["Hkv"], c["Dh"])
+        starts = torch.tensor(c["starts"], dtype=torch.int32, device=dev)
+        ends = torch.tensor(c["ends"], dtype=torch.int32, device=dev)
+        pos = torch.arange(T, device=dev)[None, :]
+        rows = (pos >= starts[:, None]) & (pos < ends[:, None])  # valid query rows
+        g = (bf(B, T, c["Hq"], c["Dh"]).float() * rows[:, :, None, None]).bfloat16()
+
+        out, lse = flash_attention_fwd_lse(q, k, v, starts, ends, causal)
+        ref_out, ref_lse = flash_attention_lse_reference(q.float(), k.float(), v.float(),
+                                                         starts, ends, causal)
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, starts, ends, causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, starts, ends, causal)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, g)]
+        ref = flash_attention_bwd_reference(*f32, lse, delta, starts, ends, causal)
+
+        lse_bound = LSE_ATOL + LSE_RTOL * ref_lse.abs()
+        lse_ratio = ((lse - ref_lse).abs() / lse_bound).max().item()
+        out_err = (out.float() - ref_out).abs().amax(dim=(2, 3))[rows].max().item()
+        ratios = {"dq": _row_ratio(torch, dq, ref[0], rows), "dk": _row_ratio(torch, dk, ref[1]),
+                  "dv": _row_ratio(torch, dv, ref[2])}
+        finite = all(torch.isfinite(t).all() for t in (out, dq, dk, dv))
+        if not (finite and lse_ratio <= 1 and out_err <= B1_TOL and max(ratios.values()) <= 1):
+            raise AssertionError(f"{name}: kernels differ from the plain versions: lse "
+                                 f"{lse_ratio} x bound, out max err {out_err}, backward "
+                                 f"{ratios} x bound, finite {finite}")
+
+        # faults a kernel could make, each through the plain version
+        faults = {}
+        mut_ends = ends - 1
+        m_lse = flash_attention_lse_reference(q.float(), k.float(), v.float(), starts, mut_ends,
+                                              causal)[1]
+        faults["lse end-1"] = ((m_lse - ref_lse).abs() / lse_bound).max().item()
+        bwd_mutants = {
+            "end-1": flash_attention_bwd_reference(*f32, lse, delta, starts, mut_ends, causal),
+            "lse of the neighbouring row": flash_attention_bwd_reference(
+                *f32, torch.roll(lse, 1, dims=-1), delta, starts, ends, causal),
+        }
+        if causal:
+            f_lse, *f_bwd = _dense_mutant(torch, *f32, lse, delta, starts, ends, causal, 1)
+            faults["lse frontier+1"] = ((f_lse - ref_lse).abs() / lse_bound).max().item()
+            bwd_mutants["frontier+1"] = f_bwd
+        G = c["Hq"] // c["Hkv"]
+        if G > 1:  # dk/dv of the first q head of each group only
+            first = (torch.arange(c["Hq"], device=dev) % G == 0).float()
+            bwd_mutants["one q head of the group"] = flash_attention_bwd_reference(
+                f32[0], f32[1], f32[2], f32[3] * first[None, None, :, None], lse,
+                delta * first[None, :, None], starts, ends, causal)
+        for fname, m in bwd_mutants.items():  # rejected if any output leaves the bound
+            ratios_m = [_row_ratio(torch, m[1], ref[1]), _row_ratio(torch, m[2], ref[2])]
+            if fname != "one q head of the group":  # that fault is in dk/dv only
+                ratios_m.append(_row_ratio(torch, m[0], ref[0], rows))
+            faults[fname] = max(ratios_m)
+        if min(faults.values()) <= 1:
+            raise AssertionError(f"{name}: the bound does not reject every fault: {faults}")
+
+        # bit-identical repeats (the remat recompute relies on it)
+        out2, lse2 = flash_attention_fwd_lse(q, k, v, starts, ends, causal)
+        dq2 = flash_attention_bwd_dq(q, k, v, g, lse, delta, starts, ends, causal)
+        dk2, dv2 = flash_attention_bwd_dkv(q, k, v, g, lse, delta, starts, ends, causal)
+        same = {"out": torch.equal(out, out2), "lse": torch.equal(lse, lse2),
+                "dq": torch.equal(dq, dq2), "dk": torch.equal(dk, dk2),
+                "dv": torch.equal(dv, dv2)}
+        if not all(same.values()):
+            raise AssertionError(f"{name}: two identical calls differ: {same}")
+
+        work = _train_attn_work(c, T)
+        sdpa_fwd, sdpa_fwd_bwd = _sdpa_train_calls(torch, q, k, v, g, rows, causal)
+        sdpa_f = device_ms(torch, sdpa_fwd, whole=False)
+        sdpa_fb = device_ms(torch, sdpa_fwd_bwd, whole=False)
+        plain_bwd = device_ms(torch, lambda: flash_attention_bwd_reference(
+            q, k, v, g, lse, delta, starts, ends, causal), whole=False)
+        res = {}
+        for kname, fn, lib in (
+                ("fwd_lse", lambda: flash_attention_fwd_lse(q, k, v, starts, ends, causal),
+                 sdpa_f),
+                ("dq", lambda: flash_attention_bwd_dq(q, k, v, g, lse, delta, starts, ends,
+                                                      causal), sdpa_fb - sdpa_f),
+                ("dkv", lambda: flash_attention_bwd_dkv(q, k, v, g, lse, delta, starts, ends,
+                                                        causal), sdpa_fb - sdpa_f)):
+            b_ms, b_by = bound_ms(*work[kname])
+            res[kname] = dict(ms=device_ms(torch, fn), call_ms=call_ms(torch, fn), bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib, bytes=work[kname][0],
+                              flops=work[kname][1])
+        res["fwd_lse"]["plain_ms"] = device_ms(torch, lambda: flash_attention_lse_reference(
+            q, k, v, starts, ends, causal), whole=False)
+        res["dq"]["plain_ms"] = res["dkv"]["plain_ms"] = plain_bwd  # one plain backward
+        lse_err = (lse - ref_lse).abs()[ref_lse > -1e29].max().item()
+        res["fwd_lse"]["max_abs_err"] = max(out_err, lse_err)
+        res["dq"]["max_abs_err"] = (dq.float() - ref[0])[rows].abs().max().item()
+        res["dkv"]["max_abs_err"] = max((dk.float() - ref[1]).abs().max().item(),
+                                        (dv.float() - ref[2]).abs().max().item())
+        results[name] = res
+        emit("flash_train", case=name, shape=[B, T, c["Hq"], c["Hkv"], c["Dh"]], causal=causal,
+             starts=c["starts"], ends=c["ends"], lse_err_over_bound=lse_ratio,
+             lse_atol=LSE_ATOL, lse_rtol=LSE_RTOL, out_max_abs_err=out_err,
+             bwd_err_over_bound=ratios, bwd_rtol=BWD_RTOL, bwd_atol_of_row_rms=BWD_ATOL,
+             bwd_floor_of_rms=BWD_FLOOR,
+             faults_over_bound=faults, bit_identical=same, sdpa_fwd_ms=sdpa_f,
+             sdpa_fwd_bwd_ms=sdpa_fb, kernels=res, card=card)
+    return results
+
+
+def _small_train_config():
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+
+    cfg = load_config(str(YAML_DIR / "llama3_hubert.yaml"))
+    cfg.model.llm_embedding_channels = 256
+    cfg.data.source = "synthetic"
+    cfg.train.buckets.audio_samples = (32000,)
+    cfg.train.buckets.max_text_tokens = 64
+    cfg.train.buckets.max_response_tokens = 64
+    cfg.train.fd_loss_connector_layers = (0, 1, 2)  # embeddings and both blocks
+    return cfg
+
+
+def phase_train_small(torch, card):
+    """One KD train step at a small kernel-legal width (2 layers, Dh 128 in
+    the LLM and 64 in HuBERT) on the CPU and on the card."""
+    import dataclasses
+
+    from llm_speech_summarization_tpu_torch.data.collate import collate_batch
+    from llm_speech_summarization_tpu_torch.data.datasets import SyntheticSpeechDataset
+    from llm_speech_summarization_tpu_torch.models.audio_encoder import (
+        encoder_setup_from_config, init_audio_encoder,
+    )
+    from llm_speech_summarization_tpu_torch.models.hubert import HubertConfig
+    from llm_speech_summarization_tpu_torch.models.llama import (
+        LlamaConfig, init_llama_params, quantize_llama_params,
+    )
+    from llm_speech_summarization_tpu_torch.train import make_train_state, make_train_step
+    from llm_speech_summarization_tpu_torch.train.state import tree_leaves
+    from llm_speech_summarization_tpu_torch.train.trainer import spliced_length
+    from llm_speech_summarization_tpu_torch.utils.prompts import prompt_template_for
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _small_train_config()
+    llm_cfg = LlamaConfig(hidden_size=256, intermediate_size=1024, num_layers=2, num_heads=6,
+                          num_kv_heads=2, head_dim=128)
+    setup = dataclasses.replace(encoder_setup_from_config(cfg), encoder_cfg=HubertConfig(
+        hidden_size=256, num_layers=2, num_heads=4, intermediate_size=1024))
+    llm = quantize_llama_params(init_llama_params(torch.Generator().manual_seed(5), llm_cfg))
+    enc = init_audio_encoder(torch.Generator().manual_seed(6), setup, dtype=torch.float32)
+    tok = ByteTokenizer()
+    tpl = prompt_template_for(cfg.model.llm_type)
+    prefix, suffix = tok.encode(tpl.prefix, add_bos=True), tok.encode(tpl.suffix, add_bos=False)
+    ds = SyntheticSpeechDataset(tok, num_samples=4, max_seconds=2.0)
+    b = cfg.train.buckets
+    batch = collate_batch([ds[i] for i in range(4)], audio_buckets=b.audio_samples,
+                          max_text_tokens=b.max_text_tokens,
+                          max_response_tokens=b.max_response_tokens)
+    total_len = spliced_length(cfg, setup, len(prefix), len(suffix), batch.wav.shape[1])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state, opt = make_train_state(cfg, _to(enc, dev), total_opt_steps=100)
+        step = make_train_step(cfg, setup, llm_cfg, opt, prefix, suffix, total_len, device=dev)
+        state, metrics = step(state, _to(llm, dev), batch)
+        runs[dev] = ({k: v.item() for k, v in metrics.items()},
+                     [p.detach().cpu() for p in tree_leaves(state.enc_params)])
+    (m_c, p_c), (m_g, p_g) = runs["cpu"], runs["cuda"]
+    lr = cfg.train.optimizer.lr
+    p0 = [p.float() for p in tree_leaves(enc)]
+    moved = agree = 0
+    for a, b_, s in zip(p_c, p_g, p0):
+        du_c, du_g = a - s, b_ - s
+        big = du_c.abs() > lr / 2
+        moved += int(big.sum())
+        agree += int((big & ((du_c - du_g).abs() <= lr / 4)).sum())
+    loss_err = {k: abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c if k != "grad_norm"}
+    gnorm_err = abs(m_g["grad_norm"] - m_c["grad_norm"]) / m_c["grad_norm"]
+    agree_share = agree / max(moved, 1)
+    finite = all(np.isfinite(v) for v in (*m_c.values(), *m_g.values()))
+    if not (finite and max(loss_err.values()) <= TRAIN_LOSS_RTOL and gnorm_err <= TRAIN_GNORM_RTOL
+            and agree_share >= TRAIN_SIGN_AGREE and moved > 0):
+        raise AssertionError(f"train_small: CPU {m_c} vs card {m_g}: loss rel err {loss_err}, "
+                             f"grad_norm rel err {gnorm_err}, update agreement {agree_share} "
+                             f"of {moved}")
+    emit("train_small", total_len=total_len, batch=4, audio_samples=int(batch.wav.shape[1]),
+         cpu=m_c, card_metrics=m_g, loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
+         grad_norm_rel_err=gnorm_err, grad_norm_rtol=TRAIN_GNORM_RTOL,
+         update_agreement=agree_share, update_agreement_min=TRAIN_SIGN_AGREE,
+         params_moved=moved, tf32=False, card=card)
+
+
+def _expected_train_launches(enc_layers, llm_layers, remat, steps, n_eval_batches, eng_counts):
+    """What a trainer run launches: per train step the student's LLM and
+    HuBERT layers run B1 + LSE once, and with remat once more in the
+    backward's recompute, and B6 once each; the teacher's LLM layers B1;
+    every validate's eval batch runs B1 in HuBERT and the stacked (audio, text) LLM forward; the generations
+    run B1 per encoder forward and prefill and B2 per decode step."""
+    both = enc_layers + llm_layers
+    return {
+        "flash_attention": llm_layers * steps + both * n_eval_batches
+        + enc_layers * eng_counts.get("encoder_forwards", 0)
+        + llm_layers * eng_counts.get("prefills", 0),
+        "flash_attention_lse": (2 if remat else 1) * both * steps,
+        "flash_attention_bwd_dq": both * steps,
+        "flash_attention_bwd_dkv": both * steps,
+        "fused_decode": llm_layers * eng_counts.get("decode_steps", 0),
+    }
+
+
+def _trainer_run(torch, trainer, what):
+    """Train with every launch count at 0 first; check the counts against
+    what the trainer ran; the per-step losses and times from its metrics."""
+    import math
+
+    eng_before = dict(trainer._val_engine.counts) if trainer._val_engine else {}
+    step0 = trainer.step
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    eng = trainer._val_engine.counts if trainer._val_engine else {}
+    eng_counts = {k: eng.get(k, 0) - eng_before.get(k, 0) for k in set(eng) | set(eng_before)}
+    steps = trainer.step - step0
+    val_bs = min(trainer.config.train.batch_size, 8)
+    n_eval = -(-len(trainer.val_ds) // val_bs)  # one validate per run here
+    check_launches(what, launches, _expected_train_launches(
+        trainer.enc_setup.encoder_cfg.num_layers, trainer.llm_cfg.num_layers,
+        trainer.config.train.remat, steps, n_eval, eng_counts))
+    records = [json.loads(line) for line in open(os.path.join(trainer.log_dir, "metrics.jsonl"))]
+    per_step = {}
+    for r in records:
+        for k, v in r.items():
+            if k.startswith("train/") and step0 < r["step"] <= trainer.step:
+                per_step.setdefault(r["step"], {})[k[len("train/"):]] = v
+    bad = [s for s, m in per_step.items() for k, v in m.items() if not math.isfinite(v)]
+    if len(per_step) != steps or bad:
+        raise AssertionError(f"{what}: {len(per_step)} logged steps of {steps}, "
+                             f"non-finite at steps {bad}")
+    return dict(steps=steps, wall_s=wall, per_step=per_step, launches=launches,
+                engine_counts=eng_counts, eval_batches=n_eval)
+
+
+def _profile_step(torch, trainer):
+    """Device-busy share of one train step (torch.profiler; the union of
+    the kernels' device intervals over the step's host-clock wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(trainer._batches(trainer.train_ds, trainer.config.train.batch_size, True, 99))
+    trainer.train_step(batch)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        float(metrics["total_loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    busy = _busy_ms(events)
+    by_name = {}
+    for e in events:
+        if e.device_type.name == "CUDA":
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    ours = {k: sum(ms for name, ms in by_name.items() if k in name)
+            for k in ("flash_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")}
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, busy_share=busy / wall_ms,
+                attention_kernels_ms=ours, attention_share_of_busy=sum(ours.values()) / busy,
+                top_kernels_ms=top)
+
+
+def _busy_ms(events) -> float:
+    """Union of device kernel intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type.name == "CUDA")
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def phase_train_full(torch, card):
+    """The full-width ``llama3_hubert.yaml`` trainer on synthetic data: a
+    few optimizer steps and the closing validate() (eval perplexity, two
+    sampled generations, a checkpoint) into a temporary directory; then a
+    second Trainer resumes from that checkpoint and takes one more step
+    (and validates). Launch counts are checked for both runs; then one
+    profiled step of the resumed trainer gives the device-busy share."""
+    import copy
+    import shutil
+    import tempfile
+
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.train.trainer import Trainer
+
+    steps = 3
+    tmp = tempfile.mkdtemp(prefix="lss_train_")
+    try:
+        cfg = load_config(str(YAML_DIR / "llama3_hubert.yaml"))
+        cfg.data.source = "synthetic"
+        cfg.data.synthetic_num_samples = 64  # 4 train batches of 16, 8 val clips
+        cfg.train.steps = steps
+        cfg.log.checkpoint_dir = os.path.join(tmp, "ckpt")
+        cfg.log.log_dir = os.path.join(tmp, "logs")
+        cfg.log.log_interval = 1
+        cfg.log.num_generate_samples = 2
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, run_name="smoke")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        first = _trainer_run(torch, trainer, "train_full")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        total_len = trainer.total_len(max(cfg.train.buckets.audio_samples))
+        B = cfg.train.batch_size
+        times = [first["per_step"][s]["step_time_s"] for s in sorted(first["per_step"])]
+        del trainer
+        torch.cuda.empty_cache()
+
+        cfg2 = copy.deepcopy(cfg)
+        cfg2.train.steps = steps + 1
+        cfg2.log.num_generate_samples = 0
+        resumed = Trainer(cfg2, run_name="smoke")
+        if resumed.step != steps or resumed._resume_epoch_step != steps:
+            raise AssertionError(f"resume: at step {resumed.step}, "
+                                 f"+{resumed._resume_epoch_step} batches, not {steps}")
+        second = _trainer_run(torch, resumed, "train_full resumed")
+        if resumed.step != steps + 1:
+            raise AssertionError(f"resume: ended at step {resumed.step}")
+        profile_ = _profile_step(torch, resumed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tokens = B * total_len
+    emit("train_full", config="llama3_hubert.yaml", data="synthetic", batch=B,
+         total_len=total_len, audio_samples=160000, init_s=init_s, steps=first["steps"],
+         per_step=first["per_step"], ms_per_step=[1e3 * t for t in times],
+         tokens_per_s=[tokens / t for t in times], steady_ms_per_step=1e3 * min(times[1:]),
+         steady_tokens_per_s=tokens / min(times[1:]), run_wall_s=first["wall_s"],
+         max_memory_allocated_gb=peak_gb, launches=first["launches"],
+         engine_counts=first["engine_counts"], eval_batches=first["eval_batches"],
+         resumed=dict(steps=second["steps"], per_step=second["per_step"],
+                      wall_s=second["wall_s"], launches=second["launches"]),
+         profiled_step=profile_, card=card)
+    return first["launches"], second["launches"]
+
+
 def _wrappers():
-    from llm_speech_summarization_tpu_torch.kernels.flash_attention import flash_attention_fwd
+    from llm_speech_summarization_tpu_torch.kernels import flash_attention as fa
     from llm_speech_summarization_tpu_torch.kernels.fused_decode import fused_decode
     from llm_speech_summarization_tpu_torch.kernels.fused_paged import fused_paged_decode
     from llm_speech_summarization_tpu_torch.kernels.paged_attention import paged_decode_attention
 
-    return {"flash_attention": flash_attention_fwd, "fused_decode": fused_decode,
-            "paged_attention": paged_decode_attention, "fused_paged": fused_paged_decode}
+    return {"flash_attention": fa.flash_attention_fwd, "fused_decode": fused_decode,
+            "paged_attention": paged_decode_attention, "fused_paged": fused_paged_decode,
+            "flash_attention_lse": fa.flash_attention_fwd_lse,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
 
 
 def reset_launches() -> None:
@@ -657,6 +1197,9 @@ def read_launches() -> dict:
 
 
 def check_launches(what: str, got: dict, want: dict) -> None:
+    """``want`` names the kernels the run should launch; every other kernel
+    must have launched no time."""
+    want = {**{k: 0 for k in got}, **want}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got} != expected {want}")
 
@@ -886,19 +1429,28 @@ def main() -> int:
     torch.set_grad_enabled(False)
     phase_build(card)
     flash = phase_flash(torch, card)
+    with torch.enable_grad():  # the SDPA yardstick's backward
+        flash_train = phase_flash_train(torch, card)
     fused = phase_fused(torch, card)
     paged = phase_paged(torch, card)
     fpaged = phase_fused_paged(torch, card)
     phase_serving_small(torch, card, *phase_slice(torch, card))
+    with torch.enable_grad():
+        phase_train_small(torch, card)
     launches, eng = phase_full(torch, card)
     serving = phase_serving_full(torch, card, eng)
+    del eng
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        train_runs = phase_train_full(torch, card)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "llm_speech_summarization_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    # launches: the sum over the main-path runs (batch path, three servers)
-    for run in serving.values():
-        for k, v in run["launches"].items():
+    # launches: the sum over the main-path runs (batch path, three servers,
+    # the trainer and the resumed trainer)
+    for run in [r["launches"] for r in serving.values()] + list(train_runs):
+        for k, v in run.items():
             launches[k] += v
     csrc = "llm_speech_summarization_tpu_torch/kernels/csrc/"
     kpkg = "llm_speech_summarization_tpu/kernels/"
@@ -920,6 +1472,13 @@ def main() -> int:
         entry("fused_paged_decode", "fused_paged.cu", "fused_paged.py:118", "fused_paged",
               fpaged, [fpaged["max_abs_err"]]),
     ]
+    for name, source, replaces, key in (
+            ("flash_attention_lse", "flash_attention.cu", "flash_attention.py:37", "fwd_lse"),
+            ("flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:202", "dq"),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "flash_attention.py:257",
+             "dkv")):
+        kernels.append(entry(name, source, replaces, name, flash_train["llm_train"][key],
+                             [r[key]["max_abs_err"] for r in flash_train.values()]))
     kernels[0]["sdpa_ms"] = kernels[0]["library_ms"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

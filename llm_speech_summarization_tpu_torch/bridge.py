@@ -1,6 +1,6 @@
-"""Bridge: the JAX package's parameter pytrees and decoder state, with
-numpy leaves (``jax.tree.map(np.asarray, tree)``), → the port's tensors,
-and back.
+"""Bridge: the JAX package's parameter pytrees, decoder state and training
+batches, with numpy leaves (``jax.tree.map(np.asarray, tree)``), → the
+port's tensors, and back.
 
 Keys and layouts are kept as they are: the stacked ``(L, in, out)`` Llama
 layers, fused ``wqkv`` / ``w_gateup``, int8 weights with their bf16
@@ -15,6 +15,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .data.batch import Batch
 from .infer.paged import PagedKVCache
 from .infer.slots import SlotState
 from .models.llama import KVCache
@@ -55,6 +56,14 @@ def params_from_numpy(tree, device=None):
 
 llama_params_from_numpy = params_from_numpy
 encoder_params_from_numpy = params_from_numpy
+
+
+def batch_from_numpy(batch) -> Batch:
+    """A JAX training ``Batch`` (numpy fields) → the port's host ``Batch``;
+    the train and eval steps move it to their device. The same encoder
+    parameters start both packages' optimizers from zero moments, so
+    ``params_from_numpy`` and this are all a train step needs."""
+    return Batch(*(None if a is None else np.asarray(a) for a in batch))
 
 
 def kv_cache_from_numpy(k, v, k_scale: Optional[Any] = None, v_scale: Optional[Any] = None,

@@ -27,25 +27,28 @@
 //
 // Masked scores are NEG_INF = -1e30 (never -inf) and the denominator is
 // floored at 1e-30, so rows with no valid key (pad queries) stay finite.
+//
+// Training: with a non-null ``lse`` the same launch also writes the float32
+// per-row log-sum-exp m + log(max(l, 1e-30)) as (B, Hq, T), the TPU
+// kernel's return_lse output, which the backward (flash_attention_bwd.cu)
+// uses to recompute p = exp(s - lse). A row with no valid key keeps m =
+// -1e30 and so gets lse = -1e30, as on the TPU. The kernel has no atomics
+// and a fixed summation order, so a recompute (activation checkpointing)
+// gives bitwise the same out and lse.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 using namespace nvcuda;
+using namespace lss_flash;
 
 namespace {
-
-constexpr int BQ = 64;  // q rows per block
-constexpr int BK = 64;  // keys per k tile
-constexpr int NTHREADS = 128;
-constexpr float NEG_INF = -1e30f;
 
 template <int DH>
 struct Layout {
   // padded row strides keep WMMA pointers 32-byte aligned and spread banks
-  static constexpr int LDH = DH + 8;  // bf16 Q/K/V tiles
+  static constexpr int LDH = ldh<DH>();  // bf16 Q/K/V tiles
   static constexpr int LDS = BK + 4;  // float32 score tile
   static constexpr int LDP = BK + 8;  // bf16 probability tile
   static constexpr int LDO = DH + 4;  // float32 P.V tile
@@ -58,30 +61,13 @@ struct Layout {
   static constexpr size_t bytes = o_off + sizeof(float) * BQ * LDO;
 };
 
-// copy `rows` rows of DH bf16 (16 bytes per vector) into a padded tile,
-// zero-filling rows at or past T
-template <int DH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long row_stride, int row0, int T) {
-  constexpr int VPR = DH / 8;
-  for (int i = threadIdx.x; i < BK * VPR; i += NTHREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Layout<DH>::LDH + c) = val;
-  }
-}
-
 template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 const int* __restrict__ starts, const int* __restrict__ ends, int T, int Hq,
-                 int Hkv, long long q_sb, long long q_st, long long q_sh, long long k_sb,
-                 long long k_st, long long k_sh, long long v_sb, long long v_st,
+                 float* __restrict__ lse, const int* __restrict__ starts,
+                 const int* __restrict__ ends, int T, int Hq, int Hkv, long long q_sb,
+                 long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
                  long long v_sh, long long o_sb, long long o_st, long long o_sh, int causal,
                  float scale) {
   using Lay = Layout<DH>;
@@ -206,11 +192,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       *reinterpret_cast<__nv_bfloat162*>(dst + c) =
           __floats2bfloat162_rn(o[c] / denom, o[c + 1] / denom);
     }
+    if (lse != nullptr && half == 0) lse[((long long)b * Hq + h) * T + qpos] = m + logf(denom);
   }
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, const int* starts,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, const int* starts,
            const int* ends, int B, int T, int Hq, int Hkv, const long long* s, int causal,
            float scale, cudaStream_t stream) {
   const size_t smem = Layout<DH>::bytes;
@@ -220,7 +207,7 @@ int launch(const void* q, const void* k, const void* v, void* out, const int* st
   dim3 grid((T + BQ - 1) / BQ, Hq, B);
   flash_fwd_kernel<DH><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), starts, ends, T,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, starts, ends, T,
       Hq, Hkv, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
       causal, scale);
   return (int)cudaGetLastError();
@@ -229,15 +216,17 @@ int launch(const void* q, const void* k, const void* v, void* out, const int* st
 }  // namespace
 
 // strides: 12 element strides (b, t, h) for q, k, v, out, in that order.
+// lse: null, or a contiguous (B, Hq, T) float32 buffer for the log-sum-exp.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int lss_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                       const void* starts, const void* ends, int B, int T,
+                                       void* lse, const void* starts, const void* ends, int B, int T,
                                        int Hq, int Hkv, int Dh, const long long* strides,
                                        int causal, float scale, void* stream) {
   const int* st = static_cast<const int*>(starts);
   const int* en = static_cast<const int*>(ends);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh == 128) return launch<128>(q, k, v, out, st, en, B, T, Hq, Hkv, strides, causal, scale, s);
-  if (Dh == 64) return launch<64>(q, k, v, out, st, en, B, T, Hq, Hkv, strides, causal, scale, s);
+  float* l = static_cast<float*>(lse);
+  if (Dh == 128) return launch<128>(q, k, v, out, l, st, en, B, T, Hq, Hkv, strides, causal, scale, s);
+  if (Dh == 64) return launch<64>(q, k, v, out, l, st, en, B, T, Hq, Hkv, strides, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -106,18 +106,22 @@ def audio_encoder_forward(
     setup: AudioEncoderParams,
     wav: torch.Tensor,
     wav_lens: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """waveform (B, N) [+ per-sample lengths] → (embeds (B, M, E),
-    emb_lens (B,)), the buffer right-padded."""
+    emb_lens (B,)), the buffer right-padded. ``remat`` recomputes each
+    HuBERT layer in the backward."""
     B, N = wav.shape
     if wav_lens is None:
         wav_lens = torch.full((B,), N, dtype=torch.int32, device=wav.device)
     wav_mask = torch.arange(N, device=wav.device)[None, :] < wav_lens[:, None]
     wav = wav * wav_mask.to(wav.dtype)
-    # mixed precision: parameters in the compute dtype (no-op when equal)
+    # mixed precision: parameters in the compute dtype (no-op when equal);
+    # the cast is part of the graph, so float32 master parameters get their
+    # gradients through it
     params = _cast_floats(params, wav.dtype)
 
-    frames, _ = hubert_forward(params["encoder"], setup.encoder_cfg, wav, wav_mask)
+    frames, _ = hubert_forward(params["encoder"], setup.encoder_cfg, wav, wav_mask, remat=remat)
     if setup.downsample_method == "pool":
         pooled = avg_pool_time(frames, setup.pool_kernel, setup.pool_stride)
     else:

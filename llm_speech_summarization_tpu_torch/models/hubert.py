@@ -3,9 +3,11 @@
 waveform (B, N) → conv feature extractor (×320, 20 ms frames) → feature
 projection → + grouped positional conv → transformer blocks → (B, T, D).
 Convolutions are plain ``torch.nn.functional.conv1d`` (the JAX package
-left them to XLA); self-attention runs through the flash kernel (B1) with
-per-sample windows ``[0, n_valid)``, so padded frames are masked and any
-frame count runs without padding. GELU is exact (erf).
+left them to XLA); self-attention runs through the differentiable flash
+attention (B1 forward, B6 backward) with per-sample windows ``[0,
+n_valid)``, so padded frames are masked and any frame count runs without
+padding. GELU is exact (erf). ``remat`` recomputes each transformer layer
+in the backward (``torch.utils.checkpoint``, the JAX ``jax.checkpoint``).
 
 Ported: the hubert-large architecture (layer-normed conv stem with bias,
 pre-LN "stable" blocks) and a tiny preset of it for tests. Not ported yet:
@@ -20,8 +22,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..kernels.flash_attention import flash_attention_fwd
+from ..kernels.flash_attention import flash_attention
 from ..ops.norms import layer_norm
 
 Params = Dict[str, Any]
@@ -167,9 +170,10 @@ def hubert_forward(
     cfg: HubertConfig,
     wav: torch.Tensor,
     wav_mask: torch.Tensor | None = None,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """waveform (B, N) [+ sample-validity mask] → (frames (B, T, D),
-    frame_mask (B, T))."""
+    frame_mask (B, T)). ``remat``: recompute each layer in the backward."""
     B, _ = wav.shape
     feats = _feature_extractor(params, cfg, wav)
     T = feats.shape[1]
@@ -189,17 +193,23 @@ def hubert_forward(
     Hh = cfg.num_heads
     Dh = cfg.hidden_size // Hh
     starts = torch.zeros((B,), dtype=torch.int32, device=wav.device)
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+    def attn_ffn(h, lp):
         a_in = layer_norm(h, lp["ln1_scale"], lp["ln1_bias"], cfg.layer_norm_eps)
         q = (a_in @ lp["wq"] + lp["bq"]).reshape(B, T, Hh, Dh)
         k = (a_in @ lp["wk"] + lp["bk"]).reshape(B, T, Hh, Dh)
         v = (a_in @ lp["wv"] + lp["bv"]).reshape(B, T, Hh, Dh)
-        a = flash_attention_fwd(q, k, v, starts, n_valid, causal=False)
+        a = flash_attention(q, k, v, starts, n_valid, causal=False)
         h = h + (a.reshape(B, T, cfg.hidden_size) @ lp["wo"] + lp["bo"])
         f_in = layer_norm(h, lp["ln2_scale"], lp["ln2_bias"], cfg.layer_norm_eps)
         f = F.gelu(f_in @ lp["w1"] + lp["b1"])
-        h = h + (f @ lp["w2"] + lp["b2"])
+        return h + (f @ lp["w2"] + lp["b2"])
+
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(attn_ffn, h, lp, use_reentrant=False)
+        else:
+            h = attn_ffn(h, lp)
     h = layer_norm(h, params["encoder_ln_scale"], params["encoder_ln_bias"], cfg.layer_norm_eps)
     return h, frame_mask

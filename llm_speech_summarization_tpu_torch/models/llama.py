@@ -8,7 +8,9 @@ The forward is a Python loop over layers.
 
 Attention goes through hand-written kernels, and the tensors' device
 picks the version: prefill (and the cache-free forward) calls
-``flash_attention_fwd`` with the left-pad window ``[pad, T)``; a decode
+``flash_attention`` with the left-pad window ``[pad, T)``, which is the
+forward kernel B1 without gradients and B1 with its log-sum-exp plus the
+backward kernel B6 in training; a decode
 step over the dense cache calls ``fused_decode``, which attends the cache
 window ``[pad, offset)`` plus the fresh tokens and writes them into the
 cache in place. Over the paged cache (``infer/paged.py``), a T == 1 step
@@ -18,8 +20,14 @@ T > 1 verification forward calls ``paged_decode_attention``, after which
 JAX package's ``"bias"``, ``decode_xla_q`` and ``paged_reference``
 formulations.
 
-Not ported yet: training/remat, ring attention, tensor parallelism
-(ROADMAP queue A).
+Training (the cache-free forward of the KD step): ``return_hidden`` /
+``hidden_window`` return the hidden-state stack of the last W positions,
+``return_final_hidden`` / ``logit_window`` the final hidden states, and
+``remat`` recomputes each block in the backward (``torch.utils.checkpoint``,
+the JAX "full" policy). The frozen weights take no gradient: autograd
+through ``(h @ w.to(h.dtype)) * scale`` gives the activations theirs. Not
+ported yet: the ``save_qkv`` remat policy, ring attention, tensor
+parallelism (ROADMAP queue A items 10, 11).
 """
 
 from __future__ import annotations
@@ -28,9 +36,10 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..infer.paged import PagedKVCache, write_tokens
-from ..kernels.flash_attention import flash_attention_fwd
+from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_decode import _quantize_kv, fused_decode
 from ..kernels.fused_paged import fused_paged_decode
 from ..kernels.paged_attention import paged_decode_attention
@@ -143,8 +152,10 @@ def dequantize_kv(values: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat1
 
 
 class LlamaOutput(NamedTuple):
-    logits: torch.Tensor  # (B, T, V) float32, or (B, 1, V) with last_logit_only
+    logits: Optional[torch.Tensor]  # (B, T or W or 1, V) float32
     kv_cache: Optional[KVCache]
+    hidden_states: Optional[torch.Tensor] = None  # (L + 1, B, W, D): embeddings, then blocks
+    final_hidden: Optional[torch.Tensor] = None  # (B, W, D) after the final norm
 
 
 def init_llama_params(
@@ -256,6 +267,13 @@ def llama_forward(
     kv_pad_lens: Optional[torch.Tensor] = None,
     last_logit_only: bool = False,
     cache_offset_bound: Optional[int] = None,
+    return_hidden: bool = False,
+    hidden_window: int = 0,
+    compute_logits: bool = True,
+    logit_window: int = 0,
+    return_final_hidden: bool = False,
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
 ) -> LlamaOutput:
     """Run the decoder.
 
@@ -274,6 +292,15 @@ def llama_forward(
         ``pad_lens`` give each row's cached window [pad, length); the T >= 1
         fresh tokens attend it plus themselves causally and are written at
         [length, length + T) of the row's pages. ``attn_mask`` must be None.
+
+    Training outputs (cache-free forward only), with the JAX semantics:
+    ``return_hidden`` stacks the embeddings and every block's output, each
+    cut to the last ``hidden_window`` positions when it is > 0 (the HF
+    ``output_hidden_states`` layout); ``return_final_hidden`` gives the
+    normed final hidden states of the last ``logit_window`` positions, and
+    logits cover those positions only when ``logit_window`` > 0;
+    ``compute_logits=False`` skips the head. ``remat`` with ``remat_policy``
+    None or "full" recomputes each block in the backward.
 
     The cache is updated in place and also returned. Logits are float32:
     the final hidden state and the head are upcast to float32 before the
@@ -312,6 +339,18 @@ def llama_forward(
 
     if kv_cache is not None and not is_paged and cache_offset is None:
         raise ValueError("a forward with a kv_cache needs cache_offset")
+    if kv_cache is not None and (return_hidden or remat):
+        raise ValueError("return_hidden and remat belong to the cache-free (training) forward")
+    if remat and remat_policy not in (None, "full"):
+        raise NotImplementedError(
+            f"remat_policy={remat_policy!r} is not ported to PyTorch yet (ROADMAP queue A, "
+            f"item 10: the save_qkv policy); use 'full'")
+    remat = remat and torch.is_grad_enabled()
+
+    def window(t, w):
+        return t[:, -w:] if w > 0 else t
+
+    hidden = [window(x, hidden_window)] if return_hidden else None
     if is_paged:
         lengths = kv_cache.lengths.to(device=dev, dtype=torch.int32).contiguous()
         pad_lens = kv_cache.pad_lens.to(device=dev, dtype=torch.int32).contiguous()
@@ -358,8 +397,16 @@ def llama_forward(
                 )
         else:
             def attend(q, k, v):
-                return flash_attention_fwd(q, k, v, pad_lens, ends, causal=True)
-        x, k, v = _block(cfg, lp, x, rope_cos, rope_sin, attend)
+                return flash_attention(q, k, v, pad_lens, ends, causal=True)
+        if remat:
+            def block(x, lp=lp, attend=attend):
+                return _block(cfg, lp, x, rope_cos, rope_sin, attend)[0]
+
+            x = checkpoint(block, x, use_reentrant=False)
+        else:
+            x, k, v = _block(cfg, lp, x, rope_cos, rope_sin, attend)
+        if return_hidden:
+            hidden.append(window(x, hidden_window))
         if kv_cache is not None and not is_decode:
             _write_cache(kv_cache, i, int(cache_offset), k, v)
     if is_paged and T > 1:
@@ -369,8 +416,14 @@ def llama_forward(
                      torch.stack(fresh_v))
 
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    if last_logit_only:
-        x = x[:, -1:, :]
+    out = LlamaOutput(
+        logits=None, kv_cache=kv_cache,
+        hidden_states=torch.stack(hidden) if return_hidden else None,
+        final_hidden=window(x, logit_window) if return_final_hidden else None,
+    )
+    if not compute_logits:
+        return out
+    x = x[:, -1:, :] if last_logit_only else window(x, logit_window)
     if cfg.tie_embeddings:
         head, head_scale = params["embed_tokens"], params.get("embed_tokens_scale")
         w_vd = head  # (V, D)
@@ -383,7 +436,7 @@ def llama_forward(
     logits = x.float() @ w_vd.float().t()
     if head.dtype == torch.int8:
         logits = logits * head_scale.float()
-    return LlamaOutput(logits=logits, kv_cache=kv_cache)
+    return out._replace(logits=logits)
 
 
 def fuse_llama_params(params: Params) -> Params:

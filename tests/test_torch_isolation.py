@@ -1,7 +1,9 @@
-"""The port stands alone: a fresh interpreter imports every module of it,
-builds a CPU engine and server and answers a request without jax or any
-module of the JAX package being loaded; and the port's copy of the config
-loader reads every shipped YAML exactly as the JAX package's does."""
+"""The port stands alone: a fresh interpreter imports every module of it
+(the training slice and ``cli.train`` among them), builds a CPU engine and
+server and answers a request, and takes a training step through the
+``Trainer``, without jax or any module of the JAX package being loaded;
+and the port's copy of the config loader reads every shipped YAML exactly
+as the JAX package's does."""
 
 import dataclasses
 import json
@@ -40,10 +42,18 @@ req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/v1/text_response",
 with urllib.request.urlopen(req, timeout=120) as resp:
     status = resp.status
 drained = srv.drain(timeout=30)
+import tempfile
+from llm_speech_summarization_tpu_torch.train.trainer import Trainer
+tmp = tempfile.mkdtemp()
+cfg.log.checkpoint_dir, cfg.log.log_dir = tmp + "/ckpt", tmp + "/logs"
+cfg.log.num_generate_samples = 0
+cfg.train.steps = 1
+trainer = Trainer(cfg, device="cpu")
+trainer.train()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "llm_speech_summarization_tpu"))
 print(json.dumps({"modules": len(names), "status": status, "drained": drained,
-                  "loaded": loaded}))
+                  "trained": trainer.step, "names": names, "loaded": loaded}))
 """
 
 
@@ -54,6 +64,11 @@ def test_port_runs_without_the_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     assert out["modules"] >= 20 and out["status"] == 200 and out["drained"]
+    assert out["trained"] == 1
+    pkg = "llm_speech_summarization_tpu_torch."
+    for name in ("train.trainer", "train.step", "train.state", "train.checkpoint", "cli.train",
+                 "ops.losses", "data.datasets", "data.collate", "obs.writer"):
+        assert pkg + name in out["names"], name
 
 
 YAMLS = ("llama3_hubert.yaml", "llama3_hubert_long.yaml", "llama3_whisper.yaml",

@@ -15,7 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from llm_speech_summarization_tpu.kernels.flash_attention import _xla_reference, flash_attention
+from llm_speech_summarization_tpu.kernels.flash_attention import (
+    _flash_impl,
+    _xla_reference,
+    flash_attention,
+)
 from llm_speech_summarization_tpu.kernels.fused_decode import (
     _pad128,
     fused_decode_aliased_scales,
@@ -23,10 +27,18 @@ from llm_speech_summarization_tpu.kernels.fused_decode import (
 from llm_speech_summarization_tpu.models.llama import _quantize_kv as jax_quantize_kv
 from llm_speech_summarization_tpu_torch.bridge import tensor_from_numpy, tensor_to_numpy
 from llm_speech_summarization_tpu_torch.kernels import build
+from llm_speech_summarization_tpu_torch.kernels import flash_attention as fa_mod
 from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
 from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
+    flash_attention_fwd_lse,
     flash_attention_reference,
+)
+from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
+    flash_attention as torch_flash_attention,
 )
 from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
     _quantize_kv,
@@ -70,6 +82,113 @@ def test_flash_plain_matches_jax(name, oracle):
     pos = np.arange(q.shape[1])[None, :]
     rows = (pos >= st[:, None]) & (pos < en[:, None])  # valid query rows only
     np.testing.assert_allclose(got.numpy()[rows], np.asarray(want)[rows], atol=1e-5, rtol=0)
+
+
+# the training shapes at T=128 (tests/test_kernels.py's backward cases):
+# causal GQA Dh=128 with left pads (one row fully padded but one key), and
+# bidirectional Dh=64 with right pads
+FLASH_BWD_CASES = {
+    "causal_leftpad_dh128": (dict(B=3, T=128, Hq=4, Hkv=2, Dh=128,
+                                  starts=[0, 37, 127], ends=[128] * 3), True),
+    "bidir_rightpad_dh64": (dict(B=3, T=128, Hq=4, Hkv=4, Dh=64,
+                                 starts=[0] * 3, ends=[128, 77, 1]), False),
+}
+
+
+def _valid_rows(st, en, T):
+    pos = np.arange(T)[None, :]
+    return (pos >= st[:, None]) & (pos < en[:, None])
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_CASES))
+def test_flash_lse_plain_matches_jax_interpret(name):
+    """Forward + log-sum-exp against the Pallas kernel's return_lse output
+    (interpret mode), every row: rows with no valid key are -1e30 in both."""
+    spec, causal = FLASH_BWD_CASES[name]
+    q, k, v, st, en = _flash_case(3, **spec)
+    out, lse = flash_attention_fwd_lse(*map(torch.from_numpy, (q, k, v, st, en)), causal=causal)
+    T = q.shape[1]
+    w_out, w_lse = _flash_impl(*map(jnp.asarray, (q, k, v, st, en)), causal, T, T, True,
+                               return_lse=True)
+    w_lse = np.asarray(w_lse).reshape(lse.shape)
+    np.testing.assert_allclose(lse.numpy(), w_lse, atol=2e-4, rtol=2e-4)
+    rows = _valid_rows(st, en, T)
+    np.testing.assert_allclose(out.numpy()[rows], np.asarray(w_out)[rows], atol=2e-4, rtol=2e-4)
+    if causal:  # a left-pad query sees no key: lse = -1e30, as on the TPU
+        assert (lse[1, :, :37] == torch.tensor(-1e30)).all()
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_CASES))
+def test_flash_backward_matches_jax_grad(name):
+    """The differentiable ``flash_attention`` on CPU tensors (plain forward
+    with lse, plain FA-2 backward) against ``jax.grad`` through the Pallas
+    custom VJP in interpret mode; cotangents zero at invalid query rows, as
+    tests/test_kernels.py compares them."""
+    spec, causal = FLASH_BWD_CASES[name]
+    q, k, v, st, en = _flash_case(4, **spec)
+    g = np.random.RandomState(5).randn(*q.shape).astype(np.float32)
+    g *= _valid_rows(st, en, q.shape[1])[:, :, None, None]
+
+    def jax_loss(q, k, v):
+        out = flash_attention(q, k, v, jnp.asarray(st), jnp.asarray(en), causal=causal,
+                              interpret=True)
+        return jnp.vdot(out, jnp.asarray(g))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = torch_flash_attention(qt, kt, vt, torch.from_numpy(st), torch.from_numpy(en), causal)
+    (out * torch.from_numpy(g)).sum().backward()
+    for name_, got, w in zip("qkv", (qt.grad, kt.grad, vt.grad), want):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=2e-4, rtol=2e-4,
+                                   err_msg=f"d{name_}")
+
+
+def test_flash_plain_backward_matches_autograd():
+    """The plain backward (the kernels' own formulas from the saved lse)
+    equals autograd through the plain forward on the valid rows."""
+    spec, causal = FLASH_BWD_CASES["causal_leftpad_dh128"]
+    q, k, v, st, en = map(torch.from_numpy, _flash_case(6, **spec))
+    g = torch.from_numpy(np.random.RandomState(7).randn(*q.shape).astype(np.float32))
+    g = g * torch.from_numpy(_valid_rows(st.numpy(), en.numpy(), q.shape[1]))[:, :, None, None]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (flash_attention_reference(*leaves, st, en, causal) * g).sum().backward()
+    out, lse = flash_attention_fwd_lse(q, k, v, st, en, causal)
+    delta = (g * out).sum(-1).transpose(1, 2).contiguous()
+    got = flash_attention_bwd_reference(q, k, v, g, lse, delta, st, en, causal)
+    assert torch.equal(got[0], flash_attention_bwd_dq(q, k, v, g, lse, delta, st, en, causal))
+    for a, b in zip(got[1:], flash_attention_bwd_dkv(q, k, v, g, lse, delta, st, en, causal)):
+        assert torch.equal(a, b)
+    for a, t in zip(got, leaves):
+        torch.testing.assert_close(a, t.grad, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_without_grad_takes_the_plain_forward():
+    """No input needs a gradient (a teacher forward, an eval step): the
+    wrapper is the inference forward, which saves nothing."""
+    spec, causal = FLASH_BWD_CASES["bidir_rightpad_dh64"]
+    q, k, v, st, en = map(torch.from_numpy, _flash_case(8, **spec))
+    out = torch_flash_attention(q, k, v, st, en, causal)
+    assert out.grad_fn is None
+    assert torch.equal(out, flash_attention_reference(q, k, v, st, en, causal))
+    with torch.no_grad():
+        assert torch_flash_attention(q.requires_grad_(), k, v, st, en, causal).grad_fn is None
+
+
+def test_flash_bwd_wrappers_refuse_bad_operands():
+    """The CUDA checks run before any build: mixed devices, a float32 dout
+    and an lse of the wrong shape are refused."""
+    meta = torch.empty((1, 16, 2, 128), dtype=torch.bfloat16, device="meta")
+    idx = torch.zeros((1,), dtype=torch.int32, device="meta")
+    lse = torch.zeros((1, 2, 16), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="need all cpu or all cuda"):
+        flash_attention_bwd_dq(meta, meta, meta, meta, lse, torch.zeros(lse.shape), idx, idx)
+    with pytest.raises(ValueError, match="dout must be bfloat16"):
+        fa_mod._launch_bwd(flash_attention_bwd_dq, meta, meta, meta, meta.float(), lse, lse,
+                           idx, idx, True)
+    with pytest.raises(ValueError, match="lse must be a contiguous"):
+        fa_mod._launch_bwd(flash_attention_bwd_dkv, meta, meta, meta, meta, lse[:, :1], lse,
+                           idx, idx, True)
 
 
 def _fused_case(seed, T, L=2, B=4, Hq=6, Hkv=2, S=64, Dh=128):
@@ -240,3 +359,41 @@ def test_fused_kernel_matches_plain_on_card(card, T):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
     for g, w in zip(bufs_k, bufs_p):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_CASES) + ["ragged_T200_gqa"])
+def test_flash_training_kernels_match_plain_on_card(card, name):
+    """B1 + LSE and B6 against their plain versions run in float32 on the
+    same bf16 inputs (lse within 1e-4 + 1e-5 |lse|; out within B1's 3e-2 on
+    valid rows; gradients within
+    chip_smoke's bound: 2e-2 |ref| + 5e-2 rms of the row + 1e-3 rms of the
+    tensor), and two calls bit-identical."""
+    if name == "ragged_T200_gqa":  # T not a multiple of the 64-row tiles
+        spec, causal = dict(B=2, T=200, Hq=6, Hkv=2, Dh=128, starts=[0, 71],
+                            ends=[200, 200]), True
+    else:
+        spec, causal = FLASH_BWD_CASES[name]
+    arrays = _flash_case(11, **spec)
+    q, k, v = (torch.from_numpy(a).to(card, torch.bfloat16) for a in arrays[:3])
+    st, en = (torch.from_numpy(a).to(card) for a in arrays[3:])
+    rows = torch.from_numpy(_valid_rows(arrays[3], arrays[4], q.shape[1])).to(card)
+    g = (torch.randn(q.shape, generator=torch.Generator().manual_seed(12)).to(card)
+         * rows[:, :, None, None]).bfloat16()
+    out, lse = flash_attention_fwd_lse(q, k, v, st, en, causal)
+    ref_out, ref_lse = fa_mod.flash_attention_lse_reference(q.float(), k.float(), v.float(), st,
+                                                            en, causal)
+    assert ((lse - ref_lse).abs() <= 1e-4 + 1e-5 * ref_lse.abs()).all()
+    assert (out.float() - ref_out.float()).abs()[rows].max().item() <= 3e-2  # B1's bound
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g, lse, delta, st, en, causal)
+    got = (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
+    ref = flash_attention_bwd_reference(q.float(), k.float(), v.float(), g.float(), lse, delta,
+                                        st, en, causal)
+    for name_, a, r, sel in zip(("dq", "dk", "dv"), got, ref, (rows, None, None)):
+        scale = (r[sel] if sel is not None else r).pow(2).mean().sqrt()
+        bound = 2e-2 * r.abs() + 5e-2 * r.pow(2).mean(-1, keepdim=True).sqrt() + 1e-3 * scale
+        ratio = (a.float() - r).abs() / bound
+        assert (ratio[sel] if sel is not None else ratio).max().item() <= 1, name_
+    again = (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
