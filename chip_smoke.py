@@ -5,11 +5,11 @@
 
 Phases, in order; each prints one line and any failure raises:
   1. environment: the card's name and power limit, torch/CUDA versions;
-  2. build the five CUDA kernel libraries from ``llm_speech_summarization_tpu_
+  2. build the six CUDA kernel libraries from ``llm_speech_summarization_tpu_
      torch/kernels/csrc`` with nvcc, one process per library, all at once;
-  3. flash attention (B1) against its plain version at the main path's two
-     shapes (LLM prefill, HuBERT self-attention), and the one PyTorch call
-     that computes the same attention (timed only);
+  3. flash attention (B1) against its plain version at the main paths'
+     three shapes (LLM prefill, HuBERT and Whisper self-attention), and the
+     one PyTorch call that computes the same attention (timed only);
   4. the training attention kernels, B1 with its log-sum-exp and the
      backward B6 (dq; dk/dv), against their plain versions run in float32
      at the two training shapes (the LLM at the trainer's spliced length,
@@ -20,17 +20,26 @@ Phases, in order; each prints one line and any failure raises:
   6. paged decode attention (B4) and fused paged decode + page write (B5)
      against their plain versions at the serving shape, page writes
      bit-exact;
-  7. the slice at a small kernel-legal width on the card and on the CPU,
-     from the same weights: the batch path, then a paged ``SlotDecoder``
+  7. the dense-cache decode kernels at the Whisper path's shapes against
+     their plain versions run in float32: B3 over a bf16 cache at T=1 and
+     T=3 and over an int8 cache with one layer's scales, B8 over a bf16
+     and an int8 cache, writes bit-exact, with injected faults the bound
+     must reject;
+  8. the slice at a small kernel-legal width on the card and on the CPU,
+     from the same weights: the HuBERT batch path on an int8 cache and the
+     Whisper one on a bf16 cache, then a paged ``SlotDecoder``
      teacher-forced through admissions and plain and speculative chunks;
-  8. one KD train step at that width on the CPU and on the card, from the
+  9. one KD train step at that width on the CPU and on the card, from the
      same weights and batch;
-  9. the full-width ``llama3_hubert.yaml`` batch path through
+ 10. the full-width ``llama3_hubert.yaml`` batch path through
      ``generate_audio_response_batch(es)``;
- 10. the full-width serving path: ``SummarizationServer`` over HTTP with
+ 11. the full-width serving path: ``SummarizationServer`` over HTTP with
      the paged cache, then with speculative chunks, then with the dense
      cache;
- 11. the full-width trainer (``Trainer(...).train()`` on synthetic data): a
+ 12. the full-width ``llama3_whisper.yaml`` batch path on a bf16 KV cache
+     (B1 and B3), ``greedy_generate(attn_impl="pallas")`` on its prompts
+     (B8) held to the B3 stream, and a dense HTTP server on it;
+ 13. the full-width trainer (``Trainer(...).train()`` on synthetic data): a
      few KD steps and the closing ``validate()``, then a second trainer
      that resumes from its checkpoint and takes one more step, and one
      profiled step for the device-busy share.
@@ -44,6 +53,7 @@ Needs one CUDA card of compute capability 9.0; exits nonzero otherwise.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -64,6 +74,10 @@ B2_ATOL = B2_RTOL = 2e-2  # kernel keeps p in float32, plain rounds p * v_scale 
 # with each output; the phases also show it rejects a shifted pad or length,
 # a dropped page, shifted scales and swapped tables
 PAGED_ATOL, PAGED_RTOL = 1e-3, 1e-2
+# B3 and B8 are held the same way (they too compute in float32): their
+# float32 plain version on the same inputs within PAGED_ATOL + PAGED_RTOL
+# |out|; the phase shows the bound rejects a pad or offset off by one, the
+# wrong layer and a dropped fresh token
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call is the larger
 # of its bytes over the memory rate and its bf16 operations over the
 # tensor-core rate
@@ -136,7 +150,7 @@ def call_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 20, sessions: int = 3, tries: int = 8,
+def device_ms(torch, fn, reps: int = 20, sessions: int = 3, tries: int = 16,
               whole: bool = True) -> float:
     """Device milliseconds per call of ``fn``: the summed duration of the
     GPU work it launched (torch.profiler), without host dispatch gaps.
@@ -208,12 +222,12 @@ def phase_build(card):
     from concurrent.futures import ThreadPoolExecutor
 
     from llm_speech_summarization_tpu_torch.kernels import (
-        build, flash_attention, fused_decode, fused_paged, paged_attention,
+        build, decode_attention, flash_attention, fused_decode, fused_paged, paged_attention,
     )
 
     t0 = time.perf_counter()
     libs = (flash_attention._lib, flash_attention._bwd_lib, fused_decode._lib,
-            paged_attention._lib, fused_paged._lib)
+            paged_attention._lib, fused_paged._lib, decode_attention._lib)
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(lib) for lib in libs]:
             fut.result()
@@ -237,6 +251,10 @@ def phase_flash(torch, card):
                             starts=[0, 319, 37, 130], ends=[320] * 4),
         "hubert": dict(B=4, T=499, Hq=16, Hkv=16, Dh=64, causal=False,
                        starts=[0] * 4, ends=[499, 400, 1, 250]),
+        # (c) Whisper-medium on 8 x 10 s clips with dynamic frames: 500
+        #     frames, bidirectional 16/16, Dh=64, two shorter rows
+        "whisper": dict(B=8, T=500, Hq=16, Hkv=16, Dh=64, causal=False,
+                        starts=[0] * 8, ends=[500] * 6 + [321, 1]),
     }
     for name, c in cases.items():
         B, T = c["B"], c["T"]
@@ -534,6 +552,239 @@ def phase_fused_paged(torch, card):
     return dict(max_abs_err=check["max_abs_err"], bound_ms=b_ms, bound_by=b_by, **t)
 
 
+DENSE_SHAPE = dict(B=8, Hq=24, Hkv=8, Dh=128, L=2)  # the Whisper path's LLM, 8 clips
+
+
+def _whisper_cache_len() -> int:
+    """S of the whisper_full batch path's cache: the prompt of 10 s clips
+    (the engine's buffer arithmetic and template) rounded to the prompt
+    bucket, plus 32 new tokens rounded to the decode bucket."""
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.infer.engine import BUCKET, DECODE_BUCKET, _round_up
+    from llm_speech_summarization_tpu_torch.models.audio_encoder import (
+        audio_embed_buffer_len, encoder_setup_from_config,
+    )
+    from llm_speech_summarization_tpu_torch.utils.prompts import prompt_template_for
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import load_tokenizer
+
+    cfg = load_config(str(YAML_DIR / "llama3_whisper.yaml"))
+    tok = load_tokenizer(cfg.model.llm_type, cfg.model.tokenizer_path)
+    tpl = prompt_template_for(cfg.model.llm_type)
+    n = (len(tok.encode(tpl.prefix, add_bos=True)) + len(tok.encode(tpl.suffix, add_bos=False))
+         + audio_embed_buffer_len(encoder_setup_from_config(cfg), 160000))
+    return _round_up(n, BUCKET) + _round_up(32, DECODE_BUCKET)
+
+
+def _dense_case(torch, seed, S, T, quantized):
+    """DENSE_SHAPE over a cache of S slots: a bf16 cache of unit-scale
+    values, or int8 values with scales that keep |int8 x scale| <= ~1.5;
+    pads with one row starting 40 slots in, offsets with one row at the
+    last slot(s) and one with nothing cached (only the fresh block)."""
+    c = DENSE_SHAPE
+    B, Hq, Hkv, Dh, L = (c[k] for k in ("B", "Hq", "Hkv", "Dh", "L"))
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+
+    def bf(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+
+    if quantized:
+        kc, vc = (torch.from_numpy(rng.randint(-127, 128, size=(L, B, Hkv, S, Dh))
+                                   .astype(np.int8)).to(dev) for _ in range(2))
+        ks, vs = (bf(0.002 + 0.01 * rng.rand(L, B, Hkv, S)) for _ in range(2))
+    else:
+        kc, vc = (bf(rng.randn(L, B, Hkv, S, Dh)) for _ in range(2))
+        ks = vs = None
+    pads = rng.randint(0, 5, size=(B,)).astype(np.int32)
+    pads[2] = 40
+    offs = rng.randint(pads + 1, S - T + 1).astype(np.int32)
+    offs[0], offs[1] = S - T, pads[1]
+    q, kn, vn = (bf(rng.randn(B, T, h, Dh)) for h in (Hq, Hkv, Hkv))
+    return q, kc, vc, ks, vs, kn, vn, pads, offs
+
+
+def _cache_only(torch, q, kc, vc, ks, vs, pads, offs):
+    """float32 attention of q (B, T, Hq, Dh) over one layer's cache window
+    [pad, offset) alone: the fault of a kernel that drops the fresh block."""
+    B, T, Hq, Dh = q.shape
+    Hkv, S = kc.shape[1], kc.shape[2]
+    k = kc.float() * (ks.float()[..., None] if ks is not None else 1.0)
+    v = vc.float() * (vs.float()[..., None] if vs is not None else 1.0)
+    s = torch.einsum("bthgd,bhsd->bthgs", q.float().reshape(B, T, Hkv, Hq // Hkv, Dh),
+                     k) * Dh ** -0.5
+    slot = torch.arange(S, device=q.device)
+    valid = (slot[None, :] >= pads[:, None]) & (slot[None, :] < offs[:, None])
+    s = torch.where(valid[:, None, None, None, :], s, torch.full((), -1e30, device=q.device))
+    out = torch.einsum("bthgs,bhsd->bthgd", torch.softmax(s, -1), v)
+    return out.reshape(B, T, Hq, Dh)
+
+
+def _dense_work(valid, T, elem_bytes, quantized, writes):
+    """(bytes, flops) of one B3 or B8 call at DENSE_SHAPE: the valid slots'
+    k and v (with their bf16 scales when int8), q, the fresh k/v and the
+    output, plus the written fresh rows (B3); 2 flops per multiply-add of
+    q.k and p.v over the valid slots and the causal fresh block."""
+    c = DENSE_SHAPE
+    B, Hq, Hkv, Dh = c["B"], c["Hq"], c["Hkv"], c["Dh"]
+    slot_bytes = 2 * (Dh * elem_bytes + (2 if quantized else 0))  # k and v of one slot
+    n_bytes = valid.sum() * Hkv * slot_bytes + 2 * B * T * (2 * Hq + 2 * Hkv) * Dh
+    if writes:
+        n_bytes += B * T * Hkv * slot_bytes
+    flops = 4 * Dh * Hq * T * (valid.sum() + B * (T + 1) / 2)
+    return float(n_bytes), float(flops)
+
+
+def _dense_check(torch, what, got, exact_fn, cache_only, mutants):
+    """Hold ``got`` to ``exact_fn()`` within PAGED_ATOL + PAGED_RTOL |exact|
+    and show the bound rejects each fault: ``exact_fn(**kw)`` for each of
+    ``mutants`` and the cache-only attention (the fresh block dropped)."""
+    exact = exact_fn()
+    bound = PAGED_ATOL + PAGED_RTOL * exact.abs()
+
+    def worst(x):
+        return ((x.float() - exact).abs() / bound).max().item()
+
+    ratio = worst(got)
+    if not torch.isfinite(got).all() or not ratio <= 1:
+        raise AssertionError(f"{what}: out differs from the float32 plain version by {ratio} "
+                             f"x the bound")
+    rejected = {name: worst(exact_fn(**kw)) for name, kw in mutants.items()}
+    rejected["fresh token dropped"] = worst(cache_only)
+    if min(rejected.values()) <= 1:
+        raise AssertionError(f"{what}: the bound does not reject every fault: {rejected}")
+    return dict(max_abs_err=(got.float() - exact).abs().max().item(), err_over_bound=ratio,
+                out_rms=exact.pow(2).mean().sqrt().item(), faults_over_bound=rejected)
+
+
+def phase_dense_decode(torch, card):
+    """B3 (bf16 cache at T=1 and T=3, int8 cache with one layer's scales)
+    and B8 (bf16 and int8 caches) against their plain versions at the
+    whisper_full path's shapes, reading layer 1 of (L, ...) caches."""
+    from llm_speech_summarization_tpu_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_reference,
+    )
+    from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
+        fused_decode_attention_write, fused_decode_attention_write_reference,
+    )
+
+    S, layer = _whisper_cache_len(), 1
+    results = {}
+    for T, quantized in ((1, False), (3, False), (1, True)):
+        name = f"b3_{'int8' if quantized else 'bf16'}_T{T}"
+        q, kc, vc, ks, vs, kn, vn, pads_np, offs_np = _dense_case(torch, 50 + T, S, T, quantized)
+        pads, offs = (torch.from_numpy(a).cuda() for a in (pads_np, offs_np))
+        sc = (ks[layer], vs[layer]) if quantized else ()
+        snap = [t.clone() for t in (kc, vc)]
+        got_bufs, ref_bufs = [t.clone() for t in snap], [t.clone() for t in snap]
+        mo = int(offs_np.max())
+        got = fused_decode_attention_write(q, *got_bufs, kn, vn, pads, offs, layer, *sc,
+                                           max_offset=mo)
+        plain = fused_decode_attention_write_reference(q, *ref_bufs, kn, vn, pads, offs, layer,
+                                                       *sc)
+        torch.cuda.synchronize()
+        if quantized:  # the fresh (B, Hkv) scales, bit-exact
+            if not all(torch.equal(g, r) for g, r in zip(got[1:], plain[1:])):
+                raise AssertionError(f"B3 {name}: the returned fresh scales differ")
+            got = got[0]
+
+        def exact_fn(pads=pads, offs=offs, layer=layer):
+            out = fused_decode_attention_write_reference(
+                q.float(), snap[0].clone(), snap[1].clone(), kn.float(), vn.float(), pads, offs,
+                layer, *((ks[layer], vs[layer]) if quantized else ()))
+            return out[0] if quantized else out
+
+        live = torch.from_numpy((offs_np > pads_np).astype(np.int32)).cuda()
+        check = _dense_check(torch, f"B3 {name}", got, exact_fn, _cache_only(
+            torch, q, snap[0][layer], snap[1][layer], *(sc or (None, None)), pads, offs), {
+                "pad+1": dict(pads=pads + live), "offset-1": dict(offs=offs - live),
+                "wrong layer": dict(layer=0)})
+        written = torch.zeros(kc.shape[:4], dtype=torch.bool, device="cuda")
+        for b in range(DENSE_SHAPE["B"]):
+            written[layer, b, :, offs_np[b]:offs_np[b] + T] = True
+        for bname, g, r, s0 in zip(("k_cache", "v_cache"), got_bufs, ref_bufs, snap):
+            if not torch.equal(g, r):
+                raise AssertionError(f"B3 {name}: {bname} differs from the plain version's "
+                                     f"write at {int((g != r).sum())} elements")
+            if not torch.equal(g[~written], s0[~written]) or torch.equal(g[written],
+                                                                          s0[written]):
+                raise AssertionError(f"B3 {name}: {bname} written outside the fresh slots, "
+                                     f"or not at them")
+        t = timings(torch, lambda: fused_decode_attention_write(
+                        q, *got_bufs, kn, vn, pads, offs, layer, *sc, max_offset=mo),
+                    lambda: fused_decode_attention_write_reference(
+                        q, *ref_bufs, kn, vn, pads, offs, layer, *sc))
+        valid = np.clip(offs_np - pads_np, 0, None).astype(np.int64)
+        n_bytes, flops = _dense_work(valid, T, 1 if quantized else 2, quantized, writes=True)
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, flops)
+        # no PyTorch call attends a cache and writes it in place
+        results[name] = dict(**check, **t, library_ms=None)
+        emit("dense_decode", kernel="B3", case=name, S=S, T=T, shape=DENSE_SHAPE, **check,
+             atol=PAGED_ATOL, rtol=PAGED_RTOL, cache_writes="bit-exact", bytes=n_bytes,
+             flops=flops, **t, card=card)
+
+    for quantized in (False, True):
+        name = f"b8_{'int8' if quantized else 'bf16'}"
+        q, kc, vc, ks, vs, kn, vn, pads_np, _ = _dense_case(torch, 60, S, 1, quantized)
+        offset = S - 16
+        pads = torch.from_numpy(pads_np).cuda()
+        sc = (ks[layer], vs[layer]) if quantized else ()
+        snap = [t.clone() for t in (kc, vc)]
+        got = decode_attention(q, kc[layer], vc[layer], kn, vn, pads, offset, *sc)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((kc, vc), snap)):
+            raise AssertionError(f"B8 {name} wrote into the cache")
+
+        def exact_fn(pads=pads, offset=offset, layer=layer):
+            return decode_attention_reference(
+                q.float(), kc[layer], vc[layer], kn.float(), vn.float(), pads, offset,
+                *((ks[layer], vs[layer]) if quantized else ()))
+
+        offs = torch.full_like(pads, offset)
+        check = _dense_check(torch, f"B8 {name}", got, exact_fn, _cache_only(
+            torch, q, kc[layer], vc[layer], *(sc or (None, None)), pads, offs), {
+                "pad+1": dict(pads=pads + 1), "offset-1": dict(offset=offset - 1),
+                "wrong layer": dict(layer=0)})
+        t = timings(torch, lambda: decode_attention(q, kc[layer], vc[layer], kn, vn, pads,
+                                                    offset, *sc),
+                    lambda: decode_attention_reference(q, kc[layer], vc[layer], kn, vn, pads,
+                                                       offset, *sc))
+        valid = np.clip(offset - pads_np, 0, None).astype(np.int64)
+        n_bytes, flops = _dense_work(valid, 1, 1 if quantized else 2, quantized, writes=False)
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, flops)
+        # over the bf16 cache, two PyTorch calls compute it: the [cache | fresh]
+        # concatenation and SDPA with a boolean mask; none takes an int8 cache
+        t["library_ms"] = None if quantized else device_ms(
+            torch, _sdpa_decode_call(torch, q, kc[layer], vc[layer], kn, vn, pads, offset),
+            whole=False)
+        results[name] = dict(**check, **t)
+        emit("dense_decode", kernel="B8", case=name, S=S, offset=offset, shape=DENSE_SHAPE,
+             **check, atol=PAGED_ATOL, rtol=PAGED_RTOL, bytes=n_bytes, flops=flops, **t,
+             library="torch.cat + scaled_dot_product_attention" if not quantized else None,
+             card=card)
+    return results
+
+
+def _sdpa_decode_call(torch, q, kc, vc, kn, vn, pads, offset):
+    """``scaled_dot_product_attention`` of q (B, 1, Hq, Dh) over one layer's
+    bf16 cache concatenated with the fresh k/v, masked to [pad, offset) and
+    the fresh slot: B8's function as two PyTorch calls (the port never
+    calls them)."""
+    import torch.nn.functional as F
+
+    S = kc.shape[2]
+    slot = torch.arange(S + 1, device=q.device)
+    mask = ((slot[None, :] >= pads[:, None]) & (slot[None, :] < offset)) | (slot[None, :] == S)
+    mask = mask[:, None, None, :]  # (B, 1, 1, S + 1)
+    qt = q.transpose(1, 2)
+
+    def call():
+        k = torch.cat([kc, kn.transpose(1, 2)], dim=2)
+        v = torch.cat([vc, vn.transpose(1, 2)], dim=2)
+        return F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, enable_gqa=True)
+
+    return call
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -542,23 +793,31 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_slice(torch, card):
+def phase_slice(torch, card, whisper=False):
     """Small kernel-legal width, same weights on the CPU (plain versions)
-    and the card (kernels)."""
+    and the card (kernels): ``llama3_hubert.yaml`` (int8 weights and cache:
+    B1, B2) or, with ``whisper``, ``llama3_whisper.yaml`` on a bf16 cache
+    (bf16 weights: B1, B3)."""
     from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
     from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
     from llm_speech_summarization_tpu_torch.models.hubert import HubertConfig
     from llm_speech_summarization_tpu_torch.models.llama import (
         LlamaConfig, init_kv_cache, llama_forward,
     )
+    from llm_speech_summarization_tpu_torch.models.whisper import WhisperConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(str(YAML_DIR / "llama3_hubert.yaml"))
+    cfg = load_config(str(YAML_DIR / ("llama3_whisper.yaml" if whisper else "llama3_hubert.yaml")))
     cfg.model.llm_embedding_channels = 256
     llm_cfg = LlamaConfig(hidden_size=256, intermediate_size=1024, num_layers=2,
                           num_heads=6, num_kv_heads=2, head_dim=128)
-    enc_cfg = HubertConfig(hidden_size=256, num_layers=2, num_heads=4, intermediate_size=1024)
+    if whisper:
+        cfg.model.kv_cache_dtype = "bfloat16"
+        enc_cfg = WhisperConfig(d_model=256, num_layers=2, num_heads=4, ffn_dim=1024)
+    else:
+        enc_cfg = HubertConfig(hidden_size=256, num_layers=2, num_heads=4,
+                               intermediate_size=1024)
     cpu = LLMSpeechTextInference(cfg, llm_cfg=llm_cfg, encoder_cfg=enc_cfg, device="cpu")
     gpu = LLMSpeechTextInference(
         cfg, llm_params=_to(cpu.llm_params, "cuda"),
@@ -579,7 +838,8 @@ def phase_slice(torch, card):
     # prefill + teacher-forced decode from the CPU's embeds and tokens
     B, Lp, _ = e_c.shape
     steps = 16
-    caches = [init_kv_cache(llm_cfg, B, Lp + steps, torch.int8, device=d) for d in ("cpu", "cuda")]
+    caches = [init_kv_cache(llm_cfg, B, Lp + steps, cpu.cache_dtype, device=d)
+              for d in ("cpu", "cuda")]
     outs = [llama_forward(eng.llm_params, llm_cfg, inputs_embeds=e_c.to(d), attn_mask=m_c.to(d),
                           kv_cache=c, cache_offset=0, last_logit_only=True)
             for eng, d, c in ((cpu, "cpu", caches[0]), (gpu, "cuda", caches[1]))]
@@ -614,7 +874,8 @@ def phase_slice(torch, card):
 
     text_c = cpu.generate_audio_response_batch(clips, max_new_tokens=steps)
     text_g = gpu.generate_audio_response_batch(clips, max_new_tokens=steps)
-    emit("slice_small", embed_max_abs_err=embed_err, embed_tol=EMBED_TOL,
+    emit("slice_small", config=cfg.model.audio_encoder.type,
+         kv_cache=str(cpu.cache_dtype), embed_max_abs_err=embed_err, embed_tol=EMBED_TOL,
          prefill_logit_max_abs_err=prefill_err, decode_logit_max_abs_err=step_err,
          logit_tol=LOGIT_TOL, decided_checked=checked, decisions=decisions,
          engine_streams_equal=text_c == text_g, card=card)
@@ -1176,7 +1437,10 @@ def phase_train_full(torch, card):
 
 def _wrappers():
     from llm_speech_summarization_tpu_torch.kernels import flash_attention as fa
-    from llm_speech_summarization_tpu_torch.kernels.fused_decode import fused_decode
+    from llm_speech_summarization_tpu_torch.kernels.decode_attention import decode_attention
+    from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
+        fused_decode, fused_decode_attention_write,
+    )
     from llm_speech_summarization_tpu_torch.kernels.fused_paged import fused_paged_decode
     from llm_speech_summarization_tpu_torch.kernels.paged_attention import paged_decode_attention
 
@@ -1184,7 +1448,9 @@ def _wrappers():
             "paged_attention": paged_decode_attention, "fused_paged": fused_paged_decode,
             "flash_attention_lse": fa.flash_attention_fwd_lse,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "fused_decode_attention_write": fused_decode_attention_write,
+            "decode_attention": decode_attention}
 
 
 def reset_launches() -> None:
@@ -1286,6 +1552,167 @@ def phase_full(torch, card):
     return launches, eng
 
 
+def _b3_margins(torch, eng, embeds, mask, tokens, steps):
+    """Teacher-force the B3 stream ``tokens`` through prefill and decode
+    steps on a bf16 cache: per step the logits' argmax and top-2 margin
+    (B, steps), the margin-aware contract's reference."""
+    from llm_speech_summarization_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    B, Lp, _ = embeds.shape
+    cache = init_kv_cache(eng.llm_cfg, B, Lp + steps, torch.bfloat16, device="cuda")
+    out = llama_forward(eng.llm_params, eng.llm_cfg, inputs_embeds=embeds, attn_mask=mask,
+                        kv_cache=cache, cache_offset=0, last_logit_only=True)
+    lens = mask.to(torch.int32).sum(1)
+    pads = (Lp - lens).to(torch.int32)
+    argmax, margin = [], []
+    for step in range(steps):
+        logits = out.logits[:, -1]
+        top2 = torch.topk(logits, 2, dim=-1).values
+        argmax.append(logits.argmax(-1))
+        margin.append(top2[:, 0] - top2[:, 1])
+        if step + 1 < steps:
+            out = llama_forward(eng.llm_params, eng.llm_cfg, input_ids=tokens[:, step, None],
+                                positions=(lens + step)[:, None], kv_cache=cache,
+                                cache_offset=Lp + step, kv_pad_lens=pads)
+    return torch.stack(argmax, 1).cpu(), torch.stack(margin, 1).float().cpu()
+
+
+def phase_whisper_full(torch, card):
+    """The full-width ``llama3_whisper.yaml`` batch path on a bf16 KV cache
+    (Whisper-medium with dynamic frames, bf16 Llama-3.2-3B): 8 x 10 s clips
+    through ``generate_audio_response_batch`` (B1 in the encoder and the
+    prefill, B3 per decode step); then ``greedy_generate(attn_impl=
+    "pallas")`` on the same prompts (B8 per step), its stream held to the
+    B3 stream under the margin-aware contract; then a dense HTTP server on
+    the same engine with 4 requests."""
+    from collections import Counter
+
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
+    from llm_speech_summarization_tpu_torch.infer.generate import greedy_generate
+    from llm_speech_summarization_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(str(YAML_DIR / "llama3_whisper.yaml"))
+    cfg.model.kv_cache_dtype = "bfloat16"
+    t0 = time.perf_counter()
+    eng = LLMSpeechTextInference(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    enc_layers, L = eng.encoder_setup.encoder_cfg.num_layers, eng.llm_cfg.num_layers
+    rng = np.random.RandomState(0)
+    clips = [(0.1 * rng.randn(160000)).astype(np.float32) for _ in range(8)]  # 8 x 10 s
+    max_new = 32
+    eng.generate_audio_response_batch(clips, max_new_tokens=max_new)  # warm-up
+    torch.cuda.synchronize()
+
+    # --- the main path, counted
+    reset_launches()
+    eng.counts.clear()
+    t0 = time.perf_counter()
+    texts = eng.generate_audio_response_batch(clips, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = read_launches()
+    counts = dict(eng.counts)
+    check_launches("whisper batch path", launches, {
+        "flash_attention": enc_layers * counts["encoder_forwards"] + L * counts["prefills"],
+        "fused_decode_attention_write": L * counts["decode_steps"]})
+    if len(texts) != 8:
+        raise AssertionError("whisper_full: wrong number of responses")
+
+    # --- breakdown of one batch, stage by stage (not counted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embeds, mask = eng.build_audio_prompt_batch(clips)
+    torch.cuda.synchronize()
+    enc_ms = 1e3 * (time.perf_counter() - t0)
+    B, Lp, _ = embeds.shape
+    steps = 16
+    cache = init_kv_cache(eng.llm_cfg, B, Lp + steps, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = llama_forward(eng.llm_params, eng.llm_cfg, inputs_embeds=embeds, attn_mask=mask,
+                        kv_cache=cache, cache_offset=0, last_logit_only=True)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.isfinite(out.logits).all():
+        raise AssertionError("whisper_full: prefill logits are not finite")
+    lens = mask.to(torch.int32).sum(1)
+    pads = (Lp - lens).to(torch.int32)
+    tok = out.logits[:, -1].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(1, steps):
+        out = llama_forward(eng.llm_params, eng.llm_cfg, input_ids=tok[:, None],
+                            positions=(lens + step - 1)[:, None], kv_cache=cache,
+                            cache_offset=Lp + step - 1, kv_pad_lens=pads)
+        tok = out.logits[:, 0].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / (steps - 1)
+    if not torch.isfinite(out.logits).all():
+        raise AssertionError("whisper_full: decode logits are not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the batch path's
+
+    # --- B8: greedy_generate(attn_impl="pallas") on the same prompts, counted
+    gen = dict(max_new_tokens=64, eos_id=eng.tokenizer.eos_id, cache_dtype=torch.bfloat16,
+               num_steps=max_new)
+    tok_b3, n_b3 = greedy_generate(eng.llm_params, eng.llm_cfg, embeds, mask, **gen)
+    b8_counts = Counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    tok_b8, n_b8 = greedy_generate(eng.llm_params, eng.llm_cfg, embeds, mask, attn_impl="pallas",
+                                   counts=b8_counts, **gen)
+    torch.cuda.synchronize()
+    b8_s = time.perf_counter() - t0
+    b8_launches = read_launches()
+    check_launches("greedy_generate(attn_impl='pallas')", b8_launches, {
+        "flash_attention": L * b8_counts["prefills"],
+        "decode_attention": L * b8_counts["decode_steps"]})
+    # the margin-aware contract: a row's B8 stream may part from its B3
+    # stream only at a step where B3's top-2 margin is under 2 * LOGIT_TOL
+    # (each row up to its own length: a finished row emits EOS from then on)
+    n_b3, n_b8 = n_b3.tolist(), n_b8.tolist()
+    argmax_b3, margins = _b3_margins(torch, eng, embeds, mask, tok_b3, max(n_b3))
+    b3_host = tok_b3.cpu().long()
+    if any(not torch.equal(argmax_b3[r, :n_b3[r]], b3_host[r, :n_b3[r]]) for r in range(B)):
+        raise AssertionError("whisper_full: the teacher-forced B3 stream is not the B3 stream")
+    parted = {}
+    for r in range(B):
+        n = min(n_b3[r], n_b8[r])
+        diff = (tok_b8[r, :n] != tok_b3[r, :n]).nonzero()
+        if not len(diff) and n_b3[r] != n_b8[r]:
+            raise AssertionError(f"whisper_full: row {r} ends at {n_b8[r]} with B8, {n_b3[r]} "
+                                 f"with B3, on equal tokens")
+        if len(diff):
+            t = int(diff[0])
+            parted[r] = dict(step=t, margin=margins[r, t].item())
+            if margins[r, t] > 2 * LOGIT_TOL:
+                raise AssertionError(f"whisper_full: the B8 stream parts from B3's at row {r} "
+                                     f"step {t}, where B3's top-2 margin is {margins[r, t]}")
+
+    rng = np.random.RandomState(8)
+    srv_clips = [(0.1 * rng.randn(int(16000 * rng.uniform(6.0, 10.0)))).astype(np.float32)
+                 for _ in range(4)]
+    server = _serve_burst(
+        torch, card, eng, "whisper_dense",
+        [("/v1/audio_summary", {"audio": c.tolist(), "max_new_tokens": 32}, False)
+         for c in srv_clips],
+        paged=False, n_slots=16, max_new_tokens=64, device="cuda")
+    emit("whisper_full", config="llama3_whisper.yaml", kv_cache="bfloat16", batch=8,
+         clip_s=10, max_new_tokens=max_new, prompt_len=Lp, init_s=init_s, batch_call_s=batch_s,
+         utt_per_s=8 / batch_s, encoder_ms=enc_ms, prefill_ms=prefill_ms,
+         decode_ms_per_step=decode_ms, max_memory_allocated_gb=peak_gb,
+         launches=launches, engine_counts=counts,
+         pallas_stream=dict(call_s=b8_s, steps=b8_counts["decode_steps"], launches=b8_launches,
+                            rows_parted=parted, min_margin=margins.min().item(),
+                            streams_equal=torch.equal(tok_b8, tok_b3)),
+         server=dict(requests_per_s=server["requests_per_s"],
+                     p50_first_token_s=server["p50_first_token_s"]), card=card)
+    return [launches, b8_launches, server["launches"]]
+
+
 def _http(port, path, body=None, stream=False):
     """(status, JSON body) of a GET or POST on 127.0.0.1; with ``stream``,
     (status, ndjson objects, seconds from the request to the first delta)."""
@@ -1361,10 +1788,12 @@ def _serve_burst(torch, card, eng, name, requests, **server_kw):
     enc_layers = eng.encoder_setup.encoder_cfg.num_layers
     paged = server_kw.get("paged", False)
     steps, rounds = counts.get("steps", 0), counts.get("spec_rounds", 0)
+    # a dense step: B2 over an int8 cache, B3 over a bf16 one
+    dense = "fused_decode" if eng.cache_dtype == torch.int8 else "fused_decode_attention_write"
     check_launches(name, launches, {
         "flash_attention": L * counts.get("prefills", 0)
         + enc_layers * eng_counts.get("encoder_forwards", 0),
-        "fused_decode": 0 if paged else L * (steps + rounds),
+        dense: 0 if paged else L * (steps + rounds),
         "paged_attention": L * rounds if paged else 0,
         "fused_paged": L * steps if paged else 0})
     firsts = sorted(r[2] for (_, _, stream), r in zip(requests, results)
@@ -1434,12 +1863,20 @@ def main() -> int:
     fused = phase_fused(torch, card)
     paged = phase_paged(torch, card)
     fpaged = phase_fused_paged(torch, card)
+    dense = phase_dense_decode(torch, card)
     phase_serving_small(torch, card, *phase_slice(torch, card))
+    phase_slice(torch, card, whisper=True)
     with torch.enable_grad():
         phase_train_small(torch, card)
     launches, eng = phase_full(torch, card)
     serving = phase_serving_full(torch, card, eng)
     del eng
+    # the servers' threads leave the engine in reference cycles: collect
+    # them, or its weights stay allocated into the next phase's peak memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_runs = phase_whisper_full(torch, card)
+    gc.collect()
     torch.cuda.empty_cache()
     with torch.enable_grad():
         train_runs = phase_train_full(torch, card)
@@ -1448,8 +1885,9 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     # launches: the sum over the main-path runs (batch path, three servers,
-    # the trainer and the resumed trainer)
-    for run in [r["launches"] for r in serving.values()] + list(train_runs):
+    # the Whisper batch path, its B8 stream and server, the trainer and the
+    # resumed trainer)
+    for run in [r["launches"] for r in serving.values()] + whisper_runs + list(train_runs):
         for k, v in run.items():
             launches[k] += v
     csrc = "llm_speech_summarization_tpu_torch/kernels/csrc/"
@@ -1471,6 +1909,12 @@ def main() -> int:
               "paged_attention", paged, [paged["max_abs_err"]]),
         entry("fused_paged_decode", "fused_paged.cu", "fused_paged.py:118", "fused_paged",
               fpaged, [fpaged["max_abs_err"]]),
+        entry("fused_decode_attention_write", "fused_decode.cu", "fused_decode.py:169",
+              "fused_decode_attention_write", dense["b3_bf16_T1"],
+              [r["max_abs_err"] for k, r in dense.items() if k.startswith("b3")]),
+        entry("decode_attention", "decode_attention.cu", "decode_attention.py:47",
+              "decode_attention", dense["b8_bf16"],
+              [r["max_abs_err"] for k, r in dense.items() if k.startswith("b8")]),
     ]
     for name, source, replaces, key in (
             ("flash_attention_lse", "flash_attention.cu", "flash_attention.py:37", "fwd_lse"),

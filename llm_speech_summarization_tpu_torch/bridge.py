@@ -4,8 +4,10 @@ port's tensors, and back.
 
 Keys and layouts are kept as they are: the stacked ``(L, in, out)`` Llama
 layers, fused ``wqkv`` / ``w_gateup``, int8 weights with their bf16
-``*_scale`` leaves, HuBERT's list of conv layers. bfloat16 numpy arrays
-(ml_dtypes) cross bit for bit through a 16-bit integer view.
+``*_scale`` leaves, HuBERT's list of conv layers, Whisper's stacked layers
+and its conv weights, which the JAX package already keeps in the torch
+``(out, in, k)`` layout. bfloat16 numpy arrays (ml_dtypes) cross bit for
+bit through a 16-bit integer view.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def _map(tree: Any, fn) -> Any:
 def params_from_numpy(tree, device=None):
     """A JAX parameter pytree with numpy leaves → the same tree of tensors:
     Llama params (plain, fused and/or int8-quantized) or audio-encoder params
-    ({"encoder", "proj_w", "proj_b"}, or a bare HuBERT tree)."""
+    ({"encoder", "proj_w", "proj_b"}, or a bare HuBERT or Whisper tree)."""
     return _map(tree, lambda a: tensor_from_numpy(a, device))
 
 

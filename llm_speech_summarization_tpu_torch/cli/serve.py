@@ -2,7 +2,8 @@
 
 Usage:
   python -m llm_speech_summarization_tpu_torch.cli.serve -c <yaml> \
-      [--paged] [--speculative_k K] [--port 8080] [--device cpu]
+      [--paged] [--speculative_k K] [--kv_cache_dtype bfloat16] [--port 8080] \
+      [--device cpu]
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ def main(argv=None):
     parser.add_argument("--paged", action="store_true",
                         help="paged KV cache for the continuous scheduler (with an int8 "
                         "kv_cache_dtype: the paged kernels B4/B5)")
+    parser.add_argument("--kv_cache_dtype", choices=["int8", "bfloat16"], default=None,
+                        help="override model.kv_cache_dtype (a dense int8 cache decodes "
+                        "through kernel B2, a bfloat16 one through B3)")
     parser.add_argument("--slots", type=int, default=32,
                         help="continuous scheduler: persistent KV slots")
     parser.add_argument("--max_new_tokens", type=int, default=256,
@@ -57,8 +61,11 @@ def main(argv=None):
     from ..serve.server import serve
 
     continuous = {"auto": "auto", "continuous": True, "request": False}[args.scheduler]
+    config = load_config(args.config)
+    if args.kv_cache_dtype is not None:
+        config.model.kv_cache_dtype = args.kv_cache_dtype
     serve(
-        load_config(args.config),
+        config,
         host=args.host,
         port=args.port,
         warmup=not args.no_warmup,

@@ -3,24 +3,28 @@
 
   * ``generate_text_response(_batch)``: templated text prompts;
   * ``generate_audio_response(_batch)``: audio (+ optional text) prompts,
-    HuBERT → projector → ``[prefix | mid | suffix]`` splice → decode;
+    HuBERT or Whisper → projector → ``[prefix | mid | suffix]`` splice →
+    decode;
   * ``generate_audio_response_batches``: a stream of batches, run one after
     another (the JAX engine's one-deep upload pipeline is later work).
 
 Decoding is greedy, sampled at the engine's temperature / top-k / top-p,
 sampled per request (``sampling``), or, with ``speculative_k > 0`` and a
-greedy batch, self-speculative. Batches are padded to a power of two rows,
-audio to 1600-sample (100 ms) buckets, prompts to ``BUCKET``-token lengths
-and ``max_new_tokens`` to ``DECODE_BUCKET``, as the JAX engine does. Not
-ported yet: meshes (tensor parallel serving), checkpoint loading, the
-Whisper encoder and the ctc_pool projector.
+greedy batch, self-speculative. The KV cache is ``kv_cache_dtype`` (or the
+compute dtype): int8 decodes through kernel B2, bfloat16 through B3.
+Batches are padded to a power of two rows, audio to 1600-sample (100 ms)
+buckets, prompts to ``BUCKET``-token lengths and ``max_new_tokens`` to
+``DECODE_BUCKET``, as the JAX engine does; the audio buffer length comes
+from the encoder's frame arithmetic (``audio_embed_buffer_len``), HuBERT's
+or Whisper's, without running it. Not ported yet: meshes (tensor parallel
+serving), checkpoint loading and the ctc_pool projector.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import Counter
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -41,6 +45,7 @@ from ..models.llama import (
     llama_preset,
     quantize_llama_params,
 )
+from ..models.whisper import WhisperConfig
 from ..ops.splice import concat_mid_buffers, splice_sequences
 from ..utils.prompts import prompt_template_for
 from ..utils.tokenizer import load_tokenizer
@@ -77,7 +82,7 @@ class LLMSpeechTextInference:
         audio_encoder_params=None,
         llm_params=None,
         llm_cfg: Optional[LlamaConfig] = None,
-        encoder_cfg: Optional[HubertConfig] = None,
+        encoder_cfg: Optional[Union[HubertConfig, WhisperConfig]] = None,
         device=None,
         temperature: float = 0.0,
         top_k: int = 0,

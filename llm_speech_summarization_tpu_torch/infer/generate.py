@@ -86,6 +86,7 @@ def greedy_generate(
     num_steps: Optional[int] = None,
     sampling=None,
     counts: Optional[Counter] = None,
+    attn_impl: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Generate up to ``max_new_tokens`` from a left-padded embeds batch;
     ``num_steps`` caps the steps below it (the cache and output stay
@@ -93,7 +94,8 @@ def greedy_generate(
     ``(rngs, temps, top_ks, top_ps)`` tuple of tensors (``infer/
     sampling.py``) that overrides the one temperature: draw t of row b keys
     to the row's unpadded position. ``counts``, when given, gains
-    "prefills" and "decode_steps".
+    "prefills" and "decode_steps". ``attn_impl`` goes to every decode step
+    (``llama_forward``): "pallas" reads the cache through kernel B8.
 
     Returns (tokens (B, max_new_tokens) int32, EOS-padded; lengths (B,)).
     """
@@ -138,6 +140,7 @@ def greedy_generate(
             params, cfg, input_ids=last[:, None], attn_mask=None,
             positions=(lens + step - 1)[:, None],
             kv_cache=cache, cache_offset=L + step - 1, kv_pad_lens=pad_lens,
+            attn_impl=attn_impl,
         )
         if counts is not None:
             counts["decode_steps"] += 1

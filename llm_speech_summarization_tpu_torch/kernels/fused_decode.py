@@ -1,22 +1,31 @@
-"""Fused decode attention + in-place quantized cache write (kernel B2):
-wrapper, plain version, launch count.
+"""Fused decode attention + in-place cache write over a dense KV cache
+(kernels B2 and B3): wrappers, plain versions, launch counts.
 
-Port of ``llm_speech_summarization_tpu/kernels/fused_decode.py::
-fused_decode_aliased_scales``. The CUDA kernel is ``csrc/fused_decode.cu``;
-its header note says what bounds it on the H100 and how this first design
-meets that.
+Ports of ``llm_speech_summarization_tpu/kernels/fused_decode.py``:
+
+* ``fused_decode`` (B2, ``fused_decode_aliased_scales``): the int8 cache
+  with its ``(L, B, Hkv, S)`` scale tensors, both written in place;
+* ``fused_decode_attention_write`` (B3): a bf16 cache, or an int8 cache
+  with one layer's ``(B, Hkv, S)`` scales that are only read, the fresh
+  ``(B, Hkv)`` scales being returned (the TPU function's
+  ``LSS_FUSED_ALIASED_SCALES=0`` mode).
+
+Both are one CUDA kernel, ``csrc/fused_decode.cu`` over the body in
+``csrc/dense_decode.cuh``, whose header note says what bounds it on the
+H100 and how this first design meets that.
 
 For layer ``layer`` of the cache, each of the T >= 1 fresh queries attends
 the slots ``pad <= s < offset`` plus the fresh block causally; then the
-fresh k/v are quantized like ``_quantize_kv`` and written in place at
-``[offset, offset + T)``, values and scales. The caller owns the cache
-tensors; both versions mutate them and return the attention output.
+fresh k/v are written in place at ``[offset, offset + T)``: quantized like
+``_quantize_kv`` into an int8 cache, as they are into a bf16 one. The caller
+owns the cache tensors; both versions mutate them and return the attention
+output.
 
 The TPU kernel's lane-padded ``(L, B, Hkv, Spad)`` scale slabs and 32-row
-write windows were TPU layout rules: here the scales are plain
-``(L, B, Hkv, S)`` tensors written at exactly the fresh slots. Where the
-TPU wrapper quietly ran its oracle for a cache shorter than its window,
-this wrapper raises when ``offsets + T > S``.
+write windows were TPU layout rules: here the scales are plain tensors
+written at exactly the fresh slots. Where the TPU wrappers quietly ran
+their oracle for a cache shorter than their window, these raise when
+``offsets + T > S``.
 """
 
 from __future__ import annotations
@@ -28,10 +37,11 @@ import torch
 
 from .build import check_status, count_launch, load_library
 
-SOURCES = ("fused_decode.cu", "int8.cuh")
+SOURCES = ("fused_decode.cu", "dense_decode.cuh", "int8.cuh")
 NEG_INF = -1e30
 MAX_ROWS = 32  # T * (Hq / Hkv) query rows per block
 MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use on sm_90
+CACHE_BYTES = {torch.int8: 1, torch.bfloat16: 2}  # cache types the kernels take
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -55,6 +65,61 @@ def _check_offsets(offsets_max: int, T: int, S: int) -> None:
         )
 
 
+def dense_attention_reference(q, kc, vc, ks, vs, k_new, v_new, pad_lens, offsets):
+    """Plain PyTorch attention over one layer of a dense cache: q (B, T, Hq,
+    Dh) attends the slots ``pad <= s < offset`` of kc/vc (B, Hkv, S, Dh),
+    keys dequantized by ks and p weighted by vs (B, Hkv, S) when the cache
+    is int8, plus the fresh block (B, T, Hkv, Dh) causally. The JAX
+    ``fused_reference`` math, which is ``decode_xla_q``'s."""
+    B, T, Hq, Dh = q.shape
+    Hkv, S = kc.shape[1], kc.shape[2]
+    group = Hq // Hkv
+    dev = q.device
+    qg = q.reshape(B, T, Hkv, group, Dh).float()
+    s_c = torch.einsum("bthgd,bhsd->bthgs", qg, kc.to(q.dtype).float())
+    if ks is not None:
+        s_c = s_c * ks[:, None, :, None, :].float()
+    s_c = s_c * (Dh ** -0.5)
+    slot = torch.arange(S, device=dev)
+    valid = (slot[None, :] >= pad_lens[:, None]) & (slot[None, :] < offsets[:, None])
+    s_c = torch.where(valid[:, None, None, None, :], s_c, torch.full((), NEG_INF, device=dev))
+    s_f = torch.einsum("bthgd,bshd->bthgs", qg, k_new.to(q.dtype).float()) * (Dh ** -0.5)
+    causal = torch.arange(T, device=dev)[:, None] >= torch.arange(T, device=dev)[None, :]
+    s_f = torch.where(causal[None, :, None, None, :], s_f, torch.full((), NEG_INF, device=dev))
+    m = torch.maximum(torch.amax(s_c, -1, keepdim=True), torch.amax(s_f, -1, keepdim=True))
+    p_c = torch.exp(s_c - m)
+    p_f = torch.exp(s_f - m)
+    denom = p_c.sum(-1, keepdim=True) + p_f.sum(-1, keepdim=True)
+    p_eff = p_c * vs[:, None, :, None, :].float() if vs is not None else p_c
+    pv = torch.einsum("bthgs,bhsd->bthgd", p_eff.to(q.dtype).float(), vc.to(q.dtype).float())
+    pv = pv + torch.einsum("bthgs,bshd->bthgd", p_f.to(q.dtype).float(),
+                           v_new.to(q.dtype).float())
+    return (pv / denom).reshape(B, T, Hq, Dh).to(q.dtype)
+
+
+def _write_fresh(kc, vc, k_new, v_new, offsets, scales=None):
+    """Fresh (B, T, Hkv, Dh) k/v → slots [offset, offset + T) of one layer's
+    kc/vc (B, Hkv, S, Dh) in place: quantized into an int8 cache, their
+    scales written into ``scales`` (k, v) when given; cast into a float
+    one. Returns the fresh (k, v) scales (B, T, Hkv), or None."""
+    B, T = k_new.shape[:2]
+    dev = k_new.device
+    rows = torch.arange(B, device=dev)[:, None]
+    cols = offsets.long()[:, None] + torch.arange(T, device=dev)[None, :]
+    if kc.dtype != torch.int8:
+        kc[rows, :, cols] = k_new.to(kc.dtype)
+        vc[rows, :, cols] = v_new.to(vc.dtype)
+        return None
+    fresh = []
+    for i, (new, cache) in enumerate(((k_new, kc), (v_new, vc))):
+        vals, sc = _quantize_kv(new)  # (B, T, Hkv, Dh), (B, T, Hkv)
+        cache[rows, :, cols] = vals
+        if scales is not None:
+            scales[i][rows, :, cols] = sc
+        fresh.append(sc)
+    return tuple(fresh)
+
+
 def fused_decode_reference(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -67,51 +132,43 @@ def fused_decode_reference(
     offsets: torch.Tensor,
     layer: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version (the JAX ``fused_reference`` math, which is
-    ``decode_xla_q``'s): dense masked attention over the cache window plus
-    the causal fresh block, then the fresh tokens written in place. Takes
-    an int8 cache with scales, or a float cache with ``k_scale=None``."""
-    B, T, Hq, Dh = q.shape
-    L, _, Hkv, S, _ = k_cache.shape
-    _check_offsets(int(offsets.max()), T, S)
-    group = Hq // Hkv
-    quantized = k_scale is not None
-    dev = q.device
+    """Plain PyTorch version of B2: dense masked attention over the cache
+    window plus the causal fresh block, then the fresh tokens written in
+    place, values and (L, B, Hkv, S) scales. Takes an int8 cache with
+    scales, or a float cache with ``k_scale=None``."""
+    _check_offsets(int(offsets.max()), q.shape[1], k_cache.shape[3])
+    scales = None if k_scale is None else (k_scale[layer], v_scale[layer])
     kc, vc = k_cache[layer], v_cache[layer]  # (B, Hkv, S, Dh) views
-
-    qg = q.reshape(B, T, Hkv, group, Dh).float()
-    s_c = torch.einsum("bthgd,bhsd->bthgs", qg, kc.to(q.dtype).float())
-    if quantized:
-        s_c = s_c * k_scale[layer][:, None, :, None, :].float()
-    s_c = s_c * (Dh ** -0.5)
-    slot = torch.arange(S, device=dev)
-    valid = (slot[None, :] >= pad_lens[:, None]) & (slot[None, :] < offsets[:, None])
-    s_c = torch.where(valid[:, None, None, None, :], s_c, torch.full((), NEG_INF, device=dev))
-    s_f = torch.einsum("bthgd,bshd->bthgs", qg, k_new.to(q.dtype).float()) * (Dh ** -0.5)
-    causal = torch.arange(T, device=dev)[:, None] >= torch.arange(T, device=dev)[None, :]
-    s_f = torch.where(causal[None, :, None, None, :], s_f, torch.full((), NEG_INF, device=dev))
-    m = torch.maximum(torch.amax(s_c, -1, keepdim=True), torch.amax(s_f, -1, keepdim=True))
-    p_c = torch.exp(s_c - m)
-    p_f = torch.exp(s_f - m)
-    denom = p_c.sum(-1, keepdim=True) + p_f.sum(-1, keepdim=True)
-    p_eff = p_c * v_scale[layer][:, None, :, None, :].float() if quantized else p_c
-    pv = torch.einsum("bthgs,bhsd->bthgd", p_eff.to(q.dtype).float(), vc.to(q.dtype).float())
-    pv = pv + torch.einsum("bthgs,bshd->bthgd", p_f.to(q.dtype).float(),
-                           v_new.to(q.dtype).float())
-    out = (pv / denom).reshape(B, T, Hq, Dh).to(q.dtype)
-
-    # fresh tokens → slots [offset, offset + T) of this layer, in place
-    rows = torch.arange(B, device=dev)[:, None]
-    cols = offsets.long()[:, None] + torch.arange(T, device=dev)[None, :]
-    for new, cache, scales in ((k_new, kc, None if not quantized else k_scale[layer]),
-                               (v_new, vc, None if not quantized else v_scale[layer])):
-        if quantized:
-            vals, sc = _quantize_kv(new)  # (B, T, Hkv, Dh), (B, T, Hkv)
-            cache[rows, :, cols] = vals
-            scales[rows, :, cols] = sc
-        else:
-            cache[rows, :, cols] = new.to(cache.dtype)
+    out = dense_attention_reference(q, kc, vc, *(scales or (None, None)), k_new, v_new,
+                                    pad_lens, offsets)
+    _write_fresh(kc, vc, k_new, v_new, offsets, scales)
     return out
+
+
+def fused_decode_attention_write_reference(
+    q, k_cache, v_cache, k_new, v_new, pad_lens, offsets, layer,
+    k_scale_layer=None, v_scale_layer=None,
+):
+    """Plain PyTorch version of B3: the attention of ``fused_decode_
+    reference``, then the fresh values written in place; an int8 cache's
+    layer scales (B, Hkv, S) are only read and the fresh (B, Hkv) scales
+    returned (the JAX ``fused_reference`` with ``k_scale_layer``)."""
+    B, T = q.shape[:2]
+    _check_offsets(int(offsets.max()), T, k_cache.shape[3])
+    kc, vc = k_cache[layer], v_cache[layer]
+    out = dense_attention_reference(q, kc, vc, k_scale_layer, v_scale_layer, k_new, v_new,
+                                    pad_lens, offsets)
+    fresh = _write_fresh(kc, vc, k_new, v_new, offsets)
+    if k_scale_layer is None:
+        return out
+    return out, fresh[0][:, 0], fresh[1][:, 0]
+
+
+def _devices(what, tensors) -> str:
+    devices = {t.device.type for t in tensors}
+    if devices in ({"cpu"}, {"cuda"}):
+        return devices.pop()
+    raise ValueError(f"{what}: tensors on {sorted(devices)}; need all cpu or all cuda")
 
 
 def fused_decode(
@@ -128,24 +185,65 @@ def fused_decode(
     *,
     max_offset: Optional[int] = None,
 ) -> torch.Tensor:
-    """Decode attention for layer ``layer`` + in-place write of the fresh
-    k/v; returns out (B, T, Hq, Dh).
+    """B2: decode attention for layer ``layer`` of the int8 cache + in-place
+    write of the fresh k/v and their scales; returns out (B, T, Hq, Dh).
 
     q (B, T, Hq, Dh); caches (L, B, Hkv, S, Dh); scales (L, B, Hkv, S);
     k_new/v_new (B, T, Hkv, Dh); pad_lens/offsets (B,) int32. On CUDA the
     wrapper does not read device values, so ``max_offset`` (the host-side
     bound of ``offsets``) is required to check ``offsets + T <= S``."""
-    devices = {t.device.type for t in (q, k_cache, v_cache, k_new, v_new, pad_lens, offsets)}
-    if devices == {"cpu"}:
+    what = "fused_decode"
+    if _devices(what, (q, k_cache, v_cache, k_new, v_new, pad_lens, offsets)) == "cpu":
         return fused_decode_reference(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
                                       pad_lens, offsets, layer)
-    if devices == {"cuda"}:
-        return _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
-                       offsets, layer, max_offset)
-    raise ValueError(f"fused_decode: tensors on {sorted(devices)}; need all cpu or all cuda")
+    if k_cache.dtype != torch.int8 or k_scale is None or v_scale is None:
+        raise ValueError(f"{what}: the kernel takes the int8 cache with its (L, B, Hkv, S) "
+                         "scales; a bfloat16 cache goes to fused_decode_attention_write")
+    return _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offsets,
+                   layer, max_offset)
+
+
+def fused_decode_attention_write(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    pad_lens: torch.Tensor,
+    offsets: torch.Tensor,
+    layer: int,
+    k_scale_layer: Optional[torch.Tensor] = None,
+    v_scale_layer: Optional[torch.Tensor] = None,
+    *,
+    max_offset: Optional[int] = None,
+):
+    """B3: decode attention for layer ``layer`` of a dense cache + in-place
+    write of the fresh values. A bfloat16 cache (no scales) returns out
+    (B, T, Hq, Dh); an int8 cache with that layer's (B, Hkv, S) scales,
+    which are only read, returns (out, ks_new, vs_new), the fresh (B, Hkv)
+    scales. Shapes and ``max_offset`` as ``fused_decode``.
+
+    The TPU kernel takes T = 1 only and the JAX package sends a speculative
+    verification forward over a float cache to XLA; this wrapper takes
+    T >= 1 over a bfloat16 cache, so that forward launches the kernel too.
+    The int8 mode keeps the TPU signature: T = 1."""
+    what = "fused_decode_attention_write"
+    if (k_scale_layer is None) != (v_scale_layer is None):
+        raise ValueError(f"{what}: pass both layer scales or neither")
+    if k_scale_layer is not None and q.shape[1] != 1:
+        raise ValueError(f"{what}: the int8 mode with layer scales takes T = 1, got T = "
+                         f"{q.shape[1]}")
+    if _devices(what, (q, k_cache, v_cache, k_new, v_new, pad_lens, offsets)) == "cpu":
+        return fused_decode_attention_write_reference(q, k_cache, v_cache, k_new, v_new,
+                                                      pad_lens, offsets, layer, k_scale_layer,
+                                                      v_scale_layer)
+    return _launch_dense(fused_decode_attention_write, q, k_cache, v_cache, k_scale_layer,
+                         v_scale_layer, k_new, v_new, pad_lens, offsets, layer, max_offset,
+                         per_layer_scales=True)
 
 
 fused_decode.launches = 0
+fused_decode_attention_write.launches = 0
 
 
 def _lib():
@@ -153,9 +251,9 @@ def _lib():
     fn = lib.lss_fused_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 7 + [p, ctypes.c_float, p]
+        fn.argtypes = [p] * 12 + [i] * 9 + [p, ctypes.c_float, p]
         fn.restype = ctypes.c_int
-        lib.lss_fused_decode_smem_bytes.argtypes = [i, i, i, i]
+        lib.lss_fused_decode_smem_bytes.argtypes = [i] * 5
         lib.lss_fused_decode_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -176,60 +274,101 @@ def check_separate_storage(what: str, tensors) -> None:
                                  "storage (in-place writes would corrupt each other)")
 
 
-def _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offsets, layer,
-            max_offset):
-    if k_cache.dtype != torch.int8 or k_scale is None or v_scale is None:
-        raise NotImplementedError(
-            "fused_decode on CUDA takes the int8 cache with scales; a float cache needs "
-            "kernel B3 (ROADMAP queue B), not ported yet"
-        )
-    if q.dim() != 4 or k_cache.dim() != 5:
-        raise ValueError("fused_decode: q must be (B, T, Hq, Dh), caches (L, B, Hkv, S, Dh)")
+def check_decode_operands(what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
+                          pad_lens, scale_shape):
+    """The checks the dense decode kernels share: shapes, bf16 or int8
+    caches (int8 with bf16 scales of ``scale_shape``, bf16 without), bf16
+    q and fresh k/v with a unit last stride, int32 pads, one device, and
+    the shared memory the sizes need. Returns (B, T, Hq, Hkv, S, Dh)."""
+    if q.dim() != 4 or k_cache.dim() < 4:
+        raise ValueError(f"{what}: q must be (B, T, Hq, Dh), the cache (.., B, Hkv, S, Dh)")
     B, T, Hq, Dh = q.shape
-    L, _, Hkv, S, _ = k_cache.shape
-    if k_cache.shape[1] != B or k_cache.shape[4] != Dh or v_cache.shape != k_cache.shape:
-        raise ValueError(f"fused_decode: cache shapes {tuple(k_cache.shape)}, "
+    Hkv, S = k_cache.shape[-3], k_cache.shape[-2]
+    if k_cache.shape[-4] != B or k_cache.shape[-1] != Dh or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{what}: cache shapes {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)}")
     if Hq % Hkv or Dh not in (64, 128) or T < 1 or T * (Hq // Hkv) > MAX_ROWS:
-        raise ValueError(f"fused_decode: the kernel takes Dh in (64, 128) and "
-                         f"1 <= T * Hq / Hkv <= {MAX_ROWS}; got T={T} Hq={Hq} Hkv={Hkv} Dh={Dh}")
-    if not 0 <= layer < L:
-        raise ValueError(f"fused_decode: layer {layer} outside [0, {L})")
-    if v_cache.dtype != torch.int8 or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError("fused_decode: caches must be contiguous int8")
+        raise ValueError(f"{what}: the kernel takes Dh in (64, 128) and "
+                         f"1 <= T * Hq / Hkv <= {MAX_ROWS}; got T={T} Hq={Hq} Hkv={Hkv} "
+                         f"Dh={Dh}")
+    if k_cache.dtype not in CACHE_BYTES or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"{what}: the kernel takes a bfloat16 or int8 cache, got "
+                         f"{k_cache.dtype} and {v_cache.dtype}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()) or any(
+            t.data_ptr() % 16 for t in (k_cache, v_cache)):
+        raise ValueError(f"{what}: caches must be contiguous with a 16-byte aligned base")
+    quantized = k_cache.dtype == torch.int8
+    if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: an int8 cache takes its k/v scales, a bfloat16 cache none")
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if t.dtype != torch.bfloat16 or t.shape != (L, B, Hkv, S) or not t.is_contiguous():
-            raise ValueError(f"fused_decode: {name} must be a contiguous ({L}, {B}, {Hkv}, {S}) "
-                             f"bfloat16 tensor")
-    check_separate_storage("fused_decode", (k_cache, v_cache, k_scale, v_scale))
+        if t is not None and (t.dtype != torch.bfloat16 or tuple(t.shape) != scale_shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous {scale_shape} bfloat16 "
+                             f"tensor")
     for name, t, heads in (("q", q, Hq), ("k_new", k_new, Hkv), ("v_new", v_new, Hkv)):
         if t.dtype != torch.bfloat16 or t.shape != (B, T, heads, Dh) or t.stride(-1) != 1:
-            raise ValueError(f"fused_decode: {name} must be ({B}, {T}, {heads}, {Dh}) bfloat16 "
+            raise ValueError(f"{what}: {name} must be ({B}, {T}, {heads}, {Dh}) bfloat16 "
                              f"with a unit last stride")
-    for name, t in (("pad_lens", pad_lens), ("offsets", offsets)):
-        if t.dtype != torch.int32 or t.shape != (B,) or not t.is_contiguous():
-            raise ValueError(f"fused_decode: {name} must be a contiguous ({B},) int32 tensor")
+    if pad_lens.dtype != torch.int32 or pad_lens.shape != (B,) or not pad_lens.is_contiguous():
+        raise ValueError(f"{what}: pad_lens must be a contiguous ({B},) int32 tensor")
+    tensors = [t for t in (q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens)
+               if t is not None]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{what}: all tensors must be on one device")
+    return B, T, Hq, Hkv, S, Dh
+
+
+def _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offsets, layer,
+            max_offset):
+    """B2's launch: the (L, B, Hkv, S) scales written in place."""
+    return _launch_dense(fused_decode, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
+                         pad_lens, offsets, layer, max_offset, per_layer_scales=False)
+
+
+def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
+                  offsets, layer, max_offset, per_layer_scales):
+    what = wrapper.__name__
+    if k_cache.dim() != 5:
+        raise ValueError(f"{what}: caches must be (L, B, Hkv, S, Dh)")
+    L = k_cache.shape[0]
+    B, T, Hq, Hkv, S, Dh = check_decode_operands(
+        what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
+        tuple(k_cache.shape[1:4]) if per_layer_scales else tuple(k_cache.shape[:4]))
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+    check_separate_storage(what, [t for t in (k_cache, v_cache, k_scale, v_scale)
+                                  if t is not None])
+    if offsets.dtype != torch.int32 or offsets.shape != (B,) or not offsets.is_contiguous():
+        raise ValueError(f"{what}: offsets must be a contiguous ({B},) int32 tensor")
+    if offsets.device != q.device:
+        raise ValueError(f"{what}: all tensors must be on one device")
     if max_offset is None:
-        raise ValueError("fused_decode: pass max_offset (host-side bound of offsets) on CUDA")
+        raise ValueError(f"{what}: pass max_offset (host-side bound of offsets) on CUDA")
     _check_offsets(int(max_offset), T, S)
-    if len({t.device for t in (q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
-                               pad_lens, offsets)}) != 1:
-        raise ValueError("fused_decode: all tensors must be on one device")
+    cache_bytes = CACHE_BYTES[k_cache.dtype]
     lib = _lib()
-    smem = lib.lss_fused_decode_smem_bytes(Dh, T, Hq // Hkv, S)
+    smem = lib.lss_fused_decode_smem_bytes(Dh, T, Hq // Hkv, S, cache_bytes)
     if smem > MAX_SMEM:
-        raise ValueError(f"fused_decode: S={S} needs {smem} bytes of shared memory "
+        raise ValueError(f"{what}: S={S} needs {smem} bytes of shared memory "
                          f"(limit {MAX_SMEM})")
     out = torch.empty((B, T, Hq, Dh), dtype=torch.bfloat16, device=q.device)
+    fresh = None
+    if per_layer_scales and k_scale is not None:
+        fresh = [torch.empty((B, Hkv, T), dtype=torch.bfloat16, device=q.device)
+                 for _ in range(2)]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     strides = (ctypes.c_longlong * 9)(*(q.stride()[:3] + k_new.stride()[:3]
                                         + v_new.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.lss_fused_decode(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pad_lens.data_ptr(),
-            offsets.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, S, Dh, int(layer), strides,
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale),
+            *(ptr(f) for f in (fresh or (None, None))), k_new.data_ptr(), v_new.data_ptr(),
+            pad_lens.data_ptr(), offsets.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, S, Dh,
+            int(layer), 0 if per_layer_scales else int(layer), cache_bytes, strides,
             Dh ** -0.5, stream)
-    count_launch(fused_decode)
-    check_status(status, "fused_decode")
+    count_launch(wrapper)
+    check_status(status, what)
+    if fresh is not None:
+        return out, fresh[0][..., 0], fresh[1][..., 0]
     return out

@@ -1,38 +1,54 @@
 """AudioEncoder: speech encoder + downsampling projector into the LLM's
 embedding space (port of ``models/audio_encoder.py``).
 
-HuBERT frames are downsampled ("pool": AvgPool1d(8, 4); "stack": concat
-``factor`` frames) and projected by one Linear to ``llm_embedding_channels``.
-Not ported yet: the Whisper encoder (ROADMAP queue A item 7) and the
-``ctc_pool`` projector (item 4's ``ctc_segment_mean``).
+HuBERT or Whisper-encoder frames are downsampled ("pool": AvgPool1d(8, 4);
+"stack": concat ``factor`` frames) and projected by one Linear to
+``llm_embedding_channels``. Whisper sees a log-mel spectrogram cut or
+padded to its 30 s budget, or with ``whisper_dynamic_frames`` sized to the
+(bucketed) input and capped at that budget. Not ported yet: the
+``ctc_pool`` projector (ROADMAP queue A item 4's ``ctc_segment_mean``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..configs import Config
 from ..ops.pooling import avg_pool_time, stack_downsample
 from .hubert import HubertConfig, hubert_forward, hubert_frame_count, hubert_preset, init_hubert_params
+from .whisper import (
+    WhisperConfig,
+    init_whisper_params,
+    log_mel_spectrogram,
+    mel_frame_budget,
+    whisper_forward,
+    whisper_frame_count,
+    whisper_preset,
+)
 
 Params = Dict[str, Any]
 
 
 @dataclass(frozen=True)
 class AudioEncoderParams:
-    """Static (non-learned) setup for the audio encoder (HuBERT, the only
-    base ported so far)."""
+    """Static (non-learned) setup for the audio encoder; the encoder's
+    config type says which base it is."""
 
-    encoder_cfg: HubertConfig
+    encoder_cfg: Union[HubertConfig, WhisperConfig]
     downsample_method: str  # "pool" | "stack"
     downsample_factor: int
     pool_kernel: int
     pool_stride: int
     llm_embedding_channels: int
     sampling_rate: int = 16000
+    whisper_dynamic_frames: bool = False
+
+    @property
+    def base(self) -> str:
+        return "whisper" if isinstance(self.encoder_cfg, WhisperConfig) else "hubert"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -41,22 +57,26 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def encoder_setup_from_config(cfg: Config) -> AudioEncoderParams:
     ae = cfg.model.audio_encoder
-    if ae.base == "whisper":
-        raise _not_ported("the Whisper encoder", "item 7")
-    if ae.base != "hubert":
+    preset_name = ae.preset or ae.type
+    if ae.base == "hubert":
+        enc_cfg: Any = hubert_preset(preset_name)
+    elif ae.base == "whisper":
+        enc_cfg = whisper_preset(preset_name)
+    else:
         raise ValueError(f"unexpected encoder base '{ae.base}'")
     if ae.downsample_method == "ctc_pool":
         raise _not_ported("the ctc_pool projector", "item 4 (ctc_segment_mean)")
     if ae.downsample_method not in ("pool", "stack"):
         raise ValueError(f"invalid downsampling method '{ae.downsample_method}'")
     return AudioEncoderParams(
-        encoder_cfg=hubert_preset(ae.preset or ae.type),
+        encoder_cfg=enc_cfg,
         downsample_method=ae.downsample_method,
         downsample_factor=ae.downsample_factor,
         pool_kernel=ae.pooling.kernel_size,
         pool_stride=ae.pooling.stride,
         llm_embedding_channels=cfg.model.llm_embedding_channels,
         sampling_rate=cfg.audio.sampling_rate,
+        whisper_dynamic_frames=ae.whisper_dynamic_frames,
     )
 
 
@@ -65,8 +85,12 @@ def init_audio_encoder(
 ) -> Params:
     """Encoder params plus the projector: normal with std in_dim**-0.5,
     zero bias (the JAX package's init)."""
-    enc_params = init_hubert_params(generator, setup.encoder_cfg, dtype, device)
-    hidden = setup.encoder_cfg.hidden_size
+    if setup.base == "whisper":
+        enc_params = init_whisper_params(generator, setup.encoder_cfg, dtype, device)
+        hidden = setup.encoder_cfg.d_model
+    else:
+        enc_params = init_hubert_params(generator, setup.encoder_cfg, dtype, device)
+        hidden = setup.encoder_cfg.hidden_size
     in_dim = hidden * setup.downsample_factor if setup.downsample_method == "stack" else hidden
     E = setup.llm_embedding_channels
     w = torch.randn((in_dim, E), generator=generator, dtype=torch.float32, device=device)
@@ -87,7 +111,11 @@ def audio_embed_lengths(setup: AudioEncoderParams, audio_len_samples: torch.Tens
 def audio_embed_buffer_len(setup: AudioEncoderParams, num_samples: int) -> int:
     """Length M of the right-padded embedding buffer for N samples, from
     the frame arithmetic alone (no encoder run)."""
-    T = hubert_frame_count(setup.encoder_cfg, num_samples)
+    if setup.base == "whisper":
+        T = whisper_frame_count(mel_frame_budget(setup.encoder_cfg, num_samples,
+                                                 setup.whisper_dynamic_frames))
+    else:
+        T = hubert_frame_count(setup.encoder_cfg, num_samples)
     if setup.downsample_method == "pool":
         return (T - setup.pool_kernel) // setup.pool_stride + 1
     return T // setup.downsample_factor
@@ -109,8 +137,9 @@ def audio_encoder_forward(
     remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """waveform (B, N) [+ per-sample lengths] → (embeds (B, M, E),
-    emb_lens (B,)), the buffer right-padded. ``remat`` recomputes each
-    HuBERT layer in the backward."""
+    emb_lens (B,)), the buffer right-padded and ``emb_lens`` clipped to it
+    (a clip longer than Whisper's 30 s budget is cut). ``remat`` recomputes
+    each encoder layer in the backward."""
     B, N = wav.shape
     if wav_lens is None:
         wav_lens = torch.full((B,), N, dtype=torch.int32, device=wav.device)
@@ -121,7 +150,15 @@ def audio_encoder_forward(
     # gradients through it
     params = _cast_floats(params, wav.dtype)
 
-    frames, _ = hubert_forward(params["encoder"], setup.encoder_cfg, wav, wav_mask, remat=remat)
+    if setup.base == "whisper":
+        w_cfg = setup.encoder_cfg
+        mel = log_mel_spectrogram(wav, w_cfg, pad_to_frames=mel_frame_budget(
+            w_cfg, N, setup.whisper_dynamic_frames))
+        frames, _ = whisper_forward(params["encoder"], w_cfg, mel, wav_lens // w_cfg.hop_length,
+                                    remat=remat)
+    else:
+        frames, _ = hubert_forward(params["encoder"], setup.encoder_cfg, wav, wav_mask,
+                                   remat=remat)
     if setup.downsample_method == "pool":
         pooled = avg_pool_time(frames, setup.pool_kernel, setup.pool_stride)
     else:

@@ -10,12 +10,15 @@ Attention goes through hand-written kernels, and the tensors' device
 picks the version: prefill (and the cache-free forward) calls
 ``flash_attention`` with the left-pad window ``[pad, T)``, which is the
 forward kernel B1 without gradients and B1 with its log-sum-exp plus the
-backward kernel B6 in training; a decode
-step over the dense cache calls ``fused_decode``, which attends the cache
-window ``[pad, offset)`` plus the fresh tokens and writes them into the
-cache in place. Over the paged cache (``infer/paged.py``), a T == 1 step
-calls ``fused_paged_decode`` (attention + in-place page write) and a
-T > 1 verification forward calls ``paged_decode_attention``, after which
+backward kernel B6 in training. A decode step over the dense cache attends
+the cache window ``[pad, offset)`` plus the fresh tokens and writes them
+into the cache in place: ``fused_decode`` (B2) over an int8 cache,
+``fused_decode_attention_write`` (B3) over a bfloat16 one. With
+``attn_impl="pallas"`` a T == 1 step with one scalar offset instead reads
+each layer through ``decode_attention`` (B8) and writes the fresh k/v
+after it. Over the paged cache (``infer/paged.py``), a T == 1 step calls
+``fused_paged_decode`` (attention + in-place page write) and a T > 1
+verification forward calls ``paged_decode_attention``, after which
 ``write_tokens`` writes the fresh tokens. On CPU the plain versions are the
 JAX package's ``"bias"``, ``decode_xla_q`` and ``paged_reference``
 formulations.
@@ -39,8 +42,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..infer.paged import PagedKVCache, write_tokens
+from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
-from ..kernels.fused_decode import _quantize_kv, fused_decode
+from ..kernels.fused_decode import _quantize_kv, fused_decode, fused_decode_attention_write
 from ..kernels.fused_paged import fused_paged_decode
 from ..kernels.paged_attention import paged_decode_attention
 from ..ops.norms import rms_norm
@@ -274,6 +278,7 @@ def llama_forward(
     return_final_hidden: bool = False,
     remat: bool = False,
     remat_policy: Optional[str] = None,
+    attn_impl: str = "auto",
 ) -> LlamaOutput:
     """Run the decoder.
 
@@ -301,6 +306,14 @@ def llama_forward(
     logits cover those positions only when ``logit_window`` > 0;
     ``compute_logits=False`` skips the head. ``remat`` with ``remat_policy``
     None or "full" recomputes each block in the backward.
+
+    ``attn_impl`` names the decode attention, as in the JAX package:
+    "auto" and "fused" take the kernels above; "pallas" takes B8 for a
+    dense T == 1 step at one scalar ``cache_offset`` (per-row offsets and
+    T > 1, where the JAX package quietly runs XLA, raise); "xla" names the
+    XLA formulations, which are the plain versions: CPU tensors only.
+    Prefill, the cache-free forward and paged steps take the same kernels
+    under every name.
 
     The cache is updated in place and also returned. Logits are float32:
     the final hidden state and the head are upcast to float32 before the
@@ -346,6 +359,17 @@ def llama_forward(
             f"remat_policy={remat_policy!r} is not ported to PyTorch yet (ROADMAP queue A, "
             f"item 10: the save_qkv policy); use 'full'")
     remat = remat and torch.is_grad_enabled()
+    if attn_impl not in ("auto", "fused", "pallas", "xla"):
+        raise ValueError(f"attn_impl={attn_impl!r}: expected 'auto', 'fused', 'pallas' or 'xla'")
+    if attn_impl == "xla" and dev.type != "cpu":
+        raise ValueError("attn_impl='xla' names the plain versions, which run on CPU tensors "
+                         "only; on the card every attention is a kernel ('auto')")
+    pallas_dense = attn_impl == "pallas" and is_decode and not is_paged
+    if pallas_dense and (isinstance(cache_offset, torch.Tensor) or T != 1):
+        kind = "a per-row tensor" if isinstance(cache_offset, torch.Tensor) else "a scalar"
+        raise ValueError(
+            f"attn_impl='pallas' runs kernel B8, which takes T == 1 and one scalar "
+            f"cache_offset; got T={T} and {kind} offset (use 'auto' for the fused kernels)")
 
     def window(t, w):
         return t[:, -w:] if w > 0 else t
@@ -389,11 +413,25 @@ def llama_forward(
                     pad_lens, k, v, kv_cache.k_scale[i] if quant else None,
                     kv_cache.v_scale[i] if quant else None,
                 )
-        elif is_decode:
+        elif pallas_dense:
+            def attend(q, k, v, i=i):
+                quant = kv_cache.quantized
+                out = decode_attention(
+                    q, kv_cache.k[i], kv_cache.v[i], k, v, pad_lens, max_offset,
+                    kv_cache.k_scale[i] if quant else None, kv_cache.v_scale[i] if quant else None,
+                )
+                _write_cache(kv_cache, i, max_offset, k, v)
+                return out
+        elif is_decode and kv_cache.quantized:
             def attend(q, k, v, i=i):
                 return fused_decode(
                     q, kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, k, v,
                     pad_lens, offsets, i, max_offset=max_offset,
+                )
+        elif is_decode:
+            def attend(q, k, v, i=i):
+                return fused_decode_attention_write(
+                    q, kv_cache.k, kv_cache.v, k, v, pad_lens, offsets, i, max_offset=max_offset,
                 )
         else:
             def attend(q, k, v):

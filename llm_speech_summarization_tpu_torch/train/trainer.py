@@ -76,6 +76,10 @@ class Trainer:
         """``device=None`` is the CUDA card and raises without one; the CPU
         runs only with ``device="cpu"``."""
         _check_single_card(config)
+        if config.model.audio_encoder.base == "whisper":
+            raise NotImplementedError(
+                "KD training of the Whisper encoder is not ported to PyTorch yet (ROADMAP queue "
+                "A, item 7); the port serves Whisper configs and trains HuBERT ones")
         self.config = config
         self.run_name = run_name
         self.device = resolve_device(device)

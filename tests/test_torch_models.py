@@ -246,7 +246,7 @@ def test_per_row_decode_offsets_need_a_host_bound():
     assert out.logits.shape == (2, 1, cfg.vocab_size) and torch.isfinite(out.logits).all()
 
 
-@pytest.mark.parametrize("base,method", [("whisper", "pool"), ("hubert", "ctc_pool")])
+@pytest.mark.parametrize("base,method", [("hubert", "ctc_pool")])
 def test_unported_encoders_raise(base, method):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tae.encoder_setup_from_config(_tiny_config(port=True, base=base,
