@@ -15,6 +15,10 @@ Phases, in order; each prints one line and any failure raises:
      at the two training shapes (the LLM at the trainer's spliced length,
      HuBERT at 499 frames), with injected faults the bound must reject,
      bit-identical repeats, and SDPA forward + backward as the yardstick;
+     then B7, the same kernels in offset mode (the ring-attention
+     interior), at the long-audio ring's block shapes for a visiting block
+     from a rank before, equal to and after the queries' rank, with
+     injected offset faults and SDPA under the block's mask;
   5. fused decode (B2) against its plain version, including the in-place
      cache writes, at T=1 and T=3;
   6. paged decode attention (B4) and fused paged decode + page write (B5)
@@ -42,7 +46,15 @@ Phases, in order; each prints one line and any failure raises:
  13. the full-width trainer (``Trainer(...).train()`` on synthetic data): a
      few KD steps and the closing ``validate()``, then a second trainer
      that resumes from its checkpoint and takes one more step, and one
-     profiled step for the device-busy share.
+     profiled step for the device-busy share;
+ 14. the long-audio trainer (``llama3_hubert_long.yaml``, published widths
+     and depth, 118-120 s synthetic clips) on a sequence-parallel ring of
+     two ranks sharing the card over gloo, launched by
+     ``torch.distributed.run`` through the training CLI (``--mesh 1,2,1``;
+     this file with ``--ring-rank`` is each rank's program): two steps,
+     validate and a checkpoint, then a launch that resumes and takes one
+     more step; then one unsharded step in this process on the same weights
+     and batch, which the ring's first step must match.
 Every main-path run is driven with the launch counts set to 0 just before it
 and checked just after against what the engine, decoder or trainer ran.
 Then the card line, one JSON line with every kernel's summary, and the
@@ -98,6 +110,17 @@ BF16_FLOPS_PER_S = 989e12
 # the lse of the neighbouring row, and dk/dv of one q head of the group.
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 BWD_RTOL, BWD_ATOL, BWD_FLOOR = 2e-2, 5e-2, 1e-3
+NEG_LSE = -1e30  # the lse of a row that sees no key (float32)
+# B7's output is held to its float32 plain version within B7_OUT_ATOL +
+# B7_OUT_RTOL * (|out| + (P.|V|)/l), (P.|V|)/l being the plain version run
+# on |v|: the kernel rounds p to bf16 before P.V (as the TPU kernel does)
+# and its output to bf16, each at most 2^-9 relative, so a correct kernel
+# stays under half of it. A flat 1e-3 + 1e-2 * |out| does not fit: where a
+# row's output cancels, bf16 p moves it by more (a CPU emulation of the
+# kernel's tiles at the ring's shapes came to 1.79x that bound, and to 0.76x
+# this one). The phase shows the bound rejects V of the wrong KV head and a
+# k tile dropped from P.V.
+B7_OUT_ATOL, B7_OUT_RTOL = 1e-5, 2.0 ** -8
 
 
 # train_small: one KD step on the CPU (plain versions) and on the card
@@ -1011,6 +1034,15 @@ def _row_ratio(torch, got, ref, rows=None):
     return (r[rows] if rows is not None else r).max().item()
 
 
+def _out_ratio(torch, got, ref, bound, rows):
+    """Largest |got - ref| / bound on the (B, T) ``rows`` (NaN counts as
+    infinitely far; 0 where no row is chosen)."""
+    if not rows.any():
+        return 0.0
+    r = torch.nan_to_num((got.float() - ref).abs() / bound, nan=float("inf"))
+    return r[rows].max().item()
+
+
 def _sdpa_train_calls(torch, q, k, v, g, rows, causal):
     """``scaled_dot_product_attention`` forward, and forward + backward,
     over the same windows (k/v repeated to the q heads), as yardsticks."""
@@ -1183,6 +1215,219 @@ def phase_flash_train(torch, card):
              bwd_err_over_bound=ratios, bwd_rtol=BWD_RTOL, bwd_atol_of_row_rms=BWD_ATOL,
              bwd_floor_of_rms=BWD_FLOOR,
              faults_over_bound=faults, bit_identical=same, sdpa_fwd_ms=sdpa_f,
+             sdpa_fwd_bwd_ms=sdpa_fb, kernels=res, card=card)
+    return results
+
+
+def _sdpa_masked_calls(torch, q, k, v, g, mask):
+    """``scaled_dot_product_attention`` forward, and forward + backward,
+    under a (B, T, S) boolean mask (k/v repeated to the q heads), as
+    yardsticks of the ring's per-block interior."""
+    import torch.nn.functional as F
+
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous().requires_grad_()
+              for x in (k, v))
+    gt = g.transpose(1, 2).contiguous()
+    m = mask[:, None]
+
+    def fwd():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            torch.autograd.grad(fwd(), (qt, kt, vt), gt)
+
+    return fwd, fwd_bwd
+
+
+# flash_ring: the ring's three block relations on rank r of n = 2, the
+# queries at q_off = r * Tl and the visiting block of rank src at k_off =
+# src * Tl; the windows are the global ones clipped to the block
+RING_N = 2
+RING_BLOCKS = {"src<rank": (1, 0), "src==rank": (1, 1), "src>rank": (0, 1)}
+RING_SHAPES = {
+    # the LLM at the long-audio trainer's spliced T = 1920 on 2 ranks, left
+    # pads (sample 1's reach into the second block)
+    "llm_ring": dict(B=4, Tl=960, Hq=24, Hkv=8, Dh=128, causal=True,
+                     starts=[0, 1200, 37, 130], ends=[1920] * 4),
+    # HuBERT on 120 s clips: 6000 frames on 2 ranks, right-pad windows
+    "hubert_ring": dict(B=4, Tl=3000, Hq=16, Hkv=16, Dh=64, causal=False,
+                        starts=[0] * 4, ends=[5999, 4000, 2999, 100]),
+}
+
+
+def _ring_pairs(c, r, src):
+    """Valid (query, key) pairs of one block pair (for the bound)."""
+    Tl, pairs = c["Tl"], 0
+    q_pos = np.arange(Tl)[:, None] + r * Tl
+    k_pos = np.arange(Tl)[None, :] + src * Tl
+    for s0, e0 in zip(c["starts"], c["ends"]):
+        ok = (k_pos >= s0) & (k_pos < e0) & (q_pos >= 0)  # (Tl, Tl)
+        if c["causal"]:
+            ok = ok & (k_pos <= q_pos)
+        pairs += int(ok.sum())
+    return pairs
+
+
+def phase_flash_ring(torch, card):
+    """B7 (the forward, dq and dk/dv in offset mode) against the plain
+    versions run in float32, at the ring's shapes and its three block
+    relations, with the lse and backward bounds of B1 + LSE and B6 and the
+    output bound B7_OUT_*; a row that sees no key of the block must get lse
+    = -1e30 exactly. Injected offset and P.V faults must exceed the bounds.
+    Device times beside the bound, the plain versions and SDPA under the
+    block's boolean mask."""
+    from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv_offset, flash_attention_bwd_dq_offset,
+        flash_attention_bwd_reference, flash_attention_fwd_lse_offset,
+        flash_attention_lse_reference,
+    )
+    from llm_speech_summarization_tpu_torch.ops.ring_attention import _block_windows
+
+    rng = np.random.RandomState(7)
+    dev = torch.device("cuda")
+    results = {}
+    for name, c in RING_SHAPES.items():
+        B, Tl, causal = c["B"], c["Tl"], c["causal"]
+
+        def bf(*shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+        q = bf(B, Tl, c["Hq"], c["Dh"])
+        k, v = bf(B, Tl, c["Hkv"], c["Dh"]), bf(B, Tl, c["Hkv"], c["Dh"])
+        g = bf(B, Tl, c["Hq"], c["Dh"])
+        f32 = [t.float() for t in (q, k, v, g)]
+        starts_g = torch.tensor(c["starts"], dtype=torch.int32, device=dev)
+        ends_g = torch.tensor(c["ends"], dtype=torch.int32, device=dev)
+        blocks, refs = {}, {}
+        for rel, (r, src) in RING_BLOCKS.items():
+            offsets = (r * Tl, src * Tl)
+            starts, ends = _block_windows(starts_g, ends_g, src, Tl)
+            out, lse = flash_attention_fwd_lse_offset(q, k, v, starts, ends, offsets, causal)
+            ref_out, ref_lse = flash_attention_lse_reference(*f32[:3], starts, ends, causal,
+                                                             offsets)
+            abs_out = flash_attention_lse_reference(*f32[:2], f32[2].abs(), starts, ends, causal,
+                                                    offsets)[0]
+            out_bound = B7_OUT_ATOL + B7_OUT_RTOL * (ref_out.abs() + abs_out)
+            del abs_out
+            delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, g, lse, delta, starts, ends, offsets, causal)
+            dq = flash_attention_bwd_dq_offset(*args)
+            dk, dv = flash_attention_bwd_dkv_offset(*args)
+            torch.cuda.synchronize()
+            ref = flash_attention_bwd_reference(*f32, lse, delta, starts, ends, causal, offsets)
+            seen = ref_lse > -1e29  # (B, Hq, Tl): rows that see a key of this block
+            rows = seen.any(1)  # (B, Tl)
+            lse_bound = LSE_ATOL + LSE_RTOL * ref_lse.abs()
+            lse_ratio = ((lse - ref_lse).abs() / lse_bound)[seen].max().item() if seen.any() else 0.0
+            unseen_exact = bool((lse[~seen] == NEG_LSE).all())
+            out_err = ((out.float() - ref_out).abs().amax(dim=(2, 3))[rows].max().item()
+                       if rows.any() else 0.0)
+            out_ratio = _out_ratio(torch, out, ref_out, out_bound, rows)
+            # where no row sees a key every reference gradient is 0, and so
+            # must the kernel's be (the bound is then 1e-12)
+            ratios = {"dq": _row_ratio(torch, dq, ref[0], rows if rows.any() else None),
+                      "dk": _row_ratio(torch, dk, ref[1]), "dv": _row_ratio(torch, dv, ref[2])}
+            finite = all(torch.isfinite(t).all() for t in (out, lse, dq, dk, dv))
+            if not (finite and unseen_exact and lse_ratio <= 1 and out_ratio <= 1
+                    and max(ratios.values()) <= 1):
+                raise AssertionError(f"B7 {name} {rel}: lse {lse_ratio} x bound, unseen rows "
+                                     f"lse == -1e30 {unseen_exact}, out {out_ratio} x bound "
+                                     f"(max err {out_err}), backward {ratios} x bound, "
+                                     f"finite {finite}")
+            blocks[rel] = dict(offsets=offsets, rows_seeing_a_key=int(rows.sum()),
+                               lse_err_over_bound=lse_ratio, out_max_abs_err=out_err,
+                               out_err_over_bound=out_ratio, out_bound_median=(
+                                   out_bound[rows].median().item()
+                                   if rows.any() else None),
+                               bwd_err_over_bound=ratios, max_abs_err=max(
+                                   out_err, (dq.float() - ref[0]).abs().max().item(),
+                                   (dk.float() - ref[1]).abs().max().item(),
+                                   (dv.float() - ref[2]).abs().max().item()))
+            refs[rel] = (starts, ends, lse, delta, ref_lse, ref, rows, ref_out, out_bound)
+
+        # faults a kernel could make, each through the plain version: in the
+        # P.V product, V of the neighbouring KV head and the first k tile
+        # dropped (its p still in the denominator); with the causal rule, the
+        # offsets off by one, swapped, and the block past the causal
+        # frontier not masked (offsets dropped)
+        starts, ends, _, _, _, _, rows, ref_out, out_bound = refs["src<rank"]
+        offsets = blocks["src<rank"]["offsets"]
+        v_tile = f32[2].clone()
+        v_tile[:, :64] = 0  # the kernels' k tile is 64 keys
+        faults = {}
+        for fname, v_bad in (("V of the wrong KV head", f32[2].roll(1, dims=2)),
+                             ("first k tile dropped from P.V", v_tile)):
+            m_out = flash_attention_lse_reference(*f32[:2], v_bad, starts, ends, causal,
+                                                  offsets)[0]
+            faults[fname] = _out_ratio(torch, m_out, ref_out, out_bound, rows)
+        del v_tile, m_out
+        if causal:
+            mutants = {"q_off+1": ("src==rank", lambda o: (o[0] + 1, o[1])),
+                       "k_off+1": ("src==rank", lambda o: (o[0], o[1] + 1)),
+                       "offsets swapped": ("src<rank", lambda o: (o[1], o[0])),
+                       "src>rank not masked": ("src>rank", lambda o: (0, 0))}
+            for fname, (rel, mutate) in mutants.items():
+                starts, ends, lse, delta, ref_lse, ref, *_ = refs[rel]
+                off = mutate(blocks[rel]["offsets"])
+                m_out, m_lse = flash_attention_lse_reference(*f32[:3], starts, ends, causal, off)
+                m_bwd = flash_attention_bwd_reference(*f32, lse, delta, starts, ends, causal, off)
+                lse_bound = LSE_ATOL + LSE_RTOL * ref_lse.abs()
+                faults[fname] = max(
+                    ((m_lse - ref_lse).abs() / lse_bound).max().item(),
+                    _row_ratio(torch, m_bwd[0], ref[0]), _row_ratio(torch, m_bwd[1], ref[1]),
+                    _row_ratio(torch, m_bwd[2], ref[2]))
+        if min(faults.values()) <= 1:
+            raise AssertionError(f"B7 {name}: the bounds do not reject every fault: {faults}")
+
+        # times at the block with the most work (the first rel for both)
+        rel = "src<rank"
+        r, src = RING_BLOCKS[rel]
+        starts, ends, lse, delta, *_ = refs[rel]
+        offsets = blocks[rel]["offsets"]
+        args = (q, k, v, g, lse, delta, starts, ends, offsets, causal)
+        pairs = _ring_pairs(c, r, src)
+        qo, kv = 2 * B * Tl * c["Hq"] * c["Dh"], 2 * B * Tl * c["Hkv"] * c["Dh"]
+        rowf = 4 * B * c["Hq"] * Tl
+        work = {"fwd": (2 * qo + 2 * kv + rowf, 4 * c["Dh"] * c["Hq"] * pairs),
+                "dq": (3 * qo + 2 * kv + 2 * rowf, 6 * c["Dh"] * c["Hq"] * pairs),
+                "dkv": (2 * qo + 4 * kv + 2 * rowf, 8 * c["Dh"] * c["Hq"] * pairs)}
+        k_pos = torch.arange(Tl, device=dev) + src * Tl
+        q_pos = torch.arange(Tl, device=dev) + r * Tl
+        mask = ((k_pos[None, :] >= starts_g[:, None]) & (k_pos[None, :] < ends_g[:, None]))[:, None]
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])[None]
+        mask = mask.expand(B, Tl, Tl)
+        sdpa_fwd, sdpa_fwd_bwd = _sdpa_masked_calls(torch, q, k, v, g, mask)
+        sdpa_f = device_ms(torch, sdpa_fwd, whole=False)
+        sdpa_fb = device_ms(torch, sdpa_fwd_bwd, whole=False)
+        plain_bwd = device_ms(torch, lambda: flash_attention_bwd_reference(
+            q, k, v, g, lse, delta, starts, ends, causal, offsets), whole=False)
+        res = {}
+        for kname, fn, lib in (
+                ("fwd", lambda: flash_attention_fwd_lse_offset(q, k, v, starts, ends, offsets,
+                                                               causal), sdpa_f),
+                ("dq", lambda: flash_attention_bwd_dq_offset(*args), sdpa_fb - sdpa_f),
+                ("dkv", lambda: flash_attention_bwd_dkv_offset(*args), sdpa_fb - sdpa_f)):
+            b_ms, b_by = bound_ms(*work[kname])
+            res[kname] = dict(ms=device_ms(torch, fn), call_ms=call_ms(torch, fn), bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib, bytes=work[kname][0],
+                              flops=work[kname][1])
+        res["fwd"]["plain_ms"] = device_ms(torch, lambda: flash_attention_lse_reference(
+            q, k, v, starts, ends, causal, offsets), whole=False)
+        res["dq"]["plain_ms"] = res["dkv"]["plain_ms"] = plain_bwd  # one plain backward
+        for kname in res:
+            res[kname]["max_abs_err"] = max(b["max_abs_err"] for b in blocks.values())
+        results[name] = res
+        emit("flash_ring", case=name, n=RING_N, shape=[B, Tl, c["Hq"], c["Hkv"], c["Dh"]],
+             causal=causal, global_starts=c["starts"], global_ends=c["ends"], blocks=blocks,
+             lse_atol=LSE_ATOL, lse_rtol=LSE_RTOL, out_atol=B7_OUT_ATOL,
+             out_rtol_of_abs_out_plus_abs_pv=B7_OUT_RTOL, bwd_rtol=BWD_RTOL,
+             bwd_atol_of_row_rms=BWD_ATOL, bwd_floor_of_rms=BWD_FLOOR,
+             faults_over_bound=faults, timed_block=rel, sdpa_fwd_ms=sdpa_f,
              sdpa_fwd_bwd_ms=sdpa_fb, kernels=res, card=card)
     return results
 
@@ -1435,6 +1680,269 @@ def phase_train_full(torch, card):
     return first["launches"], second["launches"]
 
 
+# train_ring_full: llama3_hubert_long.yaml's trainer on a seq ring of
+# RING_RANKS processes over gloo, all on the one card (seq 2 instead of 8:
+# eight replicas of the frozen 3B LLM with the encoder's float32 optimizer
+# state do not fit 80 GB). The CLI's synthetic source makes 1-8 s clips; the
+# ranks make them RING_CLIP_S long, all in the 1,920,000-sample bucket.
+RING_RANKS = 2
+RING_STEPS = 2  # the first launch; the resumed launch takes one more
+RING_CLIP_S = (118.0, 120.0)
+RING_BUCKET = 1920000
+RING_TIMEOUT_S = 420  # per torch.distributed.run launch
+# the ring step's losses and grad_norm against one unsharded step in one
+# process on the same weights and batch: within RING_RTOL * max(1, |a|),
+# the bound of the CPU test against the JAX package's unsharded step
+RING_RTOL = 5e-3
+
+
+def _ring_data(torch_module=None):
+    """The synthetic source of train_ring_full: the CLI's, with 118-120 s
+    clips (every batch in the 1,920,000-sample bucket)."""
+    import functools
+
+    from llm_speech_summarization_tpu_torch.data import datasets
+
+    if not isinstance(datasets.SyntheticSpeechDataset, functools.partial):
+        datasets.SyntheticSpeechDataset = functools.partial(
+            datasets.SyntheticSpeechDataset, min_seconds=RING_CLIP_S[0],
+            max_seconds=RING_CLIP_S[1])
+
+
+def ring_rank(report_dir: str, cli_args) -> int:
+    """One rank of train_ring_full, launched by torch.distributed.run: the
+    training CLI's main() on the ring's synthetic data; each train step is
+    timed and its host-staged bytes recorded; the rank's launch counts,
+    the validation engine's counts, its peak memory and the steps go to
+    ``report_dir/rank<r>.json``."""
+    import torch
+
+    from llm_speech_summarization_tpu_torch.cli import train as cli
+    from llm_speech_summarization_tpu_torch.parallel.comm import COMM_STATS
+    from llm_speech_summarization_tpu_torch.train.trainer import Trainer
+
+    _ring_data()
+    steps, seen = [], {}
+    train_step, validate = Trainer.train_step, Trainer.validate
+
+    def timed_step(self, batch):
+        seen["trainer"] = self
+        seen["backend"] = torch.distributed.get_backend()
+        torch.cuda.synchronize()
+        b0, ms0, t0 = COMM_STATS["bytes"], COMM_STATS["ms"], time.perf_counter()
+        metrics = train_step(self, batch)
+        float(metrics["total_loss"])
+        torch.cuda.synchronize()
+        steps.append(dict(step=self.step, ms=1e3 * (time.perf_counter() - t0),
+                          staged_bytes=COMM_STATS["bytes"] - b0,
+                          staged_ms=COMM_STATS["ms"] - ms0, B=int(batch.wav.shape[0]),
+                          audio_samples=int(batch.wav.shape[1]),
+                          total_len=self.total_len(batch.wav.shape[1])))
+        return metrics
+
+    def counted_validate(self, epoch):
+        seen["validations"] = seen.get("validations", 0) + 1
+        val_bs = min(self.config.train.batch_size, 8)
+        seen["eval_batches"] = seen.get("eval_batches", 0) + -(-len(self.val_ds) // val_bs)
+        return validate(self, epoch)
+
+    Trainer.train_step, Trainer.validate = timed_step, counted_validate
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cli.main(cli_args)
+    trainer = seen["trainer"]
+    rank = trainer.mesh.rank
+    report = dict(rank=rank, backend=seen["backend"], launches=read_launches(), steps=steps,
+                  validations=seen.get("validations", 0), eval_batches=seen.get("eval_batches", 0),
+                  engine_counts=dict(trainer._val_engine.counts) if trainer._val_engine else {},
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  staged=dict(COMM_STATS), enc_layers=trainer.enc_setup.encoder_cfg.num_layers,
+                  llm_layers=trainer.llm_cfg.num_layers, remat=trainer.config.train.remat)
+    with open(os.path.join(report_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _expected_ring_launches(r):
+    """What one rank of a ring run launches (n ranks): each ring attention
+    call runs n blocks, each block one B7 forward, and in the backward one
+    B7 dq and one B7 dk/dv. Per train step: the student's LLM and HuBERT
+    layers run the forward once, and with remat once more in the
+    backward's recompute, and the backward once; the teacher's LLM layers
+    the forward. Each eval batch runs HuBERT and the stacked LLM forward.
+    Rank 0's generations run the unsharded engine: B1 per encoder forward
+    and prefill, B2 per decode step."""
+    n, enc, llm = RING_RANKS, r["enc_layers"], r["llm_layers"]
+    steps, evals, eng = len(r["steps"]), r["eval_batches"], r["engine_counts"]
+    rm = 2 if r["remat"] else 1
+    return {
+        "flash_attention_lse_offset": n * (steps * (rm * (llm + enc) + llm) + evals * (enc + llm)),
+        "flash_attention_bwd_dq_offset": n * steps * (llm + enc),
+        "flash_attention_bwd_dkv_offset": n * steps * (llm + enc),
+        "flash_attention": enc * eng.get("encoder_forwards", 0) + llm * eng.get("prefills", 0),
+        "fused_decode": llm * eng.get("decode_steps", 0),
+    }
+
+
+def _ring_yaml(tmp):
+    """llama3_hubert_long.yaml with the cell's settings: synthetic data (16
+    clips: 4 train batches and one validation batch of 2), the 120 s
+    bucket alone, logs and checkpoints under ``tmp``, a log line per step,
+    one sampled generation per validate."""
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR
+
+    text = (YAML_DIR / "llama3_hubert_long.yaml").read_text()
+    edits = [("data:\n", "data:\n  source: synthetic\n  synthetic_num_samples: 16\n"),
+             ("audio_samples: [320000, 960000, 1920000]", f"audio_samples: [{RING_BUCKET}]"),
+             ("checkpoint_dir: checkpoints", f"checkpoint_dir: {tmp}/ckpt"),
+             ("log_dir: logs", f"log_dir: {tmp}/logs"),
+             ("log_interval: 10", "log_interval: 1"),
+             ("num_generate_samples: 5", "num_generate_samples: 1")]
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise AssertionError(f"train_ring_full: {old!r} is not in llama3_hubert_long.yaml once")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, "long.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _ring_launch(yaml_path, steps, report_dir):
+    """Launch the ring's ranks through torch.distributed.run and the
+    training CLI (--mesh 1,RING_RANKS,1; the CLI picks gloo, as the ranks
+    share the card); every process is killed if the launch outlives
+    RING_TIMEOUT_S, and a rank's failure fails the phase. Returns the ranks'
+    reports and the wall seconds."""
+    import signal
+    import socket
+
+    os.makedirs(report_dir, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(RING_RANKS), "--master_addr", "127.0.0.1",
+           "--master_port", str(port), os.path.abspath(__file__), "--ring-rank", report_dir,
+           "--", "-c", yaml_path, "-n", "ring", "--mesh", f"1,{RING_RANKS},1",
+           "--steps", str(steps)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=RING_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"train_ring_full: the ranks outlived {RING_TIMEOUT_S} s:\n"
+                             f"{out[-6000:]}")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train_ring_full: the launch exited {proc.returncode}:\n"
+                             f"{out[-6000:]}")
+    reports = []
+    for r in range(RING_RANKS):
+        with open(os.path.join(report_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    for rep in reports:
+        if rep["backend"] != "gloo":
+            raise AssertionError(f"train_ring_full: rank {rep['rank']} ran over "
+                                 f"{rep['backend']}, not gloo, with ranks that share a card")
+        check_launches(f"train_ring_full rank {rep['rank']}", rep["launches"],
+                       _expected_ring_launches(rep))
+    return reports, wall
+
+
+def _logged_steps(log_dir):
+    per_step = {}
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            for k, v in rec.items():
+                if k.startswith("train/"):
+                    per_step.setdefault(rec["step"], {})[k[len("train/"):]] = v
+    return per_step
+
+
+def phase_train_ring_full(torch, card):
+    """``llama3_hubert_long.yaml`` at published widths and depth on a ring
+    of RING_RANKS ranks on the one card: RING_STEPS steps, validate and a
+    checkpoint; a second launch resumes and takes one step. Then, in this
+    process, one unsharded step (seq 1, no ring) on the same weights and
+    the first batch, which the ring's first step must match."""
+    import copy
+    import shutil
+    import tempfile
+
+    from llm_speech_summarization_tpu_torch.configs import load_config
+    from llm_speech_summarization_tpu_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="lss_ring_")
+    try:
+        yaml_path = _ring_yaml(tmp)
+        first, first_wall = _ring_launch(yaml_path, RING_STEPS, os.path.join(tmp, "r1"))
+        resumed, resumed_wall = _ring_launch(yaml_path, RING_STEPS + 1, os.path.join(tmp, "r2"))
+        logged = _logged_steps(os.path.join(tmp, "logs", "ring"))
+        if sorted(logged) != list(range(1, RING_STEPS + 2)):
+            raise AssertionError(f"train_ring_full: logged steps {sorted(logged)}")
+        if [s["step"] for s in resumed[0]["steps"]] != [RING_STEPS + 1]:
+            raise AssertionError(f"train_ring_full: the resumed launch ran "
+                                 f"{resumed[0]['steps']}, not step {RING_STEPS + 1} alone")
+        bad = [s for s, m in logged.items() for v in m.values() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"train_ring_full: non-finite metrics at steps {bad}")
+
+        # the unsharded step on the same weights and first batch
+        _ring_data()
+        cfg = load_config(yaml_path)
+        cfg = copy.deepcopy(cfg)
+        cfg.train.use_ring_attention = cfg.train.encoder_sp = False
+        cfg.train.mesh.seq = 1
+        cfg.log.checkpoint_dir = os.path.join(tmp, "plain_ckpt")
+        cfg.log.log_dir = os.path.join(tmp, "plain_logs")
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, run_name="plain")
+        batch = next(trainer._batches(trainer.train_ds, cfg.train.batch_size, True,
+                                      cfg.seed_everything))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = {k: float(v) for k, v in trainer.train_step(batch).items()}
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        plain_peak = torch.cuda.max_memory_allocated() / 1e9
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ring = logged[1]
+    rel = {k: abs(ring[k] - plain[k]) / max(1.0, abs(plain[k])) for k in plain}
+    if not max(rel.values()) <= RING_RTOL:
+        raise AssertionError(f"train_ring_full: ring step {ring} vs unsharded {plain}: "
+                             f"{rel} x max(1, |a|) > {RING_RTOL}")
+    steps0 = first[0]["steps"]
+    tokens = steps0[0]["B"] * steps0[0]["total_len"]
+    ms = [s["ms"] for s in steps0]
+    launches = [sum(rep["launches"][k] for rep in first + resumed) for k in first[0]["launches"]]
+    launches = dict(zip(first[0]["launches"], launches))
+    emit("train_ring_full", config="llama3_hubert_long.yaml", data="synthetic",
+         clip_s=list(RING_CLIP_S), audio_samples=RING_BUCKET, batch=steps0[0]["B"],
+         total_len=steps0[0]["total_len"], ranks=RING_RANKS, backend="gloo",
+         reduced=[f"seq {RING_RANKS} instead of 8 (two ranks share the one card)",
+                  "synthetic data, random weights"],
+         ms_per_step=ms, tokens_per_s=[tokens / (m / 1e3) for m in ms],
+         steady_ms_per_step=min(ms[1:] or ms), steady_tokens_per_s=tokens / (min(ms[1:] or ms) / 1e3),
+         staged_bytes_per_step=[s["staged_bytes"] for s in steps0],
+         staged_ms_per_step=[s["staged_ms"] for s in steps0],
+         peak_gb_per_rank=[rep["peak_gb"] for rep in first],
+         resumed_peak_gb_per_rank=[rep["peak_gb"] for rep in resumed],
+         launch_wall_s=[first_wall, resumed_wall], logged=logged,
+         plain_step=plain, plain_step_ms=plain_ms, plain_peak_gb=plain_peak,
+         rel_diff_vs_plain=rel, rtol=RING_RTOL, launches=launches,
+         per_rank_launches=[rep["launches"] for rep in first + resumed],
+         engine_counts=[rep["engine_counts"] for rep in first + resumed], card=card)
+    return launches
+
+
 def _wrappers():
     from llm_speech_summarization_tpu_torch.kernels import flash_attention as fa
     from llm_speech_summarization_tpu_torch.kernels.decode_attention import decode_attention
@@ -1449,6 +1957,9 @@ def _wrappers():
             "flash_attention_lse": fa.flash_attention_fwd_lse,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "flash_attention_lse_offset": fa.flash_attention_fwd_lse_offset,
+            "flash_attention_bwd_dq_offset": fa.flash_attention_bwd_dq_offset,
+            "flash_attention_bwd_dkv_offset": fa.flash_attention_bwd_dkv_offset,
             "fused_decode_attention_write": fused_decode_attention_write,
             "decode_attention": decode_attention}
 
@@ -1860,6 +2371,7 @@ def main() -> int:
     flash = phase_flash(torch, card)
     with torch.enable_grad():  # the SDPA yardstick's backward
         flash_train = phase_flash_train(torch, card)
+        flash_ring = phase_flash_ring(torch, card)
     fused = phase_fused(torch, card)
     paged = phase_paged(torch, card)
     fpaged = phase_fused_paged(torch, card)
@@ -1880,14 +2392,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     with torch.enable_grad():
         train_runs = phase_train_full(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        ring_launches = phase_train_ring_full(torch, card)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "llm_speech_summarization_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     # launches: the sum over the main-path runs (batch path, three servers,
     # the Whisper batch path, its B8 stream and server, the trainer and the
-    # resumed trainer)
-    for run in [r["launches"] for r in serving.values()] + whisper_runs + list(train_runs):
+    # resumed trainer, and the ring trainer's ranks in both its launches)
+    for run in ([r["launches"] for r in serving.values()] + whisper_runs + list(train_runs)
+                + [ring_launches]):
         for k, v in run.items():
             launches[k] += v
     csrc = "llm_speech_summarization_tpu_torch/kernels/csrc/"
@@ -1923,6 +2440,14 @@ def main() -> int:
              "dkv")):
         kernels.append(entry(name, source, replaces, name, flash_train["llm_train"][key],
                              [r[key]["max_abs_err"] for r in flash_train.values()]))
+    for name, source, replaces, key in (  # B7: the offset mode, at the LLM ring's block
+            ("flash_attention_lse_offset", "flash_attention.cu", "flash_attention.py:37", "fwd"),
+            ("flash_attention_bwd_dq_offset", "flash_attention_bwd.cu", "flash_attention.py:202",
+             "dq"),
+            ("flash_attention_bwd_dkv_offset", "flash_attention_bwd.cu",
+             "flash_attention.py:257", "dkv")):
+        kernels.append(entry(name, source, replaces, name, flash_ring["llm_ring"][key],
+                             [r[key]["max_abs_err"] for r in flash_ring.values()]))
     kernels[0]["sdpa_ms"] = kernels[0]["library_ms"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1933,4 +2458,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ring-rank"]:  # one rank of train_ring_full
+        sys.exit(ring_rank(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

@@ -28,6 +28,17 @@
 // Masked scores are NEG_INF = -1e30 (never -inf) and the denominator is
 // floored at 1e-30, so rows with no valid key (pad queries) stay finite.
 //
+// Offset mode (kernel B7, the ring-attention interior): the local queries
+// and the visiting key block live at global offsets q_off and k_off, and
+// the causal rule becomes k + k_off <= q + q_off. With d = q_off - k_off the
+// frontier moves by d: a q tile stops at key q0 + BQ + d, and a q tile
+// that sees no key of the block loops over no k tile at all, writing
+// finite zeros and lse = -1e30 (never -inf: the ring's log-sum-exp merge of
+// two -inf would give NaN weights); a row of a looping tile that sees no
+// key keeps m = -1e30 and so lse = -1e30 as well. The TPU kernel instead
+// loops over every k block in offset mode and lets the mask decide.
+// Offsets (0, 0) are plain B1.
+//
 // Training: with a non-null ``lse`` the same launch also writes the float32
 // per-row log-sum-exp m + log(max(l, 1e-30)) as (B, Hq, T), the TPU
 // kernel's return_lse output, which the backward (flash_attention_bwd.cu)
@@ -69,7 +80,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
                  const int* __restrict__ ends, int T, int Hq, int Hkv, long long q_sb,
                  long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
                  long long v_sh, long long o_sb, long long o_st, long long o_sh, int causal,
-                 float scale) {
+                 int diag, float scale) {
   using Lay = Layout<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::q_off);
@@ -93,9 +104,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
   load_tile<DH>(Qs, qb, q_st, q0, T);
 
-  // keys in [start, k_stop); causal: no key past the tile's last query
+  // keys in [start, k_stop); causal: no key past the tile's last query,
+  // shifted by diag = q_off - k_off in offset mode
   int k_stop = end;
-  if (causal) k_stop = min(k_stop, q0 + BQ);
+  if (causal) k_stop = min(k_stop, q0 + BQ + diag);
   const int kt_begin = start / BK;
   const int kt_end = k_stop > 0 ? (k_stop + BK - 1) / BK : 0;
 
@@ -142,7 +154,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const int kp = k0 + half * 32 + c;
-      const bool ok = kp >= start && kp < end && (!causal || kp <= qpos);
+      const bool ok = kp >= start && kp < end && (!causal || kp <= qpos + diag);
       sv[c] = ok ? srow[c] * scale : NEG_INF;
       mx = fmaxf(mx, sv[c]);
     }
@@ -199,7 +211,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, const int* starts,
            const int* ends, int B, int T, int Hq, int Hkv, const long long* s, int causal,
-           float scale, cudaStream_t stream) {
+           int diag, float scale, cudaStream_t stream) {
   const size_t smem = Layout<DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -209,7 +221,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, c
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, starts, ends, T,
       Hq, Hkv, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-      causal, scale);
+      causal, diag, scale);
   return (int)cudaGetLastError();
 }
 
@@ -217,16 +229,19 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, c
 
 // strides: 12 element strides (b, t, h) for q, k, v, out, in that order.
 // lse: null, or a contiguous (B, Hq, T) float32 buffer for the log-sum-exp.
-// Returns the cudaError_t of the launch (0 on success).
+// q_off, k_off: the global offsets of the queries and keys (0, 0 but in the
+// ring interior). Returns the cudaError_t of the launch (0 on success).
 extern "C" int lss_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                        void* lse, const void* starts, const void* ends, int B, int T,
                                        int Hq, int Hkv, int Dh, const long long* strides,
-                                       int causal, float scale, void* stream) {
+                                       int causal, int q_off, int k_off, float scale,
+                                       void* stream) {
   const int* st = static_cast<const int*>(starts);
   const int* en = static_cast<const int*>(ends);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (Dh == 128) return launch<128>(q, k, v, out, l, st, en, B, T, Hq, Hkv, strides, causal, scale, s);
-  if (Dh == 64) return launch<64>(q, k, v, out, l, st, en, B, T, Hq, Hkv, strides, causal, scale, s);
+  const int d = q_off - k_off;
+  if (Dh == 128) return launch<128>(q, k, v, out, l, st, en, B, T, Hq, Hkv, strides, causal, d, scale, s);
+  if (Dh == 64) return launch<64>(q, k, v, out, l, st, en, B, T, Hq, Hkv, strides, causal, d, scale, s);
   return (int)cudaErrorInvalidValue;
 }

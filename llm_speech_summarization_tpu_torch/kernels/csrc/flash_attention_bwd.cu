@@ -35,6 +35,13 @@
 //     accumulators in fragments. The GQA group sum happens inside the
 //     block, so there is no (B*Hq, T, Dh) per-q-head intermediate (the TPU
 //     code writes one and group-sums it in XLA) and again no atomics.
+// Offset mode (kernel B7, the ring-attention interior): with the queries
+// at global offset q_off and the keys at k_off, the causal rule becomes
+// key + k_off <= query + q_off. With d = q_off - k_off, dq's q tile stops
+// at key q0 + BQ + d, and dk/dv's k tile starts at q tile
+// max(0, (k0 - d) / BQ); the tests shift by d. lse and delta are the
+// global ones of the whole ring, so p is the global softmax restricted to
+// the visiting block. Offsets (0, 0) are plain B6.
 // Both kernels sum in a fixed order, so two calls give bit-identical
 // results. Later designs move to wgmma + TMA and split the dk/dv loop.
 
@@ -58,6 +65,7 @@ struct BwdArgs {
   const int *starts, *ends;
   Str3 sq, sk, sv, sdo, sdq, sdk, sdv;
   int T, Hq, Hkv, causal;
+  int diag;  // q_off - k_off: 0 but in offset mode
   float scale;
 };
 
@@ -191,7 +199,7 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const BwdArgs a) {
   const float delta_r = row_ok ? a.delta[lrow] : 0.f;
 
   int k_stop = end;
-  if (a.causal) k_stop = min(k_stop, q0 + BQ);
+  if (a.causal) k_stop = min(k_stop, q0 + BQ + a.diag);
   const int kt_begin = start / BK;
   const int kt_end = k_stop > 0 ? (k_stop + BK - 1) / BK : 0;
 
@@ -216,7 +224,7 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const int kp = k0 + half * 32 + c;
-      const bool ok = row_ok && kp >= start && kp < end && (!a.causal || kp <= qpos);
+      const bool ok = row_ok && kp >= start && kp < end && (!a.causal || kp <= qpos + a.diag);
       const float p = ok ? expf(srow[c] * a.scale - lse_r) : 0.f;
       dsrow[c] = __float2bfloat16_rn(p * (dprow[c] - delta_r));
     }
@@ -272,7 +280,7 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkv_kernel(const BwdArgs a) {
 
   // a tile with no valid key has zero gradients (every p is masked)
   const bool any_key = k0 < end && k0 + BK > start;
-  const int qt_begin = a.causal ? k0 / BQ : 0;
+  const int qt_begin = a.causal ? max(k0 - a.diag, 0) / BQ : 0;
   const int qt_end = any_key ? (T + BQ - 1) / BQ : 0;
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
@@ -304,7 +312,7 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkv_kernel(const BwdArgs a) {
       for (int c = 0; c < 32; ++c) {
         const int qi = half * 32 + c;
         const int qpos = q0 + qi;
-        const bool ok = key_ok && qpos < T && (!a.causal || kpos <= qpos);
+        const bool ok = key_ok && qpos < T && (!a.causal || kpos <= qpos + a.diag);
         const float p = ok ? expf(srow[c] * a.scale - lse_s[qi]) : 0.f;
         prow[c] = __float2bfloat16_rn(p);
         dsrow[c] = __float2bfloat16_rn(p * (dprow[c] - delta_s[qi]));
@@ -336,7 +344,7 @@ int launch(BwdArgs a, int B, bool dkv, cudaStream_t stream) {
 int dispatch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, void* dq, void* dk, void* dv, const void* starts,
              const void* ends, int B, int T, int Hq, int Hkv, int Dh, const long long* s,
-             int causal, float scale, void* stream, bool dkv) {
+             int causal, int diag, float scale, void* stream, bool dkv) {
   BwdArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -355,6 +363,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.causal = causal;
+  a.diag = diag;
   a.scale = scale;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (Dh == 128) return launch<128>(a, B, dkv, cs);
@@ -365,17 +374,19 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
 }  // namespace
 
 // strides: 21 element strides (b, t, h) for q, k, v, dout, dq, dk, dv, in
-// that order; lse and delta are contiguous (B, Hq, T) float32. dq is
+// that order; lse and delta are contiguous (B, Hq, T) float32. q_off and
+// k_off are the global offsets of the queries and keys (0, 0 but in the
+// ring interior). dq is
 // written by the first entry, dk and dv by the second (the other outputs'
 // pointers are not touched). Each returns the cudaError_t of its launch.
 extern "C" int lss_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,
                                           void* dq, const void* starts, const void* ends, int B,
                                           int T, int Hq, int Hkv, int Dh,
-                                          const long long* strides, int causal, float scale,
-                                          void* stream) {
+                                          const long long* strides, int causal, int q_off,
+                                          int k_off, float scale, void* stream) {
   return dispatch(q, k, v, dout, lse, delta, dq, nullptr, nullptr, starts, ends, B, T, Hq, Hkv,
-                  Dh, strides, causal, scale, stream, false);
+                  Dh, strides, causal, q_off - k_off, scale, stream, false);
 }
 
 extern "C" int lss_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -383,7 +394,7 @@ extern "C" int lss_flash_attention_bwd_dkv(const void* q, const void* k, const v
                                            void* dk, void* dv, const void* starts,
                                            const void* ends, int B, int T, int Hq, int Hkv,
                                            int Dh, const long long* strides, int causal,
-                                           float scale, void* stream) {
+                                           int q_off, int k_off, float scale, void* stream) {
   return dispatch(q, k, v, dout, lse, delta, nullptr, dk, dv, starts, ends, B, T, Hq, Hkv, Dh,
-                  strides, causal, scale, stream, true);
+                  strides, causal, q_off - k_off, scale, stream, true);
 }

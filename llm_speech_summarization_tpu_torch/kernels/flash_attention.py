@@ -1,6 +1,8 @@
 """Flash attention: the forward (kernel B1), its log-sum-exp variant and the
 FlashAttention-2 backward (kernel B6: dq and dk/dv), with their plain
-versions, launch counts and the differentiable ``flash_attention``.
+versions, launch counts and the differentiable ``flash_attention``; and
+their offset mode (kernel B7), the per-block interior of ring attention
+(``ops/ring_attention.py``).
 
 Port of ``llm_speech_summarization_tpu/kernels/flash_attention.py``. The
 CUDA kernels are ``csrc/flash_attention.cu`` (forward, optionally writing
@@ -15,6 +17,14 @@ downstream (the JAX contract). The log-sum-exp is float32 (B, Hq, T); a
 row with no valid key gets -1e30, as the TPU kernel writes. CPU tensors
 take the plain versions; CUDA tensors launch the kernels, and any shape,
 dtype or layout the kernels do not take raises.
+
+Offset mode (B7): ``flash_attention_fwd_lse_offset``,
+``flash_attention_bwd_dq_offset`` and ``flash_attention_bwd_dkv_offset``
+take ``offsets`` = (q_off, k_off), two host ints that place the queries and
+the keys of one call at those global positions; the causal rule becomes
+``k + k_off <= q + q_off`` (the TPU kernels' scalar-prefetched offsets). A
+row that sees no key of the block gets lse = -1e30. They count their
+launches apart from B1 and B6.
 """
 
 from __future__ import annotations
@@ -47,9 +57,10 @@ def flash_attention_reference(
     return dot_product_attention(q, k, v, bias)
 
 
-def _masked_scores(q, k, starts, ends, causal):
+def _masked_scores(q, k, starts, ends, causal, offsets=None):
     """float32 scores (B, Hkv, G, T, S) = scale * q.k^T and the key mask
-    (B, 1, 1, T, S) of the window and the causal rule."""
+    (B, 1, 1, T, S) of the window and the causal rule, shifted by
+    ``offsets`` = (q_off, k_off) when given."""
     B, T, Hq, Dh = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, T, Hkv, Hq // Hkv, Dh).float()
@@ -58,17 +69,18 @@ def _masked_scores(q, k, starts, ends, causal):
     mask = (pos[None, :] >= starts[:, None]) & (pos[None, :] < ends[:, None])  # keys
     mask = mask[:, None, None, None, :]
     if causal:
-        mask = mask & (pos[None, :] <= pos[:, None])
+        q_off, k_off = offsets or (0, 0)
+        mask = mask & (pos[None, :] + k_off <= pos[:, None] + q_off)
     return s, mask
 
 
-def flash_attention_lse_reference(q, k, v, starts, ends, causal=True):
+def flash_attention_lse_reference(q, k, v, starts, ends, causal=True, offsets=None):
     """Plain version of the forward with log-sum-exp: (out (B, T, Hq, Dh) in
     q's dtype, lse (B, Hq, T) float32). As the TPU kernel: masked scores are
     -1e30, p is rounded to v's dtype before the value product, the
     denominator and the log are floored at 1e-30."""
     B, T, Hq, Dh = q.shape
-    s, mask = _masked_scores(q, k, starts, ends, causal)
+    s, mask = _masked_scores(q, k, starts, ends, causal, offsets)
     s = torch.where(mask, s, NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -79,14 +91,15 @@ def flash_attention_lse_reference(q, k, v, starts, ends, causal=True):
     return out.reshape(B, T, Hq, Dh).to(q.dtype), lse
 
 
-def flash_attention_bwd_reference(q, k, v, dout, lse, delta, starts, ends, causal=True):
+def flash_attention_bwd_reference(q, k, v, dout, lse, delta, starts, ends, causal=True,
+                                  offsets=None):
     """Plain version of both backward kernels: the TPU ``_bwd_*`` formulas
     written densely. ``delta`` = rowsum(dO * O) as (B, Hq, T) float32.
     Returns (dq, dk, dv) in q's dtype, dk/dv summed over the GQA group."""
     B, T, Hq, Dh = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
-    s, mask = _masked_scores(q, k, starts, ends, causal)
+    s, mask = _masked_scores(q, k, starts, ends, causal, offsets)
     lse_g = lse.reshape(B, Hkv, G, T, 1)
     p = torch.exp(torch.where(mask, s - lse_g, NEG_INF))  # masked → exactly 0
     dog = dout.reshape(B, T, Hkv, G, Dh).float()
@@ -125,30 +138,59 @@ def flash_attention_fwd(
 def flash_attention_fwd_lse(q, k, v, starts, ends, causal=True):
     """The forward for training: (out, lse (B, Hq, T) float32) in one
     launch of the B1 kernel."""
-    if _devices("flash_attention_fwd_lse", (q, k, v, starts, ends)) == "cpu":
-        return flash_attention_lse_reference(q, k, v, starts, ends, causal)
-    return _launch_fwd(flash_attention_fwd_lse, q, k, v, starts, ends, causal, with_lse=True)
+    return _fwd_lse(flash_attention_fwd_lse, q, k, v, starts, ends, causal, None)
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, starts, ends, causal=True):
     """dq (B, T, Hq, Dh) from the saved lse and delta = rowsum(dO * O)."""
-    tensors = (q, k, v, dout, lse, delta, starts, ends)
-    if _devices("flash_attention_bwd_dq", tensors) == "cpu":
-        return flash_attention_bwd_reference(*tensors, causal)[0]
-    return _launch_bwd(flash_attention_bwd_dq, *tensors, causal)
+    return _bwd(flash_attention_bwd_dq, (q, k, v, dout, lse, delta, starts, ends), causal, None)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, starts, ends, causal=True):
     """(dk, dv) (B, T, Hkv, Dh), summed over each KV head's q-head group."""
-    tensors = (q, k, v, dout, lse, delta, starts, ends)
-    if _devices("flash_attention_bwd_dkv", tensors) == "cpu":
-        return flash_attention_bwd_reference(*tensors, causal)[1:]
-    return _launch_bwd(flash_attention_bwd_dkv, *tensors, causal)
+    return _bwd(flash_attention_bwd_dkv, (q, k, v, dout, lse, delta, starts, ends), causal, None)
+
+
+# B7: the three entry points in offset mode, each with its own launch count
+
+
+def flash_attention_fwd_lse_offset(q, k, v, starts, ends, offsets, causal=True):
+    """B7 forward: ``flash_attention_fwd_lse`` at ``offsets`` = (q_off, k_off)."""
+    return _fwd_lse(flash_attention_fwd_lse_offset, q, k, v, starts, ends, causal,
+                    tuple(offsets))
+
+
+def flash_attention_bwd_dq_offset(q, k, v, dout, lse, delta, starts, ends, offsets, causal=True):
+    """B7 dq: ``flash_attention_bwd_dq`` at ``offsets`` = (q_off, k_off)."""
+    return _bwd(flash_attention_bwd_dq_offset, (q, k, v, dout, lse, delta, starts, ends), causal,
+                tuple(offsets))
+
+
+def flash_attention_bwd_dkv_offset(q, k, v, dout, lse, delta, starts, ends, offsets,
+                                   causal=True):
+    """B7 dk/dv: ``flash_attention_bwd_dkv`` at ``offsets`` = (q_off, k_off)."""
+    return _bwd(flash_attention_bwd_dkv_offset, (q, k, v, dout, lse, delta, starts, ends), causal,
+                tuple(offsets))
+
+
+def _fwd_lse(wrapper, q, k, v, starts, ends, causal, offsets):
+    if _devices(wrapper.__name__, (q, k, v, starts, ends)) == "cpu":
+        return flash_attention_lse_reference(q, k, v, starts, ends, causal, offsets)
+    return _launch_fwd(wrapper, q, k, v, starts, ends, causal, with_lse=True, offsets=offsets)
+
+
+def _bwd(wrapper, tensors, causal, offsets):
+    if _devices(wrapper.__name__, tensors) == "cpu":
+        dq, dk, dv = flash_attention_bwd_reference(*tensors, causal, offsets)
+        return (dk, dv) if wrapper in _DKV_WRAPPERS else dq
+    return _launch_bwd(wrapper, *tensors, causal, offsets)
 
 
 for _wrapper in (flash_attention_fwd, flash_attention_fwd_lse, flash_attention_bwd_dq,
-                 flash_attention_bwd_dkv):
+                 flash_attention_bwd_dkv, flash_attention_fwd_lse_offset,
+                 flash_attention_bwd_dq_offset, flash_attention_bwd_dkv_offset):
     _wrapper.launches = 0
+_DKV_WRAPPERS = (flash_attention_bwd_dkv, flash_attention_bwd_dkv_offset)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -194,7 +236,7 @@ def _lib():
     fn = lib.lss_flash_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -202,7 +244,7 @@ def _lib():
 def _bwd_lib():
     lib = load_library("flash_attention_bwd", BWD_SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
-    tail = [p, p, i, i, i, i, i, p, i, ctypes.c_float, p]
+    tail = [p, p, i, i, i, i, i, p, i, i, i, ctypes.c_float, p]
     for fn, outs in ((lib.lss_flash_attention_bwd_dq, 1), (lib.lss_flash_attention_bwd_dkv, 2)):
         if fn.argtypes is None:
             fn.argtypes = [p] * (6 + outs) + tail
@@ -242,26 +284,36 @@ def _check_shapes(what, q, k, v, starts, ends, others=()):
     return B, T, Hq, Hkv, Dh
 
 
-def _launch_fwd(wrapper, q, k, v, starts, ends, causal, with_lse):
+def _launch_fwd(wrapper, q, k, v, starts, ends, causal, with_lse, offsets=None):
     B, T, Hq, Hkv, Dh = _check_shapes(wrapper.__name__, q, k, v, starts, ends)
     out = torch.empty((B, T, Hq, Dh), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
     strides = (ctypes.c_longlong * 12)(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
                                          + out.stride()[:3]))
+    q_off, k_off = _offsets(wrapper.__name__, offsets)
     fn = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     None if lse is None else lse.data_ptr(), starts.data_ptr(),
-                    ends.data_ptr(), B, T, Hq, Hkv, Dh, strides, int(causal), Dh ** -0.5,
-                    stream)
+                    ends.data_ptr(), B, T, Hq, Hkv, Dh, strides, int(causal), q_off, k_off,
+                    Dh ** -0.5, stream)
     count_launch(wrapper)
     check_status(status, wrapper.__name__)
     return out, lse
 
 
-def _launch_bwd(wrapper, q, k, v, dout, lse, delta, starts, ends, causal):
+def _offsets(what, offsets):
+    """(q_off, k_off) as host ints; (0, 0) without offset mode."""
+    if offsets is None:
+        return 0, 0
+    if len(offsets) != 2 or not all(isinstance(o, int) for o in offsets):
+        raise ValueError(f"{what}: offsets must be two host ints (q_off, k_off), got {offsets!r}")
+    return offsets
+
+
+def _launch_bwd(wrapper, q, k, v, dout, lse, delta, starts, ends, causal, offsets=None):
     what = wrapper.__name__
     B, T, Hq, Hkv, Dh = _check_shapes(what, q, k, v, starts, ends, (("dout", dout),))
     if dout.shape != q.shape:
@@ -272,7 +324,7 @@ def _launch_bwd(wrapper, q, k, v, dout, lse, delta, starts, ends, causal):
                              f"tensor")
     if len({t.device for t in (q, dout, lse, delta)}) != 1:
         raise ValueError(f"{what}: all tensors must be on one device")
-    dkv = wrapper is flash_attention_bwd_dkv
+    dkv = wrapper in _DKV_WRAPPERS
     if dkv:
         outs = tuple(torch.empty((B, T, Hkv, Dh), dtype=torch.bfloat16, device=q.device)
                      for _ in range(2))
@@ -282,14 +334,15 @@ def _launch_bwd(wrapper, q, k, v, dout, lse, delta, starts, ends, causal):
         dq_s, dk_s, dv_s = outs[0].stride()[:3], (0, 0, 0), (0, 0, 0)
     strides = (ctypes.c_longlong * 21)(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
                                          + dout.stride()[:3] + dq_s + dk_s + dv_s))
+    q_off, k_off = _offsets(what, offsets)
     lib = _bwd_lib()
     fn = lib.lss_flash_attention_bwd_dkv if dkv else lib.lss_flash_attention_bwd_dq
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                     delta.data_ptr(), *(o.data_ptr() for o in outs), starts.data_ptr(),
-                    ends.data_ptr(), B, T, Hq, Hkv, Dh, strides, int(causal), Dh ** -0.5,
-                    stream)
+                    ends.data_ptr(), B, T, Hq, Hkv, Dh, strides, int(causal), q_off, k_off,
+                    Dh ** -0.5, stream)
     count_launch(wrapper)
     check_status(status, what)
     return outs if dkv else outs[0]

@@ -18,6 +18,7 @@ import torch
 
 from ..configs import Config
 from ..ops.pooling import avg_pool_time, stack_downsample
+from ..parallel.comm import group_size
 from .hubert import HubertConfig, hubert_forward, hubert_frame_count, hubert_preset, init_hubert_params
 from .whisper import (
     WhisperConfig,
@@ -135,11 +136,15 @@ def audio_encoder_forward(
     wav: torch.Tensor,
     wav_lens: Optional[torch.Tensor] = None,
     remat: bool = False,
+    sp_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """waveform (B, N) [+ per-sample lengths] → (embeds (B, M, E),
     emb_lens (B,)), the buffer right-padded and ``emb_lens`` clipped to it
     (a clip longer than Whisper's 30 s budget is cut). ``remat`` recomputes
-    each encoder layer in the backward."""
+    each encoder layer in the backward. ``sp_group``: long-audio sequence
+    parallelism, the HuBERT frames sharded over the group's ranks
+    (``models/hubert.py``); pooling and the projector run on the gathered
+    frames, the same on every rank."""
     B, N = wav.shape
     if wav_lens is None:
         wav_lens = torch.full((B,), N, dtype=torch.int32, device=wav.device)
@@ -151,6 +156,9 @@ def audio_encoder_forward(
     params = _cast_floats(params, wav.dtype)
 
     if setup.base == "whisper":
+        if group_size(sp_group) > 1:
+            raise ValueError("encoder sequence parallelism covers the HuBERT path (the Whisper "
+                             "encoder is 30 s-bounded by its mel featurization)")
         w_cfg = setup.encoder_cfg
         mel = log_mel_spectrogram(wav, w_cfg, pad_to_frames=mel_frame_budget(
             w_cfg, N, setup.whisper_dynamic_frames))
@@ -158,7 +166,7 @@ def audio_encoder_forward(
                                     remat=remat)
     else:
         frames, _ = hubert_forward(params["encoder"], setup.encoder_cfg, wav, wav_mask,
-                                   remat=remat)
+                                   remat=remat, sp_group=sp_group)
     if setup.downsample_method == "pool":
         pooled = avg_pool_time(frames, setup.pool_kernel, setup.pool_stride)
     else:

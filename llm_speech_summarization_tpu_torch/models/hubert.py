@@ -1,4 +1,4 @@
-"""HuBERT speech encoder (port of ``models/hubert.py``, the unsharded path).
+"""HuBERT speech encoder (port of ``models/hubert.py``).
 
 waveform (B, N) → conv feature extractor (×320, 20 ms frames) → feature
 projection → + grouped positional conv → transformer blocks → (B, T, D).
@@ -9,10 +9,19 @@ n_valid)``, so padded frames are masked and any frame count runs without
 padding. GELU is exact (erf). ``remat`` recomputes each transformer layer
 in the backward (``torch.utils.checkpoint``, the JAX ``jax.checkpoint``).
 
+Sequence parallelism (``sp_group``, the long-audio trainer): the waveform
+and the frames shard over the group's ranks. The conv stem borrows its
+receptive-field halo from the right neighbour and the positional conv K/2
+frames from each neighbour (``parallel/comm.halo_shift``; the ranks at the
+ends receive zeros, the global zero padding), and self-attention is the
+bidirectional ``ring_attention`` (kernel B7 per block on the card). The
+frames come back gathered on every rank, equal to the unsharded forward's
+on valid frames. It needs the layer-normed stem and pre-LN blocks, which
+are per-frame (hubert-base's group norm takes moments over all frames).
+
 Ported: the hubert-large architecture (layer-normed conv stem with bias,
 pre-LN "stable" blocks) and a tiny preset of it for tests. Not ported yet:
-hubert-base's group-norm stem and post-LN blocks (ROADMAP queue A item 4)
-and the sequence-parallel path (halo exchange + ring attention, item 11).
+hubert-base's group-norm stem and post-LN blocks (ROADMAP queue A item 4).
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from ..ops.norms import layer_norm
+from ..ops.ring_attention import ring_attention
+from ..parallel.comm import all_gather, group_rank, group_size, halo_shift
 
 Params = Dict[str, Any]
 
@@ -75,6 +86,16 @@ def hubert_frame_count(cfg: HubertConfig, num_samples):
     for k, s in zip(cfg.conv_kernels, cfg.conv_strides):
         n = (n - k) // s + 1
     return n
+
+
+def conv_receptive_field(cfg: HubertConfig) -> Tuple[int, int]:
+    """(receptive field, total stride) of the conv stem, in samples: a
+    sequence-parallel shard borrows R - S samples from its right neighbour."""
+    R, S = 1, 1
+    for k, s in zip(cfg.conv_kernels, cfg.conv_strides):
+        R += (k - 1) * S
+        S *= s
+    return R, S
 
 
 def init_hubert_params(
@@ -165,15 +186,119 @@ def _pos_conv(params: Params, cfg: HubertConfig, x: torch.Tensor) -> torch.Tenso
     return F.gelu(h).transpose(1, 2)
 
 
+def _feature_extractor_sp(params, cfg, wav_local, group):
+    """The conv stem on this rank's (B, N/n) samples plus the R - S samples
+    that start its right neighbour's shard (zeros on the last rank): valid
+    convolutions are translation-invariant, so the local frames are the
+    global frames whose windows start in the local samples."""
+    R, S = conv_receptive_field(cfg)
+    halo = R - S
+    F_local = wav_local.shape[1] // S
+    if hubert_frame_count(cfg, wav_local.shape[1] + halo) < F_local:
+        raise ValueError(f"a shard of {wav_local.shape[1]} samples plus the {halo}-sample halo "
+                         f"gives fewer than {F_local} frames")
+    right = halo_shift(wav_local[:, :halo], -1, group)
+    return _feature_extractor(params, cfg, torch.cat([wav_local, right], dim=1))[:, :F_local]
+
+
+def _pos_conv_sp(params, cfg, h, group):
+    """The positional conv on this rank's frames with K/2 halo frames from
+    each neighbour (zeros at the ends), a valid conv and the even kernel's
+    extra frame cropped: per frame the unsharded ``_pos_conv``."""
+    K = cfg.pos_conv_kernel
+    if K % 2:
+        raise ValueError("the sequence-parallel positional conv assumes an even kernel")
+    pad = K // 2
+    F_local = h.shape[1]
+    if F_local < pad:
+        raise ValueError(f"local frames {F_local} < the positional conv's halo {pad}")
+    left = halo_shift(h[:, -pad:], 1, group)  # my tail → the right neighbour's left halo
+    right = halo_shift(h[:, :pad], -1, group)  # my head → the left neighbour's right halo
+    out = F.conv1d(torch.cat([left, h, right], dim=1).transpose(1, 2),
+                   params["pos_conv_w"].to(h.dtype), groups=cfg.pos_conv_groups)
+    out = out + params["pos_conv_b"][None, :, None]
+    return F.gelu(out[:, :, :F_local]).transpose(1, 2)
+
+
+def _blocks(params, cfg, h, remat, attention):
+    """The transformer blocks (pre-LN) with ``attention(q, k, v)``."""
+    B, T, _ = h.shape
+    Hh = cfg.num_heads
+    Dh = cfg.hidden_size // Hh
+
+    def attn_ffn(h, lp):
+        a_in = layer_norm(h, lp["ln1_scale"], lp["ln1_bias"], cfg.layer_norm_eps)
+        q = (a_in @ lp["wq"] + lp["bq"]).reshape(B, T, Hh, Dh)
+        k = (a_in @ lp["wk"] + lp["bk"]).reshape(B, T, Hh, Dh)
+        v = (a_in @ lp["wv"] + lp["bv"]).reshape(B, T, Hh, Dh)
+        a = attention(q, k, v)
+        h = h + (a.reshape(B, T, cfg.hidden_size) @ lp["wo"] + lp["bo"])
+        f_in = layer_norm(h, lp["ln2_scale"], lp["ln2_bias"], cfg.layer_norm_eps)
+        f = F.gelu(f_in @ lp["w1"] + lp["b1"])
+        return h + (f @ lp["w2"] + lp["b2"])
+
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(attn_ffn, h, lp, use_reentrant=False)
+        else:
+            h = attn_ffn(h, lp)
+    return layer_norm(h, params["encoder_ln_scale"], params["encoder_ln_bias"], cfg.layer_norm_eps)
+
+
+def _hubert_forward_sp(params, cfg, wav, wav_mask, remat, group):
+    """The sequence-parallel forward: this rank convolves its shard of the
+    (B, N) waveform into N / (S·n) frames, the blocks run the bidirectional
+    ring over [0, n_valid), and the frames are gathered (the gradient summed
+    over the ranks, whose downstreams differ) and cut to the unsharded
+    frame count: the last shard's overhang frame only keeps the shards
+    equal, and is masked."""
+    B, N = wav.shape
+    n, r = group_size(group), group_rank(group)
+    _, S = conv_receptive_field(cfg)
+    if N % (S * n):
+        raise ValueError(f"encoder sequence parallelism needs audio buckets divisible by "
+                         f"stride * seq = {S * n}, got {N}")
+    Nl = N // n
+    T = (N // (S * n)) * n  # one (masked) frame beyond the unsharded count
+    T_real = hubert_frame_count(cfg, N)
+    feats = _feature_extractor_sp(params, cfg, wav[:, r * Nl:(r + 1) * Nl], group)
+    F_local = feats.shape[1]
+    if wav_mask is None:
+        n_valid = torch.full((B,), T_real, dtype=torch.int32, device=wav.device)
+    else:
+        n_valid = hubert_frame_count(cfg, wav_mask.to(torch.int32).sum(dim=1)).to(torch.int32)
+    n_valid = torch.clamp(n_valid, 0, T_real).to(torch.int32)
+    frame_mask = torch.arange(T, device=wav.device)[None, :] < n_valid[:, None]
+    local_mask = frame_mask[:, r * F_local:(r + 1) * F_local]
+
+    h = layer_norm(feats, params["fp_ln_scale"], params["fp_ln_bias"], cfg.layer_norm_eps)
+    h = h @ params["fp_w"].to(h.dtype) + params["fp_b"]
+    h = h * local_mask[..., None].to(h.dtype)
+    h = h + _pos_conv_sp(params, cfg, h, group)
+    starts = torch.zeros((B,), dtype=torch.int32, device=wav.device)
+    h = _blocks(params, cfg, h, remat,
+                lambda q, k, v: ring_attention(q, k, v, starts, group, causal=False, ends=n_valid))
+    frames = all_gather(h, group, grad="sum")  # (n, B, F_local, D)
+    frames = frames.transpose(0, 1).reshape(B, T, -1)
+    return frames[:, :T_real], frame_mask[:, :T_real]
+
+
 def hubert_forward(
     params: Params,
     cfg: HubertConfig,
     wav: torch.Tensor,
     wav_mask: torch.Tensor | None = None,
     remat: bool = False,
+    sp_group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """waveform (B, N) [+ sample-validity mask] → (frames (B, T, D),
-    frame_mask (B, T)). ``remat``: recompute each layer in the backward."""
+    frame_mask (B, T)). ``remat``: recompute each layer in the backward.
+    ``sp_group``: shard the frames over the group's ranks (see the module
+    docstring); every rank passes the same waveform and gets every frame."""
+    if group_size(sp_group) > 1:
+        return _hubert_forward_sp(params, cfg, wav, wav_mask, remat, sp_group)
     B, _ = wav.shape
     feats = _feature_extractor(params, cfg, wav)
     T = feats.shape[1]
@@ -190,26 +315,7 @@ def hubert_forward(
     h = h * frame_mask[..., None].to(h.dtype)
     h = h + _pos_conv(params, cfg, h)
 
-    Hh = cfg.num_heads
-    Dh = cfg.hidden_size // Hh
     starts = torch.zeros((B,), dtype=torch.int32, device=wav.device)
-    def attn_ffn(h, lp):
-        a_in = layer_norm(h, lp["ln1_scale"], lp["ln1_bias"], cfg.layer_norm_eps)
-        q = (a_in @ lp["wq"] + lp["bq"]).reshape(B, T, Hh, Dh)
-        k = (a_in @ lp["wk"] + lp["bk"]).reshape(B, T, Hh, Dh)
-        v = (a_in @ lp["wv"] + lp["bv"]).reshape(B, T, Hh, Dh)
-        a = flash_attention(q, k, v, starts, n_valid, causal=False)
-        h = h + (a.reshape(B, T, cfg.hidden_size) @ lp["wo"] + lp["bo"])
-        f_in = layer_norm(h, lp["ln2_scale"], lp["ln2_bias"], cfg.layer_norm_eps)
-        f = F.gelu(f_in @ lp["w1"] + lp["b1"])
-        return h + (f @ lp["w2"] + lp["b2"])
-
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        lp = {name: w[i] for name, w in layers.items()}
-        if remat and torch.is_grad_enabled():
-            h = checkpoint(attn_ffn, h, lp, use_reentrant=False)
-        else:
-            h = attn_ffn(h, lp)
-    h = layer_norm(h, params["encoder_ln_scale"], params["encoder_ln_bias"], cfg.layer_norm_eps)
+    h = _blocks(params, cfg, h, remat,
+                lambda q, k, v: flash_attention(q, k, v, starts, n_valid, causal=False))
     return h, frame_mask

@@ -28,8 +28,15 @@ Training (the cache-free forward of the KD step): ``return_hidden`` /
 ``return_final_hidden`` / ``logit_window`` the final hidden states, and
 ``remat`` recomputes each block in the backward (``torch.utils.checkpoint``,
 the JAX "full" policy). The frozen weights take no gradient: autograd
-through ``(h @ w.to(h.dtype)) * scale`` gives the activations theirs. Not
-ported yet: the ``save_qkv`` remat policy, ring attention, tensor
+through ``(h @ w.to(h.dtype)) * scale`` gives the activations theirs.
+
+Sequence parallelism (``ring_group``, the long-audio trainer): every rank
+of the group passes the same global (B, T) inputs; positions and left pads
+come from the global mask, each rank keeps its shard [r·Tl, (r+1)·Tl) of
+the sequence, and attention is ``ring_attention`` (kernel B7 per block on
+the card). The hidden-state stack and the final hidden states keep their
+global meaning (the last W positions of the whole sequence) and come back
+on every rank. Not ported yet: the ``save_qkv`` remat policy and tensor
 parallelism (ROADMAP queue A items 10, 11).
 """
 
@@ -48,6 +55,8 @@ from ..kernels.fused_decode import _quantize_kv, fused_decode, fused_decode_atte
 from ..kernels.fused_paged import fused_paged_decode
 from ..kernels.paged_attention import paged_decode_attention
 from ..ops.norms import rms_norm
+from ..ops.ring_attention import ring_attention
+from ..parallel.comm import gather_tail, group_rank, group_size
 from ..ops.rope import Llama3RopeScaling, apply_rope_cached, rope_cos_sin, rope_inv_freq
 
 Params = Dict[str, Any]
@@ -279,6 +288,7 @@ def llama_forward(
     remat: bool = False,
     remat_policy: Optional[str] = None,
     attn_impl: str = "auto",
+    ring_group=None,
 ) -> LlamaOutput:
     """Run the decoder.
 
@@ -306,6 +316,10 @@ def llama_forward(
     logits cover those positions only when ``logit_window`` > 0;
     ``compute_logits=False`` skips the head. ``remat`` with ``remat_policy``
     None or "full" recomputes each block in the backward.
+
+    ``ring_group``: the cache-free forward sharded over the process group's
+    ranks (see the module docstring); T must divide by their number. Every
+    output covers the global positions, on every rank.
 
     ``attn_impl`` names the decode attention, as in the JAX package:
     "auto" and "fused" take the kernels above; "pallas" takes B8 for a
@@ -374,7 +388,22 @@ def llama_forward(
     def window(t, w):
         return t[:, -w:] if w > 0 else t
 
-    hidden = [window(x, hidden_window)] if return_hidden else None
+    if ring_group is not None:
+        if kv_cache is not None:
+            raise ValueError("ring attention covers the cache-free forward; a forward with a "
+                             "kv_cache cannot take ring_group")
+        n_ring = group_size(ring_group)
+        if T % n_ring:
+            raise ValueError(f"T={T} is not divisible by the ring's {n_ring} ranks")
+        # the global pads and positions were taken above; keep this rank's shard
+        shard = slice(group_rank(ring_group) * (T // n_ring),
+                      (group_rank(ring_group) + 1) * (T // n_ring))
+        x, rope_cos, rope_sin = x[:, shard], rope_cos[:, shard], rope_sin[:, shard]
+
+    def keep(t):  # a ring shard is cut to the global window after the loop
+        return t if ring_group is not None else window(t, hidden_window)
+
+    hidden = [keep(x)] if return_hidden else None
     if is_paged:
         lengths = kv_cache.lengths.to(device=dev, dtype=torch.int32).contiguous()
         pad_lens = kv_cache.pad_lens.to(device=dev, dtype=torch.int32).contiguous()
@@ -433,6 +462,9 @@ def llama_forward(
                 return fused_decode_attention_write(
                     q, kv_cache.k, kv_cache.v, k, v, pad_lens, offsets, i, max_offset=max_offset,
                 )
+        elif ring_group is not None:
+            def attend(q, k, v):
+                return ring_attention(q, k, v, pad_lens, ring_group, causal=True)
         else:
             def attend(q, k, v):
                 return flash_attention(q, k, v, pad_lens, ends, causal=True)
@@ -444,7 +476,7 @@ def llama_forward(
         else:
             x, k, v = _block(cfg, lp, x, rope_cos, rope_sin, attend)
         if return_hidden:
-            hidden.append(window(x, hidden_window))
+            hidden.append(keep(x))
         if kv_cache is not None and not is_decode:
             _write_cache(kv_cache, i, int(cache_offset), k, v)
     if is_paged and T > 1:
@@ -454,9 +486,14 @@ def llama_forward(
                      torch.stack(fresh_v))
 
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    hidden_states = torch.stack(hidden) if return_hidden else None
+    if ring_group is not None:  # the global windows, on every rank
+        x = gather_tail(x, logit_window, 1, ring_group)
+        if return_hidden:
+            hidden_states = gather_tail(hidden_states, hidden_window, 2, ring_group)
     out = LlamaOutput(
         logits=None, kv_cache=kv_cache,
-        hidden_states=torch.stack(hidden) if return_hidden else None,
+        hidden_states=hidden_states,
         final_hidden=window(x, logit_window) if return_final_hidden else None,
     )
     if not compute_logits:

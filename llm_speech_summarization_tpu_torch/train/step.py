@@ -12,6 +12,16 @@ Both sequences are left-padded to the same length, so the response windows
   fd — MSE on the hidden states of the configured layers.
 With a teacher, ntp and ld come from the final hidden states through the
 vocab-chunked fused loss (no (B, W, V) logits slab).
+
+Sequence parallelism (``group``, a process group of the mesh's seq axis):
+every rank of the group takes the same batch and builds the same splice;
+the student's and the teacher's LLM forwards keep the rank's shard of the
+sequence and run ring attention, and with ``train.encoder_sp`` the HuBERT
+frames are sharded too. The response windows come back on every rank, so
+the losses are equal on every rank. Each rank's encoder gradients cover
+its shard; they are summed over the group before the global-norm clip, so
+``grad_norm`` and the update are those of the full gradient, the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from ..ops.losses import (
     response_nll_sum,
 )
 from ..ops.splice import splice_sequences
+from ..parallel.comm import all_reduce_grads
 from .state import AdamW, TrainState, tree_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -66,13 +77,15 @@ def _forward_losses(
     suffix_ids: torch.Tensor,
     total_len: int,
     remat: bool,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     tcfg = cfg.train
     compute_dtype = _DTYPES[cfg.model.compute_dtype]
     table, table_scale = _embed_table(llm_params, compute_dtype)
 
     audio_embeds, emb_lens = audio_encoder_forward(
-        enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens, remat=remat)
+        enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens, remat=remat,
+        sp_group=group if tcfg.encoder_sp else None)
     student = splice_sequences(
         table, prefix_ids, suffix_ids, audio_embeds, emb_lens,
         batch.response_ids, batch.response_lens, total_len=total_len, table_scale=table_scale,
@@ -88,7 +101,7 @@ def _forward_losses(
             llm_params, llm_cfg, inputs_embeds=student.embeds, attn_mask=student.attn_mask,
             return_hidden=tcfg.use_fd_loss, hidden_window=W, compute_logits=False,
             return_final_hidden=True, logit_window=W, remat=remat,
-            remat_policy=tcfg.remat_policy,
+            remat_policy=tcfg.remat_policy, ring_group=group,
         )
         with torch.no_grad():  # the teacher: a constant target, no graph
             text_embeds = _embed_rows(table, table_scale, batch.text_ids, compute_dtype)
@@ -100,7 +113,7 @@ def _forward_losses(
             t_out = llama_forward(
                 llm_params, llm_cfg, inputs_embeds=teacher.embeds, attn_mask=teacher.attn_mask,
                 return_hidden=tcfg.use_fd_loss, hidden_window=W, compute_logits=False,
-                return_final_hidden=True, logit_window=W,
+                return_final_hidden=True, logit_window=W, ring_group=group,
             )
         if llm_cfg.tie_embeddings:
             head_vd, head_scale = llm_params["embed_tokens"], llm_params.get("embed_tokens_scale")
@@ -113,7 +126,7 @@ def _forward_losses(
     else:
         out = llama_forward(
             llm_params, llm_cfg, inputs_embeds=student.embeds, attn_mask=student.attn_mask,
-            logit_window=W, remat=remat, remat_policy=tcfg.remat_policy,
+            logit_window=W, remat=remat, remat_policy=tcfg.remat_policy, ring_group=group,
         )
         ntp, ld = response_cross_entropy(out.logits, labels, loss_mask), None
 
@@ -144,6 +157,7 @@ def make_train_step(
     suffix_ids,
     total_len: int,
     device=None,
+    group=None,
 ):
     """The train step: (state, llm_params, batch) → (state, metrics).
     ``state`` is updated in place (parameters, optimizer state, step) and
@@ -151,7 +165,9 @@ def make_train_step(
     this step's gradients) as float32 0-d tensors on the device, read by
     the caller when it logs. Gradients reach only the encoder parameters;
     the LLM is frozen. ``device=None`` is the CUDA card and raises without
-    one; the batch moves there."""
+    one; the batch moves there. ``group``: the seq group of a
+    sequence-parallel run (see the module docstring); ``total_len`` must
+    divide by its size."""
     dev = resolve_device(device)
     prefix_ids, suffix_ids = _device_ids(prefix_ids, dev), _device_ids(suffix_ids, dev)
 
@@ -160,11 +176,12 @@ def make_train_step(
         total, losses = _forward_losses(
             state.enc_params, llm_params, batch, enc_setup=enc_setup, llm_cfg=llm_cfg,
             cfg=cfg, prefix_ids=prefix_ids, suffix_ids=suffix_ids, total_len=total_len,
-            remat=cfg.train.remat,
+            remat=cfg.train.remat, group=group,
         )
         leaves = tree_leaves(state.enc_params)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads = all_reduce_grads(grads, group)  # before the clip: the full gradient
         metrics = {k: v.detach().float() for k, v in losses.items()}
         metrics["grad_norm"] = torch.sqrt(sum(g.float().square().sum() for g in grads))
         optimizer.apply(state, grads)
@@ -182,12 +199,15 @@ def make_eval_step(
     suffix_ids,
     total_len: int,
     device=None,
+    group=None,
 ):
     """Validation NLLs of the audio- and the text-prompted sequences, for an
     exact token-weighted perplexity across batches: returns
     ``(audio_sum_nll, audio_tokens, text_sum_nll, text_tokens)`` as 0-d
     tensors. Student and teacher run as one stacked (2B, L) forward.
-    ``device=None`` is the CUDA card and raises without one."""
+    ``device=None`` is the CUDA card and raises without one. ``group``: the
+    sequence-parallel forward of the train step, the same sums on every
+    rank."""
     dev = resolve_device(device)
     prefix_ids, suffix_ids = _device_ids(prefix_ids, dev), _device_ids(suffix_ids, dev)
 
@@ -197,7 +217,8 @@ def make_eval_step(
         compute_dtype = _DTYPES[cfg.model.compute_dtype]
         table, table_scale = _embed_table(llm_params, compute_dtype)
         audio_embeds, emb_lens = audio_encoder_forward(
-            enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens)
+            enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens,
+            sp_group=group if cfg.train.encoder_sp else None)
         common = dict(total_len=total_len, table_scale=table_scale)
         student = splice_sequences(table, prefix_ids, suffix_ids, audio_embeds, emb_lens,
                                    batch.response_ids, batch.response_lens, **common)
@@ -209,6 +230,7 @@ def make_eval_step(
             llm_params, llm_cfg,
             inputs_embeds=torch.cat([student.embeds, teacher.embeds]),
             attn_mask=torch.cat([student.attn_mask, teacher.attn_mask]), logit_window=W,
+            ring_group=group,
         )
         B = batch.wav.shape[0]
         a_sum, a_tok = response_nll_sum(out.logits[:B], student.labels[:, -W:],

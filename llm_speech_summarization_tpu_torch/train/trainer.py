@@ -1,4 +1,4 @@
-"""Trainer: the KD training loop on one card (port of ``train/trainer.py``).
+"""Trainer: the KD training loop (port of ``train/trainer.py``).
 
 Init seeds every host RNG and a ``torch.Generator`` per model, builds the
 frozen LLM (int8 weight-only when ``llm_weight_dtype`` is int8, in the
@@ -10,9 +10,18 @@ checkpoint on SIGTERM, and exact resume (``epoch_step``). ``validate()``
 computes the token-weighted audio and text perplexities, samples
 generations through ``LLMSpeechTextInference`` and checkpoints.
 
-One card, no mesh: a config that asks for data/model/sequence parallelism,
-ring attention or encoder sequence parallelism raises (ROADMAP queue A,
-item 11), and ``ctc_pool`` raises in the encoder setup (item 4).
+One card per process. A sequence-parallel run (``mesh.seq`` > 1 with
+``train.use_ring_attention``, optionally ``train.encoder_sp``: the
+long-audio configuration) is one process per seq rank, launched by
+``torch.distributed.run`` (``cli/train.py --mesh 1,N,1``): every rank
+builds the same weights and sees the same batches, the train and eval steps
+run over the mesh's seq group, rank 0 writes the logs and checkpoints (a
+barrier follows each save, and every rank resumes from the checkpoint rank 0
+picked), and validate() runs the sharded eval step on every rank while rank
+0 alone samples generations through the unsharded engine. Data and tensor
+parallelism (``mesh.data`` or ``mesh.model`` > 1) raise in ``make_mesh``
+(ROADMAP queue A, item 11), and ``ctc_pool`` raises in the encoder setup
+(item 4).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import Config
 from ..data.batch import Batch
@@ -38,6 +48,8 @@ from ..models.audio_encoder import (
 )
 from ..models.llama import init_llama_params, llama_preset, quantize_llama_params
 from ..obs.writer import MetricsWriter
+from ..parallel.comm import any_rank
+from ..parallel.mesh import Mesh, make_mesh
 from ..utils.prompts import prompt_template_for
 from ..utils.tokenizer import load_tokenizer
 from . import checkpoint as ckpt
@@ -45,18 +57,16 @@ from .state import lr_at, make_train_state
 from .step import _DTYPES, make_eval_step, make_train_step
 
 
-def _check_single_card(cfg: Config) -> None:
-    tcfg = cfg.train
-    asks = {
-        "mesh.data > 1": tcfg.mesh.data > 1, "mesh.model > 1": tcfg.mesh.model > 1,
-        "mesh.seq > 1": tcfg.mesh.seq > 1, "use_ring_attention": tcfg.use_ring_attention,
-        "encoder_sp": tcfg.encoder_sp,
-    }
-    wanted = [name for name, on in asks.items() if on]
-    if wanted:
+def _check_parallel(cfg: Config, mesh: Mesh) -> None:
+    """The sequence axis runs through ring attention, as in the JAX
+    package; ``encoder_sp`` takes effect with it."""
+    if cfg.train.use_ring_attention and mesh.seq == 1:
+        raise ValueError("use_ring_attention needs a mesh with a seq axis (mesh.seq > 1)")
+    if mesh.seq > 1 and not cfg.train.use_ring_attention:
         raise NotImplementedError(
-            f"training with {', '.join(wanted)} is not ported to PyTorch yet (ROADMAP queue A, "
-            f"item 11: parallelism; B7: ring attention); the port trains on one card")
+            "mesh.seq > 1 shards the spliced sequence through ring attention; set "
+            "train.use_ring_attention (sharding without it is not ported, ROADMAP queue A "
+            "item 11)")
 
 
 def spliced_length(config: Config, enc_setup, n_prefix: int, n_suffix: int,
@@ -72,10 +82,15 @@ def spliced_length(config: Config, enc_setup, n_prefix: int, n_suffix: int,
 
 class Trainer:
     def __init__(self, config: Config, run_name: str = "run",
-                 checkpoint_path: Optional[str] = None, device=None):
+                 checkpoint_path: Optional[str] = None, device=None,
+                 mesh: Optional[Mesh] = None):
         """``device=None`` is the CUDA card and raises without one; the CPU
-        runs only with ``device="cpu"``."""
-        _check_single_card(config)
+        runs only with ``device="cpu"``. ``mesh``: this rank's mesh, by
+        default ``make_mesh(config)`` over the initialized process group."""
+        self.mesh = mesh if mesh is not None else make_mesh(config)
+        _check_parallel(config, self.mesh)
+        # the seq group of the ring; None trains unsharded
+        self.group = self.mesh.seq_group if config.train.use_ring_attention else None
         if config.model.audio_encoder.base == "whisper":
             raise NotImplementedError(
                 "KD training of the Whisper encoder is not ported to PyTorch yet (ROADMAP queue "
@@ -92,7 +107,9 @@ class Trainer:
         self.log_dir = os.path.join(config.log.log_dir, run_name)
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         os.makedirs(self.log_dir, exist_ok=True)
-        self.writer = MetricsWriter(self.log_dir, jsonl=config.log.jsonl_metrics)
+        # rank 0 writes the logs
+        self.writer = (MetricsWriter(self.log_dir, jsonl=config.log.jsonl_metrics)
+                       if self.mesh.is_main else None)
 
         self.tokenizer = load_tokenizer(config.model.llm_type, config.model.tokenizer_path)
         tpl = prompt_template_for(config.model.llm_type)
@@ -135,12 +152,14 @@ class Trainer:
         # batches consumed in the current epoch (saved in checkpoints)
         self._epoch_step = 0
         self._resume_epoch_step = 0
+        if not checkpoint_path:
+            checkpoint_path = ckpt.latest_checkpoint(self.checkpoint_dir)
+        if self.group is not None:  # every rank resumes from rank 0's choice
+            chosen = [checkpoint_path]
+            dist.broadcast_object_list(chosen, src=0)
+            checkpoint_path = chosen[0]
         if checkpoint_path:
             self.load_checkpoint(checkpoint_path)
-        else:
-            latest = ckpt.latest_checkpoint(self.checkpoint_dir)
-            if latest:
-                self.load_checkpoint(latest)
 
     # ------------------------------------------------------------------
 
@@ -160,19 +179,40 @@ class Trainer:
         return spliced_length(self.config, self.enc_setup, len(self.prefix_ids),
                               len(self.suffix_ids), audio_bucket)
 
+    def _ring_args(self, total_len: int) -> dict:
+        """The step's seq group: the spliced T is sharded over it, so
+        ``total_len`` must divide by its size."""
+        if self.group is None:
+            return {}
+        if total_len % self.mesh.seq:
+            raise ValueError(f"total_len={total_len} is not divisible by seq={self.mesh.seq}")
+        return {"group": self.group}
+
     def _get_train_step(self, audio_bucket: int):
         if audio_bucket not in self._train_steps:
+            total_len = self.total_len(audio_bucket)
             self._train_steps[audio_bucket] = make_train_step(
                 self.config, self.enc_setup, self.llm_cfg, self.optimizer, self.prefix_ids,
-                self.suffix_ids, self.total_len(audio_bucket), device=self.device)
+                self.suffix_ids, total_len, device=self.device, **self._ring_args(total_len))
         return self._train_steps[audio_bucket]
 
     def _get_eval_step(self, audio_bucket: int):
         if audio_bucket not in self._eval_steps:
+            total_len = self.total_len(audio_bucket)
             self._eval_steps[audio_bucket] = make_eval_step(
                 self.config, self.enc_setup, self.llm_cfg, self.prefix_ids, self.suffix_ids,
-                self.total_len(audio_bucket), device=self.device)
+                total_len, device=self.device, **self._ring_args(total_len))
         return self._eval_steps[audio_bucket]
+
+    def _save(self, epoch: int, block: bool) -> None:
+        """Rank 0 saves; in a sequence-parallel run the save blocks and a
+        barrier follows, so every rank finds the checkpoint afterwards."""
+        if self.mesh.is_main:
+            ckpt.save_train_checkpoint(self.checkpoint_dir, self.step, epoch, self.state,
+                                       block=block or self.group is not None,
+                                       epoch_step=self._epoch_step)
+        if self.group is not None:
+            dist.barrier(self.group)
 
     def _batches(self, dataset, batch_size: int, shuffle: bool, seed: int,
                  skip: int = 0) -> Iterator[Batch]:
@@ -245,7 +285,7 @@ class Trainer:
                 for batch in self._batches(self.train_ds, tcfg.batch_size, True,
                                            cfg.seed_everything + epoch, skip=skip):
                     metrics = self.train_step(batch)
-                    if self.step % log_int == 0:
+                    if self.step % log_int == 0 and self.writer is not None:
                         host = {k: float(v) for k, v in metrics.items()}
                         host["step_time_s"] = (time.time() - t0) / log_int
                         t0 = time.time()
@@ -256,11 +296,11 @@ class Trainer:
                     if val_int and self.step % val_int == 0:
                         self.validate(epoch)
                         t0 = time.time()  # step_time_s does not bill eval time
-                    if self._stop_requested:
+                    # every rank stops at the same step (a collective in a ring)
+                    if any_rank(self._stop_requested, self.group):
                         print("SIGTERM received: checkpointing and stopping")
                         ckpt.finalize_saves()
-                        ckpt.save_train_checkpoint(self.checkpoint_dir, self.step, epoch,
-                                                   self.state, epoch_step=self._epoch_step)
+                        self._save(epoch, block=True)
                         return
                     if tcfg.steps is not None and self.step >= tcfg.steps:
                         self.validate(epoch)
@@ -291,15 +331,16 @@ class Trainer:
             text_sum += t_sum
             text_tok += t_tok
             n_batches += 1
-            self.writer.log_validation(a_sum / max(a_tok, 1.0), self.step)
-        if n_batches:
+            if self.writer is not None:
+                self.writer.log_validation(a_sum / max(a_tok, 1.0), self.step)
+        if n_batches and self.writer is not None:
             audio_ppl = float(np.exp(audio_sum / max(audio_tok, 1.0)))
             text_ppl = float(np.exp(text_sum / max(text_tok, 1.0)))
             self.writer.log_validation_perplexity(audio_ppl, text_ppl, self.step)
             print(f"[val] step {self.step}: audio_ppl={audio_ppl:.3f} text_ppl={text_ppl:.3f}")
 
         n_gen = cfg.log.num_generate_samples
-        if n_gen > 0 and len(self.val_ds) > 0:
+        if n_gen > 0 and len(self.val_ds) > 0 and self.mesh.is_main:
             if self._val_engine is None:
                 from ..infer.engine import LLMSpeechTextInference
 
@@ -326,6 +367,4 @@ class Trainer:
                 sampling_rate=cfg.audio.sampling_rate,
             )
 
-        ckpt.save_train_checkpoint(self.checkpoint_dir, self.step, epoch, self.state,
-                                   block=not cfg.log.async_checkpoint,
-                                   epoch_step=self._epoch_step)
+        self._save(epoch, block=not cfg.log.async_checkpoint)

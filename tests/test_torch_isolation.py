@@ -1,9 +1,9 @@
 """The port stands alone: a fresh interpreter imports every module of it
-(the training slice and ``cli.train`` among them), builds a CPU engine and
-server and answers a request, and takes a training step through the
-``Trainer``, without jax or any module of the JAX package being loaded;
-and the port's copy of the config loader reads every shipped YAML exactly
-as the JAX package's does."""
+(the training slice, ``cli.train``, ring attention and ``parallel/`` among
+them), builds a CPU engine and server and answers a request, and takes a
+training step through the ``Trainer``, without jax or any module of the
+JAX package being loaded; and the port's copy of the config loader reads
+every shipped YAML exactly as the JAX package's does."""
 
 import dataclasses
 import json
@@ -67,7 +67,8 @@ def test_port_runs_without_the_jax_package():
     assert out["trained"] == 1
     pkg = "llm_speech_summarization_tpu_torch."
     for name in ("train.trainer", "train.step", "train.state", "train.checkpoint", "cli.train",
-                 "ops.losses", "data.datasets", "data.collate", "obs.writer"):
+                 "ops.losses", "data.datasets", "data.collate", "obs.writer",
+                 "ops.ring_attention", "parallel.mesh", "parallel.comm"):
         assert pkg + name in out["names"], name
 
 

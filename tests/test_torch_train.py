@@ -295,9 +295,14 @@ def test_async_checkpoint_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("field", ["model", "seq"])
 def test_parallel_configs_raise(tmp_path, field):
+    """Tensor parallelism is not ported; a seq axis needs its ranks (one
+    process per rank, tests/test_torch_ring_trainer.py), and in one process
+    it raises before any work."""
     cfg = _tiny_trainer_cfg(tmp_path)
     setattr(cfg.train.mesh, field, 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    error, match = ((NotImplementedError, "item 11") if field == "model"
+                    else (ValueError, "needs 2 ranks"))
+    with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
 
 
