@@ -57,6 +57,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.i
 # T=320) and max_new_tokens to DECODE_BUCKET, as in the JAX engine
 BUCKET = 64
 DECODE_BUCKET = 64
+# the JAX engine uploads a padded batch of at least 2 * _upload_chunks
+# waveforms as float16 and casts it to the compute dtype on the device, so
+# its encoder sees the samples rounded through float16; the port rounds the
+# same batches the same way (and uploads half the bytes)
+UPLOAD_CHUNKS = 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -325,6 +330,8 @@ class LLMSpeechTextInference:
         P, S = self.prefix_ids.shape[0], self.suffix_ids.shape[0]
         total_len = _round_up(P + M + txt_ids.shape[1] + S, BUCKET)
 
+        if B >= 2 * UPLOAD_CHUNKS:
+            wav = wav.astype(np.float16)
         wav_t = torch.from_numpy(wav).to(dev).to(self.dtype)
         lens_t = torch.from_numpy(lens).to(dev)
         audio_embeds, emb_lens = audio_encoder_forward(

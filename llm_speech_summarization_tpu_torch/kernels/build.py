@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,11 +60,7 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     if key in _loaded:  # hashed once per process: this runs at every launch
         return _loaded[key]
     paths = [CSRC_DIR / s for s in sources]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    digest = h.hexdigest()[:16]
+    digest = _digest(paths)
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -82,6 +79,36 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     _loaded[key] = lib
     return lib
+
+
+def _digest(paths) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def ptxas_report(name: str, sources: Sequence[str]) -> list:
+    """(kernel, registers, spill bytes stored + loaded) of every kernel in
+    the build log of library ``name`` (``-Xptxas -v``), in the log's order;
+    the library must have been built from these sources."""
+    log = BUILD_DIR / f"lib{name}_{_digest([CSRC_DIR / s for s in sources])}.log"
+    report, kernel, spill = [], None, 0
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and kernel:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            report.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return report
 
 
 _count_lock = threading.Lock()

@@ -6,9 +6,13 @@ their offset mode (kernel B7), the per-block interior of ring attention
 
 Port of ``llm_speech_summarization_tpu/kernels/flash_attention.py``. The
 CUDA kernels are ``csrc/flash_attention.cu`` (forward, optionally writing
-the log-sum-exp) and ``csrc/flash_attention_bwd.cu`` (dq; dk/dv summed over
-the GQA group); their header notes say what bounds them on the H100 and how
-these first designs meet that.
+the log-sum-exp), ``csrc/flash_attention_bwd.cu`` (dq) and
+``csrc/flash_attention_bwd_dkv.cu`` (dk/dv summed over the GQA group); the
+forward and dk/dv are wgmma + TMA designs over ``csrc/flash_sm90.cuh``, dq
+a WMMA one. Their header notes say what bounds them on the H100 and how
+each design meets that. TMA reads q/k/v/dout through a tensor map, so each
+needs a 16-byte aligned base and (b, t, h) strides that are positive
+multiples of 8 elements; the wrappers raise on any other view.
 
 q (B, T, Hq, Dh); k, v (B, T, Hkv, Dh); starts/ends (B,) int32: sample b's
 valid keys are [start_b, end_b), causal means query i sees keys j <= i.
@@ -36,8 +40,9 @@ import torch
 from ..ops.attention import NEG_INF, dot_product_attention, make_attention_bias
 from .build import check_status, count_launch, load_library
 
-SOURCES = ("flash_attention.cu", "flash_common.cuh")
+SOURCES = ("flash_attention.cu", "flash_common.cuh", "flash_sm90.cuh")
 BWD_SOURCES = ("flash_attention_bwd.cu", "flash_common.cuh")
+DKV_SOURCES = ("flash_attention_bwd_dkv.cu", "flash_common.cuh", "flash_sm90.cuh")
 
 
 def flash_attention_reference(
@@ -242,23 +247,35 @@ def _lib():
 
 
 def _bwd_lib():
-    lib = load_library("flash_attention_bwd", BWD_SOURCES)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    tail = [p, p, i, i, i, i, i, p, i, i, i, ctypes.c_float, p]
-    for fn, outs in ((lib.lss_flash_attention_bwd_dq, 1), (lib.lss_flash_attention_bwd_dkv, 2)):
-        if fn.argtypes is None:
-            fn.argtypes = [p] * (6 + outs) + tail
-            fn.restype = ctypes.c_int
-    return lib
+    """The dq library: ``lss_flash_attention_bwd_dq``."""
+    return _bwd_entry(load_library("flash_attention_bwd", BWD_SOURCES).lss_flash_attention_bwd_dq,
+                      1)
+
+
+def _dkv_lib():
+    """The dk/dv library: ``lss_flash_attention_bwd_dkv``."""
+    return _bwd_entry(
+        load_library("flash_attention_dkv", DKV_SOURCES).lss_flash_attention_bwd_dkv, 2)
+
+
+def _bwd_entry(fn, outs):
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * (6 + outs) + [p, p, i, i, i, i, i, p, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _check_operand(what: str, name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.bfloat16:
         raise ValueError(f"{what}: {name} must be bfloat16, got {t.dtype}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+    # TMA's rules: 16-byte aligned base and byte strides that are positive
+    # multiples of 16 (a dimension of size 1 never uses its stride)
+    bad = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1 and (s <= 0 or s % 8)]
+    if t.stride(-1) != 1 or bad or t.data_ptr() % 16:
         raise ValueError(
-            f"{what}: {name} needs a unit last stride, (b, t, h) strides "
-            f"that are multiples of 8 and a 16-byte aligned base; got strides {t.stride()}"
+            f"{what}: {name} needs a unit last stride, (b, t, h) strides that are positive "
+            f"multiples of 8 and a 16-byte aligned base; got strides {t.stride()}"
         )
 
 
@@ -335,8 +352,7 @@ def _launch_bwd(wrapper, q, k, v, dout, lse, delta, starts, ends, causal, offset
     strides = (ctypes.c_longlong * 21)(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
                                          + dout.stride()[:3] + dq_s + dk_s + dv_s))
     q_off, k_off = _offsets(what, offsets)
-    lib = _bwd_lib()
-    fn = lib.lss_flash_attention_bwd_dkv if dkv else lib.lss_flash_attention_bwd_dq
+    fn = _dkv_lib() if dkv else _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),

@@ -169,6 +169,78 @@ def test_engine_audio_prompt_matches_jax(name):
     assert te.counts["encoder_forwards"] == 2 and te.counts["prefills"] == 1
 
 
+def _encoder_inputs(je, te, clips, monkeypatch):
+    """The waveforms that reach ``audio_encoder_forward`` in the JAX engine
+    and in the port's, each as float32 rows sorted by their bytes (the JAX
+    engine encodes a batch of 8 or more in chunks on worker threads), and
+    both engines' spliced prompts."""
+    import llm_speech_summarization_tpu.infer.engine as jax_engine_mod
+    import llm_speech_summarization_tpu_torch.infer.engine as engine_mod
+
+    seen_jax, seen_port = [], []
+    jax_forward = jax_engine_mod.audio_encoder_forward
+    port_forward = engine_mod.audio_encoder_forward
+
+    def jax_spy(params, setup, wav, lens, **kw):
+        jax.debug.callback(lambda w: seen_jax.append(np.asarray(w, np.float32)), wav)
+        return jax_forward(params, setup, wav, lens, **kw)
+
+    def port_spy(params, setup, wav, lens, **kw):
+        seen_port.append(wav.float().numpy())
+        return port_forward(params, setup, wav, lens, **kw)
+
+    monkeypatch.setattr(jax_engine_mod, "audio_encoder_forward", jax_spy)
+    monkeypatch.setattr(engine_mod, "audio_encoder_forward", port_spy)
+    je_out = [np.asarray(x).astype(np.float32) for x in je.build_audio_prompt_batch(clips)]
+    jax.effects_barrier()
+    te_out = [x.float().numpy() for x in te.build_audio_prompt_batch(clips)]
+
+    def rows(chunks):
+        return np.stack(sorted(np.concatenate(chunks), key=lambda r: r.tobytes()))
+
+    return rows(seen_jax), rows(seen_port), je_out, te_out
+
+
+@pytest.mark.parametrize("amplitude", [0.05, 0.3])
+@pytest.mark.parametrize("n_clips", [3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_encoder_input_matches_jax_bit_for_bit(dtype, n_clips, amplitude, monkeypatch):
+    """At a padded batch of 8 the JAX engine uploads the waveforms as
+    float16 and casts them to the compute dtype on the device; at 4 it casts
+    them straight. The port's encoder must see the same bits in both cases,
+    and (float32) splice the same prompts within the B=4 test's 1e-5."""
+    cfgs = [load(str(path)) for load, path in ((jax_load_config, JAX_TINY_YAML),
+                                               (load_config, TINY_YAML))]
+    for c in cfgs:
+        c.model.compute_dtype = dtype
+    je = JaxEngine(cfgs[0])
+    te = LLMSpeechTextInference(
+        cfgs[1], device="cpu",
+        llm_params=bridge.llama_params_from_numpy(np_tree(je.llm_params)),
+        audio_encoder_params=bridge.encoder_params_from_numpy(np_tree(je.audio_encoder_params)),
+    )
+    rng = np.random.RandomState(11)
+    clips = [(amplitude * rng.randn(n)).astype(np.float32)
+             for n in rng.randint(4000, 12000, size=n_clips)]
+    jax_in, port_in, (je_embeds, je_mask), (te_embeds, te_mask) = _encoder_inputs(
+        je, te, clips, monkeypatch)
+    assert port_in.shape[0] == (8 if n_clips == 8 else 4)
+    np.testing.assert_array_equal(port_in.view(np.uint32), jax_in.view(np.uint32))
+    # what that is: the clips rounded through float16 at B=8, as they are below
+    padded = clips + [clips[0]] * (port_in.shape[0] - len(clips))  # the engine's batch pad
+    wav = np.zeros((len(padded), port_in.shape[1]), np.float32)
+    for b, a in enumerate(padded):
+        wav[b, : len(a)] = a
+    if n_clips == 8:
+        wav = wav.astype(np.float16)
+    want = torch.from_numpy(wav).to(te.dtype).float().numpy()
+    want = np.stack(sorted(want, key=lambda r: r.tobytes()))
+    np.testing.assert_array_equal(port_in.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(te_mask.astype(bool), je_mask.astype(bool))
+    if dtype == "float32":
+        np.testing.assert_allclose(te_embeds, je_embeds, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("name", ["tiny_test", "tiny_int8"])
 def test_engine_text_prompt_matches_jax(name):
     je, te = _engines(name)

@@ -397,3 +397,111 @@ def test_flash_training_kernels_match_plain_on_card(card, name):
         assert (ratio[sel] if sel is not None else ratio).max().item() <= 1, name_
     again = (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_wrappers_refuse_views_tma_cannot_take():
+    """TMA reads q/k/v/dout through a tensor map: a (b, t, h) stride that is
+    not a positive multiple of 8 elements (16 bytes) is refused before any
+    build, on every wrapper; a dimension of size 1 may have any stride."""
+    big = torch.empty(1 << 20, dtype=torch.bfloat16, device="meta")
+    idx = torch.zeros((1,), dtype=torch.int32, device="meta")
+    ok = big.as_strided((1, 16, 2, 128), (16 * 264, 264, 128, 1))
+    odd_t = big.as_strided((1, 16, 2, 128), (16 * 260, 260, 128, 1))  # a 520-byte row
+    zero_h = big.as_strided((1, 16, 2, 128), (16 * 128, 128, 0, 1))  # k expanded over heads
+    lse = torch.zeros((1, 2, 16), dtype=torch.float32, device="meta")
+    for bad in (odd_t, zero_h):
+        with pytest.raises(ValueError, match="positive multiples of 8"):
+            fa_mod._launch_fwd(flash_attention_fwd, ok, bad, ok, idx, idx, True, with_lse=False)
+        with pytest.raises(ValueError, match="positive multiples of 8"):
+            fa_mod._launch_bwd(flash_attention_bwd_dkv, ok, ok, ok, bad, lse, lse, idx, idx, True)
+    one_head = big.as_strided((1, 16, 1, 128), (16 * 264, 264, 3, 1))  # size-1 h, any stride
+    fa_mod._check_operand("w", "k", one_head)
+
+
+# the wgmma kernels' edges: 64-row q tiles (the forward) and 64-key or
+# 128-key tiles (Dh 128 or 64), T below and off the tiles, window starts
+# mid-tile, and q/k/v as strided views of one fused projection
+FLASH_EDGE_CASES = {
+    "T200_causal_gqa_dh128": (dict(B=2, T=200, Hq=6, Hkv=2, Dh=128, starts=[0, 71],
+                                   ends=[200, 200]), True),
+    "T333_bidir_dh64": (dict(B=2, T=333, Hq=4, Hkv=4, Dh=64, starts=[0, 0],
+                             ends=[333, 130]), False),
+    "T37_causal_gqa_dh128": (dict(B=2, T=37, Hq=4, Hkv=2, Dh=128, starts=[0, 5],
+                                  ends=[37, 37]), True),
+    "T40_bidir_dh64": (dict(B=2, T=40, Hq=2, Hkv=2, Dh=64, starts=[0, 0], ends=[40, 9]), False),
+    "start_midtile_causal_dh128": (dict(B=2, T=256, Hq=4, Hkv=2, Dh=128, starts=[29, 100],
+                                        ends=[256, 256]), True),
+    "start_midtile_bidir_dh64": (dict(B=2, T=300, Hq=4, Hkv=4, Dh=64, starts=[29, 77],
+                                      ends=[300, 200]), False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("name", sorted(FLASH_EDGE_CASES))
+def test_wgmma_kernels_at_tile_edges_on_card(card, name, fused):
+    """The forward with its lse and dk/dv against their plain versions run in
+    float32, with chip_smoke.py's bounds (lse 1e-4 + 1e-5 |lse|; out 1e-5 +
+    2^-8 (|out| + (P.|V|)/l); dk/dv 2e-2 |ref| + 5e-2 rms(row) + 1e-3
+    rms), bit-identical repeats; ``fused`` reads q, k and v as strided views
+    of one (B, T, (Hq + 2 Hkv) Dh) projection, as the models' fused QKV
+    would give them."""
+    spec, causal = FLASH_EDGE_CASES[name]
+    arrays = _flash_case(21, **spec)
+    B, T, Hq, Dh = arrays[0].shape
+    Hkv = arrays[1].shape[2]
+    if fused:
+        qkv = torch.from_numpy(np.concatenate([a.reshape(B, T, -1) for a in arrays[:3]], -1))
+        qkv = qkv.to(card, torch.bfloat16)
+        q = qkv[..., :Hq * Dh].unflatten(-1, (Hq, Dh))
+        k = qkv[..., Hq * Dh:(Hq + Hkv) * Dh].unflatten(-1, (Hkv, Dh))
+        v = qkv[..., (Hq + Hkv) * Dh:].unflatten(-1, (Hkv, Dh))
+        assert not q.is_contiguous() and q.stride(1) == (Hq + 2 * Hkv) * Dh
+    else:
+        q, k, v = (torch.from_numpy(a).to(card, torch.bfloat16) for a in arrays[:3])
+    st, en = (torch.from_numpy(a).to(card) for a in arrays[3:])
+    g = torch.from_numpy(np.random.RandomState(22).randn(B, T, Hq, Dh).astype(np.float32))
+    g = g.to(card, torch.bfloat16)
+    out, lse = flash_attention_fwd_lse(q, k, v, st, en, causal)
+    f32 = [t.float() for t in (q, k, v, g)]
+    ref_out, ref_lse = fa_mod.flash_attention_lse_reference(*f32[:3], st, en, causal)
+    abs_out = fa_mod.flash_attention_lse_reference(*f32[:2], f32[2].abs(), st, en, causal)[0]
+    seen = ref_lse > -1e29
+    assert ((lse - ref_lse).abs() <= 1e-4 + 1e-5 * ref_lse.abs())[seen].all()
+    assert (lse[~seen] == -1e30).all() and torch.isfinite(out).all()
+    out_bound = 1e-5 + 2.0 ** -8 * (ref_out.abs() + abs_out)
+    assert ((out.float() - ref_out).abs() <= out_bound)[seen.any(1)].all()
+    assert torch.equal(out, flash_attention_fwd(q, k, v, st, en, causal))  # B1 = B1 + LSE's out
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g, lse, delta, st, en, causal)
+    dk, dv = flash_attention_bwd_dkv(*args)
+    ref = flash_attention_bwd_reference(*f32, lse, delta, st, en, causal)
+    for name_, a, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])):
+        bound = (2e-2 * r.abs() + 5e-2 * r.pow(2).mean(-1, keepdim=True).sqrt()
+                 + 1e-3 * r.pow(2).mean().sqrt() + 1e-12)
+        assert ((a.float() - r).abs() / bound).max().item() <= 1, name_
+    again = flash_attention_bwd_dkv(*args)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    assert all(torch.equal(a, b) for a, b in zip(flash_attention_fwd_lse(q, k, v, st, en, causal),
+                                                 (out, lse)))
+
+
+@pytest.mark.cuda
+def test_wgmma_wrappers_refuse_views_tma_cannot_take_on_card(card):
+    """A CUDA view with a 520-byte row stride, or k expanded over its
+    heads, is refused by the forward and dk/dv wrappers with a ValueError,
+    never launched."""
+    base = torch.zeros((1, 16, 2 * 128 + 4), dtype=torch.bfloat16, device=card)
+    odd = base[..., :256].unflatten(-1, (2, 128))  # t stride 260 elements
+    ok = torch.zeros((1, 16, 2, 128), dtype=torch.bfloat16, device=card)
+    expanded = torch.zeros((1, 16, 1, 128), dtype=torch.bfloat16, device=card).expand(1, 16, 2, 128)
+    idx = torch.tensor([0], dtype=torch.int32, device=card)
+    end = torch.tensor([16], dtype=torch.int32, device=card)
+    lse = torch.zeros((1, 2, 16), dtype=torch.float32, device=card)
+    before = (flash_attention_fwd.launches, flash_attention_bwd_dkv.launches)
+    for bad in (odd, expanded):
+        with pytest.raises(ValueError, match="positive multiples of 8"):
+            flash_attention_fwd(ok, bad, ok, idx, end)
+        with pytest.raises(ValueError, match="positive multiples of 8"):
+            flash_attention_bwd_dkv(ok, ok, ok, bad, lse, lse, idx, end)
+    assert (flash_attention_fwd.launches, flash_attention_bwd_dkv.launches) == before

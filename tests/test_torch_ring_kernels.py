@@ -146,7 +146,7 @@ def test_b7_kernels_match_plain_on_card(card, rel, causal, Dh):
     rows = seen.any(1)
     assert ((lse - ref_lse).abs() <= 1e-4 + 1e-5 * ref_lse.abs())[seen].all()
     assert (lse[~seen] == -1e30).all() and torch.isfinite(out).all()
-    # bf16 p before P.V and a bf16 output, each at most 2^-9 relative
+    # bf16 p before P.V and a bf16 output, each at most 2^-8 relative
     # (chip_smoke.py's B7_OUT_ATOL, B7_OUT_RTOL)
     out_bound = 1e-5 + 2.0 ** -8 * (ref_out.abs() + abs_out)
     assert ((out.float() - ref_out).abs() <= out_bound)[rows].all()
@@ -166,3 +166,38 @@ def test_b7_kernels_match_plain_on_card(card, rel, causal, Dh):
     assert [w.launches - c for w, c in zip(b7, b7_counts)] == [1, 1, 1]
     assert [w.launches for w in (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
                                  fa.flash_attention_bwd_dkv)] == plain_counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("diag", [37, -37])
+def test_b7_frontier_midtile_on_card(card, diag, Dh):
+    """B7's forward and dk/dv with the causal frontier q_off - k_off = +-37
+    keys, inside the wgmma kernels' 64-row q tiles and 64- or 128-key k
+    tiles, at T = 200 (off the tiles), against the plain versions run in
+    float32 with the bounds above; rows past the frontier get lse = -1e30."""
+    rng = np.random.RandomState(9)
+    B, T, Hq, Hkv = 2, 200, 4, 2
+    q, k, v, g = (torch.from_numpy(rng.randn(B, T, h, Dh).astype(np.float32)).to(
+        card, torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
+    st = torch.tensor([0, 45], dtype=torch.int32, device=card)
+    en = torch.tensor([200, 200], dtype=torch.int32, device=card)
+    offsets = (200 + max(diag, 0), 200 + max(-diag, 0))
+    out, lse = fa.flash_attention_fwd_lse_offset(q, k, v, st, en, offsets, True)
+    f32 = [t.float() for t in (q, k, v, g)]
+    ref_out, ref_lse = fa.flash_attention_lse_reference(*f32[:3], st, en, True, offsets)
+    abs_out = fa.flash_attention_lse_reference(*f32[:2], f32[2].abs(), st, en, True, offsets)[0]
+    seen = ref_lse > -1e29
+    assert ((lse - ref_lse).abs() <= 1e-4 + 1e-5 * ref_lse.abs())[seen].all()
+    assert (lse[~seen] == -1e30).all() and torch.isfinite(out).all()
+    if diag < 0:  # the first 37 queries see no key of the block
+        assert not seen[:, :, :37].any() and seen[:, :, 37:].any()
+    out_bound = 1e-5 + 2.0 ** -8 * (ref_out.abs() + abs_out)
+    assert ((out.float() - ref_out).abs() <= out_bound)[seen.any(1)].all()
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = fa.flash_attention_bwd_dkv_offset(q, k, v, g, lse, delta, st, en, offsets, True)
+    ref = fa.flash_attention_bwd_reference(*f32, lse, delta, st, en, True, offsets)
+    for name, a, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])):
+        bound = (2e-2 * r.abs() + 5e-2 * r.pow(2).mean(-1, keepdim=True).sqrt()
+                 + 1e-3 * r.pow(2).mean().sqrt() + 1e-12)
+        assert ((a.float() - r).abs() / bound).max().item() <= 1, name
