@@ -8,7 +8,8 @@ Phases, in order; each prints one line and any failure raises:
   2. build the seven CUDA kernel libraries from ``llm_speech_summarization_tpu_
      torch/kernels/csrc`` with nvcc, one process per library, all at once,
      and print the registers and spill bytes of the wgmma kernels (the
-     flash forward and dk/dv) at each Dh, failing on any spill;
+     flash forward, dq and dk/dv) at each Dh, failing on any spill, and
+     of the dense decode body's instances (reported only);
   3. flash attention (B1) against its plain version run in float32 at the
      main paths' three shapes (LLM prefill, HuBERT and Whisper
      self-attention), within B7's output bound, with injected faults the
@@ -24,7 +25,11 @@ Phases, in order; each prints one line and any failure raises:
      from a rank before, equal to and after the queries' rank, with
      injected offset faults and SDPA under the block's mask;
   5. fused decode (B2) against its plain version, including the in-place
-     cache writes, at T=1 and T=3;
+     cache writes, and against the plain version run in float32 with
+     injected faults, at B=8, 16 and 128 (T=1), B=16, T=3, and B=1 over
+     two windows the wrapper splits in 8, repeats bit-identical, the
+     split shapes also timed with one split, beside the device cost of one
+     empty kernel;
   6. paged decode attention (B4) and fused paged decode + page write (B5)
      against their plain versions at the serving shape, page writes
      bit-exact;
@@ -68,14 +73,20 @@ Needs one CUDA card of compute capability 9.0; exits nonzero otherwise.
 
     python3 chip_smoke.py --ab-kernels BASE_DIR [ORDER]
 
-runs only the flash kernel phases (3 and 4) of another checkout (BASE_DIR,
-e.g. the parent commit unpacked with ``git archive``) and of this one, in
-ORDER (default ABBA), and prints the median device and call ms of each
-kernel and shape per checkout.
+runs only the kernel phases (3, 4, 5 and 7: the flash kernels, B2, B3 and
+B8) of another checkout (BASE_DIR, e.g. the parent commit unpacked with
+``git archive``) and of this one, in ORDER (default ABBA), and prints the
+median device and call ms of each kernel and shape per checkout.
+
+    python3 chip_smoke.py --split-sweep
+
+times B2 at small batches for each split count of the window (the numbers
+``fused_decode.dense_splits`` is set from), then runs phase 5.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -98,10 +109,11 @@ B2_ATOL = B2_RTOL = 2e-2  # kernel keeps p in float32, plain rounds p * v_scale 
 # with each output; the phases also show it rejects a shifted pad or length,
 # a dropped page, shifted scales and swapped tables
 PAGED_ATOL, PAGED_RTOL = 1e-3, 1e-2
-# B3 and B8 are held the same way (they too compute in float32): their
+# B2, B3 and B8 are held the same way (they too compute in float32): their
 # float32 plain version on the same inputs within PAGED_ATOL + PAGED_RTOL
-# |out|; the phase shows the bound rejects a pad or offset off by one, the
-# wrong layer and a dropped fresh token
+# |out|; the phases show the bound rejects a pad or offset off by one, the
+# wrong layer and a dropped fresh token (and, for B2, the first split's
+# share of the window dropped). B2 keeps its bf16 check beside it
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call is the larger
 # of its bytes over the memory rate and its bf16 operations over the
 # tensor-core rate
@@ -253,8 +265,11 @@ def phase_env(torch) -> str:
     return card
 
 
-def phase_build(card):
-    """One nvcc per kernel library, all started together."""
+def phase_build(card, require_no_spill=True):
+    """One nvcc per kernel library, all started together; the wgmma
+    kernels' registers and spill bytes, a spill failing the phase unless
+    ``require_no_spill`` is off (an A/B run of an older checkout), and the
+    dense decode instances' beside them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from llm_speech_summarization_tpu_torch.kernels import (
@@ -267,21 +282,36 @@ def phase_build(card):
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(lib) for lib in libs]:
             fut.result()
-    # the wgmma designs (the forward, dk/dv) keep their accumulators in
+    # the wgmma designs (the forward, dq, dk/dv) keep their accumulators in
     # registers: ptxas must place them without a spill at either Dh
     regs = {}
     for lib, sources in (("flash_attention", flash_attention.SOURCES),
+                         ("flash_attention_bwd", flash_attention.BWD_SOURCES),
                          ("flash_attention_dkv", flash_attention.DKV_SOURCES)):
         for kernel, n_regs, spill in build.ptxas_report(lib, sources):
-            name = re.search(r"(flash_fwd_kernel|bwd_dkv_kernel)", kernel).group(1)
+            name = re.search(r"(flash_fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)", kernel).group(1)
             dh = int(re.search(r"Li(\d+)E", kernel).group(1))
             regs[f"{name} Dh={dh}"] = {"registers": n_regs, "spill_bytes": spill}
     spilled = {k: r for k, r in regs.items() if r["spill_bytes"]}
-    if spilled or len(regs) != 4:
+    if require_no_spill and (spilled or len(regs) != 6):
         raise AssertionError(f"build: the wgmma kernels spill or are missing: {regs}")
+    # the dense decode body's instances (cache type, Dh, query rows, warps):
+    # [registers, spill bytes], reported only (PERF.md §6 gives their cost)
+    decode = {}
+    for lib, sources in (("fused_decode", fused_decode.SOURCES),
+                         ("decode_attention", decode_attention.SOURCES)):
+        for kernel, n_regs, spill in build.ptxas_report(lib, sources):
+            m = re.search(r"dense_decode_kernelI(a|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb\dELi(\d+)E",
+                          kernel)
+            if m:
+                ct = "int8" if m.group(1) == "a" else "bf16"
+                decode[f"{lib} {ct} Dh={m.group(2)} R={m.group(3)} NW={m.group(4)}"] = [
+                    n_regs, spill]
+    if require_no_spill and not decode:
+        raise AssertionError("build: no dense decode instance in the ptxas logs")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()},
-         wgmma_kernels=regs, card=card)
+         wgmma_kernels=regs, decode_kernels=decode, card=card)
 
 
 def phase_flash(torch, card):
@@ -384,16 +414,71 @@ def _flash_work(c, T):
     return float(n_bytes), float(4 * Dh * Hq * pairs)
 
 
+# B2's shapes (B, T, S): the batch path's B=8, the serving shape B=16 (T=1
+# and the speculative T=3) and bench.py's batch B=128 over an S=384 int8
+# cache; B=1, the trainers' validate generations, whose windows the
+# wrapper splits in 8: at train_full's prompt length and at the long-audio
+# ring's
+FUSED_SHAPES = ((16, 1, 384), (16, 3, 384), (8, 1, 384), (128, 1, 384), (1, 1, 384),
+                (1, 1, 1664))
+
+
+@contextlib.contextmanager
+def forced_splits(fd_mod, n):
+    """B2 launched with ``n`` splits of each window, whatever
+    ``dense_splits`` would choose."""
+    rule = fd_mod.dense_splits
+    fd_mod.dense_splits = lambda *args: n
+    try:
+        yield
+    finally:
+        fd_mod.dense_splits = rule
+
+
+def kernel_ms(torch, fn, reps: int = 20) -> dict:
+    """Device milliseconds per call of each kernel that ``fn`` launches, by
+    kernel name (one torch.profiler session after a warm-up cycle)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 on_trace_ready=lambda p: events.extend(
+                     e for e in p.events() if e.device_type.name == "CUDA"),
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {}
+    for e in events:
+        name = re.search(r"(\w+)\s*[<(]", e.name)
+        name = name.group(1) if name else e.name
+        out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
 def phase_fused(torch, card):
+    """B2 against its plain version (bf16, B2_ATOL/B2_RTOL) and against the
+    plain version run in float32 (PAGED_ATOL + PAGED_RTOL |out|, with the
+    faults that bound must reject: pad or offset off by one, the wrong
+    layer, the fresh token dropped, the first split's share of the window
+    dropped, or its first half where the wrapper does not split), cache
+    writes bit-exact, bit-identical repeats, at FUSED_SHAPES; where the
+    window is split, each kernel's time and the call's with one split;
+    and the device cost of one empty kernel beside it."""
+    from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
     from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
         fused_decode, fused_decode_reference,
     )
 
     rng = np.random.RandomState(1)
     dev = torch.device("cuda")
-    L, B, Hq, Hkv, S, Dh, layer = 2, 16, 24, 8, 384, 128, 1
+    L, Hq, Hkv, Dh, layer = 2, 24, 8, 128, 1
     results = {}
-    for T in (1, 3):
+    for B, T, S in FUSED_SHAPES:
         q = torch.from_numpy(rng.randn(B, T, Hq, Dh).astype(np.float32)).to(dev, torch.bfloat16)
         kn = torch.from_numpy(rng.randn(B, T, Hkv, Dh).astype(np.float32)).to(dev, torch.bfloat16)
         vn = torch.from_numpy(rng.randn(B, T, Hkv, Dh).astype(np.float32)).to(dev, torch.bfloat16)
@@ -401,46 +486,99 @@ def phase_fused(torch, card):
         vc = torch.from_numpy(rng.randint(-127, 128, size=(L, B, Hkv, S, Dh)).astype(np.int8)).to(dev)
         ks = torch.from_numpy((0.02 + 0.1 * rng.rand(L, B, Hkv, S)).astype(np.float32)).to(dev, torch.bfloat16)
         vs = torch.from_numpy((0.02 + 0.1 * rng.rand(L, B, Hkv, S)).astype(np.float32)).to(dev, torch.bfloat16)
-        pads = torch.from_numpy(rng.randint(0, 5, size=(B,)).astype(np.int32)).to(dev)
+        pads_np = rng.randint(0, 5, size=(B,)).astype(np.int32)
+        pads = torch.from_numpy(pads_np).to(dev)
         offs_np = rng.randint(8, S - T, size=(B,)).astype(np.int32)
         offs_np[0] = S - T  # the last slot(s) of the cache
-        offs_np[1] = 0  # nothing cached yet: only the fresh block
+        if B > 1:
+            offs_np[1] = 0  # nothing cached yet: only the fresh block
+        if B == 1:
+            # one long window hides a fault of one slot or of the fresh
+            # token: keys that dominate some rows at the window's first and
+            # last slots (scale 1) and fresh keys along a query of each group
+            ks[layer, 0, :, pads_np[0]] = 1.0
+            ks[layer, 0, :, offs_np[0] - 1] = 1.0
+            kn = q[:, :, ::Hq // Hkv] * 8
         offs = torch.from_numpy(offs_np).to(dev)
+        mo = int(offs_np.max())
+        nsplit = (fd_mod.dense_splits(B, Hkv, mo, fd_mod.sm_count(0))
+                  if hasattr(fd_mod, "dense_splits") else 1)
         snap = [t.clone() for t in (kc, vc, ks, vs)]
         ref_bufs = [t.clone() for t in snap]
         got_bufs = [t.clone() for t in snap]
         ref = fused_decode_reference(q, *ref_bufs, kn, vn, pads, offs, layer)
-        got = fused_decode(q, *got_bufs, kn, vn, pads, offs, layer, max_offset=int(offs_np.max()))
+        got = fused_decode(q, *got_bufs, kn, vn, pads, offs, layer, max_offset=mo)
         torch.cuda.synchronize()
+        what = f"B2 B={B} T={T} S={S}"
         err = (got.float() - ref.float()).abs().max().item()
         if not torch.allclose(got.float(), ref.float(), atol=B2_ATOL, rtol=B2_RTOL):
-            raise AssertionError(f"B2 T={T}: out differs from the plain version (max |err| {err})")
+            raise AssertionError(f"{what}: out differs from the plain version (max |err| {err})")
         written = torch.zeros((L, B, Hkv, S), dtype=torch.bool, device=dev)
         for b in range(B):
             written[layer, b, :, offs_np[b]:offs_np[b] + T] = True
         for name, g, r, s0 in zip(("k_cache", "v_cache", "k_scale", "v_scale"),
                                   got_bufs, ref_bufs, snap):
             if not torch.equal(g, r):
-                raise AssertionError(f"B2 T={T}: {name} differs from the plain version's write "
+                raise AssertionError(f"{what}: {name} differs from the plain version's write "
                                      f"at {int((g != r).sum())} elements")
             if not torch.equal(g[~written], s0[~written]):
-                raise AssertionError(f"B2 T={T}: {name} changed outside the written slots")
+                raise AssertionError(f"{what}: {name} changed outside the written slots")
             if torch.equal(g[written], s0[written]):
-                raise AssertionError(f"B2 T={T}: {name} was not written")
-        t = timings(torch, lambda: fused_decode(q, *got_bufs, kn, vn, pads, offs, layer,
-                                                max_offset=int(offs_np.max())),
+                raise AssertionError(f"{what}: {name} was not written")
+
+        def exact_fn(pads=pads, offs=offs, layer=layer):
+            return fused_decode_reference(q.float(), *(t.clone() for t in snap), kn.float(),
+                                          vn.float(), pads, offs, layer)
+
+        live = torch.from_numpy((offs_np > pads_np).astype(np.int32)).to(dev)
+        # the slots of the window's first split (the kernel's even shares),
+        # or of its first half where the wrapper does not split
+        parts = max(nsplit, 2)
+        share = torch.from_numpy(((np.clip(offs_np - pads_np, 0, None) + parts - 1) // parts)
+                                 .astype(np.int32)).to(dev)
+        dropped = (f"split 0 of {nsplit} dropped" if nsplit > 1
+                   else "first half of the window dropped")
+        check = _dense_check(torch, what, got, exact_fn, _cache_only(
+            torch, q, snap[0][layer], snap[1][layer], snap[2][layer], snap[3][layer], pads,
+            offs), {"pad+1": dict(pads=pads + live), "offset-1": dict(offs=offs - live),
+                    "wrong layer": dict(layer=0), dropped: dict(pads=pads + share)})
+        # bit-identical repeats on a fresh copy of the cache
+        again_bufs = [t.clone() for t in snap]
+        again = fused_decode(q, *again_bufs, kn, vn, pads, offs, layer, max_offset=mo)
+        same = {"out": torch.equal(again, got),
+                "caches": all(torch.equal(a, g) for a, g in zip(again_bufs, got_bufs))}
+        if not all(same.values()):
+            raise AssertionError(f"{what}: two identical calls differ: {same}")
+
+        def call():
+            return fused_decode(q, *got_bufs, kn, vn, pads, offs, layer, max_offset=mo)
+
+        t = timings(torch, call,
                     lambda: fused_decode_reference(q, *ref_bufs, kn, vn, pads, offs, layer))
+        split = {}
+        if nsplit > 1:  # the split body and the merge kernel apart, and one split
+            split["kernel_ms"] = kernel_ms(torch, call)
+            with forced_splits(fd_mod, 1):
+                split["ms_one_split"] = device_ms(torch, call)
+                split["call_ms_one_split"] = call_ms(torch, call)
         # bytes: the valid int8 cache slots of k and v with their bf16
         # scales, q, the fresh k/v, the output and the written slots
-        valid = np.clip(offs_np - pads.cpu().numpy(), 0, None).astype(np.int64)
+        valid = np.clip(offs_np - pads_np, 0, None).astype(np.int64)
         n_bytes = (valid.sum() * Hkv * (2 * Dh + 4) + 2 * B * T * (2 * Hq + 2 * Hkv) * Dh
                    + B * T * Hkv * 2 * (Dh + 2))
         flops = 4 * Dh * Hq * T * (valid.sum() + B * (T + 1) / 2)
         t["bound_ms"], t["bound_by"] = bound_ms(float(n_bytes), float(flops))
-        results[T] = dict(max_abs_err=err, **t)
-        emit("fused_decode", T=T, shape=[L, B, Hq, Hkv, S, Dh], max_abs_err=err,
-             atol=B2_ATOL, rtol=B2_RTOL, cache_writes="bit-exact", bytes=float(n_bytes),
-             flops=float(flops), **t, card=card)
+        results[(B, T, S)] = dict(max_abs_err=max(err, check["max_abs_err"]), **t)
+        emit("fused_decode", B=B, T=T, shape=[L, B, Hq, Hkv, S, Dh], splits=nsplit,
+             max_abs_err=err, atol=B2_ATOL, rtol=B2_RTOL,
+             f32_check=check, f32_atol=PAGED_ATOL, f32_rtol=PAGED_RTOL,
+             cache_writes="bit-exact", bit_identical=same, bytes=float(n_bytes),
+             flops=float(flops), **t, **split, card=card)
+        del kc, vc, snap, ref_bufs, got_bufs, again_bufs
+    # the floor under B2's time at small batch: one launch of an empty kernel
+    empty = {"ms": device_ms(torch, lambda: torch.cuda._sleep(0)),
+             "call_ms": call_ms(torch, lambda: torch.cuda._sleep(0))}
+    emit("empty_kernel", kernel="torch.cuda._sleep(0)", **empty, card=card)
     return results
 
 
@@ -2405,24 +2543,35 @@ def phase_serving_full(torch, card, eng):
     return runs
 
 
-AB_RUN = ("import torch, chip_smoke as cs\n"
+# one A/B run: this file's kernel phases (its path is argv[1]) against the
+# package of the checkout the process runs in
+AB_RUN = ("import importlib.util, sys, torch\n"
+          "spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[1])\n"
+          "cs = importlib.util.module_from_spec(spec)\n"
+          "spec.loader.exec_module(cs)\n"
           "torch.set_grad_enabled(False)\n"
           "card = cs.phase_env(torch)\n"
-          "cs.phase_build(card)\n"
+          "cs.phase_build(card, require_no_spill=False)\n"
           "cs.phase_flash(torch, card)\n"
           "with torch.enable_grad():\n"
           "    cs.phase_flash_train(torch, card)\n"
-          "    cs.phase_flash_ring(torch, card)\n")
+          "    cs.phase_flash_ring(torch, card)\n"
+          "cs.phase_fused(torch, card)\n"
+          "cs.phase_dense_decode(torch, card)\n")
 
 
 def _ab_times(lines) -> dict:
     """Device ms and call ms (host dispatch included) per kernel and shape
-    from one run's flash phase lines."""
+    from one run's kernel phase lines."""
     names = {"fwd_lse": "B1 + LSE", "fwd": "B7 fwd", "dq": "dq", "dkv": "dk/dv"}
     times = {}
     for x in lines:
         if x.get("phase") == "flash_attention":
             times[f"B1 {x['case']}"] = x
+        elif x.get("phase") == "fused_decode":
+            times[f"B2 B={x['shape'][1]} T={x['T']} S={x['shape'][4]}"] = x
+        elif x.get("phase") == "dense_decode":
+            times[f"{x['kernel']} {x['case']}"] = x
         elif x.get("phase") in ("flash_train", "flash_ring"):
             tag = "B6" if x["phase"] == "flash_train" else "B7"
             for k, r in x["kernels"].items():
@@ -2432,8 +2581,9 @@ def _ab_times(lines) -> dict:
 
 
 def ab_kernels(argv) -> int:
-    """``python3 chip_smoke.py --ab-kernels BASE_DIR [ORDER]``: the flash
-    kernel phases (flash, flash_train, flash_ring) of two checkouts on one
+    """``python3 chip_smoke.py --ab-kernels BASE_DIR [ORDER]``: the kernel
+    phases (flash, flash_train, flash_ring, fused, dense_decode) of two
+    checkouts on one
     card, each run a fresh process in its checkout that imports that
     checkout's own chip_smoke.py (A = BASE_DIR, B = this checkout), in ORDER
     (default ABBA, so drift spreads over both). Prints one line per run and
@@ -2446,8 +2596,9 @@ def ab_kernels(argv) -> int:
     runs = {"A": [], "B": []}
     card = None
     for tag in order:
-        proc = subprocess.run([sys.executable, "-c", AB_RUN], cwd=roots[tag], env=env,
-                              capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, "-c", AB_RUN, os.path.abspath(__file__)],
+                              cwd=roots[tag], env=env, capture_output=True, text=True,
+                              timeout=900)
         if proc.returncode != 0:
             raise SystemExit(f"{roots[tag]}: exit {proc.returncode}\n{proc.stdout[-4000:]}\n"
                              f"{proc.stderr[-4000:]}")
@@ -2461,6 +2612,55 @@ def ab_kernels(argv) -> int:
     ratio = {k: median["B"][k]["ms"] / median["A"][k]["ms"] for k in median.get("A", {})
              if k in median.get("B", {})}
     emit("ab_kernels", order=order, median=median, device_ms_b_over_a=ratio, card=card)
+    return 0
+
+
+SWEEP_BATCHES = (1, 2, 4, 8)
+SWEEP_OFFSETS = (255, 383, 511, 767, 1023, 1663, 2047)
+SWEEP_SPLITS = (1, 2, 3, 4, 6, 8)
+
+
+def split_sweep() -> int:
+    """``python3 chip_smoke.py --split-sweep``: B2's device ms per call
+    (the split body and the merge kernel together) at T=1 and the llama3
+    widths (24/8 heads, Dh=128, int8 cache), every row at one max offset,
+    for each batch of SWEEP_BATCHES, each offset of SWEEP_OFFSETS and each
+    split count of SWEEP_SPLITS forced in place of ``dense_splits``'
+    choice, which is printed beside them: the numbers its thresholds come
+    from. Then phase_fused, which holds the split shapes to the plain
+    version."""
+    import torch
+
+    from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
+
+    card = phase_env(torch)
+    torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+    fd_mod._lib()
+    emit("build", seconds=round(time.perf_counter() - t0, 3), card=card)
+    rng = np.random.RandomState(5)
+    dev = torch.device("cuda")
+    Hq, Hkv, Dh, S = 24, 8, 128, max(SWEEP_OFFSETS) + 1
+    sms = fd_mod.sm_count(0)
+    for B in SWEEP_BATCHES:
+        q, kn, vn = (torch.from_numpy(rng.randn(B, 1, h, Dh).astype(np.float32))
+                     .to(dev, torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        kc, vc = (torch.from_numpy(rng.randint(-127, 128, size=(1, B, Hkv, S, Dh))
+                                   .astype(np.int8)).to(dev) for _ in range(2))
+        ks, vs = (torch.from_numpy((0.02 + 0.1 * rng.rand(1, B, Hkv, S)).astype(np.float32))
+                  .to(dev, torch.bfloat16) for _ in range(2))
+        pads = torch.zeros(B, dtype=torch.int32, device=dev)
+        for mo in SWEEP_OFFSETS:
+            offs = torch.full((B,), mo, dtype=torch.int32, device=dev)
+            ms = {}
+            for n in SWEEP_SPLITS:
+                with forced_splits(fd_mod, n):
+                    ms[n] = device_ms(torch, lambda: fd_mod.fused_decode(
+                        q, kc, vc, ks, vs, kn, vn, pads, offs, 0, max_offset=mo), whole=False)
+            emit("split_sweep", B=B, max_offset=mo, ms_by_splits=ms,
+                 rule=fd_mod.dense_splits(B, Hkv, mo, sms), fastest=min(ms, key=ms.get),
+                 card=card)
+    phase_fused(torch, card)
     return 0
 
 
@@ -2528,8 +2728,8 @@ def main() -> int:
     kernels = [
         entry("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:37",
               "flash_attention", flash["llm_prefill"], [r["max_abs_err"] for r in flash.values()]),
-        entry("fused_decode", "fused_decode.cu", "fused_decode.py:375", "fused_decode", fused[1],
-              [r["max_abs_err"] for r in fused.values()]),
+        entry("fused_decode", "fused_decode.cu", "fused_decode.py:375", "fused_decode",
+              fused[(16, 1, 384)], [r["max_abs_err"] for r in fused.values()]),
         entry("paged_decode_attention", "paged_attention.cu", "paged_attention.py:115",
               "paged_attention", paged, [paged["max_abs_err"]]),
         entry("fused_paged_decode", "fused_paged.cu", "fused_paged.py:118", "fused_paged",
@@ -2570,4 +2770,6 @@ if __name__ == "__main__":
         sys.exit(ring_rank(sys.argv[2], sys.argv[4:]))
     if sys.argv[1:2] == ["--ab-kernels"]:  # parent vs this checkout, kernel phases
         sys.exit(ab_kernels(sys.argv[2:]))
+    if sys.argv[1:2] == ["--split-sweep"]:  # B2's split counts, timed
+        sys.exit(split_sweep())
     sys.exit(main())

@@ -9,7 +9,7 @@
 // (B, Hkv, S) per-slot scales. It writes nothing: the caller writes the
 // fresh k/v into the cache after the kernel.
 //
-// It is the read-only instance of the fused decode kernels' body
+// It is the read-only instance of the fused decode kernels' split-S body
 // (dense_decode.cuh, whose header note says what bounds it on the H100 and
 // how the design meets that), at T = 1 with WRITE off.
 
@@ -23,13 +23,14 @@ extern "C" long long lss_decode_attention_smem_bytes(int Dh, int G, int S, int c
 // strides: 9 element strides (b, t, h) for q, k_new, v_new, in that order.
 // The cache and scales are contiguous (B, Hkv, S, Dh) and (B, Hkv, S); out
 // is contiguous (B, 1, Hq, Dh). A bf16 cache takes null scale pointers.
+// nsplit and part as lss_fused_decode's (T = 1).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int lss_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                     const void* k_scale, const void* v_scale,
                                     const void* k_new, const void* v_new, const void* pad_lens,
-                                    int offset, void* out, int B, int Hq, int Hkv, int S, int Dh,
-                                    int cache_bytes, const long long* strides, float scale,
-                                    void* stream) {
+                                    int offset, void* out, void* part, int nsplit, int B, int Hq,
+                                    int Hkv, int S, int Dh, int cache_bytes,
+                                    const long long* strides, float scale, void* stream) {
   dense_decode::Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   // WRITE is off: the kernel only reads through these
@@ -45,6 +46,8 @@ extern "C" int lss_decode_attention(const void* q, const void* k_cache, const vo
   a.offsets = nullptr;
   a.offset = offset;
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.part = static_cast<float*>(part);
+  a.nsplit = nsplit;
   a.B = B;
   a.T = 1;
   a.Hq = Hq;

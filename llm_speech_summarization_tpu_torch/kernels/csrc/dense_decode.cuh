@@ -7,29 +7,57 @@
 // pad[b] <= s < offset[b] of layer `layer` plus the fresh keys causally
 // (fresh key j <= query t). The cache is int8 with bf16 per-slot scales
 // (keys dequantized by k_scale, values weighted by p * v_scale) or bf16.
-// With WRITE, the fresh k/v rows are then written at slots
-// [offset, offset + T): an int8 cache takes them quantized exactly like
-// models/llama.py::_quantize_kv (absmax / 127 in float32, floor 1e-8, IEEE
-// division, rintf = round half to even, clip to +-127) with their bf16
+// p stays in float32. With WRITE, the fresh k/v rows are then written at
+// slots [offset, offset + T): an int8 cache takes them quantized exactly
+// like models/llama.py::_quantize_kv (absmax / 127 in float32, floor 1e-8,
+// IEEE division, rintf = round half to even, clip to +-127) with their bf16
 // scales written into the scale slab at the slot or returned as (B, Hkv, T)
 // outputs; a bf16 cache takes the fresh bf16 values as they are.
 //
-// What bounds it on the H100: reading the cache bytes. A step reads
-// B * Hkv * S * Dh values of k and of v per layer and does ~2 multiply-adds
-// per value per query row, far below the tensor-core line, so the design is
-// about keeping enough cache bytes in flight:
-//   * one block (8 warps) per (sample, kv head) computes its G = Hq / Hkv
-//     query heads for all T tokens (R = T * G rows, R <= 32), so each cache
-//     row of a kv head is read once for the whole group;
-//   * the valid slots are staged into shared memory a chunk at a time with
-//     16-byte loads, 8 in flight per thread (64 KB per chunk for either
-//     cache type), rows padded by 4 bytes so that per-thread word reads of
-//     neighbouring slots hit distinct banks;
-//   * scores: a thread per (row, slot) pair from shared memory; softmax per
-//     row in float32; values: a thread per head dimension accumulates all R
-//     rows in registers over a second staging pass of V.
-// Later designs split S across blocks (the grid is B * Hkv blocks, fewer
-// than the 132 SMs at small batch) and overlap the staging with compute.
+// What bounds it on the H100: reading the cache bytes, in principle. A
+// step reads B * Hkv * S * Dh values of k and of v per layer and does ~2
+// multiply-adds per value per query row, far below the tensor-core line.
+// The first design (one block per (sample, kv head), the R x S scores in
+// shared memory, K and then V staged in two synchronous passes) ran at
+// 3.6-20% of that bound: no byte in flight while a block computed, long
+// dependent chains, and an S limit set by the score buffer. This one
+// (flash-decoding):
+//   * the grid is (B * Hkv, NSPLIT): the wrapper picks NSPLIT (1 to 8,
+//     fused_decode.dense_splits) so that the grid takes the SMs a (B * Hkv)
+//     grid leaves idle where that shortens each block's walk enough to pay
+//     for the merge, and each split block takes an even share of its
+//     sample's window [pad, offset);
+//   * a block (8 consumer warps and a producer warp) streams its share in
+//     chunks of 64 slots: the producer copies a chunk's K rows and V rows
+//     with one cp.async.bulk each into a ring of 3 shared-memory stages
+//     completed on mbarriers, and stores the chunk's k/v scales beside
+//     them (loaded a chunk ahead), while the consumers work on earlier
+//     chunks. No R x S buffer remains, so S is not limited;
+//   * each consumer warp takes 8 keys of every chunk and runs its own
+//     online softmax in float32 (base 2): the scores of its R = T * G <= 32
+//     query rows (each cache row read once for the whole GQA group) come
+//     from mma.sync m16n8k16 on the tensor cores, q as bf16 A fragments
+//     held for the whole split, the keys as B fragments (an int8 key is
+//     exact in bf16), with the head dims permuted so that each lane reads
+//     one contiguous quarter of its key row; the per-slot k scale
+//     multiplies the float32 scores. p stays float32: the value pass runs
+//     on the CUDA cores, a lane per 4 head dims, p times the slot's v scale
+//     from a per-warp table;
+//   * at the end the warps are merged in warp order inside the block; with
+//     NSPLIT > 1 each split writes its rows' (max, sum, accumulator) to a
+//     float32 scratch from the wrapper and a second kernel merges the
+//     splits in split order (a cluster merge through distributed shared
+//     memory measured slower: PERF.md §6). No atomics, a fixed summation
+//     order: repeats are bit-identical. A split with no slot keeps max
+//     -1e30 and sum 0 and adds nothing; the last split also takes the
+//     fresh block and the write.
+// What holds it back now is instructions, not bytes: every int8 element is
+// converted twice (k, v) and every v element costs R float32 FMAs, so one
+// block keeps an SM busy, and its time grows with the slots it walks;
+// splitting helps where B * Hkv leaves SMs idle (the trainers' B = 1
+// generations: PERF.md §6 times every split count, `chip_smoke.py
+// --split-sweep`). The writes touch only slots >= offset, which no split
+// reads, so the splits need no ordering between the reads and the write.
 
 #pragma once
 
@@ -37,26 +65,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_sm90.cuh"
 #include "int8.cuh"
 
 namespace dense_decode {
 
-constexpr int NT = 256;
-constexpr int NW = NT / 32;
+constexpr int MERGE_THREADS = 256;
+constexpr int MAX_SPLITS = 8;  // the most splits the merge takes
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
 template <typename CT>
-struct Cache;  // per cache element type: quantized or not, slots per chunk
+struct Cache;  // per cache element type: quantized or not
 template <>
 struct Cache<int8_t> {
   static constexpr bool QUANT = true;
-  static constexpr int CHUNK = 512;
 };
 template <>
 struct Cache<__nv_bfloat16> {
   static constexpr bool QUANT = false;
-  static constexpr int CHUNK = 256;
 };
 
 struct Args {
@@ -73,6 +101,8 @@ struct Args {
   const int* offsets;  // (B,), or null: every row at `offset`
   int offset;
   __nv_bfloat16* out;  // contiguous (B, T, Hq, Dh)
+  float* part;  // nsplit > 1: (B * Hkv, nsplit, R, DH + 2) split results, else null
+  int nsplit;
   int B, T, Hq, Hkv, S, layer, scale_layer;
   long long q_sb, q_st, q_sh, kn_sb, kn_st, kn_sh, vn_sb, vn_st, vn_sh;
   float scale;
@@ -80,26 +110,57 @@ struct Args {
 
 inline int rows_bucket(int R) { return R <= 4 ? 4 : R <= 8 ? 8 : R <= 16 ? 16 : 32; }
 
-// shared memory: floats q R*DH | k_new T*DH | v_new T*DH | scores R*S |
-// fresh R*T | denom R | partial value sums (NT/DH - 1)*MAXR*DH | scale
-// chunk CHUNK; then the staged rows CHUNK*(DH*sizeof(CT)+4) bytes (16-aligned)
-template <typename CT>
-__host__ __device__ inline size_t smem_floats(int DH, int MAXR, int R, int T, int S) {
-  return (size_t)R * DH + 2 * (size_t)T * DH + (size_t)R * S + (size_t)R * T + R +
-         (size_t)(NT / DH - 1) * MAXR * DH + Cache<CT>::CHUNK;
+// the SMs of the current device: a grid of at most this many blocks takes
+// 16 consumer warps a block (one block an SM), a larger one 8 (two blocks
+// an SM, so that one block's prologue and merge overlap the other's chunks)
+inline int device_sms() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
 }
 
-template <typename CT>
-__host__ __device__ inline size_t smem_bytes(int DH, int MAXR, int R, int T, int S) {
-  const size_t f = (sizeof(float) * smem_floats<CT>(DH, MAXR, R, T, S) + 15) / 16 * 16;
-  return f + (size_t)Cache<CT>::CHUNK * (DH * sizeof(CT) + 4);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
+// a kernel instance's shape: NW consumer warps of 8 keys each per chunk,
+// STAGES chunk stages, and its shared-memory layout, in bytes from a
+// 16-byte aligned base
+template <typename CT, int DH, int MAXR, int NW_>
+struct Cfg {
+  static constexpr bool QUANT = Cache<CT>::QUANT;
+  static constexpr int NW = NW_;
+  static constexpr int NCT = NW * 32;  // consumer threads
+  static constexpr int NT = NCT + 32;  // + the producer warp
+  static constexpr int MINB = NW == 8 ? 2 : 1;  // blocks an SM, for the register budget
+  static constexpr int KPW = 8;  // keys of a chunk per warp: one mma n8 tile
+  static constexpr int CH = KPW * NW;  // slots per chunk
+  static constexpr int RB = DH * (int)sizeof(CT);  // cache row bytes
+  static constexpr int ROWS = CH * RB;  // K (or V) rows of one stage
+  static constexpr int STAGE = 2 * ROWS + (QUANT ? 2 * CH * 4 : 0);
+  static constexpr int STAGES = 3 * STAGE <= 112 * 1024 ? 3 : 2;
+  struct Layout {
+    int q, kn, vn, mw, lw, pw, xw, bars, bytes;
+    __host__ __device__ Layout(int R, int T) {
+      // the warps' (R, DH) accumulators take the place of the stages once
+      // every chunk is done
+      xw = 0;
+      int o = STAGES * STAGE > NW * R * DH * 4 ? STAGES * STAGE : NW * R * DH * 4;
+      q = o;  // bf16 query rows over whole m16 tiles, rows padded by 16 bytes
+      o += (MAXR + 15) / 16 * 16 * (DH + 8) * 2;
+      kn = o;
+      o += T * DH * 4;
+      vn = o;
+      o += T * DH * 4;
+      mw = o;  // per warp: running max and sum of each row, a step's p and alpha
+      o += NW * MAXR * 4;
+      lw = o;
+      o += NW * MAXR * 4;
+      pw = o;
+      o += NW * (KPW + 1) * MAXR * 4;
+      bars = o;
+      o += 2 * STAGES * 8;
+      bytes = o;
+    }
+  };
+};
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -107,281 +168,554 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// stage slots [s0, s0 + n) of a (S, DH) slab into `rows` (stride DH *
-// sizeof(CT) + 4 bytes) and, for an int8 cache, their bf16 scales into `sc`
-// as floats; 16-byte global loads, UNR of them in flight per thread before
-// any store
-template <typename CT, int DH>
-__device__ __forceinline__ void stage_chunk(const CT* __restrict__ slab,
-                                            const __nv_bfloat16* __restrict__ scales, int s0,
-                                            int n, int8_t* rows, float* sc) {
-  constexpr int RB = DH * (int)sizeof(CT);  // row bytes
-  constexpr int V16 = RB / 16;
-  constexpr int UNR = 8;
-  const int8_t* src = reinterpret_cast<const int8_t*>(slab);
-  const int total = n * V16;
-  for (int base = threadIdx.x; base < total; base += NT * UNR) {
-    uint4 buf[UNR];
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int i = base + u * NT;
-      if (i < total) {
-        buf[u] = *reinterpret_cast<const uint4*>(src + (size_t)(s0 + i / V16) * RB +
-                                                 (i % V16) * 16);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int i = base + u * NT;
-      if (i < total) {
-        uint32_t* dst = reinterpret_cast<uint32_t*>(rows + (i / V16) * (RB + 4) + (i % V16) * 16);
-        dst[0] = buf[u].x;
-        dst[1] = buf[u].y;
-        dst[2] = buf[u].z;
-        dst[3] = buf[u].w;
-      }
-    }
-  }
-  if constexpr (Cache<CT>::QUANT) {
-    for (int j = threadIdx.x; j < n; j += NT) sc[j] = __bfloat162float(scales[s0 + j]);
-  }
+// ---- PTX: the mbarriers come from flash_sm90.cuh; bulk copies and the
+// consumer barrier here
+
+using lss_sm90::mbar_arrive;
+using lss_sm90::mbar_expect_tx;
+using lss_sm90::mbar_init;
+using lss_sm90::mbar_wait;
+using lss_sm90::smem_u32;
+
+// `bytes` (a multiple of 16) from 16-byte aligned global `src` to shared `dst`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// the NCT consumer threads only (the producer warp runs on its own)
+template <int NCT>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NCT) : "memory");
+}
+// two bf16 in a word as floats (exact: a bf16 is the top half of a float)
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
 }
 
-// q . k over one staged row, float32
-template <typename CT, int DH>
-__device__ __forceinline__ float row_dot(const int8_t* kr, const float* qr) {
-  float acc = 0.f;
-  if constexpr (Cache<CT>::QUANT) {
-#pragma unroll 8
-    for (int w = 0; w < DH / 4; ++w) {
-      const float4 k = int8x4_to_float4(*reinterpret_cast<const uint32_t*>(kr + 4 * w));
-      const float4 q = *reinterpret_cast<const float4*>(qr + 4 * w);
-      acc += q.x * k.x + q.y * k.y + q.z * k.z + q.w * k.w;
-    }
-  } else {
-#pragma unroll 8
-    for (int w = 0; w < DH / 2; ++w) {
-      const float2 k = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + 4 * w));
-      const float2 q = *reinterpret_cast<const float2*>(qr + 2 * w);
-      acc += q.x * k.x + q.y * k.y;
-    }
-  }
-  return acc;
-}
-
+// 4 consecutive cache values at byte `off` of a staged row, as floats
 template <typename CT>
-__device__ __forceinline__ float elem(const int8_t* row, int d) {
+__device__ __forceinline__ float4 quad_to_float(const uint8_t* row, int off) {
   if constexpr (Cache<CT>::QUANT) {
-    return (float)row[d];
+    return int8x4_to_float4(*reinterpret_cast<const uint32_t*>(row + off));
   } else {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(row)[d]);
+    const uint2 w = *reinterpret_cast<const uint2*>(row + off);
+    const float2 a = bf16x2_to_float2(w.x);
+    const float2 b = bf16x2_to_float2(w.y);
+    return make_float4(a.x, a.y, b.x, b.y);
   }
 }
 
-template <typename CT, int DH, int MAXR, bool WRITE>
-__global__ void __launch_bounds__(NT) dense_decode_kernel(const Args a) {
-  constexpr bool QUANT = Cache<CT>::QUANT;
-  constexpr int CHUNK = Cache<CT>::CHUNK;
-  constexpr int EPL = DH / 32;                  // elements per lane in the write pass
-  constexpr int NG = NT / DH;                   // slot groups in the value pass
-  constexpr int RS = DH * (int)sizeof(CT) + 4;  // staged row stride (bytes)
-  const int S = a.S, T = a.T, Hkv = a.Hkv;
+// S (16 rows, 8 keys) += A . B on the tensor cores, bf16 in, float32 out
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the B fragments of this lane's key row for every k step: 16-byte pieces
+// of the row's head-dim quarter, as bf16 pairs (an int8 value is exact in
+// bf16); a key past the chunk gives zeros, never the stale bytes there
+template <typename CT, int DH>
+__device__ __forceinline__ void key_fragments(const uint8_t* row, bool valid,
+                                              uint32_t (&bf)[DH / 8]) {
+  constexpr int QB = DH / 4 * (int)sizeof(CT);  // bytes of a head-dim quarter
+#pragma unroll
+  for (int p = 0; p < QB / 16; ++p) {
+    const uint4 w = valid ? *reinterpret_cast<const uint4*>(row + 16 * p) : make_uint4(0, 0, 0, 0);
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (Cache<CT>::QUANT) {
+        const float4 f = int8x4_to_float4(u[i]);
+        bf[2 * (4 * p + i)] = lss_sm90::pack_bf16(f.x, f.y);
+        bf[2 * (4 * p + i) + 1] = lss_sm90::pack_bf16(f.z, f.w);
+      } else {
+        bf[4 * p + i] = u[i];
+      }
+    }
+  }
+}
+
+template <typename CT, int DH, int MAXR, bool WRITE, int NW_>
+__global__ void __launch_bounds__(Cfg<CT, DH, MAXR, NW_>::NT, Cfg<CT, DH, MAXR, NW_>::MINB)
+    dense_decode_kernel(const Args a) {
+  using C = Cfg<CT, DH, MAXR, NW_>;
+  using Lay = typename C::Layout;
+  constexpr bool QUANT = C::QUANT;
+  constexpr int CH = C::CH, RB = C::RB, NW = C::NW, KPW = C::KPW;
+  constexpr int NCT = C::NCT, NT = C::NT, STAGES = C::STAGES;
+  constexpr int MT = (MAXR + 15) / 16;  // m16 tiles of query rows
+  constexpr int KS = DH / 16;  // mma k steps
+  constexpr int QD = DH / 4;  // head dims of one lane's quarter (score pass)
+  constexpr int NQ = DH / 4;  // value pass: lanes per key (4 head dims each)
+  constexpr int VKG = 32 / NQ;  // keys a warp takes at once in the value pass
+  constexpr int EPL = DH / 32;  // elements per lane in the write pass
+  const int T = a.T, Hkv = a.Hkv, S = a.S;
   const int b = blockIdx.x / Hkv;
   const int h = blockIdx.x % Hkv;
   const int G = a.Hq / Hkv;
   const int R = T * G;  // query rows, ordered (t, g)
+  const int split = blockIdx.y;
+  const int nsplit = a.nsplit;
+  const bool last = split == nsplit - 1;  // takes the fresh block and the write
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  extern __shared__ __align__(16) float sm[];
-  float* q_s = sm;
-  float* kn_s = q_s + R * DH;
-  float* vn_s = kn_s + T * DH;
-  float* sc = vn_s + T * DH;
-  float* pf = sc + (size_t)R * S;
-  float* den = pf + R * T;
-  float* red = den + R;
-  float* ch_scale = red + (NG - 1) * MAXR * DH;
-  int8_t* rows = reinterpret_cast<int8_t*>(sm) +
-                 (sizeof(float) * smem_floats<CT>(DH, MAXR, R, T, S) + 15) / 16 * 16;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const Lay lay(R, T);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + lay.q);  // [MT * 16][DH + 8]
+  float* kn_s = reinterpret_cast<float*>(smem + lay.kn);
+  float* vn_s = reinterpret_cast<float*>(smem + lay.vn);
+  float* mw_s = reinterpret_cast<float*>(smem + lay.mw);  // [NW][MAXR] warps' running max
+  float* lw_s = reinterpret_cast<float*>(smem + lay.lw);  // [NW][MAXR] warps' running sum
+  float* pw_s = reinterpret_cast<float*>(smem + lay.pw);  // [NW][KPW + 1][MAXR] p, alpha
+  float* xw_s = reinterpret_cast<float*>(smem + lay.xw);  // [NW][R][DH] warp accumulators
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + STAGES;
 
+  // the query rows (bf16, zero past R) and the fresh keys / values, by
+  // every thread, in flight with the window's loads below
+  for (int i = tid; i < MT * 16 * DH; i += NT) {
+    const int r = i / DH, d = i % DH;
+    const int t = r / G, g = r % G;
+    q_s[r * (DH + 8) + d] = r < R ? a.q[b * a.q_sb + t * a.q_st + (h * G + g) * a.q_sh + d]
+                                  : __float2bfloat16_rn(0.f);
+  }
+  if (last) {
+    for (int i = tid; i < T * DH; i += NT) {
+      const int t = i / DH, d = i % DH;
+      kn_s[i] = __bfloat162float(a.kn[b * a.kn_sb + t * a.kn_st + h * a.kn_sh + d]);
+      vn_s[i] = __bfloat162float(a.vn[b * a.vn_sb + t * a.vn_st + h * a.vn_sh + d]);
+    }
+  }
   const int pad = max(a.pads[b], 0);
   const int off = a.offsets ? a.offsets[b] : a.offset;
   const int c_end = min(off, S);  // valid cache slots [pad, c_end)
+  const int n_all = max(c_end - pad, 0);
+  const int per = (n_all + nsplit - 1) / nsplit;
+  const int lo = pad + split * per;
+  const int hi = min(lo + per, c_end);  // this split's slots [lo, hi)
+  const int n_chunks = hi > lo ? (hi - lo + CH - 1) / CH : 0;
   const size_t row0 = ((size_t)(a.layer * a.B + b) * Hkv + h) * S;  // (L, B, Hkv, S) index
   const size_t srow0 = ((size_t)(a.scale_layer * a.B + b) * Hkv + h) * S;
   CT* kslab = static_cast<CT*>(a.kc) + row0 * DH;
   CT* vslab = static_cast<CT*>(a.vc) + row0 * DH;
-  const __nv_bfloat16* kscales = QUANT ? a.ks + srow0 : nullptr;
-  const __nv_bfloat16* vscales = QUANT ? a.vs + srow0 : nullptr;
 
-  for (int i = tid; i < R * DH; i += NT) {
-    const int r = i / DH, d = i % DH;
-    const int t = r / G, g = r % G;
-    q_s[i] = __bfloat162float(a.q[b * a.q_sb + t * a.q_st + (h * G + g) * a.q_sh + d]);
-  }
-  for (int i = tid; i < T * DH; i += NT) {
-    const int t = i / DH, d = i % DH;
-    kn_s[i] = __bfloat162float(a.kn[b * a.kn_sb + t * a.kn_st + h * a.kn_sh + d]);
-    vn_s[i] = __bfloat162float(a.vn[b * a.vn_sb + t * a.vn_st + h * a.vn_sh + d]);
-  }
-
-  // ---- scores over the cache, a staged chunk at a time:
-  //      (q . k) [* k_scale] * Dh^-0.5, one (row, slot) pair per thread
-  for (int s0 = pad; s0 < c_end; s0 += CHUNK) {
-    const int n = min(CHUNK, c_end - s0);
-    __syncthreads();  // the previous chunk's rows are consumed
-    stage_chunk<CT, DH>(kslab, kscales, s0, n, rows, ch_scale);
-    __syncthreads();
-    for (int idx = tid; idx < R * n; idx += NT) {
-      const int r = idx / n, j = idx % n;
-      float s = row_dot<CT, DH>(rows + j * RS, q_s + r * DH);
-      if constexpr (QUANT) s *= ch_scale[j];
-      sc[(size_t)r * S + s0 + j] = s * a.scale;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], QUANT ? 1 + 32 : 1);  // the copies' arrival (+ the scale stores)
+      mbar_init(&empty[s], NCT);
     }
-  }
-  __syncthreads();
-  // ---- scores over the fresh block, causal within it
-  for (int i = tid; i < R * T; i += NT) {
-    const int r = i / T, j = i % T;
-    float s = NEG_INF;
-    if (j <= r / G) {
-      float acc = 0.f;
-      for (int d = 0; d < DH; ++d) acc += q_s[r * DH + d] * kn_s[j * DH + d];
-      s = acc * a.scale;
-    }
-    pf[i] = s;
+    lss_sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  // ---- softmax per row (a warp per row), unnormalized p in place
-  for (int r = warp; r < R; r += NW) {
-    float* srow = sc + (size_t)r * S;
-    float* frow = pf + r * T;
-    float mx = NEG_INF;
-    for (int s = pad + lane; s < c_end; s += 32) mx = fmaxf(mx, srow[s]);
-    for (int j = lane; j < T; j += 32) mx = fmaxf(mx, frow[j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int s = pad + lane; s < c_end; s += 32) {
-      const float p = expf(srow[s] - mx);
-      sum += p;
-      srow[s] = p;
-    }
-    for (int j = lane; j < T; j += 32) {
-      const float p = expf(frow[j] - mx);  // masked: exp(-1e30 - mx) == 0
-      sum += p;
-      frow[j] = p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) den[r] = sum;
-  }
-
-  // ---- values, a staged chunk at a time: thread (d, group) sums
-  //      p [* v_scale] * v
-  const int d = tid % DH;
-  const int grp = tid / DH;
-  float acc[MAXR];
+  if (warp == NW) {
+    // ---- producer warp: lane 0 issues the two bulk copies of a chunk,
+    // every lane stores its share of the chunk's scales, loaded one chunk
+    // ahead so that no chunk waits on its own scale loads
+    float nk[CH / 32], nv[CH / 32];
+    auto load_scales = [&](int i) {
+      const int s0 = lo + i * CH;
+      const int n = min(CH, hi - s0);
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
-  for (int s0 = pad; s0 < c_end; s0 += CHUNK) {
-    const int n = min(CHUNK, c_end - s0);
-    __syncthreads();
-    stage_chunk<CT, DH>(vslab, vscales, s0, n, rows, ch_scale);
-    __syncthreads();
-    for (int j = grp; j < n; j += NG) {
-      float w = elem<CT>(rows + j * RS, d);
-      if constexpr (QUANT) w *= ch_scale[j];
+      for (int u = 0; u < CH / 32; ++u) {
+        const int j = lane + 32 * u;
+        nk[u] = j < n ? __bfloat162float(a.ks[srow0 + s0 + j]) : 0.f;
+        nv[u] = j < n ? __bfloat162float(a.vs[srow0 + s0 + j]) : 0.f;
+      }
+    };
+    for (int i = 0; i < n_chunks; ++i) {
+      const int s = i % STAGES;
+      const int s0 = lo + i * CH;
+      const int n = min(CH, hi - s0);
+      if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+      uint8_t* st = smem + s * C::STAGE;
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * n * RB);
+        bulk_load(st, kslab + (size_t)s0 * DH, n * RB, &full[s]);
+        bulk_load(st + C::ROWS, vslab + (size_t)s0 * DH, n * RB, &full[s]);
+      }
+      if constexpr (QUANT) {
+        if (i == 0) load_scales(0);
+        float ck[CH / 32], cv[CH / 32];
+#pragma unroll
+        for (int u = 0; u < CH / 32; ++u) {
+          ck[u] = nk[u];
+          cv[u] = nv[u];
+        }
+        if (i + 1 < n_chunks) load_scales(i + 1);
+        float* ksc = reinterpret_cast<float*>(st + 2 * C::ROWS);
+#pragma unroll
+        for (int u = 0; u < CH / 32; ++u) {
+          ksc[lane + 32 * u] = ck[u];
+          ksc[CH + lane + 32 * u] = cv[u];
+        }
+        mbar_arrive(&full[s]);  // release: the stores above are seen by the waiters
+      }
+    }
+  } else {
+    // ---- consumers: each warp runs its own online softmax over its 8 keys
+    // of every chunk, then the warps are merged in warp order
+    const float scale2 = a.scale * LOG2E;
+    float* pw = pw_s + warp * (KPW + 1) * MAXR;  // p of the warp's keys [row][key], then alpha
+    float* aw = pw + KPW * MAXR;
+    // the score pass: rows gq and gq + 8 of each m tile, keys 2 kq + {0, 1}
+    // of the warp's n tile; the k axis of the products runs over the head
+    // dims permuted so that lane kq holds the quarter [kq QD, kq QD + QD):
+    // k step s takes dims kq QD + 4 s + {0, 1} (k = 2 kq + {0, 1}) and
+    // + {2, 3} (k = 2 kq + 8 + {0, 1}), for q and k alike
+    const int gq = lane / 4;
+    const int kq = lane % 4;
+    const int quad = lane % NQ;  // the value pass: head dims 4 quad..+3 of keys vk, vk + VKG..
+    const int vk = lane / NQ;
+    float m_run[MT][2], l_run[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      m_run[mt][0] = m_run[mt][1] = NEG_INF;
+      l_run[mt][0] = l_run[mt][1] = 0.f;
+    }
+    float acc[MAXR][4];
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+    uint32_t qa[MT][KS][4];  // q as mma A fragments, for the whole split
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint32_t* q0 = reinterpret_cast<const uint32_t*>(q_s + (mt * 16 + gq) * (DH + 8) + kq * QD);
+      const uint32_t* q1 = q0 + 8 * (DH + 8) / 2;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        qa[mt][s][0] = q0[2 * s];
+        qa[mt][s][1] = q1[2 * s];
+        qa[mt][s][2] = q0[2 * s + 1];
+        qa[mt][s][3] = q1[2 * s + 1];
+      }
+    }
+
+    // rescale the accumulator by aw and add p (pw, [row][key]) times the
+    // values of the first n keys (v(key) gives 4 head dims as floats)
+    auto values = [&](int n, auto vq) {
+      float4 v[KPW / VKG];
+#pragma unroll
+      for (int u = 0; u < KPW / VKG; ++u) {  // every load in flight at once
+        const int kk = vk + VKG * u;
+        v[u] = kk < n ? vq(kk) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
-        if (r < R) acc[r] += sc[(size_t)r * S + s0 + j] * w;
-      }
-    }
-  }
-  if (grp > 0) {
+        if (r < R) {
+          const float al = aw[r];
+          float4 p[KPW / 4];
 #pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
-      if (r < R) red[((grp - 1) * MAXR + r) * DH + d] = acc[r];
-    }
-  }
-  __syncthreads();
-  if (grp == 0) {
+          for (int u = 0; u < KPW / 4; ++u) p[u] = *reinterpret_cast<const float4*>(pw + r * KPW + 4 * u);
+          const float* pr = reinterpret_cast<const float*>(p);
+          float x0 = acc[r][0] * al, x1 = acc[r][1] * al, x2 = acc[r][2] * al, x3 = acc[r][3] * al;
 #pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
-      if (r < R) {
-        float v = acc[r];
-        for (int g2 = 1; g2 < NG; ++g2) v += red[((g2 - 1) * MAXR + r) * DH + d];
-        for (int j = 0; j < T; ++j) v += pf[r * T + j] * vn_s[j * DH + d];
-        const int t = r / G, g = r % G;
-        a.out[(((size_t)b * T + t) * a.Hq + h * G + g) * DH + d] = __float2bfloat16_rn(v / den[r]);
-      }
-    }
-  }
-
-  if constexpr (WRITE) {
-    // ---- the fresh rows at [off, off + T), a warp per (token, k or v)
-    for (int i = warp; i < 2 * T; i += NW) {
-      const int t = i / 2;
-      const bool is_v = (i % 2) == 1;
-      const float* src = (is_v ? vn_s : kn_s) + t * DH + lane * EPL;
-      const int slot = off + t;
-      const bool inside = slot >= 0 && slot < S;  // the wrapper guarantees offsets + T <= S
-      CT* dst = (is_v ? vslab : kslab) + (size_t)slot * DH + lane * EPL;
-      if constexpr (QUANT) {
-        float x[EPL];
-        float amax = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          x[e] = src[e];
-          amax = fmaxf(amax, fabsf(x[e]));
-        }
-        amax = warp_max(amax);
-        const float qs = fmaxf(amax / 127.0f, 1e-8f);
-        if (inside) {
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) {
-            dst[e] = (int8_t)fminf(fmaxf(rintf(x[e] / qs), -127.f), 127.f);
+          for (int u = 0; u < KPW / VKG; ++u) {
+            float pk = pr[VKG * u];  // key vk + VKG u, without a runtime index
+            if constexpr (VKG == 2) pk = vk ? pr[2 * u + 1] : pk;
+            x0 += pk * v[u].x;
+            x1 += pk * v[u].y;
+            x2 += pk * v[u].z;
+            x3 += pk * v[u].w;
           }
-          if (lane == 0) {
-            const __nv_bfloat16 s16 = __float2bfloat16_rn(qs);
-            __nv_bfloat16* fresh = is_v ? a.vs_new : a.ks_new;
-            if (fresh) {
-              fresh[((size_t)b * Hkv + h) * T + t] = s16;
-            } else {
-              (is_v ? a.vs : a.ks)[srow0 + slot] = s16;
+          acc[r][0] = x0;
+          acc[r][1] = x1;
+          acc[r][2] = x2;
+          acc[r][3] = x3;
+        }
+      }
+      __syncwarp();  // pw and aw are read before the next step rewrites them
+    };
+
+    if (last && warp == NW - 1) {
+      // ---- the fresh block, causal within it (key j <= query t), one key
+      // at a time, the lanes splitting the head dim
+      for (int j = 0; j < T; ++j) {
+        const float* kj = kn_s + j * DH;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = mt * 16 + gq + 8 * hr;
+            float dot = 0.f;
+            if (r < R) {
+              const __nv_bfloat16* qr = q_s + r * (DH + 8);
+#pragma unroll 8
+              for (int d = kq; d < DH; d += 4) dot += __bfloat162float(qr[d]) * kj[d];
+            }
+            dot += __shfl_xor_sync(FULL, dot, 1);
+            dot += __shfl_xor_sync(FULL, dot, 2);
+            const bool ok = r < R && j <= r / G;
+            const float m_new = ok ? fmaxf(m_run[mt][hr], dot * scale2) : m_run[mt][hr];
+            const float alpha = exp2f(m_run[mt][hr] - m_new);
+            const float p = ok ? exp2f(dot * scale2 - m_new) : 0.f;  // p = 0 by selection
+            l_run[mt][hr] = l_run[mt][hr] * alpha + p;
+            m_run[mt][hr] = m_new;
+            if (kq == 0 && r < R) {
+              pw[r * KPW] = p;
+#pragma unroll
+              for (int u = 1; u < KPW; ++u) pw[r * KPW + u] = 0.f;
+              aw[r] = alpha;
             }
           }
         }
-      } else if (inside) {
+        __syncwarp();
+        values(1, [&](int) { return *reinterpret_cast<const float4*>(vn_s + j * DH + 4 * quad); });
+      }
+    }
+
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = c % STAGES;
+      const int n = min(CH, hi - (lo + c * CH));
+      const uint8_t* st = smem + s * C::STAGE;
+      const uint8_t* krows = st;
+      const uint8_t* vrows = st + C::ROWS;
+      const float* ksc = reinterpret_cast<const float*>(st + 2 * C::ROWS);
+      const int j0 = warp * KPW;  // the warp's first key in the chunk
+      mbar_wait(&full[s], (c / STAGES) & 1);
+      if (j0 < n) {  // warp-uniform
+        // S (rows, 8 keys) = Q . K^T on the tensor cores: this lane's B
+        // fragments are its key row's head-dim quarter
+        uint32_t kb[DH / 8];
+        key_fragments<CT, DH>(krows + (j0 + gq) * RB + kq * QD * (int)sizeof(CT), j0 + gq < n,
+                              kb);
+        float sc[MT][4];
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) dst[e] = __float2bfloat16_rn(src[e]);
+        for (int mt = 0; mt < MT; ++mt) {
+          sc[mt][0] = sc[mt][1] = sc[mt][2] = sc[mt][3] = 0.f;
+#pragma unroll
+          for (int k = 0; k < KS; ++k) mma_bf16(sc[mt], qa[mt][k], kb[2 * k], kb[2 * k + 1]);
+        }
+        // online softmax on the fragments: a row's two keys in this lane,
+        // its 8 keys over the quad
+        const int key0 = j0 + 2 * kq;
+        const bool ok0 = key0 < n, ok1 = key0 + 1 < n;
+        float ks0 = scale2, ks1 = scale2, vs0 = 1.f, vs1 = 1.f;
+        if constexpr (QUANT) {
+          ks0 = ok0 ? ksc[key0] * scale2 : 0.f;
+          ks1 = ok1 ? ksc[key0 + 1] * scale2 : 0.f;
+          vs0 = ok0 ? ksc[CH + key0] : 0.f;
+          vs1 = ok1 ? ksc[CH + key0 + 1] : 0.f;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = mt * 16 + gq + 8 * hr;
+            const float s0 = sc[mt][2 * hr] * ks0, s1 = sc[mt][2 * hr + 1] * ks1;
+            float mx = fmaxf(ok0 ? s0 : NEG_INF, ok1 ? s1 : NEG_INF);
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+            const float m_new = fmaxf(m_run[mt][hr], mx);
+            const float alpha = exp2f(m_run[mt][hr] - m_new);
+            const float p0 = ok0 ? exp2f(s0 - m_new) : 0.f;  // p = 0 by selection
+            const float p1 = ok1 ? exp2f(s1 - m_new) : 0.f;
+            float ps = p0 + p1;
+            ps += __shfl_xor_sync(FULL, ps, 1);
+            ps += __shfl_xor_sync(FULL, ps, 2);
+            l_run[mt][hr] = l_run[mt][hr] * alpha + ps;
+            m_run[mt][hr] = m_new;
+            if (r < R) {
+              *reinterpret_cast<float2*>(pw + r * KPW + 2 * kq) = make_float2(p0 * vs0, p1 * vs1);
+              if (kq == 0) aw[r] = alpha;
+            }
+          }
+        }
+        __syncwarp();
+        values(n - j0, [&](int kk) {
+          return quad_to_float<CT>(vrows + (j0 + kk) * RB, 4 * quad * (int)sizeof(CT));
+        });
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // ---- this warp's state (the value groups' halves added), then the
+    // warps merged in warp order; the warps' accumulators take the place
+    // of the stages, which every warp must be done with
+    consumer_sync<NCT>();
+    if constexpr (VKG == 2) {
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][e] += __shfl_xor_sync(FULL, acc[r][e], 16);
+      }
+    }
+    if (vk == 0) {
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r) {
+        if (r < R) {
+          *reinterpret_cast<float4*>(xw_s + (warp * R + r) * DH + 4 * quad) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = mt * 16 + gq + 8 * hr;
+        if (kq == 0 && r < R) {
+          mw_s[warp * MAXR + r] = m_run[mt][hr];
+          lw_s[warp * MAXR + r] = l_run[mt][hr];
+        }
+      }
+    }
+    consumer_sync<NCT>();
+    for (int idx = tid; idx < R * DH; idx += NCT) {
+      const int r = idx / DH;
+      float M = NEG_INF, L = 0.f, A = 0.f;
+#pragma unroll
+      for (int w2 = 0; w2 < NW; ++w2) {
+        const float mi = mw_s[w2 * MAXR + r];
+        const float Mn = fmaxf(M, mi);
+        const float w_old = exp2f(M - Mn), w_new = exp2f(mi - Mn);
+        L = L * w_old + lw_s[w2 * MAXR + r] * w_new;
+        A = A * w_old + xw_s[(w2 * R + r) * DH + idx % DH] * w_new;
+        M = Mn;
+      }
+      if (nsplit == 1) {  // the only split: normalise and write
+        const int d = idx % DH;
+        const int t = r / G, g = r % G;
+        a.out[(((size_t)b * T + t) * a.Hq + h * G + g) * DH + d] = __float2bfloat16_rn(A / L);
+      } else {  // this split's row result: (max, sum, accumulator)
+        float* part = a.part + (((size_t)blockIdx.x * nsplit + split) * R + r) * (DH + 2);
+        part[2 + idx % DH] = A;
+        if (idx % DH == 0) {
+          part[0] = M;
+          part[1] = L;
+        }
+      }
+    }
+
+    if constexpr (WRITE) {
+      // ---- the fresh rows at [off, off + T), a warp per (token, k or v)
+      if (last) {
+        for (int i = warp; i < 2 * T; i += NCT / 32) {
+          const int t = i / 2;
+          const bool is_v = (i % 2) == 1;
+          const float* src = (is_v ? vn_s : kn_s) + t * DH + lane * EPL;
+          const int slot = off + t;
+          const bool inside = slot >= 0 && slot < S;  // the wrapper guarantees offsets + T <= S
+          CT* dst = (is_v ? vslab : kslab) + (size_t)slot * DH + lane * EPL;
+          if constexpr (QUANT) {
+            float x[EPL];
+            float amax = 0.f;
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) {
+              x[e] = src[e];
+              amax = fmaxf(amax, fabsf(x[e]));
+            }
+            amax = warp_max(amax);
+            const float qs = fmaxf(amax / 127.0f, 1e-8f);
+            if (inside) {
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) {
+                dst[e] = (int8_t)fminf(fmaxf(rintf(x[e] / qs), -127.f), 127.f);
+              }
+              if (lane == 0) {
+                const __nv_bfloat16 s16 = __float2bfloat16_rn(qs);
+                __nv_bfloat16* fresh = is_v ? a.vs_new : a.ks_new;
+                if (fresh) {
+                  fresh[((size_t)b * Hkv + h) * T + t] = s16;
+                } else {
+                  (is_v ? a.vs : a.ks)[srow0 + slot] = s16;
+                }
+              }
+            }
+          } else if (inside) {
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) dst[e] = __float2bfloat16_rn(src[e]);
+          }
+        }
       }
     }
   }
+
 }
 
-template <typename CT, int DH, int MAXR, bool WRITE>
+// the splits of each (sample, kv head) merged in split order: a block per
+// (sample, kv head), a thread per (row, head dim), every split's loads in
+// flight at once; a split without a slot has max -1e30 and sum 0 and adds
+// nothing
+template <int DH>
+__global__ void __launch_bounds__(MERGE_THREADS) dense_merge_kernel(const Args a) {
+  const int Hkv = a.Hkv, T = a.T, G = a.Hq / Hkv, R = T * G, n = a.nsplit;
+  const int b = blockIdx.x / Hkv;
+  const int h = blockIdx.x % Hkv;
+  for (int idx = threadIdx.x; idx < R * DH; idx += MERGE_THREADS) {
+    const int r = idx / DH, d = idx % DH;
+    float mi[MAX_SPLITS], li[MAX_SPLITS], ai[MAX_SPLITS];
+#pragma unroll
+    for (int i = 0; i < MAX_SPLITS; ++i) {
+      if (i < n) {
+        const float* part = a.part + (((size_t)blockIdx.x * n + i) * R + r) * (DH + 2);
+        mi[i] = part[0];
+        li[i] = part[1];
+        ai[i] = part[2 + d];
+      }
+    }
+    float M = NEG_INF, L = 0.f, A = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_SPLITS; ++i) {
+      if (i < n) {
+        const float Mn = fmaxf(M, mi[i]);
+        const float w_old = exp2f(M - Mn), w_new = exp2f(mi[i] - Mn);
+        L = L * w_old + li[i] * w_new;
+        A = A * w_old + ai[i] * w_new;
+        M = Mn;
+      }
+    }
+    const int t = r / G, g = r % G;
+    a.out[(((size_t)b * T + t) * a.Hq + h * G + g) * DH + d] = __float2bfloat16_rn(A / L);
+  }
+}
+
+template <typename CT, int DH, int MAXR, bool WRITE, int NW>
 int launch(const Args& a, cudaStream_t stream) {
+  using C = Cfg<CT, DH, MAXR, NW>;
   const int R = a.T * (a.Hq / a.Hkv);
-  const size_t smem = smem_bytes<CT>(DH, MAXR, R, a.T, a.S);
-  cudaError_t err = cudaFuncSetAttribute(dense_decode_kernel<CT, DH, MAXR, WRITE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int smem = typename C::Layout(R, a.T).bytes;
+  auto kernel = dense_decode_kernel<CT, DH, MAXR, WRITE, NW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dense_decode_kernel<CT, DH, MAXR, WRITE><<<a.B * a.Hkv, NT, smem, stream>>>(a);
+  kernel<<<dim3(a.B * a.Hkv, a.nsplit), C::NT, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.nsplit == 1) return (int)err;
+  dense_merge_kernel<DH><<<a.B * a.Hkv, MERGE_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// 16 consumer warps where the grid leaves an SM to each block and the
+// warps' accumulators fit (MAXR <= 16), else 8
+template <typename CT, int DH, int MAXR, bool WRITE>
+int launch_for_grid(const Args& a, cudaStream_t s) {
+  if constexpr (MAXR <= 16) {
+    if (a.B * a.Hkv * a.nsplit <= device_sms()) return launch<CT, DH, MAXR, WRITE, 16>(a, s);
+  }
+  return launch<CT, DH, MAXR, WRITE, 8>(a, s);
 }
 
 // the instance for the cache type, head dim and query rows of `a`
 template <typename CT, bool WRITE>
 int dispatch(const Args& a, int Dh, cudaStream_t s) {
+  if (a.nsplit < 1 || a.nsplit > MAX_SPLITS) return (int)cudaErrorInvalidValue;
   const int maxr = rows_bucket(a.T * (a.Hq / a.Hkv));
-#define LSS_DENSE_LAUNCH(DH_)                                  \
-  switch (maxr) {                                              \
-    case 4: return launch<CT, DH_, 4, WRITE>(a, s);            \
-    case 8: return launch<CT, DH_, 8, WRITE>(a, s);            \
-    case 16: return launch<CT, DH_, 16, WRITE>(a, s);          \
-    default: return launch<CT, DH_, 32, WRITE>(a, s);          \
+#define LSS_DENSE_LAUNCH(DH_)                                            \
+  switch (maxr) {                                                        \
+    case 4: return launch_for_grid<CT, DH_, 4, WRITE>(a, s);             \
+    case 8: return launch_for_grid<CT, DH_, 8, WRITE>(a, s);             \
+    case 16: return launch_for_grid<CT, DH_, 16, WRITE>(a, s);           \
+    default: return launch_for_grid<CT, DH_, 32, WRITE>(a, s);           \
   }
   if (Dh == 128) LSS_DENSE_LAUNCH(128)
   if (Dh == 64) LSS_DENSE_LAUNCH(64)
@@ -389,12 +723,31 @@ int dispatch(const Args& a, int Dh, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-// shared memory bytes of the instance for these sizes
-inline long long smem_for(int Dh, int T, int G, int S, int cache_bytes) {
+// shared memory bytes of the larger of the two instances (8 or 16 warps,
+// the grid picks one) for these rows
+template <typename CT, int DH, int MAXR>
+long long instance_bytes(int R, int T) {
+  const long long b8 = typename Cfg<CT, DH, MAXR, 8>::Layout(R, T).bytes;
+  const long long b16 = typename Cfg<CT, DH, MAXR, 16>::Layout(R, T).bytes;
+  return MAXR > 16 || b8 > b16 ? b8 : b16;
+}
+
+template <typename CT, int DH>
+long long rows_bytes(int R, int T) {
+  switch (rows_bucket(R)) {
+    case 4: return instance_bytes<CT, DH, 4>(R, T);
+    case 8: return instance_bytes<CT, DH, 8>(R, T);
+    case 16: return instance_bytes<CT, DH, 16>(R, T);
+    default: return instance_bytes<CT, DH, 32>(R, T);
+  }
+}
+
+// shared memory bytes for these sizes; they do not grow with S (kept in
+// the signature: the wrappers pass it)
+inline long long smem_for(int Dh, int T, int G, int /*S*/, int cache_bytes) {
   const int R = T * G;
-  const int maxr = rows_bucket(R);
-  return cache_bytes == 1 ? (long long)smem_bytes<int8_t>(Dh, maxr, R, T, S)
-                          : (long long)smem_bytes<__nv_bfloat16>(Dh, maxr, R, T, S);
+  if (cache_bytes == 1) return Dh == 128 ? rows_bytes<int8_t, 128>(R, T) : rows_bytes<int8_t, 64>(R, T);
+  return Dh == 128 ? rows_bytes<__nv_bfloat16, 128>(R, T) : rows_bytes<__nv_bfloat16, 64>(R, T);
 }
 
 }  // namespace dense_decode

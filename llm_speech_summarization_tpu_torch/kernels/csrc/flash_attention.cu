@@ -58,11 +58,9 @@
 // has no atomics and a fixed summation order, so a recompute (activation
 // checkpointing) gives bitwise the same out and lse.
 
-#include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
 using namespace lss_sm90;
-using lss_flash::NEG_INF;
 
 namespace {
 

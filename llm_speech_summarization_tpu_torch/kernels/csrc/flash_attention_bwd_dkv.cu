@@ -50,7 +50,6 @@
 // the global ones of the whole ring, so p is the global softmax restricted
 // to the visiting block. Offsets (0, 0) are plain B6.
 
-#include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
 using namespace lss_sm90;

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the wgmma flash-attention kernels (the
-// forward in flash_attention.cu, dk/dv in flash_attention_bwd_dkv.cu):
+// forward in flash_attention.cu, dq in flash_attention_bwd.cu, dk/dv in
+// flash_attention_bwd_dkv.cu):
 // mbarriers, TMA tile loads through a tensor map, wgmma descriptors for
 // shared-memory tiles in the 128-byte swizzle that TMA writes, the wgmma
 // instructions themselves, and the host code that encodes a tensor map
@@ -10,8 +11,8 @@
 // memory, 1024-byte aligned, with TMA's 128-byte swizzle. Rows past T are
 // zero-filled by TMA; the kernels mask keys by position, never by value.
 // As a wgmma operand such a tile is either K-major (the contraction runs
-// along Dh: Q.K^T, K.Q^T, V.dO^T) or MN-major (the contraction runs along
-// the rows: P.V, P^T.dO, dS^T.Q).
+// along Dh: Q.K^T, dO.V^T, K.Q^T, V.dO^T) or MN-major (the contraction runs
+// along the rows: P.V, dS.K, P^T.dO, dS^T.Q).
 
 #pragma once
 
@@ -24,6 +25,7 @@ namespace lss_sm90 {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr float NEG_INF = -1e30f;  // a masked score (never -inf) and a keyless row's lse
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

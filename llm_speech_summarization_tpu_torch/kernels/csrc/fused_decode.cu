@@ -3,7 +3,10 @@
 //
 // Two kernels of the JAX package in one instance set of dense_decode.cuh
 // (its header note gives the computation, what bounds it on the H100 and the
-// design):
+// split-S design: the window of each (sample, kv head) streamed by up to 8
+// blocks through cp.async.bulk stages, the scores on the tensor cores, an
+// online softmax per warp in float32, the splits merged in a fixed order by
+// a second kernel over a scratch the wrapper allocates):
 //   * B2, llm_speech_summarization_tpu/kernels/fused_decode.py::
 //     _fused_kernel_aliased (fused_decode_aliased_scales), the engine's
 //     default step over an int8 cache: T >= 1 fresh tokens, the fresh
@@ -38,9 +41,10 @@ extern "C" long long lss_fused_decode_smem_bytes(int Dh, int T, int G, int S, in
 extern "C" int lss_fused_decode(const void* q, void* k_cache, void* v_cache, void* k_scale,
                                 void* v_scale, void* ks_new, void* vs_new, const void* k_new,
                                 const void* v_new, const void* pad_lens, const void* offsets,
-                                void* out, int B, int T, int Hq, int Hkv, int S, int Dh,
-                                int layer, int scale_layer, int cache_bytes,
-                                const long long* strides, float scale, void* stream) {
+                                void* out, void* part, int nsplit, int B, int T, int Hq,
+                                int Hkv, int S, int Dh, int layer, int scale_layer,
+                                int cache_bytes, const long long* strides, float scale,
+                                void* stream) {
   dense_decode::Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.kc = k_cache;
@@ -55,6 +59,8 @@ extern "C" int lss_fused_decode(const void* q, void* k_cache, void* v_cache, voi
   a.offsets = static_cast<const int*>(offsets);
   a.offset = 0;
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.part = static_cast<float*>(part);
+  a.nsplit = nsplit;
   a.B = B;
   a.T = T;
   a.Hq = Hq;

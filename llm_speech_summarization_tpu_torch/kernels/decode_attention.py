@@ -6,7 +6,7 @@ decode_attention``, which the JAX decoder runs when a caller asks for
 ``attn_impl="pallas"``. The CUDA kernel is ``csrc/decode_attention.cu``, the
 read-only instance of the fused decode kernels' body
 (``csrc/dense_decode.cuh``, whose header note says what bounds it on the
-H100 and how this first design meets that).
+H100 and how its split-S design meets that).
 
 q (B, 1, Hq, Dh) attends the slots ``pad_lens[b] <= s < offset`` of one
 layer's (B, Hkv, S, Dh) cache (a view of the ``(L, B, Hkv, S, Dh)`` cache,
@@ -30,9 +30,12 @@ from .fused_decode import (
     _devices,
     check_decode_operands,
     dense_attention_reference,
+    dense_splits,
+    sm_count,
+    split_scratch,
 )
 
-SOURCES = ("decode_attention.cu", "dense_decode.cuh", "int8.cuh")
+SOURCES = ("decode_attention.cu", "dense_decode.cuh", "int8.cuh", "flash_sm90.cuh")
 
 
 def _check_offset(offset, S: int) -> int:
@@ -95,6 +98,8 @@ def decode_attention(
         raise ValueError(f"{what}: S={S} needs {smem} bytes of shared memory "
                          f"(limit {MAX_SMEM})")
     out = torch.empty((B, 1, Hq, Dh), dtype=torch.bfloat16, device=q.device)
+    nsplit = dense_splits(B, Hkv, offset, sm_count(q.device.index))
+    part = split_scratch(nsplit, B, Hkv, Hq // Hkv, Dh, q.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     strides = (ctypes.c_longlong * 9)(*(q.stride()[:3] + k_new.stride()[:3]
                                         + v_new.stride()[:3]))
@@ -103,7 +108,7 @@ def decode_attention(
         status = lib.lss_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale),
             k_new.data_ptr(), v_new.data_ptr(), pad_lens.data_ptr(), offset, out.data_ptr(),
-            B, Hq, Hkv, S, Dh, cache_bytes, strides, Dh ** -0.5, stream)
+            ptr(part), nsplit, B, Hq, Hkv, S, Dh, cache_bytes, strides, Dh ** -0.5, stream)
     count_launch(decode_attention)
     check_status(status, what)
     return out
@@ -117,7 +122,7 @@ def _lib():
     fn = lib.lss_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i, p] + [i] * 6 + [p, ctypes.c_float, p]
+        fn.argtypes = [p] * 8 + [i, p, p] + [i] * 7 + [p, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         lib.lss_decode_attention_smem_bytes.argtypes = [i] * 4
         lib.lss_decode_attention_smem_bytes.restype = ctypes.c_longlong

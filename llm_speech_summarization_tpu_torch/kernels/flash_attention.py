@@ -8,9 +8,9 @@ Port of ``llm_speech_summarization_tpu/kernels/flash_attention.py``. The
 CUDA kernels are ``csrc/flash_attention.cu`` (forward, optionally writing
 the log-sum-exp), ``csrc/flash_attention_bwd.cu`` (dq) and
 ``csrc/flash_attention_bwd_dkv.cu`` (dk/dv summed over the GQA group); the
-forward and dk/dv are wgmma + TMA designs over ``csrc/flash_sm90.cuh``, dq
-a WMMA one. Their header notes say what bounds them on the H100 and how
-each design meets that. TMA reads q/k/v/dout through a tensor map, so each
+forward, dq and dk/dv are wgmma + TMA designs over ``csrc/flash_sm90.cuh``.
+Their header notes say what bounds them on the H100 and how each design
+meets that. TMA reads q/k/v/dout through a tensor map, so each
 needs a 16-byte aligned base and (b, t, h) strides that are positive
 multiples of 8 elements; the wrappers raise on any other view.
 
@@ -40,9 +40,9 @@ import torch
 from ..ops.attention import NEG_INF, dot_product_attention, make_attention_bias
 from .build import check_status, count_launch, load_library
 
-SOURCES = ("flash_attention.cu", "flash_common.cuh", "flash_sm90.cuh")
-BWD_SOURCES = ("flash_attention_bwd.cu", "flash_common.cuh")
-DKV_SOURCES = ("flash_attention_bwd_dkv.cu", "flash_common.cuh", "flash_sm90.cuh")
+SOURCES = ("flash_attention.cu", "flash_sm90.cuh")
+BWD_SOURCES = ("flash_attention_bwd.cu", "flash_sm90.cuh")
+DKV_SOURCES = ("flash_attention_bwd_dkv.cu", "flash_sm90.cuh")
 
 
 def flash_attention_reference(

@@ -10,9 +10,11 @@ Ports of ``llm_speech_summarization_tpu/kernels/fused_decode.py``:
   ``(B, Hkv)`` scales being returned (the TPU function's
   ``LSS_FUSED_ALIASED_SCALES=0`` mode).
 
-Both are one CUDA kernel, ``csrc/fused_decode.cu`` over the body in
+Both are one CUDA library, ``csrc/fused_decode.cu`` over the body in
 ``csrc/dense_decode.cuh``, whose header note says what bounds it on the
-H100 and how this first design meets that.
+H100 and how its split-S design meets that: the wrapper picks the number
+of blocks per (sample, kv head) window (``dense_splits``) and allocates
+the float32 scratch their results are merged from (``split_scratch``).
 
 For layer ``layer`` of the cache, each of the T >= 1 fresh queries attends
 the slots ``pad <= s < offset`` plus the fresh block causally; then the
@@ -31,16 +33,25 @@ their oracle for a cache shorter than their window, these raise when
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from .build import check_status, count_launch, load_library
 
-SOURCES = ("fused_decode.cu", "dense_decode.cuh", "int8.cuh")
+SOURCES = ("fused_decode.cu", "dense_decode.cuh", "int8.cuh", "flash_sm90.cuh")
 NEG_INF = -1e30
 MAX_ROWS = 32  # T * (Hq / Hkv) query rows per block
 MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use on sm_90
+# the split of each (sample, kv head) window over blocks (PERF.md §6, B2
+# at B = 1-8 with the split count forced): as many splits as keep the grid
+# within one block an SM (a block keeps its SM busy), at most 8, and only
+# where that takes SPLIT_GAIN_SLOTS or more of the window off each block's
+# path (~0.014 us a slot against ~2-3 us for the merge kernel and the
+# extra blocks)
+MAX_SPLITS = 8  # the most the merge kernel takes (csrc/dense_decode.cuh)
+SPLIT_GAIN_SLOTS = 256
 CACHE_BYTES = {torch.int8: 1, torch.bfloat16: 2}  # cache types the kernels take
 
 
@@ -164,6 +175,28 @@ def fused_decode_attention_write_reference(
     return out, fresh[0][:, 0], fresh[1][:, 0]
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (the kernels read the same count)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dense_splits(B: int, Hkv: int, max_offset: int, sms: int) -> int:
+    """Blocks that share each (sample, kv head) window of the dense decode
+    kernels, from the batch, the host-side bound of the offsets and the
+    card's ``sms``."""
+    n = max(1, min(sms // (B * Hkv), MAX_SPLITS))
+    return n if int(max_offset) * (n - 1) >= SPLIT_GAIN_SLOTS * n else 1
+
+
+def split_scratch(nsplit: int, B: int, Hkv: int, rows: int, Dh: int, device):
+    """float32 scratch for the split results, (B * Hkv, nsplit, rows, Dh +
+    2), or None for one split."""
+    if nsplit == 1:
+        return None
+    return torch.empty((B * Hkv, nsplit, rows, Dh + 2), dtype=torch.float32, device=device)
+
+
 def _devices(what, tensors) -> str:
     devices = {t.device.type for t in tensors}
     if devices in ({"cpu"}, {"cuda"}):
@@ -251,7 +284,7 @@ def _lib():
     fn = lib.lss_fused_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 9 + [p, ctypes.c_float, p]
+        fn.argtypes = [p] * 13 + [i] * 10 + [p, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         lib.lss_fused_decode_smem_bytes.argtypes = [i] * 5
         lib.lss_fused_decode_smem_bytes.restype = ctypes.c_longlong
@@ -356,6 +389,8 @@ def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, 
     if per_layer_scales and k_scale is not None:
         fresh = [torch.empty((B, Hkv, T), dtype=torch.bfloat16, device=q.device)
                  for _ in range(2)]
+    nsplit = dense_splits(B, Hkv, max_offset, sm_count(q.device.index))
+    part = split_scratch(nsplit, B, Hkv, T * (Hq // Hkv), Dh, q.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     strides = (ctypes.c_longlong * 9)(*(q.stride()[:3] + k_new.stride()[:3]
                                         + v_new.stride()[:3]))
@@ -364,9 +399,9 @@ def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, 
         status = lib.lss_fused_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale),
             *(ptr(f) for f in (fresh or (None, None))), k_new.data_ptr(), v_new.data_ptr(),
-            pad_lens.data_ptr(), offsets.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, S, Dh,
-            int(layer), 0 if per_layer_scales else int(layer), cache_bytes, strides,
-            Dh ** -0.5, stream)
+            pad_lens.data_ptr(), offsets.data_ptr(), out.data_ptr(), ptr(part), nsplit, B, T,
+            Hq, Hkv, S, Dh, int(layer), 0 if per_layer_scales else int(layer), cache_bytes,
+            strides, Dh ** -0.5, stream)
     count_launch(wrapper)
     check_status(status, what)
     if fresh is not None:

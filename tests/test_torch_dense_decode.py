@@ -237,3 +237,90 @@ def test_b8_kernel_matches_plain_on_card(card, quantized):
     exact = decode_attention_reference(qb.float(), kc[1], vc[1], knb.float(), vnb.float(), pads,
                                        offset, *scales)
     assert _within(got, exact)
+
+
+# the split-S body's edges: each (sample, kv head) window [pad, offset) cut
+# into `splits` even shares over blocks, the fresh block in the last split,
+# the splits merged in split order; `splits` is what the wrapper picks on
+# an H100 (132 SMs, Hkv = 8), asserted against the card's own count
+SPLIT_EDGES = {
+    # B=1, the trainers' generations: 8 splits of a long window
+    "b1_long_window": dict(B=1, S=2048, T=1, pads=[7], offs=[2040], splits=8),
+    # B=1: 8 splits of a 4-slot window behind a large pad, four left empty
+    "b1_large_pad_empty_splits": dict(B=1, S=1280, T=1, pads=[1100], offs=[1104], splits=8),
+    # 8 splits of a 3-slot window, five empty
+    "b1_pad_past_first_splits": dict(B=1, S=512, T=1, pads=[300], offs=[303], splits=8),
+    # nothing cached yet: only the fresh block
+    "offset_zero": dict(B=2, S=256, T=1, pads=[0, 0], offs=[0, 0], splits=1),
+    # the last slots of the cache: max_offset = S - T, at T = 3
+    "max_offset_T3": dict(B=2, S=384, T=3, pads=[0, 5], offs=[381, 200], splits=8),
+    # 4 splits over windows of 1, 2 and 100 slots and a whole one
+    "short_windows": dict(B=4, S=448, T=1, pads=[0, 10, 3, 7], offs=[2, 11, 400, 100],
+                          splits=4),
+    # 3 splits, a row with nothing cached and one with a single slot
+    "three_splits": dict(B=5, S=512, T=1, pads=[0, 0, 30, 449, 2],
+                         offs=[500, 0, 37, 450, 129], splits=3),
+    # 2 splits at the batch path's B=8 over a long window
+    "two_splits_b8": dict(B=8, S=640, T=1, pads=[5, 0, 299, 0, 1, 3, 0, 17],
+                          offs=[600, 1, 300, 599, 64, 512, 0, 333], splits=2),
+    # a grid of more blocks than SMs: the 8-warp instance (two blocks an SM)
+    "grid_past_the_sms": dict(B=20, S=256, T=1, pads=[3] * 20,
+                              offs=[252 - 12 * i for i in range(20)], splits=1),
+    # R = T * G = 18 query rows: the 32-row instance, two m16 tiles
+    "rows_32_T6": dict(B=2, S=384, T=6, pads=[0, 9], offs=[378, 250], splits=8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("name", sorted(SPLIT_EDGES))
+def test_split_decode_edges_on_card(card, name, quantized):
+    """B2 (int8 cache, (L, B, Hkv, S) scales written in place) and B3 (bf16
+    cache) at the split body's edges, against their plain versions run in
+    float32 within 1e-3 + 1e-2 |exact|; cache and scale writes bit-exact;
+    two calls bit-identical."""
+    from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
+        fused_decode, fused_decode_reference)
+
+    c = SPLIT_EDGES[name]
+    B, S, T, L, Hq, Hkv, Dh, layer = c["B"], c["S"], c["T"], 2, 24, 8, 128, 1
+    sms = fd_mod.sm_count(torch.cuda.current_device())
+    assert fd_mod.dense_splits(B, Hkv, max(c["offs"]), sms) == c["splits"]
+    rng = np.random.RandomState(70)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(card, torch.bfloat16)  # noqa: E731
+    q, kn, vn = (bf(rng.randn(B, T, h, Dh)) for h in (Hq, Hkv, Hkv))
+    if quantized:
+        kc, vc = (torch.from_numpy(rng.randint(-127, 128, size=(L, B, Hkv, S, Dh))
+                                   .astype(np.int8)).to(card) for _ in range(2))
+        ks, vs = (bf(0.002 + 0.01 * rng.rand(L, B, Hkv, S)) for _ in range(2))
+        bufs = [kc, vc, ks, vs]
+    else:
+        bufs = [bf(rng.randn(L, B, Hkv, S, Dh)) for _ in range(2)]
+    pads = torch.tensor(c["pads"], dtype=torch.int32, device=card)
+    offs = torch.tensor(c["offs"], dtype=torch.int32, device=card)
+    snap = [t.clone() for t in bufs]
+    got_bufs, ref_bufs = [t.clone() for t in snap], [t.clone() for t in snap]
+    mo = max(c["offs"])
+    if quantized:
+        run = lambda bb: fused_decode(q, *bb, kn, vn, pads, offs, layer, max_offset=mo)  # noqa: E731
+        got = run(got_bufs)
+        exact = fused_decode_reference(q.float(), *ref_bufs[:2], *ref_bufs[2:], kn.float(),
+                                       vn.float(), pads, offs, layer)
+    else:
+        run = lambda bb: fused_decode_attention_write(  # noqa: E731
+            q, *bb, kn, vn, pads, offs, layer, max_offset=mo)
+        got = run(got_bufs)
+        exact = fused_decode_attention_write_reference(q.float(), *ref_bufs, kn.float(),
+                                                       vn.float(), pads, offs, layer)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _within(got, exact)
+    plain_bufs = [t.clone() for t in snap]
+    if quantized:
+        fused_decode_reference(q, *plain_bufs, kn, vn, pads, offs, layer)
+    else:
+        fused_decode_attention_write_reference(q, *plain_bufs, kn, vn, pads, offs, layer)
+    for g, p in zip(got_bufs, plain_bufs):
+        assert torch.equal(g, p)
+    again = [t.clone() for t in snap]
+    assert torch.equal(run(again), got)

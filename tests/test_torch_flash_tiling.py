@@ -1,14 +1,18 @@
 """The wgmma flash kernels' tiling, emulated on the CPU before any card time:
-the forward (B1, B1 + LSE, B7) and dk/dv (B6, B7) computed in float32 in
+the forward (B1, B1 + LSE, B7), dq and dk/dv (B6, B7) computed in float32 in
 the kernels' tile order and at their rounding points, held to the JAX
 package's Pallas kernels in interpret mode (``_flash_impl`` and
 ``_flash_bwd_impl``, float32) with chip_smoke.py's bounds.
 
-What is emulated (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd_dkv.cu``):
+What is emulated (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
+``csrc/flash_attention_bwd_dkv.cu``):
 - forward: 64-row q tiles over k tiles of 64 keys (Dh=128) or 128 (Dh=64);
   scores pre-scaled by scale * log2(e), masked to -1e30, a base-2 online
   softmax, p rounded to bf16 before P.V, the output rounded to bf16; the lse
   is m ln 2 + log(l), and a row that sees no key writes zeros and -1e30;
+- dq: 64-row q tiles over k tiles of 64 keys in order; p = 2^(s scale
+  log2 e - lse log2 e), 0 where masked (by selection); ds = p (dp - delta)
+  rounded to bf16 before dQ += dS.K; dq times the scale, rounded to bf16;
 - dk/dv: 128-key tiles over (q head of the group, 64-row q tile) steps in
   that order; p = 2^(s scale log2 e - lse log2 e),
   0 where masked; p and ds = p (dp - delta) rounded to bf16 before dV +=
@@ -34,6 +38,7 @@ NEG = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 FWD_BK = {64: 128, 128: 64}  # keys per k tile of the forward, by Dh
+DQ_BK = 64  # keys per k tile of dq
 BQ = 64  # q rows per forward tile and per dk/dv step (each key row of dk/dv
 # sums its steps on its own, so the size of a key tile changes nothing)
 
@@ -133,6 +138,26 @@ def emulate_dkv(c, q, k, v, g, lse, delta, starts, ends):
             dv.bfloat16().float().transpose(1, 2))
 
 
+def emulate_dq(c, q, k, v, g, lse, delta, starts, ends):
+    """The dq kernel's arithmetic, k tile by k tile: dq (B, T, Hq, Dh)."""
+    B, T, Hq, Dh = q.shape
+    G = Hq // k.shape[2]
+    kr, vr = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))  # (B, Hq, T, Dh)
+    qt, gt = q.transpose(1, 2), g.transpose(1, 2)
+    mask = _mask(c, T, starts, ends)
+    scale = Dh ** -0.5
+    lse2 = (lse * LOG2E)[..., None]  # (B, Hq, T, 1)
+    dq = torch.zeros((B, Hq, T, Dh))
+    for k0 in range(0, T, DQ_BK):
+        sl = slice(k0, min(k0 + DQ_BK, T))
+        s = qt @ kr[:, :, sl].transpose(-1, -2)
+        p = torch.where(mask[..., sl], torch.exp2(s * (scale * LOG2E) - lse2), torch.zeros(()))
+        dp = gt @ vr[:, :, sl].transpose(-1, -2)
+        ds = p * (dp - delta[..., None])
+        dq = dq + ds.bfloat16().float() @ kr[:, :, sl]
+    return (dq * scale).bfloat16().float().transpose(1, 2)
+
+
 def _jax_fwd(c, q, k, v, starts, ends):
     B, T, Hq, _ = q.shape
     args = [jnp.asarray(x.numpy()) for x in (q, k, v, starts.int(), ends.int())]
@@ -182,3 +207,26 @@ def test_dkv_tiling_within_half_the_chip_bounds(name, Dh):
     for what, got, ref in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
         ratio = _row_ratio(got, torch.from_numpy(np.array(ref)))
         assert ratio <= 0.5, (what, ratio)
+
+
+@pytest.mark.parametrize("name,Dh", PARAMS)
+def test_dq_tiling_within_half_the_chip_bounds(name, Dh):
+    c, q, k, v, g, starts, ends = _case(name, Dh, seed=2)
+    out, lse = emulate_fwd(c, q, k, v, starts, ends)
+    delta = (g * out).sum(-1).transpose(1, 2)  # (B, Hq, T), as the wrapper computes it
+    dq = emulate_dq(c, q, k, v, g, lse, delta, starts, ends)
+    B, T, Hq, _ = q.shape
+    args = [jnp.asarray(x.numpy()) for x in (q, k, v, out)]
+    ref_dq = _flash_bwd_impl(
+        *args, jnp.asarray(lse.numpy().reshape(B * Hq, 1, T)), jnp.asarray(g.numpy()),
+        jnp.asarray(starts.int().numpy()), jnp.asarray(ends.int().numpy()), c["causal"], T, T,
+        True, offsets=c["offsets"])[0]
+    ref = torch.from_numpy(np.array(ref_dq))
+    pos = torch.arange(T)
+    rows = (pos[None, :] >= starts[:, None]) & (pos[None, :] < ends[:, None])  # (B, T)
+    # chip_smoke's _row_ratio on the valid query rows (its floor from their RMS)
+    bound = (chip_smoke.BWD_RTOL * ref.abs()
+             + chip_smoke.BWD_ATOL * ref.pow(2).mean(-1, keepdim=True).sqrt()
+             + chip_smoke.BWD_FLOOR * ref[rows].pow(2).mean().sqrt() + 1e-12)
+    ratio = ((dq - ref).abs() / bound)[rows].max().item()
+    assert ratio <= 0.5, ratio

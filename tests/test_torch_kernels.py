@@ -440,10 +440,10 @@ FLASH_EDGE_CASES = {
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("name", sorted(FLASH_EDGE_CASES))
 def test_wgmma_kernels_at_tile_edges_on_card(card, name, fused):
-    """The forward with its lse and dk/dv against their plain versions run in
-    float32, with chip_smoke.py's bounds (lse 1e-4 + 1e-5 |lse|; out 1e-5 +
-    2^-8 (|out| + (P.|V|)/l); dk/dv 2e-2 |ref| + 5e-2 rms(row) + 1e-3
-    rms), bit-identical repeats; ``fused`` reads q, k and v as strided views
+    """The forward with its lse, dq and dk/dv against their plain versions
+    run in float32, with chip_smoke.py's bounds (lse 1e-4 + 1e-5 |lse|; out
+    1e-5 + 2^-8 (|out| + (P.|V|)/l); dq on the valid rows, dk/dv, 2e-2 |ref|
+    + 5e-2 rms(row) + 1e-3 rms), bit-identical repeats; ``fused`` reads q, k and v as strided views
     of one (B, T, (Hq + 2 Hkv) Dh) projection, as the models' fused QKV
     would give them."""
     spec, causal = FLASH_EDGE_CASES[name]
@@ -474,14 +474,21 @@ def test_wgmma_kernels_at_tile_edges_on_card(card, name, fused):
     assert torch.equal(out, flash_attention_fwd(q, k, v, st, en, causal))  # B1 = B1 + LSE's out
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, g, lse, delta, st, en, causal)
+    dq = flash_attention_bwd_dq(*args)
     dk, dv = flash_attention_bwd_dkv(*args)
     ref = flash_attention_bwd_reference(*f32, lse, delta, st, en, causal)
-    for name_, a, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])):
+    rows = torch.from_numpy(_valid_rows(arrays[3], arrays[4], T)).to(card)
+    for name_, a, r, sel in (("dq", dq, ref[0], rows), ("dk", dk, ref[1], None),
+                             ("dv", dv, ref[2], None)):
+        scale = (r[sel] if sel is not None else r).pow(2).mean().sqrt()
         bound = (2e-2 * r.abs() + 5e-2 * r.pow(2).mean(-1, keepdim=True).sqrt()
-                 + 1e-3 * r.pow(2).mean().sqrt() + 1e-12)
-        assert ((a.float() - r).abs() / bound).max().item() <= 1, name_
+                 + 1e-3 * scale + 1e-12)
+        ratio = (a.float() - r).abs() / bound
+        assert (ratio[sel] if sel is not None else ratio).max().item() <= 1, name_
+    assert torch.isfinite(dq).all()
     again = flash_attention_bwd_dkv(*args)
     assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    assert torch.equal(flash_attention_bwd_dq(*args), dq)
     assert all(torch.equal(a, b) for a, b in zip(flash_attention_fwd_lse(q, k, v, st, en, causal),
                                                  (out, lse)))
 
@@ -489,7 +496,7 @@ def test_wgmma_kernels_at_tile_edges_on_card(card, name, fused):
 @pytest.mark.cuda
 def test_wgmma_wrappers_refuse_views_tma_cannot_take_on_card(card):
     """A CUDA view with a 520-byte row stride, or k expanded over its
-    heads, is refused by the forward and dk/dv wrappers with a ValueError,
+    heads, is refused by the forward, dq and dk/dv wrappers with a ValueError,
     never launched."""
     base = torch.zeros((1, 16, 2 * 128 + 4), dtype=torch.bfloat16, device=card)
     odd = base[..., :256].unflatten(-1, (2, 128))  # t stride 260 elements
@@ -498,10 +505,14 @@ def test_wgmma_wrappers_refuse_views_tma_cannot_take_on_card(card):
     idx = torch.tensor([0], dtype=torch.int32, device=card)
     end = torch.tensor([16], dtype=torch.int32, device=card)
     lse = torch.zeros((1, 2, 16), dtype=torch.float32, device=card)
-    before = (flash_attention_fwd.launches, flash_attention_bwd_dkv.launches)
+    before = (flash_attention_fwd.launches, flash_attention_bwd_dkv.launches,
+              flash_attention_bwd_dq.launches)
     for bad in (odd, expanded):
         with pytest.raises(ValueError, match="positive multiples of 8"):
             flash_attention_fwd(ok, bad, ok, idx, end)
         with pytest.raises(ValueError, match="positive multiples of 8"):
             flash_attention_bwd_dkv(ok, ok, ok, bad, lse, lse, idx, end)
-    assert (flash_attention_fwd.launches, flash_attention_bwd_dkv.launches) == before
+        with pytest.raises(ValueError, match="positive multiples of 8"):
+            flash_attention_bwd_dq(ok, bad, ok, ok, lse, lse, idx, end)
+    assert (flash_attention_fwd.launches, flash_attention_bwd_dkv.launches) == before[:2]
+    assert flash_attention_bwd_dq.launches == before[2]

@@ -172,7 +172,7 @@ def test_b7_kernels_match_plain_on_card(card, rel, causal, Dh):
 @pytest.mark.parametrize("Dh", [64, 128])
 @pytest.mark.parametrize("diag", [37, -37])
 def test_b7_frontier_midtile_on_card(card, diag, Dh):
-    """B7's forward and dk/dv with the causal frontier q_off - k_off = +-37
+    """B7's forward, dq and dk/dv with the causal frontier q_off - k_off = +-37
     keys, inside the wgmma kernels' 64-row q tiles and 64- or 128-key k
     tiles, at T = 200 (off the tiles), against the plain versions run in
     float32 with the bounds above; rows past the frontier get lse = -1e30."""
@@ -195,9 +195,18 @@ def test_b7_frontier_midtile_on_card(card, diag, Dh):
     out_bound = 1e-5 + 2.0 ** -8 * (ref_out.abs() + abs_out)
     assert ((out.float() - ref_out).abs() <= out_bound)[seen.any(1)].all()
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dk, dv = fa.flash_attention_bwd_dkv_offset(q, k, v, g, lse, delta, st, en, offsets, True)
+    args = (q, k, v, g, lse, delta, st, en, offsets, True)
+    dq = fa.flash_attention_bwd_dq_offset(*args)
+    dk, dv = fa.flash_attention_bwd_dkv_offset(*args)
     ref = fa.flash_attention_bwd_reference(*f32, lse, delta, st, en, True, offsets)
-    for name, a, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])):
+    rows = seen.any(1)
+    for name, a, r, sel in (("dq", dq, ref[0], rows), ("dk", dk, ref[1], None),
+                            ("dv", dv, ref[2], None)):
+        scale = (r[sel] if sel is not None else r).pow(2).mean().sqrt()
         bound = (2e-2 * r.abs() + 5e-2 * r.pow(2).mean(-1, keepdim=True).sqrt()
-                 + 1e-3 * r.pow(2).mean().sqrt() + 1e-12)
-        assert ((a.float() - r).abs() / bound).max().item() <= 1, name
+                 + 1e-3 * scale + 1e-12)
+        ratio = (a.float() - r).abs() / bound
+        assert (ratio[sel] if sel is not None else ratio).max().item() <= 1, name
+    if diag < 0:  # rows past the frontier see no key of the block: zero dq
+        assert (dq[:, :37] == 0).all()
+    assert torch.equal(fa.flash_attention_bwd_dq_offset(*args), dq)
