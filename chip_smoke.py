@@ -9,7 +9,7 @@ Phases, in order; each prints one line and any failure raises:
      torch/kernels/csrc`` with nvcc, one process per library, all at once,
      and print the registers and spill bytes of the wgmma kernels (the
      flash forward, dq and dk/dv) at each Dh, failing on any spill, and
-     of the dense decode body's instances (reported only);
+     of the decode body's dense and paged instances (reported only);
   3. flash attention (B1) against its plain version run in float32 at the
      main paths' three shapes (LLM prefill, HuBERT and Whisper
      self-attention), within B7's output bound, with injected faults the
@@ -31,8 +31,10 @@ Phases, in order; each prints one line and any failure raises:
      split shapes also timed with one split, beside the device cost of one
      empty kernel;
   6. paged decode attention (B4) and fused paged decode + page write (B5)
-     against their plain versions at the serving shape, page writes
-     bit-exact;
+     against their plain versions run in float32 at the serving shape,
+     with injected faults the bound must reject (a page segment dropped
+     from the chunks that cross a page among them), page writes bit-exact,
+     repeats bit-identical;
   7. the dense-cache decode kernels at the Whisper path's shapes against
      their plain versions run in float32: B3 over a bf16 cache at T=1 and
      T=3 and over an int8 cache with one layer's scales, B8 over a bf16
@@ -73,7 +75,7 @@ Needs one CUDA card of compute capability 9.0; exits nonzero otherwise.
 
     python3 chip_smoke.py --ab-kernels BASE_DIR [ORDER]
 
-runs only the kernel phases (3, 4, 5 and 7: the flash kernels, B2, B3 and
+runs only the kernel phases (3 to 7: the flash kernels, B2, B4, B5, B3 and
 B8) of another checkout (BASE_DIR, e.g. the parent commit unpacked with
 ``git archive``) and of this one, in ORDER (default ABBA), and prints the
 median device and call ms of each kernel and shape per checkout.
@@ -269,7 +271,7 @@ def phase_build(card, require_no_spill=True):
     """One nvcc per kernel library, all started together; the wgmma
     kernels' registers and spill bytes, a spill failing the phase unless
     ``require_no_spill`` is off (an A/B run of an older checkout), and the
-    dense decode instances' beside them."""
+    decode body's dense and paged instances' beside them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from llm_speech_summarization_tpu_torch.kernels import (
@@ -295,11 +297,14 @@ def phase_build(card, require_no_spill=True):
     spilled = {k: r for k, r in regs.items() if r["spill_bytes"]}
     if require_no_spill and (spilled or len(regs) != 6):
         raise AssertionError(f"build: the wgmma kernels spill or are missing: {regs}")
-    # the dense decode body's instances (cache type, Dh, query rows, warps):
-    # [registers, spill bytes], reported only (PERF.md §6 gives their cost)
+    # the decode body's instances (library, cache type, Dh, query rows,
+    # warps): [registers, spill bytes], reported only (PERF.md §6 gives
+    # their cost); B4 and B5 are its paged instances
     decode = {}
     for lib, sources in (("fused_decode", fused_decode.SOURCES),
-                         ("decode_attention", decode_attention.SOURCES)):
+                         ("decode_attention", decode_attention.SOURCES),
+                         ("paged_attention", paged_attention.SOURCES),
+                         ("fused_paged", fused_paged.SOURCES)):
         for kernel, n_regs, spill in build.ptxas_report(lib, sources):
             m = re.search(r"dense_decode_kernelI(a|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb\dELi(\d+)E",
                           kernel)
@@ -308,7 +313,7 @@ def phase_build(card, require_no_spill=True):
                 decode[f"{lib} {ct} Dh={m.group(2)} R={m.group(3)} NW={m.group(4)}"] = [
                     n_regs, spill]
     if require_no_spill and not decode:
-        raise AssertionError("build: no dense decode instance in the ptxas logs")
+        raise AssertionError("build: no decode body instance in the ptxas logs")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()},
          wgmma_kernels=regs, decode_kernels=decode, card=card)
@@ -641,13 +646,41 @@ def _paged_work(lengths, pads, T, write):
     return float(n_bytes), float(flops)
 
 
+def _paged_masked(torch, q, kp, vp, ks, vs, table, lens, pads, kn, vn, drop):
+    """float32 attention of q over int8 pages (P, Hkv, ps, Dh) through
+    ``table`` and the causal fresh block, the window [pad, length) without
+    the positions where ``drop`` (B, mp * ps) is set: the fault of a kernel
+    that skips part of a chunk."""
+    B, T, Hq, Dh = q.shape
+    Hkv, ps = kp.shape[1], kp.shape[2]
+    S = table.shape[1] * ps
+    t = table.long()
+    k, v = ((pool[t].float() * sc[t].float()[..., None]).transpose(1, 2).reshape(B, Hkv, S, Dh)
+            for pool, sc in ((kp, ks), (vp, vs)))
+    qg = q.float().reshape(B, T, Hkv, Hq // Hkv, Dh)
+    pos = torch.arange(S, device=q.device)
+    valid = (pos >= pads[:, None]) & (pos < lens[:, None]) & ~drop
+    s = torch.einsum("bthgd,bhsd->bthgs", qg, k) * Dh ** -0.5
+    s = torch.where(valid[:, None, None, None], s, torch.full((), -1e30, device=q.device))
+    s_f = torch.einsum("bthgd,bshd->bthgs", qg, kn.float()) * Dh ** -0.5
+    causal = torch.arange(T, device=q.device)[:, None] >= torch.arange(T, device=q.device)
+    s_f = torch.where(causal[None, :, None, None], s_f, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(torch.cat([s, s_f], -1), -1)
+    out = (torch.einsum("bthgs,bhsd->bthgd", p[..., :S], v)
+           + torch.einsum("bthgs,bshd->bthgd", p[..., S:], vn.float()))
+    return out.reshape(B, T, Hq, Dh)
+
+
 def _paged_check(torch, what, got, plain, exact_fn, rows, lens, pads, ks, vs, table):
     """Hold ``got`` to the float32 plain version ``exact_fn()`` within
     PAGED_ATOL + PAGED_RTOL * |exact| on ``rows``, and show that bound
     rejects faults a kernel could make: ``exact_fn`` run with a pad or a
     length shifted by one, each row's first page dropped, the k or v
-    scales shifted one slot, the tables of rows 0 and 1 swapped. Returns
-    the check's numbers."""
+    scales shifted one slot, the tables of rows 0 and 1 swapped, and a
+    page segment dropped from the chunks that cross a page (``drop``: the
+    positions [k ps, k ps + pad % 64) after each row's first page boundary
+    k ps, which every chunk of 64 or 128 slots from pad reaches mid-chunk).
+    Returns the check's numbers."""
     exact = exact_fn()
     bound = PAGED_ATOL + PAGED_RTOL * exact.abs()
 
@@ -662,6 +695,9 @@ def _paged_check(torch, what, got, plain, exact_fn, rows, lens, pads, ks, vs, ta
                              f"the bound (max |err| {err}; per row {per_row})")
     ps = PAGED_SHAPE["ps"]
     live = (lens > pads).int()
+    pos = torch.arange(table.shape[1] * ps, device=lens.device)
+    first = ((pads // ps + 1) * ps)[:, None]  # each row's first page boundary in its window
+    segment = (pos >= first) & (pos < first + (pads % 64)[:, None]) & (pos < lens[:, None])
     mutants = {
         "pad+1": dict(pads=pads + live),
         "length-1": dict(lens=lens - live),
@@ -670,6 +706,7 @@ def _paged_check(torch, what, got, plain, exact_fn, rows, lens, pads, ks, vs, ta
         "k scale shifted": dict(ks=torch.roll(ks, 1, dims=-1)),
         "v scale shifted": dict(vs=torch.roll(vs, 1, dims=-1)),
         "tables swapped": dict(table=table[[1, 0] + list(range(2, table.shape[0]))].contiguous()),
+        "page segment dropped": dict(drop=segment),
     }
     rejected = {name: worst(exact_fn(**kw)) for name, kw in mutants.items()}
     if min(rejected.values()) <= 1:
@@ -696,7 +733,10 @@ def phase_paged(torch, card):
     got = paged_decode_attention(*args)
     plain = paged_reference(*args)
 
-    def exact_fn(table=table, lens=lens, pads=pads, ks=ks, vs=vs):
+    def exact_fn(table=table, lens=lens, pads=pads, ks=ks, vs=vs, drop=None):
+        if drop is not None:
+            return _paged_masked(torch, q, kp[layer], vp[layer], ks[layer], vs[layer], table,
+                                 lens, pads, kn, vn, drop)
         return paged_reference(q.float(), kp[layer], vp[layer], table, lens, pads, kn.float(),
                                vn.float(), ks[layer], vs[layer])
 
@@ -705,11 +745,14 @@ def phase_paged(torch, card):
     for t, s0 in zip((kp, vp, ks, vs), snap):
         if not torch.equal(t, s0):
             raise AssertionError("B4 wrote into the pools")
+    if not torch.equal(paged_decode_attention(*args), got):
+        raise AssertionError("B4: two identical calls differ")
     t = timings(torch, lambda: paged_decode_attention(*args), lambda: paged_reference(*args))
     n_bytes, flops = _paged_work(lens_np, pads_np, T, write=False)
     b_ms, b_by = bound_ms(n_bytes, flops)
     emit("paged_attention", T=T, shape=PAGED_SHAPE, **check, atol=PAGED_ATOL, rtol=PAGED_RTOL,
-         bytes=n_bytes, flops=flops, bound_ms=b_ms, bound_by=b_by, **t, card=card)
+         bit_identical=True, bytes=n_bytes, flops=flops, bound_ms=b_ms, bound_by=b_by, **t,
+         card=card)
     return dict(max_abs_err=check["max_abs_err"], bound_ms=b_ms, bound_by=b_by, **t)
 
 
@@ -730,7 +773,10 @@ def phase_fused_paged(torch, card):
     got = fused_paged_decode(q, *got_bufs, table, lens, pads, kn, vn, layer)
     plain = fused_paged_reference(q, *ref_bufs, table, lens, pads, kn, vn, layer)
 
-    def exact_fn(table=table, lens=lens, pads=pads, ks=snap[2], vs=snap[3]):
+    def exact_fn(table=table, lens=lens, pads=pads, ks=snap[2], vs=snap[3], drop=None):
+        if drop is not None:
+            return _paged_masked(torch, q, snap[0][layer], snap[1][layer], ks[layer], vs[layer],
+                                 table, lens, pads, kn, vn, drop)
         return fused_paged_reference(q.float(), snap[0].clone(), snap[1].clone(), ks.clone(),
                                      vs.clone(), table, lens, pads, kn.float(), vn.float(), layer)
 
@@ -752,12 +798,20 @@ def phase_fused_paged(torch, card):
             raise AssertionError(f"B5: {name} changed outside the written slots")
         if torch.equal(g[:, 1:][written[:, 1:]], s0[:, 1:][written[:, 1:]]):
             raise AssertionError(f"B5: {name} was not written")
+    # bit-identical repeats on a fresh copy of the pools (the rows compared:
+    # the released row reads page 0 while others write it)
+    again_bufs = [t.clone() for t in snap]
+    again = fused_paged_decode(q, *again_bufs, table, lens, pads, kn, vn, layer)
+    if not (torch.equal(again[rows], got[rows])
+            and all(torch.equal(a, g) for a, g in zip(again_bufs, got_bufs))):
+        raise AssertionError("B5: two identical calls differ")
     t = timings(torch, lambda: fused_paged_decode(q, *got_bufs, table, lens, pads, kn, vn, layer),
                 lambda: fused_paged_reference(q, *ref_bufs, table, lens, pads, kn, vn, layer))
     n_bytes, flops = _paged_work(lens_np, pads_np, 1, write=True)
     b_ms, b_by = bound_ms(n_bytes, flops)
     emit("fused_paged", T=1, shape=PAGED_SHAPE, **check, atol=PAGED_ATOL, rtol=PAGED_RTOL,
-         page_writes="bit-exact outside page 0", rows_written=n_written, bytes=n_bytes,
+         page_writes="bit-exact outside page 0", rows_written=n_written, bit_identical=True,
+         bytes=n_bytes,
          flops=flops, bound_ms=b_ms, bound_by=b_by, **t, card=card)
     return dict(max_abs_err=check["max_abs_err"], bound_ms=b_ms, bound_by=b_by, **t)
 
@@ -2557,6 +2611,8 @@ AB_RUN = ("import importlib.util, sys, torch\n"
           "    cs.phase_flash_train(torch, card)\n"
           "    cs.phase_flash_ring(torch, card)\n"
           "cs.phase_fused(torch, card)\n"
+          "cs.phase_paged(torch, card)\n"
+          "cs.phase_fused_paged(torch, card)\n"
           "cs.phase_dense_decode(torch, card)\n")
 
 
@@ -2572,6 +2628,8 @@ def _ab_times(lines) -> dict:
             times[f"B2 B={x['shape'][1]} T={x['T']} S={x['shape'][4]}"] = x
         elif x.get("phase") == "dense_decode":
             times[f"{x['kernel']} {x['case']}"] = x
+        elif x.get("phase") in ("paged_attention", "fused_paged"):
+            times[f"{'B4' if x['phase'] == 'paged_attention' else 'B5'} T={x['T']}"] = x
         elif x.get("phase") in ("flash_train", "flash_ring"):
             tag = "B6" if x["phase"] == "flash_train" else "B7"
             for k, r in x["kernels"].items():
@@ -2582,7 +2640,8 @@ def _ab_times(lines) -> dict:
 
 def ab_kernels(argv) -> int:
     """``python3 chip_smoke.py --ab-kernels BASE_DIR [ORDER]``: the kernel
-    phases (flash, flash_train, flash_ring, fused, dense_decode) of two
+    phases (flash, flash_train, flash_ring, fused, paged, fused_paged,
+    dense_decode) of two
     checkouts on one
     card, each run a fresh process in its checkout that imports that
     checkout's own chip_smoke.py (A = BASE_DIR, B = this checkout), in ORDER

@@ -1,7 +1,10 @@
-// Decode attention over one layer of a dense (L, B, Hkv, S, Dh) KV cache,
-// for Hopper (sm_90a): the body shared by the fused decode kernels B2 and B3
-// (fused_decode.cu, which also write the fresh tokens in place) and the
-// read-only decode attention B8 (decode_attention.cu).
+// Decode attention over one layer of a dense (L, B, Hkv, S, Dh) KV cache or
+// of page-major (L, P, Hkv, ps, Dh) pools, for Hopper (sm_90a): the body
+// shared by the fused decode kernels B2 and B3 (fused_decode.cu, which also
+// write the fresh tokens in place), the read-only decode attention B8
+// (decode_attention.cu), the paged decode attention B4 (paged_attention.cu)
+// and the fused paged decode B5 (fused_paged.cu, which writes its fresh
+// token into its page).
 //
 // Each of the T >= 1 fresh queries of sample b attends the cache slots
 // pad[b] <= s < offset[b] of layer `layer` plus the fresh keys causally
@@ -14,25 +17,50 @@
 // scales written into the scale slab at the slot or returned as (B, Hkv, T)
 // outputs; a bf16 cache takes the fresh bf16 values as they are.
 //
+// The two layouts (the kernel's PAGED parameter) differ only in where a
+// slot lives:
+//   * dense: slot s of (layer, b, h) is row s of one contiguous slab; the
+//     window is [pad, min(offset, S)); the write goes to slots offset + t;
+//   * paged: position pos of row b lives at page page_table[b, pos / ps]
+//     (an id outside [0, P) reads the null page 0), slot pos % ps, of
+//     (layer, page, h); `offsets` holds the rows' lengths and S is mp * ps,
+//     so the window is [pad, min(length, mp * ps)); the write (T = 1) goes
+//     to position `length`: page page_table[b, length / ps] inside the
+//     table, else the null page 0 (a length < 0 or >= mp * ps; a released
+//     row's zeroed table row writes page 0 too), the routing of
+//     infer/paged.py::write_tokens and kernels/fused_paged.py::
+//     _write_targets.
+// A chunk starts anywhere in the window (the split shares start at pad),
+// so a paged chunk may cross pages. The producer issues one bulk copy per
+// page segment of the chunk, every copy completing on the chunk's `full`
+// mbarrier, whose expect_tx takes the chunk's total bytes. (Chunks aligned
+// to absolute positions would still cross pages wherever 64 or 128 does
+// not divide ps, and would add a masked part chunk at every split edge.)
+// Lane k of the producer warp owns the chunk's k-th page (at most CH / 16
+// + 1 = 9 of them) and loads that page's id from the table two chunks
+// ahead, so neither a copy nor a scale load waits on a table load.
+//
 // What bounds it on the H100: reading the cache bytes, in principle. A
 // step reads B * Hkv * S * Dh values of k and of v per layer and does ~2
 // multiply-adds per value per query row, far below the tensor-core line.
-// The first design (one block per (sample, kv head), the R x S scores in
-// shared memory, K and then V staged in two synchronous passes) ran at
-// 3.6-20% of that bound: no byte in flight while a block computed, long
-// dependent chains, and an S limit set by the score buffer. This one
-// (flash-decoding):
+// The first designs (one block per (sample, kv head) with the R x S scores
+// in shared memory, or with one page of K and V at a time staged
+// synchronously through registers and its scores on the CUDA cores, every
+// int8 key converted once per query row) ran at 3.6-21% of that bound: no
+// byte in flight while a block computed, long dependent chains, and an S
+// (or ps) limit set by the score buffer. This one (flash-decoding):
 //   * the grid is (B * Hkv, NSPLIT): the wrapper picks NSPLIT (1 to 8,
 //     fused_decode.dense_splits) so that the grid takes the SMs a (B * Hkv)
 //     grid leaves idle where that shortens each block's walk enough to pay
 //     for the merge, and each split block takes an even share of its
 //     sample's window [pad, offset);
-//   * a block (8 consumer warps and a producer warp) streams its share in
-//     chunks of 64 slots: the producer copies a chunk's K rows and V rows
-//     with one cp.async.bulk each into a ring of 3 shared-memory stages
-//     completed on mbarriers, and stores the chunk's k/v scales beside
-//     them (loaded a chunk ahead), while the consumers work on earlier
-//     chunks. No R x S buffer remains, so S is not limited;
+//   * a block (8 or 16 consumer warps and a producer warp) streams its
+//     share in chunks of 8 slots a consumer warp: the producer copies a
+//     chunk's K rows and V rows with one cp.async.bulk each (one per page
+//     segment, paged) into a ring of 2 or 3 shared-memory stages completed
+//     on mbarriers, and stores the chunk's k/v scales beside them (loaded
+//     a chunk ahead), while the consumers work on earlier chunks. No R x S
+//     buffer remains, so neither S nor ps is limited;
 //   * each consumer warp takes 8 keys of every chunk and runs its own
 //     online softmax in float32 (base 2): the scores of its R = T * G <= 32
 //     query rows (each cache row read once for the whole GQA group) come
@@ -56,7 +84,8 @@
 // block keeps an SM busy, and its time grows with the slots it walks;
 // splitting helps where B * Hkv leaves SMs idle (the trainers' B = 1
 // generations: PERF.md §6 times every split count, `chip_smoke.py
-// --split-sweep`). The writes touch only slots >= offset, which no split
+// --split-sweep`). The writes touch only slots >= offset (paged: position
+// length, or the null page 0, which no valid row attends), which no split
 // reads, so the splits need no ordering between the reads and the write.
 
 #pragma once
@@ -104,6 +133,10 @@ struct Args {
   float* part;  // nsplit > 1: (B * Hkv, nsplit, R, DH + 2) split results, else null
   int nsplit;
   int B, T, Hq, Hkv, S, layer, scale_layer;
+  // paged: kc/vc are (L, P, Hkv, ps, Dh) pools, ks/vs (L, P, Hkv, ps) scales
+  // read and written at `layer`, offsets the lengths, S = mp * ps
+  const int* page_table;  // (B, mp)
+  int P, ps, mp;
   long long q_sb, q_st, q_sh, kn_sb, kn_st, kn_sh, vn_sb, vn_st, vn_sh;
   float scale;
 };
@@ -243,7 +276,18 @@ __device__ __forceinline__ void key_fragments(const uint8_t* row, bool valid,
   }
 }
 
-template <typename CT, int DH, int MAXR, bool WRITE, int NW_>
+// the slot index in the (L, P, Hkv, ps) pools of slot j of page `pid`
+__device__ __forceinline__ size_t page_slot(const Args& a, int pid, int h, int j) {
+  return ((size_t)(a.layer * a.P + pid) * a.Hkv + h) * a.ps + j;
+}
+
+// the page id of row b's page t (t < mp), the null page 0 for an id outside [0, P)
+__device__ __forceinline__ int page_id(const Args& a, int b, int t) {
+  const int pid = a.page_table[(size_t)b * a.mp + t];
+  return pid < 0 || pid >= a.P ? 0 : pid;
+}
+
+template <typename CT, int DH, int MAXR, bool WRITE, int NW_, bool PAGED>
 __global__ void __launch_bounds__(Cfg<CT, DH, MAXR, NW_>::NT, Cfg<CT, DH, MAXR, NW_>::MINB)
     dense_decode_kernel(const Args a) {
   using C = Cfg<CT, DH, MAXR, NW_>;
@@ -304,7 +348,8 @@ __global__ void __launch_bounds__(Cfg<CT, DH, MAXR, NW_>::NT, Cfg<CT, DH, MAXR, 
   const int lo = pad + split * per;
   const int hi = min(lo + per, c_end);  // this split's slots [lo, hi)
   const int n_chunks = hi > lo ? (hi - lo + CH - 1) / CH : 0;
-  const size_t row0 = ((size_t)(a.layer * a.B + b) * Hkv + h) * S;  // (L, B, Hkv, S) index
+  // dense: the (L, B, Hkv, S) index of this (layer, sample, kv head)'s slot 0
+  const size_t row0 = ((size_t)(a.layer * a.B + b) * Hkv + h) * S;
   const size_t srow0 = ((size_t)(a.scale_layer * a.B + b) * Hkv + h) * S;
   CT* kslab = static_cast<CT*>(a.kc) + row0 * DH;
   CT* vslab = static_cast<CT*>(a.vc) + row0 * DH;
@@ -319,18 +364,37 @@ __global__ void __launch_bounds__(Cfg<CT, DH, MAXR, NW_>::NT, Cfg<CT, DH, MAXR, 
   __syncthreads();
 
   if (warp == NW) {
-    // ---- producer warp: lane 0 issues the two bulk copies of a chunk,
-    // every lane stores its share of the chunk's scales, loaded one chunk
-    // ahead so that no chunk waits on its own scale loads
+    // ---- producer warp: the bulk copies of a chunk (dense: lane 0 issues
+    // one for its K rows and one for its V rows; paged: lane k those of the
+    // chunk's k-th page segment), then every lane stores its share of the
+    // chunk's scales, loaded one chunk ahead so that no chunk waits on its
+    // own scale loads. Paged, each lane holds the id of its page of this
+    // chunk (pid_c) and of the next (pid_n), and loads the one after.
+    const int ps = a.ps;
+    auto seg_pid = [&](int i) {  // the id of this lane's page of chunk i
+      const int s0 = lo + i * CH;
+      const int t = s0 / ps + lane;
+      return i < n_chunks && t * ps < min(s0 + CH, hi) ? page_id(a, b, t) : 0;
+    };
+    int pid_c = 0, pid_n = 0;
+    if constexpr (PAGED) {
+      pid_c = seg_pid(0);
+      pid_n = seg_pid(1);
+    }
     float nk[CH / 32], nv[CH / 32];
-    auto load_scales = [&](int i) {
+    auto load_scales = [&](int i, int pids) {  // pids: chunk i's page ids (paged)
       const int s0 = lo + i * CH;
       const int n = min(CH, hi - s0);
 #pragma unroll
       for (int u = 0; u < CH / 32; ++u) {
         const int j = lane + 32 * u;
-        nk[u] = j < n ? __bfloat162float(a.ks[srow0 + s0 + j]) : 0.f;
-        nv[u] = j < n ? __bfloat162float(a.vs[srow0 + s0 + j]) : 0.f;
+        size_t x = srow0 + s0 + j;
+        if constexpr (PAGED) {
+          const int t = (s0 + j) / ps;
+          x = page_slot(a, __shfl_sync(FULL, pids, (t - s0 / ps) & 31), h, s0 + j - t * ps);
+        }
+        nk[u] = j < n ? __bfloat162float(a.ks[x]) : 0.f;
+        nv[u] = j < n ? __bfloat162float(a.vs[x]) : 0.f;
       }
     };
     for (int i = 0; i < n_chunks; ++i) {
@@ -339,20 +403,32 @@ __global__ void __launch_bounds__(Cfg<CT, DH, MAXR, NW_>::NT, Cfg<CT, DH, MAXR, 
       const int n = min(CH, hi - s0);
       if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
       uint8_t* st = smem + s * C::STAGE;
-      if (lane == 0) {
+      if constexpr (PAGED) {
+        if (lane == 0) mbar_expect_tx(&full[s], 2 * n * RB);
+        __syncwarp();  // the chunk's bytes are expected before any copy lands
+        const int t = s0 / ps + lane;  // this lane's page: positions [j0, j1) of the chunk
+        const int j0 = max(s0, t * ps), j1 = min(s0 + n, t * ps + ps);
+        if (j0 < j1) {
+          const size_t x = page_slot(a, pid_c, h, j0 - t * ps) * DH;
+          bulk_load(st + (j0 - s0) * RB, static_cast<const CT*>(a.kc) + x, (j1 - j0) * RB,
+                    &full[s]);
+          bulk_load(st + C::ROWS + (j0 - s0) * RB, static_cast<const CT*>(a.vc) + x,
+                    (j1 - j0) * RB, &full[s]);
+        }
+      } else if (lane == 0) {
         mbar_expect_tx(&full[s], 2 * n * RB);
         bulk_load(st, kslab + (size_t)s0 * DH, n * RB, &full[s]);
         bulk_load(st + C::ROWS, vslab + (size_t)s0 * DH, n * RB, &full[s]);
       }
       if constexpr (QUANT) {
-        if (i == 0) load_scales(0);
+        if (i == 0) load_scales(0, pid_c);
         float ck[CH / 32], cv[CH / 32];
 #pragma unroll
         for (int u = 0; u < CH / 32; ++u) {
           ck[u] = nk[u];
           cv[u] = nv[u];
         }
-        if (i + 1 < n_chunks) load_scales(i + 1);
+        if (i + 1 < n_chunks) load_scales(i + 1, pid_n);
         float* ksc = reinterpret_cast<float*>(st + 2 * C::ROWS);
 #pragma unroll
         for (int u = 0; u < CH / 32; ++u) {
@@ -360,6 +436,11 @@ __global__ void __launch_bounds__(Cfg<CT, DH, MAXR, NW_>::NT, Cfg<CT, DH, MAXR, 
           ksc[CH + lane + 32 * u] = cv[u];
         }
         mbar_arrive(&full[s]);  // release: the stores above are seen by the waiters
+      }
+      if constexpr (PAGED) {
+        const int pid_nn = seg_pid(i + 2);
+        pid_c = pid_n;
+        pid_n = pid_nn;
       }
     }
   } else {
@@ -597,15 +678,23 @@ __global__ void __launch_bounds__(Cfg<CT, DH, MAXR, NW_>::NT, Cfg<CT, DH, MAXR, 
     }
 
     if constexpr (WRITE) {
-      // ---- the fresh rows at [off, off + T), a warp per (token, k or v)
+      // ---- the fresh rows at [off, off + T), a warp per (token, k or v);
+      // paged (T = 1), position off = length through the table
       if (last) {
         for (int i = warp; i < 2 * T; i += NCT / 32) {
           const int t = i / 2;
           const bool is_v = (i % 2) == 1;
           const float* src = (is_v ? vn_s : kn_s) + t * DH + lane * EPL;
           const int slot = off + t;
-          const bool inside = slot >= 0 && slot < S;  // the wrapper guarantees offsets + T <= S
+          bool inside = slot >= 0 && slot < S;  // the wrapper guarantees offsets + T <= S
           CT* dst = (is_v ? vslab : kslab) + (size_t)slot * DH + lane * EPL;
+          size_t sx = srow0 + slot;  // the scale's index
+          if constexpr (PAGED) {  // always written: the null page 0 outside the table
+            const int tw = slot >= 0 ? slot / a.ps : -((a.ps - 1 - slot) / a.ps);  // floor
+            sx = page_slot(a, tw >= 0 && tw < a.mp ? page_id(a, b, tw) : 0, h, slot - tw * a.ps);
+            dst = static_cast<CT*>(is_v ? a.vc : a.kc) + sx * DH + lane * EPL;
+            inside = true;
+          }
           if constexpr (QUANT) {
             float x[EPL];
             float amax = 0.f;
@@ -627,7 +716,7 @@ __global__ void __launch_bounds__(Cfg<CT, DH, MAXR, NW_>::NT, Cfg<CT, DH, MAXR, 
                 if (fresh) {
                   fresh[((size_t)b * Hkv + h) * T + t] = s16;
                 } else {
-                  (is_v ? a.vs : a.ks)[srow0 + slot] = s16;
+                  (is_v ? a.vs : a.ks)[sx] = s16;
                 }
               }
             }
@@ -679,12 +768,12 @@ __global__ void __launch_bounds__(MERGE_THREADS) dense_merge_kernel(const Args a
   }
 }
 
-template <typename CT, int DH, int MAXR, bool WRITE, int NW>
+template <typename CT, int DH, int MAXR, bool WRITE, bool PAGED, int NW>
 int launch(const Args& a, cudaStream_t stream) {
   using C = Cfg<CT, DH, MAXR, NW>;
   const int R = a.T * (a.Hq / a.Hkv);
   const int smem = typename C::Layout(R, a.T).bytes;
-  auto kernel = dense_decode_kernel<CT, DH, MAXR, WRITE, NW>;
+  auto kernel = dense_decode_kernel<CT, DH, MAXR, WRITE, NW, PAGED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -697,25 +786,27 @@ int launch(const Args& a, cudaStream_t stream) {
 
 // 16 consumer warps where the grid leaves an SM to each block and the
 // warps' accumulators fit (MAXR <= 16), else 8
-template <typename CT, int DH, int MAXR, bool WRITE>
+template <typename CT, int DH, int MAXR, bool WRITE, bool PAGED>
 int launch_for_grid(const Args& a, cudaStream_t s) {
   if constexpr (MAXR <= 16) {
-    if (a.B * a.Hkv * a.nsplit <= device_sms()) return launch<CT, DH, MAXR, WRITE, 16>(a, s);
+    if (a.B * a.Hkv * a.nsplit <= device_sms()) {
+      return launch<CT, DH, MAXR, WRITE, PAGED, 16>(a, s);
+    }
   }
-  return launch<CT, DH, MAXR, WRITE, 8>(a, s);
+  return launch<CT, DH, MAXR, WRITE, PAGED, 8>(a, s);
 }
 
-// the instance for the cache type, head dim and query rows of `a`
-template <typename CT, bool WRITE>
+// the instance for the cache type, layout, head dim and query rows of `a`
+template <typename CT, bool WRITE, bool PAGED = false>
 int dispatch(const Args& a, int Dh, cudaStream_t s) {
   if (a.nsplit < 1 || a.nsplit > MAX_SPLITS) return (int)cudaErrorInvalidValue;
   const int maxr = rows_bucket(a.T * (a.Hq / a.Hkv));
 #define LSS_DENSE_LAUNCH(DH_)                                            \
   switch (maxr) {                                                        \
-    case 4: return launch_for_grid<CT, DH_, 4, WRITE>(a, s);             \
-    case 8: return launch_for_grid<CT, DH_, 8, WRITE>(a, s);             \
-    case 16: return launch_for_grid<CT, DH_, 16, WRITE>(a, s);           \
-    default: return launch_for_grid<CT, DH_, 32, WRITE>(a, s);           \
+    case 4: return launch_for_grid<CT, DH_, 4, WRITE, PAGED>(a, s);      \
+    case 8: return launch_for_grid<CT, DH_, 8, WRITE, PAGED>(a, s);      \
+    case 16: return launch_for_grid<CT, DH_, 16, WRITE, PAGED>(a, s);    \
+    default: return launch_for_grid<CT, DH_, 32, WRITE, PAGED>(a, s);    \
   }
   if (Dh == 128) LSS_DENSE_LAUNCH(128)
   if (Dh == 64) LSS_DENSE_LAUNCH(64)

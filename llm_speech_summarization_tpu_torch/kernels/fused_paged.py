@@ -2,8 +2,9 @@
 plain version, launch count.
 
 Port of ``llm_speech_summarization_tpu/kernels/fused_paged.py::
-fused_paged_decode_write``. The CUDA kernel is ``csrc/fused_paged.cu``
-(its attention is B4's, ``csrc/paged_common.cuh``).
+fused_paged_decode_write``. The CUDA kernel is ``csrc/fused_paged.cu``,
+the paged writing instance of the split-S decode body
+(``csrc/dense_decode.cuh``); its splits are chosen as B4's.
 
 For layer ``layer`` of the (L, P, Hkv, ps, Dh) pools, the T == 1 fresh
 query attends the row's cached positions [pad, length) plus the fresh token
@@ -28,9 +29,9 @@ import torch
 
 from .build import check_status, count_launch, load_library
 from .fused_decode import MAX_SMEM, _quantize_kv
-from .paged_attention import check_paged_operands, paged_reference
+from .paged_attention import check_paged_operands, paged_reference, paged_splits
 
-SOURCES = ("fused_paged.cu", "paged_common.cuh", "int8.cuh")
+SOURCES = ("fused_paged.cu", "dense_decode.cuh", "int8.cuh", "flash_sm90.cuh")
 
 
 def _write_targets(page_table: torch.Tensor, lengths: torch.Tensor, ps: int):
@@ -117,7 +118,7 @@ def _lib():
     fn = lib.lss_fused_paged
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 9 + [p, ctypes.c_float, p]
+        fn.argtypes = [p] * 12 + [i] * 10 + [p, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         lib.lss_fused_paged_smem_bytes.argtypes = [i] * 4
         lib.lss_fused_paged_smem_bytes.restype = ctypes.c_longlong
@@ -140,6 +141,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, 
         raise ValueError(f"fused_paged_decode: ps={ps} needs {smem} bytes of shared memory "
                          f"(limit {MAX_SMEM})")
     out = torch.empty((B, 1, Hq, Dh), dtype=torch.bfloat16, device=q.device)
+    nsplit, part = paged_splits(B, 1, Hq, Hkv, ps, mp, Dh, q.device)
     strides = (ctypes.c_longlong * 9)(*(q.stride()[:3] + k_new.stride()[:3]
                                         + v_new.stride()[:3]))
     with torch.cuda.device(q.device):
@@ -148,8 +150,8 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, 
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if int8_pools else None, v_scale.data_ptr() if int8_pools else None,
             page_table.data_ptr(), lengths.data_ptr(), pad_lens.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), out.data_ptr(), B, Hq, Hkv, P, ps, mp, Dh, int(int8_pools),
-            int(layer), strides, Dh ** -0.5, stream)
+            v_new.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(), nsplit,
+            B, Hq, Hkv, P, ps, mp, Dh, int(int8_pools), int(layer), strides, Dh ** -0.5, stream)
     count_launch(fused_paged_decode)
     check_status(status, "fused_paged_decode")
     return out

@@ -1,8 +1,12 @@
 """Paged decode attention (kernel B4): wrapper, plain version, launch count.
 
 Port of ``llm_speech_summarization_tpu/kernels/paged_attention.py::
-paged_decode_attention``. The CUDA kernel is ``csrc/paged_attention.cu``
-(its design is in ``csrc/paged_common.cuh``, shared with B5).
+paged_decode_attention``. The CUDA kernel is ``csrc/paged_attention.cu``,
+the paged instance of the split-S decode body that B2, B3, B5 and B8 share
+(``csrc/dense_decode.cuh``): as for the dense kernels, the wrapper picks the
+number of blocks per (sample, kv head) window with ``fused_decode.
+dense_splits``, from the host-side bound ``mp * ps`` of the windows, and
+allocates the float32 scratch their results are merged from.
 
 q (B, T, Hq, Dh) with T >= 1 fresh queries; one layer's page-major pools
 (P, Hkv, ps, Dh), int8 with bf16 per-slot scales (P, Hkv, ps) or bf16
@@ -21,10 +25,11 @@ from typing import Optional
 
 import torch
 
+from . import fused_decode
 from .build import check_status, count_launch, load_library
 from .fused_decode import MAX_ROWS, MAX_SMEM, NEG_INF, check_separate_storage
 
-SOURCES = ("paged_attention.cu", "paged_common.cuh", "int8.cuh")
+SOURCES = ("paged_attention.cu", "dense_decode.cuh", "int8.cuh", "flash_sm90.cuh")
 
 
 def paged_reference(
@@ -114,7 +119,7 @@ def _lib():
     fn = lib.lss_paged_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 9 + [p, ctypes.c_float, p]
+        fn.argtypes = [p] * 12 + [i] * 10 + [p, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         lib.lss_paged_attention_smem_bytes.argtypes = [i] * 5
         lib.lss_paged_attention_smem_bytes.restype = ctypes.c_longlong
@@ -174,6 +179,16 @@ def check_paged_operands(what, q, k_pool, v_pool, k_scale, v_scale, page_table, 
     return B, T, Hq, Hkv, P, ps, page_table.shape[1], Dh, int8_pools
 
 
+def paged_splits(B: int, T: int, Hq: int, Hkv: int, ps: int, mp: int, Dh: int, device):
+    """(nsplit, scratch) of a B4 or B5 launch: the dense kernels' rule with
+    the windows' host-side bound ``mp * ps`` (looked up on ``fused_decode``
+    at each call, where a caller may force it), and the float32 scratch
+    for the split results (None for one split)."""
+    sms = fused_decode.sm_count(device.index)
+    nsplit = fused_decode.dense_splits(B, Hkv, mp * ps, sms)
+    return nsplit, fused_decode.split_scratch(nsplit, B, Hkv, T * (Hq // Hkv), Dh, device)
+
+
 def _launch(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new, k_scale, v_scale):
     B, T, Hq, Hkv, P, ps, mp, Dh, int8_pools = check_paged_operands(
         "paged_decode_attention", q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
@@ -184,17 +199,17 @@ def _launch(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new, k_sc
         raise ValueError(f"paged_decode_attention: T={T} ps={ps} needs {smem} bytes of shared "
                          f"memory (limit {MAX_SMEM})")
     out = torch.empty((B, T, Hq, Dh), dtype=torch.bfloat16, device=q.device)
+    nsplit, part = paged_splits(B, T, Hq, Hkv, ps, mp, Dh, q.device)
     strides = (ctypes.c_longlong * 9)(*(q.stride()[:3] + k_new.stride()[:3]
                                         + v_new.stride()[:3]))
-    null = None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.lss_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if int8_pools else null, v_scale.data_ptr() if int8_pools else null,
+            k_scale.data_ptr() if int8_pools else None, v_scale.data_ptr() if int8_pools else None,
             page_table.data_ptr(), lengths.data_ptr(), pad_lens.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, P, ps, mp, Dh, int(int8_pools),
-            strides, Dh ** -0.5, stream)
+            v_new.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(), nsplit,
+            B, T, Hq, Hkv, P, ps, mp, Dh, int(int8_pools), strides, Dh ** -0.5, stream)
     count_launch(paged_decode_attention)
     check_status(status, "paged_decode_attention")
     return out

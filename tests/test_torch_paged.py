@@ -364,3 +364,77 @@ def test_fused_paged_kernel_matches_plain_on_card(card):
     torch.testing.assert_close(got.float(), exact, atol=CARD_ATOL, rtol=CARD_RTOL)
     for g, w in zip(bufs_k, bufs_p):
         assert torch.equal(g[:, 1:], w[:, 1:])
+
+
+def _card_case(seed, T, pools, ps, L=2, B=6, Hq=24, Hkv=8, Dh=128, span=768):
+    """Rows over a table of span / ps pages: a pad inside the first page (so
+    chunks start mid-page) and a long window; a pad past the first page;
+    nothing cached (length == pad); length at a page boundary; the whole
+    table (length == mp * ps: B5 writes page 0); a released row (a zeroed
+    table, which B5 writes page 0 from; compared nowhere)."""
+    rng = np.random.RandomState([seed, T, ps])
+    mp = span // ps
+    P = 1 + B * mp
+    kp, vp, ks, vs = _pools(rng, (L, P, Hkv, ps, Dh), pools)
+    table = (1 + rng.permutation(B * mp)).reshape(B, mp).astype(np.int32)
+    table[5] = 0
+    pads = np.array([3, ps + 2, 4, 0, 1, 2], np.int32)
+    lengths = np.array([mp * ps - 37, mp * ps - 5, 4, 2 * ps, mp * ps, 300], np.int32)
+    q, kn, vn = (rng.randn(B, T, h, Dh).astype(np.float32) for h in (Hq, Hkv, Hkv))
+    return q, kp, vp, ks, vs, table, lengths, pads, kn, vn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsplit", [None, 1, 2, 4])
+@pytest.mark.parametrize("ps", [128, 64, 16])
+@pytest.mark.parametrize("pools", ["int8", "bf16"])
+@pytest.mark.parametrize("kernel,T", [("B4", 1), ("B4", 3), ("B5", 1)])
+def test_paged_kernels_layouts_and_splits_on_card(card, monkeypatch, kernel, T, pools, ps,
+                                                  nsplit):
+    """B4 and B5 over int8 and bf16 pools at page sizes 128, 64 and 16, with
+    the split count of the wrapper's rule (8 here) or forced to 1, 2 or 4:
+    within 1e-3 + 1e-2 |exact| of the plain version run in float32 on the
+    compared rows; B5's page writes bit-exact with the plain version's
+    outside page 0, B4 writes nothing; two calls bit-identical."""
+    from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
+
+    if nsplit is not None:
+        monkeypatch.setattr(fd_mod, "dense_splits", lambda *args: nsplit)
+    q, kp, vp, ks, vs, table, lengths, pads, kn, vn = _card_case(20, T, pools, ps)
+    to = lambda a: None if a is None else _t(a).to(card)  # noqa: E731
+    qb, knb, vnb = (to(a).bfloat16() for a in (q, kn, vn))
+    meta = (to(table), to(lengths), to(pads))
+    snap = [to(a) for a in (kp, vp, ks, vs) if a is not None]
+    rows = torch.from_numpy((table != 0).all(axis=1)).to(card)
+    layer = 1
+    if kernel == "B4":
+        sc = (snap[2][layer], snap[3][layer]) if pools == "int8" else (None, None)
+
+        def run(bufs):
+            return paged_decode_attention(qb, bufs[0][layer], bufs[1][layer], *meta, knb, vnb,
+                                          *sc)
+
+        exact = paged_reference(qb.float(), snap[0][layer], snap[1][layer], *meta, knb.float(),
+                                vnb.float(), *sc)
+    else:
+        def run(bufs):
+            scales = bufs[2:] if pools == "int8" else (None, None)
+            return fused_paged_decode(qb, bufs[0], bufs[1], *scales, *meta, knb, vnb, layer)
+
+        ebufs = [t.clone() for t in snap] + [None, None] * (pools != "int8")
+        exact = fused_paged_reference(qb.float(), *ebufs, *meta, knb.float(), vnb.float(), layer)
+    got_bufs = [t.clone() for t in snap]
+    got = run(got_bufs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[rows]).all()
+    torch.testing.assert_close(got[rows].float(), exact[rows], atol=CARD_ATOL, rtol=CARD_RTOL)
+    if kernel == "B4":
+        assert all(torch.equal(g, s) for g, s in zip(got_bufs, snap))
+    else:
+        plain_bufs = [t.clone() for t in snap] + [None, None] * (pools != "int8")
+        fused_paged_reference(qb, *plain_bufs, *meta, knb, vnb, layer)
+        for g, p in zip(got_bufs, plain_bufs):
+            assert torch.equal(g[:, 1:], p[:, 1:])
+    again_bufs = [t.clone() for t in snap]
+    assert torch.equal(run(again_bufs)[rows], got[rows])
+    assert all(torch.equal(a, g) for a, g in zip(again_bufs, got_bufs))
