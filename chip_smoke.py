@@ -11,8 +11,8 @@ Phases, in order; each prints one line and any failure raises:
      flash forward, dq and dk/dv) at each Dh, failing on any spill, and
      of the decode body's dense and paged instances (reported only);
   3. flash attention (B1) against its plain version run in float32 at the
-     main paths' three shapes (LLM prefill, HuBERT and Whisper
-     self-attention), within B7's output bound, with injected faults the
+     main paths' five shapes (the Llama and MiniChat prefills, HuBERT-large,
+     HuBERT-base and Whisper self-attention), within B7's output bound, with injected faults the
      bound must reject, and the one PyTorch call that computes the same
      attention (timed only);
   4. the training attention kernels, B1 with its log-sum-exp and the
@@ -27,7 +27,8 @@ Phases, in order; each prints one line and any failure raises:
   5. fused decode (B2) against its plain version, including the in-place
      cache writes, and against the plain version run in float32 with
      injected faults, at B=8, 16 and 128 (T=1), B=16, T=3, and B=1 over
-     two windows the wrapper splits in 8, repeats bit-identical, the
+     two windows the wrapper splits in 8 (24/8 heads), and at MiniChat's
+     24/24 (B=16 at T=1 and T=3, B=1 over a split window), repeats bit-identical, the
      split shapes also timed with one split, beside the device cost of one
      empty kernel;
   6. paged decode attention (B4) and fused paged decode + page write (B5)
@@ -41,16 +42,25 @@ Phases, in order; each prints one line and any failure raises:
      and an int8 cache, writes bit-exact, with injected faults the bound
      must reject;
   8. the slice at a small kernel-legal width on the card and on the CPU,
-     from the same weights: the HuBERT batch path on an int8 cache and the
-     Whisper one on a bf16 cache, then a paged ``SlotDecoder``
+     from the same weights: the HuBERT batch path on an int8 cache, the
+     Whisper one on a bf16 cache and BASELINE config #1's layout
+     (hubert-base, ``ctc_pool``, an MHA LLM), then a paged ``SlotDecoder``
      teacher-forced through admissions and plain and speculative chunks;
   9. one KD train step at that width on the CPU and on the card, from the
-     same weights and batch;
+     same weights and batch, for the HuBERT-large layout and config #1's;
  10. the full-width ``llama3_hubert.yaml`` batch path through
      ``generate_audio_response_batch(es)``;
  11. the full-width serving path: ``SummarizationServer`` over HTTP with
      the paged cache, then with speculative chunks, then with the dense
      cache;
+ 11a. BASELINE config #1 at published widths (``minichat_hubert.yaml`` with
+     hubert-base, int8 weights and cache): B=8 clips of 10 s through
+     ``generate_audio_response_batch`` with the ``pool`` projector, then
+     ``ctc_pool`` over synthetic ranges;
+ 11b. the bulk entry point: ``cli/infer.py --audio_dir`` over 32 WAV and
+     FLAC clips on ``llama3_hubert.yaml``, its JSONL held to per-batch
+     engine calls, then the pipelined ``generate_audio_response_batches``
+     against serial per-batch calls (4 batches of 32 10 s clips, ABBA);
  12. the full-width ``llama3_whisper.yaml`` batch path on a bf16 KV cache
      (B1 and B3), ``greedy_generate(attn_impl="pallas")`` on its prompts
      (B8) held to the B3 stream, and a dense HTTP server on it;
@@ -320,8 +330,8 @@ def phase_build(card, require_no_spill=True):
 
 
 def phase_flash(torch, card):
-    """B1 against its plain version run in float32 at the main paths' three
-    shapes, within B7_OUT_ATOL + B7_OUT_RTOL (|out| + (P.|V|)/l) on the
+    """B1 against its plain version run in float32 at the main paths' five
+    shapes (Llama and MiniChat prefill, HuBERT-large and -base, Whisper), within B7_OUT_ATOL + B7_OUT_RTOL (|out| + (P.|V|)/l) on the
     valid rows, with two injected faults that bound must reject; the one
     PyTorch call that computes the same attention is timed beside it."""
     from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
@@ -343,6 +353,13 @@ def phase_flash(torch, card):
         #     frames, bidirectional 16/16, Dh=64, two shorter rows
         "whisper": dict(B=8, T=500, Hq=16, Hkv=16, Dh=64, causal=False,
                         starts=[0] * 8, ends=[500] * 6 + [321, 1]),
+        # (d) MiniChat-3B's prefill: MHA, every one of 24 heads its own KV
+        #     head (GQA group 1) at Dh=128, the llama prefill's left pads
+        "llm_prefill_mha": dict(B=4, T=320, Hq=24, Hkv=24, Dh=128, causal=True,
+                                starts=[0, 319, 37, 130], ends=[320] * 4),
+        # (e) HuBERT-base: bidirectional 12/12, Dh=64, right-pad windows
+        "hubert_base": dict(B=4, T=499, Hq=12, Hkv=12, Dh=64, causal=False,
+                            starts=[0] * 4, ends=[499, 400, 1, 250]),
     }
     for name, c in cases.items():
         B, T, causal = c["B"], c["T"], c["causal"]
@@ -426,6 +443,10 @@ def _flash_work(c, T):
 # ring's
 FUSED_SHAPES = ((16, 1, 384), (16, 3, 384), (8, 1, 384), (128, 1, 384), (1, 1, 384),
                 (1, 1, 1664))
+# MiniChat-3B's decode (MHA: 24 KV heads, one query row per KV head at T=1,
+# three with speculative_k): the serving shape at T=1 and T=3 and the
+# validate generation's long split window, keyed (B, T, S, Hkv)
+FUSED_MHA_SHAPES = ((16, 1, 384, 24), (16, 3, 384, 24), (1, 1, 1664, 24))
 
 
 @contextlib.contextmanager
@@ -471,8 +492,9 @@ def phase_fused(torch, card):
     faults that bound must reject: pad or offset off by one, the wrong
     layer, the fresh token dropped, the first split's share of the window
     dropped, or its first half where the wrapper does not split), cache
-    writes bit-exact, bit-identical repeats, at FUSED_SHAPES; where the
-    window is split, each kernel's time and the call's with one split;
+    writes bit-exact, bit-identical repeats, at FUSED_SHAPES (24/8 heads)
+    and FUSED_MHA_SHAPES (24/24); where the window is split, each kernel's
+    time and the call's with one split;
     and the device cost of one empty kernel beside it."""
     from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
     from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
@@ -481,9 +503,9 @@ def phase_fused(torch, card):
 
     rng = np.random.RandomState(1)
     dev = torch.device("cuda")
-    L, Hq, Hkv, Dh, layer = 2, 24, 8, 128, 1
+    L, Hq, Dh, layer = 2, 24, 128, 1
     results = {}
-    for B, T, S in FUSED_SHAPES:
+    for B, T, S, Hkv in [(*shape, 8) for shape in FUSED_SHAPES] + list(FUSED_MHA_SHAPES):
         q = torch.from_numpy(rng.randn(B, T, Hq, Dh).astype(np.float32)).to(dev, torch.bfloat16)
         kn = torch.from_numpy(rng.randn(B, T, Hkv, Dh).astype(np.float32)).to(dev, torch.bfloat16)
         vn = torch.from_numpy(rng.randn(B, T, Hkv, Dh).astype(np.float32)).to(dev, torch.bfloat16)
@@ -514,7 +536,7 @@ def phase_fused(torch, card):
         ref = fused_decode_reference(q, *ref_bufs, kn, vn, pads, offs, layer)
         got = fused_decode(q, *got_bufs, kn, vn, pads, offs, layer, max_offset=mo)
         torch.cuda.synchronize()
-        what = f"B2 B={B} T={T} S={S}"
+        what = f"B2 B={B} T={T} S={S} Hkv={Hkv}"
         err = (got.float() - ref.float()).abs().max().item()
         if not torch.allclose(got.float(), ref.float(), atol=B2_ATOL, rtol=B2_RTOL):
             raise AssertionError(f"{what}: out differs from the plain version (max |err| {err})")
@@ -573,7 +595,8 @@ def phase_fused(torch, card):
                    + B * T * Hkv * 2 * (Dh + 2))
         flops = 4 * Dh * Hq * T * (valid.sum() + B * (T + 1) / 2)
         t["bound_ms"], t["bound_by"] = bound_ms(float(n_bytes), float(flops))
-        results[(B, T, S)] = dict(max_abs_err=max(err, check["max_abs_err"]), **t)
+        key = (B, T, S) if Hkv == 8 else (B, T, S, Hkv)
+        results[key] = dict(max_abs_err=max(err, check["max_abs_err"]), **t)
         emit("fused_decode", B=B, T=T, shape=[L, B, Hq, Hkv, S, Dh], splits=nsplit,
              max_abs_err=err, atol=B2_ATOL, rtol=B2_RTOL,
              f32_check=check, f32_atol=PAGED_ATOL, f32_rtol=PAGED_RTOL,
@@ -1057,11 +1080,55 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_slice(torch, card, whisper=False):
+def synthetic_pool_ranges(n_samples, sr=16000):
+    """4-frame [start, end) ranges tiling a clip's frames, as the synthetic
+    dataset draws its ``pool_ranges_4`` (``data/datasets.py``)."""
+    frames = max((n_samples - sr // 100) // (sr // 50), 8)
+    return np.asarray([(s, s + 4) for s in range(0, frames - 3, 4)], np.int32)
+
+
+def _minichat_base_config(method):
+    """BASELINE config #1: ``minichat_hubert.yaml`` with the hubert-base
+    encoder and int8 LLM weights (int8 cache as shipped)."""
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+
+    cfg = load_config(str(YAML_DIR / "minichat_hubert.yaml"))
+    cfg.model.audio_encoder.type = "facebook/hubert-base-ls960"
+    cfg.model.audio_encoder.preset = None
+    cfg.model.audio_encoder.downsample_method = method
+    cfg.model.llm_weight_dtype = "int8"
+    return cfg
+
+
+def _small_base_models():
+    """(LLM, encoder) configs of BASELINE config #1's layout at the small
+    kernel-legal width: an MHA LLM with MiniChat's switches (2/2 heads at
+    Dh=128, vocab 49216, no rope scaling, an untied head) and hubert-base's
+    (no conv bias, group-normed stem, post-LN blocks; 4 heads at Dh=64)."""
+    import dataclasses
+
+    from llm_speech_summarization_tpu_torch.models.hubert import hubert_preset
+    from llm_speech_summarization_tpu_torch.models.llama import LlamaConfig
+
+    llm_cfg = LlamaConfig(vocab_size=49216, hidden_size=256, intermediate_size=1024,
+                          num_layers=2, num_heads=2, num_kv_heads=2, head_dim=128,
+                          rope_theta=10000.0, rope_scaling=None, tie_embeddings=False,
+                          max_position_embeddings=4096)
+    enc_cfg = dataclasses.replace(hubert_preset("facebook/hubert-base-ls960"), hidden_size=256,
+                                  num_layers=2, num_heads=4, intermediate_size=1024)
+    return llm_cfg, enc_cfg
+
+
+def phase_slice(torch, card, whisper=False, base=False):
     """Small kernel-legal width, same weights on the CPU (plain versions)
     and the card (kernels): ``llama3_hubert.yaml`` (int8 weights and cache:
-    B1, B2) or, with ``whisper``, ``llama3_whisper.yaml`` on a bf16 cache
-    (bf16 weights: B1, B3)."""
+    B1, B2), with ``whisper`` ``llama3_whisper.yaml`` on a bf16 cache (bf16
+    weights: B1, B3), or with ``base`` BASELINE config #1's layout: the
+    hubert-base encoder (group-normed stem, post-LN blocks) with the
+    ``ctc_pool`` projector over synthetic ranges and an MHA LLM (MiniChat's
+    switches: every head its own KV head, no rope scaling, an untied head)
+    on int8 weights and cache (B1, B2)."""
+
     from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
     from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
     from llm_speech_summarization_tpu_torch.models.hubert import HubertConfig
@@ -1072,11 +1139,17 @@ def phase_slice(torch, card, whisper=False):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(str(YAML_DIR / ("llama3_whisper.yaml" if whisper else "llama3_hubert.yaml")))
+    if base:
+        cfg = _minichat_base_config("ctc_pool")
+    else:
+        cfg = load_config(str(YAML_DIR / ("llama3_whisper.yaml" if whisper
+                                          else "llama3_hubert.yaml")))
     cfg.model.llm_embedding_channels = 256
     llm_cfg = LlamaConfig(hidden_size=256, intermediate_size=1024, num_layers=2,
                           num_heads=6, num_kv_heads=2, head_dim=128)
-    if whisper:
+    if base:
+        llm_cfg, enc_cfg = _small_base_models()
+    elif whisper:
         cfg.model.kv_cache_dtype = "bfloat16"
         enc_cfg = WhisperConfig(d_model=256, num_layers=2, num_heads=4, ffn_dim=1024)
     else:
@@ -1090,9 +1163,10 @@ def phase_slice(torch, card, whisper=False):
     )
     rng = np.random.RandomState(1)
     clips = [(0.1 * rng.randn(n)).astype(np.float32) for n in (16000, 11200)]
+    ranges = [synthetic_pool_ranges(len(c)) for c in clips] if base else None
 
-    e_c, m_c = cpu.build_audio_prompt_batch(clips)
-    e_g, m_g = gpu.build_audio_prompt_batch(clips)
+    e_c, m_c = cpu.build_audio_prompt_batch(clips, ctc_pool_ranges=ranges)
+    e_g, m_g = gpu.build_audio_prompt_batch(clips, ctc_pool_ranges=ranges)
     if not torch.equal(m_c, m_g.cpu()):
         raise AssertionError("slice: splice masks differ between CPU and card")
     embed_err = (e_g.cpu().float() - e_c.float()).abs().max().item()
@@ -1136,9 +1210,12 @@ def phase_slice(torch, card, whisper=False):
     if checked == 0:
         raise AssertionError("slice: no decided step, the stream contract checked nothing")
 
-    text_c = cpu.generate_audio_response_batch(clips, max_new_tokens=steps)
-    text_g = gpu.generate_audio_response_batch(clips, max_new_tokens=steps)
-    emit("slice_small", config=cfg.model.audio_encoder.type,
+    text_c = cpu.generate_audio_response_batch(clips, max_new_tokens=steps,
+                                               ctc_pool_ranges=ranges)
+    text_g = gpu.generate_audio_response_batch(clips, max_new_tokens=steps,
+                                               ctc_pool_ranges=ranges)
+    emit("slice_small", config=cfg.model.audio_encoder.type, llm=cfg.model.llm_type,
+         projector=cfg.model.audio_encoder.downsample_method,
          kv_cache=str(cpu.cache_dtype), embed_max_abs_err=embed_err, embed_tol=EMBED_TOL,
          prefill_logit_max_abs_err=prefill_err, decode_logit_max_abs_err=step_err,
          logit_tol=LOGIT_TOL, decided_checked=checked, decisions=decisions,
@@ -1673,10 +1750,11 @@ def phase_flash_ring(torch, card):
     return results
 
 
-def _small_train_config():
+def _small_train_config(base=False):
     from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
 
-    cfg = load_config(str(YAML_DIR / "llama3_hubert.yaml"))
+    cfg = (_minichat_base_config("ctc_pool") if base
+           else load_config(str(YAML_DIR / "llama3_hubert.yaml")))
     cfg.model.llm_embedding_channels = 256
     cfg.data.source = "synthetic"
     cfg.train.buckets.audio_samples = (32000,)
@@ -1686,9 +1764,11 @@ def _small_train_config():
     return cfg
 
 
-def phase_train_small(torch, card):
+def phase_train_small(torch, card, base=False):
     """One KD train step at a small kernel-legal width (2 layers, Dh 128 in
-    the LLM and 64 in HuBERT) on the CPU and on the card."""
+    the LLM and 64 in HuBERT) on the CPU and on the card; with ``base``,
+    BASELINE config #1's layout (hubert-base under remat, the ``ctc_pool``
+    projector over the collated ``pool_ranges_4``, an MHA LLM)."""
     import dataclasses
 
     from llm_speech_summarization_tpu_torch.data.collate import collate_batch
@@ -1702,17 +1782,20 @@ def phase_train_small(torch, card):
     )
     from llm_speech_summarization_tpu_torch.train import make_train_state, make_train_step
     from llm_speech_summarization_tpu_torch.train.state import tree_leaves
-    from llm_speech_summarization_tpu_torch.train.trainer import spliced_length
+    from llm_speech_summarization_tpu_torch.train.trainer import max_pool_ranges, spliced_length
     from llm_speech_summarization_tpu_torch.utils.prompts import prompt_template_for
     from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = _small_train_config()
+    cfg = _small_train_config(base)
     llm_cfg = LlamaConfig(hidden_size=256, intermediate_size=1024, num_layers=2, num_heads=6,
                           num_kv_heads=2, head_dim=128)
-    setup = dataclasses.replace(encoder_setup_from_config(cfg), encoder_cfg=HubertConfig(
-        hidden_size=256, num_layers=2, num_heads=4, intermediate_size=1024))
+    enc_cfg = HubertConfig(hidden_size=256, num_layers=2, num_heads=4, intermediate_size=1024)
+    if base:
+        llm_cfg, enc_cfg = _small_base_models()
+        cfg.train.remat = True
+    setup = dataclasses.replace(encoder_setup_from_config(cfg), encoder_cfg=enc_cfg)
     llm = quantize_llama_params(init_llama_params(torch.Generator().manual_seed(5), llm_cfg))
     enc = init_audio_encoder(torch.Generator().manual_seed(6), setup, dtype=torch.float32)
     tok = ByteTokenizer()
@@ -1722,7 +1805,8 @@ def phase_train_small(torch, card):
     b = cfg.train.buckets
     batch = collate_batch([ds[i] for i in range(4)], audio_buckets=b.audio_samples,
                           max_text_tokens=b.max_text_tokens,
-                          max_response_tokens=b.max_response_tokens)
+                          max_response_tokens=b.max_response_tokens,
+                          max_pool_ranges=max_pool_ranges(cfg, setup))
     total_len = spliced_length(cfg, setup, len(prefix), len(suffix), batch.wav.shape[1])
     runs = {}
     for dev in ("cpu", "cuda"):
@@ -1749,7 +1833,8 @@ def phase_train_small(torch, card):
         raise AssertionError(f"train_small: CPU {m_c} vs card {m_g}: loss rel err {loss_err}, "
                              f"grad_norm rel err {gnorm_err}, update agreement {agree_share} "
                              f"of {moved}")
-    emit("train_small", total_len=total_len, batch=4, audio_samples=int(batch.wav.shape[1]),
+    emit("train_small", variant="minichat_hubert_base_ctc_pool" if base else "llama3_hubert",
+         total_len=total_len, batch=4, audio_samples=int(batch.wav.shape[1]),
          cpu=m_c, card_metrics=m_g, loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
          grad_norm_rel_err=gnorm_err, grad_norm_rtol=TRAIN_GNORM_RTOL,
          update_agreement=agree_share, update_agreement_min=TRAIN_SIGN_AGREE,
@@ -2222,10 +2307,49 @@ def check_launches(what: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{what}: kernel launches {got} != expected {want}")
 
 
+def _stage_breakdown(torch, eng, clips, what, ranges=None, steps=16):
+    """Host ms of one batch's prompt build (upload, encoder, splice), its
+    prefill, and a decode step (the mean of ``steps`` - 1 greedy steps on an
+    int8 cache), each between synchronizes; not counted in the launches.
+    Fails on logits that are not finite or of the wrong shape."""
+    from llm_speech_summarization_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embeds, mask = eng.build_audio_prompt_batch(clips, ctc_pool_ranges=ranges)
+    torch.cuda.synchronize()
+    enc_ms = 1e3 * (time.perf_counter() - t0)
+    B, Lp, _ = embeds.shape
+    cache = init_kv_cache(eng.llm_cfg, B, Lp + steps, torch.int8, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = llama_forward(eng.llm_params, eng.llm_cfg, inputs_embeds=embeds, attn_mask=mask,
+                        kv_cache=cache, cache_offset=0, last_logit_only=True)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    logits = out.logits[:, -1]
+    if logits.shape != (B, eng.llm_cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: prefill logits are not finite / of the expected shape")
+    lens = mask.to(torch.int32).sum(1)
+    pads = (Lp - lens).to(torch.int32)
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(1, steps):
+        out = llama_forward(eng.llm_params, eng.llm_cfg, input_ids=tok[:, None],
+                            positions=(lens + step - 1)[:, None], kv_cache=cache,
+                            cache_offset=Lp + step - 1, kv_pad_lens=pads)
+        tok = out.logits[:, 0].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / (steps - 1)
+    if not torch.isfinite(out.logits).all():
+        raise AssertionError(f"{what}: decode logits are not finite")
+    return enc_ms, prefill_ms, decode_ms, Lp
+
+
 def phase_full(torch, card):
     from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
     from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
-    from llm_speech_summarization_tpu_torch.models.llama import init_kv_cache, llama_forward
 
     torch.cuda.reset_peak_memory_stats()
     cfg = load_config(str(YAML_DIR / "llama3_hubert.yaml"))
@@ -2263,44 +2387,255 @@ def phase_full(torch, card):
     if len(texts) != 8 or len(texts2) != 2 or any(len(t) != 8 for t in texts2):
         raise AssertionError("full: wrong number of responses")
 
-    # --- breakdown of one batch, stage by stage (not counted)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    embeds, mask = eng.build_audio_prompt_batch(clips)
-    torch.cuda.synchronize()
-    enc_ms = 1e3 * (time.perf_counter() - t0)
-    B, Lp, _ = embeds.shape
-    steps = 16
-    cache = init_kv_cache(eng.llm_cfg, B, Lp + steps, torch.int8, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = llama_forward(eng.llm_params, eng.llm_cfg, inputs_embeds=embeds, attn_mask=mask,
-                        kv_cache=cache, cache_offset=0, last_logit_only=True)
-    torch.cuda.synchronize()
-    prefill_ms = 1e3 * (time.perf_counter() - t0)
-    logits = out.logits[:, -1]
-    if logits.shape != (B, eng.llm_cfg.vocab_size) or not torch.isfinite(logits).all():
-        raise AssertionError("full: prefill logits are not finite / of the expected shape")
-    lens = mask.to(torch.int32).sum(1)
-    pads = (Lp - lens).to(torch.int32)
-    tok = logits.argmax(-1).to(torch.int32)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for step in range(1, steps):
-        out = llama_forward(eng.llm_params, eng.llm_cfg, input_ids=tok[:, None],
-                            positions=(lens + step - 1)[:, None], kv_cache=cache,
-                            cache_offset=Lp + step - 1, kv_pad_lens=pads)
-        tok = out.logits[:, 0].argmax(-1).to(torch.int32)
-    torch.cuda.synchronize()
-    decode_ms = 1e3 * (time.perf_counter() - t0) / (steps - 1)
-    if not torch.isfinite(out.logits).all():
-        raise AssertionError("full: decode logits are not finite")
+    enc_ms, prefill_ms, decode_ms, Lp = _stage_breakdown(torch, eng, clips, "full")
     emit("full_width", config="llama3_hubert.yaml", batch=8, clip_s=10, max_new_tokens=max_new,
          prompt_len=Lp, init_s=round(init_s, 3), batch_call_s=batch_s,
          utt_per_s=8 / batch_s, batches_call_s=batches_s, batches_utt_per_s=16 / batches_s,
          encoder_ms=enc_ms, prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
          launches=launches, engine_counts=counts, card=card)
+    return launches, eng
+
+
+def _expected_batch_launches(eng, counts) -> dict:
+    """What a batch-path run launches: B1 per encoder layer per prompt build
+    and per LLM layer per prefill, B2 per LLM layer per decode step."""
+    return {"flash_attention": eng.encoder_setup.encoder_cfg.num_layers
+            * counts["encoder_forwards"] + eng.llm_cfg.num_layers * counts["prefills"],
+            "fused_decode": eng.llm_cfg.num_layers * counts["decode_steps"]}
+
+
+def phase_minichat_base_full(torch, card):
+    """BASELINE config #1 at published widths: ``minichat_hubert.yaml`` with
+    the hubert-base encoder (12 layers, 12/12 heads, Dh=64) and MiniChat-3B
+    (24 layers, 24/24 heads, Dh=128, vocab 49216) on int8 weights and an
+    int8 cache, B=8 clips of 10 s and 32 new tokens through
+    ``generate_audio_response_batch``: once with the ``pool`` projector and
+    once with ``ctc_pool`` over synthetic ranges (4-frame ranges tiling each
+    clip's frames), from the same weights. Launch counts zeroed before and
+    checked after each counted run; utt/s, the stage breakdown and peak
+    memory printed."""
+    from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
+    from llm_speech_summarization_tpu_torch.models.audio_encoder import audio_embed_lengths
+
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(2)
+    clips = [(0.1 * rng.randn(160000)).astype(np.float32) for _ in range(8)]  # 8 x 10 s
+    ranges = [synthetic_pool_ranges(len(c)) for c in clips]
+    max_new = 32
+    runs, eng = [], None
+    for method in ("pool", "ctc_pool"):
+        cfg = _minichat_base_config(method)
+        t0 = time.perf_counter()
+        if eng is None:
+            eng = LLMSpeechTextInference(cfg)
+        else:  # the same weights: only the projector's pooling differs
+            eng = LLMSpeechTextInference(cfg, llm_params=eng.llm_params,
+                                         audio_encoder_params=eng.audio_encoder_params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        what = f"minichat_base_full {method}"
+        kw = dict(ctc_pool_ranges=ranges if method == "ctc_pool" else None)
+        eng.generate_audio_response_batch(clips, max_new_tokens=max_new, **kw)  # warm-up
+        torch.cuda.synchronize()
+
+        # --- the main path, counted
+        reset_launches()
+        eng.counts.clear()
+        t0 = time.perf_counter()
+        texts = eng.generate_audio_response_batch(clips, max_new_tokens=max_new, **kw)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        launches = read_launches()
+        counts = dict(eng.counts)
+        # ---
+        check_launches(what, launches, _expected_batch_launches(eng, counts))
+        if len(texts) != 8:
+            raise AssertionError(f"{what}: wrong number of responses")
+        # every clip's audio positions in its prompt: one per range, or the
+        # reference's length arithmetic for the average pool
+        embeds, mask = eng.build_audio_prompt_batch(clips, **kw)
+        audio_rows = (mask.to(torch.int32).sum(1) - eng.prefix_ids.shape[0]
+                      - eng.suffix_ids.shape[0])
+        want_rows = ([len(r) for r in ranges] if method == "ctc_pool" else audio_embed_lengths(
+            eng.encoder_setup, torch.full((8,), 160000)).tolist())
+        if audio_rows.tolist() != want_rows or not torch.isfinite(embeds).all():
+            raise AssertionError(f"{what}: {audio_rows.tolist()} audio positions spliced, "
+                                 f"want {want_rows}")
+        del embeds, mask
+        enc_ms, prefill_ms, decode_ms, Lp = _stage_breakdown(torch, eng, clips, what,
+                                                             ranges=kw["ctc_pool_ranges"])
+        emit("minichat_base_full", config="minichat_hubert.yaml",
+             encoder=cfg.model.audio_encoder.type, projector=method,
+             llm=cfg.model.llm_type, llm_heads=[eng.llm_cfg.num_heads, eng.llm_cfg.num_kv_heads],
+             batch=8, clip_s=10, max_new_tokens=max_new, prompt_len=Lp,
+             audio_positions=audio_rows.tolist()[0], init_s=round(init_s, 3),
+             batch_call_s=batch_s, utt_per_s=8 / batch_s, encoder_ms=enc_ms,
+             prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches=launches, engine_counts=counts, card=card)
+        runs.append(launches)
+    return runs
+
+
+@contextlib.contextmanager
+def recorded_tokens(tokenizer_cls):
+    """Every token row that ``tokenizer_cls.decode`` turns into text in the
+    block, so two runs compare by token stream (a byte tokenizer drops the
+    ids of a random full-width model's vocabulary above 255 from the text)."""
+    rows = []
+    decode = tokenizer_cls.decode
+
+    def record(self, ids, *args, **kw):
+        rows.append(list(ids))
+        return decode(self, ids, *args, **kw)
+
+    tokenizer_cls.decode = record
+    try:
+        yield rows
+    finally:
+        tokenizer_cls.decode = decode
+
+
+BULK_CLIPS = 32  # half WAV, half FLAC, 6-10 s
+BULK_AB_BATCHES = 4  # x B=32 x 10 s clips, 64 new tokens, for pipelined vs serial
+
+
+def _write_clips(d, n, seed):
+    """``n`` clips of 6-10 s of int16 noise, alternately WAV (scipy) and
+    FLAC (the test fixtures' encoder)."""
+    from scipy.io import wavfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from flac_writer import encode_flac
+
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        pcm = np.clip(0.1 * rng.randn(int(rng.uniform(6.0, 10.0) * 16000)) * 32767,
+                      -32768, 32767).astype(np.int16)
+        if i % 2:
+            with open(os.path.join(d, f"clip{i:02d}.flac"), "wb") as f:
+                f.write(encode_flac([pcm.astype(np.int64)], blocksize=4096, mode="fixed2"))
+        else:
+            wavfile.write(os.path.join(d, f"clip{i:02d}.wav"), 16000, pcm)
+
+
+def phase_bulk_full(torch, card):
+    """The bulk entry point at full width: ``cli/infer.py --audio_dir`` over
+    BULK_CLIPS WAV and FLAC clips, ``--batch_size 8``, on
+    ``llama3_hubert.yaml``, run in this process with the launch counts
+    zeroed before and checked after; 32 JSONL rows in size order, each
+    response and token stream equal to the per-batch engine call on the
+    loaded audio. Then the pipelined ``generate_audio_response_batches``
+    against a loop of ``generate_audio_response_batch`` over the same
+    BULK_AB_BATCHES batches of 32 10 s clips with 64 new tokens, in the
+    order ABBA (A pipelined, B serial) after a warm-up of each: utt/s per
+    run, and the host ms per decode step inside the generate calls (the
+    prefill included) while the builder thread works beside them; token
+    streams equal between the two."""
+    import tempfile
+
+    from llm_speech_summarization_tpu_torch.cli import infer as cli_infer
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR
+    from llm_speech_summarization_tpu_torch.data.audio_io import load_audio
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    max_new = 32
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "clips")
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        _write_clips(d, BULK_CLIPS, seed=3)
+        write_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "bulk.jsonl")
+
+        # --- the main path, counted: the CLI end to end
+        reset_launches()
+        t0 = time.perf_counter()
+        with recorded_tokens(ByteTokenizer) as cli_rows:
+            eng = cli_infer.main(["-c", str(YAML_DIR / "llama3_hubert.yaml"), "--audio_dir", d,
+                                  "--output", out, "--batch_size", "8",
+                                  "--max_new_tokens", str(max_new)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = read_launches()
+        counts = dict(eng.counts)
+        # ---
+        check_launches("bulk_full cli", launches, _expected_batch_launches(eng, counts))
+        if not isinstance(eng.tokenizer, ByteTokenizer):
+            raise AssertionError(f"bulk_full: token streams are read through ByteTokenizer, "
+                                 f"the engine has {type(eng.tokenizer).__name__}")
+        with open(out) as f:
+            rows = [json.loads(x) for x in f]
+        paths = cli_infer.audio_paths(d)
+        if len(rows) != BULK_CLIPS or [r["file"] for r in rows] != paths:
+            raise AssertionError(f"bulk_full: {len(rows)} JSONL rows, want {BULK_CLIPS} "
+                                 "in size order")
+        audio = [load_audio(p) for p in paths]
+        kinds = sorted({os.path.splitext(p)[1] for p in paths})
+    with recorded_tokens(ByteTokenizer) as ref_rows:
+        want = [t for i in range(0, BULK_CLIPS, 8)
+                for t in eng.generate_audio_response_batch(audio[i:i + 8],
+                                                           max_new_tokens=max_new)]
+    if [r["response"] for r in rows] != want or cli_rows != ref_rows:
+        raise AssertionError("bulk_full: the CLI's responses differ from the per-batch calls")
+    emit("bulk_full", config="llama3_hubert.yaml", clips=BULK_CLIPS, kinds=kinds,
+         batch_size=8, max_new_tokens=max_new, write_clips_s=write_s, cli_s=cli_s,
+         rows=len(rows), responses_equal=True, token_rows_compared=len(cli_rows),
+         launches=launches, engine_counts=counts, card=card)
+
+    # pipelined against serial, ABBA, on the same engine
+    rng = np.random.RandomState(4)
+    batches = [[(0.1 * rng.randn(160000)).astype(np.float32) for _ in range(32)]
+               for _ in range(BULK_AB_BATCHES)]
+    gen = eng._generate_from_embeds
+    gen_s = []
+
+    def timed_gen(*args, **kw):  # ends in a copy to the host: synchronized
+        t = time.perf_counter()
+        try:
+            return gen(*args, **kw)
+        finally:
+            gen_s.append(time.perf_counter() - t)
+
+    modes = {"A": lambda b: eng.generate_audio_response_batches(b, max_new_tokens=64),
+             "B": lambda b: [eng.generate_audio_response_batch(x, max_new_tokens=64)
+                             for x in b]}
+    for tag in "AB":  # warm-up: the B=32 shapes, the side stream, pinned buffers
+        modes[tag](batches[:2])
+    eng._generate_from_embeds = timed_gen
+    runs = {"A": [], "B": []}
+    streams = {}
+    try:
+        for tag in "ABBA":
+            gen_s.clear()
+            eng.counts.clear()
+            torch.cuda.synchronize()
+            with recorded_tokens(ByteTokenizer) as tok_rows:
+                t0 = time.perf_counter()
+                outs = modes[tag](batches)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if [len(o) for o in outs] != [32] * BULK_AB_BATCHES:
+                raise AssertionError(f"bulk_full: mode {tag} returned {[len(o) for o in outs]}")
+            if tok_rows != streams.setdefault("first run", tok_rows):
+                raise AssertionError("bulk_full: pipelined and serial token streams differ")
+            runs[tag].append({"utt_per_s": 32 * BULK_AB_BATCHES / wall, "wall_s": wall,
+                              "generate_ms_per_step": 1e3 * sum(gen_s)
+                              / max(eng.counts["decode_steps"], 1),
+                              "encoder_forwards": eng.counts["encoder_forwards"]})
+    finally:
+        eng._generate_from_embeds = gen
+    summary = {}
+    for tag, name in (("A", "pipelined"), ("B", "serial")):
+        ups = [r["utt_per_s"] for r in runs[tag]]
+        steps_ms = [r["generate_ms_per_step"] for r in runs[tag]]
+        summary[name] = {"utt_per_s": ups, "utt_per_s_mean": statistics.mean(ups),
+                         "utt_per_s_spread": max(ups) - min(ups),
+                         "generate_ms_per_step": steps_ms}
+    emit("bulk_pipelined_vs_serial", config="llama3_hubert.yaml", order="ABBA",
+         batches=BULK_AB_BATCHES, batch=32, clip_s=10, max_new_tokens=64,
+         token_streams_equal=True, **summary, card=card)
     return launches, eng
 
 
@@ -2625,7 +2960,8 @@ def _ab_times(lines) -> dict:
         if x.get("phase") == "flash_attention":
             times[f"B1 {x['case']}"] = x
         elif x.get("phase") == "fused_decode":
-            times[f"B2 B={x['shape'][1]} T={x['T']} S={x['shape'][4]}"] = x
+            heads = "" if x["shape"][3] == 8 else f" Hkv={x['shape'][3]}"
+            times[f"B2 B={x['shape'][1]} T={x['T']} S={x['shape'][4]}{heads}"] = x
         elif x.get("phase") == "dense_decode":
             times[f"{x['kernel']} {x['case']}"] = x
         elif x.get("phase") in ("paged_attention", "fused_paged"):
@@ -2745,13 +3081,22 @@ def main() -> int:
     dense = phase_dense_decode(torch, card)
     phase_serving_small(torch, card, *phase_slice(torch, card))
     phase_slice(torch, card, whisper=True)
+    phase_slice(torch, card, base=True)
     with torch.enable_grad():
         phase_train_small(torch, card)
+        phase_train_small(torch, card, base=True)
     launches, eng = phase_full(torch, card)
     serving = phase_serving_full(torch, card, eng)
     del eng
     # the servers' threads leave the engine in reference cycles: collect
     # them, or its weights stay allocated into the next phase's peak memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    minichat_runs = phase_minichat_base_full(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bulk_launches, eng = phase_bulk_full(torch, card)
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
     whisper_runs = phase_whisper_full(torch, card)
@@ -2768,10 +3113,11 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     # launches: the sum over the main-path runs (batch path, three servers,
-    # the Whisper batch path, its B8 stream and server, the trainer and the
-    # resumed trainer, and the ring trainer's ranks in both its launches)
-    for run in ([r["launches"] for r in serving.values()] + whisper_runs + list(train_runs)
-                + [ring_launches]):
+    # MiniChat + HuBERT-base with both projectors, the bulk CLI, the Whisper
+    # batch path, its B8 stream and server, the trainer and the resumed
+    # trainer, and the ring trainer's ranks in both its launches)
+    for run in ([r["launches"] for r in serving.values()] + minichat_runs + [bulk_launches]
+                + whisper_runs + list(train_runs) + [ring_launches]):
         for k, v in run.items():
             launches[k] += v
     csrc = "llm_speech_summarization_tpu_torch/kernels/csrc/"

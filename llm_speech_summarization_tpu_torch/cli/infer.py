@@ -1,0 +1,128 @@
+"""Inference CLI: one clip, or a directory of clips to JSONL, on one CUDA card.
+
+Usage:
+  python -m llm_speech_summarization_tpu_torch.cli.infer -c <yaml> -a <wav|flac> \
+      [--text T] [--max_new_tokens N] [--device cpu]
+  python -m llm_speech_summarization_tpu_torch.cli.infer -c <yaml> --audio_dir <dir> \
+      [--output out.jsonl] [--batch_size 32] [--device cpu]
+
+Bulk mode runs the pipelined batch stream (``iter_audio_response_batches``):
+batch i+1's prompt is built while batch i decodes, and each batch's rows
+are written and flushed as the batch completes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def main(argv=None):
+    """Parse ``argv``, run, and return the engine (so a caller in the same
+    process can read what it ran)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config", type=str, required=True,
+                        help="yaml file for configuration")
+    parser.add_argument("-p", "--audio_encoder_checkpoint", type=str, default=None,
+                        help="not ported yet: any value raises")
+    parser.add_argument("-a", "--audio_file", type=str, default=None,
+                        help="audio file (WAV or FLAC) holding the speech prompt")
+    parser.add_argument("--audio_dir", type=str, default=None,
+                        help="bulk mode: every .wav/.flac under this directory, in "
+                        "length-sorted batches of --batch_size, through the pipelined "
+                        "batch stream")
+    parser.add_argument("--output", type=str, default=None,
+                        help="bulk mode: write {file, response} JSONL here (default: stdout)")
+    parser.add_argument("--batch_size", type=int, default=32,
+                        help="bulk mode: utterances per batch")
+    parser.add_argument("--text", type=str, default="",
+                        help="additional text prompt placed before the audio")
+    parser.add_argument("--max_new_tokens", type=int, default=512)
+    parser.add_argument("--repetition_penalty", type=float, default=1.0,
+                        help="damp repeated tokens (greedy repetition loops are a known "
+                        "failure; try 1.2)")
+    parser.add_argument("--speculative_k", type=int, default=0,
+                        help="self-speculative decoding lookahead for the greedy decode "
+                        "(0 = off; the same tokens)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="default: the CUDA card (raises without one); 'cpu' runs the "
+                        "plain PyTorch path")
+    args = parser.parse_args(argv)
+    if (args.audio_file is None) == (args.audio_dir is None):
+        parser.error("exactly one of -a/--audio_file or --audio_dir is required")
+    if args.audio_encoder_checkpoint:
+        raise NotImplementedError(
+            "checkpoint loading is not ported to PyTorch yet (ROADMAP queue A, item 12(a))")
+
+    from ..configs import load_config
+    from ..data.audio_io import load_audio
+    from ..infer.engine import LLMSpeechTextInference
+
+    config = load_config(args.config)
+    if config.model.audio_encoder.downsample_method == "ctc_pool":
+        raise NotImplementedError(
+            "a ctc_pool config needs each clip's pool ranges from a HuBERT-CTC checkpoint "
+            "(--ctc): not ported to PyTorch yet (ROADMAP queue A, item 12(e))")
+    engine = LLMSpeechTextInference(
+        config, device=args.device, repetition_penalty=args.repetition_penalty,
+        speculative_k=args.speculative_k,
+    )
+    if args.audio_dir is not None:
+        _bulk(engine, config, args)
+        return engine
+
+    audio = load_audio(args.audio_file, target_sr=config.audio.sampling_rate)
+    response = engine.generate_audio_response(
+        audio, additional_text_prompt=args.text, max_new_tokens=args.max_new_tokens)
+    print("LLM Response:\n")
+    print(response)
+    return engine
+
+
+def audio_paths(audio_dir: str):
+    """The .wav and .flac files under ``audio_dir``, sorted by size (a
+    stat-only proxy for length: a batch then shares a prompt bucket)."""
+    exts = (".wav", ".flac")
+    paths = sorted(os.path.join(r, f) for r, _, files in os.walk(audio_dir)
+                   for f in files if f.lower().endswith(exts))
+    if not paths:
+        raise SystemExit(f"no {'/'.join(exts)} files under {audio_dir}")
+    return sorted(paths, key=os.path.getsize)
+
+
+def _bulk(engine, config, args):
+    """Directory → JSONL. Audio loads lazily one batch ahead of the decode
+    (host memory holds two batches, not the corpus), and each batch's rows
+    reach the sink, flushed, as the batch completes: a crash at batch N
+    keeps the first N - 1 batches' output."""
+    from ..data.audio_io import load_audio
+
+    paths = audio_paths(args.audio_dir)
+    bs = max(1, args.batch_size)
+    groups = [paths[i:i + bs] for i in range(0, len(paths), bs)]
+
+    def lazy_batches():
+        for g in groups:
+            yield [load_audio(p, target_sr=config.audio.sampling_rate) for p in g]
+
+    sink = open(args.output, "w") if args.output else sys.stdout
+    written = 0
+    try:
+        for g, outs in zip(groups, engine.iter_audio_response_batches(
+                lazy_batches(), additional_text_prompt=args.text,
+                max_new_tokens=args.max_new_tokens)):
+            for path, out in zip(g, outs):
+                sink.write(json.dumps({"file": path, "response": out}) + "\n")
+            sink.flush()
+            written += len(g)
+    finally:
+        if args.output:
+            sink.close()
+    if args.output:
+        print(f"wrote {written} responses to {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -55,7 +55,7 @@ def main(argv=None):
             "item 11)")
     if args.audio_encoder_checkpoint:
         raise NotImplementedError(
-            "checkpoint loading is not ported to PyTorch yet (ROADMAP queue A, item 12)")
+            "checkpoint loading is not ported to PyTorch yet (ROADMAP queue A, item 12(a))")
 
     from ..configs import load_config
     from ..serve.server import serve

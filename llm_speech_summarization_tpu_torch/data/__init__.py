@@ -1,6 +1,7 @@
 """Training data (port of ``data/``): the batch container, collation, the
 synthetic and HF-disk datasets; ``native.py`` binds the host audio
-frontend."""
+frontend, ``flac.py`` decodes FLAC in Python and ``audio_io.py`` loads WAV
+and FLAC files."""
 
 from .batch import Batch
 from .collate import collate_batch, pick_bucket

@@ -14,7 +14,7 @@ Two sources:
 Each example is a plain dict; collation to static-shape arrays happens in
 collate.py. Not ported yet: the raw LibriSpeech readers
 (``load_librispeech_dir``, ``LazyRawView``), which feed the offline
-preprocessing job (ROADMAP queue A, item 12).
+preprocessing job (ROADMAP queue A, item 12(b)).
 """
 
 from __future__ import annotations

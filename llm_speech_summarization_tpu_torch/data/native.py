@@ -1,10 +1,12 @@
-"""ctypes bindings for the native (C++) host audio frontend: the two entry
-points the server's audio decoding needs (a copy of the JAX package's
-``data/native.py`` loader, cut to them).
+"""ctypes bindings for the native (C++) host audio frontend (a copy of the
+JAX package's ``data/native.py``): PCM conversion, resampling, batch
+padding and FLAC decoding, for the server's audio decoding and
+``data/audio_io.py``.
 
 Loads ``native/audio/libaudio_frontend.so`` at the repo root, building it
 with ``make`` on first use when it is missing; each entry point has a
-numpy/scipy version for a machine where the library cannot load.
+numpy/scipy (FLAC: ``data/flac.py``) version for a machine where the
+library cannot load.
 """
 
 from __future__ import annotations
@@ -51,6 +53,23 @@ def _load() -> Optional[ctypes.CDLL]:
                 ctypes.c_int64,
             ]
             lib.resample_sinc.restype = None
+            lib.pad_batch_f32.argtypes = [
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
+            ]
+            lib.pad_batch_f32.restype = None
+            lib.flac_info.argtypes = [
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+            ]
+            lib.flac_info.restype = ctypes.c_int
+            lib.flac_decode_f32_mono.argtypes = [
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+            ]
+            lib.flac_decode_f32_mono.restype = ctypes.c_int64
             _lib = lib
         except (OSError, subprocess.CalledProcessError, AttributeError):
             _lib = None
@@ -97,3 +116,79 @@ def resample(wav: np.ndarray, sr_in: int, sr_out: int, zero_crossings: int = 32)
         n_out,
     )
     return out
+
+
+def native_available() -> bool:
+    return _load() is not None
+
+
+def pad_batch(clips: list, n_out: int) -> tuple:
+    """List of float32 clips → ((B, n_out) float32 right-padded, (B,) int32 lens)."""
+    B = len(clips)
+    lib = _load()
+    clips = [np.ascontiguousarray(c, np.float32) for c in clips]
+    if lib is None:
+        out = np.zeros((B, n_out), np.float32)
+        lens = np.zeros((B,), np.int32)
+        for b, c in enumerate(clips):
+            n = min(len(c), n_out)
+            out[b, :n] = c[:n]
+            lens[b] = n
+        return out, lens
+    out = np.empty((B, n_out), np.float32)
+    lens = np.empty((B,), np.int32)
+    ptrs = (ctypes.POINTER(ctypes.c_float) * B)(
+        *[c.ctypes.data_as(ctypes.POINTER(ctypes.c_float)) for c in clips]
+    )
+    clens = (ctypes.c_int64 * B)(*[len(c) for c in clips])
+    lib.pad_batch_f32(
+        ptrs, clens, B, n_out,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return out, lens
+
+
+def flac_info(data: bytes):
+    """(total_samples, sample_rate, channels, bps) from a FLAC stream."""
+    lib = _load()
+    if lib is None:
+        from .flac import parse_streaminfo
+
+        si = parse_streaminfo(data)
+        return si.total_samples, si.sample_rate, si.channels, si.bps
+    buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
+    total = ctypes.c_int64()
+    sr = ctypes.c_int()
+    ch = ctypes.c_int()
+    bps = ctypes.c_int()
+    rc = lib.flac_info(buf, len(data), ctypes.byref(total), ctypes.byref(sr),
+                       ctypes.byref(ch), ctypes.byref(bps))
+    if rc != 0:
+        raise ValueError("malformed FLAC stream")
+    return total.value, sr.value, ch.value, bps.value
+
+
+def flac_decode(data: bytes) -> tuple:
+    """FLAC bytes → (float32 mono samples, sample_rate): the native decoder,
+    or ``data/flac.py`` where the library cannot load."""
+    lib = _load()
+    if lib is None:
+        from .flac import decode_f32_mono, parse_streaminfo
+
+        si = parse_streaminfo(data)
+        return decode_f32_mono(data), si.sample_rate
+    total, sr, _, _ = flac_info(data)
+    buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
+    if total == 0:
+        # STREAMINFO may omit the length: a sizing pass first
+        total = lib.flac_decode_f32_mono(buf, len(data), None, 0)
+        if total < 0:
+            raise ValueError("malformed FLAC stream")
+    out = np.empty(int(total), np.float32)
+    n = lib.flac_decode_f32_mono(
+        buf, len(data), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(out)
+    )
+    if n < 0:
+        raise ValueError("malformed FLAC stream (frame decode/CRC)")
+    return out[:n], sr

@@ -3,10 +3,12 @@
 
   * ``generate_text_response(_batch)``: templated text prompts;
   * ``generate_audio_response(_batch)``: audio (+ optional text) prompts,
-    HuBERT or Whisper → projector → ``[prefix | mid | suffix]`` splice →
-    decode;
-  * ``generate_audio_response_batches``: a stream of batches, run one after
-    another (the JAX engine's one-deep upload pipeline is later work).
+    HuBERT or Whisper → projector (pool, stack, or ctc_pool over given
+    frame ranges) → ``[prefix | mid | suffix]`` splice → decode;
+  * ``iter_audio_response_batches`` / ``generate_audio_response_batches``:
+    a stream of batches, pipelined one deep: batch i+1's prompt is built
+    on a builder thread (on the card, on a side CUDA stream) while batch i
+    prefills and decodes, with the token streams of per-batch calls.
 
 Decoding is greedy, sampled at the engine's temperature / top-k / top-p,
 sampled per request (``sampling``), or, with ``speculative_k > 0`` and a
@@ -16,15 +18,18 @@ Batches are padded to a power of two rows, audio to 1600-sample (100 ms)
 buckets, prompts to ``BUCKET``-token lengths and ``max_new_tokens`` to
 ``DECODE_BUCKET``, as the JAX engine does; the audio buffer length comes
 from the encoder's frame arithmetic (``audio_embed_buffer_len``), HuBERT's
-or Whisper's, without running it. Not ported yet: meshes (tensor parallel
-serving), checkpoint loading and the ctc_pool projector.
+or Whisper's, without running it, or from the number of ranges. Not ported
+yet: meshes (tensor-parallel serving, ROADMAP queue A item 11) and
+checkpoint loading (item 12(a)).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import Counter
-from typing import List, Optional, Sequence, Union
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -109,7 +114,7 @@ class LLMSpeechTextInference:
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh)", "item 11")
         if config.model.llm_checkpoint or config.model.encoder_checkpoint:
-            raise _not_ported("checkpoint loading", "item 12")
+            raise _not_ported("checkpoint loading", "item 12(a)")
         self.config = config
         self.device = resolve_device(device)
         self.temperature = temperature
@@ -124,8 +129,10 @@ class LLMSpeechTextInference:
         self.cache_dtype = _DTYPES[config.model.kv_cache_dtype or config.model.compute_dtype]
         param_dtype = _DTYPES[config.model.param_dtype]
         # "encoder_forwards", "prefills", "decode_steps", "spec_rounds": what
-        # the engine ran
+        # the engine ran; prompt builders on other threads count under the lock
         self.counts: Counter = Counter()
+        self._counts_lock = threading.Lock()
+        self._side_stream = None  # the pipelined batches' builder stream (cuda)
 
         self.llm_cfg = llm_cfg or llama_preset(config.model.llm_preset or config.model.llm_type)
         if llm_params is None:
@@ -266,10 +273,16 @@ class LLMSpeechTextInference:
                                           sampling)[: len(input_texts)]
 
     def generate_audio_response(
-        self, audio: np.ndarray, additional_text_prompt: str = "", max_new_tokens: int = 256
+        self,
+        audio: np.ndarray,
+        additional_text_prompt: str = "",
+        max_new_tokens: int = 256,
+        ctc_pool_ranges: Optional[np.ndarray] = None,
     ) -> str:
         return self.generate_audio_response_batch(
-            [audio], additional_text_prompt=additional_text_prompt, max_new_tokens=max_new_tokens
+            [audio], additional_text_prompt=additional_text_prompt,
+            max_new_tokens=max_new_tokens,
+            ctc_pool_ranges=None if ctc_pool_ranges is None else [ctc_pool_ranges],
         )[0]
 
     @torch.no_grad()
@@ -278,36 +291,135 @@ class LLMSpeechTextInference:
         audios: Sequence[np.ndarray],
         additional_text_prompt: str = "",
         max_new_tokens: int = 256,
+        ctc_pool_ranges: Optional[Sequence[np.ndarray]] = None,
         sampling=None,
     ) -> List[str]:
         """Audio(+text)-prompted generation, batched over utterances of
-        different lengths."""
+        different lengths; ``ctc_pool_ranges``: one (G_i, 2) array of
+        [start, end) frame ranges per clip, for a ``ctc_pool`` projector."""
         if not audios:
             return []
-        embeds, mask = self.build_audio_prompt_batch(audios, additional_text_prompt)
+        embeds, mask = self.build_audio_prompt_batch(audios, additional_text_prompt,
+                                                     ctc_pool_ranges)
         return self._generate_from_embeds(embeds, mask, max_new_tokens, sampling)[: len(audios)]
 
     def generate_audio_response_batches(
         self,
-        batches: Sequence[Sequence[np.ndarray]],
+        batches: Iterable[Sequence[np.ndarray]],
         additional_text_prompt: str = "",
         max_new_tokens: int = 256,
-        sampling: Optional[Sequence] = None,  # per batch, aligned with batches
+        sampling: Optional[Iterable] = None,  # per batch, aligned with batches
+        ctc_pool_ranges: Optional[Iterable] = None,  # per batch, ditto
     ) -> List[List[str]]:
-        """Bulk audio generation over a stream of batches, one after
-        another."""
-        samplings = list(sampling) if sampling is not None else [None] * len(batches)
-        return [
-            self.generate_audio_response_batch(batch, additional_text_prompt, max_new_tokens, s)
-            for batch, s in zip(batches, samplings)
-        ]
+        """Bulk audio generation over a stream of batches, pipelined one
+        batch deep (``iter_audio_response_batches``): each batch's token
+        streams equal a ``generate_audio_response_batch`` call on it."""
+        return list(self.iter_audio_response_batches(
+            batches, additional_text_prompt=additional_text_prompt,
+            max_new_tokens=max_new_tokens, sampling=sampling, ctc_pool_ranges=ctc_pool_ranges))
+
+    def iter_audio_response_batches(
+        self,
+        batches: Iterable[Sequence[np.ndarray]],
+        additional_text_prompt: str = "",
+        max_new_tokens: int = 256,
+        sampling: Optional[Iterable] = None,  # per batch, aligned with batches
+        ctc_pool_ranges: Optional[Iterable] = None,  # per batch, ditto
+    ) -> Iterator[List[str]]:
+        """Yield each batch's responses as it completes. While batch i
+        prefills and decodes, a builder thread builds batch i+1's prompt
+        (padding, float16 rounding, pinned copy and upload, encoder,
+        splice); on the card it does so on a side CUDA stream, and the
+        decode's stream waits on an event recorded after the splice. At most
+        two batches of audio are held (the one decoding and the one being
+        built), so ``batches`` may be a lazy generator over a corpus. The
+        per-batch ``sampling`` and ``ctc_pool_ranges`` iterators are drawn
+        in step with ``batches``; one that runs short raises ValueError."""
+        samp_it = iter(sampling) if sampling is not None else None
+        ranges_it = iter(ctc_pool_ranges) if ctc_pool_ranges is not None else None
+        cuda = self.device.type == "cuda"
+        if cuda and self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(device=self.device)
+
+        def staged(batch, after):
+            """(batch length, sampling, embeds, mask, ready event) for one
+            batch, on the builder thread; on the card the side stream first
+            waits for ``after``, the main stream's work enqueued before the
+            build was submitted (the parameters' writes among it)."""
+            try:
+                s = next(samp_it) if samp_it is not None else None
+                r = next(ranges_it) if ranges_it is not None else None
+            except StopIteration:
+                raise ValueError("sampling / ctc_pool_ranges ran out before batches did "
+                                 "(they must align per batch)") from None
+            if not cuda:
+                return (len(batch), s, *self.build_audio_prompt_batch(
+                    batch, additional_text_prompt, ctc_pool_ranges=r), None)
+            self._side_stream.wait_event(after)
+            with torch.cuda.stream(self._side_stream):
+                embeds, mask = self.build_audio_prompt_batch(batch, additional_text_prompt,
+                                                             ctc_pool_ranges=r)
+                ready = torch.cuda.Event()
+                ready.record(self._side_stream)
+            return len(batch), s, embeds, mask, ready
+
+        def submit(ex, batch):
+            after = None
+            if cuda:
+                after = torch.cuda.Event()
+                after.record(torch.cuda.current_stream(self.device))
+            return ex.submit(staged, batch, after)
+
+        it = iter(batches)
+        end = object()
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            nxt = next(it, end)
+            if nxt is end:
+                return
+            fut = submit(ex, nxt)
+            while True:
+                n_real, s, embeds, mask, ready = fut.result()
+                if ready is not None:
+                    main = torch.cuda.current_stream(self.device)
+                    main.wait_event(ready)
+                    # made on the side stream, read and freed on this one
+                    embeds.record_stream(main)
+                    mask.record_stream(main)
+                nxt = next(it, end)
+                if nxt is not end:
+                    fut = submit(ex, nxt)
+                with torch.no_grad():
+                    out = self._generate_from_embeds(embeds, mask, max_new_tokens, s)[:n_real]
+                del embeds, mask
+                yield out
+                if nxt is end:
+                    return
+
+    def _upload_wav(self, wav: np.ndarray) -> torch.Tensor:
+        """The padded (B, N) float32 waveforms on the device in the compute
+        dtype. A batch of ``2 * UPLOAD_CHUNKS`` rows or more is rounded
+        through float16 first, as the JAX engine uploads it (with or without
+        ranges); on the card the host copy is pinned and the upload does not
+        block the host."""
+        if wav.shape[0] >= 2 * UPLOAD_CHUNKS:
+            wav = wav.astype(np.float16)
+        host = torch.from_numpy(wav)
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True).to(self.dtype)
+        return host.to(self.device).to(self.dtype)
 
     @torch.no_grad()
     def build_audio_prompt_batch(
-        self, audios: Sequence[np.ndarray], additional_text_prompt: str = ""
+        self,
+        audios: Sequence[np.ndarray],
+        additional_text_prompt: str = "",
+        ctc_pool_ranges: Optional[Sequence[np.ndarray]] = None,
     ):
         """Audio(+text) prompts → spliced left-padded (B, L, D) embeds +
-        mask, B power-of-two padded, L bucket-rounded."""
+        mask, B power-of-two padded, L bucket-rounded. A ``ctc_pool``
+        projector needs ``ctc_pool_ranges`` (one (G_i, 2) array per clip,
+        zero-padded to the longest; padded rows get none, so no valid
+        embedding); other projectors ignore them."""
         n_real = len(audios)
         B = _pad_batch(n_real)
         audios = list(audios) + [audios[0]] * (B - n_real)
@@ -318,6 +430,17 @@ class LLMSpeechTextInference:
             wav[b, : len(a)] = a
 
         dev = self.device
+        ranges = None
+        if self.encoder_setup.downsample_method == "ctc_pool":
+            if ctc_pool_ranges is None:
+                raise ValueError("the ctc_pool projector needs ctc_pool_ranges")
+            G = max(np.asarray(r).reshape(-1, 2).shape[0] for r in ctc_pool_ranges)
+            ranges_np = np.zeros((B, G, 2), np.int32)
+            for b, r in enumerate(ctc_pool_ranges):
+                r = np.asarray(r, np.int32).reshape(-1, 2)
+                ranges_np[b, : r.shape[0]] = r
+            ranges = torch.from_numpy(ranges_np).to(dev)
+
         if additional_text_prompt:
             # BOS-stripped, placed BEFORE the audio (reference: inference.py:113-122)
             txt_row = self.tokenizer.encode(additional_text_prompt, add_bos=False)
@@ -326,16 +449,16 @@ class LLMSpeechTextInference:
             txt_ids = torch.zeros((B, 0), dtype=torch.int32, device=dev)
         txt_lens = torch.full((B,), txt_ids.shape[1], dtype=torch.int32, device=dev)
 
-        M = audio_embed_buffer_len(self.encoder_setup, N)
+        M = audio_embed_buffer_len(self.encoder_setup, N,
+                                   None if ranges is None else ranges.shape[1])
         P, S = self.prefix_ids.shape[0], self.suffix_ids.shape[0]
         total_len = _round_up(P + M + txt_ids.shape[1] + S, BUCKET)
 
-        if B >= 2 * UPLOAD_CHUNKS:
-            wav = wav.astype(np.float16)
-        wav_t = torch.from_numpy(wav).to(dev).to(self.dtype)
+        wav_t = self._upload_wav(wav)
         lens_t = torch.from_numpy(lens).to(dev)
         audio_embeds, emb_lens = audio_encoder_forward(
-            self.audio_encoder_params, self.encoder_setup, wav_t, lens_t
+            self.audio_encoder_params, self.encoder_setup, wav_t, lens_t, ctc_pool_ranges=ranges
         )
-        self.counts["encoder_forwards"] += 1
+        with self._counts_lock:
+            self.counts["encoder_forwards"] += 1
         return self._splice(audio_embeds, emb_lens, txt_ids, txt_lens, total_len)

@@ -2,11 +2,11 @@
 embedding space (port of ``models/audio_encoder.py``).
 
 HuBERT or Whisper-encoder frames are downsampled ("pool": AvgPool1d(8, 4);
-"stack": concat ``factor`` frames) and projected by one Linear to
+"stack": concat ``factor`` frames; "ctc_pool": the mean over given (start,
+end) frame ranges from CTC word offsets) and projected by one Linear to
 ``llm_embedding_channels``. Whisper sees a log-mel spectrogram cut or
 padded to its 30 s budget, or with ``whisper_dynamic_frames`` sized to the
-(bucketed) input and capped at that budget. Not ported yet: the
-``ctc_pool`` projector (ROADMAP queue A item 4's ``ctc_segment_mean``).
+(bucketed) input and capped at that budget.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from ..configs import Config
-from ..ops.pooling import avg_pool_time, stack_downsample
+from ..ops.pooling import avg_pool_time, ctc_segment_mean, stack_downsample
 from ..parallel.comm import group_size
 from .hubert import HubertConfig, hubert_forward, hubert_frame_count, hubert_preset, init_hubert_params
 from .whisper import (
@@ -39,7 +39,7 @@ class AudioEncoderParams:
     config type says which base it is."""
 
     encoder_cfg: Union[HubertConfig, WhisperConfig]
-    downsample_method: str  # "pool" | "stack"
+    downsample_method: str  # "pool" | "stack" | "ctc_pool"
     downsample_factor: int
     pool_kernel: int
     pool_stride: int
@@ -52,10 +52,6 @@ class AudioEncoderParams:
         return "whisper" if isinstance(self.encoder_cfg, WhisperConfig) else "hubert"
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP queue A, {item})")
-
-
 def encoder_setup_from_config(cfg: Config) -> AudioEncoderParams:
     ae = cfg.model.audio_encoder
     preset_name = ae.preset or ae.type
@@ -65,9 +61,7 @@ def encoder_setup_from_config(cfg: Config) -> AudioEncoderParams:
         enc_cfg = whisper_preset(preset_name)
     else:
         raise ValueError(f"unexpected encoder base '{ae.base}'")
-    if ae.downsample_method == "ctc_pool":
-        raise _not_ported("the ctc_pool projector", "item 4 (ctc_segment_mean)")
-    if ae.downsample_method not in ("pool", "stack"):
+    if ae.downsample_method not in ("pool", "stack", "ctc_pool"):
         raise ValueError(f"invalid downsampling method '{ae.downsample_method}'")
     return AudioEncoderParams(
         encoder_cfg=enc_cfg,
@@ -109,9 +103,15 @@ def audio_embed_lengths(setup: AudioEncoderParams, audio_len_samples: torch.Tens
     return torch.clamp(num_frames // setup.downsample_factor - 1, min=0).to(torch.int32)
 
 
-def audio_embed_buffer_len(setup: AudioEncoderParams, num_samples: int) -> int:
+def audio_embed_buffer_len(setup: AudioEncoderParams, num_samples: int,
+                           num_ranges: Optional[int] = None) -> int:
     """Length M of the right-padded embedding buffer for N samples, from
-    the frame arithmetic alone (no encoder run)."""
+    the frame arithmetic alone (no encoder run); for ``ctc_pool`` the
+    number of ranges G a row of ``ctc_pool_ranges`` holds."""
+    if setup.downsample_method == "ctc_pool":
+        if num_ranges is None:
+            raise ValueError("the ctc_pool buffer is as long as the ranges: pass num_ranges")
+        return num_ranges
     if setup.base == "whisper":
         T = whisper_frame_count(mel_frame_budget(setup.encoder_cfg, num_samples,
                                                  setup.whisper_dynamic_frames))
@@ -135,17 +135,23 @@ def audio_encoder_forward(
     setup: AudioEncoderParams,
     wav: torch.Tensor,
     wav_lens: Optional[torch.Tensor] = None,
+    ctc_pool_ranges: Optional[torch.Tensor] = None,
     remat: bool = False,
     sp_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """waveform (B, N) [+ per-sample lengths] → (embeds (B, M, E),
     emb_lens (B,)), the buffer right-padded and ``emb_lens`` clipped to it
-    (a clip longer than Whisper's 30 s budget is cut). ``remat`` recomputes
+    (a clip longer than Whisper's 30 s budget is cut). For ``ctc_pool``,
+    ``ctc_pool_ranges`` (B, G, 2) selects the frame ranges: M = G and
+    ``emb_lens`` counts the valid ranges (the splice takes that many from
+    the left, as the JAX package does). ``remat`` recomputes
     each encoder layer in the backward. ``sp_group``: long-audio sequence
     parallelism, the HuBERT frames sharded over the group's ranks
     (``models/hubert.py``); pooling and the projector run on the gathered
     frames, the same on every rank."""
     B, N = wav.shape
+    if setup.downsample_method == "ctc_pool" and ctc_pool_ranges is None:
+        raise ValueError("Need to specify CTC pool ranges if using ctc_pool downsample method.")
     if wav_lens is None:
         wav_lens = torch.full((B,), N, dtype=torch.int32, device=wav.device)
     wav_mask = torch.arange(N, device=wav.device)[None, :] < wav_lens[:, None]
@@ -169,8 +175,12 @@ def audio_encoder_forward(
                                    remat=remat, sp_group=sp_group)
     if setup.downsample_method == "pool":
         pooled = avg_pool_time(frames, setup.pool_kernel, setup.pool_stride)
-    else:
+        emb_lens = audio_embed_lengths(setup, wav_lens)
+    elif setup.downsample_method == "stack":
         pooled = stack_downsample(frames, setup.downsample_factor)
-    emb_lens = audio_embed_lengths(setup, wav_lens)
+        emb_lens = audio_embed_lengths(setup, wav_lens)
+    else:
+        pooled, valid = ctc_segment_mean(frames, ctc_pool_ranges)
+        emb_lens = valid.to(torch.int32).sum(dim=1)
     embeds = pooled @ params["proj_w"] + params["proj_b"]
-    return embeds, torch.clamp(emb_lens, 0, embeds.shape[1])
+    return embeds, torch.clamp(emb_lens, 0, embeds.shape[1]).to(torch.int32)

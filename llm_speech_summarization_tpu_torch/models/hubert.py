@@ -17,11 +17,14 @@ ends receive zeros, the global zero padding), and self-attention is the
 bidirectional ``ring_attention`` (kernel B7 per block on the card). The
 frames come back gathered on every rank, equal to the unsharded forward's
 on valid frames. It needs the layer-normed stem and pre-LN blocks, which
-are per-frame (hubert-base's group norm takes moments over all frames).
+are per-frame: hubert-base's group norm takes moments over all frames, so
+its variant raises there, as in the JAX package.
 
-Ported: the hubert-large architecture (layer-normed conv stem with bias,
-pre-LN "stable" blocks) and a tiny preset of it for tests. Not ported yet:
-hubert-base's group-norm stem and post-LN blocks (ROADMAP queue A item 4).
+Both HF variants: hubert-large (layer-normed conv stem with bias, pre-LN
+"stable" blocks, the encoder LayerNorm after them) and hubert-base (no conv
+bias, a group norm with groups = channels on the first conv layer only,
+the encoder LayerNorm before the post-LN blocks), and a tiny preset of
+the large one for tests.
 """
 
 from __future__ import annotations
@@ -46,17 +49,29 @@ class HubertConfig:
     conv_dims: Tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
     conv_kernels: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
     conv_strides: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = True
+    feat_extract_norm: str = "layer"  # "layer" (large) | "group" (base)
     hidden_size: int = 1024
     num_layers: int = 24
     num_heads: int = 16
     intermediate_size: int = 4096
     layer_norm_eps: float = 1e-5
+    do_stable_layer_norm: bool = True  # pre-LN (large) | post-LN (base)
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
 
 
 _PRESETS = {
     "hubert_large": HubertConfig(),
+    "hubert_base": HubertConfig(
+        conv_bias=False,
+        feat_extract_norm="group",
+        hidden_size=768,
+        num_layers=12,
+        num_heads=12,
+        intermediate_size=3072,
+        do_stable_layer_norm=False,
+    ),
     "tiny": HubertConfig(
         conv_dims=(32, 32, 32, 32),
         conv_kernels=(10, 8, 4, 4),
@@ -72,7 +87,10 @@ _PRESETS = {
 
 
 def hubert_preset(name: str) -> HubertConfig:
-    aliases = {"facebook/hubert-large-ls960-ft": "hubert_large"}
+    aliases = {
+        "facebook/hubert-large-ls960-ft": "hubert_large",
+        "facebook/hubert-base-ls960": "hubert_base",
+    }
     key = aliases.get(name, name)
     if key not in _PRESETS:
         raise KeyError(f"unknown hubert preset '{name}' (have {sorted(_PRESETS)})")
@@ -102,7 +120,10 @@ def init_hubert_params(
     generator: torch.Generator, cfg: HubertConfig, dtype=torch.bfloat16, device=None
 ) -> Params:
     """Random init with the JAX package's distributions: normal(0.02)
-    weights, ones for norm scales, zeros for biases."""
+    weights, ones for norm scales, zeros for biases; the conv layers carry
+    the JAX tree's keys (``b`` with a conv bias, ``ln_*`` on every layer of
+    the layer-normed stem, ``gn_*`` on the first layer of the group-normed
+    one)."""
     D, Fi, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
 
     def normal(shape):
@@ -117,13 +138,17 @@ def init_hubert_params(
 
     conv_layers = []
     in_dim = 1
-    for dim, k in zip(cfg.conv_dims, cfg.conv_kernels):
-        conv_layers.append({
-            "w": normal((dim, in_dim, k)),  # torch (out, in, k) layout
-            "b": zeros((dim,)),
-            "ln_scale": ones((dim,)),
-            "ln_bias": zeros((dim,)),
-        })
+    for i, (dim, k) in enumerate(zip(cfg.conv_dims, cfg.conv_kernels)):
+        layer = {"w": normal((dim, in_dim, k))}  # torch (out, in, k) layout
+        if cfg.conv_bias:
+            layer["b"] = zeros((dim,))
+        if cfg.feat_extract_norm == "layer":
+            layer["ln_scale"] = ones((dim,))
+            layer["ln_bias"] = zeros((dim,))
+        elif i == 0:
+            layer["gn_scale"] = ones((dim,))
+            layer["gn_bias"] = zeros((dim,))
+        conv_layers.append(layer)
         in_dim = dim
 
     return {
@@ -163,10 +188,19 @@ def _feature_extractor(params: Params, cfg: HubertConfig, wav: torch.Tensor) -> 
     x = wav[:, None, :]
     for i, layer in enumerate(params["conv_layers"]):
         x = F.conv1d(x, layer["w"].to(x.dtype), stride=cfg.conv_strides[i])
-        x = x + layer["b"][None, :, None]
-        # layer norm over channels
-        x = layer_norm(x.transpose(1, 2), layer["ln_scale"], layer["ln_bias"],
-                       cfg.layer_norm_eps).transpose(1, 2)
+        if "b" in layer:
+            x = x + layer["b"][None, :, None]
+        if "ln_scale" in layer:  # layer norm over channels
+            x = layer_norm(x.transpose(1, 2), layer["ln_scale"], layer["ln_bias"],
+                           cfg.layer_norm_eps).transpose(1, 2)
+        elif "gn_scale" in layer:
+            # group norm, groups == channels: each channel over all T frames
+            # of the buffer, pad frames included (HF and the JAX package),
+            # float32 moments
+            xf = x.float()
+            var, mean = torch.var_mean(xf, dim=2, keepdim=True, correction=0)
+            xf = (xf - mean) * torch.rsqrt(var + cfg.layer_norm_eps)
+            x = xf.to(x.dtype) * layer["gn_scale"][None, :, None] + layer["gn_bias"][None, :, None]
         x = F.gelu(x)
     return x.transpose(1, 2)
 
@@ -221,22 +255,33 @@ def _pos_conv_sp(params, cfg, h, group):
 
 
 def _blocks(params, cfg, h, remat, attention):
-    """The transformer blocks (pre-LN) with ``attention(q, k, v)``."""
+    """The transformer blocks with ``attention(q, k, v)`` and the encoder
+    LayerNorm: pre-LN blocks then the norm (large), or the norm then
+    post-LN blocks (base)."""
     B, T, _ = h.shape
     Hh = cfg.num_heads
     Dh = cfg.hidden_size // Hh
 
+    pre_ln = cfg.do_stable_layer_norm
+    eps = cfg.layer_norm_eps
+
     def attn_ffn(h, lp):
-        a_in = layer_norm(h, lp["ln1_scale"], lp["ln1_bias"], cfg.layer_norm_eps)
+        a_in = layer_norm(h, lp["ln1_scale"], lp["ln1_bias"], eps) if pre_ln else h
         q = (a_in @ lp["wq"] + lp["bq"]).reshape(B, T, Hh, Dh)
         k = (a_in @ lp["wk"] + lp["bk"]).reshape(B, T, Hh, Dh)
         v = (a_in @ lp["wv"] + lp["bv"]).reshape(B, T, Hh, Dh)
         a = attention(q, k, v)
         h = h + (a.reshape(B, T, cfg.hidden_size) @ lp["wo"] + lp["bo"])
-        f_in = layer_norm(h, lp["ln2_scale"], lp["ln2_bias"], cfg.layer_norm_eps)
+        if pre_ln:
+            f_in = layer_norm(h, lp["ln2_scale"], lp["ln2_bias"], eps)
+        else:
+            h = f_in = layer_norm(h, lp["ln1_scale"], lp["ln1_bias"], eps)
         f = F.gelu(f_in @ lp["w1"] + lp["b1"])
-        return h + (f @ lp["w2"] + lp["b2"])
+        h = h + (f @ lp["w2"] + lp["b2"])
+        return h if pre_ln else layer_norm(h, lp["ln2_scale"], lp["ln2_bias"], eps)
 
+    if not pre_ln:
+        h = layer_norm(h, params["encoder_ln_scale"], params["encoder_ln_bias"], eps)
     layers = params["layers"]
     for i in range(cfg.num_layers):
         lp = {name: w[i] for name, w in layers.items()}
@@ -244,7 +289,9 @@ def _blocks(params, cfg, h, remat, attention):
             h = checkpoint(attn_ffn, h, lp, use_reentrant=False)
         else:
             h = attn_ffn(h, lp)
-    return layer_norm(h, params["encoder_ln_scale"], params["encoder_ln_bias"], cfg.layer_norm_eps)
+    if not pre_ln:
+        return h
+    return layer_norm(h, params["encoder_ln_scale"], params["encoder_ln_bias"], eps)
 
 
 def _hubert_forward_sp(params, cfg, wav, wav_mask, remat, group):
@@ -254,6 +301,10 @@ def _hubert_forward_sp(params, cfg, wav, wav_mask, remat, group):
     over the ranks, whose downstreams differ) and cut to the unsharded
     frame count: the last shard's overhang frame only keeps the shards
     equal, and is masked."""
+    if cfg.feat_extract_norm != "layer" or not cfg.do_stable_layer_norm:
+        raise ValueError("encoder sequence parallelism needs the layer-normed conv stem and "
+                         "pre-LN blocks (hubert-large): hubert-base's group norm takes its "
+                         "moments over all frames of the buffer, which no shard holds")
     B, N = wav.shape
     n, r = group_size(group), group_rank(group)
     _, S = conv_receptive_field(cfg)

@@ -1,7 +1,6 @@
-"""Audio-embedding downsampling (port of ``ops/pooling.py``).
-
-``ctc_segment_mean`` is not ported yet (ROADMAP queue A, item 4).
-"""
+"""Audio-embedding downsampling (port of ``ops/pooling.py``): the
+projector's average pool, frame stacking and the mean over CTC word
+ranges."""
 
 from __future__ import annotations
 
@@ -27,3 +26,29 @@ def stack_downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
     B, N, D = x.shape
     n_keep = (N // factor) * factor
     return x[:, :n_keep, :].reshape(B, N // factor, factor * D)
+
+
+def ctc_segment_mean(
+    x: torch.Tensor, pool_ranges: torch.Tensor, range_valid: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean of the frames over per-sample ``[start, end)`` ranges.
+
+    x: (B, N, D) frames; pool_ranges: (B, G, 2) integer ranges, right-padded;
+    range_valid: (B, G) bool, by default ``end > start``. A range is real
+    only if it also starts inside the frames (``start < N``): ranges drawn on
+    a whole clip may pass the end of a clipped buffer. Returns ``(pooled (B,
+    G, D), valid (B, G))``, zeros at invalid and empty ranges. The dense
+    (B, G, N) membership weights (1 / count in x's dtype) are contracted
+    with the frames in float32, as the JAX package's one einsum does.
+    """
+    B, N, _ = x.shape
+    starts, ends = pool_ranges[..., 0], pool_ranges[..., 1]
+    if range_valid is None:
+        range_valid = ends > starts
+    range_valid = range_valid & (starts < N)
+    t = torch.arange(N, device=x.device)
+    member = (t >= starts[..., None]) & (t < ends[..., None]) & range_valid[..., None]
+    counts = member.sum(dim=-1).clamp(min=1)
+    weights = member.to(x.dtype) / counts[..., None].to(x.dtype)
+    pooled = torch.matmul(weights.float(), x.float())
+    return pooled.to(x.dtype), range_valid

@@ -84,7 +84,8 @@ def _forward_losses(
     table, table_scale = _embed_table(llm_params, compute_dtype)
 
     audio_embeds, emb_lens = audio_encoder_forward(
-        enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens, remat=remat,
+        enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens,
+        ctc_pool_ranges=batch.ctc_pool_ranges, remat=remat,
         sp_group=group if tcfg.encoder_sp else None)
     student = splice_sequences(
         table, prefix_ids, suffix_ids, audio_embeds, emb_lens,
@@ -218,6 +219,7 @@ def make_eval_step(
         table, table_scale = _embed_table(llm_params, compute_dtype)
         audio_embeds, emb_lens = audio_encoder_forward(
             enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens,
+            ctc_pool_ranges=batch.ctc_pool_ranges,
             sp_group=group if cfg.train.encoder_sp else None)
         common = dict(total_len=total_len, table_scale=table_scale)
         student = splice_sequences(table, prefix_ids, suffix_ids, audio_embeds, emb_lens,

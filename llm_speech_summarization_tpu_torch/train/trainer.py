@@ -20,8 +20,9 @@ barrier follows each save, and every rank resumes from the checkpoint rank 0
 picked), and validate() runs the sharded eval step on every rank while rank
 0 alone samples generations through the unsharded engine. Data and tensor
 parallelism (``mesh.data`` or ``mesh.model`` > 1) raise in ``make_mesh``
-(ROADMAP queue A, item 11), and ``ctc_pool`` raises in the encoder setup
-(item 4).
+(ROADMAP queue A, item 11). A ``ctc_pool`` projector takes each example's
+``pool_ranges_4`` (collated to a fixed ``max_pool_ranges`` per run, which
+is then the audio buffer's length in the splice).
 """
 
 from __future__ import annotations
@@ -69,12 +70,21 @@ def _check_parallel(cfg: Config, mesh: Mesh) -> None:
             "item 11)")
 
 
+def max_pool_ranges(config: Config, enc_setup) -> Optional[int]:
+    """The ranges a ``ctc_pool`` batch holds per row (None for the other
+    projectors): the 4-frame ranges of the largest audio bucket, plus 8,
+    as the JAX trainer collates them."""
+    if enc_setup.downsample_method != "ctc_pool":
+        return None
+    return max(config.train.buckets.audio_samples) // 320 // 4 + 8
+
+
 def spliced_length(config: Config, enc_setup, n_prefix: int, n_suffix: int,
                    audio_bucket: int) -> int:
     """The one length of the student and teacher sequences for an audio
     bucket: prefix + max(audio embeds, text cap) + suffix + response cap,
     rounded up to 128."""
-    M = audio_embed_buffer_len(enc_setup, audio_bucket)
+    M = audio_embed_buffer_len(enc_setup, audio_bucket, max_pool_ranges(config, enc_setup))
     R = config.train.buckets.max_response_tokens
     T = config.train.buckets.max_text_tokens
     return ((n_prefix + max(M, T) + n_suffix + R + 127) // 128) * 128
@@ -122,7 +132,7 @@ class Trainer:
         if config.model.llm_checkpoint or config.model.encoder_checkpoint:
             raise NotImplementedError(
                 "loading converted weights is not ported to PyTorch yet (ROADMAP queue A, "
-                "item 12)")
+                "item 12(a))")
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.llm_params = init_llama_params(gen, self.llm_cfg, dtype=param_dtype,
                                             device=self.device)
@@ -223,6 +233,7 @@ class Trainer:
         if shuffle:
             np.random.RandomState(seed).shuffle(idx)
         bcfg = self.config.train.buckets
+        n_ranges = max_pool_ranges(self.config, self.enc_setup)
 
         def make(i):
             return collate_batch(
@@ -230,6 +241,7 @@ class Trainer:
                 audio_buckets=bcfg.audio_samples,
                 max_text_tokens=bcfg.max_text_tokens,
                 max_response_tokens=bcfg.max_response_tokens,
+                max_pool_ranges=n_ranges,
             )
 
         starts = list(range(0, len(idx), batch_size))[skip:]
@@ -351,12 +363,14 @@ class Trainer:
                     encoder_cfg=self.enc_setup.encoder_cfg, device=self.device)
             engine = self._val_engine
             engine.audio_encoder_params = self.state.enc_params
+            use_ctc = self.enc_setup.downsample_method == "ctc_pool"
             prompts, audio_resps, text_resps, audios = [], [], [], []
             for i in range(min(n_gen, len(self.val_ds))):
                 ex = self.val_ds[i]
                 max_new = min(2 * max(len(ex["text_input_ids"]), 8), 128)
-                audio_resps.append(engine.generate_audio_response(ex["audio"],
-                                                                  max_new_tokens=max_new))
+                ranges = np.asarray(ex["pool_ranges_4"], np.int32) if use_ctc else None
+                audio_resps.append(engine.generate_audio_response(
+                    ex["audio"], max_new_tokens=max_new, ctc_pool_ranges=ranges))
                 text_resps.append(engine.generate_text_response(ex["text"],
                                                                 max_new_tokens=max_new))
                 prompts.append(ex["text"])

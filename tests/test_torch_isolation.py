@@ -1,6 +1,6 @@
 """The port stands alone: a fresh interpreter imports every module of it
-(the training slice, ``cli.train``, ring attention and ``parallel/`` among
-them), builds a CPU engine and server and answers a request, and takes a
+(the training slice, ``cli.train``, ring attention, ``parallel/``, the
+inference CLI and the audio loaders among them), builds a CPU engine and server and answers a request, and takes a
 training step through the ``Trainer``, without jax or any module of the
 JAX package being loaded; and the port's copy of the config loader reads
 every shipped YAML exactly as the JAX package's does."""
@@ -68,7 +68,8 @@ def test_port_runs_without_the_jax_package():
     pkg = "llm_speech_summarization_tpu_torch."
     for name in ("train.trainer", "train.step", "train.state", "train.checkpoint", "cli.train",
                  "ops.losses", "data.datasets", "data.collate", "obs.writer",
-                 "ops.ring_attention", "parallel.mesh", "parallel.comm"):
+                 "ops.ring_attention", "parallel.mesh", "parallel.comm", "cli.infer",
+                 "data.audio_io", "data.flac", "data.native", "ops.pooling"):
         assert pkg + name in out["names"], name
 
 

@@ -65,6 +65,12 @@ FLASH_CASES = {
     # bidirectional, right pads [0, n_valid), Dh=64
     "bidir_rightpad_dh64": (dict(B=3, T=48, Hq=4, Hkv=4, Dh=64,
                                  starts=[0] * 3, ends=[48, 30, 1]), False),
+    # MiniChat's prefill: causal MHA (every head its own KV head), Dh=128
+    "causal_leftpad_mha_dh128": (dict(B=3, T=64, Hq=3, Hkv=3, Dh=128,
+                                      starts=[0, 63, 17], ends=[64] * 3), True),
+    # HuBERT-base's self-attention: 12/12 heads at Dh=64, cut to 3/3
+    "bidir_rightpad_base_dh64": (dict(B=3, T=80, Hq=3, Hkv=3, Dh=64,
+                                      starts=[0] * 3, ends=[80, 41, 1]), False),
 }
 
 
@@ -212,7 +218,19 @@ def _fused_case(seed, T, L=2, B=4, Hq=6, Hkv=2, S=64, Dh=128):
 @pytest.mark.parametrize("layer", [0, 1])
 @pytest.mark.parametrize("T", [1, 3])
 def test_fused_plain_matches_jax_interpret(T, layer):
-    q, kc, vc, ks, vs, kn, vn, pads, offs = _fused_case(T, T)
+    _fused_matches_jax_interpret(T, layer)
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("T", [1, 3])
+def test_fused_plain_mha_matches_jax_interpret(T, layer):
+    """MiniChat's layout: every query head its own KV head (one query row
+    per KV head at T=1)."""
+    _fused_matches_jax_interpret(T, layer, Hq=6, Hkv=6)
+
+
+def _fused_matches_jax_interpret(T, layer, **heads):
+    q, kc, vc, ks, vs, kn, vn, pads, offs = _fused_case(T, T, **heads)
     S = kc.shape[3]
     Spad = _pad128(S)
     pad_s = lambda a: jnp.zeros(a.shape[:-1] + (Spad,), jnp.bfloat16).at[..., :S].set(a)  # noqa: E731
@@ -349,7 +367,18 @@ def test_flash_kernel_matches_plain_on_card(card, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 3])
 def test_fused_kernel_matches_plain_on_card(card, T):
-    q, kc, vc, ks, vs, kn, vn, pads, offs = _fused_case(2, T)
+    _fused_kernel_on_card(card, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 3])
+def test_fused_kernel_mha_matches_plain_on_card(card, T):
+    """MiniChat's 24 KV heads, one query row per KV head at T=1."""
+    _fused_kernel_on_card(card, T, Hq=24, Hkv=24)
+
+
+def _fused_kernel_on_card(card, T, **heads):
+    q, kc, vc, ks, vs, kn, vn, pads, offs = _fused_case(2, T, **heads)
     to = lambda a: tensor_from_numpy(a).to(card)  # noqa: E731
     bufs_k = [to(a) for a in (kc, vc, ks, vs)]
     bufs_p = [b.clone() for b in bufs_k]

@@ -248,9 +248,21 @@ def test_per_row_decode_offsets_need_a_host_bound():
 
 @pytest.mark.parametrize("base,method", [("hubert", "ctc_pool")])
 def test_unported_encoders_raise(base, method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tae.encoder_setup_from_config(_tiny_config(port=True, base=base,
-                                                   downsample_method=method))
+    """The ctc_pool projector builds and runs (it raised before it was
+    ported); what the port still refuses here is hubert-base under encoder
+    sequence parallelism, whose group norm spans every shard, as the JAX
+    package refuses it."""
+    setup = tae.encoder_setup_from_config(_tiny_config(port=True, base=base,
+                                                       downsample_method=method))
+    assert setup.downsample_method == method
+    p = tae.init_audio_encoder(torch.Generator().manual_seed(0), setup, dtype=torch.float32)
+    ranges = torch.tensor([[[0, 4], [4, 8], [8, 8]]], dtype=torch.int32)
+    emb, lens = tae.audio_encoder_forward(p, setup, torch.zeros((1, 8000)),
+                                          ctc_pool_ranges=ranges)
+    assert emb.shape[:2] == (1, 3) and lens.tolist() == [2]
+    base_cfg = thub.hubert_preset("facebook/hubert-base-ls960")
+    with pytest.raises(ValueError, match="group norm"):
+        thub._hubert_forward_sp({}, base_cfg, torch.zeros((1, 3200)), None, False, None)
 
 
 def test_dequantize_kv_matches_jax():
