@@ -67,7 +67,24 @@ Phases, in order; each prints one line and any failure raises:
  13. the full-width trainer (``Trainer(...).train()`` on synthetic data): a
      few KD steps and the closing ``validate()``, then a second trainer
      that resumes from its checkpoint and takes one more step, and one
-     profiled step for the device-busy share;
+     profiled step for the device-busy share; its encoder is exported;
+ 13a. convert_full: Llama-3.2-3B (bf16, two shards), HuBERT-large and
+     HuBERT-large CTC drawn at published widths under their HF names,
+     written as safetensors and converted by ``cli/convert.py``; an engine
+     loading the files (``model.llm_checkpoint``, ``model.encoder_checkpoint``)
+     runs B=8 x 10 s, its token rows equal to an engine handed the same
+     trees in memory;
+ 13b. preprocess_full: ``iter_preprocess_examples`` over 32 synthetic 6-10 s
+     examples and one 21 s clip (filtered) on the converted engine and CTC
+     model; one clip's CTC ids against the plain attention, margin-aware;
+ 13c. eval_full: ``evaluate_engine`` over 16 synthetic examples with the
+     full-width ``LlamaEmbedder``;
+ 13d. ckpt_full: ``cli/infer.py -p`` with 13's exported encoder over the
+     bulk clips, equal to an engine handed the same tree, then
+     ``cli/infer.py --ctc`` on BASELINE config #1 over 8 clips;
+ 13e. train_whisper_full: ``llama3_whisper.yaml`` KD training (int8 LLM,
+     B=16, 500 encoder frames): steps, validate, resume, a profiled step,
+     and one step held to the same step with the plain attention;
  14. the long-audio trainer (``llama3_hubert_long.yaml``, published widths
      and depth, 118-120 s synthetic clips) on a sequence-parallel ring of
      two ranks sharing the card over gloo, launched by
@@ -1941,18 +1958,21 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def phase_train_full(torch, card):
+def phase_train_full(torch, card, export_to):
     """The full-width ``llama3_hubert.yaml`` trainer on synthetic data: a
     few optimizer steps and the closing validate() (eval perplexity, two
     sampled generations, a checkpoint) into a temporary directory; then a
     second Trainer resumes from that checkpoint and takes one more step
     (and validates). Launch counts are checked for both runs; then one
-    profiled step of the resumed trainer gives the device-busy share."""
+    profiled step of the resumed trainer gives the device-busy share, and
+    its encoder is exported to the file ``export_to`` (``export_encoder``)
+    for ckpt_full."""
     import copy
     import shutil
     import tempfile
 
     from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.train.checkpoint import export_encoder
     from llm_speech_summarization_tpu_torch.train.trainer import Trainer
 
     steps = 3
@@ -1990,6 +2010,8 @@ def phase_train_full(torch, card):
         if resumed.step != steps + 1:
             raise AssertionError(f"resume: ended at step {resumed.step}")
         profile_ = _profile_step(torch, resumed)
+        export_encoder(export_to, resumed.state.enc_params)
+        del resumed
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tokens = B * total_len
@@ -3059,6 +3081,700 @@ def split_sweep() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the offline pipeline: convert_full, preprocess_full, eval_full, ckpt_full,
+# train_whisper_full. The HF checkpoints are drawn at published widths from
+# seeded generators on the card, under the published HF parameter names, and
+# written by write_safetensors below (test tooling, not part of the package).
+
+OFFLINE_DISK_GB = 15.0  # the most the offline phases hold on disk at once
+ST_DTYPES = {"BF16": (2, "bfloat16"), "F32": (4, "float32")}
+CTC_LOGIT_TOL = LOGIT_TOL  # bf16 kernel vs plain attention, per CTC logit
+
+
+def write_safetensors(torch, path, specs, make):
+    """A ``.safetensors`` file: the 8-byte little-endian header length, the
+    JSON header, then each tensor's bytes in ``specs`` order. ``specs`` is
+    [(name, shape, "BF16" | "F32")]; ``make(name, shape, dtype)`` returns
+    the tensor (drawn on the card, one at a time). Returns the bytes."""
+    import struct
+
+    header, off = {}, 0
+    for name, shape, dt in specs:
+        n = int(np.prod(shape)) * ST_DTYPES[dt][0]
+        header[name] = {"dtype": dt, "shape": list(shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for name, shape, dt in specs:
+            t = make(name, shape, getattr(torch, ST_DTYPES[dt][1])).contiguous().cpu()
+            f.write(t.view(torch.uint8).numpy())
+    return 8 + len(head) + off
+
+
+def _hf_draw(torch, seed):
+    """make(name, shape, dtype): norms and biases near 1 / 0, weights
+    normal(0.02), from one card generator seeded ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(name, shape, dtype):
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+        if "norm" in name and name.endswith("weight"):
+            x = 1.0 + 0.02 * x
+        elif "original0" in name:  # the weight norm's g
+            x = 1.0 + 0.1 * x.abs()
+        else:
+            x = 0.02 * x
+        return x.to(dtype)
+
+    return make
+
+
+def llama3_hf_specs(dt="BF16"):
+    """Llama-3.2-3B's HF names and shapes (28 layers, d 3072, 24/8 heads of
+    128, FFN 8192, vocab 128256, tied head: no lm_head.weight)."""
+    D, I, L, V, KV = 3072, 8192, 28, 128256, 1024
+    specs = [("model.embed_tokens.weight", (V, D), dt)]
+    for i in range(L):
+        p = f"model.layers.{i}."
+        specs += [(p + "input_layernorm.weight", (D,), dt),
+                  (p + "self_attn.q_proj.weight", (D, D), dt),
+                  (p + "self_attn.k_proj.weight", (KV, D), dt),
+                  (p + "self_attn.v_proj.weight", (KV, D), dt),
+                  (p + "self_attn.o_proj.weight", (D, D), dt),
+                  (p + "post_attention_layernorm.weight", (D,), dt),
+                  (p + "mlp.gate_proj.weight", (I, D), dt),
+                  (p + "mlp.up_proj.weight", (I, D), dt),
+                  (p + "mlp.down_proj.weight", (D, I), dt)]
+    specs.append(("model.norm.weight", (D,), dt))
+    return specs
+
+
+def hubert_large_hf_specs(prefix="", dt="F32"):
+    """hubert-large's HubertModel names and shapes (the layer-normed conv
+    stem with bias, 24 pre-LN layers of 1024, the weight-normed positional
+    conv in the parametrization spelling)."""
+    D, F_, L = 1024, 4096, 24
+    specs, c_in = [], 1
+    for i, k in enumerate((10, 3, 3, 3, 3, 2, 2)):
+        p = f"{prefix}feature_extractor.conv_layers.{i}."
+        specs += [(p + "conv.weight", (512, c_in, k), dt), (p + "conv.bias", (512,), dt),
+                  (p + "layer_norm.weight", (512,), dt), (p + "layer_norm.bias", (512,), dt)]
+        c_in = 512
+    p = f"{prefix}feature_projection."
+    specs += [(p + "layer_norm.weight", (512,), dt), (p + "layer_norm.bias", (512,), dt),
+              (p + "projection.weight", (D, 512), dt), (p + "projection.bias", (D,), dt)]
+    p = f"{prefix}encoder.pos_conv_embed.conv."
+    specs += [(p + "bias", (D,), dt), (p + "parametrizations.weight.original0", (1, 1, 128), dt),
+              (p + "parametrizations.weight.original1", (D, D // 16, 128), dt)]
+    for i in range(L):
+        p = f"{prefix}encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            specs += [(p + f"attention.{n}.weight", (D, D), dt), (p + f"attention.{n}.bias", (D,), dt)]
+        specs += [(p + "layer_norm.weight", (D,), dt), (p + "layer_norm.bias", (D,), dt),
+                  (p + "feed_forward.intermediate_dense.weight", (F_, D), dt),
+                  (p + "feed_forward.intermediate_dense.bias", (F_,), dt),
+                  (p + "feed_forward.output_dense.weight", (D, F_), dt),
+                  (p + "feed_forward.output_dense.bias", (D,), dt),
+                  (p + "final_layer_norm.weight", (D,), dt), (p + "final_layer_norm.bias", (D,), dt)]
+    specs += [(f"{prefix}encoder.layer_norm.weight", (D,), dt),
+              (f"{prefix}encoder.layer_norm.bias", (D,), dt),
+              (f"{prefix}masked_spec_embed", (D,), dt)]  # unused by the converter
+    return specs
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, into):
+    """Wrap ``module``'s functions ``names`` to add their wall seconds to
+    ``into[name]`` (callers that import them at call time see the wrappers)."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                into[n] = into.get(n, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield into
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def _rss_gb() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6  # KiB → GB
+
+
+def _convert(torch, kind, hf_dir, out, extra):
+    """cli/convert.py ``kind`` on ``hf_dir``: the read (the shards' headers
+    and maps), convert and write seconds, GB/s over the shards' bytes, the
+    process's host peak RSS after it, the bytes written."""
+    from llm_speech_summarization_tpu_torch.cli import convert as cli_convert
+    from llm_speech_summarization_tpu_torch.models import convert as conv_mod
+    from llm_speech_summarization_tpu_torch.train import checkpoint as ckpt_mod
+
+    shard_bytes = sum(os.path.getsize(os.path.join(hf_dir, f)) for f in os.listdir(hf_dir))
+    secs = {}
+    t0 = time.perf_counter()
+    with timed_calls(conv_mod, ("load_hf_state_dict", "convert_llama", "convert_hubert",
+                                "convert_hubert_ctc"), secs), \
+            timed_calls(ckpt_mod, ("save_params",), secs):
+        cli_convert.main([kind, "--hf_dir", hf_dir, "--output", out] + extra)
+    wall = time.perf_counter() - t0
+    convert_s = sum(v for k, v in secs.items() if k.startswith("convert"))
+    if kind == "ctc":  # convert_hubert runs inside convert_hubert_ctc
+        convert_s = secs["convert_hubert_ctc"]
+    elif kind == "encoder":
+        convert_s = secs["convert_hubert"]
+    return {"read_s": secs["load_hf_state_dict"], "convert_s": convert_s,
+            "write_s": secs["save_params"], "wall_s": wall, "shard_bytes": shard_bytes,
+            "read_convert_gb_per_s": shard_bytes / 1e9 / (secs["load_hf_state_dict"] + convert_s),
+            "written_bytes": os.path.getsize(out), "host_peak_rss_gb": _rss_gb()}
+
+
+def phase_convert_full(torch, card, work):
+    """HF checkpoints at published widths → the port's files through
+    ``cli/convert.py``: Llama-3.2-3B (bf16, two safetensors shards;
+    ``llm --preset llama3_3b``), HuBERT-large (float32, one shard;
+    ``encoder`` on ``llama3_hubert.yaml``) and HuBERT-large CTC with a
+    32-class head (float32; ``ctc``), each shard directory deleted after
+    its conversion. Then ``llama3_hubert.yaml`` (int8) with
+    ``model.llm_checkpoint`` and ``model.encoder_checkpoint`` set runs
+    ``generate_audio_response_batch`` at B=8 x 10 s, 32 tokens, counted;
+    its token rows equal, bit for bit, those of an engine handed the same
+    converted trees in memory (the LLM fused and quantized as the loading
+    engine does). Returns (launches, the loading engine, the files)."""
+    import shutil
+
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
+    from llm_speech_summarization_tpu_torch.models.llama import (
+        fuse_llama_params, quantize_llama_params,
+    )
+    from llm_speech_summarization_tpu_torch.train.checkpoint import load_encoder, load_params
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    free_gb = shutil.disk_usage(work).free / 1e9
+    print(json.dumps({"phase": "convert_full", "work_dir_free_gb": free_gb,
+                      "needed_gb": OFFLINE_DISK_GB}), flush=True)
+    if free_gb < OFFLINE_DISK_GB:
+        raise AssertionError(f"convert_full: {free_gb:.1f} GB free under {work}, "
+                             f"{OFFLINE_DISK_GB} GB needed")
+    files, stats = {}, {}
+    jobs = (
+        ("llm", llama3_hf_specs("BF16"), 2, ["--preset", "llama3_3b"], 21),
+        ("encoder", hubert_large_hf_specs("", "F32"), 1,
+         ["-c", str(YAML_DIR / "llama3_hubert.yaml")], 22),
+        ("ctc", hubert_large_hf_specs("hubert.", "F32")
+         + [("lm_head.weight", (32, 1024), "F32"), ("lm_head.bias", (32,), "F32")], 1, [], 23),
+    )
+    for kind, specs, n_shards, extra, seed in jobs:
+        hf_dir = os.path.join(work, f"hf_{kind}")
+        os.makedirs(hf_dir)
+        make = _hf_draw(torch, seed)
+        t0 = time.perf_counter()
+        per = -(-len(specs) // n_shards)
+        disk = sum(write_safetensors(torch, os.path.join(
+            hf_dir, f"model-{i + 1:05d}-of-{n_shards:05d}.safetensors"),
+            specs[i * per:(i + 1) * per], make) for i in range(n_shards))
+        write_hf_s = time.perf_counter() - t0
+        files[kind] = os.path.join(work, f"{kind}.pt")
+        stats[kind] = dict(_convert(torch, kind, hf_dir, files[kind], extra),
+                           hf_write_s=write_hf_s, hf_bytes=disk, hf_shards=n_shards,
+                           dtype_in=specs[0][2], dtype_out="bfloat16")
+        shutil.rmtree(hf_dir)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(str(YAML_DIR / "llama3_hubert.yaml"))
+    cfg.model.llm_checkpoint = files["llm"]
+    cfg.model.encoder_checkpoint = files["encoder"]
+    t0 = time.perf_counter()
+    eng = LLMSpeechTextInference(cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if eng.llm_params["layers"]["wqkv"].dtype != torch.int8:
+        raise AssertionError("convert_full: the loading engine did not quantize its LLM")
+    rng = np.random.RandomState(5)
+    clips = [(0.1 * rng.randn(160000)).astype(np.float32) for _ in range(8)]
+    max_new = 32
+    eng.generate_audio_response_batch(clips, max_new_tokens=max_new)  # warm-up
+
+    # --- the main path, counted
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.counts.clear()
+    t0 = time.perf_counter()
+    with recorded_tokens(ByteTokenizer) as rows:
+        texts = eng.generate_audio_response_batch(clips, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = read_launches()
+    counts = dict(eng.counts)
+    # ---
+    check_launches("convert_full", launches, _expected_batch_launches(eng, counts))
+    mem_cfg = load_config(str(YAML_DIR / "llama3_hubert.yaml"))
+    mem = LLMSpeechTextInference(
+        mem_cfg, llm_params=quantize_llama_params(fuse_llama_params(
+            load_params(files["llm"], "cuda")["llm_params"])),
+        audio_encoder_params=load_encoder(files["encoder"], "cuda"))
+    with recorded_tokens(ByteTokenizer) as mem_rows:
+        mem_texts = mem.generate_audio_response_batch(clips, max_new_tokens=max_new)
+    if rows != mem_rows or texts != mem_texts or len(rows) != 8:
+        raise AssertionError("convert_full: the converted-file engine's token rows differ from "
+                             "the in-memory engine's")
+    del mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("convert_full", conversions=stats, engine_load_s=load_s, batch=8, clip_s=10,
+         max_new_tokens=max_new, batch_call_s=batch_s, token_rows_equal=True,
+         token_rows_compared=len(rows), max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+         / 1e9, launches=launches, engine_counts=counts, card=card)
+    return launches, eng, files
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every model's ``flash_attention`` (LLM, HuBERT, Whisper) runs its
+    plain version (dense masked attention, differentiable) for the block."""
+    from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
+        flash_attention_reference,
+    )
+    from llm_speech_summarization_tpu_torch.models import hubert, llama, whisper
+
+    def plain(q, k, v, starts, ends, causal=True):
+        return flash_attention_reference(q, k, v, starts, ends, causal=causal)
+
+    saved = [(m, m.flash_attention) for m in (hubert, llama, whisper)]
+    for m, _ in saved:
+        m.flash_attention = plain
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.flash_attention = fn
+
+
+PREPROCESS_EXAMPLES = 32  # 6-10 s clips, 10-15 word transcripts, plus one of 21 s
+
+
+def phase_preprocess_full(torch, card, eng, ctc_file):
+    """``iter_preprocess_examples`` at full width: the converted-checkpoint
+    engine (``llama3_hubert.yaml``, int8) generates the responses in one
+    length-sorted batch of 32 (budget 2x the prompt), the converted
+    HuBERT-large CTC model gives each clip's word offsets and pool ranges;
+    the 21 s clip is filtered. Counted: B1 per LLM layer per prefill and per
+    HuBERT layer per CTC clip, B2 per LLM layer per decode step. Then one
+    clip's CTC logits through B1 against the same forward with the plain
+    attention on the card: the argmax may differ only where the plain
+    logits' top-2 margin is at most 2 * CTC_LOGIT_TOL."""
+    from llm_speech_summarization_tpu_torch.data.preprocess import (
+        iter_preprocess_examples, load_ctc_fn,
+    )
+    from llm_speech_summarization_tpu_torch.models.hubert import hubert_ctc_logits, hubert_preset
+    from llm_speech_summarization_tpu_torch.train.checkpoint import load_params
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    rng = np.random.RandomState(9)
+    words = ("the quick brown fox jumps over a lazy dog near the river while birds sing "
+             "about distant mountains and quiet valleys").split()
+    examples = []
+    for i in range(PREPROCESS_EXAMPLES + 1):
+        secs = 21.0 if i == 5 else rng.uniform(6.0, 10.0)
+        examples.append({"audio": (0.1 * rng.randn(int(secs * 16000))).astype(np.float32),
+                         "text": " ".join(rng.choice(words, rng.randint(10, 16)))})
+    ctc_fn = load_ctc_fn(ctc_file, "hubert_large", 32)
+    ctc_s = []
+
+    def timed_ctc(audio):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ctc_fn(audio)  # ends in a copy to the host
+        ctc_s.append(time.perf_counter() - t0)
+        return out
+
+    ctc_fn(examples[0]["audio"])  # warm-up (the 10 s bucket)
+    gen = eng.generate_text_response_batch
+    gen_s = []
+
+    def timed_gen(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return gen(*a, **k)
+        finally:
+            gen_s.append(time.perf_counter() - t0)
+
+    eng.generate_text_response_batch = timed_gen
+    # --- the main path, counted
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.counts.clear()
+    try:
+        t0 = time.perf_counter()
+        with recorded_tokens(ByteTokenizer) as rows:
+            out = list(iter_preprocess_examples(examples, eng, eng.tokenizer, ctc_fn=timed_ctc,
+                                                response_batch_size=32))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng.generate_text_response_batch
+    launches = read_launches()
+    counts = dict(eng.counts)
+    # ---
+    L, H = eng.llm_cfg.num_layers, hubert_preset("hubert_large").num_layers
+    check_launches("preprocess_full", launches, {
+        "flash_attention": L * counts["prefills"] + H * len(ctc_s),
+        "fused_decode": L * counts["decode_steps"]})
+    if len(out) != PREPROCESS_EXAMPLES or len(ctc_s) != PREPROCESS_EXAMPLES:
+        raise AssertionError(f"preprocess_full: {len(out)} rows, {len(ctc_s)} CTC clips")
+    for r in out:
+        pr = np.asarray(r["pool_ranges_4"])
+        if (pr.ndim != 2 or pr.shape[1] != 2 or r["text_input_ids"][0] != eng.tokenizer.bos_id
+                or not isinstance(r["llm_response"], str)):
+            raise AssertionError("preprocess_full: a row out of the schema")
+    generated = sum(len(x) for x in rows[:PREPROCESS_EXAMPLES])
+
+    # one clip: B1 against the plain attention, margin-aware
+    payload = load_params(ctc_file, "cuda")
+    enc, head = payload["enc_params"], payload["head_params"]
+    wav = torch.from_numpy(examples[0]["audio"][None]).to("cuda", torch.bfloat16)
+    logits = {}
+    for plain in (False, True):
+        with torch.no_grad(), (plain_attention() if plain else contextlib.nullcontext()):
+            logits[plain] = hubert_ctc_logits(enc, head, hubert_preset("hubert_large"), wav)[0][0]
+    ids_k, ids_p = logits[False].argmax(-1), logits[True].argmax(-1)
+    top2 = torch.topk(logits[True], 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    flips = (ids_k != ids_p)
+    if bool((flips & (margin > 2 * CTC_LOGIT_TOL)).any()):
+        raise AssertionError(f"preprocess_full: CTC ids flip where the plain margin exceeds "
+                             f"{2 * CTC_LOGIT_TOL}: {int(flips.sum())} flips")
+    emit("preprocess_full", config="llama3_hubert.yaml", llm="converted checkpoint, int8",
+         ctc="converted hubert-large CTC, vocab 32", examples=len(examples),
+         rows_kept=len(out), response_batch_size=32, response_s=sum(gen_s),
+         generated_tokens=generated, generated_tokens_per_s=generated / sum(gen_s),
+         decode_steps=counts["decode_steps"], ctc_clips=len(ctc_s),
+         ctc_ms_per_clip=1e3 * statistics.mean(ctc_s), ctc_ms_max=1e3 * max(ctc_s),
+         wall_s=wall, ranges_per_clip=statistics.mean(len(r["pool_ranges_4"]) for r in out),
+         ctc_frames_checked=int(ids_k.numel()), ctc_id_flips=int(flips.sum()),
+         ctc_max_abs_logit_diff=float((logits[False] - logits[True]).abs().max()),
+         ctc_logit_tol=CTC_LOGIT_TOL, launches=launches, engine_counts=counts, card=card)
+    return launches
+
+
+def phase_eval_full(torch, card, eng):
+    """``evaluate_engine`` over 16 synthetic examples at full width on the
+    converted-checkpoint engine, with ``LlamaEmbedder`` (the full-width
+    Llama, layer num_layers // 2) for BERTScore and the latency probes;
+    counted: B1 per encoder layer per prompt build, per LLM layer per
+    prefill and per embedder forward, B2 per LLM layer per decode step.
+    With random weights the scores need only be finite and in [0, 1]."""
+    from llm_speech_summarization_tpu_torch.data.datasets import SyntheticSpeechDataset
+    from llm_speech_summarization_tpu_torch.eval import bertscore
+    from llm_speech_summarization_tpu_torch.eval.evaluate import evaluate_engine
+
+    ds = SyntheticSpeechDataset(eng.tokenizer, num_samples=16, seed=77)
+    embedder = bertscore.LlamaEmbedder(eng.llm_params, eng.llm_cfg, eng.tokenizer)
+    n_embed = []
+    call = bertscore.LlamaEmbedder.__call__
+
+    def counted(self, texts):
+        n_embed.append(-(-len(texts) // self.batch_size))
+        return call(self, texts)
+
+    # --- the main path, counted
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.counts.clear()
+    bertscore.LlamaEmbedder.__call__ = counted
+    try:
+        t0 = time.perf_counter()
+        m = evaluate_engine(eng, ds, num_samples=16, batch_size=16, max_new_tokens=32,
+                            bertscore_embedder=embedder)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        bertscore.LlamaEmbedder.__call__ = call
+    launches = read_launches()
+    counts = dict(eng.counts)
+    # ---
+    want = _expected_batch_launches(eng, counts)
+    want["flash_attention"] += eng.llm_cfg.num_layers * sum(n_embed)
+    check_launches("eval_full", launches, want)
+    # a random full-width model's byte-tokenized texts are mostly empty, so
+    # its BERTScore is 0; the embedder also scores the set's transcripts
+    # against its responses (not counted), which have text on both sides
+    texts = [ds[i]["text"] for i in range(16)]
+    refs = [ds[i]["llm_response"] for i in range(16)]
+    m["bertscore_f1_text_vs_response"] = bertscore.bert_score(texts, refs, embedder,
+                                                              idf=True)["f1"]
+    scores = {k: m[k] for k in ("rouge1", "rouge2", "rougeL", "bertscore_precision",
+                                "bertscore_recall", "bertscore_f1",
+                                "bertscore_f1_text_vs_response")}
+    if not all(np.isfinite(v) and -1e-9 <= v <= 1.0 + 1e-9 for v in scores.values()):
+        raise AssertionError(f"eval_full: scores {scores}")
+    emit("eval_full", config="llama3_hubert.yaml", llm="converted checkpoint, int8",
+         utterances=int(m["num_samples"]), wall_s=wall, scores=scores,
+         embedder_layer=embedder.layer, embedder_forwards=sum(n_embed),
+         ttft_p50_s=m["ttft_p50_s"], latency_p50_s=m["latency_p50_s"],
+         latency_p90_s=m["latency_p90_s"], launches=launches, engine_counts=counts, card=card)
+    return launches
+
+
+def _minichat_ctc_yaml(path):
+    """BASELINE config #1 as a YAML for the CLI: ``minichat_hubert.yaml``
+    with the hubert-base encoder, ``ctc_pool`` and int8 LLM weights."""
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR
+
+    text = open(YAML_DIR / "minichat_hubert.yaml").read()
+    for old, new in (("type: facebook/hubert-large-ls960-ft", "type: facebook/hubert-base-ls960"),
+                     ("downsample_method: pool", "downsample_method: ctc_pool"),
+                     ("  kv_cache_dtype: int8\n", "  kv_cache_dtype: int8\n  llm_weight_dtype: int8\n")):
+        if old not in text:
+            raise AssertionError(f"minichat_hubert.yaml lacks {old!r}")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_ckpt_full(torch, card, export_file, ctc_file):
+    """Checkpoints into the entry points: ``cli/infer.py -p <train_full's
+    exported encoder> --audio_dir`` over the bulk phase's 32 clips on
+    ``llama3_hubert.yaml`` (counted), its rows equal to per-batch calls of
+    an engine handed the same encoder tree; then ``cli/infer.py --ctc
+    <converted CTC>`` on BASELINE config #1 (``minichat_hubert.yaml``,
+    hubert-base, ``ctc_pool``, int8) over 8 of those clips (counted): CTC ms
+    per clip and utt/s."""
+    import shutil
+    import tempfile
+
+    from llm_speech_summarization_tpu_torch.cli import infer as cli_infer
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.data import preprocess as pre_mod
+    from llm_speech_summarization_tpu_torch.data.audio_io import load_audio
+    from llm_speech_summarization_tpu_torch.infer import engine as engine_mod
+    from llm_speech_summarization_tpu_torch.models.hubert import hubert_preset
+    from llm_speech_summarization_tpu_torch.train.checkpoint import load_encoder
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    max_new = 32
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "clips")
+        os.makedirs(d)
+        _write_clips(d, BULK_CLIPS, seed=3)  # the bulk phase's clips
+        out = os.path.join(tmp, "p.jsonl")
+        # --- the main path, counted: -p through the CLI
+        reset_launches()
+        t0 = time.perf_counter()
+        with recorded_tokens(ByteTokenizer) as cli_rows:
+            eng = cli_infer.main(["-c", str(YAML_DIR / "llama3_hubert.yaml"), "-p", export_file,
+                                  "--audio_dir", d, "--output", out, "--batch_size", "8",
+                                  "--max_new_tokens", str(max_new)])
+        torch.cuda.synchronize()
+        p_s = time.perf_counter() - t0
+        launches = read_launches()
+        counts = dict(eng.counts)
+        # ---
+        check_launches("ckpt_full -p", launches, _expected_batch_launches(eng, counts))
+        runs.append(launches)
+        with open(out) as f:
+            rows = [json.loads(x) for x in f]
+        paths = cli_infer.audio_paths(d)
+        if [r["file"] for r in rows] != paths:
+            raise AssertionError("ckpt_full: -p rows out of order")
+        audio = [load_audio(p) for p in paths]
+        mem = engine_mod.LLMSpeechTextInference(
+            load_config(str(YAML_DIR / "llama3_hubert.yaml")), llm_params=eng.llm_params,
+            audio_encoder_params=load_encoder(export_file, "cuda"))
+        with recorded_tokens(ByteTokenizer) as ref_rows:
+            want = [t for i in range(0, BULK_CLIPS, 8)
+                    for t in mem.generate_audio_response_batch(audio[i:i + 8],
+                                                               max_new_tokens=max_new)]
+        if [r["response"] for r in rows] != want or cli_rows != ref_rows:
+            raise AssertionError("ckpt_full: the -p rows differ from the in-memory engine's")
+        del eng, mem
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --ctc on BASELINE config #1, 8 clips
+        d8 = os.path.join(tmp, "clips8")
+        os.makedirs(d8)
+        for p in paths[-8:]:
+            shutil.copy(p, d8)
+        yaml_path = _minichat_ctc_yaml(os.path.join(tmp, "minichat_base_ctc.yaml"))
+        secs, init = {}, {}
+        base = engine_mod.LLMSpeechTextInference
+
+        class Timed(base):
+            def __init__(self, *a, **k):
+                t0 = time.perf_counter()
+                super().__init__(*a, **k)
+                init["s"] = time.perf_counter() - t0
+
+        out8 = os.path.join(tmp, "ctc.jsonl")
+        engine_mod.LLMSpeechTextInference = Timed
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            with timed_calls(pre_mod, ("pool_ranges_for_audio",), secs):
+                eng = cli_infer.main(["-c", yaml_path, "--ctc", ctc_file, "--audio_dir", d8,
+                                      "--output", out8, "--batch_size", "8",
+                                      "--max_new_tokens", str(max_new)])
+            torch.cuda.synchronize()
+            ctc_wall = time.perf_counter() - t0
+        finally:
+            engine_mod.LLMSpeechTextInference = base
+        launches8 = read_launches()
+        counts8 = dict(eng.counts)
+        want8 = _expected_batch_launches(eng, counts8)
+        want8["flash_attention"] += hubert_preset("hubert_large").num_layers * 8
+        check_launches("ckpt_full --ctc", launches8, want8)
+        runs.append(launches8)
+        with open(out8) as f:
+            rows8 = [json.loads(x) for x in f]
+        if len(rows8) != 8 or eng.encoder_setup.downsample_method != "ctc_pool":
+            raise AssertionError("ckpt_full: --ctc rows")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("ckpt_full", p_config="llama3_hubert.yaml", p_clips=BULK_CLIPS, p_cli_s=p_s,
+         p_rows_equal=True, p_token_rows_compared=len(cli_rows), p_launches=launches,
+         p_engine_counts=counts, ctc_config="minichat_hubert.yaml + hubert-base + ctc_pool",
+         ctc_clips=8, ctc_cli_s=ctc_wall, ctc_engine_init_s=init["s"],
+         ctc_ms_per_clip=1e3 * secs["pool_ranges_for_audio"] / 8,
+         ctc_utt_per_s=8 / (ctc_wall - init["s"]), ctc_launches=launches8,
+         ctc_engine_counts=counts8, card=card)
+    return runs
+
+
+def phase_train_whisper_full(torch, card):
+    """Whisper KD at full width: ``llama3_whisper.yaml`` (Whisper-medium on
+    dynamic frames, remat as configured) with the int8 frozen Llama-3.2-3B
+    (``llm_weight_dtype`` int8 set here), B=16 synthetic clips in the 10 s
+    bucket (500 encoder frames): a few steps and the closing validate (eval
+    perplexity, two generations, a checkpoint), then a Trainer that resumes
+    and takes one more step, both counted; one profiled step; then one step
+    from the same state with the kernels and with the plain attention on
+    the card, held to TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL and
+    TRAIN_SIGN_AGREE."""
+    import copy
+    import shutil
+    import tempfile
+
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.train import make_train_state
+    from llm_speech_summarization_tpu_torch.train.state import tree_leaves, tree_map
+    from llm_speech_summarization_tpu_torch.train.trainer import Trainer
+
+    steps = 3
+    tmp = tempfile.mkdtemp(prefix="lss_whisper_")
+    try:
+        cfg = load_config(str(YAML_DIR / "llama3_whisper.yaml"))
+        cfg.model.llm_weight_dtype = "int8"
+        cfg.data.source = "synthetic"
+        cfg.data.synthetic_num_samples = 64
+        cfg.train.steps = steps
+        cfg.log.checkpoint_dir = os.path.join(tmp, "ckpt")
+        cfg.log.log_dir = os.path.join(tmp, "logs")
+        cfg.log.log_interval = 1
+        cfg.log.num_generate_samples = 2
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, run_name="whisper")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        first = _trainer_run(torch, trainer, "train_whisper_full")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        batch = next(trainer._batches(trainer.train_ds, cfg.train.batch_size, True, 99))
+        bucket = int(batch.wav.shape[1])
+        total_len = trainer.total_len(bucket)
+        B = cfg.train.batch_size
+        times = [first["per_step"][s]["step_time_s"] for s in sorted(first["per_step"])]
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg2 = copy.deepcopy(cfg)
+        cfg2.train.steps = steps + 1
+        cfg2.log.num_generate_samples = 0
+        resumed = Trainer(cfg2, run_name="whisper")
+        if resumed.step != steps or resumed._resume_epoch_step != steps:
+            raise AssertionError(f"whisper resume: at step {resumed.step}, "
+                                 f"+{resumed._resume_epoch_step} batches, not {steps}")
+        second = _trainer_run(torch, resumed, "train_whisper_full resumed")
+        if resumed.step != steps + 1:
+            raise AssertionError(f"whisper resume: ended at step {resumed.step}")
+        profile_ = _profile_step(torch, resumed)
+
+        # one step from the same state: kernels, then the plain attention
+        step_fn = resumed._get_train_step(bucket)
+        start = [p.detach().clone() for p in tree_leaves(resumed.state.enc_params)]
+        runs = {}
+        for plain in (False, True):
+            it = iter(start)
+            params = tree_map(lambda p: next(it).clone().requires_grad_(),
+                              resumed.state.enc_params)
+            state, _ = make_train_state(cfg2, params, resumed.total_opt_steps)
+            with plain_attention() if plain else contextlib.nullcontext():
+                state, metrics = step_fn(state, resumed.llm_params, batch)
+            runs[plain] = ({k: v.item() for k, v in metrics.items()},
+                           [p.detach() for p in tree_leaves(state.enc_params)])
+            del state
+        (m_k, p_k), (m_p, p_p) = runs[False], runs[True]
+        lr = cfg.train.optimizer.lr
+        moved = agree = 0
+        for a, b_, s in zip(p_p, p_k, start):
+            du_p, du_k = a - s, b_ - s
+            big = du_p.abs() > lr / 2
+            moved += int(big.sum())
+            agree += int((big & ((du_p - du_k).abs() <= lr / 4)).sum())
+        loss_err = {k: abs(m_k[k] - m_p[k]) / abs(m_p[k]) for k in m_p if k != "grad_norm"}
+        gnorm_err = abs(m_k["grad_norm"] - m_p["grad_norm"]) / m_p["grad_norm"]
+        agree_share = agree / max(moved, 1)
+        finite = all(np.isfinite(v) for v in (*m_k.values(), *m_p.values()))
+        if not (finite and max(loss_err.values()) <= TRAIN_LOSS_RTOL
+                and gnorm_err <= TRAIN_GNORM_RTOL and agree_share >= TRAIN_SIGN_AGREE
+                and moved > 0):
+            raise AssertionError(f"train_whisper_full: kernels {m_k} vs plain {m_p}: loss rel "
+                                 f"err {loss_err}, grad_norm rel err {gnorm_err}, update "
+                                 f"agreement {agree_share} of {moved}")
+        del runs, start, p_k, p_p
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tokens = B * total_len
+    emit("train_whisper_full", config="llama3_whisper.yaml", llm_weight_dtype="int8",
+         remat=cfg.train.remat, data="synthetic", batch=B, audio_samples=bucket,
+         encoder_frames=bucket // 320, total_len=total_len, init_s=init_s,
+         steps=first["steps"], per_step=first["per_step"], ms_per_step=[1e3 * t for t in times],
+         tokens_per_s=[tokens / t for t in times], steady_ms_per_step=1e3 * min(times[1:]),
+         steady_tokens_per_s=tokens / min(times[1:]), run_wall_s=first["wall_s"],
+         max_memory_allocated_gb=peak_gb, launches=first["launches"],
+         engine_counts=first["engine_counts"], eval_batches=first["eval_batches"],
+         resumed=dict(steps=second["steps"], wall_s=second["wall_s"],
+                      launches=second["launches"]),
+         profiled_step=profile_, plain_check=dict(kernels=m_k, plain=m_p, loss_rel_err=loss_err,
+                                                  loss_rtol=TRAIN_LOSS_RTOL,
+                                                  grad_norm_rel_err=gnorm_err,
+                                                  grad_norm_rtol=TRAIN_GNORM_RTOL,
+                                                  update_agreement=agree_share,
+                                                  update_agreement_min=TRAIN_SIGN_AGREE,
+                                                  params_moved=moved),
+         card=card)
+    return first["launches"], second["launches"]
+
+
 def main() -> int:
     # the tokenizer loader looks for a local HF tokenizer; never reach out
     os.environ.setdefault("HF_HUB_OFFLINE", "1")
@@ -3102,8 +3818,30 @@ def main() -> int:
     whisper_runs = phase_whisper_full(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="lss_offline_")  # the offline phases' files
+    try:
+        export = os.path.join(work, "train_full_encoder.pt")
+        with torch.enable_grad():
+            train_runs = phase_train_full(torch, card, export)
+        gc.collect()
+        torch.cuda.empty_cache()
+        convert_launches, eng, files = phase_convert_full(torch, card, work)
+        os.remove(files["llm"])  # the engine holds the LLM now
+        preprocess_launches = phase_preprocess_full(torch, card, eng, files["ctc"])
+        eval_launches = phase_eval_full(torch, card, eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt_runs = phase_ckpt_full(torch, card, export, files["ctc"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     with torch.enable_grad():
-        train_runs = phase_train_full(torch, card)
+        whisper_train_runs = phase_train_whisper_full(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     with torch.enable_grad():
@@ -3115,9 +3853,13 @@ def main() -> int:
     # launches: the sum over the main-path runs (batch path, three servers,
     # MiniChat + HuBERT-base with both projectors, the bulk CLI, the Whisper
     # batch path, its B8 stream and server, the trainer and the resumed
-    # trainer, and the ring trainer's ranks in both its launches)
+    # trainer, the converted-checkpoint engine, preprocessing, evaluation,
+    # -p and --ctc through the CLI, the Whisper trainer and its resume, and
+    # the ring trainer's ranks in both its launches)
     for run in ([r["launches"] for r in serving.values()] + minichat_runs + [bulk_launches]
-                + whisper_runs + list(train_runs) + [ring_launches]):
+                + whisper_runs + list(train_runs) + [convert_launches, preprocess_launches,
+                                                     eval_launches] + ckpt_runs
+                + list(whisper_train_runs) + [ring_launches]):
         for k, v in run.items():
             launches[k] += v
     csrc = "llm_speech_summarization_tpu_torch/kernels/csrc/"

@@ -9,6 +9,11 @@ Usage:
 Bulk mode runs the pipelined batch stream (``iter_audio_response_batches``):
 batch i+1's prompt is built while batch i decodes, and each batch's rows
 are written and flushed as the batch completes.
+
+``-p`` loads the audio encoder from a file (``export_encoder`` or
+``cli/convert.py encoder``). A ``ctc_pool`` config needs ``--ctc``, a
+``cli/convert.py ctc`` file: each clip's pool ranges come from its HuBERT-CTC
+word offsets (``data/preprocess.py::pool_ranges_for_audio``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ def main(argv=None):
     parser.add_argument("-c", "--config", type=str, required=True,
                         help="yaml file for configuration")
     parser.add_argument("-p", "--audio_encoder_checkpoint", type=str, default=None,
-                        help="not ported yet: any value raises")
+                        help="audio encoder file (train/checkpoint.py export_encoder or "
+                        "cli/convert.py encoder)")
     parser.add_argument("-a", "--audio_file", type=str, default=None,
                         help="audio file (WAV or FLAC) holding the speech prompt")
     parser.add_argument("--audio_dir", type=str, default=None,
@@ -46,36 +52,44 @@ def main(argv=None):
     parser.add_argument("--speculative_k", type=int, default=0,
                         help="self-speculative decoding lookahead for the greedy decode "
                         "(0 = off; the same tokens)")
+    parser.add_argument("--ctc", type=str, default=None,
+                        help="HuBERT-CTC file (cli/convert.py ctc), required for ctc_pool "
+                        "configs: each clip's pool ranges from its CTC word offsets")
+    parser.add_argument("--ctc_preset", type=str, default="hubert_large")
+    parser.add_argument("--ctc_vocab", type=int, default=32)
     parser.add_argument("--device", type=str, default=None,
                         help="default: the CUDA card (raises without one); 'cpu' runs the "
                         "plain PyTorch path")
     args = parser.parse_args(argv)
     if (args.audio_file is None) == (args.audio_dir is None):
         parser.error("exactly one of -a/--audio_file or --audio_dir is required")
-    if args.audio_encoder_checkpoint:
-        raise NotImplementedError(
-            "checkpoint loading is not ported to PyTorch yet (ROADMAP queue A, item 12(a))")
 
     from ..configs import load_config
     from ..data.audio_io import load_audio
     from ..infer.engine import LLMSpeechTextInference
 
     config = load_config(args.config)
-    if config.model.audio_encoder.downsample_method == "ctc_pool":
-        raise NotImplementedError(
-            "a ctc_pool config needs each clip's pool ranges from a HuBERT-CTC checkpoint "
-            "(--ctc): not ported to PyTorch yet (ROADMAP queue A, item 12(e))")
+    if config.model.audio_encoder.downsample_method == "ctc_pool" and not args.ctc:
+        parser.error("this config uses downsample_method=ctc_pool: pass --ctc <HuBERT-CTC file> "
+                     "(cli/convert.py ctc)")
     engine = LLMSpeechTextInference(
-        config, device=args.device, repetition_penalty=args.repetition_penalty,
-        speculative_k=args.speculative_k,
+        config, audio_encoder_checkpoint=args.audio_encoder_checkpoint, device=args.device,
+        repetition_penalty=args.repetition_penalty, speculative_k=args.speculative_k,
     )
+    ranges_fn = None
+    if config.model.audio_encoder.downsample_method == "ctc_pool":
+        from ..data.preprocess import load_ctc_fn, pool_ranges_for_audio
+
+        ctc_fn = load_ctc_fn(args.ctc, args.ctc_preset, args.ctc_vocab, device=engine.device)
+        ranges_fn = lambda a: pool_ranges_for_audio(ctc_fn, a)  # noqa: E731
     if args.audio_dir is not None:
-        _bulk(engine, config, args)
+        _bulk(engine, config, args, ranges_fn)
         return engine
 
     audio = load_audio(args.audio_file, target_sr=config.audio.sampling_rate)
     response = engine.generate_audio_response(
-        audio, additional_text_prompt=args.text, max_new_tokens=args.max_new_tokens)
+        audio, additional_text_prompt=args.text, max_new_tokens=args.max_new_tokens,
+        ctc_pool_ranges=ranges_fn(audio) if ranges_fn else None)
     print("LLM Response:\n")
     print(response)
     return engine
@@ -92,27 +106,36 @@ def audio_paths(audio_dir: str):
     return sorted(paths, key=os.path.getsize)
 
 
-def _bulk(engine, config, args):
+def _bulk(engine, config, args, ranges_fn=None):
     """Directory → JSONL. Audio loads lazily one batch ahead of the decode
     (host memory holds two batches, not the corpus), and each batch's rows
     reach the sink, flushed, as the batch completes: a crash at batch N
-    keeps the first N - 1 batches' output."""
+    keeps the first N - 1 batches' output. With ``ranges_fn`` (a
+    ``ctc_pool`` config) each batch's pool ranges are computed from the
+    audio the batch stream loaded, in the stream's order."""
     from ..data.audio_io import load_audio
 
     paths = audio_paths(args.audio_dir)
     bs = max(1, args.batch_size)
     groups = [paths[i:i + bs] for i in range(0, len(paths), bs)]
+    loaded = {}  # group index → its audio, shared with the ranges stream
 
     def lazy_batches():
-        for g in groups:
-            yield [load_audio(p, target_sr=config.audio.sampling_rate) for p in g]
+        for gi, g in enumerate(groups):
+            loaded[gi] = [load_audio(p, target_sr=config.audio.sampling_rate) for p in g]
+            yield loaded[gi]
+
+    def lazy_ranges():
+        for gi in range(len(groups)):
+            yield [ranges_fn(a) for a in loaded.pop(gi)]
 
     sink = open(args.output, "w") if args.output else sys.stdout
     written = 0
     try:
         for g, outs in zip(groups, engine.iter_audio_response_batches(
                 lazy_batches(), additional_text_prompt=args.text,
-                max_new_tokens=args.max_new_tokens)):
+                max_new_tokens=args.max_new_tokens,
+                ctc_pool_ranges=lazy_ranges() if ranges_fn else None)):
             for path, out in zip(g, outs):
                 sink.write(json.dumps({"file": path, "response": out}) + "\n")
             sink.flush()

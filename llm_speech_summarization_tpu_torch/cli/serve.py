@@ -15,7 +15,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", type=str, required=True)
     parser.add_argument("-p", "--audio_encoder_checkpoint", type=str, default=None,
-                        help="not ported yet: any value raises")
+                        help="audio encoder file (train/checkpoint.py export_encoder or "
+                        "cli/convert.py encoder)")
     parser.add_argument("--host", type=str, default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--no_warmup", action="store_true",
@@ -53,9 +54,6 @@ def main(argv=None):
         raise NotImplementedError(
             "tensor-parallel serving (--tp > 1) is not ported to PyTorch yet (ROADMAP queue A, "
             "item 11)")
-    if args.audio_encoder_checkpoint:
-        raise NotImplementedError(
-            "checkpoint loading is not ported to PyTorch yet (ROADMAP queue A, item 12(a))")
 
     from ..configs import load_config
     from ..serve.server import serve
@@ -78,6 +76,7 @@ def main(argv=None):
         ),
         drain_timeout=args.drain_timeout,
         device=args.device,
+        audio_encoder_checkpoint=args.audio_encoder_checkpoint,
         repetition_penalty=args.repetition_penalty,
         speculative_k=args.speculative_k,
     )

@@ -61,8 +61,10 @@ class ModelConfig:
     # term (weight streaming) via per-channel weight-only quantization +
     # fused-QKV layout. Ignored by training. None → keep param_dtype.
     llm_weight_dtype: Optional[str] = None
-    llm_checkpoint: Optional[str] = None  # Orbax dir from cli/convert.py llm
-    encoder_checkpoint: Optional[str] = None  # Orbax dir (convert.py encoder or export)
+    llm_checkpoint: Optional[str] = None  # file from cli/convert.py llm (torch.save)
+    # file from cli/convert.py encoder or train/checkpoint.py export_encoder;
+    # the engine loads it, the trainer refuses it (it initializes the encoder)
+    encoder_checkpoint: Optional[str] = None
     # Explicit local tokenizer directory (HF format). When set, loading it
     # FAILS LOUDLY on error — a typo'd path must not silently degrade a
     # weights-available run to byte tokens. None → resolve llm_type from the

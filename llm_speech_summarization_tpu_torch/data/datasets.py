@@ -12,9 +12,9 @@ Two sources:
     run in this no-egress environment. No reference counterpart.
 
 Each example is a plain dict; collation to static-shape arrays happens in
-collate.py. Not ported yet: the raw LibriSpeech readers
-(``load_librispeech_dir``, ``LazyRawView``), which feed the offline
-preprocessing job (ROADMAP queue A, item 12(b)).
+collate.py. The offline preprocessing job reads raw {audio, text} examples
+lazily: ``load_librispeech_dir`` (a LibriSpeech tree of FLAC/WAV files and
+``*.trans.txt`` transcripts) and ``LazyRawView`` (any indexable source).
 """
 
 from __future__ import annotations
@@ -161,3 +161,83 @@ def load_training_datasets(cfg: Config, tokenizer: Tokenizer):
     train = HFDiskDataset(cfg.data.base_path, list(cfg.data.train_set))
     val = HFDiskDataset(cfg.data.base_path, list(cfg.data.val_set))
     return train, val
+
+
+def load_librispeech_dir(path: str, target_sr: int = 16000, limit=None):
+    """A raw LibriSpeech-style tree: ``*.flac`` / ``*.wav`` utterances next
+    to ``*.trans.txt`` files whose lines are ``<utt-id> <TRANSCRIPT>``.
+    Returns a lazy list of {audio, text} examples in utterance-id order
+    (audio without a transcript skipped, at most ``limit``), or None when
+    the tree holds no audio file (the caller then reads an HF dataset)."""
+    import os
+
+    audio_paths = {}
+    transcripts = {}
+    for root, _, files in os.walk(path):
+        for fname in sorted(files):
+            stem, ext = os.path.splitext(fname)
+            full = os.path.join(root, fname)
+            if ext.lower() in (".flac", ".wav"):
+                audio_paths[stem] = full
+            elif fname.endswith(".trans.txt"):
+                with open(full, encoding="utf-8") as f:
+                    for line in f:
+                        utt, _, text = line.strip().partition(" ")
+                        if utt:
+                            transcripts[utt] = text
+    if not audio_paths:
+        return None
+
+    pairs = []
+    for utt in sorted(audio_paths):
+        if limit is not None and len(pairs) >= limit:
+            break
+        text = transcripts.get(utt)
+        if text is None:
+            continue  # an utterance needs its transcript
+        pairs.append((audio_paths[utt], text))
+    return _LazyAudioExamples(pairs, target_sr)
+
+
+class _LazyAudioExamples:
+    """List-like {audio, text} view that decodes each clip on access: a
+    whole LibriSpeech split is hours of waveform, so nothing is decoded
+    ahead of its use."""
+
+    def __init__(self, pairs, target_sr: int):
+        self._pairs = pairs
+        self._target_sr = target_sr
+
+    def __len__(self):
+        return len(self._pairs)
+
+    def __getitem__(self, i):
+        from .audio_io import load_audio
+
+        path, text = self._pairs[i]
+        return {"audio": load_audio(path, self._target_sr), "text": text}
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+class LazyRawView:
+    """List-like {audio, text} adapter over any indexable source, fetched on
+    access: ``getter(i)`` returns the i-th {audio: float32 1-D, text: str}
+    example. Keeps HF-disk and synthetic inputs of the preprocessing job
+    lazy, so it holds one waveform at a time."""
+
+    def __init__(self, n: int, getter):
+        self._n = int(n)
+        self._getter = getter
+
+    def __len__(self):
+        return self._n
+
+    def __getitem__(self, i):
+        return self._getter(int(i))
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]

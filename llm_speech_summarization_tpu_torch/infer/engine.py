@@ -18,9 +18,11 @@ Batches are padded to a power of two rows, audio to 1600-sample (100 ms)
 buckets, prompts to ``BUCKET``-token lengths and ``max_new_tokens`` to
 ``DECODE_BUCKET``, as the JAX engine does; the audio buffer length comes
 from the encoder's frame arithmetic (``audio_embed_buffer_len``), HuBERT's
-or Whisper's, without running it, or from the number of ranges. Not ported
-yet: meshes (tensor-parallel serving, ROADMAP queue A item 11) and
-checkpoint loading (item 12(a)).
+or Whisper's, without running it, or from the number of ranges. Weights
+come from the caller, from ``cli/convert.py`` files (``model.llm_checkpoint``,
+``model.encoder_checkpoint``, ``audio_encoder_checkpoint``) or from a seeded
+random init. Not ported yet: meshes (tensor-parallel serving, ROADMAP queue
+A item 11).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from ..models.llama import (
 )
 from ..models.whisper import WhisperConfig
 from ..ops.splice import concat_mid_buffers, splice_sequences
+from ..train.checkpoint import load_encoder, load_params
 from ..utils.prompts import prompt_template_for
 from ..utils.tokenizer import load_tokenizer
 from .generate import greedy_generate, speculative_generate
@@ -90,6 +93,7 @@ class LLMSpeechTextInference:
         self,
         config: Config,
         audio_encoder_params=None,
+        audio_encoder_checkpoint: Optional[str] = None,
         llm_params=None,
         llm_cfg: Optional[LlamaConfig] = None,
         encoder_cfg: Optional[Union[HubertConfig, WhisperConfig]] = None,
@@ -105,16 +109,18 @@ class LLMSpeechTextInference:
         without one; pass ``device="cpu"`` for the plain path. Without given
         parameters, the engine initializes its own from two
         ``torch.Generator``s on ``device`` seeded from
-        ``config.seed_everything`` (LLM, then encoder) and, when
-        ``llm_weight_dtype`` is int8, fuses and quantizes the LLM it owns;
-        caller-given trees are used as they are. ``llm_cfg`` and
+        ``config.seed_everything`` (LLM, then encoder), or loads
+        ``model.llm_checkpoint`` (a ``cli/convert.py llm`` file) for the LLM
+        and ``audio_encoder_checkpoint`` (else ``model.encoder_checkpoint``:
+        a ``cli/convert.py encoder`` file or an ``export_encoder`` one) for
+        the encoder, cast to ``param_dtype``; when ``llm_weight_dtype`` is
+        int8 it fuses and quantizes the LLM it owns (initialized or loaded).
+        Caller-given trees are used as they are. ``llm_cfg`` and
         ``encoder_cfg`` override the presets the config names.
         ``speculative_k > 0`` decodes greedy batches self-speculatively
         (not with a repetition penalty or a temperature)."""
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh)", "item 11")
-        if config.model.llm_checkpoint or config.model.encoder_checkpoint:
-            raise _not_ported("checkpoint loading", "item 12(a)")
         self.config = config
         self.device = resolve_device(device)
         self.temperature = temperature
@@ -136,8 +142,13 @@ class LLMSpeechTextInference:
 
         self.llm_cfg = llm_cfg or llama_preset(config.model.llm_preset or config.model.llm_type)
         if llm_params is None:
-            gen = torch.Generator(device=self.device).manual_seed(config.seed_everything)
-            llm_params = init_llama_params(gen, self.llm_cfg, dtype=param_dtype, device=self.device)
+            if config.model.llm_checkpoint:
+                llm_params = load_params(config.model.llm_checkpoint, self.device,
+                                         param_dtype)["llm_params"]
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(config.seed_everything)
+                llm_params = init_llama_params(gen, self.llm_cfg, dtype=param_dtype,
+                                               device=self.device)
             if config.model.llm_weight_dtype == "int8":
                 llm_params = quantize_llama_params(fuse_llama_params(llm_params))
         self.llm_params = llm_params
@@ -145,7 +156,11 @@ class LLMSpeechTextInference:
         self.encoder_setup = encoder_setup_from_config(config)
         if encoder_cfg is not None:
             self.encoder_setup = dataclasses.replace(self.encoder_setup, encoder_cfg=encoder_cfg)
-        if audio_encoder_params is None:
+        audio_encoder_checkpoint = audio_encoder_checkpoint or config.model.encoder_checkpoint
+        if audio_encoder_checkpoint:
+            audio_encoder_params = load_encoder(audio_encoder_checkpoint, self.device,
+                                                param_dtype)
+        elif audio_encoder_params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed_everything + 1)
             audio_encoder_params = init_audio_encoder(
                 gen, self.encoder_setup, dtype=param_dtype, device=self.device

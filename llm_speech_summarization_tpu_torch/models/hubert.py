@@ -370,3 +370,27 @@ def hubert_forward(
     h = _blocks(params, cfg, h, remat,
                 lambda q, k, v: flash_attention(q, k, v, starts, n_valid, causal=False))
     return h, frame_mask
+
+
+def init_hubert_ctc_head(generator: torch.Generator, cfg: HubertConfig, vocab_size: int,
+                         dtype=torch.bfloat16, device=None) -> Params:
+    """CTC head (HF HubertForCTC's ``lm_head``) of the word-offset model the
+    preprocessing job runs: normal(0.02) weights (D, V), zero bias."""
+    w = torch.randn((cfg.hidden_size, vocab_size), generator=generator, dtype=torch.float32,
+                    device=device)
+    return {"ctc_w": (0.02 * w).to(dtype),
+            "ctc_b": torch.zeros((vocab_size,), dtype=dtype, device=device)}
+
+
+def hubert_ctc_logits(
+    params: Params,
+    head: Params,
+    cfg: HubertConfig,
+    wav: torch.Tensor,
+    wav_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """waveform → (framewise CTC logits (B, T, V) float32, frame_mask); the
+    HuBERT forward inside runs B1 on the card."""
+    frames, frame_mask = hubert_forward(params, cfg, wav, wav_mask)
+    logits = frames @ head["ctc_w"].to(frames.dtype) + head["ctc_b"]
+    return logits.float(), frame_mask

@@ -7,7 +7,16 @@ which writes Orbax).
     consumed in ``epoch``: a resumed run skips them in its (seeded) epoch
     order and continues the exact batch sequence of an unbroken run;
   * encoder-only export (``export_encoder`` / ``load_encoder``) for
-    inference, the reference's second format.
+    inference, the reference's second format;
+  * converted HF weights (``save_params`` / ``load_params``, written by
+    ``cli/convert.py``): one file holding ``{"llm_params"}``,
+    ``{"enc_params"}`` (a full encoder tree, which ``load_encoder`` reads
+    too) or ``{"enc_params", "head_params"}`` (HuBERT-CTC).
+
+Every file here is a ``torch.save`` payload of plain dicts of tensors,
+read back with ``torch.load(weights_only=True)``. The JAX package writes
+Orbax directories instead; the port reads none of them (convert the HF
+weights with the port's ``cli/convert.py``).
 
 A save copies the tensors to host memory first; with ``block=False`` the
 file is then written on a background thread while training goes on, one
@@ -102,15 +111,34 @@ def restore_train_checkpoint(path: str, template: TrainState) -> Tuple[dict, int
     return raw, int(raw["step"]), int(raw["epoch"])
 
 
-def export_encoder(path: str, enc_params: Any) -> str:
-    """Encoder-only export for inference: ``<path>`` is a file."""
+def save_params(path: str, payload: dict) -> str:
+    """Write ``payload`` (a dict of parameter trees) to the file ``path``
+    under a temporary name, then rename it into place."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"enc_params": _to_host(enc_params)}, tmp)
+    # host tensors are written as they are (no second copy of a 3B tree)
+    torch.save({k: tree_map(lambda x: x.detach().cpu(), v) for k, v in payload.items()}, tmp)
     os.replace(tmp, path)
     return path
 
 
-def load_encoder(path: str, device=None) -> Any:
-    return torch.load(os.path.abspath(path), map_location=device, weights_only=True)["enc_params"]
+def load_params(path: str, device=None, dtype=None) -> dict:
+    """A ``save_params`` file, its tensors on ``device`` (memory-mapped on
+    the host on the way, so a 3B checkpoint is not held twice), floating
+    ones cast to ``dtype`` when given."""
+    payload = torch.load(os.path.abspath(path), map_location=device, weights_only=True,
+                         mmap=True)
+    if dtype is None:
+        return payload
+    return tree_map(lambda t: t.to(dtype) if isinstance(t, torch.Tensor)
+                    and t.is_floating_point() else t, payload)
+
+
+def export_encoder(path: str, enc_params: Any) -> str:
+    """Encoder-only export for inference: ``<path>`` is a file."""
+    return save_params(path, {"enc_params": enc_params})
+
+
+def load_encoder(path: str, device=None, dtype=None) -> Any:
+    return load_params(path, device, dtype)["enc_params"]

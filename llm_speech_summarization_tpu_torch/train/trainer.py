@@ -1,8 +1,11 @@
 """Trainer: the KD training loop (port of ``train/trainer.py``).
 
 Init seeds every host RNG and a ``torch.Generator`` per model, builds the
-frozen LLM (int8 weight-only when ``llm_weight_dtype`` is int8, in the
-unfused training layout) and the trainable float32 encoder, the datasets,
+frozen LLM (random, or ``model.llm_checkpoint``, a ``cli/convert.py llm``
+file; int8 weight-only when ``llm_weight_dtype`` is int8, in the unfused
+training layout) and the trainable float32 encoder (HuBERT or Whisper,
+always initialized: ``model.encoder_checkpoint`` raises, as the JAX trainer
+never reads it), the datasets,
 the optimizer and the state, and resumes from the latest checkpoint of the
 run (or a given one). ``train()`` runs epochs of collated, bucketed batches
 with interval logging and validation, a step cap (``train.steps``), a
@@ -101,10 +104,11 @@ class Trainer:
         _check_parallel(config, self.mesh)
         # the seq group of the ring; None trains unsharded
         self.group = self.mesh.seq_group if config.train.use_ring_attention else None
-        if config.model.audio_encoder.base == "whisper":
-            raise NotImplementedError(
-                "KD training of the Whisper encoder is not ported to PyTorch yet (ROADMAP queue "
-                "A, item 7); the port serves Whisper configs and trains HuBERT ones")
+        if config.model.encoder_checkpoint:
+            raise ValueError(
+                "model.encoder_checkpoint is an inference setting: the trainer always "
+                "initializes the encoder from the seed, as the JAX trainer does (it never reads "
+                "the field); unset it, or resume a run from its own checkpoint")
         self.config = config
         self.run_name = run_name
         self.device = resolve_device(device)
@@ -129,13 +133,13 @@ class Trainer:
         # models: the LLM from one generator, the encoder from the next seed
         param_dtype = _DTYPES[config.model.param_dtype]
         self.llm_cfg = llama_preset(config.model.llm_preset or config.model.llm_type)
-        if config.model.llm_checkpoint or config.model.encoder_checkpoint:
-            raise NotImplementedError(
-                "loading converted weights is not ported to PyTorch yet (ROADMAP queue A, "
-                "item 12(a))")
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.llm_params = init_llama_params(gen, self.llm_cfg, dtype=param_dtype,
-                                            device=self.device)
+        if config.model.llm_checkpoint:
+            self.llm_params = ckpt.load_params(config.model.llm_checkpoint, self.device,
+                                               param_dtype)["llm_params"]
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.llm_params = init_llama_params(gen, self.llm_cfg, dtype=param_dtype,
+                                                device=self.device)
         if config.model.llm_weight_dtype == "int8":
             # weight-only int8 for the frozen LLM: no gradient touches it
             self.llm_params = quantize_llama_params(self.llm_params)

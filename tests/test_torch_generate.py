@@ -281,14 +281,19 @@ def test_engine_prompt_ids_golden():
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(llm_checkpoint="/ckpt/llm"),
                                     dict(encoder_checkpoint="/ckpt/encoder")])
 def test_engine_unported_options_raise(kwargs):
-    """Meshes and checkpoints are still refused (sampling and speculative
-    decoding are ported)."""
+    """Meshes are still refused (sampling, speculative decoding and
+    checkpoints are ported); a checkpoint path is now loaded, so a missing
+    file raises FileNotFoundError instead of the old NotImplementedError
+    (tests/test_torch_convert.py loads real ones)."""
     cfg = load_config(str(TINY_YAML))
     kwargs = dict(kwargs)
+    ckpt = False
     for key in ("llm_checkpoint", "encoder_checkpoint"):
         if key in kwargs:
             setattr(cfg.model, key, kwargs.pop(key))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ckpt = True
+    with pytest.raises(FileNotFoundError if ckpt else NotImplementedError,
+                       match="/ckpt/" if ckpt else "ROADMAP"):
         LLMSpeechTextInference(cfg, device="cpu", **kwargs)
 
 

@@ -1,9 +1,13 @@
 """The port stands alone: a fresh interpreter imports every module of it
 (the training slice, ``cli.train``, ring attention, ``parallel/``, the
-inference CLI and the audio loaders among them), builds a CPU engine and server and answers a request, and takes a
-training step through the ``Trainer``, without jax or any module of the
-JAX package being loaded; and the port's copy of the config loader reads
-every shipped YAML exactly as the JAX package's does."""
+inference CLI, the audio loaders, the converters, the preprocessing job and
+the evaluation harness among them) without loading orbax, safetensors,
+transformers or datasets (the port reads safetensors itself), reads a
+bf16 safetensors file, builds a CPU engine and server and answers a
+request, and takes a training step through the ``Trainer``, without jax or
+any module of the JAX package being loaded; and the port's copy of the
+config loader reads every shipped YAML exactly as the JAX package's
+does."""
 
 import dataclasses
 import json
@@ -27,6 +31,18 @@ import llm_speech_summarization_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+heavy = sorted(m for m in sys.modules
+               if m.split(".")[0] in ("orbax", "safetensors", "transformers", "datasets"))
+import struct, tempfile
+from llm_speech_summarization_tpu_torch.models.convert import load_hf_state_dict
+st_dir = tempfile.mkdtemp()
+hdr = json.dumps({"__metadata__": {"format": "pt"},
+                  "w": {"dtype": "BF16", "shape": [2], "data_offsets": [0, 4]}}).encode()
+with open(st_dir + "/m.safetensors", "wb") as f:
+    f.write(struct.pack("<Q", len(hdr)) + hdr + torch.tensor([1.5, -2.0]).to(torch.bfloat16)
+            .view(torch.int16).numpy().tobytes())
+st = load_hf_state_dict(st_dir)["w"]
+st_ok = st.dtype == torch.bfloat16 and st.tolist() == [1.5, -2.0]
 from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
 from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
 from llm_speech_summarization_tpu_torch.serve.server import SummarizationServer
@@ -53,7 +69,8 @@ trainer.train()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "llm_speech_summarization_tpu"))
 print(json.dumps({"modules": len(names), "status": status, "drained": drained,
-                  "trained": trainer.step, "names": names, "loaded": loaded}))
+                  "trained": trainer.step, "names": names, "loaded": loaded, "heavy": heavy,
+                  "safetensors_read": st_ok}))
 """
 
 
@@ -62,14 +79,16 @@ def test_port_runs_without_the_jax_package():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["loaded"] == []
+    assert out["loaded"] == [] and out["heavy"] == [] and out["safetensors_read"]
     assert out["modules"] >= 20 and out["status"] == 200 and out["drained"]
     assert out["trained"] == 1
     pkg = "llm_speech_summarization_tpu_torch."
     for name in ("train.trainer", "train.step", "train.state", "train.checkpoint", "cli.train",
                  "ops.losses", "data.datasets", "data.collate", "obs.writer",
                  "ops.ring_attention", "parallel.mesh", "parallel.comm", "cli.infer",
-                 "data.audio_io", "data.flac", "data.native", "ops.pooling"):
+                 "data.audio_io", "data.flac", "data.native", "ops.pooling", "models.convert",
+                 "cli.convert", "data.preprocess", "cli.preprocess", "eval.rouge",
+                 "eval.bertscore", "eval.evaluate", "cli.evaluate", "cli.serve"):
         assert pkg + name in out["names"], name
 
 

@@ -368,12 +368,16 @@ def test_dense_slot_decoder_on_a_bf16_cache_matches_jax():
                           embeds[rows], mask[rows], jnp.bfloat16)
 
 
-def test_whisper_kd_training_is_refused():
+def test_whisper_kd_training_is_refused(tmp_path):
+    """Whisper KD training is ported: the old refusal is gone and the
+    trainer builds a Whisper encoder (its steps and resume:
+    tests/test_torch_variants_train.py)."""
     from llm_speech_summarization_tpu_torch.train.trainer import Trainer
 
     cfg = _whisper_config(load_config, YAML_DIR / "tiny_test.yaml")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(cfg, device="cpu")
+    cfg.log.checkpoint_dir, cfg.log.log_dir = str(tmp_path / "c"), str(tmp_path / "l")
+    t = Trainer(cfg, device="cpu")
+    assert t.enc_setup.base == "whisper" and "conv1_w" in t.state.enc_params["encoder"]
 
 
 def test_whisper_server_on_a_dense_bf16_cache(monkeypatch):
