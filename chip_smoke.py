@@ -9,7 +9,8 @@ Phases, in order; each prints one line and any failure raises:
      torch/kernels/csrc`` with nvcc, one process per library, all at once,
      and print the registers and spill bytes of the wgmma kernels (the
      flash forward, dq and dk/dv) at each Dh, failing on any spill, and
-     of the decode body's dense and paged instances (reported only);
+     of the decode body's dense and paged instances (reported only), the
+     4-row paged instances MiniChat's group of 1 selects named apart;
   3. flash attention (B1) against its plain version run in float32 at the
      main paths' five shapes (the Llama and MiniChat prefills, HuBERT-large,
      HuBERT-base and Whisper self-attention), within B7's output bound, with injected faults the
@@ -35,7 +36,7 @@ Phases, in order; each prints one line and any failure raises:
      against their plain versions run in float32 at the serving shape,
      with injected faults the bound must reject (a page segment dropped
      from the chunks that cross a page among them), page writes bit-exact,
-     repeats bit-identical;
+     repeats bit-identical; at Llama's 24/8 heads and at MiniChat's 24/24;
   7. the dense-cache decode kernels at the Whisper path's shapes against
      their plain versions run in float32: B3 over a bf16 cache at T=1 and
      T=3 and over an int8 cache with one layer's scales, B8 over a bf16
@@ -57,6 +58,11 @@ Phases, in order; each prints one line and any failure raises:
      hubert-base, int8 weights and cache): B=8 clips of 10 s through
      ``generate_audio_response_batch`` with the ``pool`` projector, then
      ``ctc_pool`` over synthetic ranges;
+ 11c. router_full: BASELINE config #1 served by two in-process paged
+     replicas on the card (one with speculative chunks) behind
+     ``cli/route.py`` in a subprocess: greedy requests one at a time
+     through the router and direct, a burst, and a drain of one replica
+     while more requests go in;
  11b. the bulk entry point: ``cli/infer.py --audio_dir`` over 32 WAV and
      FLAC clips on ``llama3_hubert.yaml``, its JSONL held to per-batch
      engine calls, then the pipelined ``generate_audio_response_batches``
@@ -68,6 +74,11 @@ Phases, in order; each prints one line and any failure raises:
      few KD steps and the closing ``validate()``, then a second trainer
      that resumes from its checkpoint and takes one more step, and one
      profiled step for the device-busy share; its encoder is exported;
+     then train_save_qkv_full: the same trainer under remat_policy
+     "save_qkv", 4 steps with the trace window (LSS_PROFILE_DIR,
+     LSS_PROFILE_STEPS=2) on steps 3 and 4, its kernel events counted;
+     then one step's forward and backward under "full" and "save_qkv" in
+     turns, bit-equal;
  13a. convert_full: Llama-3.2-3B (bf16, two shards), HuBERT-large and
      HuBERT-large CTC drawn at published widths under their HF names,
      written as safetensors and converted by ``cli/convert.py``; an engine
@@ -341,9 +352,22 @@ def phase_build(card, require_no_spill=True):
                     n_regs, spill]
     if require_no_spill and not decode:
         raise AssertionError("build: no decode body instance in the ptxas logs")
+    # the paged instances MiniChat's group of 1 selects (PAGED_MHA_SHAPE, as
+    # BASELINE config #1's paged server runs them): T * G = 4 and 1 query
+    # rows both take the 4-row bucket; 16 consumer warps only where the grid
+    # leaves an SM to each block
+    c, sms = PAGED_MHA_SHAPE, fused_decode.sm_count(0)
+    nsplit = fused_decode.dense_splits(c["B"], c["Hkv"], c["mp"] * c["ps"], sms)
+    nw = 16 if c["B"] * c["Hkv"] * nsplit <= sms else 8
+    paged_g1 = {f"{lib} (T={T})": decode.get(f"{lib} int8 Dh=128 R=4 NW={nw}")
+                for lib, T in (("paged_attention", 4), ("fused_paged", 1))}
+    if require_no_spill and None in paged_g1.values():
+        raise AssertionError(f"build: no 4-row paged instance with {nw} warps: {paged_g1}")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()},
-         wgmma_kernels=regs, decode_kernels=decode, card=card)
+         wgmma_kernels=regs, decode_kernels=decode,
+         paged_g1_instances=dict(rows=4, warps=nw, splits=nsplit, registers_spill=paged_g1),
+         card=card)
 
 
 def phase_flash(torch, card):
@@ -628,18 +652,21 @@ def phase_fused(torch, card):
 
 
 PAGED_SHAPE = dict(B=16, Hq=24, Hkv=8, Dh=128, ps=128, mp=7, L=2)
+# MiniChat's heads (BASELINE config #1's paged server): a group of 1, so B4
+# at T=4 and B5 take the 4-row instance of the decode body
+PAGED_MHA_SHAPE = dict(PAGED_SHAPE, Hkv=24)
 PAGED_SEED = 4  # B4 and B5 read the same pages
 PAGED_T_MAX = 4  # lengths leave room for this many fresh tokens at every T
 
 
-def _paged_case(torch, seed, T, write, device="cuda"):
-    """The serving shape, int8 pools with scattered pages, pad rows (one
+def _paged_case(torch, seed, T, write, device="cuda", shape=PAGED_SHAPE):
+    """The serving ``shape``, int8 pools with scattered pages, pad rows (one
     past the first page), rows at page boundaries, a row with only the
     fresh block; with ``write`` (B5) also a row at length == ps * mp and a
     released row (table of zeros). Pools, scales, table, pads and lengths
     come from ``seed`` alone, so every T (and B5) reads the same pages;
     q and the fresh k/v from ``(seed, T)``."""
-    c = PAGED_SHAPE
+    c = shape
     B, Hq, Hkv, Dh, ps, mp, L = (c[k] for k in ("B", "Hq", "Hkv", "Dh", "ps", "mp", "L"))
     if not 1 <= T <= PAGED_T_MAX:
         raise ValueError(f"T={T} outside 1..{PAGED_T_MAX}")
@@ -671,11 +698,11 @@ def _paged_case(torch, seed, T, write, device="cuda"):
     return q, kp, vp, ks, vs, to(table), to(lengths), to(pads), kn, vn, lengths, pads, table
 
 
-def _paged_work(lengths, pads, T, write):
-    """(bytes, flops) one call needs at PAGED_SHAPE: the valid positions'
+def _paged_work(lengths, pads, T, write, shape=PAGED_SHAPE):
+    """(bytes, flops) one call needs at ``shape``: the valid positions'
     int8 k/v and bf16 scales, q, the fresh k/v and the output, plus the
     written slots (B5); 2 flops per multiply-add of q.k and p.v."""
-    c = PAGED_SHAPE
+    c = shape
     B, Hq, Hkv, Dh, ps, mp = (c[k] for k in ("B", "Hq", "Hkv", "Dh", "ps", "mp"))
     valid = np.clip(np.minimum(lengths, ps * mp) - pads, 0, None).astype(np.int64)
     n_bytes = valid.sum() * Hkv * (2 * Dh + 2 * 2) + 2 * B * T * (2 * Hq + 2 * Hkv) * Dh
@@ -758,16 +785,18 @@ def _paged_check(torch, what, got, plain, exact_fn, rows, lens, pads, ks, vs, ta
                 faults_over_bound=rejected)
 
 
-def phase_paged(torch, card):
+def phase_paged(torch, card, shape=PAGED_SHAPE):
     """B4 against its plain version at the speculative-verification shape
-    (T = spec_k + 1 = 4), reading layer 1 of (L, ...) pools in place."""
+    (T = spec_k + 1 = 4) with ``shape``'s heads, reading layer 1 of (L, ...)
+    pools in place."""
     from llm_speech_summarization_tpu_torch.kernels.paged_attention import (
         paged_decode_attention, paged_reference,
     )
 
     T, layer = 4, 1
+    what = f"B4 at {shape['Hq']}/{shape['Hkv']}"
     (q, kp, vp, ks, vs, table, lens, pads, kn, vn,
-     lens_np, pads_np, _) = _paged_case(torch, PAGED_SEED, T, write=False)
+     lens_np, pads_np, _) = _paged_case(torch, PAGED_SEED, T, write=False, shape=shape)
     args = (q, kp[layer], vp[layer], table, lens, pads, kn, vn, ks[layer], vs[layer])
     snap = [t.clone() for t in (kp, vp, ks, vs)]
     got = paged_decode_attention(*args)
@@ -781,32 +810,33 @@ def phase_paged(torch, card):
                                vn.float(), ks[layer], vs[layer])
 
     rows = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
-    check = _paged_check(torch, "B4", got, plain, exact_fn, rows, lens, pads, ks, vs, table)
+    check = _paged_check(torch, what, got, plain, exact_fn, rows, lens, pads, ks, vs, table)
     for t, s0 in zip((kp, vp, ks, vs), snap):
         if not torch.equal(t, s0):
-            raise AssertionError("B4 wrote into the pools")
+            raise AssertionError(f"{what} wrote into the pools")
     if not torch.equal(paged_decode_attention(*args), got):
-        raise AssertionError("B4: two identical calls differ")
+        raise AssertionError(f"{what}: two identical calls differ")
     t = timings(torch, lambda: paged_decode_attention(*args), lambda: paged_reference(*args))
-    n_bytes, flops = _paged_work(lens_np, pads_np, T, write=False)
+    n_bytes, flops = _paged_work(lens_np, pads_np, T, write=False, shape=shape)
     b_ms, b_by = bound_ms(n_bytes, flops)
-    emit("paged_attention", T=T, shape=PAGED_SHAPE, **check, atol=PAGED_ATOL, rtol=PAGED_RTOL,
+    emit("paged_attention", T=T, shape=shape, **check, atol=PAGED_ATOL, rtol=PAGED_RTOL,
          bit_identical=True, bytes=n_bytes, flops=flops, bound_ms=b_ms, bound_by=b_by, **t,
          card=card)
     return dict(max_abs_err=check["max_abs_err"], bound_ms=b_ms, bound_by=b_by, **t)
 
 
-def phase_fused_paged(torch, card):
-    """B5 against its plain version at the decode shape (T = 1, L = 2):
-    outputs close, page writes bit-exact outside page 0, nothing else
-    changed."""
+def phase_fused_paged(torch, card, shape=PAGED_SHAPE):
+    """B5 against its plain version at the decode shape (T = 1, L = 2) with
+    ``shape``'s heads: outputs close, page writes bit-exact outside page 0,
+    nothing else changed."""
     from llm_speech_summarization_tpu_torch.kernels.fused_paged import (
         _write_targets, fused_paged_decode, fused_paged_reference,
     )
 
     layer = 1
+    what = f"B5 at {shape['Hq']}/{shape['Hkv']}"
     (q, kp, vp, ks, vs, table, lens, pads, kn, vn,
-     lens_np, pads_np, table_np) = _paged_case(torch, PAGED_SEED, 1, write=True)
+     lens_np, pads_np, table_np) = _paged_case(torch, PAGED_SEED, 1, write=True, shape=shape)
     snap = [t.clone() for t in (kp, vp, ks, vs)]
     got_bufs = [t.clone() for t in snap]
     ref_bufs = [t.clone() for t in snap]
@@ -822,9 +852,9 @@ def phase_fused_paged(torch, card):
 
     # the released row reads page 0 while other rows write it: compare the rest
     rows = torch.from_numpy((table_np != 0).all(axis=1)).cuda()
-    check = _paged_check(torch, "B5", got, plain, exact_fn, rows, lens, pads, snap[2], snap[3],
+    check = _paged_check(torch, what, got, plain, exact_fn, rows, lens, pads, snap[2], snap[3],
                          table)
-    pid, slot = _write_targets(table, lens, PAGED_SHAPE["ps"])
+    pid, slot = _write_targets(table, lens, shape["ps"])
     written = torch.zeros(snap[2].shape, dtype=torch.bool, device="cuda")  # (L, P, Hkv, ps)
     written[layer, pid, :, slot] = True
     written[:, 0] = True  # page 0 takes the boundary and released rows' tokens
@@ -832,24 +862,24 @@ def phase_fused_paged(torch, card):
     for name, g, r, s0 in zip(("k_pool", "v_pool", "k_scale", "v_scale"), got_bufs, ref_bufs,
                               snap):
         if not torch.equal(g[:, 1:], r[:, 1:]):
-            raise AssertionError(f"B5: {name} differs from the plain version's write outside "
-                                 f"page 0 at {int((g[:, 1:] != r[:, 1:]).sum())} elements")
+            raise AssertionError(f"{what}: {name} differs from the plain version's write "
+                                 f"outside page 0 at {int((g[:, 1:] != r[:, 1:]).sum())} elements")
         if not torch.equal(g[~written], s0[~written]):
-            raise AssertionError(f"B5: {name} changed outside the written slots")
+            raise AssertionError(f"{what}: {name} changed outside the written slots")
         if torch.equal(g[:, 1:][written[:, 1:]], s0[:, 1:][written[:, 1:]]):
-            raise AssertionError(f"B5: {name} was not written")
+            raise AssertionError(f"{what}: {name} was not written")
     # bit-identical repeats on a fresh copy of the pools (the rows compared:
     # the released row reads page 0 while others write it)
     again_bufs = [t.clone() for t in snap]
     again = fused_paged_decode(q, *again_bufs, table, lens, pads, kn, vn, layer)
     if not (torch.equal(again[rows], got[rows])
             and all(torch.equal(a, g) for a, g in zip(again_bufs, got_bufs))):
-        raise AssertionError("B5: two identical calls differ")
+        raise AssertionError(f"{what}: two identical calls differ")
     t = timings(torch, lambda: fused_paged_decode(q, *got_bufs, table, lens, pads, kn, vn, layer),
                 lambda: fused_paged_reference(q, *ref_bufs, table, lens, pads, kn, vn, layer))
-    n_bytes, flops = _paged_work(lens_np, pads_np, 1, write=True)
+    n_bytes, flops = _paged_work(lens_np, pads_np, 1, write=True, shape=shape)
     b_ms, b_by = bound_ms(n_bytes, flops)
-    emit("fused_paged", T=1, shape=PAGED_SHAPE, **check, atol=PAGED_ATOL, rtol=PAGED_RTOL,
+    emit("fused_paged", T=1, shape=shape, **check, atol=PAGED_ATOL, rtol=PAGED_RTOL,
          page_writes="bit-exact outside page 0", rows_written=n_written, bit_identical=True,
          bytes=n_bytes,
          flops=flops, bound_ms=b_ms, bound_by=b_by, **t, card=card)
@@ -1858,18 +1888,22 @@ def phase_train_small(torch, card, base=False):
          params_moved=moved, tf32=False, card=card)
 
 
-def _expected_train_launches(enc_layers, llm_layers, remat, steps, n_eval_batches, eng_counts):
+def _expected_train_launches(enc_layers, llm_layers, remat, steps, n_eval_batches, eng_counts,
+                             remat_policy="full"):
     """What a trainer run launches: per train step the student's LLM and
     HuBERT layers run B1 + LSE once, and with remat once more in the
-    backward's recompute, and B6 once each; the teacher's LLM layers B1;
-    every validate's eval batch runs B1 in HuBERT and the stacked (audio, text) LLM forward; the generations
+    backward's recompute (except the LLM's under ``remat_policy``
+    "save_qkv", whose backward reads the saved attention), and B6 once
+    each; the teacher's LLM layers B1; every validate's eval batch runs B1
+    in HuBERT and the stacked (audio, text) LLM forward; the generations
     run B1 per encoder forward and prefill and B2 per decode step."""
     both = enc_layers + llm_layers
+    llm_fwd = 2 if remat and remat_policy != "save_qkv" else 1
     return {
         "flash_attention": llm_layers * steps + both * n_eval_batches
         + enc_layers * eng_counts.get("encoder_forwards", 0)
         + llm_layers * eng_counts.get("prefills", 0),
-        "flash_attention_lse": (2 if remat else 1) * both * steps,
+        "flash_attention_lse": ((2 if remat else 1) * enc_layers + llm_fwd * llm_layers) * steps,
         "flash_attention_bwd_dq": both * steps,
         "flash_attention_bwd_dkv": both * steps,
         "fused_decode": llm_layers * eng_counts.get("decode_steps", 0),
@@ -1897,7 +1931,7 @@ def _trainer_run(torch, trainer, what):
     n_eval = -(-len(trainer.val_ds) // val_bs)  # one validate per run here
     check_launches(what, launches, _expected_train_launches(
         trainer.enc_setup.encoder_cfg.num_layers, trainer.llm_cfg.num_layers,
-        trainer.config.train.remat, steps, n_eval, eng_counts))
+        trainer.config.train.remat, steps, n_eval, eng_counts, trainer.config.train.remat_policy))
     records = [json.loads(line) for line in open(os.path.join(trainer.log_dir, "metrics.jsonl"))]
     per_step = {}
     for r in records:
@@ -2026,6 +2060,157 @@ def phase_train_full(torch, card, export_to):
                       wall_s=second["wall_s"], launches=second["launches"]),
          profiled_step=profile_, card=card)
     return first["launches"], second["launches"]
+
+
+SAVE_QKV_STEPS = 4  # the trace window covers steps 3 and 4
+TRACE_KERNELS = ("flash_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")
+
+
+def _trace_kernel_counts(logdir):
+    """CUDA kernel events by name fragment in the one Chrome trace that
+    ``obs.profile.trace`` wrote into ``logdir``."""
+    import glob
+
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace window: {len(files)} trace files in {logdir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return ({k: sum(k in n for n in kernels) for k in TRACE_KERNELS},
+            os.path.getsize(files[0]))
+
+
+def _policy_grads(torch, trainer, batch, policy):
+    """One KD forward and backward of ``trainer``'s step under remat
+    ``policy``, without the optimizer: (total loss, encoder gradients, ms,
+    peak GB above the memory held before, launches)."""
+    import copy
+
+    from llm_speech_summarization_tpu_torch.train.state import tree_leaves
+    from llm_speech_summarization_tpu_torch.train.step import _device_ids, _forward_losses
+
+    cfg = copy.deepcopy(trainer.config)
+    cfg.train.remat_policy = policy
+    leaves = tree_leaves(trainer.state.enc_params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    total, _ = _forward_losses(
+        trainer.state.enc_params, trainer.llm_params, batch, enc_setup=trainer.enc_setup,
+        llm_cfg=trainer.llm_cfg, cfg=cfg,
+        prefix_ids=_device_ids(trainer.prefix_ids, trainer.device),
+        suffix_ids=_device_ids(trainer.suffix_ids, trainer.device),
+        total_len=trainer.total_len(int(batch.wav.shape[1])), remat=cfg.train.remat)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return total.detach(), grads, ms, peak, read_launches()
+
+
+def phase_train_save_qkv_full(torch, card):
+    """The full-width ``llama3_hubert.yaml`` trainer under remat_policy
+    "save_qkv" (B=16, 10 s bucket, int8 frozen LLM, synthetic data): 4
+    steps with LSS_PROFILE_DIR set and LSS_PROFILE_STEPS=2, so the trace
+    window holds steps 3 and 4, launch counts checked (the student LLM's
+    backward reads the saved attention: no B1 + LSE relaunch), the trace
+    file's CUDA events of B1 (+ LSE) and B6 those of exactly two steps;
+    then, from the trained state and one batch, the step's forward and
+    backward under "full" and "save_qkv" in turns (full, save_qkv, full,
+    save_qkv): the loss and every encoder gradient equal bit for bit, B1 +
+    LSE lower by the LLM's layers, ms and peak memory of each."""
+    import shutil
+    import tempfile
+
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="lss_save_qkv_")
+    prof_dir = os.path.join(tmp, "trace")
+    env = {k: os.environ.get(k) for k in ("LSS_PROFILE_DIR", "LSS_PROFILE_STEPS")}
+    try:
+        cfg = load_config(str(YAML_DIR / "llama3_hubert.yaml"))
+        cfg.data.source = "synthetic"
+        cfg.data.synthetic_num_samples = 64  # 4 train batches of 16, 8 val clips
+        cfg.train.steps = SAVE_QKV_STEPS
+        cfg.train.remat_policy = "save_qkv"
+        cfg.log.checkpoint_dir = os.path.join(tmp, "ckpt")
+        cfg.log.log_dir = os.path.join(tmp, "logs")
+        cfg.log.log_interval = 1
+        cfg.log.num_generate_samples = 0
+        if not cfg.train.remat:
+            raise AssertionError("llama3_hubert.yaml no longer sets train.remat")
+        os.environ["LSS_PROFILE_DIR"] = prof_dir
+        os.environ["LSS_PROFILE_STEPS"] = "2"
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, run_name="save_qkv")
+        run = _trainer_run(torch, trainer, "train_save_qkv_full")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        enc_layers = trainer.enc_setup.encoder_cfg.num_layers
+        L = trainer.llm_cfg.num_layers
+        # the window's kernels: two steps of the teacher's B1, the student's
+        # B1 + LSE (HuBERT's twice under remat, the LLM's once) and B6
+        traced, trace_bytes = _trace_kernel_counts(prof_dir)
+        per_step = {"flash_fwd_kernel": L + 2 * enc_layers + L,
+                    "bwd_dq_kernel": enc_layers + L, "bwd_dkv_kernel": enc_layers + L}
+        want = {k: 2 * v for k, v in per_step.items()}
+        if traced != want:
+            raise AssertionError(f"trace window: kernel events {traced}, want two steps' {want}")
+        times = {s: 1e3 * run["per_step"][s]["step_time_s"] for s in sorted(run["per_step"])}
+
+        # full against save_qkv on the same state and batch
+        batch = next(trainer._batches(trainer.train_ds, cfg.train.batch_size, True, 99))
+        batch = batch.to_device(trainer.device)
+        runs, grads = {"full": [], "save_qkv": []}, {}
+        for policy in ("full", "save_qkv", "full", "save_qkv"):
+            loss, g, ms, peak, launches = _policy_grads(torch, trainer, batch, policy)
+            grads.setdefault(policy, g)  # the first run's; the second repeats it
+            runs[policy].append((loss, ms, peak, launches))
+            del g
+        (loss_f, _, _, lf), (loss_s, _, _, ls) = runs["full"][0], runs["save_qkv"][0]
+        grads_f, grads_s = grads["full"], grads["save_qkv"]
+        equal_loss = torch.equal(loss_f, loss_s)
+        equal_grads = all(torch.equal(a, b) for a, b in zip(grads_f, grads_s))
+        repeat = all(torch.equal(r[0][0], r[1][0]) for r in runs.values())
+        if not (equal_loss and equal_grads and repeat):
+            gn_f = torch.sqrt(sum(g.float().square().sum() for g in grads_f)).item()
+            gn_s = torch.sqrt(sum(g.float().square().sum() for g in grads_s)).item()
+            raise AssertionError(f"save_qkv: loss {loss_s.item()} vs full {loss_f.item()}, "
+                                 f"grad norm {gn_s} vs {gn_f}; equal loss {equal_loss}, "
+                                 f"grads {equal_grads}, repeats {repeat}")
+        if not torch.isfinite(loss_f):
+            raise AssertionError(f"save_qkv: loss {loss_f.item()}")
+        want_f = {"flash_attention": L, "flash_attention_lse": 2 * (enc_layers + L),
+                  "flash_attention_bwd_dq": enc_layers + L, "flash_attention_bwd_dkv": enc_layers + L}
+        check_launches("full step", lf, want_f)
+        check_launches("save_qkv step", ls, {**want_f, "flash_attention_lse": 2 * enc_layers + L})
+        policies = {p: dict(ms=[r[1] for r in rs], peak_gb_above_held=[r[2] for r in rs],
+                            lse_launches=rs[0][3]["flash_attention_lse"])
+                    for p, rs in runs.items()}
+        del grads, grads_f, grads_s, runs, trainer, batch
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    untraced = [times[s] for s in times if s <= 2]
+    traced_ms = [times[s] for s in times if s > 2]
+    emit("train_save_qkv_full", config="llama3_hubert.yaml", remat_policy="save_qkv",
+         batch=cfg.train.batch_size, steps=run["steps"], ms_per_step=list(times.values()),
+         steady_ms_per_step=untraced[-1], traced_ms_per_step=traced_ms,
+         trace_cost=statistics.mean(traced_ms) / untraced[-1], run_wall_s=run["wall_s"],
+         max_memory_allocated_gb=peak_gb, launches=run["launches"],
+         trace=dict(steps=[3, 4], kernel_events=traced, bytes=trace_bytes),
+         policies=policies, loss=loss_f.item(), bit_equal=True,
+         lse_launches_saved_per_step=policies["full"]["lse_launches"]
+         - policies["save_qkv"]["lse_launches"], llm_layers=L, card=card)
+    return run["launches"]
 
 
 # train_ring_full: llama3_hubert_long.yaml's trainer on a seq ring of
@@ -2661,14 +2846,16 @@ def phase_bulk_full(torch, card):
     return launches, eng
 
 
-def _b3_margins(torch, eng, embeds, mask, tokens, steps):
+def _b3_margins(torch, eng, embeds, mask, tokens, steps, cache_dtype=None):
     """Teacher-force the B3 stream ``tokens`` through prefill and decode
-    steps on a bf16 cache: per step the logits' argmax and top-2 margin
-    (B, steps), the margin-aware contract's reference."""
+    steps on a bf16 cache (or ``cache_dtype``'s, where B2 decodes): per step
+    the logits' argmax and top-2 margin (B, steps), the margin-aware
+    contract's reference."""
     from llm_speech_summarization_tpu_torch.models.llama import init_kv_cache, llama_forward
 
     B, Lp, _ = embeds.shape
-    cache = init_kv_cache(eng.llm_cfg, B, Lp + steps, torch.bfloat16, device="cuda")
+    cache = init_kv_cache(eng.llm_cfg, B, Lp + steps, cache_dtype or torch.bfloat16,
+                          device="cuda")
     out = llama_forward(eng.llm_params, eng.llm_cfg, inputs_embeds=embeds, attn_mask=mask,
                         kv_cache=cache, cache_offset=0, last_logit_only=True)
     lens = mask.to(torch.int32).sum(1)
@@ -2952,6 +3139,261 @@ def phase_serving_full(torch, card, eng):
     if runs["paged_spec3"]["launches"]["paged_attention"] == 0:
         raise AssertionError("serving: the speculative paged path never launched B4")
     return runs
+
+
+ROUTER_N_BURST = 16  # audio requests at once, beside one text request
+ROUTER_N_DRAIN = 8  # audio requests sent after replica A left the rotation
+ROUTER_N_GREEDY = 4  # one at a time, through the router and then direct
+
+
+def _router_imports(stderr: str) -> list:
+    """The top-level packages a ``python -X importtime`` process imported,
+    from its stderr."""
+    names = set()
+    for line in stderr.splitlines():
+        if line.startswith("import time:") and "|" in line:
+            name = line.rsplit("|", 1)[1].strip()
+            if name and name != "imported package":  # the header line
+                names.add(name.split(".")[0])
+    return sorted(names)
+
+
+def phase_router_full(torch, card):
+    """BASELINE config #1 behind the replica router: one engine
+    (``minichat_hubert.yaml`` with hubert-base and the ``pool`` projector,
+    int8 weights and cache, published widths, random weights) served by two
+    in-process ``SummarizationServer`` replicas on the card, A paged and B
+    paged with speculative chunks (spec_k=3), n_slots=8 and a 64-token cap
+    each, fronted by ``python -m llm_speech_summarization_tpu_torch.cli.
+    route --port 0 --health_interval 0.5`` (a subprocess that must load
+    neither jax nor the JAX package). Each replica is warmed with one
+    request; with every launch count at 0, four greedy requests go one at a
+    time through the router (the least-loaded tie breaks round-robin: two
+    reach each replica) and then straight to the replica that served each,
+    and their token rows must agree (equal on A; on B equal, or parting only
+    at a top-2 near-tie, since its governor may run a request on B4 rounds
+    one time and B5 steps the other); then a burst of 16 audio requests of
+    6-10 s (two streamed, two sampled with fixed seeds) and one text request
+    at once; then A drains while 8 more audio requests go in, sent after the
+    router's probe ejected A, so that all reach B. Every request answers
+    200, streamed deltas add up to their response, both replicas served
+    requests, and the launches equal what the two decoders and the engine
+    ran: B5 per plain paged step, B4 per speculative round."""
+    import threading
+
+    from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
+    from llm_speech_summarization_tpu_torch.serve.server import SummarizationServer
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _minichat_base_config("pool")
+    t0 = time.perf_counter()
+    eng = LLMSpeechTextInference(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    L, enc_layers = eng.llm_cfg.num_layers, eng.encoder_setup.encoder_cfg.num_layers
+    common = dict(host="127.0.0.1", port=0, continuous=True, paged=True, n_slots=8,
+                  max_new_tokens=64, device="cuda")
+    replicas = {"A": SummarizationServer(eng, **common),
+                "B": SummarizationServer(eng, spec_k=3, **common)}
+    for r in replicas.values():
+        r.start_background()
+    urls = {name: f"http://127.0.0.1:{r.port}" for name, r in replicas.items()}
+    router = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m", "llm_speech_summarization_tpu_torch.cli.route",
+         "--backends", f"{urls['A']},{urls['B']}", "--host", "127.0.0.1", "--port", "0",
+         "--health_interval", "0.5"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    rng = np.random.RandomState(9)
+    n_clips = ROUTER_N_GREEDY + ROUTER_N_BURST + ROUTER_N_DRAIN
+    clips = [(0.1 * rng.randn(int(16000 * rng.uniform(6.0, 10.0)))).astype(np.float32)
+             for _ in range(n_clips)]
+
+    def audio(i, **extra):
+        return {"audio": clips[i].tolist(), "max_new_tokens": 32, **extra}
+
+    def send_all(bodies, port):
+        """POST every (path, body, stream) at once; (results, wall s)."""
+        results = [None] * len(bodies)
+
+        def send(i, path, body, stream):
+            results[i] = _http(port, path, body, stream)
+
+        threads = [threading.Thread(target=send, args=(i, *b)) for i, b in enumerate(bodies)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        return results, time.perf_counter() - t0
+
+    drainer = None
+    try:
+        line = router.stdout.readline()
+        m = re.fullmatch(r"routing 2 replicas on 127\.0\.0\.1:(\d+)\s*", line)
+        if not m:
+            raise AssertionError(f"router_full: the router printed {line!r}")
+        port = int(m.group(1))
+
+        def served():
+            _, metrics = _http(port, "/metrics")
+            return {name: b["served"] for name, b in zip(("A", "B"), metrics["backends"])}
+
+        for name, r in replicas.items():
+            status, _ = _http(r.port, "/v1/audio_summary", audio(0, max_new_tokens=2))
+            if status != 200:
+                raise AssertionError(f"router_full: warming replica {name} gave {status}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # --- the main path, counted
+        reset_launches()
+        eng.counts.clear()
+        for r in replicas.values():
+            r.batcher.decoder.counts.clear()
+            r.batcher.chunk_seconds, r.batcher.chunk_steps_run = 0.0, 0
+            r.batcher.first_token_s.clear()
+        served_by, texts = [], {"router": [], "direct": []}
+        with recorded_tokens(type(eng.tokenizer)) as rows:
+            for i in range(ROUTER_N_GREEDY):
+                before = served()
+                status, body = _http(port, "/v1/audio_summary", audio(i))
+                after = served()
+                which = [n for n in after if after[n] > before[n]]
+                if status != 200 or len(which) != 1:
+                    raise AssertionError(f"router_full: greedy request {i}: {status}, served "
+                                         f"{before} -> {after}")
+                served_by.append(which[0])
+                texts["router"].append(body["response"])
+            for i, name in enumerate(served_by):
+                status, body = _http(replicas[name].port, "/v1/audio_summary", audio(i))
+                if status != 200:
+                    raise AssertionError(f"router_full: direct request {i} gave {status}")
+                texts["direct"].append(body["response"])
+        if sorted(served_by) != ["A", "A", "B", "B"] or len(rows) != 2 * ROUTER_N_GREEDY:
+            raise AssertionError(f"router_full: greedy requests served by {served_by}, "
+                                 f"{len(rows)} token rows decoded")
+
+        burst = [("/v1/audio_summary", audio(ROUTER_N_GREEDY + 0, stream=True), True),
+                 ("/v1/audio_summary", audio(ROUTER_N_GREEDY + 1, stream=True), True),
+                 ("/v1/audio_summary", audio(ROUTER_N_GREEDY + 2, temperature=0.8, top_k=50,
+                                             seed=11), False),
+                 ("/v1/audio_summary", audio(ROUTER_N_GREEDY + 3, temperature=0.8, top_p=0.9,
+                                             seed=12), False)]
+        burst += [("/v1/audio_summary", audio(ROUTER_N_GREEDY + i), False)
+                  for i in range(4, ROUTER_N_BURST)]
+        burst.append(("/v1/text_response", {"text": "Summarize the call in one line.",
+                                            "max_new_tokens": 32}, False))
+        burst_results, burst_s = send_all(burst, port)
+        served_burst = served()
+
+        # drain A: its /healthz answers 503, the router's probe ejects it
+        drained = {}
+        drainer = threading.Thread(
+            target=lambda: drained.setdefault("A", replicas["A"].drain(timeout=120)))
+        t_drain = time.perf_counter()
+        drainer.start()
+        deadline = time.monotonic() + 30
+        while True:
+            _, metrics = _http(port, "/metrics")
+            if not metrics["backends"][0]["healthy"]:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("router_full: the router never ejected draining replica A")
+            time.sleep(0.05)
+        ejected_s = time.perf_counter() - t_drain
+        before_drain = served()
+        first = ROUTER_N_GREEDY + ROUTER_N_BURST
+        after_ejection = [("/v1/audio_summary", audio(first + i), False)
+                          for i in range(ROUTER_N_DRAIN)]
+        drain_results, drain_s = send_all(after_ejection, port)
+        drainer.join(180)
+        after_drain = served()
+        launches = read_launches()
+        counts = {name: dict(r.batcher.decoder.counts) for name, r in replicas.items()}
+        eng_counts = dict(eng.counts)
+        _, router_metrics = _http(port, "/metrics")
+        metrics = {"A": replicas["A"].metrics(), "B": _http(replicas["B"].port, "/metrics")[1]}
+        # ---
+    finally:
+        router.terminate()
+        _, router_err = router.communicate(timeout=60)
+        if drainer is not None:
+            drainer.join(180)
+        for name, r in replicas.items():
+            if not r._draining:
+                r.drain(timeout=120)
+    if drained.get("A") is not True:
+        raise AssertionError("router_full: replica A did not drain")
+    leaked = [m for m in _router_imports(router_err)
+              if m in ("jax", "jaxlib", "llm_speech_summarization_tpu")]
+    if leaked:
+        raise AssertionError(f"router_full: the router process imported {leaked}")
+
+    for (path, body, stream), res in zip(burst + after_ejection, burst_results + drain_results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"router_full: a request failed: {res}")
+        final = res[1][-1] if stream else res[1]
+        if not isinstance(final.get("response"), str):
+            raise AssertionError(f"router_full: no response in {final}")
+        if stream and "".join(o.get("delta", "") for o in res[1][:-1]) != final["response"]:
+            raise AssertionError("router_full: streamed deltas do not add up to the response")
+    if after_drain["A"] != before_drain["A"] or \
+            after_drain["B"] != before_drain["B"] + ROUTER_N_DRAIN:
+        raise AssertionError(f"router_full: after A's ejection the router served "
+                             f"{before_drain} -> {after_drain}")
+    backends = router_metrics["backends"]
+    if backends[0]["healthy"] or not backends[1]["healthy"] or backends[0]["ejections"] < 1 \
+            or min(b["served"] for b in backends) == 0:
+        raise AssertionError(f"router_full: router metrics {router_metrics}")
+
+    # the one-at-a-time greedy requests: router against direct, token rows
+    parted = {}
+    for i, name in enumerate(served_by):
+        got, want = rows[i], rows[ROUTER_N_GREEDY + i]
+        if got == want:
+            if texts["router"][i] != texts["direct"][i]:
+                raise AssertionError(f"router_full: request {i}: equal tokens, other texts")
+            continue
+        t = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got),
+                                                                               len(want)))
+        if name == "A" or t >= min(len(got), len(want)):
+            raise AssertionError(f"router_full: request {i} on replica {name}: the router's "
+                                 f"tokens {got} differ from the direct ones {want} at {t}")
+        embeds, mask = eng.build_audio_prompt_batch([clips[i]])
+        _, margins = _b3_margins(torch, eng, embeds, mask,
+                                 torch.tensor([got], dtype=torch.int32, device="cuda"), t + 1,
+                                 cache_dtype=torch.int8)
+        parted[i] = dict(step=t, margin=margins[0, t].item())
+        if margins[0, t] > 2 * LOGIT_TOL:
+            raise AssertionError(f"router_full: request {i} on B parts at step {t}, where the "
+                                 f"top-2 margin is {margins[0, t].item()}")
+
+    steps = {n: c.get("steps", 0) for n, c in counts.items()}
+    rounds = {n: c.get("spec_rounds", 0) for n, c in counts.items()}
+    check_launches("router_full", launches, {
+        "flash_attention": L * sum(c.get("prefills", 0) for c in counts.values())
+        + enc_layers * eng_counts.get("encoder_forwards", 0),
+        "fused_paged": L * sum(steps.values()), "paged_attention": L * sum(rounds.values())})
+    if rounds["A"] or not launches["fused_paged"] or not launches["paged_attention"]:
+        raise AssertionError(f"router_full: B5 and B4 must both launch (steps {steps}, "
+                             f"rounds {rounds})")
+    n_burst = len(burst)
+    emit("router_full", config="minichat_hubert.yaml", encoder=cfg.model.audio_encoder.type,
+         projector="pool", llm_heads=[eng.llm_cfg.num_heads, eng.llm_cfg.num_kv_heads],
+         replicas={"A": "paged", "B": "paged, spec_k=3"}, n_slots=8, init_s=init_s,
+         burst_requests=n_burst, burst_wall_s=burst_s, requests_per_s=n_burst / burst_s,
+         drain_requests=ROUTER_N_DRAIN, drain_wall_s=drain_s,
+         drain_requests_per_s=ROUTER_N_DRAIN / drain_s, ejected_after_s=ejected_s,
+         served_after_burst=served_burst, served=after_drain, greedy_served_by=served_by,
+         greedy_rows_equal=[rows[i] == rows[ROUTER_N_GREEDY + i]
+                            for i in range(ROUTER_N_GREEDY)], greedy_parted=parted,
+         p50_first_token_s={n: m.get("first_token_s_p50") for n, m in metrics.items()},
+         decode_ms_per_step={n: m.get("decode_ms_per_step") for n, m in metrics.items()},
+         spec_acceptance=metrics["B"].get("spec_acceptance"), router=router_metrics,
+         router_loaded_torch="torch" in _router_imports(router_err),
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches, decoder_counts=counts, engine_counts=eng_counts, card=card)
+    return launches
 
 
 # one A/B run: this file's kernel phases (its path is argv[1]) against the
@@ -3793,7 +4235,9 @@ def main() -> int:
         flash_ring = phase_flash_ring(torch, card)
     fused = phase_fused(torch, card)
     paged = phase_paged(torch, card)
+    paged_mha = phase_paged(torch, card, PAGED_MHA_SHAPE)
     fpaged = phase_fused_paged(torch, card)
+    fpaged_mha = phase_fused_paged(torch, card, PAGED_MHA_SHAPE)
     dense = phase_dense_decode(torch, card)
     phase_serving_small(torch, card, *phase_slice(torch, card))
     phase_slice(torch, card, whisper=True)
@@ -3811,6 +4255,9 @@ def main() -> int:
     minichat_runs = phase_minichat_base_full(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    router_launches = phase_router_full(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     bulk_launches, eng = phase_bulk_full(torch, card)
     del eng
     gc.collect()
@@ -3826,6 +4273,9 @@ def main() -> int:
         export = os.path.join(work, "train_full_encoder.pt")
         with torch.enable_grad():
             train_runs = phase_train_full(torch, card, export)
+            gc.collect()
+            torch.cuda.empty_cache()
+            save_qkv_launches = phase_train_save_qkv_full(torch, card)
         gc.collect()
         torch.cuda.empty_cache()
         convert_launches, eng, files = phase_convert_full(torch, card, work)
@@ -3851,14 +4301,15 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     # launches: the sum over the main-path runs (batch path, three servers,
-    # MiniChat + HuBERT-base with both projectors, the bulk CLI, the Whisper
-    # batch path, its B8 stream and server, the trainer and the resumed
-    # trainer, the converted-checkpoint engine, preprocessing, evaluation,
+    # MiniChat + HuBERT-base with both projectors, its two replicas behind
+    # the router, the bulk CLI, the Whisper batch path, its B8 stream and
+    # server, the trainer, the resumed trainer and the save_qkv trainer,
+    # the converted-checkpoint engine, preprocessing, evaluation,
     # -p and --ctc through the CLI, the Whisper trainer and its resume, and
     # the ring trainer's ranks in both its launches)
-    for run in ([r["launches"] for r in serving.values()] + minichat_runs + [bulk_launches]
-                + whisper_runs + list(train_runs) + [convert_launches, preprocess_launches,
-                                                     eval_launches] + ckpt_runs
+    for run in ([r["launches"] for r in serving.values()] + minichat_runs + [router_launches]
+                + [bulk_launches] + whisper_runs + list(train_runs) + [save_qkv_launches]
+                + [convert_launches, preprocess_launches, eval_launches] + ckpt_runs
                 + list(whisper_train_runs) + [ring_launches]):
         for k, v in run.items():
             launches[k] += v
@@ -3878,9 +4329,9 @@ def main() -> int:
         entry("fused_decode", "fused_decode.cu", "fused_decode.py:375", "fused_decode",
               fused[(16, 1, 384)], [r["max_abs_err"] for r in fused.values()]),
         entry("paged_decode_attention", "paged_attention.cu", "paged_attention.py:115",
-              "paged_attention", paged, [paged["max_abs_err"]]),
+              "paged_attention", paged, [paged["max_abs_err"], paged_mha["max_abs_err"]]),
         entry("fused_paged_decode", "fused_paged.cu", "fused_paged.py:118", "fused_paged",
-              fpaged, [fpaged["max_abs_err"]]),
+              fpaged, [fpaged["max_abs_err"], fpaged_mha["max_abs_err"]]),
         entry("fused_decode_attention_write", "fused_decode.cu", "fused_decode.py:169",
               "fused_decode_attention_write", dense["b3_bf16_T1"],
               [r["max_abs_err"] for k, r in dense.items() if k.startswith("b3")]),

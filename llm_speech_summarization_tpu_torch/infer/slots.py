@@ -26,6 +26,7 @@ per step here.
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -123,6 +124,7 @@ class SlotDecoder:
         # and release
         self._mirror = (np.ones((N,), bool), np.zeros((N,), np.int32), np.zeros((N,), np.int32))
         self.last_chunk_steps = 0
+        self.last_read_s = 0.0
 
     def _init_state(self) -> SlotState:
         N, dev = self.n_slots, self.device
@@ -382,8 +384,10 @@ class SlotDecoder:
                 break
         self.last_chunk_steps = ran
         s = self.state
+        t0 = time.perf_counter()
         fused = torch.cat([s.done.to(torch.int32)[:, None], s.budgets[:, None],
                            s.n_emitted[:, None], s.tokens], dim=1).cpu().numpy().copy()
+        self.last_read_s = time.perf_counter() - t0  # the wait for the chunk's device work
         flags = (fused[:, 0].astype(bool), fused[:, 1], fused[:, 2], fused[:, 3:])
         self._mirror = (flags[0].copy(), flags[1].copy(), flags[2].copy())
         return flags if return_flags else None

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from ..configs import Config
+from ..device import resolve_device
 from ..ops.pooling import avg_pool_time, ctc_segment_mean, stack_downsample
 from ..parallel.comm import group_size
 from .hubert import HubertConfig, hubert_forward, hubert_frame_count, hubert_preset, init_hubert_params
@@ -184,3 +185,23 @@ def audio_encoder_forward(
         emb_lens = valid.to(torch.int32).sum(dim=1)
     embeds = pooled @ params["proj_w"] + params["proj_b"]
     return embeds, torch.clamp(emb_lens, 0, embeds.shape[1]).to(torch.int32)
+
+
+class AudioEncoder:
+    """Object wrapper bundling the setup with init and apply (the JAX
+    package's ``AudioEncoder``). ``device=None`` is the CUDA card and
+    raises without one; ``"cpu"`` runs the plain path."""
+
+    def __init__(self, config: Config, dtype=torch.bfloat16, device=None):
+        self.setup = encoder_setup_from_config(config)
+        self.dtype = dtype
+        self.device = resolve_device(device)
+
+    def init(self, generator: torch.Generator) -> Params:
+        """Random parameters on the wrapper's device (``generator`` lives
+        there too)."""
+        return init_audio_encoder(generator, self.setup, self.dtype, self.device)
+
+    def __call__(self, params, wav, wav_lens=None, ctc_pool_ranges=None, remat=False):
+        return audio_encoder_forward(params, self.setup, wav, wav_lens, ctc_pool_ranges,
+                                     remat=remat)

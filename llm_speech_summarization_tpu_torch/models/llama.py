@@ -26,8 +26,9 @@ formulations.
 Training (the cache-free forward of the KD step): ``return_hidden`` /
 ``hidden_window`` return the hidden-state stack of the last W positions,
 ``return_final_hidden`` / ``logit_window`` the final hidden states, and
-``remat`` recomputes each block in the backward (``torch.utils.checkpoint``,
-the JAX "full" policy). The frozen weights take no gradient: autograd
+``remat`` recomputes each block in the backward (``torch.utils.checkpoint``:
+the JAX "full" policy, or "save_qkv", which keeps q, k, v and the attention
+output). The frozen weights take no gradient: autograd
 through ``(h @ w.to(h.dtype)) * scale`` gives the activations theirs.
 
 Sequence parallelism (``ring_group``, the long-audio trainer): every rank
@@ -36,8 +37,8 @@ come from the global mask, each rank keeps its shard [r·Tl, (r+1)·Tl) of
 the sequence, and attention is ``ring_attention`` (kernel B7 per block on
 the card). The hidden-state stack and the final hidden states keep their
 global meaning (the last W positions of the whole sequence) and come back
-on every rank. Not ported yet: the ``save_qkv`` remat policy and tensor
-parallelism (ROADMAP queue A items 10, 11).
+on every rank. Not ported yet: tensor parallelism (ROADMAP queue A item
+11).
 """
 
 from __future__ import annotations
@@ -221,10 +222,28 @@ def _mm(h: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
 def _block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, attend):
     """One pre-norm transformer block; ``attend(q, k, v)`` is the attention
     of the mode at hand. Returns (out, k, v) with post-rope k."""
-    B, T, _ = x.shape
-    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-
     h = rms_norm(x, lp["input_norm"], cfg.rms_eps)
+    q, k, v = _qkv(cfg, lp, h, rope_cos, rope_sin)
+    return _block_out(cfg, lp, x, attend(q, k, v)), k, v
+
+
+def _block_save_qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, attend):
+    """``_block`` under the save_qkv remat policy: the backward keeps the
+    post-rope q, k, v and the attention output (which the attention's
+    autograd Function saves with its log-sum-exp) and recomputes only the
+    norms, the o-projection and the MLP half, never the attention. The same
+    operations in the same order as ``_block``, so the values and gradients
+    are the other policies' bit for bit."""
+    h = checkpoint(rms_norm, x, lp["input_norm"], cfg.rms_eps, use_reentrant=False)
+    q, k, v = _qkv(cfg, lp, h, rope_cos, rope_sin)
+    attn = attend(q, k, v)
+    return checkpoint(_block_out, cfg, lp, x, attn, use_reentrant=False), k, v
+
+
+def _qkv(cfg: LlamaConfig, lp: Params, h: torch.Tensor, rope_cos, rope_sin):
+    """The normed input's q, k, v (B, T, heads, Dh), q and k after rope."""
+    B, T, _ = h.shape
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "wqkv" in lp:
         qkv = _mm(h, lp, "wqkv")
         q = qkv[..., : Hq * Dh].reshape(B, T, Hq, Dh)
@@ -236,10 +255,14 @@ def _block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, at
         v = _mm(h, lp, "wv").reshape(B, T, Hkv, Dh)
     q = apply_rope_cached(q, rope_cos, rope_sin)
     k = apply_rope_cached(k, rope_cos, rope_sin)
+    return q, k, v
 
-    attn = attend(q, k, v)
-    x = x + _mm(attn.reshape(B, T, Hq * Dh), lp, "wo")
 
+def _block_out(cfg: LlamaConfig, lp: Params, x: torch.Tensor, attn: torch.Tensor):
+    """The block's output from its input and the attention (B, T, Hq, Dh):
+    the o-projection's residual, then the MLP half."""
+    B, T, _ = x.shape
+    x = x + _mm(attn.reshape(B, T, cfg.num_heads * cfg.head_dim), lp, "wo")
     h = rms_norm(x, lp["post_attn_norm"], cfg.rms_eps)
     if "w_gateup" in lp:
         inter = lp["w_down"].shape[-2]
@@ -248,8 +271,7 @@ def _block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, at
     else:
         gate = torch.nn.functional.silu(_mm(h, lp, "w_gate"))
         up = _mm(h, lp, "w_up")
-    x = x + _mm(gate * up, lp, "w_down")
-    return x, k, v
+    return x + _mm(gate * up, lp, "w_down")
 
 
 def _write_cache(cache: KVCache, layer: int, offset: int, k: torch.Tensor, v: torch.Tensor):
@@ -315,7 +337,9 @@ def llama_forward(
     normed final hidden states of the last ``logit_window`` positions, and
     logits cover those positions only when ``logit_window`` > 0;
     ``compute_logits=False`` skips the head. ``remat`` with ``remat_policy``
-    None or "full" recomputes each block in the backward.
+    None or "full" recomputes each block in the backward, attention
+    included; "save_qkv" keeps each block's post-rope q, k, v and attention
+    output and recomputes the rest (``_block_save_qkv``), on the ring too.
 
     ``ring_group``: the cache-free forward sharded over the process group's
     ranks (see the module docstring); T must divide by their number. Every
@@ -368,10 +392,8 @@ def llama_forward(
         raise ValueError("a forward with a kv_cache needs cache_offset")
     if kv_cache is not None and (return_hidden or remat):
         raise ValueError("return_hidden and remat belong to the cache-free (training) forward")
-    if remat and remat_policy not in (None, "full"):
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} is not ported to PyTorch yet (ROADMAP queue A, "
-            f"item 10: the save_qkv policy); use 'full'")
+    if remat and remat_policy not in (None, "full", "save_qkv"):
+        raise ValueError(f"remat_policy={remat_policy!r}: expected 'full' or 'save_qkv'")
     remat = remat and torch.is_grad_enabled()
     if attn_impl not in ("auto", "fused", "pallas", "xla"):
         raise ValueError(f"attn_impl={attn_impl!r}: expected 'auto', 'fused', 'pallas' or 'xla'")
@@ -468,7 +490,9 @@ def llama_forward(
         else:
             def attend(q, k, v):
                 return flash_attention(q, k, v, pad_lens, ends, causal=True)
-        if remat:
+        if remat and remat_policy == "save_qkv":
+            x = _block_save_qkv(cfg, lp, x, rope_cos, rope_sin, attend)[0]
+        elif remat:
             def block(x, lp=lp, attend=attend):
                 return _block(cfg, lp, x, rope_cos, rope_sin, attend)[0]
 

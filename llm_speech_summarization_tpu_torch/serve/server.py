@@ -37,6 +37,7 @@ import base64
 import json
 import os
 import queue
+import sys
 import threading
 import time
 import traceback
@@ -335,6 +336,12 @@ class ContinuousBatchingEngine:
         )
         self.spec_governor = _SpecGovernor(spec_k) if spec_k > 0 else None
         self._spec_prev: Dict[int, tuple] = {}  # slot → (req, n_emitted)
+        # LSS_SCHED_TRACE=1: one stderr line per scheduler iteration that did
+        # work, with its phases' host walls (admission, chunk dispatch, the
+        # chunk's flag read), and one per builder wave; host clocks only, so
+        # the trace adds no device work and no synchronisation
+        self._trace = os.environ.get("LSS_SCHED_TRACE") == "1"
+        self._iter = 0
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._prepared: "queue.Queue" = queue.Queue()
         self._pending_wave = None
@@ -463,6 +470,7 @@ class ContinuousBatchingEngine:
         for r in ok:
             groups.setdefault((r.kind, r.text_prompt), []).append(r)
         for (kind, text_prompt), reqs in groups.items():
+            t0 = time.monotonic()
             try:
                 if kind == "text":
                     embeds, mask = self.engine.build_text_prompt_batch([r.payload for r in reqs])
@@ -472,6 +480,9 @@ class ContinuousBatchingEngine:
                 # the builders pad B to a power of two; admit() prefills
                 # only the leading real rows
                 self._prepared.put((embeds, mask, reqs))
+                if self._trace:
+                    print(f"[build] wave n={len(reqs)} kind={kind} "
+                          f"wall={time.monotonic() - t0:.3f}s", file=sys.stderr, flush=True)
             except Exception as e:  # noqa: BLE001 — surface per request
                 _fail(reqs, f"{type(e).__name__}: {e}")
 
@@ -567,6 +578,8 @@ class ContinuousBatchingEngine:
                     time.sleep(0.1)
 
     def _loop_iteration(self, tok, flags):
+        self._iter += 1
+        t_iter0 = time.monotonic()
         if flags is None:
             flags = self.decoder.sync_flags()
         # release cancelled requests' slots before admission reuses them
@@ -581,13 +594,17 @@ class ContinuousBatchingEngine:
                 if r.stream:
                     r.partials.put(None)
                 r.event.set()
+        t_admit0 = time.monotonic()
         self._admit_wave(flags)
+        t_admit = time.monotonic() - t_admit0
         if not self._by_slot:
             # idle: the flag copy is exact (harvest and cancel reconciled
             # every slot), so wait for admission work without device reads
             while not self._stop.is_set() and self._prepared.qsize() == 0 \
                     and self._pending_wave is None:
                 time.sleep(0.002)
+            if self._trace and t_admit > 1e-3:
+                self._trace_line(0, t_admit, 0.0, 0.0, t_iter0)
             return flags
         k = self._pick_chunk(flags)
         # speculative chunks verify greedy streams: only when every live
@@ -600,7 +617,8 @@ class ContinuousBatchingEngine:
             k = self.chunk_steps
         t0 = time.perf_counter()
         actual = self.decoder.decode_chunk(k, return_flags=True, spec=spec)
-        self.chunk_seconds += time.perf_counter() - t0
+        t_chunk = time.perf_counter() - t0
+        self.chunk_seconds += t_chunk
         self.chunk_steps_run += self.decoder.last_chunk_steps
         self.batches_run += 1
         now = time.monotonic()
@@ -632,7 +650,18 @@ class ContinuousBatchingEngine:
                 req.partials.put(None)  # end of stream
             self.requests_served += 1
             req.event.set()
+        if self._trace:
+            t_read = self.decoder.last_read_s
+            self._trace_line(k, t_admit, t_chunk - t_read, t_read, t_iter0)
         return actual[:3]
+
+    def _trace_line(self, k, t_admit, t_disp, t_read, t_iter0):
+        """The LSS_SCHED_TRACE line of one iteration (the JAX scheduler's
+        fields; ``read`` is the wait for the chunk's flags, which this
+        scheduler reads when the chunk ends)."""
+        print(f"[sched] it={self._iter} live={len(self._by_slot)} k={k} "
+              f"admit={t_admit:.3f}s dispatch={t_disp:.3f}s read={t_read:.3f}s "
+              f"total={time.monotonic() - t_iter0:.3f}s", file=sys.stderr, flush=True)
 
     def _emit_partials(self, flags):
         """Stream text deltas for live streaming slots after each chunk,

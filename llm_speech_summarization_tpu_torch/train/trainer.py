@@ -9,7 +9,8 @@ never reads it), the datasets,
 the optimizer and the state, and resumes from the latest checkpoint of the
 run (or a given one). ``train()`` runs epochs of collated, bucketed batches
 with interval logging and validation, a step cap (``train.steps``), a
-checkpoint on SIGTERM, and exact resume (``epoch_step``). ``validate()``
+checkpoint on SIGTERM, exact resume (``epoch_step``), and a profiler
+trace window (``LSS_PROFILE_DIR``, ``LSS_PROFILE_STEPS``). ``validate()``
 computes the token-weighted audio and text perplexities, samples
 generations through ``LLMSpeechTextInference`` and checkpoints.
 
@@ -30,6 +31,7 @@ is then the audio buffer's length in the splice).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import signal
@@ -51,6 +53,7 @@ from ..models.audio_encoder import (
     init_audio_encoder,
 )
 from ..models.llama import init_llama_params, llama_preset, quantize_llama_params
+from ..obs.profile import trace
 from ..obs.writer import MetricsWriter
 from ..parallel.comm import any_rank
 from ..parallel.mesh import Mesh, make_mesh
@@ -291,6 +294,12 @@ class Trainer:
             prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
         except ValueError:  # not in the main thread
             prev_handler = None
+        # the trace window: LSS_PROFILE_DIR=/dir [LSS_PROFILE_STEPS=N, 3]
+        # traces steps 3..2+N (past the first steps' kernel builds and
+        # allocator growth) into /dir, as obs.profile.trace writes it
+        prof_dir = os.environ.get("LSS_PROFILE_DIR")
+        prof_steps = int(os.environ.get("LSS_PROFILE_STEPS", "3"))
+        window = contextlib.ExitStack()
         try:
             # a resumed run finishes the configured epochs, no more
             for epoch in range(self.start_epoch, tcfg.epochs):
@@ -301,6 +310,12 @@ class Trainer:
                 for batch in self._batches(self.train_ds, tcfg.batch_size, True,
                                            cfg.seed_everything + epoch, skip=skip):
                     metrics = self.train_step(batch)
+                    if prof_dir and self.step == 2:
+                        window.enter_context(trace(prof_dir))
+                    elif prof_dir and self.step == 2 + prof_steps:
+                        window.close()
+                        print(f"profile trace written to {prof_dir}")
+                        prof_dir = None
                     if self.step % log_int == 0 and self.writer is not None:
                         host = {k: float(v) for k, v in metrics.items()}
                         host["step_time_s"] = (time.time() - t0) / log_int
@@ -323,6 +338,7 @@ class Trainer:
                         return
                 self.validate(epoch)
         finally:
+            window.close()  # a run that stops inside the window still writes it
             # async saves drain here, so callers can rely on the files
             ckpt.finalize_saves()
             if prev_handler is not None:

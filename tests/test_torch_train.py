@@ -117,21 +117,23 @@ def test_llama_training_forward_matches_jax(remat):
 
 
 def test_llama_remat_recompute_is_exact_and_save_qkv_raises():
+    """No remat, remat "full" and remat "save_qkv" give the same final
+    hidden states and input gradients, bit for bit. (The name predates the
+    save_qkv policy, which raised until it was ported.)"""
     cfg, params, embeds, mask, g_final, _ = _llama_case()
     tp = bridge.params_from_numpy(np_tree(params))
-    grads = []
-    for remat in (False, True):
+    outs, grads = [], []
+    for remat, policy in ((False, None), (True, "full"), (True, "save_qkv")):
         e = torch.from_numpy(embeds).requires_grad_()
         out = tllama.llama_forward(tp, cfg, inputs_embeds=e, attn_mask=torch.from_numpy(mask),
                                    compute_logits=False, return_final_hidden=True,
-                                   logit_window=5, remat=remat)
+                                   logit_window=5, remat=remat, remat_policy=policy)
         (out.final_hidden * torch.from_numpy(g_final)).sum().backward()
         assert out.logits is None
+        outs.append(out.final_hidden.detach())
         grads.append(e.grad)
-    assert torch.equal(grads[0], grads[1])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tllama.llama_forward(tp, cfg, inputs_embeds=torch.from_numpy(embeds), remat=True,
-                             remat_policy="save_qkv")
+    for other in (1, 2):
+        assert torch.equal(outs[0], outs[other]) and torch.equal(grads[0], grads[other])
 
 
 def test_hubert_remat_gradients_equal():
