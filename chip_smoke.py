@@ -12,8 +12,9 @@ Phases, in order; each prints one line and any failure raises:
      of the decode body's dense and paged instances (reported only), the
      4-row paged instances MiniChat's group of 1 selects named apart;
   3. flash attention (B1) against its plain version run in float32 at the
-     main paths' five shapes (the Llama and MiniChat prefills, HuBERT-large,
-     HuBERT-base and Whisper self-attention), within B7's output bound, with injected faults the
+     main paths' six shapes (the Llama and MiniChat prefills, HuBERT-large,
+     HuBERT-base and Whisper self-attention, one tensor-parallel rank's
+     Llama prefill at 12/4), within B7's output bound, with injected faults the
      bound must reject, and the one PyTorch call that computes the same
      attention (timed only);
   4. the training attention kernels, B1 with its log-sum-exp and the
@@ -28,15 +29,18 @@ Phases, in order; each prints one line and any failure raises:
   5. fused decode (B2) against its plain version, including the in-place
      cache writes, and against the plain version run in float32 with
      injected faults, at B=8, 16 and 128 (T=1), B=16, T=3, and B=1 over
-     two windows the wrapper splits in 8 (24/8 heads), and at MiniChat's
-     24/24 (B=16 at T=1 and T=3, B=1 over a split window), repeats bit-identical, the
+     two windows the wrapper splits in 8 (24/8 heads), at MiniChat's
+     24/24 (B=16 at T=1 and T=3, B=1 over a split window) and at one
+     tensor-parallel rank's 12/4 (B=8 and 16 at T=1, B=16 at T=3) and
+     12/12 (B=16, T=1), repeats bit-identical, the
      split shapes also timed with one split, beside the device cost of one
      empty kernel;
   6. paged decode attention (B4) and fused paged decode + page write (B5)
      against their plain versions run in float32 at the serving shape,
      with injected faults the bound must reject (a page segment dropped
      from the chunks that cross a page among them), page writes bit-exact,
-     repeats bit-identical; at Llama's 24/8 heads and at MiniChat's 24/24;
+     repeats bit-identical; at Llama's 24/8 heads, at MiniChat's 24/24 and
+     at one tensor-parallel rank's 12/4;
   7. the dense-cache decode kernels at the Whisper path's shapes against
      their plain versions run in float32: B3 over a bf16 cache at T=1 and
      T=3 and over an int8 cache with one layer's scales, B8 over a bf16
@@ -54,6 +58,15 @@ Phases, in order; each prints one line and any failure raises:
  11. the full-width serving path: ``SummarizationServer`` over HTTP with
      the paged cache, then with speculative chunks, then with the dense
      cache;
+ 11d. serving_tp_full: ``llama3_hubert.yaml`` on a tensor-parallel model
+     group of two ranks sharing the card over gloo (this file with
+     ``--tp-rank`` is each rank's program, launched by
+     ``torch.distributed.run``): the batch path (B=8 x 10 s), then
+     ``cli/serve.py --tp 2`` on the dense cache and with ``--paged
+     --speculative_k 3``, a burst of 8 each; greedy rows held to the
+     unsharded engine margin-aware, rank 1's rows equal to rank 0's, each
+     rank's launches equal to its counts, the unsharded batch path and
+     servers timed beside them;
  11a. BASELINE config #1 at published widths (``minichat_hubert.yaml`` with
      hubert-base, int8 weights and cache): B=8 clips of 10 s through
      ``generate_audio_response_batch`` with the ``pool`` projector, then
@@ -371,10 +384,12 @@ def phase_build(card, require_no_spill=True):
 
 
 def phase_flash(torch, card):
-    """B1 against its plain version run in float32 at the main paths' five
-    shapes (Llama and MiniChat prefill, HuBERT-large and -base, Whisper), within B7_OUT_ATOL + B7_OUT_RTOL (|out| + (P.|V|)/l) on the
-    valid rows, with two injected faults that bound must reject; the one
-    PyTorch call that computes the same attention is timed beside it."""
+    """B1 against its plain version run in float32 at the main paths' six
+    shapes (Llama and MiniChat prefill, HuBERT-large and -base, Whisper, a
+    tensor-parallel rank's Llama prefill), within B7_OUT_ATOL + B7_OUT_RTOL
+    (|out| + (P.|V|)/l) on the valid rows, with two injected faults that
+    bound must reject; the one PyTorch call that computes the same attention
+    is timed beside it."""
     from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
         flash_attention_fwd, flash_attention_lse_reference, flash_attention_reference,
     )
@@ -401,6 +416,10 @@ def phase_flash(torch, card):
         # (e) HuBERT-base: bidirectional 12/12, Dh=64, right-pad windows
         "hubert_base": dict(B=4, T=499, Hq=12, Hkv=12, Dh=64, causal=False,
                             starts=[0] * 4, ends=[499, 400, 1, 250]),
+        # (f) one rank's share of (a) under tensor parallelism over two
+        #     ranks: 12 query heads over 4 KV heads
+        "llm_prefill_tp": dict(B=4, T=320, Hq=12, Hkv=4, Dh=128, causal=True,
+                               starts=[0, 319, 37, 130], ends=[320] * 4),
     }
     for name, c in cases.items():
         B, T, causal = c["B"], c["T"], c["causal"]
@@ -488,6 +507,11 @@ FUSED_SHAPES = ((16, 1, 384), (16, 3, 384), (8, 1, 384), (128, 1, 384), (1, 1, 3
 # three with speculative_k): the serving shape at T=1 and T=3 and the
 # validate generation's long split window, keyed (B, T, S, Hkv)
 FUSED_MHA_SHAPES = ((16, 1, 384, 24), (16, 3, 384, 24), (1, 1, 1664, 24))
+# one rank's heads under tensor parallelism over two ranks (serving_tp_full),
+# keyed (B, T, S, Hq, Hkv): Llama-3.2-3B's 12/4 at the batch path's B=8 and
+# the serving B=16 (T=1, and T=3 for speculative_k), MiniChat's 12/12
+FUSED_TP_SHAPES = ((8, 1, 384, 12, 4), (16, 1, 384, 12, 4), (16, 3, 384, 12, 4),
+                   (16, 1, 384, 12, 12))
 
 
 @contextlib.contextmanager
@@ -533,8 +557,9 @@ def phase_fused(torch, card):
     faults that bound must reject: pad or offset off by one, the wrong
     layer, the fresh token dropped, the first split's share of the window
     dropped, or its first half where the wrapper does not split), cache
-    writes bit-exact, bit-identical repeats, at FUSED_SHAPES (24/8 heads)
-    and FUSED_MHA_SHAPES (24/24); where the window is split, each kernel's
+    writes bit-exact, bit-identical repeats, at FUSED_SHAPES (24/8 heads),
+    FUSED_MHA_SHAPES (24/24) and FUSED_TP_SHAPES (12/4, 12/12); where the
+    window is split, each kernel's
     time and the call's with one split;
     and the device cost of one empty kernel beside it."""
     from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
@@ -544,9 +569,11 @@ def phase_fused(torch, card):
 
     rng = np.random.RandomState(1)
     dev = torch.device("cuda")
-    L, Hq, Dh, layer = 2, 24, 128, 1
+    L, Dh, layer = 2, 128, 1
     results = {}
-    for B, T, S, Hkv in [(*shape, 8) for shape in FUSED_SHAPES] + list(FUSED_MHA_SHAPES):
+    for B, T, S, Hq, Hkv in ([(*shape, 24, 8) for shape in FUSED_SHAPES]
+                             + [(*shape[:3], 24, shape[3]) for shape in FUSED_MHA_SHAPES]
+                             + list(FUSED_TP_SHAPES)):
         q = torch.from_numpy(rng.randn(B, T, Hq, Dh).astype(np.float32)).to(dev, torch.bfloat16)
         kn = torch.from_numpy(rng.randn(B, T, Hkv, Dh).astype(np.float32)).to(dev, torch.bfloat16)
         vn = torch.from_numpy(rng.randn(B, T, Hkv, Dh).astype(np.float32)).to(dev, torch.bfloat16)
@@ -577,7 +604,7 @@ def phase_fused(torch, card):
         ref = fused_decode_reference(q, *ref_bufs, kn, vn, pads, offs, layer)
         got = fused_decode(q, *got_bufs, kn, vn, pads, offs, layer, max_offset=mo)
         torch.cuda.synchronize()
-        what = f"B2 B={B} T={T} S={S} Hkv={Hkv}"
+        what = f"B2 B={B} T={T} S={S} Hq={Hq} Hkv={Hkv}"
         err = (got.float() - ref.float()).abs().max().item()
         if not torch.allclose(got.float(), ref.float(), atol=B2_ATOL, rtol=B2_RTOL):
             raise AssertionError(f"{what}: out differs from the plain version (max |err| {err})")
@@ -636,7 +663,8 @@ def phase_fused(torch, card):
                    + B * T * Hkv * 2 * (Dh + 2))
         flops = 4 * Dh * Hq * T * (valid.sum() + B * (T + 1) / 2)
         t["bound_ms"], t["bound_by"] = bound_ms(float(n_bytes), float(flops))
-        key = (B, T, S) if Hkv == 8 else (B, T, S, Hkv)
+        key = (B, T, S) if (Hq, Hkv) == (24, 8) else (B, T, S, Hkv) if Hq == 24 \
+            else (B, T, S, Hq, Hkv)
         results[key] = dict(max_abs_err=max(err, check["max_abs_err"]), **t)
         emit("fused_decode", B=B, T=T, shape=[L, B, Hq, Hkv, S, Dh], splits=nsplit,
              max_abs_err=err, atol=B2_ATOL, rtol=B2_RTOL,
@@ -655,6 +683,8 @@ PAGED_SHAPE = dict(B=16, Hq=24, Hkv=8, Dh=128, ps=128, mp=7, L=2)
 # MiniChat's heads (BASELINE config #1's paged server): a group of 1, so B4
 # at T=4 and B5 take the 4-row instance of the decode body
 PAGED_MHA_SHAPE = dict(PAGED_SHAPE, Hkv=24)
+# one rank's heads of Llama-3.2-3B under tensor parallelism over two ranks
+PAGED_TP_SHAPE = dict(PAGED_SHAPE, Hq=12, Hkv=4)
 PAGED_SEED = 4  # B4 and B5 read the same pages
 PAGED_T_MAX = 4  # lengths leave room for this many fresh tokens at every T
 
@@ -3141,6 +3171,616 @@ def phase_serving_full(torch, card, eng):
     return runs
 
 
+TP_RANKS = 2
+TP_TIMEOUT_S = 420  # per torch.distributed.run launch
+TP_MAX_NEW = 32
+TP_PORT_WAIT_S = 300  # rank 0's engine init at full width, before it serves
+TP_TOPK = 8  # the rank's top logits per row and step, compared teacher-forced
+# the model group's logits against the unsharded engine in the group's
+# arithmetic (``tp_rounding``), teacher-forced on the group's tokens: where
+# both launch the decode kernels alike, equal but for the float32 head
+# product of another shape (TP_EXACT_TOL); where the rank's smaller grid
+# takes another split or warp count of the window (``dense_splits``, the
+# 16-warp instance), the attention's float32 sums are reordered and 28
+# random-weight layers amplify that: at most TP_NOISE_TOL, twice the bf16
+# CPU-vs-card LOGIT_TOL. Rows may part only where the reference's top-2
+# margin is at most twice the largest difference measured in the call
+TP_EXACT_TOL = 1e-4
+TP_NOISE_TOL = 4 * LOGIT_TOL
+
+
+@contextlib.contextmanager
+def tp_rounding(cfg, parts=TP_RANKS):
+    """The unsharded forward in the model group's arithmetic: every weight
+    product taken as the ``parts`` ranks take it, over each rank's columns
+    (``wq``/``wk``/``wv``/``w_gate``/``w_up``, and the fused ``wqkv`` and
+    ``w_gateup`` as [its q | k | v] and [its gate | up], each one product
+    of the rank's shape) or each rank's slice of the in axis (``wo``,
+    ``w_down``: the products rounded to the activation dtype, scaled, then
+    summed in it, as the ranks' all-reduce sums them); and the decode
+    kernels split each window as a rank's Hkv/parts heads make them
+    (``dense_splits``). A GEMM of another shape, or another split of the
+    window, accumulates in another order, and 28 random-weight layers
+    amplify a bf16 rounding: this is the reference the group is held to
+    under LOGIT_TOL, the unsharded engine itself the one it is compared
+    with."""
+    import torch
+
+    from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
+    from llm_speech_summarization_tpu_torch.models import llama
+
+    mm, rule = llama._mm, fd_mod.dense_splits
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    inter = cfg.intermediate_size
+    columns = {"wq": [q], "wk": [kv], "wv": [kv], "wqkv": [q, kv, kv], "w_gate": [inter],
+               "w_up": [inter], "w_gateup": [inter, inter]}
+
+    def rank_cols(x, widths, r):
+        return torch.cat([p[..., r * (w // parts):(r + 1) * (w // parts)]
+                          for p, w in zip(x.split(widths, dim=-1), widths)], -1).contiguous()
+
+    def split_mm(h, lp, name):
+        scale = lp.get(name + "_scale")
+        if name in ("wo", "w_down"):
+            K = h.shape[-1] // parts
+            out = None
+            for r in range(parts):
+                sub = {name: lp[name][r * K:(r + 1) * K].contiguous(), name + "_scale": scale}
+                part = mm(h[..., r * K:(r + 1) * K], sub, name)
+                out = part if out is None else out + part
+            return out
+        widths = columns[name]
+        outs = [mm(h, {name: rank_cols(lp[name], widths, r), name + "_scale":
+                       None if scale is None else rank_cols(scale, widths, r)}, name)
+                for r in range(parts)]
+        # back to the full layout: each segment's columns in rank order
+        pieces = [o.split([w // parts for w in widths], dim=-1) for o in outs]
+        return torch.cat([pieces[r][j] for j in range(len(widths)) for r in range(parts)], -1)
+
+    llama._mm = split_mm
+    fd_mod.dense_splits = lambda B, Hkv, max_offset, sms: rule(B, Hkv // parts, max_offset, sms)
+    try:
+        yield
+    finally:
+        llama._mm, fd_mod.dense_splits = mm, rule
+
+
+def _tp_clips(seed, lengths):
+    rng = np.random.RandomState(seed)
+    return [(0.1 * rng.randn(n)).astype(np.float32) for n in lengths]
+
+
+def _tp_batch_clips():
+    return _tp_clips(21, [160000] * 8)  # 8 x 10 s, the batch path's shape
+
+
+def _tp_burst_clips():
+    # 6-10 s, every length its own: rank 0 keys each request's row by it
+    return _tp_clips(22, [96000 + 8000 * i for i in range(8)])
+
+
+def tp_rank(report_dir: str, mode: str, cli_args) -> int:
+    """One rank of serving_tp_full, launched by torch.distributed.run.
+    ``batch``: the tensor-parallel engine on ``llama3_hubert.yaml`` (a mesh
+    with a model group of every rank), one warm-up and one counted
+    ``generate_audio_response_batch`` over ``_tp_batch_clips``; ``serve``:
+    ``cli/serve.py`` with ``cli_args`` (rank 0 writes its pid to
+    ``report_dir/rank0.pid``; SIGTERM to it drains the server). Each rank
+    writes ``report_dir/<mode>_rank<r>.json``: its launch counts, the
+    engine's and decoder's counts, the host-staged exchanges and wall of
+    every decode step (batch) or decode chunk (serve), the token rows (per
+    request on rank 0 of the server: its clip length or text, its row, its
+    time to first token), and the peak memory after the engine was built."""
+    import threading
+
+    import torch
+
+    from llm_speech_summarization_tpu_torch.infer import generate
+    from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
+    from llm_speech_summarization_tpu_torch.infer.slots import SlotDecoder
+    from llm_speech_summarization_tpu_torch.parallel.comm import COMM_STATS
+    from llm_speech_summarization_tpu_torch.serve import server as server_mod
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    rank = int(os.environ["RANK"])
+    seen = {"decoders": []}
+    report = {"rank": rank, "mode": mode, "steps": [], "chunks": [], "requests": []}
+
+    def staged():
+        return COMM_STATS["calls"], COMM_STATS["bytes"], COMM_STATS["ms"]
+
+    def delta(before):
+        return [a - b for a, b in zip(staged(), before)]
+
+    engine_init = LLMSpeechTextInference.__init__
+
+    def counted_engine_init(self, *a, **kw):
+        engine_init(self, *a, **kw)
+        torch.cuda.synchronize()
+        report["init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        seen["engine"] = self
+
+    decoder_init, decode_chunk = SlotDecoder.__init__, SlotDecoder.decode_chunk
+    harvest = SlotDecoder.harvest
+    report["harvested"] = []
+
+    def recorded_harvest(self, flags=None):
+        got = harvest(self, flags)
+        report["harvested"].extend([int(t) for t in tok[:n]] for _, tok, n in got)
+        return got
+
+    def counted_decoder_init(self, *a, **kw):
+        decoder_init(self, *a, **kw)
+        seen["decoders"].append(self)
+
+    def timed_chunk(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0, c0 = time.time(), staged()
+        out = decode_chunk(self, *a, **kw)
+        report["chunks"].append(dict(t=t0, s=time.time() - t0, steps=self.last_chunk_steps,
+                                     staged=delta(c0)))
+        return out
+
+    forward = generate.llama_forward
+    report["top"] = []  # per forward: the rows' TP_TOPK (ids, logits)
+
+    def timed_forward(*a, **kw):
+        prefill = kw.get("input_ids") is None
+        if not prefill:
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), staged()
+        out = forward(*a, **kw)
+        if not prefill:
+            torch.cuda.synchronize()
+            report["steps"].append(dict(s=time.perf_counter() - t0, staged=delta(c0)))
+        vals, ids = out.logits[:, -1].float().topk(TP_TOPK, dim=-1)
+        report["top"].append([ids.tolist(), vals.tolist()])
+        return out
+
+    LLMSpeechTextInference.__init__ = counted_engine_init
+    SlotDecoder.__init__, SlotDecoder.decode_chunk = counted_decoder_init, timed_chunk
+    SlotDecoder.harvest = recorded_harvest
+    generate.llama_forward = timed_forward
+    reset_launches()
+    if mode == "batch":
+        from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+        from llm_speech_summarization_tpu_torch.parallel.mesh import (
+            distributed_init, mesh_from_ranks,
+        )
+
+        distributed_init()
+        report["backend"] = torch.distributed.get_backend()
+        eng = LLMSpeechTextInference(load_config(str(YAML_DIR / "llama3_hubert.yaml")),
+                                     mesh=mesh_from_ranks(model=TP_RANKS))
+        clips = _tp_batch_clips()
+        eng.generate_audio_response_batch(clips, max_new_tokens=TP_MAX_NEW)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        eng.counts.clear()
+        report["steps"].clear()
+        report["top"].clear()
+        with recorded_tokens(ByteTokenizer) as rows:
+            t0 = time.perf_counter()
+            eng.generate_audio_response_batch(clips, max_new_tokens=TP_MAX_NEW)
+            torch.cuda.synchronize()
+            report["batch_s"] = time.perf_counter() - t0
+        report["rows"] = [[int(t) for t in r] for r in rows]
+    else:
+        from llm_speech_summarization_tpu_torch.cli import serve as cli
+
+        if rank == 0:
+            with open(os.path.join(report_dir, "rank0.pid"), "w") as f:
+                f.write(str(os.getpid()))
+        # rank 0: each request's row, keyed by its payload, and its TTFT
+        last = threading.local()
+        decode = ByteTokenizer.decode
+
+        def recorded_decode(self, ids, *a, **kw):
+            last.ids = [int(i) for i in ids]
+            return decode(self, ids, *a, **kw)
+
+        def recorded_setattr(self, name, value):
+            if name == "result" and getattr(last, "ids", None) is not None:
+                ttft = (self.t_first_token - self.t_submit) if self.t_first_token else None
+                report["requests"].append(dict(
+                    key=len(self.payload) if self.kind == "audio" else self.payload,
+                    row=last.ids, ttft_s=ttft))
+                last.ids = None
+            object.__setattr__(self, name, value)
+
+        ByteTokenizer.decode = recorded_decode
+        server_mod._Request.__setattr__ = recorded_setattr
+        cli.main(cli_args)
+        report["backend"] = torch.distributed.get_backend()
+    eng = seen["engine"]
+    report.update(launches=read_launches(), engine_counts=dict(eng.counts),
+                  decoder_counts=[dict(d.counts) for d in seen["decoders"]],
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  llm_layers=eng.llm_cfg.num_layers,
+                  enc_layers=eng.encoder_setup.encoder_cfg.num_layers,
+                  builds_prompts=eng.builds_prompts,
+                  kv_heads=[int((d.state.cache.k_pool if d.paged else d.state.cache.k).shape[2])
+                            for d in seen["decoders"]])
+    with open(os.path.join(report_dir, f"{mode}_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _tp_launch(mode, report_dir, cli_args=(), port=None, drive=None):
+    """Run the TP_RANKS ranks of ``tp_rank`` through torch.distributed.run
+    (the CLI picks gloo: the ranks share the card). With ``drive``, a
+    function of the server's port, it runs once rank 0 answers /healthz,
+    then SIGTERM drains rank 0 and the other ranks stop with it. Every
+    process is killed past TP_TIMEOUT_S; a nonzero exit fails the phase.
+    Returns the ranks' reports, the launch's wall seconds and what
+    ``drive`` returned."""
+    import signal
+    import socket
+
+    os.makedirs(report_dir, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        master = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(TP_RANKS), "--master_addr", "127.0.0.1",
+           "--master_port", str(master), os.path.abspath(__file__), "--tp-rank", report_dir,
+           mode, "--", *cli_args]
+    log_path = os.path.join(report_dir, "launch.log")
+    t0 = time.perf_counter()
+    result = None
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+        def tail():
+            with open(log_path) as f:
+                return f.read()[-6000:]
+
+        try:
+            if drive is not None:
+                deadline = time.monotonic() + TP_PORT_WAIT_S
+                while True:
+                    if proc.poll() is not None:
+                        raise AssertionError(f"serving_tp_full: the ranks exited "
+                                             f"{proc.returncode} before serving:\n{tail()}")
+                    try:
+                        if _http(port, "/healthz")[0] == 200:
+                            break
+                    except OSError:
+                        pass
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"serving_tp_full: rank 0 did not serve within "
+                                             f"{TP_PORT_WAIT_S} s:\n{tail()}")
+                    time.sleep(0.5)
+                result = drive(port)
+                with open(os.path.join(report_dir, "rank0.pid")) as f:
+                    os.kill(int(f.read()), signal.SIGTERM)
+            proc.wait(timeout=max(TP_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        except BaseException:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise AssertionError(f"serving_tp_full {mode}: the launch failed or outlived "
+                                 f"{TP_TIMEOUT_S} s:\n{tail()}")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serving_tp_full {mode}: the launch exited {proc.returncode}:\n"
+                             f"{tail()}")
+    reports = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(report_dir, f"{mode}_rank{r}.json")) as f:
+            reports.append(json.load(f))
+    for rep in reports:
+        if rep["backend"] != "gloo":
+            raise AssertionError(f"serving_tp_full: rank {rep['rank']} ran over "
+                                 f"{rep['backend']}, not gloo, with ranks that share a card")
+    return reports, wall, result
+
+
+def _tp_logit_delta(torch, eng, clips, rows, top):
+    """The largest |logit| difference between the model group (``top``: its
+    TP_TOPK ids and logits per row at each step of ``rows``, its own greedy
+    stream) and the unsharded engine teacher-forced on the same tokens over
+    the same B=len(clips) prompt, on an int8 cache; per step, the rows still
+    emitting."""
+    from llm_speech_summarization_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    embeds, mask = eng.build_audio_prompt_batch(clips)
+    B, Lp, _ = embeds.shape
+    steps = min(len(top), max(len(r) for r in rows))
+    tokens = torch.full((B, steps), eng.tokenizer.eos_id, dtype=torch.int32, device="cuda")
+    for b, r in enumerate(rows):
+        tokens[b, :min(len(r), steps)] = torch.tensor(r[:steps], dtype=torch.int32)
+    cache = init_kv_cache(eng.llm_cfg, B, Lp + steps, torch.int8, device="cuda")
+    out = llama_forward(eng.llm_params, eng.llm_cfg, inputs_embeds=embeds, attn_mask=mask,
+                        kv_cache=cache, cache_offset=0, last_logit_only=True)
+    lens = mask.to(torch.int32).sum(1)
+    pads = (Lp - lens).to(torch.int32)
+    per_step = []
+    for step in range(steps):
+        ids = torch.tensor(top[step][0], device="cuda")[:len(clips)]
+        vals = torch.tensor(top[step][1], device="cuda")[:len(clips)]
+        live = torch.tensor([step < len(r) for r in rows], device="cuda")
+        d = (out.logits[:len(clips), -1].float().gather(1, ids) - vals).abs().amax(1)
+        per_step.append(d[live].max().item() if bool(live.any()) else 0.0)
+        if step + 1 < steps:
+            out = llama_forward(eng.llm_params, eng.llm_cfg, input_ids=tokens[:, step, None],
+                                positions=(lens + step)[:, None], kv_cache=cache,
+                                cache_offset=Lp + step, kv_pad_lens=pads)
+    return per_step
+
+
+def _tp_same_launch(eng, B, Lp, steps, parts=TP_RANKS):
+    """Per logit step of a B-row greedy stream over a prompt of Lp tokens
+    (the prefill, then decode steps at max offset Lp + s - 1): whether a
+    rank's B2 launch (Hkv/parts heads) and the unsharded one under
+    ``tp_rounding`` (the rank's split count) take the same instance, i.e.
+    both grids fit the SMs (16 warps) or neither does."""
+    from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
+
+    sms = fd_mod.sm_count(0)
+    hkv = eng.llm_cfg.num_kv_heads
+    same = [True]
+    for s in range(1, steps):
+        n = fd_mod.dense_splits(B, hkv // parts, Lp + s - 1, sms)
+        same.append((B * (hkv // parts) * n <= sms) == (B * hkv * n <= sms))
+    return same
+
+
+def _tp_held(torch, eng, clips, got, want, what, margin_tol):
+    """Each of ``got``'s token rows equal to ``want``'s, or parting only at a
+    step where the reference's top-2 margin on ``want``'s stream (an int8
+    cache, B2; under ``tp_rounding`` where the caller is) is at most
+    ``margin_tol``. Returns {row: parting}."""
+    parted = {}
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        if t >= min(len(a), len(b)):
+            raise AssertionError(f"{what}: row {i} has {len(a)} tokens, the unsharded "
+                                 f"engine's {len(b)}, on equal tokens")
+        embeds, mask = eng.build_audio_prompt_batch([clips[i]])
+        _, margins = _b3_margins(torch, eng, embeds, mask,
+                                 torch.tensor([b], dtype=torch.int32, device="cuda"), t + 1,
+                                 cache_dtype=torch.int8)
+        parted[i] = dict(step=t, margin=margins[0, t].item())
+        if margins[0, t] > margin_tol:
+            raise AssertionError(f"{what}: row {i} parts from the reference's at step "
+                                 f"{t}, where its top-2 margin is {margins[0, t].item()}")
+    return parted
+
+
+def _tp_expected_launches(rep, paged):
+    """What one rank ran: B1 per LLM layer per prefill and (rank 0) per
+    encoder layer per prompt; per decode step B2 (dense) or B5 (paged), per
+    speculative round B2 at T = k + 1 (dense) or B4 (paged)."""
+    L, enc = rep["llm_layers"], rep["enc_layers"]
+    if rep["mode"] == "batch":
+        c = rep["engine_counts"]
+        return {"flash_attention": L * c.get("prefills", 0)
+                + enc * c.get("encoder_forwards", 0),
+                "fused_decode": L * c.get("decode_steps", 0)}
+    dc = rep["decoder_counts"]
+    prefills = sum(d.get("prefills", 0) for d in dc)
+    steps = sum(d.get("steps", 0) for d in dc)
+    rounds = sum(d.get("spec_rounds", 0) for d in dc)
+    want = {"flash_attention": L * prefills
+            + enc * rep["engine_counts"].get("encoder_forwards", 0)}
+    if paged:
+        want.update(fused_paged=L * steps, paged_attention=L * rounds)
+    else:
+        want["fused_decode"] = L * (steps + rounds)
+    return want
+
+
+def _per_step(entries):
+    """(ms per step, host-staged calls, bytes and ms per step) over decode
+    steps or chunks."""
+    steps = sum(e.get("steps", 1) for e in entries) or 1
+    staged = [sum(e["staged"][i] for e in entries) / steps for i in range(3)]
+    return dict(ms_per_step=1e3 * sum(e["s"] for e in entries) / steps, steps=steps,
+                staged_calls_per_step=staged[0], staged_bytes_per_step=staged[1],
+                staged_ms_per_step=staged[2])
+
+
+def phase_serving_tp_full(torch, card, eng):
+    """``llama3_hubert.yaml`` at published widths and depth (int8 weights
+    and cache, random weights from the seed) on a model group of TP_RANKS
+    ranks sharing the card over gloo, each holding its shard (12 query and
+    4 KV heads): (a) the batch path, B=8 x 10 s, TP_MAX_NEW new tokens; (b)
+    ``cli/serve.py --tp`` on the dense cache and (c) with ``--paged
+    --speculative_k 3``, a burst of 8 audio requests each after one warm-up
+    request. The reference is the unsharded engine ``eng`` (the same
+    weights: the same seed) in the group's arithmetic (``tp_rounding``):
+    the batch path's logits on the group's tokens within TP_EXACT_TOL where
+    both launch alike and TP_NOISE_TOL elsewhere, every greedy row under
+    the margin-aware contract; rank 1's rows and logits equal rank 0's;
+    each rank's launches equal what its engine and decoder ran; the
+    unsharded engine's own batch path and servers run the same work in this
+    call beside them. Every measurement is emitted before a failed check
+    raises."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    marks, failures, out = {}, [], {}
+
+    def mark(stage):
+        marks[stage] = round(time.perf_counter() - t_phase, 3)
+        print(f"serving_tp_full: {stage} at {marks[stage]} s", file=sys.stderr, flush=True)
+
+    def check(ok, message):
+        if not ok:
+            failures.append(message)
+
+    batch_clips, burst_clips = _tp_batch_clips(), _tp_burst_clips()
+    with recorded_tokens(ByteTokenizer) as rows:
+        eng.generate_audio_response_batch(batch_clips, max_new_tokens=TP_MAX_NEW)
+    plain_batch_rows = [[int(t) for t in r] for r in rows]
+    with tp_rounding(eng.llm_cfg), recorded_tokens(ByteTokenizer) as rows:
+        eng.generate_audio_response_batch(batch_clips, max_new_tokens=TP_MAX_NEW)
+    want_batch = [[int(t) for t in r] for r in rows]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate_audio_response_batch(batch_clips, max_new_tokens=TP_MAX_NEW)
+    torch.cuda.synchronize()
+    plain_batch_s = time.perf_counter() - t0
+    plain_decode_ms = _stage_breakdown(torch, eng, batch_clips, "serving_tp_full")[2]
+    with tp_rounding(eng.llm_cfg), recorded_tokens(ByteTokenizer) as rows:
+        eng.generate_audio_response_batch(burst_clips, max_new_tokens=TP_MAX_NEW)
+    want_burst = [[int(t) for t in r] for r in rows]
+    mark("references")
+    burst = [("/v1/audio_summary", {"audio": c.tolist(), "max_new_tokens": TP_MAX_NEW}, False)
+             for c in burst_clips]
+    yaml_path = str(YAML_DIR / "llama3_hubert.yaml")
+    launches = {k: 0 for k in read_launches()}
+    tmp = tempfile.mkdtemp(prefix="lss_tp_")
+    try:
+        reports, wall, _ = _tp_launch("batch", os.path.join(tmp, "batch"))
+        mark("batch launch")
+        for rep in reports:
+            want = {**{k: 0 for k in rep["launches"]}, **_tp_expected_launches(rep, False)}
+            check(rep["launches"] == want, f"batch rank {rep['rank']}: launches "
+                  f"{rep['launches']} != expected {want}")
+            for k, v in rep["launches"].items():
+                launches[k] += v
+        check(reports[1]["rows"] == reports[0]["rows"], "batch: rank 1's rows differ")
+        check(reports[1]["top"] == reports[0]["top"], "batch: rank 1's logits differ")
+        rows0 = reports[0]["rows"]
+        # on the model group's own tokens: its logits against the reference
+        # (held) and against the unsharded engine itself (reported: what the
+        # bf16 partial sums move)
+        with tp_rounding(eng.llm_cfg):
+            deltas = _tp_logit_delta(torch, eng, batch_clips, rows0, reports[0]["top"])
+        plain_deltas = _tp_logit_delta(torch, eng, batch_clips, rows0, reports[0]["top"])
+        Lp = eng.build_audio_prompt_batch(batch_clips)[0].shape[1]
+        same = _tp_same_launch(eng, len(batch_clips), Lp, len(deltas))
+        exact = [d for d, sm in zip(deltas, same) if sm]
+        check(exact and max(exact) <= TP_EXACT_TOL,
+              f"batch: logits differ by {max(exact or [0])} > {TP_EXACT_TOL} at steps that "
+              f"launch alike")
+        check(max(deltas) <= TP_NOISE_TOL, f"batch: logits differ by {max(deltas)} > "
+              f"{TP_NOISE_TOL}")
+        margin_tol = 2 * max(max(deltas), LOGIT_TOL)
+        parted = {}
+        try:
+            with tp_rounding(eng.llm_cfg):
+                parted = _tp_held(torch, eng, batch_clips, rows0, want_batch,
+                                  "serving_tp_full batch", margin_tol)
+        except AssertionError as e:
+            failures.append(str(e))
+        mark("batch checks")
+        out["batch"] = dict(
+            logit_delta_per_step=deltas, same_launch_per_step=same,
+            exact_tol=TP_EXACT_TOL, noise_tol=TP_NOISE_TOL, margin_tol=margin_tol,
+            plain_logit_delta_per_step=plain_deltas,
+            rows_equal=[a == b for a, b in zip(rows0, want_batch)], parted=parted,
+            rows_equal_plain=[a == b for a, b in zip(rows0, plain_batch_rows)],
+            launch_wall_s=wall, batch_s=reports[0]["batch_s"],
+            utt_per_s=len(batch_clips) / reports[0]["batch_s"],
+            plain_utt_per_s=len(batch_clips) / plain_batch_s,
+            plain_decode_ms_per_step=plain_decode_ms,
+            per_rank=[dict(_per_step(rep["steps"]), peak_gb=rep["peak_gb"],
+                           init_peak_gb=rep["init_peak_gb"], kv_heads=rep["kv_heads"],
+                           launches=rep["launches"], engine_counts=rep["engine_counts"])
+                      for rep in reports])
+
+        for name, flags, kw in (("dense", [], dict(paged=False)),
+                                ("paged_spec3", ["--paged", "--speculative_k", "3"],
+                                 dict(paged=True, spec_k=3))):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+
+            def drive(port, name=name):
+                if _http(port, "/v1/text_response",
+                         {"text": "warm up", "max_new_tokens": 2})[0] != 200:
+                    raise AssertionError(f"serving_tp_full {name}: the warm-up failed")
+                results = [None] * len(burst)
+
+                def send(i, path, body, stream):
+                    results[i] = _http(port, path, body, stream)
+
+                threads = [threading.Thread(target=send, args=(i, *r))
+                           for i, r in enumerate(burst)]
+                t_start, t0 = time.time(), time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(600)
+                wall = time.perf_counter() - t0
+                return dict(t_start=t_start, wall=wall, results=results,
+                            metrics=_http(port, "/metrics")[1])
+
+            cli_args = ["-c", yaml_path, "--tp", str(TP_RANKS), "--host", "127.0.0.1",
+                        "--port", str(port), "--no_warmup", "--scheduler", "continuous",
+                        "--slots", "16", "--max_new_tokens", "64", *flags]
+            reports, wall, run = _tp_launch("serve", os.path.join(tmp, name), cli_args, port,
+                                            drive)
+            mark(f"{name} launch")
+            check(all(r is not None and r[0] == 200 for r in run["results"]),
+                  f"{name}: a request failed: {run['results']}")
+            for rep in reports:
+                want = {**{k: 0 for k in rep["launches"]},
+                        **_tp_expected_launches(rep, kw["paged"])}
+                check(rep["launches"] == want, f"{name} rank {rep['rank']}: launches "
+                      f"{rep['launches']} != expected {want}")
+                for k, v in rep["launches"].items():
+                    launches[k] += v
+            check(reports[1]["harvested"] == reports[0]["harvested"],
+                  f"{name}: rank 1 harvested other rows")
+            if kw["paged"]:
+                check(reports[0]["launches"]["paged_attention"] > 0,
+                      f"{name}: the speculative rounds never launched B4")
+            by_len = {r["key"]: r for r in reports[0]["requests"]}
+            got = [by_len[len(c)]["row"] for c in burst_clips]
+            parted = {}
+            try:
+                with tp_rounding(eng.llm_cfg):
+                    parted = _tp_held(torch, eng, burst_clips, got, want_burst,
+                                      f"serving_tp_full {name}", margin_tol)
+            except AssertionError as e:
+                failures.append(str(e))
+            ttft = [by_len[len(c)]["ttft_s"] for c in burst_clips]
+            plain = _serve_burst(torch, card, eng, f"tp_plain_{name}", burst, n_slots=16,
+                                 max_new_tokens=64, device="cuda", **kw)
+            mark(f"{name} plain burst")
+            for k, v in plain["launches"].items():
+                launches[k] += v
+            out[name] = dict(
+                launch_wall_s=wall, requests=len(burst), burst_wall_s=run["wall"],
+                requests_per_s=len(burst) / run["wall"],
+                p50_first_token_s=statistics.median(ttft),
+                rows_equal=[a == b for a, b in zip(got, want_burst)], parted=parted,
+                per_rank=[dict(_per_step([c for c in rep["chunks"] if c["t"] >= run["t_start"]]),
+                               peak_gb=rep["peak_gb"], init_peak_gb=rep["init_peak_gb"],
+                               kv_heads=rep["kv_heads"], launches=rep["launches"],
+                               decoder_counts=rep["decoder_counts"])
+                          for rep in reports],
+                metrics=run["metrics"],
+                plain=dict(requests_per_s=plain["requests_per_s"],
+                           p50_first_token_s=plain["p50_first_token_s"],
+                           decode_ms_per_step=plain["decode_ms_per_step"],
+                           peak_gb=plain["max_memory_allocated_gb"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        emit("serving_tp_full", config="llama3_hubert.yaml", ranks=TP_RANKS, backend="gloo",
+             llm_heads_per_rank=[eng.llm_cfg.num_heads // TP_RANKS,
+                                 eng.llm_cfg.num_kv_heads // TP_RANKS],
+             reduced=[f"{TP_RANKS} ranks share the one card over gloo (NCCL refuses two ranks "
+                      f"on one card)", "random weights"], **out, launches=launches,
+             marks=marks, failures=failures, card=card)
+    if failures:
+        raise AssertionError("serving_tp_full: " + "; ".join(failures))
+    return launches
+
+
 ROUTER_N_BURST = 16  # audio requests at once, beside one text request
 ROUTER_N_DRAIN = 8  # audio requests sent after replica A left the rotation
 ROUTER_N_GREEDY = 4  # one at a time, through the router and then direct
@@ -4236,8 +4876,10 @@ def main() -> int:
     fused = phase_fused(torch, card)
     paged = phase_paged(torch, card)
     paged_mha = phase_paged(torch, card, PAGED_MHA_SHAPE)
+    paged_tp = phase_paged(torch, card, PAGED_TP_SHAPE)
     fpaged = phase_fused_paged(torch, card)
     fpaged_mha = phase_fused_paged(torch, card, PAGED_MHA_SHAPE)
+    fpaged_tp = phase_fused_paged(torch, card, PAGED_TP_SHAPE)
     dense = phase_dense_decode(torch, card)
     phase_serving_small(torch, card, *phase_slice(torch, card))
     phase_slice(torch, card, whisper=True)
@@ -4247,6 +4889,8 @@ def main() -> int:
         phase_train_small(torch, card, base=True)
     launches, eng = phase_full(torch, card)
     serving = phase_serving_full(torch, card, eng)
+    gc.collect()
+    tp_launches = phase_serving_tp_full(torch, card, eng)
     del eng
     # the servers' threads leave the engine in reference cycles: collect
     # them, or its weights stay allocated into the next phase's peak memory
@@ -4307,7 +4951,8 @@ def main() -> int:
     # the converted-checkpoint engine, preprocessing, evaluation,
     # -p and --ctc through the CLI, the Whisper trainer and its resume, and
     # the ring trainer's ranks in both its launches)
-    for run in ([r["launches"] for r in serving.values()] + minichat_runs + [router_launches]
+    for run in ([r["launches"] for r in serving.values()] + [tp_launches] + minichat_runs
+                + [router_launches]
                 + [bulk_launches] + whisper_runs + list(train_runs) + [save_qkv_launches]
                 + [convert_launches, preprocess_launches, eval_launches] + ckpt_runs
                 + list(whisper_train_runs) + [ring_launches]):
@@ -4329,9 +4974,9 @@ def main() -> int:
         entry("fused_decode", "fused_decode.cu", "fused_decode.py:375", "fused_decode",
               fused[(16, 1, 384)], [r["max_abs_err"] for r in fused.values()]),
         entry("paged_decode_attention", "paged_attention.cu", "paged_attention.py:115",
-              "paged_attention", paged, [paged["max_abs_err"], paged_mha["max_abs_err"]]),
+              "paged_attention", paged, [r["max_abs_err"] for r in (paged, paged_mha, paged_tp)]),
         entry("fused_paged_decode", "fused_paged.cu", "fused_paged.py:118", "fused_paged",
-              fpaged, [fpaged["max_abs_err"], fpaged_mha["max_abs_err"]]),
+              fpaged, [r["max_abs_err"] for r in (fpaged, fpaged_mha, fpaged_tp)]),
         entry("fused_decode_attention_write", "fused_decode.cu", "fused_decode.py:169",
               "fused_decode_attention_write", dense["b3_bf16_T1"],
               [r["max_abs_err"] for k, r in dense.items() if k.startswith("b3")]),
@@ -4366,6 +5011,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ring-rank"]:  # one rank of train_ring_full
         sys.exit(ring_rank(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of serving_tp_full
+        sys.exit(tp_rank(sys.argv[2], sys.argv[3], sys.argv[5:]))
     if sys.argv[1:2] == ["--ab-kernels"]:  # parent vs this checkout, kernel phases
         sys.exit(ab_kernels(sys.argv[2:]))
     if sys.argv[1:2] == ["--split-sweep"]:  # B2's split counts, timed

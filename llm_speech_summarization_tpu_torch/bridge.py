@@ -21,6 +21,7 @@ from .data.batch import Batch
 from .infer.paged import PagedKVCache
 from .infer.slots import SlotState
 from .models.llama import KVCache
+from .parallel.sharding import shard_llama_params
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -58,6 +59,12 @@ def params_from_numpy(tree, device=None):
 
 llama_params_from_numpy = params_from_numpy
 encoder_params_from_numpy = params_from_numpy
+
+
+def llama_shard_from_numpy(tree, cfg, rank: int, tp: int, device=None):
+    """A JAX Llama pytree with numpy leaves → rank ``rank``'s shard of it
+    over a model group of ``tp`` ranks (``parallel/sharding.py``)."""
+    return shard_llama_params(params_from_numpy(tree, device), cfg, rank, tp)
 
 
 def batch_from_numpy(batch) -> Batch:

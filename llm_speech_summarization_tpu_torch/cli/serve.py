@@ -1,9 +1,16 @@
-"""Serving CLI: the batched HTTP inference server on one CUDA card.
+"""Serving CLI: the batched HTTP inference server on one CUDA card, or on a
+tensor-parallel model group of ``--tp`` ranks, one process each.
 
 Usage:
   python -m llm_speech_summarization_tpu_torch.cli.serve -c <yaml> \
       [--paged] [--speculative_k K] [--kv_cache_dtype bfloat16] [--port 8080] \
       [--device cpu]
+  python -m torch.distributed.run --nproc_per_node 2 \
+      -m llm_speech_summarization_tpu_torch.cli.serve -c <yaml> --tp 2 [...]
+
+Under ``--tp`` rank 0 serves HTTP on ``--port``; the other ranks follow
+its decoder and exit when it drains. Ranks that share a card run over gloo
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -45,18 +52,22 @@ def main(argv=None):
                         help="SIGTERM/SIGINT: seconds to let in-flight requests finish "
                         "(new requests get 503) before exit")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree; only 1 is ported")
+                        help="tensor-parallel degree: shard the frozen LLM over a model "
+                        "group of this many ranks (launch them with torch.distributed.run)")
     parser.add_argument("--device", type=str, default=None,
                         help="default: the CUDA card (raises without one); 'cpu' runs the "
                         "plain PyTorch path")
     args = parser.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(
-            "tensor-parallel serving (--tp > 1) is not ported to PyTorch yet (ROADMAP queue A, "
-            "item 11)")
 
     from ..configs import load_config
     from ..serve.server import serve
+
+    mesh = None
+    if args.tp > 1:
+        from ..parallel.mesh import distributed_init, mesh_from_ranks
+
+        distributed_init(cpu=args.device == "cpu")
+        mesh = mesh_from_ranks(data=1, model=args.tp)
 
     continuous = {"auto": "auto", "continuous": True, "request": False}[args.scheduler]
     config = load_config(args.config)
@@ -79,6 +90,7 @@ def main(argv=None):
         audio_encoder_checkpoint=args.audio_encoder_checkpoint,
         repetition_penalty=args.repetition_penalty,
         speculative_k=args.speculative_k,
+        mesh=mesh,
     )
 
 

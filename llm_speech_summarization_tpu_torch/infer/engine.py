@@ -21,8 +21,17 @@ from the encoder's frame arithmetic (``audio_embed_buffer_len``), HuBERT's
 or Whisper's, without running it, or from the number of ranges. Weights
 come from the caller, from ``cli/convert.py`` files (``model.llm_checkpoint``,
 ``model.encoder_checkpoint``, ``audio_encoder_checkpoint``) or from a seeded
-random init. Not ported yet: meshes (tensor-parallel serving, ROADMAP queue
-A item 11).
+random init.
+
+Tensor parallelism (``mesh`` with ``model`` > 1, one process per rank of
+the model group): every rank loads or initializes the full LLM, fuses and
+quantizes it, keeps its shard (``parallel/sharding.py``) and drops the
+rest. Rank 0 of the group builds every prompt: it alone holds the audio
+encoder and the whole embedding table the prompt rows come from. The
+batch path runs SPMD, every rank making the same call: rank 0 broadcasts
+the prompt embeddings and mask at the start of the decode, and the ranks
+decode over the sharded forward in step (``infer/generate.py``); the
+prompt arguments of the other ranks' calls are not read.
 """
 
 from __future__ import annotations
@@ -51,9 +60,12 @@ from ..models.llama import (
     init_llama_params,
     llama_preset,
     quantize_llama_params,
+    shard_config,
 )
 from ..models.whisper import WhisperConfig
 from ..ops.splice import concat_mid_buffers, splice_sequences
+from ..parallel.comm import broadcast_call, group_rank
+from ..parallel.sharding import shard_llama_params
 from ..train.checkpoint import load_encoder, load_params
 from ..utils.prompts import prompt_template_for
 from ..utils.tokenizer import load_tokenizer
@@ -115,12 +127,20 @@ class LLMSpeechTextInference:
         a ``cli/convert.py encoder`` file or an ``export_encoder`` one) for
         the encoder, cast to ``param_dtype``; when ``llm_weight_dtype`` is
         int8 it fuses and quantizes the LLM it owns (initialized or loaded).
-        Caller-given trees are used as they are. ``llm_cfg`` and
-        ``encoder_cfg`` override the presets the config names.
-        ``speculative_k > 0`` decodes greedy batches self-speculatively
-        (not with a repetition penalty or a temperature)."""
-        if mesh is not None:
-            raise _not_ported("tensor-parallel serving (mesh)", "item 11")
+        Caller-given trees are used as they are (under a mesh: full trees,
+        which the engine shards). ``llm_cfg`` and ``encoder_cfg`` override
+        the presets the config names. ``speculative_k > 0`` decodes greedy
+        batches self-speculatively (not with a repetition penalty or a
+        temperature). ``mesh``: a ``parallel.mesh.Mesh`` whose model group
+        shares the LLM (see the module docstring); a model width its size
+        does not divide raises ValueError."""
+        if mesh is not None and mesh.data > 1:
+            raise _not_ported("a data-parallel mesh in the engine", "item 11, the training slice")
+        self.mesh = mesh
+        self.tp = mesh.model if mesh is not None else 1
+        self.tp_group = mesh.model_group if mesh is not None else None
+        # rank 0 of the model group builds the prompts (encoder, prompt rows)
+        self.builds_prompts = group_rank(self.tp_group) == 0
         self.config = config
         self.device = resolve_device(device)
         self.temperature = temperature
@@ -141,6 +161,7 @@ class LLMSpeechTextInference:
         self._side_stream = None  # the pipelined batches' builder stream (cuda)
 
         self.llm_cfg = llm_cfg or llama_preset(config.model.llm_preset or config.model.llm_type)
+        shard_config(self.llm_cfg, self.tp)
         if llm_params is None:
             if config.model.llm_checkpoint:
                 llm_params = load_params(config.model.llm_checkpoint, self.device,
@@ -151,13 +172,21 @@ class LLMSpeechTextInference:
                                                device=self.device)
             if config.model.llm_weight_dtype == "int8":
                 llm_params = quantize_llama_params(fuse_llama_params(llm_params))
+        # the (V, D) table and its per-row scale the prompt rows come from
+        self._prompt_table = ((llm_params["embed_tokens"], llm_params.get("embed_tokens_scale"))
+                              if self.builds_prompts else None)
+        if self.tp > 1:
+            llm_params = shard_llama_params(llm_params, self.llm_cfg, group_rank(self.tp_group),
+                                            self.tp)
         self.llm_params = llm_params
 
         self.encoder_setup = encoder_setup_from_config(config)
         if encoder_cfg is not None:
             self.encoder_setup = dataclasses.replace(self.encoder_setup, encoder_cfg=encoder_cfg)
         audio_encoder_checkpoint = audio_encoder_checkpoint or config.model.encoder_checkpoint
-        if audio_encoder_checkpoint:
+        if not self.builds_prompts:
+            audio_encoder_params = None
+        elif audio_encoder_checkpoint:
             audio_encoder_params = load_encoder(audio_encoder_checkpoint, self.device,
                                                 param_dtype)
         elif audio_encoder_params is None:
@@ -186,22 +215,28 @@ class LLMSpeechTextInference:
     def _embed_rows(self, ids: torch.Tensor) -> torch.Tensor:
         """Token embeddings; an int8 table is gathered at int8 width and
         dequantized per row, never materialized whole."""
-        t = self.llm_params["embed_tokens"]
+        t, scale = self._prompt_table
         ids = ids.long()
         e = t[ids].to(self.dtype)
         if t.dtype == torch.int8:
-            e = e * self.llm_params["embed_tokens_scale"][ids][..., None].to(self.dtype)
+            e = e * scale[ids][..., None].to(self.dtype)
         return e
 
     def _generate_from_embeds(self, embeds, attn_mask, max_new_tokens: int,
                               sampling=None) -> List[str]:
         """Prefill + decode, then detokenize. ``sampling``: optional
         per-request ``[(temperature, top_k, top_p, seed) | None, ...]``
-        (length = real batch; padded rows greedy)."""
+        (length = real batch; padded rows greedy). Under a model group,
+        rank 0's ``embeds`` and ``attn_mask`` reach every rank (the others
+        pass None)."""
+        if self.tp > 1:
+            _, (embeds, attn_mask) = broadcast_call(
+                None, [embeds, attn_mask] if self.builds_prompts else None, self.tp_group,
+                device=self.device)
         packed = pack_sampling_params(sampling, embeds.shape[0])
         bucket = _round_up(max_new_tokens, DECODE_BUCKET)
         common = dict(eos_id=self.tokenizer.eos_id, cache_dtype=self.cache_dtype,
-                      num_steps=max_new_tokens, counts=self.counts)
+                      num_steps=max_new_tokens, counts=self.counts, tp_group=self.tp_group)
         if (packed is None and self.speculative_k > 0 and self.temperature <= 0.0
                 and self.repetition_penalty == 1.0):
             tokens, lens, _ = speculative_generate(
@@ -259,7 +294,10 @@ class LLMSpeechTextInference:
         return self.generate_text_response_batch([input_text], max_new_tokens)[0]
 
     def build_text_prompt_batch(self, input_texts: Sequence[str]):
-        """Templated text prompts → left-padded (B, L, D) embeds + mask."""
+        """Templated text prompts → left-padded (B, L, D) embeds + mask;
+        (None, None) on a rank of a model group that builds no prompts."""
+        if not self.builds_prompts:
+            return None, None
         n_real = len(input_texts)
         ids_list = [
             self.tokenizer.encode(self.template.full_text_prompt(t), add_bos=True)
@@ -394,7 +432,7 @@ class LLMSpeechTextInference:
             fut = submit(ex, nxt)
             while True:
                 n_real, s, embeds, mask, ready = fut.result()
-                if ready is not None:
+                if ready is not None and embeds is not None:
                     main = torch.cuda.current_stream(self.device)
                     main.wait_event(ready)
                     # made on the side stream, read and freed on this one
@@ -434,7 +472,10 @@ class LLMSpeechTextInference:
         mask, B power-of-two padded, L bucket-rounded. A ``ctc_pool``
         projector needs ``ctc_pool_ranges`` (one (G_i, 2) array per clip,
         zero-padded to the longest; padded rows get none, so no valid
-        embedding); other projectors ignore them."""
+        embedding); other projectors ignore them. (None, None) on a rank of
+        a model group that builds no prompts."""
+        if not self.builds_prompts:
+            return None, None
         n_real = len(audios)
         B = _pad_batch(n_real)
         audios = list(audios) + [audios[0]] * (B - n_real)

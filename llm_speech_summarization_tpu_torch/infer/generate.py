@@ -17,6 +17,11 @@ bitmask, here each row writes its k+1 fresh K/V at its own offset and
 advances by what it committed (the slot decoder's scheme), so the
 verification forward is the fused decode kernel's per-row window at
 T = k + 1.
+
+Both take the model group of a tensor-parallel engine (``tp_group``): every
+rank of it makes the same call on the same prompt with its parameter shard,
+holds a cache of its KV heads and gets the same full logits, so the same
+tokens (``models/llama.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Optional
 import torch
 
 from ..models.llama import LlamaConfig, init_kv_cache, llama_forward
+from ..parallel.comm import group_size
 from .sampling import sample_rows
 
 
@@ -87,6 +93,7 @@ def greedy_generate(
     sampling=None,
     counts: Optional[Counter] = None,
     attn_impl: str = "auto",
+    tp_group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Generate up to ``max_new_tokens`` from a left-padded embeds batch;
     ``num_steps`` caps the steps below it (the cache and output stay
@@ -96,6 +103,7 @@ def greedy_generate(
     to the row's unpadded position. ``counts``, when given, gains
     "prefills" and "decode_steps". ``attn_impl`` goes to every decode step
     (``llama_forward``): "pallas" reads the cache through kernel B8.
+    ``tp_group``: ``params`` is this rank's shard (see the module docstring).
 
     Returns (tokens (B, max_new_tokens) int32, EOS-padded; lengths (B,)).
     """
@@ -113,10 +121,10 @@ def greedy_generate(
         def pick(logits, position):
             return _sample(logits, temperature, generator, top_k, top_p)
 
-    cache = init_kv_cache(cfg, B, S, dtype=cache_dtype, device=dev)
+    cache = init_kv_cache(cfg, B, S, dtype=cache_dtype, device=dev, tp=group_size(tp_group))
     out = llama_forward(
         params, cfg, inputs_embeds=inputs_embeds, attn_mask=attn_mask,
-        kv_cache=cache, cache_offset=0, last_logit_only=True,
+        kv_cache=cache, cache_offset=0, last_logit_only=True, tp_group=tp_group,
     )
     if counts is not None:
         counts["prefills"] += 1
@@ -140,7 +148,7 @@ def greedy_generate(
             params, cfg, input_ids=last[:, None], attn_mask=None,
             positions=(lens + step - 1)[:, None],
             kv_cache=cache, cache_offset=L + step - 1, kv_pad_lens=pad_lens,
-            attn_impl=attn_impl,
+            attn_impl=attn_impl, tp_group=tp_group,
         )
         if counts is not None:
             counts["decode_steps"] += 1
@@ -227,9 +235,11 @@ def speculative_generate(
     cache_dtype=torch.bfloat16,
     num_steps: Optional[int] = None,
     counts: Optional[Counter] = None,
+    tp_group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Greedy generation with self-speculative (n-gram lookahead) decoding.
-    ``counts``, when given, gains "prefills" and "spec_rounds".
+    ``counts``, when given, gains "prefills" and "spec_rounds";
+    ``tp_group`` as in ``greedy_generate``.
 
     Returns (tokens (B, max_new) int32 EOS-padded, lengths (B,), rounds:
     the verification forwards run)."""
@@ -238,9 +248,9 @@ def speculative_generate(
     cap = max_new_tokens if num_steps is None else min(int(num_steps), max_new_tokens)
     # a row's offset is L + emitted - 1 < L + cap, and a round writes k + 1
     S = L + max_new_tokens + k + 1
-    cache = init_kv_cache(cfg, B, S, dtype=cache_dtype, device=dev)
+    cache = init_kv_cache(cfg, B, S, dtype=cache_dtype, device=dev, tp=group_size(tp_group))
     out = llama_forward(params, cfg, inputs_embeds=inputs_embeds, attn_mask=attn_mask,
-                        kv_cache=cache, cache_offset=0, last_logit_only=True)
+                        kv_cache=cache, cache_offset=0, last_logit_only=True, tp_group=tp_group)
     if counts is not None:
         counts["prefills"] += 1
     first = torch.argmax(out.logits[:, -1], dim=-1).to(torch.int32)
@@ -259,7 +269,7 @@ def speculative_generate(
         seq = torch.cat([last[:, None], draft], dim=1)
         fwd = llama_forward(params, cfg, input_ids=seq, positions=(lens + n - 1)[:, None] + ar,
                             kv_cache=cache, cache_offset=offsets, kv_pad_lens=pad_lens,
-                            cache_offset_bound=L + cap - 1)
+                            cache_offset_bound=L + cap - 1, tp_group=tp_group)
         rounds += 1
         if counts is not None:
             counts["spec_rounds"] += 1

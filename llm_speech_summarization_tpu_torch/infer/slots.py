@@ -22,6 +22,14 @@ kernel's bound check), the live rows' temperatures, and a copy of the
 runs at most as many steps as the longest remaining budget needs; the JAX
 chunk's on-device early exit when every row is done would cost a host read
 per step here.
+
+Under a tensor-parallel mesh (``mesh.model`` > 1) the decoder runs this
+rank's parameter shard in the model group: its cache holds the rank's
+Hkv/tp KV heads (dense or paged), every kernel runs on the rank's heads,
+and every rank of the group must make the same calls in the same order
+(the server's followers mirror rank 0's, ``serve/model_group.py``); the
+logits, hence the tokens and every host mirror, are the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.llama import LlamaConfig, init_kv_cache, llama_forward
+from ..models.llama import LlamaConfig, init_kv_cache, llama_forward, shard_config
 from .generate import _ngram_propose, commit_verified_drafts
 from .paged import PageAllocator, init_paged_cache, pages_needed, write_prefill_pages_batch
 from .sampling import pack_sampling_params, sample_rows, sampling_tensors
@@ -60,7 +68,10 @@ class SlotDecoder:
     """Device-resident decode slots over a frozen LLM.
 
     ``counts`` records what ran: "prefills" (admission forwards), "steps"
-    (T = 1 decode steps) and "spec_rounds" (verification forwards)."""
+    (T = 1 decode steps) and "spec_rounds" (verification forwards).
+    ``mesh``: a ``parallel.mesh.Mesh`` whose model group shares the LLM
+    (``llm_params`` is then this rank's shard); a model width it does not
+    divide raises ValueError."""
 
     def __init__(
         self,
@@ -79,10 +90,9 @@ class SlotDecoder:
         spec_k: int = 0,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh) is not ported to PyTorch yet (ROADMAP queue A, "
-                "item 11)")
+        self.tp = mesh.model if mesh is not None else 1
+        self.tp_group = mesh.model_group if mesh is not None else None
+        shard_config(cfg, self.tp)
         if spec_k > 0 and repetition_penalty != 1.0:
             raise ValueError(
                 "speculative decode chunks verify exact greedy streams; "
@@ -132,7 +142,8 @@ class SlotDecoder:
         offsets = torch.ones((N,), dtype=torch.int32, device=dev)  # >= 1: idle rows write slot 0..1
         if self.paged:
             cache = init_paged_cache(
-                self.cfg.num_layers, self.cfg.num_kv_heads, self.cfg.head_dim,
+                self.cfg.num_layers, shard_config(self.cfg, self.tp).num_kv_heads,
+                self.cfg.head_dim,
                 num_pages=self.num_pages, page_size=self.page_size, batch=N,
                 max_pages_per_seq=pages_needed(self.max_len, self.page_size),
                 dtype=self.cache_dtype, device=dev,
@@ -141,7 +152,8 @@ class SlotDecoder:
             # and pads: one tensor each, updated in place
             cache = cache._replace(lengths=offsets, pad_lens=pad_lens)
         else:
-            cache = init_kv_cache(self.cfg, N, self.max_len, dtype=self.cache_dtype, device=dev)
+            cache = init_kv_cache(self.cfg, N, self.max_len, dtype=self.cache_dtype, device=dev,
+                                  tp=self.tp)
         V = self.cfg.vocab_size if self.repetition_penalty != 1.0 else 1
         return SlotState(
             cache=cache,
@@ -233,9 +245,10 @@ class SlotDecoder:
                       np.zeros((n_real,), np.int32), np.ones((n_real,), np.float32))
         rngs, temps, top_ks, top_ps = sampling_tensors(packed, dev)
 
-        tmp = init_kv_cache(self.cfg, n_real, T, dtype=self.cache_dtype, device=dev)
+        tmp = init_kv_cache(self.cfg, n_real, T, dtype=self.cache_dtype, device=dev, tp=self.tp)
         out = llama_forward(self.params, self.cfg, inputs_embeds=embeds, attn_mask=mask,
-                            kv_cache=tmp, cache_offset=0, last_logit_only=True)
+                            kv_cache=tmp, cache_offset=0, last_logit_only=True,
+                            tp_group=self.tp_group)
         self.counts["prefills"] += 1
         lens = mask.to(torch.int32).sum(dim=1)
         pads = (T - lens).to(torch.int32)
@@ -396,10 +409,10 @@ class SlotDecoder:
         s = self.state
         if self.paged:
             return llama_forward(self.params, self.cfg, input_ids=ids, positions=positions,
-                                 kv_cache=s.cache)
+                                 kv_cache=s.cache, tp_group=self.tp_group)
         return llama_forward(self.params, self.cfg, input_ids=ids, positions=positions,
                              kv_cache=s.cache, cache_offset=s.offsets, kv_pad_lens=s.pad_lens,
-                             cache_offset_bound=int(self._bound.max()))
+                             cache_offset_bound=int(self._bound.max()), tp_group=self.tp_group)
 
     def _step(self) -> None:
         s = self.state

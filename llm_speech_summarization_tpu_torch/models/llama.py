@@ -37,13 +37,23 @@ come from the global mask, each rank keeps its shard [r·Tl, (r+1)·Tl) of
 the sequence, and attention is ``ring_attention`` (kernel B7 per block on
 the card). The hidden-state stack and the final hidden states keep their
 global meaning (the last W positions of the whole sequence) and come back
-on every rank. Not ported yet: tensor parallelism (ROADMAP queue A item
-11).
+on every rank.
+
+Tensor parallelism (``tp_group``, the serving engine's model group): each
+rank holds its shard of the parameters (``parallel/sharding.py``:
+Megatron-style, Hq/tp query heads, Hkv/tp KV heads, I/tp MLP columns, V/tp
+vocab rows) and a KV cache of its Hkv/tp heads, and every rank passes the
+same inputs. The block runs at the shard's widths (``shard_config``); the
+partial products of ``wo`` and ``w_down`` are summed over the group (one
+all-reduce each), the embedding lookup gives zero rows for ids outside the
+rank's vocab rows and is summed likewise, and the head's float32 logits of
+the rank's vocab slice are gathered, so that every rank holds the same
+full logits. Every attention kernel runs on the rank's heads.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, NamedTuple, Optional, Union
 
 import torch
@@ -57,7 +67,7 @@ from ..kernels.fused_paged import fused_paged_decode
 from ..kernels.paged_attention import paged_decode_attention
 from ..ops.norms import rms_norm
 from ..ops.ring_attention import ring_attention
-from ..parallel.comm import gather_tail, group_rank, group_size
+from ..parallel.comm import gather_tail, group_rank, group_size, tp_all_gather, tp_all_reduce
 from ..ops.rope import Llama3RopeScaling, apply_rope_cached, rope_cos_sin, rope_inv_freq
 
 Params = Dict[str, Any]
@@ -65,7 +75,7 @@ Params = Dict[str, Any]
 __all__ = [
     "KVCache", "LlamaConfig", "LlamaOutput", "_quantize_kv", "dequantize_kv",
     "fuse_llama_params", "init_kv_cache", "init_llama_params", "llama_forward",
-    "llama_preset", "quantize_llama_params",
+    "llama_preset", "quantize_llama_params", "shard_config",
 ]
 
 
@@ -127,6 +137,23 @@ def llama_preset(name: str) -> LlamaConfig:
     return _PRESETS[key]
 
 
+def shard_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
+    """The widths one rank of a ``tp``-rank model group holds: Hq/tp query
+    heads, Hkv/tp KV heads and I/tp MLP columns (the vocab stays whole: the
+    logits are gathered). Raises ValueError naming every width that ``tp``
+    does not divide, the vocab's among them."""
+    if tp == 1:
+        return cfg
+    widths = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+              "intermediate_size": cfg.intermediate_size, "vocab_size": cfg.vocab_size}
+    bad = [f"{k}={v}" for k, v in widths.items() if v % tp]
+    if bad:
+        raise ValueError(f"tensor parallelism over {tp} ranks needs the model's widths to "
+                         f"divide by {tp}; these do not: {', '.join(bad)}")
+    return replace(cfg, num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
+                   intermediate_size=cfg.intermediate_size // tp)
+
+
 class KVCache(NamedTuple):
     """KV cache laid out (L, B, Hkv, S, Dh), optionally int8 with bf16
     per-(layer, sample, head, slot) scales (L, B, Hkv, S). The tensors are
@@ -143,10 +170,12 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(
-    cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None
+    cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None, tp: int = 1
 ) -> KVCache:
-    """Zero cache. Every field gets its own allocation: the cache is written
-    in place, and two fields sharing storage would corrupt each other."""
+    """Zero cache of one rank of a ``tp``-rank model group (Hkv/tp heads).
+    Every field gets its own allocation: the cache is written in place, and
+    two fields sharing storage would corrupt each other."""
+    cfg = shard_config(cfg, tp)
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
     if dtype == torch.int8:
         return KVCache(
@@ -219,12 +248,14 @@ def _mm(h: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
     return h @ w
 
 
-def _block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, attend):
+def _block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, attend,
+           tp_group=None):
     """One pre-norm transformer block; ``attend(q, k, v)`` is the attention
-    of the mode at hand. Returns (out, k, v) with post-rope k."""
+    of the mode at hand. Returns (out, k, v) with post-rope k. Under a
+    ``tp_group``, ``cfg`` holds the shard's widths."""
     h = rms_norm(x, lp["input_norm"], cfg.rms_eps)
     q, k, v = _qkv(cfg, lp, h, rope_cos, rope_sin)
-    return _block_out(cfg, lp, x, attend(q, k, v)), k, v
+    return _block_out(cfg, lp, x, attend(q, k, v), tp_group), k, v
 
 
 def _block_save_qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, attend):
@@ -258,11 +289,14 @@ def _qkv(cfg: LlamaConfig, lp: Params, h: torch.Tensor, rope_cos, rope_sin):
     return q, k, v
 
 
-def _block_out(cfg: LlamaConfig, lp: Params, x: torch.Tensor, attn: torch.Tensor):
+def _block_out(cfg: LlamaConfig, lp: Params, x: torch.Tensor, attn: torch.Tensor,
+               tp_group=None):
     """The block's output from its input and the attention (B, T, Hq, Dh):
-    the o-projection's residual, then the MLP half."""
+    the o-projection's residual, then the MLP half; under a ``tp_group``
+    each row-parallel product is summed over the group."""
     B, T, _ = x.shape
-    x = x + _mm(attn.reshape(B, T, cfg.num_heads * cfg.head_dim), lp, "wo")
+    x = x + tp_all_reduce(_mm(attn.reshape(B, T, cfg.num_heads * cfg.head_dim), lp, "wo"),
+                          tp_group)
     h = rms_norm(x, lp["post_attn_norm"], cfg.rms_eps)
     if "w_gateup" in lp:
         inter = lp["w_down"].shape[-2]
@@ -271,7 +305,7 @@ def _block_out(cfg: LlamaConfig, lp: Params, x: torch.Tensor, attn: torch.Tensor
     else:
         gate = torch.nn.functional.silu(_mm(h, lp, "w_gate"))
         up = _mm(h, lp, "w_up")
-    return x + _mm(gate * up, lp, "w_down")
+    return x + tp_all_reduce(_mm(gate * up, lp, "w_down"), tp_group)
 
 
 def _write_cache(cache: KVCache, layer: int, offset: int, k: torch.Tensor, v: torch.Tensor):
@@ -311,6 +345,7 @@ def llama_forward(
     remat_policy: Optional[str] = None,
     attn_impl: str = "auto",
     ring_group=None,
+    tp_group=None,
 ) -> LlamaOutput:
     """Run the decoder.
 
@@ -359,17 +394,14 @@ def llama_forward(
     bf16 operands (exact products, float32 sums), then the int8 head's
     per-vocab scale multiplies them.
     """
+    tp = group_size(tp_group)
+    if tp > 1 and (ring_group is not None or remat):
+        raise ValueError("tp_group runs the inference forward; tensor parallelism with "
+                         "ring_group or remat (training) is not ported yet")
     if inputs_embeds is None:
         if input_ids is None:
             raise ValueError("llama_forward needs input_ids or inputs_embeds")
-        table = params["embed_tokens"]
-        ids = input_ids.long()
-        if table.dtype == torch.int8:
-            # dequantize to the activation dtype (the norm weights keep it)
-            act = params["final_norm"].dtype
-            inputs_embeds = table[ids].to(act) * params["embed_tokens_scale"][ids][..., None].to(act)
-        else:
-            inputs_embeds = table[ids]
+        inputs_embeds = _embed_lookup(params, input_ids.long(), tp_group)
     x = inputs_embeds
     B, T, _ = x.shape
     dev = x.device
@@ -446,6 +478,7 @@ def llama_forward(
         ends = torch.full((B,), T, dtype=torch.int32, device=dev)
 
     layers = params["layers"]
+    lcfg = shard_config(cfg, tp)
     for i in range(cfg.num_layers):
         lp = {name: w[i] for name, w in layers.items()}
         if is_paged and T == 1:
@@ -498,7 +531,7 @@ def llama_forward(
 
             x = checkpoint(block, x, use_reentrant=False)
         else:
-            x, k, v = _block(cfg, lp, x, rope_cos, rope_sin, attend)
+            x, k, v = _block(lcfg, lp, x, rope_cos, rope_sin, attend, tp_group)
         if return_hidden:
             hidden.append(keep(x))
         if kv_cache is not None and not is_decode:
@@ -535,7 +568,28 @@ def llama_forward(
     logits = x.float() @ w_vd.float().t()
     if head.dtype == torch.int8:
         logits = logits * head_scale.float()
-    return out._replace(logits=logits)
+    return out._replace(logits=tp_all_gather(logits, -1, tp_group))
+
+
+def _embed_lookup(params: Params, ids: torch.Tensor, tp_group=None) -> torch.Tensor:
+    """Token embeddings; an int8 table is gathered at int8 width and
+    dequantized per row to the activation dtype (the norm weights'). Under a
+    ``tp_group`` the table holds the rank's contiguous vocab rows: ids
+    outside them give zero rows, and the rows are summed over the group."""
+    table, scale = params["embed_tokens"], params.get("embed_tokens_scale")
+    act = params["final_norm"].dtype
+    tp = group_size(tp_group)
+    if tp > 1:
+        lo = group_rank(tp_group) * table.shape[0]
+        local = ids - lo
+        inside = (local >= 0) & (local < table.shape[0])
+        ids = torch.where(inside, local, torch.zeros_like(local))
+    rows = table[ids]
+    if table.dtype == torch.int8:
+        rows = rows.to(act) * scale[ids][..., None].to(act)
+    if tp > 1:
+        rows = tp_all_reduce(rows * inside[..., None].to(rows.dtype), tp_group)
+    return rows
 
 
 def fuse_llama_params(params: Params) -> Params:

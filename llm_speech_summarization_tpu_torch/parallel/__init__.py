@@ -1,19 +1,31 @@
 """Process groups and collectives (port of ``parallel/``): the mesh of
-ranks and its ``seq`` group (``mesh.py``), and the collectives that the JAX
-package gets from ``ppermute`` and GSPMD (``comm.py``)."""
+ranks and its ``seq`` and ``model`` groups (``mesh.py``), the collectives
+that the JAX package gets from ``ppermute`` and GSPMD (``comm.py``), and
+the tensor-parallel layouts of the LLM (``sharding.py``, imported from its
+module: it depends on ``models/``)."""
 
 from .comm import (
     COMM_STATS,
     all_gather,
     all_reduce_grads,
     any_rank,
+    broadcast_call,
     gather_tail,
     group_rank,
     group_size,
     halo_shift,
     ring_shift,
+    tp_all_gather,
+    tp_all_reduce,
 )
-from .mesh import Mesh, check_backend, default_backend, distributed_init, make_mesh
+from .mesh import (
+    Mesh,
+    check_backend,
+    default_backend,
+    distributed_init,
+    make_mesh,
+    mesh_from_ranks,
+)
 
 __all__ = [
     "COMM_STATS",
@@ -21,6 +33,7 @@ __all__ = [
     "all_gather",
     "all_reduce_grads",
     "any_rank",
+    "broadcast_call",
     "check_backend",
     "default_backend",
     "distributed_init",
@@ -29,5 +42,8 @@ __all__ = [
     "group_size",
     "halo_shift",
     "make_mesh",
+    "mesh_from_ranks",
     "ring_shift",
+    "tp_all_gather",
+    "tp_all_reduce",
 ]

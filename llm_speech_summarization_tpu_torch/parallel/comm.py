@@ -1,6 +1,7 @@
-"""The collectives of the sequence-parallel path, over a ``torch.distributed``
-process group: what the JAX package gets from ``jax.lax.ppermute`` inside
-``shard_map`` and from GSPMD's inserted gathers and reductions.
+"""The collectives of the sequence- and tensor-parallel paths, over a
+``torch.distributed`` process group: what the JAX package gets from
+``jax.lax.ppermute`` inside ``shard_map`` and from GSPMD's inserted gathers
+and reductions.
 
   * ``ring_shift``: every rank sends tensors to rank + 1 and receives from
     rank - 1 (wrapping around), sends and receives in one
@@ -18,7 +19,14 @@ process group: what the JAX package gets from ``jax.lax.ppermute`` inside
     axis, on every rank (``grad="slice"``);
   * ``all_reduce_grads``: the gradient sum over the group, in one flat
     float32 buffer;
-  * ``any_rank``: a host flag or-ed over the group.
+  * ``any_rank``: a host flag or-ed over the group;
+  * the model group's ``tp_all_reduce`` (the sum of the ranks' partial
+    products after a row-parallel matmul and of the vocab-sharded
+    embedding lookup, in the tensor's own dtype: gloo sums bfloat16),
+    ``tp_all_gather`` (the vocab-sharded logits, concatenated) and
+    ``broadcast_call`` (one rank's host object and tensors, on every rank:
+    the serving follower's commands and the prompts it decodes). None of
+    them has a backward.
 
 Under the gloo backend, CUDA tensors cross through host copies made here,
 after a sync of the current stream (gloo's send, receive and gathers take
@@ -215,3 +223,44 @@ def any_rank(flag: bool, group) -> bool:
     t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return bool(t.item())
+
+
+def tp_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group of every rank's ``x`` (same shape and dtype),
+    on every rank, bit-identical across them. ``x`` is a temporary to the
+    caller: where the backend takes it as it is (CPU tensors, NCCL), the sum
+    is made in its storage. No autograd."""
+    if group_size(group) == 1:
+        return x
+    return _all_reduce_sum(x, group).to(x.dtype)
+
+
+def tp_all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order, on every
+    rank. No autograd."""
+    if group_size(group) == 1:
+        return x
+    return torch.cat(list(_gather(x, group).unbind(0)), dim=dim)
+
+
+def broadcast_call(obj, tensors, group, src: int = 0, device=None):
+    """(obj, tensors) of group rank ``src`` on every rank: a picklable host
+    object and a list of tensors, which the other ranks pass as None and
+    receive on ``device``. One object broadcast carries ``obj`` and the
+    tensors' shapes and dtypes, then one broadcast per tensor."""
+    if group_size(group) == 1:
+        return obj, list(tensors)
+    me = group_rank(group)
+    head = [(obj, [(tuple(t.shape), t.dtype) for t in tensors]) if me == src else None]
+    dist.broadcast_object_list(head, src=_peer(group, src), group=group)
+    obj, specs = head[0]
+    if me != src:
+        tensors = [torch.empty(shape, dtype=dtype, device=device) for shape, dtype in specs]
+    out = []
+    for t in tensors:
+        def op(ts):
+            dist.broadcast(ts[0], src=_peer(group, src), group=group)
+            return ts
+
+        out.append(_run(group, [t], op)[0])
+    return obj, out

@@ -2,9 +2,11 @@
 
 The JAX package builds a ("data"[, "seq"], "model") device mesh and lets
 XLA place the collectives. Here every rank is one process, and the mesh is
-this rank's coordinates plus the process group of the axis that is ported:
-``seq``, the sequence-parallel ring of the long-audio trainer. Data and
-tensor parallelism (``mesh.data`` or ``mesh.model`` > 1) raise.
+this rank's coordinates plus the process groups of its axes: ``seq``, the
+sequence-parallel ring of the long-audio trainer, and ``model``, the
+tensor-parallel group of the serving engine (``parallel/sharding.py``).
+Data parallelism (``mesh.data`` > 1) raises: it is the next slice of the
+port, with ZeRO-1 and tensor parallelism in the training step.
 
 ``distributed_init`` joins the process group. Its backend follows from what
 the rank sees (``default_backend``): NCCL with a card for each rank on the
@@ -95,14 +97,17 @@ def distributed_init(backend: Optional[str] = None, cpu: bool = False) -> bool:
 @dataclass(frozen=True)
 class Mesh:
     """This rank's place in a (data, seq, model) mesh of ranks, laid out
-    rank = (d * seq + s) * model + m, and the process group of its seq
-    axis (None when seq == 1)."""
+    rank = (d * seq + s) * model + m, and the process groups of its axes
+    (None where the axis has one rank; the data axis has one until data
+    parallelism is ported)."""
 
     data: int
     seq: int
     model: int
     rank: int
     seq_group: Any = None
+    model_group: Any = None
+    data_group: Any = None
 
     @property
     def is_main(self) -> bool:
@@ -110,21 +115,35 @@ class Mesh:
         return self.rank == 0
 
 
-def make_mesh(cfg: Config) -> Mesh:
-    """The mesh of ``cfg.train.mesh`` over the initialized process group
-    (one process without one); ``data`` -1 takes the ranks left over."""
-    m = cfg.train.mesh
+def mesh_from_ranks(data: int = -1, model: int = 1, seq: int = 1) -> Mesh:
+    """The (data, seq, model) mesh over the initialized process group (one
+    process without one), the counterpart of the JAX ``mesh_from_devices``
+    over processes; ``data`` -1 takes the ranks left over."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    seq, model = max(m.seq, 1), max(m.model, 1)
-    data = m.data if m.data != -1 else max(world // (seq * model), 1)
-    if data > 1 or model > 1:
+    seq, model = max(seq, 1), max(model, 1)
+    data = data if data != -1 else max(world // (seq * model), 1)
+    if data > 1:
         raise NotImplementedError(
-            f"mesh data={data}, model={model}: data and tensor parallelism are not ported to "
-            f"PyTorch yet (ROADMAP queue A, item 11: data parallelism with pad_batch_rows, "
-            f"ZeRO-1 and tensor parallelism come next); the port runs mesh 1,seq,1")
+            f"mesh data={data}: data parallelism (pad_batch_rows, shard_batch, ZeRO-1) is not "
+            f"ported to PyTorch yet; it comes in the training slice of ROADMAP queue A item 11, "
+            f"with tensor parallelism in the training step. The port runs mesh 1,seq,1 in "
+            f"training and 1,1,model in serving")
+    if seq > 1 and model > 1:
+        raise NotImplementedError(
+            f"mesh seq={seq}, model={model}: a seq axis with a model axis is not ported (the "
+            f"ring trains with mesh 1,seq,1, tensor-parallel serving runs 1,1,model)")
     if data * seq * model != world:
         raise ValueError(
             f"mesh {data},{seq},{model} needs {data * seq * model} ranks and this run has "
-            f"{world}: launch it with python -m torch.distributed.run --nproc_per_node {seq}")
-    return Mesh(data, seq, model, rank, dist.group.WORLD if seq > 1 else None)
+            f"{world}: launch it with python -m torch.distributed.run --nproc_per_node "
+            f"{data * seq * model}")
+    # data is 1 and at most one axis is over 1: that axis spans every rank
+    return Mesh(data, seq, model, rank, dist.group.WORLD if seq > 1 else None,
+                dist.group.WORLD if model > 1 else None)
+
+
+def make_mesh(cfg: Config) -> Mesh:
+    """The mesh of ``cfg.train.mesh`` over the initialized process group."""
+    m = cfg.train.mesh
+    return mesh_from_ranks(m.data, m.model, m.seq)

@@ -315,6 +315,7 @@ class ContinuousBatchingEngine:
         device=None,
     ):
         from ..infer.slots import SlotDecoder
+        from .model_group import ModelGroupDecoder
 
         dev = check_engine_device("ContinuousBatchingEngine", engine.device, device)
         self.engine = engine
@@ -328,12 +329,19 @@ class ContinuousBatchingEngine:
         self.max_chunk_steps = max(max_chunk_steps, chunk_steps)
         self.max_admit = min(max_admit, n_slots)  # a wave must fit the slots
         self.admit_wait_s = admit_wait_ms / 1000.0
-        self.decoder = SlotDecoder(
-            engine.llm_params, engine.llm_cfg, eos_id=engine.tokenizer.eos_id,
-            n_slots=n_slots, max_prompt_len=max_prompt_len, max_new_tokens=max_new_tokens,
-            cache_dtype=engine.cache_dtype, repetition_penalty=rep, paged=paged,
-            num_pages=num_pages, spec_k=spec_k, device=dev,
+        decoder_kwargs = dict(
+            eos_id=engine.tokenizer.eos_id, n_slots=n_slots, max_prompt_len=max_prompt_len,
+            max_new_tokens=max_new_tokens, cache_dtype=engine.cache_dtype,
+            repetition_penalty=rep, paged=paged, num_pages=num_pages, spec_k=spec_k,
         )
+        # on a model group (tensor parallelism) rank 0's decoder mirrors its
+        # calls on the other ranks, which run serve/model_group.py's follow()
+        self._tp = getattr(engine, "tp", 1) > 1
+        if self._tp:
+            self.decoder = ModelGroupDecoder(engine, **decoder_kwargs)
+        else:
+            self.decoder = SlotDecoder(engine.llm_params, engine.llm_cfg, device=dev,
+                                       **decoder_kwargs)
         self.spec_governor = _SpecGovernor(spec_k) if spec_k > 0 else None
         self._spec_prev: Dict[int, tuple] = {}  # slot → (req, n_emitted)
         # LSS_SCHED_TRACE=1: one stderr line per scheduler iteration that did
@@ -424,7 +432,11 @@ class ContinuousBatchingEngine:
     def shutdown(self):
         self._stop.set()
         self._builder.join(timeout=5)
-        self._thread.join(timeout=5)
+        # on a model group the scheduler's last call stops the followers
+        self._thread.join(timeout=120 if self._tp else 5)
+        if self._tp and self._thread.is_alive():
+            raise RuntimeError("the scheduler did not stop; the model group's followers "
+                               "were not told to")
 
     # ------------------------------------------------------------------
 
@@ -576,6 +588,8 @@ class ContinuousBatchingEngine:
                     flags = None
                     self._spec_prev = {}
                     time.sleep(0.1)
+            if self._tp:
+                self.decoder.stop()
 
     def _loop_iteration(self, tok, flags):
         self._iter += 1
@@ -602,6 +616,8 @@ class ContinuousBatchingEngine:
             # every slot), so wait for admission work without device reads
             while not self._stop.is_set() and self._prepared.qsize() == 0 \
                     and self._pending_wave is None:
+                if self._tp:
+                    self.decoder.keepalive()
                 time.sleep(0.002)
             if self._trace and t_admit > 1e-3:
                 self._trace_line(0, t_admit, 0.0, 0.0, t_iter0)
@@ -725,6 +741,13 @@ class SummarizationServer:
         dev = check_engine_device("SummarizationServer", engine.device, device)
         self.max_new_cap = max_new_tokens
         self.max_body_bytes = max_body_bytes
+        if getattr(engine, "tp", 1) > 1:
+            # a model group serves through the continuous scheduler, whose
+            # decoder calls its followers mirror
+            if continuous is False:
+                raise ValueError("a tensor-parallel engine serves through the continuous "
+                                 "scheduler; the request-level one is not run on a model group")
+            continuous = True
         if continuous == "auto":
             lat = _dispatch_latency_ms(dev)
             continuous = lat < 100.0
@@ -956,12 +979,22 @@ def serve(config, host: str = "0.0.0.0", port: int = 8080, warmup: bool = True,
     """Build an engine from ``config`` and serve until SIGTERM/SIGINT, which
     drain gracefully (503 for new requests, in-flight work finishes up to
     ``drain_timeout`` seconds, then exit; a second signal stops at once).
-    ``device=None`` means the CUDA card and raises without one."""
+    ``device=None`` means the CUDA card and raises without one. With a
+    ``mesh`` in ``engine_kwargs`` whose model group has more than one rank,
+    rank 0 of the group serves and the other ranks follow its decoder
+    (``serve/model_group.py``) until it drains."""
     import signal
 
     from ..infer.engine import LLMSpeechTextInference
+    from ..parallel.comm import group_rank
+    from .model_group import follow
 
     engine = LLMSpeechTextInference(config, device=device, **engine_kwargs)
+    if not engine.builds_prompts:
+        print(f"model group rank {group_rank(engine.tp_group)}: following rank 0", flush=True)
+        n = follow(engine)
+        print(f"rank 0 stopped after {n} commands, exiting", flush=True)
+        return
     server = SummarizationServer(engine, host=host, port=port, device=engine.device,
                                  **(server_kwargs or {}))
     print(f"scheduler: {server.scheduler_reason}", flush=True)
@@ -969,17 +1002,22 @@ def serve(config, host: str = "0.0.0.0", port: int = 8080, warmup: bool = True,
         print("warming up (building kernels, growing pools)...", flush=True)
         server.warmup()
 
+    stoppers = []
+
     def _on_signal(signum, frame):
         if server._draining:  # second signal: stop now
             threading.Thread(target=server.shutdown, daemon=True).start()
             return
         print(f"signal {signum}: draining (503 for new requests, up to "
               f"{drain_timeout:.0f}s for in-flight work)...", flush=True)
-        threading.Thread(target=server.drain, kwargs=dict(timeout=drain_timeout),
-                         daemon=True).start()
+        stoppers.append(threading.Thread(target=server.drain,
+                                         kwargs=dict(timeout=drain_timeout), daemon=True))
+        stoppers[-1].start()
 
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
     print(f"serving on {host}:{server.port}", flush=True)
     server.serve_forever()  # returns when drain/shutdown completes
+    for t in stoppers:  # the drain goes on to stop the scheduler (and its followers)
+        t.join()
     print("drained, exiting", flush=True)

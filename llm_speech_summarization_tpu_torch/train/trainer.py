@@ -22,9 +22,11 @@ builds the same weights and sees the same batches, the train and eval steps
 run over the mesh's seq group, rank 0 writes the logs and checkpoints (a
 barrier follows each save, and every rank resumes from the checkpoint rank 0
 picked), and validate() runs the sharded eval step on every rank while rank
-0 alone samples generations through the unsharded engine. Data and tensor
-parallelism (``mesh.data`` or ``mesh.model`` > 1) raise in ``make_mesh``
-(ROADMAP queue A, item 11). A ``ctc_pool`` projector takes each example's
+0 alone samples generations through the unsharded engine. Data
+parallelism (``mesh.data`` > 1) raises in ``make_mesh``, and tensor
+parallelism in the training step (``mesh.model`` > 1) here: both are the
+training slice of ROADMAP queue A item 11 (the serving engine runs tensor
+parallel). A ``ctc_pool`` projector takes each example's
 ``pool_ranges_4`` (collated to a fixed ``max_pool_ranges`` per run, which
 is then the audio buffer's length in the splice).
 """
@@ -72,8 +74,13 @@ def _check_parallel(cfg: Config, mesh: Mesh) -> None:
     if mesh.seq > 1 and not cfg.train.use_ring_attention:
         raise NotImplementedError(
             "mesh.seq > 1 shards the spliced sequence through ring attention; set "
-            "train.use_ring_attention (sharding without it is not ported, ROADMAP queue A "
-            "item 11)")
+            "train.use_ring_attention (sequence sharding without it is not ported)")
+    if mesh.data > 1 or mesh.model > 1:
+        raise NotImplementedError(
+            f"mesh data={mesh.data}, model={mesh.model}: data parallelism (ZeRO-1, padded "
+            f"tails, sharded eval) and tensor parallelism in the training step are not "
+            f"ported to PyTorch yet; they are the training slice of ROADMAP queue A item 11 "
+            f"(tensor parallelism serves: cli/serve.py --tp)")
 
 
 def max_pool_ranges(config: Config, enc_setup) -> Optional[int]:

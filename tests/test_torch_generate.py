@@ -23,6 +23,7 @@ from llm_speech_summarization_tpu_torch.infer.generate import (
     greedy_generate,
 )
 from llm_speech_summarization_tpu_torch.models import llama as tllama
+from llm_speech_summarization_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(1)
 
@@ -278,13 +279,13 @@ def test_engine_prompt_ids_golden():
     assert te.suffix_ids.tolist() == ids["suffix_ids"]
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(llm_checkpoint="/ckpt/llm"),
+@pytest.mark.parametrize("kwargs", [dict(mesh=Mesh(2, 1, 1, 0)), dict(llm_checkpoint="/ckpt/llm"),
                                     dict(encoder_checkpoint="/ckpt/encoder")])
 def test_engine_unported_options_raise(kwargs):
-    """Meshes are still refused (sampling, speculative decoding and
-    checkpoints are ported); a checkpoint path is now loaded, so a missing
-    file raises FileNotFoundError instead of the old NotImplementedError
-    (tests/test_torch_convert.py loads real ones)."""
+    """A data-parallel mesh is still refused (a model group serves,
+    tests/test_torch_tp_serve.py); a checkpoint path is now loaded, so a
+    missing file raises FileNotFoundError instead of the old
+    NotImplementedError (tests/test_torch_convert.py loads real ones)."""
     cfg = load_config(str(TINY_YAML))
     kwargs = dict(kwargs)
     ckpt = False

@@ -1,13 +1,13 @@
 """The port stands alone: a fresh interpreter imports every module of it
 (the training slice, ``cli.train``, ring attention, ``parallel/``, the
-inference CLI, the audio loaders, the converters, the preprocessing job and
-the evaluation harness among them) without loading orbax, safetensors,
-transformers or datasets (the port reads safetensors itself), reads a
-bf16 safetensors file, builds a CPU engine and server and answers a
-request, and takes a training step through the ``Trainer``, without jax or
-any module of the JAX package being loaded; and the port's copy of the
-config loader reads every shipped YAML exactly as the JAX package's
-does."""
+inference CLI, the audio loaders, the converters, the preprocessing job,
+the evaluation harness and the tensor-parallel entry points among them)
+without loading orbax, safetensors, transformers or datasets (the port
+reads safetensors itself), reads a bf16 safetensors file, builds a CPU
+engine and server and answers a request, shards and merges the engine's
+LLM, and takes a training step through the ``Trainer``, without jax or any
+module of the JAX package being loaded; and the port's copy of the config
+loader reads every shipped YAML exactly as the JAX package's does."""
 
 import dataclasses
 import json
@@ -58,6 +58,12 @@ req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/v1/text_response",
 with urllib.request.urlopen(req, timeout=120) as resp:
     status = resp.status
 drained = srv.drain(timeout=30)
+from llm_speech_summarization_tpu_torch.parallel.mesh import mesh_from_ranks
+from llm_speech_summarization_tpu_torch.parallel.sharding import merge_llama_shards, shard_llama_params
+from llm_speech_summarization_tpu_torch.serve.model_group import ModelGroupDecoder, follow
+shards = [shard_llama_params(eng.llm_params, eng.llm_cfg, r, 2) for r in range(2)]
+tp_ok = (mesh_from_ranks(model=1).model_group is None
+         and merge_llama_shards(shards, eng.llm_cfg)["embed_tokens"].equal(eng.llm_params["embed_tokens"]))
 import tempfile
 from llm_speech_summarization_tpu_torch.train.trainer import Trainer
 tmp = tempfile.mkdtemp()
@@ -70,7 +76,7 @@ loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "llm_speech_summarization_tpu"))
 print(json.dumps({"modules": len(names), "status": status, "drained": drained,
                   "trained": trainer.step, "names": names, "loaded": loaded, "heavy": heavy,
-                  "safetensors_read": st_ok}))
+                  "safetensors_read": st_ok, "tp_ok": tp_ok}))
 """
 
 
@@ -81,14 +87,15 @@ def test_port_runs_without_the_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == [] and out["heavy"] == [] and out["safetensors_read"]
     assert out["modules"] >= 20 and out["status"] == 200 and out["drained"]
-    assert out["trained"] == 1
+    assert out["trained"] == 1 and out["tp_ok"]
     pkg = "llm_speech_summarization_tpu_torch."
     for name in ("train.trainer", "train.step", "train.state", "train.checkpoint", "cli.train",
                  "ops.losses", "data.datasets", "data.collate", "obs.writer",
                  "ops.ring_attention", "parallel.mesh", "parallel.comm", "cli.infer",
                  "data.audio_io", "data.flac", "data.native", "ops.pooling", "models.convert",
                  "cli.convert", "data.preprocess", "cli.preprocess", "eval.rouge",
-                 "eval.bertscore", "eval.evaluate", "cli.evaluate", "cli.serve"):
+                 "eval.bertscore", "eval.evaluate", "cli.evaluate", "cli.serve",
+                 "parallel.sharding", "serve.model_group"):
         assert pkg + name in out["names"], name
 
 

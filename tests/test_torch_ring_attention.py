@@ -80,14 +80,16 @@ def _tiny(**mesh):
 
 
 def test_mesh_and_backend_rules(monkeypatch):
-    # one process: seq 1 is the whole run; data and model parallelism raise
+    # one process: seq 1 is the whole run; data parallelism raises, naming
+    # the training slice; a seq or model axis needs its ranks
     m = make_mesh(_tiny())
-    assert (m.data, m.seq, m.model, m.rank, m.seq_group, m.is_main) == (1, 1, 1, 0, None, True)
-    for field in ("data", "model"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    assert (m.data, m.seq, m.model, m.rank, m.seq_group, m.model_group, m.data_group,
+            m.is_main) == (1, 1, 1, 0, None, None, None, True)
+    with pytest.raises(NotImplementedError, match="training slice of ROADMAP queue A item 11"):
+        make_mesh(_tiny(data=2))
+    for field in ("seq", "model"):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             make_mesh(_tiny(**{field: 2}))
-    with pytest.raises(ValueError, match="needs 2 ranks"):
-        make_mesh(_tiny(seq=2))
     # the backend a rank sees: NCCL with a card per rank, else gloo
     assert default_backend(1, 1) == default_backend(4, 8) == "nccl"
     assert default_backend(2, 1) == default_backend(1, 0) == "gloo"

@@ -299,8 +299,9 @@ def test_summarization_server_on_cpu(engines):
 
 
 def test_entry_points_need_a_card_or_cpu(engines, monkeypatch):
-    """Without a card, device=None raises at every entry point; the CLI
-    refuses --tp > 1."""
+    """Without a card, device=None raises at every entry point; the CLI's
+    --tp 2 needs its two ranks (torch.distributed.run,
+    tests/test_torch_tp_serve.py)."""
     from llm_speech_summarization_tpu_torch.cli import serve as cli
 
     _, te = engines
@@ -316,7 +317,7 @@ def test_entry_points_need_a_card_or_cpu(engines, monkeypatch):
         SummarizationServer(te, port=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["-c", TINY_YAML, "--no_warmup"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 ranks.*torch.distributed.run"):
         cli.main(["-c", TINY_YAML, "--tp", "2"])
 
 

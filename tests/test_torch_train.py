@@ -41,6 +41,7 @@ from llm_speech_summarization_tpu_torch.models.audio_encoder import (
     encoder_setup_from_config,
     init_audio_encoder,
 )
+from llm_speech_summarization_tpu_torch.parallel.mesh import Mesh
 from llm_speech_summarization_tpu_torch.train import checkpoint as ckpt
 from llm_speech_summarization_tpu_torch.train import (
     Trainer,
@@ -297,14 +298,21 @@ def test_async_checkpoint_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("field", ["model", "seq"])
 def test_parallel_configs_raise(tmp_path, field):
-    """Tensor parallelism is not ported; a seq axis needs its ranks (one
-    process per rank, tests/test_torch_ring_trainer.py), and in one process
-    it raises before any work."""
+    """Tensor parallelism in the training step is not ported (a mesh with a
+    model group of 2 raises in the trainer, naming the training slice); a
+    seq axis needs its ranks (one process per rank,
+    tests/test_torch_ring_trainer.py), and in one process it raises before
+    any work."""
     cfg = _tiny_trainer_cfg(tmp_path)
+    if field == "model":
+        with pytest.raises(NotImplementedError, match="item 11"):
+            Trainer(cfg, device="cpu", mesh=Mesh(1, 1, 2, 0))
+        setattr(cfg.train.mesh, "data", 2)
+        with pytest.raises(NotImplementedError, match="training slice"):
+            Trainer(cfg, device="cpu")
+        return
     setattr(cfg.train.mesh, field, 2)
-    error, match = ((NotImplementedError, "item 11") if field == "model"
-                    else (ValueError, "needs 2 ranks"))
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         Trainer(cfg, device="cpu")
 
 

@@ -34,14 +34,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(case: str, workdir, n: int, timeout: float = 120.0) -> list:
-    """Run ``case`` on n ranks; returns each rank's ``out_<rank>.pt``."""
+def run_ranks(case: str, workdir, n: int, timeout: float = 120.0, script: str = None) -> list:
+    """Run ``case`` on n ranks of ``script`` (default: this file); returns
+    each rank's ``out_<rank>.pt``."""
     import torch
 
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n), OMP_NUM_THREADS="1",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), case, str(workdir)],
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(script or __file__), case,
+                               str(workdir)],
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(n)]

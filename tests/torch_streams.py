@@ -34,12 +34,15 @@ def recorded_rows(tokenizer_cls):
 def jax_margin(je, embeds, mask, prefix):
     """JAX's top-2 margin of the next token after ``prefix`` for one row:
     ``embeds`` (1, L, D) and ``mask`` (1, L) are its prompt from the JAX
-    engine's ``build_*_prompt_batch`` (a float LLM)."""
+    engine's ``build_*_prompt_batch`` (a float LLM, or int8 weights, whose
+    table rows are dequantized as the JAX engine does)."""
     import jax.numpy as jnp
 
     from llm_speech_summarization_tpu.models import llama as jllama
 
     table = np.asarray(je.llm_params["embed_tokens"], np.float32)
+    if "embed_tokens_scale" in je.llm_params:
+        table = table * np.asarray(je.llm_params["embed_tokens_scale"], np.float32)[:, None]
     x = np.concatenate([np.asarray(embeds, np.float32),
                         table[np.asarray(prefix, np.int64)][None]], axis=1)
     m = np.concatenate([np.asarray(mask, bool), np.ones((1, len(prefix)), bool)], axis=1)
