@@ -19,8 +19,9 @@ Phases, in order; each prints one line and any failure raises:
      attention (timed only);
   4. the training attention kernels, B1 with its log-sum-exp and the
      backward B6 (dq; dk/dv), against their plain versions run in float32
-     at the two training shapes (the LLM at the trainer's spliced length,
-     HuBERT at 499 frames), with injected faults the bound must reject,
+     at the training shapes (the LLM at the trainer's spliced length, at
+     24/8 heads and at one tensor-parallel rank's 12/4, HuBERT at 499
+     frames), with injected faults the bound must reject,
      bit-identical repeats, and SDPA forward + backward as the yardstick;
      then B7, the same kernels in offset mode (the ring-attention
      interior), at the long-audio ring's block shapes for a visiting block
@@ -113,10 +114,23 @@ Phases, in order; each prints one line and any failure raises:
      and depth, 118-120 s synthetic clips) on a sequence-parallel ring of
      two ranks sharing the card over gloo, launched by
      ``torch.distributed.run`` through the training CLI (``--mesh 1,2,1``;
-     this file with ``--ring-rank`` is each rank's program): two steps,
+     this file with ``--train-rank`` is each rank's program): two steps,
      validate and a checkpoint, then a launch that resumes and takes one
      more step; then one unsharded step in this process on the same weights
-     and batch, which the ring's first step must match.
+     and batch, which the ring's first step must match;
+ 14b. train_dp_full: ``llama3_hubert.yaml`` (published widths and depth,
+     int8 LLM, remat) through the CLI at ``--mesh 2,1,1``: two gloo ranks
+     on the card, 8 rows each of every global batch of 16, ZeRO-1; two
+     steps, validate and a checkpoint, which a trainer on mesh 1,1,1 in
+     this process resumes for one step; the three steps held to three
+     unsharded steps on the same weights and batches (DP_RTOL);
+ 14c. train_tp_full: the same at ``--mesh 1,1,2`` (the LLM sharded, 12/4
+     heads a rank, the fused loss vocab-parallel), two steps (no validate)
+     held to two unsharded steps within TP_RTOL;
+ 14d. train_3d_small: ``--mesh 2,2,2`` on eight ranks (the ring and
+     encoder SP, the sharded LLM, ZeRO-1), the models cut to
+     SHALLOW_LAYERS blocks, one step (no validate) held to its unsharded
+     step.
 Every main-path run is driven with the launch counts set to 0 just before it
 and checked just after against what the engine, decoder or trainer ran.
 Then the card line, one JSON line with every kernel's summary, and the
@@ -230,8 +244,13 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s``: the script's seconds so far."""
+    at_s = round(time.perf_counter() - _START, 1)
+    print(json.dumps({"phase": phase, **fields, "at_s": at_s}), flush=True)
 
 
 def call_ms(torch, fn, reps: int = 20) -> float:
@@ -1487,7 +1506,7 @@ def _train_attn_work(c, T):
 
 def phase_flash_train(torch, card):
     """B1 + LSE and B6 (dq, dk/dv) against their float32 plain versions at
-    the two training shapes, the injected faults, bit-identical repeats,
+    the training shapes, the injected faults, bit-identical repeats,
     and device times beside the plain versions and SDPA."""
     from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_bwd_reference,
@@ -1502,6 +1521,9 @@ def phase_flash_train(torch, card):
                           starts=[0, T_llm // 2, 37, 130], ends=[T_llm] * 4),
         "hubert_train": dict(B=4, T=499, Hq=16, Hkv=16, Dh=64, causal=False,
                              starts=[0] * 4, ends=[499, 300, 411, 77]),
+        # one rank's heads of the tensor-parallel trainer (model group of 2)
+        "llm_train_tp": dict(B=4, T=T_llm, Hq=12, Hkv=4, Dh=128, causal=True,
+                             starts=[0, T_llm // 2, 37, 130], ends=[T_llm] * 4),
     }
     results = {}
     for name, c in cases.items():
@@ -2259,36 +2281,58 @@ RING_TIMEOUT_S = 420  # per torch.distributed.run launch
 RING_RTOL = 5e-3
 
 
-def _ring_data(torch_module=None):
-    """The synthetic source of train_ring_full: the CLI's, with 118-120 s
-    clips (every batch in the 1,920,000-sample bucket)."""
+@contextlib.contextmanager
+def _ring_data():
+    """The synthetic source of train_ring_full while the context is open:
+    the CLI's, with 118-120 s clips (every batch in the 1,920,000-sample
+    bucket)."""
     import functools
 
     from llm_speech_summarization_tpu_torch.data import datasets
 
-    if not isinstance(datasets.SyntheticSpeechDataset, functools.partial):
-        datasets.SyntheticSpeechDataset = functools.partial(
-            datasets.SyntheticSpeechDataset, min_seconds=RING_CLIP_S[0],
-            max_seconds=RING_CLIP_S[1])
+    plain = datasets.SyntheticSpeechDataset
+    datasets.SyntheticSpeechDataset = functools.partial(
+        plain, min_seconds=RING_CLIP_S[0], max_seconds=RING_CLIP_S[1])
+    try:
+        yield
+    finally:
+        datasets.SyntheticSpeechDataset = plain
 
 
-def ring_rank(report_dir: str, cli_args) -> int:
-    """One rank of train_ring_full, launched by torch.distributed.run: the
-    training CLI's main() on the ring's synthetic data; each train step is
-    timed and its host-staged bytes recorded; the rank's launch counts,
-    the validation engine's counts, its peak memory and the steps go to
-    ``report_dir/rank<r>.json``."""
+def train_rank(report_dir: str, mode: str, cli_args) -> int:
+    """One rank of a multi-process training phase, launched by
+    torch.distributed.run: the training CLI's main() (``mode`` "ring": on
+    the ring's 118-120 s synthetic clips; "3d": with Llama-3.2-3B and
+    HuBERT-large cut to SHALLOW_LAYERS blocks; "dp", "tp": as the config
+    says; "tp" and "3d" take their steps and skip the closing validate:
+    no eval, generation or checkpoint); each train step is timed and its
+    host-staged bytes recorded; the rank's launch counts, the validation
+    engine's counts, its peak memory, its optimizer-state bytes, the steps
+    and the wall clock of its stages go to ``report_dir/rank<r>.json``.
+    The ranks run offline with no local HF tokenizer, so ``load_tokenizer``
+    falls back to bytes, as in this process; ``transformers`` is kept from
+    importing first (on the card's host the import alone took ~20 s a
+    process, and the unsharded steps it is compared with use the same
+    tokens)."""
+    entered = time.time()
+    sys.modules["transformers"] = None  # `import transformers` raises ImportError
     import torch
 
     from llm_speech_summarization_tpu_torch.cli import train as cli
     from llm_speech_summarization_tpu_torch.parallel.comm import COMM_STATS
+    from llm_speech_summarization_tpu_torch.train.state import tree_leaves
     from llm_speech_summarization_tpu_torch.train.trainer import Trainer
 
-    _ring_data()
-    steps, seen = [], {}
+    patches = contextlib.ExitStack()  # open for the rank's whole run
+    if mode == "ring":
+        patches.enter_context(_ring_data())
+    elif mode == "3d":
+        patches.enter_context(_shallow(SHALLOW_LAYERS))
+    steps, seen = [], {"validate_s": 0.0}
     train_step, validate = Trainer.train_step, Trainer.validate
 
     def timed_step(self, batch):
+        seen.setdefault("first_step_at", time.time())
         seen["trainer"] = self
         seen["backend"] = torch.distributed.get_backend()
         torch.cuda.synchronize()
@@ -2304,23 +2348,41 @@ def ring_rank(report_dir: str, cli_args) -> int:
         return metrics
 
     def counted_validate(self, epoch):
+        if mode in ("tp", "3d"):
+            return
+        t0 = time.time()
         seen["validations"] = seen.get("validations", 0) + 1
         val_bs = min(self.config.train.batch_size, 8)
         seen["eval_batches"] = seen.get("eval_batches", 0) + -(-len(self.val_ds) // val_bs)
-        return validate(self, epoch)
+        validate(self, epoch)
+        seen["validate_s"] += time.time() - t0
 
     Trainer.train_step, Trainer.validate = timed_step, counted_validate
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    started = time.time()
     cli.main(cli_args)
     trainer = seen["trainer"]
+    # epoch seconds: the launcher reads the process's start from entered_at
+    stages = dict(entered_at=entered, imports_s=started - entered,
+                  init_s=seen["first_step_at"] - started,
+                  steps_s=sum(st["ms"] for st in steps) / 1e3, validate_s=seen["validate_s"],
+                  main_s=time.time() - started)
     rank = trainer.mesh.rank
+    opt = trainer.state.opt_state
     report = dict(rank=rank, backend=seen["backend"], launches=read_launches(), steps=steps,
                   validations=seen.get("validations", 0), eval_batches=seen.get("eval_batches", 0),
                   engine_counts=dict(trainer._val_engine.counts) if trainer._val_engine else {},
                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                   staged=dict(COMM_STATS), enc_layers=trainer.enc_setup.encoder_cfg.num_layers,
-                  llm_layers=trainer.llm_cfg.num_layers, remat=trainer.config.train.remat)
+                  llm_layers=trainer.llm_cfg.num_layers, remat=trainer.config.train.remat,
+                  remat_policy=trainer.config.train.remat_policy,
+                  mesh=[trainer.mesh.data, trainer.mesh.seq, trainer.mesh.model],
+                  stages=stages, opt_state_bytes=sum(t.numel() * t.element_size() for k in ("mu", "nu", "acc")
+                                      if k in opt for t in tree_leaves(opt[k])),
+                  replicated_opt_state_bytes=sum(
+                      (3 if "acc" in opt else 2) * 4 * p.numel()
+                      for p in tree_leaves(trainer.state.enc_params)))
     with open(os.path.join(report_dir, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
     return 0
@@ -2347,72 +2409,80 @@ def _expected_ring_launches(r):
     }
 
 
-def _ring_yaml(tmp):
-    """llama3_hubert_long.yaml with the cell's settings: synthetic data (16
-    clips: 4 train batches and one validation batch of 2), the 120 s
-    bucket alone, logs and checkpoints under ``tmp``, a log line per step,
-    one sampled generation per validate."""
+def _edited_yaml(what, name, tmp, edits):
+    """The port's ``name`` config with each (old, new) of ``edits`` made
+    (each old text must be in it once), written under ``tmp``."""
     from llm_speech_summarization_tpu_torch.configs import YAML_DIR
 
-    text = (YAML_DIR / "llama3_hubert_long.yaml").read_text()
-    edits = [("data:\n", "data:\n  source: synthetic\n  synthetic_num_samples: 16\n"),
-             ("audio_samples: [320000, 960000, 1920000]", f"audio_samples: [{RING_BUCKET}]"),
-             ("checkpoint_dir: checkpoints", f"checkpoint_dir: {tmp}/ckpt"),
-             ("log_dir: logs", f"log_dir: {tmp}/logs"),
-             ("log_interval: 10", "log_interval: 1"),
-             ("num_generate_samples: 5", "num_generate_samples: 1")]
+    text = (YAML_DIR / name).read_text()
     for old, new in edits:
         if text.count(old) != 1:
-            raise AssertionError(f"train_ring_full: {old!r} is not in llama3_hubert_long.yaml once")
+            raise AssertionError(f"{what}: {old!r} is not in {name} once")
         text = text.replace(old, new)
-    path = os.path.join(tmp, "long.yaml")
+    path = os.path.join(tmp, name)
     with open(path, "w") as f:
         f.write(text)
     return path
 
 
-def _ring_launch(yaml_path, steps, report_dir):
-    """Launch the ring's ranks through torch.distributed.run and the
-    training CLI (--mesh 1,RING_RANKS,1; the CLI picks gloo, as the ranks
-    share the card); every process is killed if the launch outlives
-    RING_TIMEOUT_S, and a rank's failure fails the phase. Returns the ranks'
-    reports and the wall seconds."""
+def _ring_yaml(tmp):
+    """llama3_hubert_long.yaml with the cell's settings: synthetic data (16
+    clips: 4 train batches and one validation batch of 2), the 120 s
+    bucket alone, logs and checkpoints under ``tmp``, a log line per step,
+    one sampled generation per validate."""
+    return _edited_yaml("train_ring_full", "llama3_hubert_long.yaml", tmp, [
+        ("data:\n", "data:\n  source: synthetic\n  synthetic_num_samples: 16\n"),
+        ("audio_samples: [320000, 960000, 1920000]", f"audio_samples: [{RING_BUCKET}]"),
+        ("checkpoint_dir: checkpoints", f"checkpoint_dir: {tmp}/ckpt"),
+        ("log_dir: logs", f"log_dir: {tmp}/logs"),
+        ("log_interval: 10", "log_interval: 1"),
+        ("num_generate_samples: 5", "num_generate_samples: 1")])
+
+
+def _rank_launch(what, mode, yaml_path, steps, report_dir, mesh, expected, timeout):
+    """Launch a training phase's ranks (``train_rank`` in ``mode``) through
+    torch.distributed.run and the training CLI at ``--mesh D,S,M`` (the CLI
+    picks gloo, as the ranks share the card); every process is killed if
+    the launch outlives ``timeout`` s, and a rank's failure fails the
+    phase. Each rank's launch counts must equal ``expected(report)``.
+    Returns the ranks' reports (with each rank's stage seconds) and the
+    wall seconds."""
     import signal
     import socket
 
+    n = mesh[0] * mesh[1] * mesh[2]
     os.makedirs(report_dir, exist_ok=True)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-           "--nproc_per_node", str(RING_RANKS), "--master_addr", "127.0.0.1",
-           "--master_port", str(port), os.path.abspath(__file__), "--ring-rank", report_dir,
-           "--", "-c", yaml_path, "-n", "ring", "--mesh", f"1,{RING_RANKS},1",
+           "--nproc_per_node", str(n), "--master_addr", "127.0.0.1",
+           "--master_port", str(port), os.path.abspath(__file__), "--train-rank", report_dir,
+           mode, "--", "-c", yaml_path, "-n", mode, "--mesh", ",".join(map(str, mesh)),
            "--steps", str(steps)]
-    t0 = time.perf_counter()
+    t0, t0_epoch = time.perf_counter(), time.time()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=RING_TIMEOUT_S)
+        out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
-        raise AssertionError(f"train_ring_full: the ranks outlived {RING_TIMEOUT_S} s:\n"
-                             f"{out[-6000:]}")
+        raise AssertionError(f"{what}: the ranks outlived {timeout} s:\n{out[-6000:]}")
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"train_ring_full: the launch exited {proc.returncode}:\n"
-                             f"{out[-6000:]}")
+        raise AssertionError(f"{what}: the launch exited {proc.returncode}:\n{out[-6000:]}")
     reports = []
-    for r in range(RING_RANKS):
+    for r in range(n):
         with open(os.path.join(report_dir, f"rank{r}.json")) as f:
             reports.append(json.load(f))
     for rep in reports:
+        # seconds from the launch to the rank's program
+        rep["stages"]["start_s"] = rep["stages"].pop("entered_at") - t0_epoch
         if rep["backend"] != "gloo":
-            raise AssertionError(f"train_ring_full: rank {rep['rank']} ran over "
-                                 f"{rep['backend']}, not gloo, with ranks that share a card")
-        check_launches(f"train_ring_full rank {rep['rank']}", rep["launches"],
-                       _expected_ring_launches(rep))
+            raise AssertionError(f"{what}: rank {rep['rank']} ran over {rep['backend']}, not "
+                                 f"gloo, with ranks that share a card")
+        check_launches(f"{what} rank {rep['rank']}", rep["launches"], expected(rep))
     return reports, wall
 
 
@@ -2443,8 +2513,11 @@ def phase_train_ring_full(torch, card):
     tmp = tempfile.mkdtemp(prefix="lss_ring_")
     try:
         yaml_path = _ring_yaml(tmp)
-        first, first_wall = _ring_launch(yaml_path, RING_STEPS, os.path.join(tmp, "r1"))
-        resumed, resumed_wall = _ring_launch(yaml_path, RING_STEPS + 1, os.path.join(tmp, "r2"))
+        args = ((1, RING_RANKS, 1), _expected_ring_launches, RING_TIMEOUT_S)
+        first, first_wall = _rank_launch("train_ring_full", "ring", yaml_path, RING_STEPS,
+                                         os.path.join(tmp, "r1"), *args)
+        resumed, resumed_wall = _rank_launch("train_ring_full", "ring", yaml_path,
+                                             RING_STEPS + 1, os.path.join(tmp, "r2"), *args)
         logged = _logged_steps(os.path.join(tmp, "logs", "ring"))
         if sorted(logged) != list(range(1, RING_STEPS + 2)):
             raise AssertionError(f"train_ring_full: logged steps {sorted(logged)}")
@@ -2456,7 +2529,6 @@ def phase_train_ring_full(torch, card):
             raise AssertionError(f"train_ring_full: non-finite metrics at steps {bad}")
 
         # the unsharded step on the same weights and first batch
-        _ring_data()
         cfg = load_config(yaml_path)
         cfg = copy.deepcopy(cfg)
         cfg.train.use_ring_attention = cfg.train.encoder_sp = False
@@ -2464,7 +2536,8 @@ def phase_train_ring_full(torch, card):
         cfg.log.checkpoint_dir = os.path.join(tmp, "plain_ckpt")
         cfg.log.log_dir = os.path.join(tmp, "plain_logs")
         torch.cuda.reset_peak_memory_stats()
-        trainer = Trainer(cfg, run_name="plain")
+        with _ring_data():  # the datasets are made here
+            trainer = Trainer(cfg, run_name="plain")
         batch = next(trainer._batches(trainer.train_ds, cfg.train.batch_size, True,
                                       cfg.seed_everything))
         torch.cuda.synchronize()
@@ -2478,7 +2551,7 @@ def phase_train_ring_full(torch, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     ring = logged[1]
-    rel = {k: abs(ring[k] - plain[k]) / max(1.0, abs(plain[k])) for k in plain}
+    rel = _rel(ring, plain)
     if not max(rel.values()) <= RING_RTOL:
         raise AssertionError(f"train_ring_full: ring step {ring} vs unsharded {plain}: "
                              f"{rel} x max(1, |a|) > {RING_RTOL}")
@@ -2492,18 +2565,302 @@ def phase_train_ring_full(torch, card):
          total_len=steps0[0]["total_len"], ranks=RING_RANKS, backend="gloo",
          reduced=[f"seq {RING_RANKS} instead of 8 (two ranks share the one card)",
                   "synthetic data, random weights"],
+         llm_layers=first[0]["llm_layers"], encoder_layers=first[0]["enc_layers"],
          ms_per_step=ms, tokens_per_s=[tokens / (m / 1e3) for m in ms],
          steady_ms_per_step=min(ms[1:] or ms), steady_tokens_per_s=tokens / (min(ms[1:] or ms) / 1e3),
          staged_bytes_per_step=[s["staged_bytes"] for s in steps0],
          staged_ms_per_step=[s["staged_ms"] for s in steps0],
          peak_gb_per_rank=[rep["peak_gb"] for rep in first],
          resumed_peak_gb_per_rank=[rep["peak_gb"] for rep in resumed],
-         launch_wall_s=[first_wall, resumed_wall], logged=logged,
+         launch_wall_s=[first_wall, resumed_wall],
+         rank0_stages=[first[0]["stages"], resumed[0]["stages"]], logged=logged,
          plain_step=plain, plain_step_ms=plain_ms, plain_peak_gb=plain_peak,
          rel_diff_vs_plain=rel, rtol=RING_RTOL, launches=launches,
          per_rank_launches=[rep["launches"] for rep in first + resumed],
          engine_counts=[rep["engine_counts"] for rep in first + resumed], card=card)
     return launches
+
+
+MESH_STEPS = 2  # train_dp_full and train_tp_full; the dp resume takes one more
+MESH_TIMEOUT_S = 480  # per torch.distributed.run launch of the dp, tp and 3-D phases
+# synthetic 1-8 s clips of the mesh phases: 4 train batches of 16 and 8
+# validation clips for the dp phase (its resume's third step stays inside
+# the first epoch), 2 and 4 for the tp and 3-D phases
+MESH_CLIPS = {"dp": 64, "tp": 32, "3d": 32}
+SHALLOW_LAYERS = 2  # train_3d_small: Llama-3.2-3B and HuBERT-large blocks
+# Each multi-rank step against the unsharded step on the same weights and
+# global batch, within rtol * max(1, |unsharded|). Only the order of
+# summation differs; the card's kernels are not bit-reproducible run to run.
+# The first data-parallel step: its losses equal the unsharded step's to
+# the bit and grad_norm came within 3.1e-6 to 4.1e-5 in seven runs (NVIDIA
+# H100 80GB HBM3, 700 W). The first tensor-parallel step (28 blocks): the
+# bf16 partial sums of a rank's heads round apart, losses within 1.2e-4
+# and grad_norm 1.0e-4 to 3.1e-4 in five runs.
+DP_RTOL = 1e-4
+TP_RTOL = 1e-3
+# Steps after an optimizer update (the data-parallel steps 2 and 3, whose
+# parameters come from ZeRO-1's gathered slices and from the gathered
+# checkpoint; the tensor-parallel step 2): the first update carries the
+# first step's rounding into every parameter that AdamW moves by about lr,
+# so step 2's grad_norm itself moved by 3.9e-4 between runs of the same
+# data-parallel code on the card; against the unsharded steps, data
+# -parallel steps 2 and 3 came within 4.9e-4 and 6.6e-4 in three runs,
+# tensor-parallel step 2 within 4.6e-4. A wrong slice or moment moves
+# them by orders of magnitude more.
+UPDATED_RTOL = 2e-3
+
+
+@contextlib.contextmanager
+def _shallow(layers):
+    """Llama-3.2-3B and HuBERT-large cut to ``layers`` blocks at their
+    published widths while the context is open (the presets the configs
+    name)."""
+    import dataclasses
+
+    from llm_speech_summarization_tpu_torch.models import hubert, llama
+
+    saved = dict(llama._PRESETS), dict(hubert._PRESETS)
+    llama._PRESETS["llama3_3b"] = dataclasses.replace(llama._PRESETS["llama3_3b"],
+                                                      num_layers=layers)
+    hubert._PRESETS["hubert_large"] = dataclasses.replace(hubert._PRESETS["hubert_large"],
+                                                          num_layers=layers)
+    try:
+        yield
+    finally:
+        for table, old in zip((llama._PRESETS, hubert._PRESETS), saved):
+            table.clear()
+            table.update(old)
+
+
+def _mesh_yaml(tmp, mode, extra_train="", fd_layers=None, generations=1):
+    """llama3_hubert.yaml for the dp, tp and 3-D phases: synthetic data
+    (MESH_CLIPS[mode] clips), logs and checkpoints under ``tmp``, a log line per
+    step, ``generations`` sampled generations per validate; ``extra_train``:
+    lines added to the train section; ``fd_layers``: the
+    feature-distillation layers (for a model cut in depth)."""
+    edits = [("data:\n",
+              f"data:\n  source: synthetic\n  synthetic_num_samples: {MESH_CLIPS[mode]}\n"),
+             ("checkpoint_dir: checkpoints", f"checkpoint_dir: {tmp}/ckpt"),
+             ("log_dir: logs", f"log_dir: {tmp}/logs"),
+             ("log_interval: 10", "log_interval: 1"),
+             ("num_generate_samples: 5", f"num_generate_samples: {generations}"),
+             ("  batch_size: 16\n", "  batch_size: 16\n" + extra_train)]
+    if fd_layers is not None:
+        edits.append(("fd_loss_connector_layers: [0, 5, 11, 17, 23]",
+                      f"fd_loss_connector_layers: {list(fd_layers)}"))
+    return _edited_yaml("mesh phases", "llama3_hubert.yaml", tmp, edits)
+
+
+def _expected_mesh_launches(r):
+    """One rank of a data- or tensor-parallel run launches what a trainer
+    does for its steps, eval batches and generations (each at its rows or
+    its heads)."""
+    return _expected_train_launches(r["enc_layers"], r["llm_layers"], r["remat"], len(r["steps"]),
+                                    r["eval_batches"], r["engine_counts"], r["remat_policy"])
+
+
+def _plain_mesh_steps(torch, yaml_path, n):
+    """``n`` unsharded steps (mesh 1,1,1) in this process on the weights and
+    the first ``n`` global batches of ``yaml_path``'s runs: (metrics per
+    step, ms per step, peak GB)."""
+    import copy
+
+    from llm_speech_summarization_tpu_torch.configs import load_config
+    from llm_speech_summarization_tpu_torch.train.trainer import Trainer
+
+    cfg = copy.deepcopy(load_config(yaml_path))
+    cfg.train.use_ring_attention = cfg.train.encoder_sp = False
+    cfg.train.mesh.data = cfg.train.mesh.seq = cfg.train.mesh.model = 1
+    cfg.log.checkpoint_dir += "_plain"
+    cfg.log.log_dir += "_plain"
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, run_name="plain")
+    batches = trainer._batches(trainer.train_ds, cfg.train.batch_size, True, cfg.seed_everything)
+    metrics, ms = [], []
+    for _ in range(n):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append({k: float(v) for k, v in trainer.train_step(batch).items()})
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, ms, peak
+
+
+def _mesh_summary(reports, logged, plain, rel):
+    """The per-step numbers of a launch's ranks (rank 0's steps, times and
+    staged bytes; every rank's peak and optimizer-state bytes; rank 0's
+    stage seconds)."""
+    steps0 = reports[0]["steps"]
+    data = reports[0]["mesh"][0]
+    tokens = data * steps0[0]["B"] * steps0[0]["total_len"]
+    ms = [s["ms"] for s in steps0]
+    launches = {k: sum(rep["launches"][k] for rep in reports) for k in reports[0]["launches"]}
+    return dict(batch=data * steps0[0]["B"], total_len=steps0[0]["total_len"],
+                llm_layers=reports[0]["llm_layers"], encoder_layers=reports[0]["enc_layers"],
+                ms_per_step=ms, tokens_per_s=[tokens / (m / 1e3) for m in ms],
+                steady_ms_per_step=min(ms[1:] or ms),
+                steady_tokens_per_s=tokens / (min(ms[1:] or ms) / 1e3),
+                staged_bytes_per_step=[s["staged_bytes"] for s in steps0],
+                staged_ms_per_step=[s["staged_ms"] for s in steps0],
+                peak_gb_per_rank=[rep["peak_gb"] for rep in reports],
+                opt_state_bytes_per_rank=[rep["opt_state_bytes"] for rep in reports],
+                replicated_opt_state_bytes=reports[0]["replicated_opt_state_bytes"],
+                rank0_stages=reports[0]["stages"],
+                logged=logged, plain_steps=plain[0], plain_ms_per_step=plain[1],
+                plain_peak_gb=plain[2], rel_diff_vs_plain=rel, launches=launches,
+                per_rank_launches=[rep["launches"] for rep in reports],
+                engine_counts=[rep["engine_counts"] for rep in reports])
+
+
+def _rel(logged_step, plain):
+    return {k: abs(logged_step[k] - plain[k]) / max(1.0, abs(plain[k])) for k in plain}
+
+
+def _held(what, got, plain, first_rtol):
+    """Each step's metrics in ``got`` ({step: metrics}, steps 1..n) against
+    the unsharded ``plain`` (a list): step 1 within ``first_rtol``, later
+    steps within UPDATED_RTOL; every value finite. Returns {step: rel}."""
+    rel = {s: _rel(got[s], plain[s - 1]) for s in sorted(got)}
+    over = {s: r for s, r in rel.items()
+            if not max(r.values()) <= (first_rtol if s == 1 else UPDATED_RTOL)}
+    bad = [s for s, m in got.items() for v in m.values() if not np.isfinite(v)]
+    if over or bad:
+        raise AssertionError(f"{what}: steps {got} vs unsharded {plain}: {over} x max(1, |a|) "
+                             f"over {first_rtol} (step 1) / {UPDATED_RTOL} (later), non-finite "
+                             f"at {bad}")
+    return rel
+
+
+def phase_train_dp_full(torch, card):
+    """``llama3_hubert.yaml`` at published widths and depth (int8 LLM, remat
+    "full") over ``--mesh 2,1,1``: two gloo ranks on the card, each 8 rows
+    of every global batch of 16, ZeRO-1 optimizer slices; MESH_STEPS steps,
+    validate and a checkpoint (the whole state, gathered). Then in this
+    process a trainer on mesh 1,1,1 resumes from that file and takes one
+    step, and an unsharded trainer takes three steps on the same global
+    batches: the data-parallel first step must match within DP_RTOL, its
+    second (after ZeRO-1's update and gather) and the resumed third (after
+    the gathered checkpoint) within UPDATED_RTOL."""
+    import shutil
+    import tempfile
+
+    from llm_speech_summarization_tpu_torch.configs import load_config
+    from llm_speech_summarization_tpu_torch.train.state import tree_leaves
+    from llm_speech_summarization_tpu_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="lss_dp_")
+    try:
+        yaml_path = _mesh_yaml(tmp, "dp")
+        reports, wall = _rank_launch("train_dp_full", "dp", yaml_path, MESH_STEPS,
+                                     os.path.join(tmp, "r1"), (2, 1, 1), _expected_mesh_launches,
+                                     MESH_TIMEOUT_S)
+        logged = _logged_steps(os.path.join(tmp, "logs", "dp"))
+        if sorted(logged) != list(range(1, MESH_STEPS + 1)):
+            raise AssertionError(f"train_dp_full: logged steps {sorted(logged)}")
+        cfg = load_config(yaml_path)
+        cfg.train.steps = MESH_STEPS + 1
+        cfg.log.num_generate_samples = 0
+        resumed = Trainer(cfg, run_name="dp")  # mesh 1,1,1: this process alone
+        whole = all(m.shape == p.shape for m, p in zip(tree_leaves(resumed.state.opt_state["mu"]),
+                                                       tree_leaves(resumed.state.enc_params)))
+        if resumed.step != MESH_STEPS or not whole:
+            raise AssertionError(f"train_dp_full: the 1,1,1 trainer resumed at step "
+                                 f"{resumed.step} (whole moments: {whole})")
+        resumed_run = _trainer_run(torch, resumed, "train_dp_full resumed on mesh 1,1,1")
+        if resumed.step != MESH_STEPS + 1:
+            raise AssertionError(f"train_dp_full: the resumed run ended at step {resumed.step}")
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = _plain_mesh_steps(torch, yaml_path, MESH_STEPS + 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = _held("train_dp_full", {**logged, **resumed_run["per_step"]}, plain[0], DP_RTOL)
+    summary = _mesh_summary(reports, logged, plain, rel)
+    summary["launches"] = {k: v + resumed_run["launches"][k]
+                           for k, v in summary["launches"].items()}
+    emit("train_dp_full", config="llama3_hubert.yaml", data="synthetic", mesh=[2, 1, 1],
+         ranks=2, backend="gloo", zero1=True, audio_samples=reports[0]["steps"][0]["audio_samples"],
+         reduced=["data 2 on one card: two ranks share it over gloo, every exchange staged "
+                  "through the host", "synthetic data, random weights"],
+         launch_wall_s=wall, resumed_on_111=dict(steps=resumed_run["steps"],
+                                                  per_step=resumed_run["per_step"],
+                                                  wall_s=resumed_run["wall_s"]),
+         rtol=DP_RTOL, updated_rtol=UPDATED_RTOL, card=card, **summary)
+    return summary["launches"]
+
+
+def phase_train_tp_full(torch, card):
+    """The same config over ``--mesh 1,1,2`` at published depth: the frozen
+    int8 LLM sharded over two gloo ranks on the card (12/4 heads, half the
+    MLP and the vocab each; the fused loss vocab-parallel); MESH_STEPS
+    steps and no validate (every block's exchanges are staged through the
+    host; train_dp_full validates and checkpoints). The steps are held to
+    MESH_STEPS unsharded steps: the first within TP_RTOL, the second within
+    UPDATED_RTOL."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="lss_tp_")
+    try:
+        yaml_path = _mesh_yaml(tmp, "tp", generations=0)
+        reports, wall = _rank_launch("train_tp_full", "tp", yaml_path, MESH_STEPS,
+                                     os.path.join(tmp, "r1"), (1, 1, 2), _expected_mesh_launches,
+                                     MESH_TIMEOUT_S)
+        logged = _logged_steps(os.path.join(tmp, "logs", "tp"))
+        plain = _plain_mesh_steps(torch, yaml_path, MESH_STEPS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if sorted(logged) != list(range(1, MESH_STEPS + 1)):
+        raise AssertionError(f"train_tp_full: logged steps {sorted(logged)}")
+    rel = _held("train_tp_full", logged, plain[0], TP_RTOL)
+    summary = _mesh_summary(reports, logged, plain, rel)
+    emit("train_tp_full", config="llama3_hubert.yaml", data="synthetic", mesh=[1, 1, 2],
+         ranks=2, backend="gloo", llm_heads_per_rank=[12, 4],
+         reduced=["model 2 on one card: two ranks share it over gloo, every exchange staged "
+                  "through the host", "synthetic data, random weights"],
+         launch_wall_s=wall, rtol=TP_RTOL, updated_rtol=UPDATED_RTOL, card=card, **summary)
+    return summary["launches"]
+
+
+def phase_train_3d_small(torch, card):
+    """The counterpart of the JAX package's ``dryrun_multichip``:
+    ``--mesh 2,2,2`` on eight gloo ranks on the card, with the ring and
+    encoder SP over each seq pair, the LLM sharded over each model pair and
+    ZeRO-1 over each data pair; published widths, Llama-3.2-3B and
+    HuBERT-large cut to SHALLOW_LAYERS blocks. One step (no validate), held
+    to the unsharded step on the same weights and first global batch
+    within RING_RTOL."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="lss_3d_")
+    try:
+        yaml_path = _mesh_yaml(tmp, "3d", "  use_ring_attention: True\n  encoder_sp: True\n",
+                               fd_layers=range(SHALLOW_LAYERS + 1))
+        reports, wall = _rank_launch("train_3d_small", "3d", yaml_path, 1,
+                                     os.path.join(tmp, "r1"), (2, 2, 2), _expected_ring_launches,
+                                     MESH_TIMEOUT_S)
+        logged = _logged_steps(os.path.join(tmp, "logs", "3d"))
+        with _shallow(SHALLOW_LAYERS):
+            plain = _plain_mesh_steps(torch, yaml_path, 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if sorted(logged) != [1]:
+        raise AssertionError(f"train_3d_small: logged steps {sorted(logged)}")
+    rel = _held("train_3d_small", logged, plain[0], RING_RTOL)
+    summary = _mesh_summary(reports, logged, plain, rel)
+    emit("train_3d_small", config="llama3_hubert.yaml", data="synthetic", mesh=[2, 2, 2],
+         ranks=8, backend="gloo", ring=True, encoder_sp=True, zero1=True,
+         reduced=[f"Llama-3.2-3B and HuBERT-large cut to {SHALLOW_LAYERS} blocks (eight ranks "
+                  f"share the one card, every exchange staged through the host)",
+                  "synthetic data, random weights"],
+         launch_wall_s=wall, rtol=RING_RTOL, card=card, **summary)
+    return summary["launches"]
 
 
 def _wrappers():
@@ -3270,7 +3627,12 @@ def tp_rank(report_dir: str, mode: str, cli_args) -> int:
     engine's and decoder's counts, the host-staged exchanges and wall of
     every decode step (batch) or decode chunk (serve), the token rows (per
     request on rank 0 of the server: its clip length or text, its row, its
-    time to first token), and the peak memory after the engine was built."""
+    time to first token), and the peak memory after the engine was built.
+    ``transformers`` is kept from importing, as in ``train_rank``: offline
+    with no local HF tokenizer ``load_tokenizer`` falls back to bytes
+    either way (the unsharded engine it is compared with too), and the
+    import alone took ~20 s a process on the card's host."""
+    sys.modules["transformers"] = None  # `import transformers` raises ImportError
     import threading
 
     import torch
@@ -4940,6 +5302,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with torch.enable_grad():
         ring_launches = phase_train_ring_full(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp_launches = phase_train_dp_full(torch, card)
+        tp_launches_train = phase_train_tp_full(torch, card)
+        td_launches = phase_train_3d_small(torch, card)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "llm_speech_summarization_tpu"))
     if leaked:
@@ -4949,13 +5316,15 @@ def main() -> int:
     # the router, the bulk CLI, the Whisper batch path, its B8 stream and
     # server, the trainer, the resumed trainer and the save_qkv trainer,
     # the converted-checkpoint engine, preprocessing, evaluation,
-    # -p and --ctc through the CLI, the Whisper trainer and its resume, and
-    # the ring trainer's ranks in both its launches)
+    # -p and --ctc through the CLI, the Whisper trainer and its resume, the
+    # ring trainer's ranks in both its launches, and the data-parallel (with
+    # its resume on mesh 1,1,1), tensor-parallel and 2,2,2 trainers' ranks)
     for run in ([r["launches"] for r in serving.values()] + [tp_launches] + minichat_runs
                 + [router_launches]
                 + [bulk_launches] + whisper_runs + list(train_runs) + [save_qkv_launches]
                 + [convert_launches, preprocess_launches, eval_launches] + ckpt_runs
-                + list(whisper_train_runs) + [ring_launches]):
+                + list(whisper_train_runs) + [ring_launches, dp_launches, tp_launches_train,
+                                               td_launches]):
         for k, v in run.items():
             launches[k] += v
     csrc = "llm_speech_summarization_tpu_torch/kernels/csrc/"
@@ -5009,8 +5378,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--ring-rank"]:  # one rank of train_ring_full
-        sys.exit(ring_rank(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] == ["--train-rank"]:  # one rank of a multi-process training phase
+        sys.exit(train_rank(sys.argv[2], sys.argv[3], sys.argv[5:]))
     if sys.argv[1:2] == ["--tp-rank"]:  # one rank of serving_tp_full
         sys.exit(tp_rank(sys.argv[2], sys.argv[3], sys.argv[5:]))
     if sys.argv[1:2] == ["--ab-kernels"]:  # parent vs this checkout, kernel phases

@@ -1,6 +1,7 @@
 """Bridge: the JAX package's parameter pytrees, decoder state and training
 batches, with numpy leaves (``jax.tree.map(np.asarray, tree)``), → the
-port's tensors, and back.
+port's tensors, and back; a model group rank's shard of a Llama tree and a
+data rank's ZeRO-1 slices of optimizer moments.
 
 Keys and layouts are kept as they are: the stacked ``(L, in, out)`` Llama
 layers, fused ``wqkv`` / ``w_gateup``, int8 weights with their bf16
@@ -21,7 +22,7 @@ from .data.batch import Batch
 from .infer.paged import PagedKVCache
 from .infer.slots import SlotState
 from .models.llama import KVCache
-from .parallel.sharding import shard_llama_params
+from .parallel.sharding import shard_llama_params, zero_slice
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -65,6 +66,14 @@ def llama_shard_from_numpy(tree, cfg, rank: int, tp: int, device=None):
     """A JAX Llama pytree with numpy leaves → rank ``rank``'s shard of it
     over a model group of ``tp`` ranks (``parallel/sharding.py``)."""
     return shard_llama_params(params_from_numpy(tree, device), cfg, rank, tp)
+
+
+def zero_slices_from_numpy(tree, rank: int, n: int, device=None):
+    """A tree with numpy leaves (the JAX optimizer's moments of the encoder)
+    → data rank ``rank``'s ZeRO-1 slices of it over ``n`` data ranks: the
+    leaves ``parallel/sharding.py::opt_state_spec`` shards cut to their
+    block of the leading dim, the others whole."""
+    return _map(tree, lambda a: zero_slice(tensor_from_numpy(a, device), rank, n).clone())
 
 
 def batch_from_numpy(batch) -> Batch:

@@ -4,9 +4,11 @@ process.
 Usage:
   python -m llm_speech_summarization_tpu_torch.cli.train -c <yaml> -n <name> \
       [-p <checkpoint dir>] [--steps N] [--data_source synthetic] [--device cpu]
-  # sequence-parallel (long audio): one process per seq rank
+  # one process per rank of a (data, seq, model) mesh: data parallel with
+  # ZeRO-1 (2,1,1), the LLM tensor parallel (1,1,2), the long-audio ring
+  # (1,N,1 with train.use_ring_attention), or all three (2,2,2)
   python -m torch.distributed.run --nproc_per_node N \
-      -m llm_speech_summarization_tpu_torch.cli.train -c <yaml> --mesh 1,N,1
+      -m llm_speech_summarization_tpu_torch.cli.train -c <yaml> --mesh D,S,M
 
 Flags follow the JAX package's ``cli/train.py`` (-c, -n, -p, --mesh as
 ``data,model`` or ``data,seq,model``). The process group comes from
@@ -30,7 +32,8 @@ def main(argv=None):
     parser.add_argument("-p", "--checkpoint_path", type=str, default=None,
                         help="checkpoint (a step_<n> directory) to resume from")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="override mesh as 'data,model' or 'data,seq,model' (e.g. '1,2,1')")
+                        help="override mesh as 'data,model' or 'data,seq,model' (e.g. '2,1,1'; "
+                        "data -1 takes the ranks left over)")
     parser.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
                         help="override the process-group backend of a multi-process run "
                         "(default: nccl with a card for each rank, else gloo)")

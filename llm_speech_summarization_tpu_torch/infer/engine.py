@@ -96,10 +96,6 @@ def _pad_batch(n: int) -> int:
     return b
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP queue A, {item})")
-
-
 class LLMSpeechTextInference:
     def __init__(
         self,
@@ -116,6 +112,7 @@ class LLMSpeechTextInference:
         repetition_penalty: float = 1.0,
         mesh=None,
         speculative_k: int = 0,
+        prompt_table=None,
     ):
         """``device=None`` means the CUDA card, and raises RuntimeError
         without one; pass ``device="cpu"`` for the plain path. Without given
@@ -128,14 +125,18 @@ class LLMSpeechTextInference:
         the encoder, cast to ``param_dtype``; when ``llm_weight_dtype`` is
         int8 it fuses and quantizes the LLM it owns (initialized or loaded).
         Caller-given trees are used as they are (under a mesh: full trees,
-        which the engine shards). ``llm_cfg`` and ``encoder_cfg`` override
-        the presets the config names. ``speculative_k > 0`` decodes greedy
-        batches self-speculatively (not with a repetition penalty or a
-        temperature). ``mesh``: a ``parallel.mesh.Mesh`` whose model group
-        shares the LLM (see the module docstring); a model width its size
-        does not divide raises ValueError."""
-        if mesh is not None and mesh.data > 1:
-            raise _not_ported("a data-parallel mesh in the engine", "item 11, the training slice")
+        which the engine shards, or, with ``prompt_table``, this rank's
+        shard already, as the trainer holds it; ``prompt_table`` is then
+        the whole embedding table and its scale). ``llm_cfg`` and
+        ``encoder_cfg`` override the presets the config names.
+        ``speculative_k > 0`` decodes greedy batches self-speculatively (not
+        with a repetition penalty or a temperature). ``mesh``: a
+        ``parallel.mesh.Mesh`` whose model group shares the LLM (see the
+        module docstring; the engine runs on that one group, whatever the
+        mesh's data and seq axes); a model width its size does not divide
+        raises ValueError."""
+        if prompt_table is not None and llm_params is None:
+            raise ValueError("prompt_table comes with the llm_params shard it belongs to")
         self.mesh = mesh
         self.tp = mesh.model if mesh is not None else 1
         self.tp_group = mesh.model_group if mesh is not None else None
@@ -173,9 +174,11 @@ class LLMSpeechTextInference:
             if config.model.llm_weight_dtype == "int8":
                 llm_params = quantize_llama_params(fuse_llama_params(llm_params))
         # the (V, D) table and its per-row scale the prompt rows come from
-        self._prompt_table = ((llm_params["embed_tokens"], llm_params.get("embed_tokens_scale"))
-                              if self.builds_prompts else None)
-        if self.tp > 1:
+        given_shard = prompt_table is not None
+        if not given_shard:
+            prompt_table = (llm_params["embed_tokens"], llm_params.get("embed_tokens_scale"))
+        self._prompt_table = prompt_table if self.builds_prompts else None
+        if self.tp > 1 and not given_shard:
             llm_params = shard_llama_params(llm_params, self.llm_cfg, group_rank(self.tp_group),
                                             self.tp)
         self.llm_params = llm_params

@@ -39,16 +39,22 @@ the card). The hidden-state stack and the final hidden states keep their
 global meaning (the last W positions of the whole sequence) and come back
 on every rank.
 
-Tensor parallelism (``tp_group``, the serving engine's model group): each
-rank holds its shard of the parameters (``parallel/sharding.py``:
-Megatron-style, Hq/tp query heads, Hkv/tp KV heads, I/tp MLP columns, V/tp
-vocab rows) and a KV cache of its Hkv/tp heads, and every rank passes the
-same inputs. The block runs at the shard's widths (``shard_config``); the
-partial products of ``wo`` and ``w_down`` are summed over the group (one
-all-reduce each), the embedding lookup gives zero rows for ids outside the
-rank's vocab rows and is summed likewise, and the head's float32 logits of
-the rank's vocab slice are gathered, so that every rank holds the same
-full logits. Every attention kernel runs on the rank's heads.
+Tensor parallelism (``tp_group``, the model group of the serving engine
+and of the trainer): each rank holds its shard of the parameters
+(``parallel/sharding.py``: Megatron-style, Hq/tp query heads, Hkv/tp KV
+heads, I/tp MLP columns, V/tp vocab rows) and a KV cache of its Hkv/tp
+heads, and every rank passes the same inputs. The block runs at the shard's
+widths (``shard_config``); the partial products of ``wo`` and ``w_down``
+are summed over the group (``tp_all_reduce``, one each), the embedding
+lookup gives zero rows for ids outside the rank's vocab rows and is summed
+likewise, and the head's float32 logits of the rank's vocab slice are
+gathered, so that every rank holds the same full logits. Every attention
+kernel runs on the rank's heads. In training, each normed input enters
+the column-parallel products through ``tp_copy``, whose backward sums the
+ranks' partial gradients, so the residual stream and its gradient are the
+same on every rank; remat recomputes a block's all-reduces in the
+backward, every rank in the same (reverse layer) order. With a
+``ring_group`` too, each rank rings its own heads over its seq group.
 """
 
 from __future__ import annotations
@@ -67,7 +73,14 @@ from ..kernels.fused_paged import fused_paged_decode
 from ..kernels.paged_attention import paged_decode_attention
 from ..ops.norms import rms_norm
 from ..ops.ring_attention import ring_attention
-from ..parallel.comm import gather_tail, group_rank, group_size, tp_all_gather, tp_all_reduce
+from ..parallel.comm import (
+    gather_tail,
+    group_rank,
+    group_size,
+    tp_all_gather,
+    tp_all_reduce,
+    tp_copy,
+)
 from ..ops.rope import Llama3RopeScaling, apply_rope_cached, rope_cos_sin, rope_inv_freq
 
 Params = Dict[str, Any]
@@ -253,12 +266,13 @@ def _block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, at
     """One pre-norm transformer block; ``attend(q, k, v)`` is the attention
     of the mode at hand. Returns (out, k, v) with post-rope k. Under a
     ``tp_group``, ``cfg`` holds the shard's widths."""
-    h = rms_norm(x, lp["input_norm"], cfg.rms_eps)
+    h = tp_copy(rms_norm(x, lp["input_norm"], cfg.rms_eps), tp_group)
     q, k, v = _qkv(cfg, lp, h, rope_cos, rope_sin)
     return _block_out(cfg, lp, x, attend(q, k, v), tp_group), k, v
 
 
-def _block_save_qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, attend):
+def _block_save_qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, attend,
+                    tp_group=None):
     """``_block`` under the save_qkv remat policy: the backward keeps the
     post-rope q, k, v and the attention output (which the attention's
     autograd Function saves with its log-sum-exp) and recomputes only the
@@ -266,9 +280,9 @@ def _block_save_qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rop
     operations in the same order as ``_block``, so the values and gradients
     are the other policies' bit for bit."""
     h = checkpoint(rms_norm, x, lp["input_norm"], cfg.rms_eps, use_reentrant=False)
-    q, k, v = _qkv(cfg, lp, h, rope_cos, rope_sin)
+    q, k, v = _qkv(cfg, lp, tp_copy(h, tp_group), rope_cos, rope_sin)
     attn = attend(q, k, v)
-    return checkpoint(_block_out, cfg, lp, x, attn, use_reentrant=False), k, v
+    return checkpoint(_block_out, cfg, lp, x, attn, tp_group, use_reentrant=False), k, v
 
 
 def _qkv(cfg: LlamaConfig, lp: Params, h: torch.Tensor, rope_cos, rope_sin):
@@ -297,7 +311,7 @@ def _block_out(cfg: LlamaConfig, lp: Params, x: torch.Tensor, attn: torch.Tensor
     B, T, _ = x.shape
     x = x + tp_all_reduce(_mm(attn.reshape(B, T, cfg.num_heads * cfg.head_dim), lp, "wo"),
                           tp_group)
-    h = rms_norm(x, lp["post_attn_norm"], cfg.rms_eps)
+    h = tp_copy(rms_norm(x, lp["post_attn_norm"], cfg.rms_eps), tp_group)
     if "w_gateup" in lp:
         inter = lp["w_down"].shape[-2]
         gu = _mm(h, lp, "w_gateup")
@@ -395,9 +409,6 @@ def llama_forward(
     per-vocab scale multiplies them.
     """
     tp = group_size(tp_group)
-    if tp > 1 and (ring_group is not None or remat):
-        raise ValueError("tp_group runs the inference forward; tensor parallelism with "
-                         "ring_group or remat (training) is not ported yet")
     if inputs_embeds is None:
         if input_ids is None:
             raise ValueError("llama_forward needs input_ids or inputs_embeds")
@@ -524,10 +535,10 @@ def llama_forward(
             def attend(q, k, v):
                 return flash_attention(q, k, v, pad_lens, ends, causal=True)
         if remat and remat_policy == "save_qkv":
-            x = _block_save_qkv(cfg, lp, x, rope_cos, rope_sin, attend)[0]
+            x = _block_save_qkv(lcfg, lp, x, rope_cos, rope_sin, attend, tp_group)[0]
         elif remat:
             def block(x, lp=lp, attend=attend):
-                return _block(cfg, lp, x, rope_cos, rope_sin, attend)[0]
+                return _block(lcfg, lp, x, rope_cos, rope_sin, attend, tp_group)[0]
 
             x = checkpoint(block, x, use_reentrant=False)
         else:
@@ -565,7 +576,7 @@ def llama_forward(
     # int8 → float32 is exact; a float head is first rounded to the
     # activation dtype, as the JAX package casts it
     w_vd = w_vd if w_vd.dtype == torch.int8 else w_vd.to(x.dtype)
-    logits = x.float() @ w_vd.float().t()
+    logits = tp_copy(x, tp_group).float() @ w_vd.float().t()
     if head.dtype == torch.int8:
         logits = logits * head_scale.float()
     return out._replace(logits=tp_all_gather(logits, -1, tp_group))

@@ -13,6 +13,20 @@ here, and neither does the port: these are plain PyTorch.
     (N, V) logits slab: vocab chunks with an online log-sum-exp, each
     chunk's logits recomputed in the backward;
   * feature_distillation_loss: sum over layers of the masked MSE.
+
+Data parallelism (``data_group``): each rank holds its rows of the global
+batch, and every loss divides by a count over the whole batch (samples
+with a response window, response positions). The counts are summed over
+the data group first, so each rank's loss is its rows' share of the global
+loss: the sum over the group is the JAX loss of the global batch, and so
+is the sum of the ranks' gradients.
+
+Tensor parallelism (``tp_group`` of ``fused_ntp_ld_losses``): the head
+holds the rank's vocab rows. Each rank runs the online log-sum-exp over
+its own rows, and the per-row statistics (maxima, rescaled sums, the
+teacher dot, the label logit: a few floats a position, never the (N, V)
+logits) are combined over the group; the backward gives the rank's share
+of the hidden states' gradient, which ``tp_copy`` sums.
 """
 
 from __future__ import annotations
@@ -21,7 +35,14 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..parallel.comm import all_reduce, group_rank, group_size, tp_copy
+
 NEG = -1e30
+
+
+def _global_count(x: torch.Tensor, data_group) -> torch.Tensor:
+    """``x`` (a count of this rank's rows) summed over the data group."""
+    return all_reduce(x, data_group)
 
 
 def _log_softmax(x: torch.Tensor) -> torch.Tensor:
@@ -36,14 +57,15 @@ def _label_nll(logits, labels):
     return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
 
 
-def response_cross_entropy(logits, labels, loss_mask) -> torch.Tensor:
+def response_cross_entropy(logits, labels, loss_mask, data_group=None) -> torch.Tensor:
     """logits (B, L, V); labels (B, L) int; loss_mask (B, L) bool."""
     nll = _label_nll(logits, labels)
     mask = loss_mask.float()
     count = mask.sum(-1)
     per_sample = (nll * mask).sum(-1) / torch.clamp(count, min=1.0)
     has_any = (count > 0).float()
-    return (per_sample * has_any).sum() / torch.clamp(has_any.sum(), min=1.0)
+    n = _global_count(has_any.sum(), data_group)
+    return (per_sample * has_any).sum() / torch.clamp(n, min=1.0)
 
 
 def response_nll_sum(logits, labels, loss_mask):
@@ -53,14 +75,14 @@ def response_nll_sum(logits, labels, loss_mask):
     return (nll * mask).sum(), mask.sum()
 
 
-def soft_cross_entropy(student_logits, teacher_logits, mask) -> torch.Tensor:
+def soft_cross_entropy(student_logits, teacher_logits, mask, data_group=None) -> torch.Tensor:
     """Masked mean over positions of -sum_v p_teacher * log p_student; the
     teacher distribution is a constant target."""
     s_logp = _log_softmax(student_logits)
     t_prob = torch.softmax(teacher_logits.float(), dim=-1).detach()
     ce = -(t_prob * s_logp).sum(-1)
     m = mask.float()
-    return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (ce * m).sum() / torch.clamp(_global_count(m.sum(), data_group), min=1.0)
 
 
 def _chunk_logits(h, head, scale, c0, c1):
@@ -75,14 +97,15 @@ def _chunk_logits(h, head, scale, c0, c1):
     return logits
 
 
-def _row_weights(loss_mask, response_mask):
+def _row_weights(loss_mask, response_mask, data_group):
     """d ntp / d nll and d ld / d ld_row per flattened (B * W) row."""
     lm = loss_mask.float()
     count = lm.sum(-1, keepdim=True)
     has_any = (count > 0).float()
-    w_ntp = lm * has_any / torch.clamp(count, min=1.0) / torch.clamp(has_any.sum(), min=1.0)
     rm = response_mask.float()
-    w_ld = rm / torch.clamp(rm.sum(), min=1.0)
+    n_any, n_resp = _global_count(torch.stack([has_any.sum(), rm.sum()]), data_group)
+    w_ntp = lm * has_any / torch.clamp(count, min=1.0) / torch.clamp(n_any, min=1.0)
+    w_ld = rm / torch.clamp(n_resp, min=1.0)
     return w_ntp.reshape(-1), w_ld.reshape(-1)
 
 
@@ -94,20 +117,23 @@ class _FusedNtpLd(torch.autograd.Function):
       d/ds_v = a * (softmax_s - onehot(label)) + b * (softmax_s - p_t),
     a and b being the rows' NTP and LD weights times the incoming
     gradients, goes back through the head chunk. The teacher and the head
-    get no gradient."""
+    get no gradient. Under a model group the head holds the rank's vocab
+    rows [lo, lo + V): the statistics are combined over the group after
+    the pass, and the backward returns the rank's share of d(sh)."""
 
     @staticmethod
-    def forward(ctx, sh, th, head, scale, labels, loss_mask, response_mask, vocab_chunk):
+    def forward(ctx, sh, th, head, scale, labels, loss_mask, response_mask, vocab_chunk,
+                data_group, tp_group):
         N = sh.shape[0]
         V = head.shape[0]
         dev = sh.device
+        labels = labels.long() - group_rank(tp_group) * V  # rows of this rank's head
         m_s = torch.full((N,), NEG, device=dev)
         l_s = torch.zeros((N,), device=dev)
         m_t = torch.full((N,), NEG, device=dev)
         l_t = torch.zeros((N,), device=dev)
         t_dot = torch.zeros((N,), device=dev)
         label_logit = torch.full((N,), NEG, device=dev)
-        labels = labels.long()
         for c0 in range(0, V, vocab_chunk):
             c1 = min(c0 + vocab_chunk, V)
             ls = _chunk_logits(sh, head, scale, c0, c1)
@@ -125,8 +151,15 @@ class _FusedNtpLd(torch.autograd.Function):
             in_chunk = (rel >= 0) & (rel < c1 - c0)
             gathered = torch.gather(ls, 1, rel.clamp(0, c1 - c0 - 1)[:, None])[:, 0]
             label_logit = torch.where(in_chunk, gathered, label_logit)
+        if group_size(tp_group) > 1:  # every rank's vocab rows
+            m_s_g, m_t_g, label_logit = all_reduce(torch.stack([m_s, m_t, label_logit]),
+                                                   tp_group, "max")
+            a_s, a_t = torch.exp(m_s - m_s_g), torch.exp(m_t - m_t_g)
+            l_s, l_t, t_dot = all_reduce(torch.stack([l_s * a_s, l_t * a_t, t_dot * a_t]),
+                                         tp_group)
+            m_s, m_t = m_s_g, m_t_g
         lse_s = m_s + torch.log(torch.clamp(l_s, min=1e-30))
-        w_ntp, w_ld = _row_weights(loss_mask, response_mask)
+        w_ntp, w_ld = _row_weights(loss_mask, response_mask, data_group)
         ntp = ((lse_s - label_logit) * w_ntp).sum()
         ld = ((lse_s - t_dot / torch.clamp(l_t, min=1e-30)) * w_ld).sum()
         ctx.save_for_backward(sh, th, head, scale, labels, lse_s, m_t, l_t, w_ntp, w_ld)
@@ -156,7 +189,7 @@ class _FusedNtpLd(torch.autograd.Function):
             w = head[c0:c1]
             w = w if w.dtype == torch.int8 else w.to(sh.dtype)
             dh += dls @ w.float()
-        return dh.to(sh.dtype), None, None, None, None, None, None, None
+        return dh.to(sh.dtype), None, None, None, None, None, None, None, None, None
 
 
 def fused_ntp_ld_losses(
@@ -168,6 +201,8 @@ def fused_ntp_ld_losses(
     response_mask: torch.Tensor,
     vocab_chunk: int = 8192,
     head_scale: Optional[torch.Tensor] = None,
+    data_group=None,
+    tp_group=None,
 ):
     """(ntp_loss, ld_loss) equal to response_cross_entropy and
     soft_cross_entropy on the full logits (up to summation order), from
@@ -175,12 +210,16 @@ def fused_ntp_ld_losses(
     (the embedding table for tied weights), optionally int8 with its
     per-row ``head_scale`` (V,). At most one (B * W, vocab_chunk) float32
     chunk of logits exists at a time, in the forward and in the backward.
-    The teacher is a constant target; the head gets no gradient."""
+    The teacher is a constant target; the head gets no gradient.
+    ``tp_group``: ``head_vd`` (and ``head_scale``) are the rank's
+    contiguous vocab rows, every rank passing the same hidden states and
+    labels (see the module docstring)."""
     B, W, D = student_hidden.shape
     return _FusedNtpLd.apply(
-        student_hidden.reshape(B * W, D), teacher_hidden.detach().reshape(B * W, D),
+        tp_copy(student_hidden.reshape(B * W, D), tp_group),
+        teacher_hidden.detach().reshape(B * W, D),
         head_vd.detach(), None if head_scale is None else head_scale.detach(),
-        labels.reshape(B * W), loss_mask, response_mask, vocab_chunk,
+        labels.reshape(B * W), loss_mask, response_mask, vocab_chunk, data_group, tp_group,
     )
 
 
@@ -189,12 +228,13 @@ def feature_distillation_loss(
     teacher_hidden: Sequence[torch.Tensor],
     layers: Sequence[int],
     mask: torch.Tensor,
+    data_group=None,
 ) -> torch.Tensor:
     """Sum over the selected layers of the masked-mean squared error; index
     0 is the embedding output, i the output of block i (HF layout). mask:
     (B, W) response window."""
     m = mask.float()[..., None]
-    denom = torch.clamp(m.sum(), min=1.0)
+    denom = torch.clamp(_global_count(m.sum(), data_group), min=1.0)
     total = torch.zeros((), dtype=torch.float32, device=mask.device)
     for i in layers:
         sh = student_hidden[i].float()

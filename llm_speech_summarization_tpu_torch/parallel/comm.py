@@ -20,13 +20,21 @@ and reductions.
   * ``all_reduce_grads``: the gradient sum over the group, in one flat
     float32 buffer;
   * ``any_rank``: a host flag or-ed over the group;
-  * the model group's ``tp_all_reduce`` (the sum of the ranks' partial
-    products after a row-parallel matmul and of the vocab-sharded
-    embedding lookup, in the tensor's own dtype: gloo sums bfloat16),
-    ``tp_all_gather`` (the vocab-sharded logits, concatenated) and
-    ``broadcast_call`` (one rank's host object and tensors, on every rank:
-    the serving follower's commands and the prompts it decodes). None of
-    them has a backward.
+  * ``all_reduce``: a sum or a maximum over the group without autograd
+    (the global loss denominators over the data group, the vocab-parallel
+    loss's per-row statistics over the model group);
+  * ``max_over_ranks``: a host integer's maximum over the group (the audio
+    bucket every rank of a data-parallel run collates to);
+  * the model group's Megatron pair: ``tp_all_reduce`` (the sum of the
+    ranks' partial products after a row-parallel matmul and of the
+    vocab-sharded embedding lookup, in the tensor's own dtype: gloo sums
+    bfloat16; its backward passes the gradient through) and ``tp_copy``
+    (the identity in front of the column-parallel products and the
+    vocab-parallel loss, whose backward sums the ranks' partial gradients);
+    ``tp_all_gather`` (the vocab-sharded logits, concatenated; its backward
+    takes the rank's slice) and ``broadcast_call`` (one rank's host object
+    and tensors, on every rank: the serving follower's commands and the
+    prompts it decodes; no backward).
 
 Under the gloo backend, CUDA tensors cross through host copies made here,
 after a sync of the current stream (gloo's send, receive and gathers take
@@ -154,12 +162,25 @@ def _gather(x: torch.Tensor, group) -> torch.Tensor:
     return _run(group, [x], op)[0]
 
 
-def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    def op(ts):
-        dist.all_reduce(ts[0], group=group)
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    def run(ts):
+        dist.all_reduce(ts[0], op=_OPS[op], group=group)
         return ts
 
-    return _run(group, [x], op)[0]
+    return _run(group, [x], run)[0]
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (``op`` "sum") or the maximum ("max") over the group of every
+    rank's ``x``, on every rank, as a new tensor; no autograd."""
+    if op not in _OPS:
+        raise ValueError(f"all_reduce: op must be one of {sorted(_OPS)}, got {op!r}")
+    if group_size(group) == 1:
+        return x.detach()
+    return _all_reduce(x.detach().clone(), group, op)
 
 
 class _AllGather(torch.autograd.Function):
@@ -171,7 +192,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if ctx.grad_sum:
-            g = _all_reduce_sum(g, ctx.group)
+            g = _all_reduce(g, ctx.group)
         return g[group_rank(ctx.group)], None, None
 
 
@@ -207,7 +228,7 @@ def all_reduce_grads(grads: Sequence[torch.Tensor], group) -> List[torch.Tensor]
     """The sum over the group of each gradient, as float32."""
     if group_size(group) == 1:
         return [g.float() for g in grads]
-    flat = _all_reduce_sum(torch.cat([g.float().reshape(-1) for g in grads]), group)
+    flat = _all_reduce(torch.cat([g.float().reshape(-1) for g in grads]), group)
     out, i = [], 0
     for g in grads:
         out.append(flat[i:i + g.numel()].view(g.shape))
@@ -215,32 +236,77 @@ def all_reduce_grads(grads: Sequence[torch.Tensor], group) -> List[torch.Tensor]
     return out
 
 
+def max_over_ranks(value: int, group) -> int:
+    """The maximum over the group of a host integer, on every rank."""
+    if group_size(group) == 1:
+        return int(value)
+    dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return int(t.item())
+
+
 def any_rank(flag: bool, group) -> bool:
     """``flag`` or-ed over the group (a host value on every rank)."""
-    if group_size(group) == 1:
-        return bool(flag)
-    dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
-    t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    return bool(t.item())
+    return bool(max_over_ranks(int(bool(flag)), group))
+
+
+class _TpAllReduce(torch.autograd.Function):
+    """Megatron's g: the sum over the model group forward, the identity
+    backward (every rank's gradient of the sum is the same)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.clone(), group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TpCopy(torch.autograd.Function):
+    """Megatron's f: the identity forward, the sum over the model group
+    backward (each rank's downstream holds its part of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.group).to(g.dtype), None
 
 
 def tp_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the group of every rank's ``x`` (same shape and dtype),
-    on every rank, bit-identical across them. ``x`` is a temporary to the
-    caller: where the backend takes it as it is (CPU tensors, NCCL), the sum
-    is made in its storage. No autograd."""
+    on every rank, bit-identical across them. Without a gradient to track,
+    ``x`` is a temporary to the caller: where the backend takes it as it is
+    (CPU tensors, NCCL), the sum is made in its storage. With one, the sum
+    goes to a new tensor and the backward passes the gradient through."""
     if group_size(group) == 1:
         return x
-    return _all_reduce_sum(x, group).to(x.dtype)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _TpAllReduce.apply(x, group)
+    return _all_reduce(x, group).to(x.dtype)
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself forward; backward, the sum over the group of the ranks'
+    gradients (in front of a product whose weight is sharded over the
+    group, so that the replicated input gets its whole gradient)."""
+    if group_size(group) == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _TpCopy.apply(x, group)
 
 
 def tp_all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order, on every
-    rank. No autograd."""
+    rank; the backward takes this rank's part of the gradient (the
+    downstream is computed the same on every rank)."""
     if group_size(group) == 1:
         return x
-    return torch.cat(list(_gather(x, group).unbind(0)), dim=dim)
+    return torch.cat(list(all_gather(x, group, grad="slice").unbind(0)), dim=dim)
 
 
 def broadcast_call(obj, tensors, group, src: int = 0, device=None):

@@ -2,11 +2,13 @@
 
 The JAX package builds a ("data"[, "seq"], "model") device mesh and lets
 XLA place the collectives. Here every rank is one process, and the mesh is
-this rank's coordinates plus the process groups of its axes: ``seq``, the
-sequence-parallel ring of the long-audio trainer, and ``model``, the
-tensor-parallel group of the serving engine (``parallel/sharding.py``).
-Data parallelism (``mesh.data`` > 1) raises: it is the next slice of the
-port, with ZeRO-1 and tensor parallelism in the training step.
+this rank's coordinates plus the process groups of its axes: ``data``, the
+data-parallel replicas of the trainer (its gradient sum and ZeRO-1's
+parameter gather), ``seq``, the sequence-parallel ring of the long-audio
+trainer, and ``model``, the tensor-parallel group of the LLM in training
+and serving (``parallel/sharding.py``). Ranks are laid out
+rank = (d * seq + s) * model + m, as the JAX package reshapes its device
+list, so a model group is a block of consecutive ranks.
 
 ``distributed_init`` joins the process group. Its backend follows from what
 the rank sees (``default_backend``): NCCL with a card for each rank on the
@@ -97,9 +99,9 @@ def distributed_init(backend: Optional[str] = None, cpu: bool = False) -> bool:
 @dataclass(frozen=True)
 class Mesh:
     """This rank's place in a (data, seq, model) mesh of ranks, laid out
-    rank = (d * seq + s) * model + m, and the process groups of its axes
-    (None where the axis has one rank; the data axis has one until data
-    parallelism is ported)."""
+    rank = (d * seq + s) * model + m, and the process groups of its axes:
+    the ranks that differ from this one in that axis alone (None where the
+    axis has one rank)."""
 
     data: int
     seq: int
@@ -114,33 +116,60 @@ class Mesh:
         """Rank 0 writes logs and checkpoints."""
         return self.rank == 0
 
+    @property
+    def data_rank(self) -> int:
+        return self.rank // (self.seq * self.model)
+
+    @property
+    def seq_rank(self) -> int:
+        return (self.rank // self.model) % self.seq
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+
+def _axis_group(sizes, axis: int, rank: int):
+    """The process group of ``axis`` (0 data, 1 seq, 2 model) that holds
+    ``rank``: WORLD where the axis spans every rank, None where it has one.
+    Every rank creates every group of the axis, in one order (a rank that
+    skipped one would hang the others in ``new_group``)."""
+    if sizes[axis] == 1:
+        return None
+    world = sizes[0] * sizes[1] * sizes[2]
+    if sizes[axis] == world:
+        return dist.group.WORLD
+    strides = (sizes[1] * sizes[2], sizes[2], 1)
+    mine = None
+    for base in range(world):
+        coords = (base // strides[0], (base // strides[1]) % sizes[1], base % sizes[2])
+        if coords[axis]:
+            continue  # each group once, from its member with coordinate 0
+        ranks = [base + i * strides[axis] for i in range(sizes[axis])]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return mine
+
 
 def mesh_from_ranks(data: int = -1, model: int = 1, seq: int = 1) -> Mesh:
     """The (data, seq, model) mesh over the initialized process group (one
     process without one), the counterpart of the JAX ``mesh_from_devices``
-    over processes; ``data`` -1 takes the ranks left over."""
+    over processes; ``data`` -1 takes the ranks left over. Every rank must
+    call it, with the same sizes: it creates the axes' process groups."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     seq, model = max(seq, 1), max(model, 1)
     data = data if data != -1 else max(world // (seq * model), 1)
-    if data > 1:
-        raise NotImplementedError(
-            f"mesh data={data}: data parallelism (pad_batch_rows, shard_batch, ZeRO-1) is not "
-            f"ported to PyTorch yet; it comes in the training slice of ROADMAP queue A item 11, "
-            f"with tensor parallelism in the training step. The port runs mesh 1,seq,1 in "
-            f"training and 1,1,model in serving")
-    if seq > 1 and model > 1:
-        raise NotImplementedError(
-            f"mesh seq={seq}, model={model}: a seq axis with a model axis is not ported (the "
-            f"ring trains with mesh 1,seq,1, tensor-parallel serving runs 1,1,model)")
     if data * seq * model != world:
         raise ValueError(
             f"mesh {data},{seq},{model} needs {data * seq * model} ranks and this run has "
             f"{world}: launch it with python -m torch.distributed.run --nproc_per_node "
             f"{data * seq * model}")
-    # data is 1 and at most one axis is over 1: that axis spans every rank
-    return Mesh(data, seq, model, rank, dist.group.WORLD if seq > 1 else None,
-                dist.group.WORLD if model > 1 else None)
+    sizes = (data, seq, model)
+    groups = [_axis_group(sizes, axis, rank) for axis in range(3)]
+    return Mesh(data, seq, model, rank, seq_group=groups[1], model_group=groups[2],
+                data_group=groups[0])
 
 
 def make_mesh(cfg: Config) -> Mesh:

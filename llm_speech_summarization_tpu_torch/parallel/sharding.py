@@ -1,4 +1,5 @@
-"""Tensor-parallel layouts of the serving half (port of ``parallel/sharding.py``).
+"""Tensor-parallel layouts, the ZeRO-1 rule and the batch shards (port of
+``parallel/sharding.py``).
 
 The JAX package states its layouts as PartitionSpecs and lets GSPMD place
 the collectives. Here each rank is one process that holds its own shard,
@@ -23,18 +24,31 @@ splits the fused axis contiguously instead, which crosses the Q|K|V
 boundaries (its ``llama_param_spec`` docstring).
 
 The audio encoder is not sharded (``encoder_param_spec`` replicates it):
-it stays whole on the rank that builds prompts, and the other ranks hold
-none. The training layouts (``opt_state_spec``, ``pad_batch_rows``,
-``shard_batch``) are not ported yet.
+in serving it stays whole on the rank that builds prompts, and the other
+ranks hold none; in training every rank holds it whole.
+
+Training over a data axis of n ranks:
+  * ``opt_state_spec``: which optimizer-state leaves ZeRO-1 shards, the JAX
+    rule: a leading dim divisible by n and at least ``ZERO_MIN_SIZE``
+    elements; ``zero_slice`` is data rank d's part of such a leaf, rows
+    [d·len/n, (d+1)·len/n) of its leading dim, and the whole of any other;
+  * ``pad_batch_rows``: a batch padded to a multiple of n rows; the new
+    rows copy row 0 with ``response_lens`` 0, so they add no loss, no
+    token and no gradient;
+  * ``shard_batch``: data rank d's rows of the (padded) global batch, the
+    contiguous block that JAX's ``P("data")`` places on device d.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..data.batch import Batch
 from ..models.llama import LlamaConfig, shard_config
+from .comm import group_size
 
 Params = Dict[str, Any]
 
@@ -128,3 +142,63 @@ def merge_llama_shards(shards: Sequence[Params], cfg: LlamaConfig) -> Params:
             offset += w // tp
         _put(out, path, torch.cat(segments, dim=axis))
     return out
+
+
+ZERO_MIN_SIZE = 16384  # smaller leaves stay replicated, as in the JAX rule
+
+
+def zero_shards(x, n: int, min_size: int = ZERO_MIN_SIZE) -> bool:
+    """True where ZeRO-1 shards the optimizer-state leaf ``x`` over a data
+    axis of ``n`` ranks."""
+    shape = tuple(getattr(x, "shape", ()))
+    return n > 1 and len(shape) >= 1 and shape[0] % n == 0 and int(np.prod(shape)) >= min_size
+
+
+def opt_state_spec(tree: Any, n: int, min_size: int = ZERO_MIN_SIZE) -> Any:
+    """The tree of ``tree`` with True at every leaf ZeRO-1 shards over a
+    data axis of ``n`` ranks (``zero_shards``), False elsewhere."""
+    if isinstance(tree, dict):
+        return {k: opt_state_spec(v, n, min_size) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [opt_state_spec(v, n, min_size) for v in tree]
+    return zero_shards(tree, n, min_size)
+
+
+def zero_slice(x: torch.Tensor, rank: int, n: int) -> torch.Tensor:
+    """Data rank ``rank``'s part of leaf ``x`` (a view): its block of the
+    leading dim where ZeRO-1 shards the leaf, else all of it."""
+    if not zero_shards(x, n):
+        return x
+    rows = x.shape[0] // n
+    return x.narrow(0, rank * rows, rows)
+
+
+def pad_batch_rows(batch: Batch, multiple: int) -> Batch:
+    """``batch`` (host arrays) with its rows padded up to a multiple of
+    ``multiple``: each new row copies row 0 (well-formed audio and text for
+    every path) and has ``response_lens`` 0, so the splice gives it an
+    empty loss and response mask and every loss and token count skips it."""
+    B = batch.wav.shape[0]
+    target = -(-B // multiple) * multiple
+    if target == B:
+        return batch
+
+    def pad(x):
+        if x is None:
+            return None
+        x = np.asarray(x)
+        return np.concatenate([x, np.repeat(x[:1], target - B, axis=0)], axis=0)
+
+    padded = Batch(*(pad(x) for x in batch))
+    resp_lens = padded.response_lens.copy()
+    resp_lens[B:] = 0
+    return padded._replace(response_lens=resp_lens)
+
+
+def shard_batch(batch: Batch, rank: int, n: int) -> Batch:
+    """Data rank ``rank``'s rows of the global ``batch`` over ``n`` data
+    ranks, after ``pad_batch_rows``: rows [rank·B/n, (rank+1)·B/n)."""
+    batch = pad_batch_rows(batch, n)
+    rows = batch.wav.shape[0] // n
+    return Batch(*(None if x is None else np.asarray(x)[rank * rows:(rank + 1) * rows]
+                   for x in batch))

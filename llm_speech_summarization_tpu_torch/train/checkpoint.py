@@ -5,7 +5,11 @@ which writes Orbax).
     {enc_params, opt_state, step, epoch, epoch_step}; ``latest_checkpoint``
     finds the highest step. ``epoch_step`` counts the batches already
     consumed in ``epoch``: a resumed run skips them in its (seeded) epoch
-    order and continues the exact batch sequence of an unbroken run;
+    order and continues the exact batch sequence of an unbroken run. The
+    optimizer state is always whole: a ZeRO-1 run gathers its slices
+    before rank 0 writes, and a run that loads it cuts its own slices
+    (``AdamW.whole_state`` / ``slice_state``), so a checkpoint of one mesh
+    resumes on any other;
   * encoder-only export (``export_encoder`` / ``load_encoder``) for
     inference, the reference's second format;
   * converted HF weights (``save_params`` / ``load_params``, written by

@@ -14,6 +14,18 @@ one step does what the JAX step does:
 
 Parameters and optimizer state are nested dicts/lists of tensors with the
 JAX trees' keys, updated in place.
+
+ZeRO-1 (a ``data_group`` of n > 1 ranks, as the JAX trainer shards
+whenever its data axis has more than one device): each rank holds
+only its slice of every moment (and accumulator) leaf that
+``parallel/sharding.py::opt_state_spec`` shards, updates that slice of the
+parameter from the reduced gradient, and all-gathers the parameters'
+slices over the group afterwards, so every rank ends the step with the
+whole encoder. Elementwise the update is the replicated optimizer's, bit
+for bit: the clip's norm is taken over the whole reduced gradient (with
+accumulation, over the accumulator gathered whole first). ``whole_state``
+and ``slice_state`` convert the sharded state to the whole one (every rank
+calls it: a collective) and back, for checkpoints.
 """
 
 from __future__ import annotations
@@ -25,6 +37,8 @@ from typing import Any, Callable, Dict, List
 import torch
 
 from ..configs import Config
+from ..parallel.comm import all_gather, group_rank, group_size
+from ..parallel.sharding import zero_shards, zero_slice
 
 Tree = Any
 
@@ -71,10 +85,13 @@ def lr_at(cfg: Config, total_opt_steps: int, step: int) -> float:
     return opt_cfg.lr * max(1.0 - t / total, 0.0)
 
 
+_SLICED = ("mu", "nu", "acc")  # the optimizer-state trees ZeRO-1 slices
+
+
 class AdamW:
     """The optimizer of the KD step (see the module docstring)."""
 
-    def __init__(self, cfg: Config, total_opt_steps: int):
+    def __init__(self, cfg: Config, total_opt_steps: int, data_group=None):
         self.cfg = cfg
         self.total_opt_steps = total_opt_steps
         o = cfg.train.optimizer
@@ -82,29 +99,90 @@ class AdamW:
         self.weight_decay = o.weight_decay
         self.clip = o.grad_clip_norm
         self.every_k = max(cfg.train.grad_accum_interval, 1)
+        self.data_group = data_group
+        self.n, self.rank = group_size(data_group), group_rank(data_group)
+        self.zero = self.n > 1
+
+    def _slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole leaf (all of it without ZeRO-1)."""
+        return zero_slice(x, self.rank, self.n) if self.zero else x
+
+    def _gather_into(self, leaves: List[torch.Tensor]) -> None:
+        """Fill every sharded leaf of ``leaves`` (whole tensors, this rank's
+        slice current) with the other ranks' slices: one all-gather."""
+        sharded = [x for x in leaves if self.zero and zero_shards(x, self.n)]
+        if not sharded:
+            return
+        parts = all_gather(torch.cat([self._slice(x).reshape(-1) for x in sharded]),
+                           self.data_group, grad="slice")
+        for q in range(self.n):
+            i = 0
+            for x in sharded:
+                piece = zero_slice(x, q, self.n)
+                piece.copy_(parts[q, i:i + piece.numel()].view_as(piece))
+                i += piece.numel()
+
+    def _whole(self, parts: List[torch.Tensor], like: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Whole float32 leaves from this rank's ``parts`` of leaves shaped
+        like ``like`` (a collective under ZeRO-1)."""
+        out = []
+        for part, x in zip(parts, like):
+            if part.shape == x.shape:
+                out.append(part.clone())
+            else:
+                whole = torch.empty(x.shape, dtype=torch.float32, device=part.device)
+                self._slice(whole).copy_(part)
+                out.append(whole)
+        self._gather_into(out)
+        return out
 
     def init(self, params: Tree) -> Dict[str, Any]:
-        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+        zeros = lambda p: torch.zeros_like(self._slice(p), dtype=torch.float32)  # noqa: E731
         state = {"count": 0, "mini_step": 0, "mu": tree_map(zeros, params),
                  "nu": tree_map(zeros, params)}
         if self.every_k > 1:
             state["acc"] = tree_map(zeros, params)
         return state
 
+    def whole_state(self, opt_state: Dict[str, Any], params: Tree) -> Dict[str, Any]:
+        """``opt_state`` with every sliced tree whole (every rank of the data
+        group calls it together under ZeRO-1); itself without ZeRO-1."""
+        if not self.zero:
+            return opt_state
+        like = tree_leaves(params)
+        out = dict(opt_state)
+        for key in _SLICED:
+            if key in opt_state:
+                whole = iter(self._whole(tree_leaves(opt_state[key]), like))
+                out[key] = tree_map(lambda _: next(whole), opt_state[key])
+        return out
+
+    def slice_state(self, opt_state: Dict[str, Any]) -> Dict[str, Any]:
+        """A whole ``opt_state`` (from a checkpoint of any mesh) cut to this
+        rank's slices; itself without ZeRO-1."""
+        if not self.zero:
+            return opt_state
+        out = dict(opt_state)
+        for key in _SLICED:
+            if key in opt_state:
+                out[key] = tree_map(lambda x: self._slice(x).clone(), opt_state[key])
+        return out
+
     @torch.no_grad()
     def apply(self, state: TrainState, grads: List[torch.Tensor]) -> None:
         """Update ``state``'s parameters and optimizer state in place from
-        gradients in ``tree_leaves`` order."""
+        whole (reduced) gradients in ``tree_leaves`` order."""
         opt = state.opt_state
+        params = tree_leaves(state.enc_params)
         if self.every_k > 1:
             acc = tree_leaves(opt["acc"])
             n = opt["mini_step"]
             for a, g in zip(acc, grads):
-                a.add_((g.float() - a) / (n + 1))  # optax MultiSteps' running mean
+                a.add_((self._slice(g).float() - a) / (n + 1))  # optax MultiSteps' mean
             if n + 1 < self.every_k:
                 opt["mini_step"] = n + 1
                 return
-            grads = [a.clone() for a in acc]
+            grads = self._whole(acc, params)
             for a in acc:
                 a.zero_()
             opt["mini_step"] = 0
@@ -116,19 +194,23 @@ class AdamW:
         opt["count"] += 1
         t = opt["count"]
         c1, c2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
-        for p, g, m, v in zip(tree_leaves(state.enc_params), grads, tree_leaves(opt["mu"]),
-                              tree_leaves(opt["nu"])):
+        for p, g, m, v in zip(params, grads, tree_leaves(opt["mu"]), tree_leaves(opt["nu"])):
+            p, g = self._slice(p), self._slice(g)
             m.mul_(self.b1).add_((1.0 - self.b1) * g)
             v.mul_(self.b2).add_((1.0 - self.b2) * g.square())
             u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
             if self.weight_decay:
                 u = u + self.weight_decay * p
             p.sub_(lr * u)
+        self._gather_into(params)
 
 
-def make_train_state(cfg: Config, enc_params: Tree, total_opt_steps: int):
+def make_train_state(cfg: Config, enc_params: Tree, total_opt_steps: int, data_group=None):
     """(TrainState at step 0, its AdamW). ``enc_params`` become float32
-    leaves that require gradients."""
+    leaves that require gradients. ``data_group``: the data group of a
+    data-parallel run, over which ZeRO-1 shards the optimizer state (without
+    it the optimizer is replicated: each rank updates the whole state from
+    the reduced gradients)."""
     params = tree_map(lambda p: p.detach().float().clone().requires_grad_(), enc_params)
-    opt = AdamW(cfg, total_opt_steps)
+    opt = AdamW(cfg, total_opt_steps, data_group)
     return TrainState(step=0, enc_params=params, opt_state=opt.init(params)), opt

@@ -22,6 +22,22 @@ the losses are equal on every rank. Each rank's encoder gradients cover
 its shard; they are summed over the group before the global-norm clip, so
 ``grad_norm`` and the update are those of the full gradient, the same on
 every rank.
+
+Data parallelism (``data_group``): each data rank takes its rows of the
+global batch. Every loss divides by its count over the global batch
+(``ops/losses.py``), so a rank's loss is its rows' share and the global
+loss is the sum over the group: the gradients are summed over the data
+group (after the seq group) before the clip, and the metrics are the sums,
+the JAX step's numbers on the global batch. The optimizer (``AdamW`` with
+ZeRO-1) then updates every rank's copy of the encoder alike.
+
+Tensor parallelism (``tp_group``): the LLM is this rank's shard
+(``parallel/sharding.py``) and every rank of the group passes the same
+rows. The block's collectives run inside ``llama_forward``; the fused loss
+is vocab-parallel over the shard's head rows; the splice takes its token
+rows from ``embed_table``, the whole embedding table (and its scale) that
+the caller keeps from the tree it sharded. The encoder's gradients come
+out the same on every rank of the group and are not summed over it.
 """
 
 from __future__ import annotations
@@ -42,7 +58,7 @@ from ..ops.losses import (
     response_nll_sum,
 )
 from ..ops.splice import splice_sequences
-from ..parallel.comm import all_reduce_grads
+from ..parallel.comm import all_reduce, all_reduce_grads, group_size
 from .state import AdamW, TrainState, tree_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -55,6 +71,12 @@ def _embed_table(llm_params, compute_dtype):
     if emb.dtype == torch.int8:
         return emb, llm_params["embed_tokens_scale"]
     return emb.to(compute_dtype), None
+
+
+def _check_table(tp_group, embed_table) -> None:
+    if group_size(tp_group) > 1 and embed_table is None:
+        raise ValueError("a model group's shard splices from the whole embedding table: "
+                         "pass embed_table")
 
 
 def _embed_rows(table, table_scale, ids, compute_dtype):
@@ -78,10 +100,13 @@ def _forward_losses(
     total_len: int,
     remat: bool,
     group=None,
+    data_group=None,
+    tp_group=None,
+    embed_table=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     tcfg = cfg.train
     compute_dtype = _DTYPES[cfg.model.compute_dtype]
-    table, table_scale = _embed_table(llm_params, compute_dtype)
+    table, table_scale = _embed_table(embed_table or llm_params, compute_dtype)
 
     audio_embeds, emb_lens = audio_encoder_forward(
         enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens,
@@ -102,7 +127,7 @@ def _forward_losses(
             llm_params, llm_cfg, inputs_embeds=student.embeds, attn_mask=student.attn_mask,
             return_hidden=tcfg.use_fd_loss, hidden_window=W, compute_logits=False,
             return_final_hidden=True, logit_window=W, remat=remat,
-            remat_policy=tcfg.remat_policy, ring_group=group,
+            remat_policy=tcfg.remat_policy, ring_group=group, tp_group=tp_group,
         )
         with torch.no_grad():  # the teacher: a constant target, no graph
             text_embeds = _embed_rows(table, table_scale, batch.text_ids, compute_dtype)
@@ -114,7 +139,7 @@ def _forward_losses(
             t_out = llama_forward(
                 llm_params, llm_cfg, inputs_embeds=teacher.embeds, attn_mask=teacher.attn_mask,
                 return_hidden=tcfg.use_fd_loss, hidden_window=W, compute_logits=False,
-                return_final_hidden=True, logit_window=W, ring_group=group,
+                return_final_hidden=True, logit_window=W, ring_group=group, tp_group=tp_group,
             )
         if llm_cfg.tie_embeddings:
             head_vd, head_scale = llm_params["embed_tokens"], llm_params.get("embed_tokens_scale")
@@ -123,13 +148,15 @@ def _forward_losses(
         ntp, ld = fused_ntp_ld_losses(
             out.final_hidden, t_out.final_hidden, head_vd, labels, loss_mask, response_mask,
             head_scale=head_scale if head_vd.dtype == torch.int8 else None,
+            data_group=data_group, tp_group=tp_group,
         )
     else:
         out = llama_forward(
             llm_params, llm_cfg, inputs_embeds=student.embeds, attn_mask=student.attn_mask,
             logit_window=W, remat=remat, remat_policy=tcfg.remat_policy, ring_group=group,
+            tp_group=tp_group,
         )
-        ntp, ld = response_cross_entropy(out.logits, labels, loss_mask), None
+        ntp, ld = response_cross_entropy(out.logits, labels, loss_mask, data_group), None
 
     losses["ntp_loss"] = ntp
     total = tcfg.ntp_loss_weight * ntp
@@ -138,7 +165,8 @@ def _forward_losses(
         total = total + tcfg.ld_loss_weight * ld
     if tcfg.use_fd_loss:
         fd = feature_distillation_loss(out.hidden_states, t_out.hidden_states,
-                                       tuple(tcfg.fd_loss_connector_layers), response_mask)
+                                       tuple(tcfg.fd_loss_connector_layers), response_mask,
+                                       data_group)
         losses["fd_loss"] = fd
         total = total + tcfg.fd_loss_weight * fd
     losses["total_loss"] = total
@@ -159,6 +187,9 @@ def make_train_step(
     total_len: int,
     device=None,
     group=None,
+    data_group=None,
+    tp_group=None,
+    embed_table=None,
 ):
     """The train step: (state, llm_params, batch) → (state, metrics).
     ``state`` is updated in place (parameters, optimizer state, step) and
@@ -168,7 +199,13 @@ def make_train_step(
     the LLM is frozen. ``device=None`` is the CUDA card and raises without
     one; the batch moves there. ``group``: the seq group of a
     sequence-parallel run (see the module docstring); ``total_len`` must
-    divide by its size."""
+    divide by its size. ``data_group``: the data group, ``batch`` being
+    this rank's rows of the global batch; ``tp_group``: the model group,
+    ``llm_params`` being this rank's shard (the module docstring), and
+    ``embed_table`` the whole table the splice reads (required with a
+    model group of more than one rank); the metrics are the global batch's
+    on every rank."""
+    _check_table(tp_group, embed_table)
     dev = resolve_device(device)
     prefix_ids, suffix_ids = _device_ids(prefix_ids, dev), _device_ids(suffix_ids, dev)
 
@@ -177,13 +214,17 @@ def make_train_step(
         total, losses = _forward_losses(
             state.enc_params, llm_params, batch, enc_setup=enc_setup, llm_cfg=llm_cfg,
             cfg=cfg, prefix_ids=prefix_ids, suffix_ids=suffix_ids, total_len=total_len,
-            remat=cfg.train.remat, group=group,
+            remat=cfg.train.remat, group=group, data_group=data_group,
+            tp_group=tp_group, embed_table=embed_table,
         )
         leaves = tree_leaves(state.enc_params)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        grads = all_reduce_grads(grads, group)  # before the clip: the full gradient
-        metrics = {k: v.detach().float() for k, v in losses.items()}
+        # before the clip: the full gradient of the global batch
+        grads = all_reduce_grads(all_reduce_grads(grads, group), data_group)
+        names = list(losses)
+        sums = all_reduce(torch.stack([losses[k].detach().float() for k in names]), data_group)
+        metrics = dict(zip(names, sums.unbind(0)))
         metrics["grad_norm"] = torch.sqrt(sum(g.float().square().sum() for g in grads))
         optimizer.apply(state, grads)
         state.step += 1
@@ -201,6 +242,8 @@ def make_eval_step(
     total_len: int,
     device=None,
     group=None,
+    tp_group=None,
+    embed_table=None,
 ):
     """Validation NLLs of the audio- and the text-prompted sequences, for an
     exact token-weighted perplexity across batches: returns
@@ -208,7 +251,10 @@ def make_eval_step(
     tensors. Student and teacher run as one stacked (2B, L) forward.
     ``device=None`` is the CUDA card and raises without one. ``group``: the
     sequence-parallel forward of the train step, the same sums on every
-    rank."""
+    rank; ``tp_group`` and ``embed_table``: a sharded LLM's model group and
+    whole table, as in the train step. The sums cover ``batch``; over a
+    data group the caller adds the ranks' sums."""
+    _check_table(tp_group, embed_table)
     dev = resolve_device(device)
     prefix_ids, suffix_ids = _device_ids(prefix_ids, dev), _device_ids(suffix_ids, dev)
 
@@ -216,7 +262,7 @@ def make_eval_step(
     def eval_fn(enc_params, llm_params, batch: Batch):
         batch = batch.to_device(dev)
         compute_dtype = _DTYPES[cfg.model.compute_dtype]
-        table, table_scale = _embed_table(llm_params, compute_dtype)
+        table, table_scale = _embed_table(embed_table or llm_params, compute_dtype)
         audio_embeds, emb_lens = audio_encoder_forward(
             enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens,
             ctc_pool_ranges=batch.ctc_pool_ranges,
@@ -232,7 +278,7 @@ def make_eval_step(
             llm_params, llm_cfg,
             inputs_embeds=torch.cat([student.embeds, teacher.embeds]),
             attn_mask=torch.cat([student.attn_mask, teacher.attn_mask]), logit_window=W,
-            ring_group=group,
+            ring_group=group, tp_group=tp_group,
         )
         B = batch.wav.shape[0]
         a_sum, a_tok = response_nll_sum(out.logits[:B], student.labels[:, -W:],

@@ -14,21 +14,34 @@ trace window (``LSS_PROFILE_DIR``, ``LSS_PROFILE_STEPS``). ``validate()``
 computes the token-weighted audio and text perplexities, samples
 generations through ``LLMSpeechTextInference`` and checkpoints.
 
-One card per process. A sequence-parallel run (``mesh.seq`` > 1 with
-``train.use_ring_attention``, optionally ``train.encoder_sp``: the
-long-audio configuration) is one process per seq rank, launched by
-``torch.distributed.run`` (``cli/train.py --mesh 1,N,1``): every rank
-builds the same weights and sees the same batches, the train and eval steps
-run over the mesh's seq group, rank 0 writes the logs and checkpoints (a
-barrier follows each save, and every rank resumes from the checkpoint rank 0
-picked), and validate() runs the sharded eval step on every rank while rank
-0 alone samples generations through the unsharded engine. Data
-parallelism (``mesh.data`` > 1) raises in ``make_mesh``, and tensor
-parallelism in the training step (``mesh.model`` > 1) here: both are the
-training slice of ROADMAP queue A item 11 (the serving engine runs tensor
-parallel). A ``ctc_pool`` projector takes each example's
-``pool_ranges_4`` (collated to a fixed ``max_pool_ranges`` per run, which
-is then the audio buffer's length in the splice).
+One card per process. A multi-process run is one process per rank of a
+(data, seq, model) mesh, launched by ``torch.distributed.run``
+(``cli/train.py --mesh D,S,M``). Every rank builds the same weights from
+the seed; rank 0 writes the logs and checkpoints (a barrier follows each
+save, and every rank resumes from the checkpoint rank 0 picked).
+
+  * data (``mesh.data`` > 1): each data rank draws a disjoint strided shard
+    of the seeded epoch order, equal shards with the remainder dropped, as
+    the JAX trainer's processes do, and collates its rows of each global
+    batch (``batch_size`` / D); the ranks agree on the largest audio bucket
+    of the global batch before the step. The step sums the gradients over
+    the data group against global loss denominators, and ``AdamW`` keeps
+    ZeRO-1 slices of its state; a checkpoint holds the whole state,
+    gathered before rank 0 writes it, and loading slices it for the
+    loading run's mesh. Validation batches are the global ones, padded to
+    a multiple of D with zero-token rows (``pad_batch_rows``) and sharded,
+    the NLL and token sums added over the data group;
+  * seq (``mesh.seq`` > 1 with ``train.use_ring_attention``, optionally
+    ``train.encoder_sp``: the long-audio configuration): the train and eval
+    steps run over the seq group's ring;
+  * model (``mesh.model`` > 1): every rank keeps its shard of the frozen
+    int8 LLM (``shard_llama_params`` on the unfused tree) and the steps run
+    over the model group; the encoder is whole on every rank.
+Rank 0's model group (data and seq rank 0) samples the validation
+generations through the engine over that group. A ``ctc_pool`` projector
+takes each example's ``pool_ranges_4`` (collated to a fixed
+``max_pool_ranges`` per run, which is then the audio buffer's length in
+the splice).
 """
 
 from __future__ import annotations
@@ -57,30 +70,29 @@ from ..models.audio_encoder import (
 from ..models.llama import init_llama_params, llama_preset, quantize_llama_params
 from ..obs.profile import trace
 from ..obs.writer import MetricsWriter
-from ..parallel.comm import any_rank
+from ..parallel.comm import all_reduce, any_rank, max_over_ranks
 from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.sharding import shard_batch, shard_llama_params
 from ..utils.prompts import prompt_template_for
 from ..utils.tokenizer import load_tokenizer
 from . import checkpoint as ckpt
-from .state import lr_at, make_train_state
+from .state import TrainState, lr_at, make_train_state
 from .step import _DTYPES, make_eval_step, make_train_step
 
 
 def _check_parallel(cfg: Config, mesh: Mesh) -> None:
     """The sequence axis runs through ring attention, as in the JAX
-    package; ``encoder_sp`` takes effect with it."""
+    package; ``encoder_sp`` takes effect with it. The data ranks draw equal
+    shares of every batch, as the JAX trainer's processes do."""
     if cfg.train.use_ring_attention and mesh.seq == 1:
         raise ValueError("use_ring_attention needs a mesh with a seq axis (mesh.seq > 1)")
     if mesh.seq > 1 and not cfg.train.use_ring_attention:
         raise NotImplementedError(
             "mesh.seq > 1 shards the spliced sequence through ring attention; set "
             "train.use_ring_attention (sequence sharding without it is not ported)")
-    if mesh.data > 1 or mesh.model > 1:
-        raise NotImplementedError(
-            f"mesh data={mesh.data}, model={mesh.model}: data parallelism (ZeRO-1, padded "
-            f"tails, sharded eval) and tensor parallelism in the training step are not "
-            f"ported to PyTorch yet; they are the training slice of ROADMAP queue A item 11 "
-            f"(tensor parallelism serves: cli/serve.py --tp)")
+    if cfg.train.batch_size % mesh.data:
+        raise ValueError(f"batch_size={cfg.train.batch_size} does not divide over "
+                         f"data={mesh.data} ranks (each draws an equal share of a batch)")
 
 
 def max_pool_ranges(config: Config, enc_setup) -> Optional[int]:
@@ -114,6 +126,9 @@ class Trainer:
         _check_parallel(config, self.mesh)
         # the seq group of the ring; None trains unsharded
         self.group = self.mesh.seq_group if config.train.use_ring_attention else None
+        # every rank of a multi-process run (stop flags, checkpoint choice)
+        self.world = (dist.group.WORLD if dist.is_initialized() and dist.get_world_size() > 1
+                      else None)
         if config.model.encoder_checkpoint:
             raise ValueError(
                 "model.encoder_checkpoint is an inference setting: the trainer always "
@@ -153,6 +168,15 @@ class Trainer:
         if config.model.llm_weight_dtype == "int8":
             # weight-only int8 for the frozen LLM: no gradient touches it
             self.llm_params = quantize_llama_params(self.llm_params)
+        # under a model group: the whole embedding table (the splice's and
+        # the validation prompts' rows) and this rank's shard; the rest of
+        # the whole tree goes
+        self.embed_table = None
+        if self.mesh.model > 1:
+            self.embed_table = {k: self.llm_params[k] for k in
+                                ("embed_tokens", "embed_tokens_scale") if k in self.llm_params}
+            self.llm_params = shard_llama_params(self.llm_params, self.llm_cfg,
+                                                 self.mesh.model_rank, self.mesh.model)
         self.enc_setup = encoder_setup_from_config(config)
         gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         enc_params = init_audio_encoder(gen, self.enc_setup, dtype=torch.float32,
@@ -165,7 +189,8 @@ class Trainer:
         self.steps_per_epoch = max(-(-len(self.train_ds) // tcfg.batch_size), 1)
         total_opt_steps = tcfg.epochs * self.steps_per_epoch // max(tcfg.grad_accum_interval, 1)
         self.total_opt_steps = max(total_opt_steps, 1)
-        self.state, self.optimizer = make_train_state(config, enc_params, self.total_opt_steps)
+        self.state, self.optimizer = make_train_state(config, enc_params, self.total_opt_steps,
+                                                      data_group=self.mesh.data_group)
         del enc_params
 
         self._train_steps = {}
@@ -178,7 +203,7 @@ class Trainer:
         self._resume_epoch_step = 0
         if not checkpoint_path:
             checkpoint_path = ckpt.latest_checkpoint(self.checkpoint_dir)
-        if self.group is not None:  # every rank resumes from rank 0's choice
+        if self.world is not None:  # every rank resumes from rank 0's choice
             chosen = [checkpoint_path]
             dist.broadcast_object_list(chosen, src=0)
             checkpoint_path = chosen[0]
@@ -191,7 +216,8 @@ class Trainer:
         """Resume encoder params, optimizer state and step/epoch."""
         restored, step, epoch = ckpt.restore_train_checkpoint(path, self.state)
         self.state.enc_params = restored["enc_params"]
-        self.state.opt_state = restored["opt_state"]
+        # the file holds the whole state: this rank's ZeRO-1 slices of it
+        self.state.opt_state = self.optimizer.slice_state(restored["opt_state"])
         self.state.step = step
         self.step = step
         self.start_epoch = epoch
@@ -203,21 +229,21 @@ class Trainer:
         return spliced_length(self.config, self.enc_setup, len(self.prefix_ids),
                               len(self.suffix_ids), audio_bucket)
 
-    def _ring_args(self, total_len: int) -> dict:
-        """The step's seq group: the spliced T is sharded over it, so
-        ``total_len`` must divide by its size."""
-        if self.group is None:
-            return {}
-        if total_len % self.mesh.seq:
+    def _mesh_args(self, total_len: int) -> dict:
+        """The step's groups: the spliced T is sharded over the seq group,
+        so ``total_len`` must divide by its size."""
+        if self.group is not None and total_len % self.mesh.seq:
             raise ValueError(f"total_len={total_len} is not divisible by seq={self.mesh.seq}")
-        return {"group": self.group}
+        return {"group": self.group, "tp_group": self.mesh.model_group,
+                "embed_table": self.embed_table}
 
     def _get_train_step(self, audio_bucket: int):
         if audio_bucket not in self._train_steps:
             total_len = self.total_len(audio_bucket)
             self._train_steps[audio_bucket] = make_train_step(
                 self.config, self.enc_setup, self.llm_cfg, self.optimizer, self.prefix_ids,
-                self.suffix_ids, total_len, device=self.device, **self._ring_args(total_len))
+                self.suffix_ids, total_len, device=self.device, data_group=self.mesh.data_group,
+                **self._mesh_args(total_len))
         return self._train_steps[audio_bucket]
 
     def _get_eval_step(self, audio_bucket: int):
@@ -225,27 +251,46 @@ class Trainer:
             total_len = self.total_len(audio_bucket)
             self._eval_steps[audio_bucket] = make_eval_step(
                 self.config, self.enc_setup, self.llm_cfg, self.prefix_ids, self.suffix_ids,
-                total_len, device=self.device, **self._ring_args(total_len))
+                total_len, device=self.device, **self._mesh_args(total_len))
         return self._eval_steps[audio_bucket]
 
     def _save(self, epoch: int, block: bool) -> None:
-        """Rank 0 saves; in a sequence-parallel run the save blocks and a
-        barrier follows, so every rank finds the checkpoint afterwards."""
+        """Rank 0 saves the whole state (ZeRO-1's slices gathered by every
+        rank first); in a multi-process run the save blocks and a barrier
+        follows, so every rank finds the checkpoint afterwards."""
+        whole = self.optimizer.whole_state(self.state.opt_state, self.state.enc_params)
         if self.mesh.is_main:
-            ckpt.save_train_checkpoint(self.checkpoint_dir, self.step, epoch, self.state,
-                                       block=block or self.group is not None,
-                                       epoch_step=self._epoch_step)
-        if self.group is not None:
-            dist.barrier(self.group)
+            ckpt.save_train_checkpoint(
+                self.checkpoint_dir, self.step, epoch,
+                TrainState(self.state.step, self.state.enc_params, whole),
+                block=block or self.world is not None, epoch_step=self._epoch_step)
+        if self.world is not None:
+            dist.barrier()
+
+    def _agree_bucket(self, batch: Batch) -> Batch:
+        """This rank's rows zero-padded to the largest audio bucket of the
+        global batch (every rank of a step must splice one length)."""
+        N = max_over_ranks(batch.wav.shape[1], self.mesh.data_group)
+        if N == batch.wav.shape[1]:
+            return batch
+        wav = np.zeros((batch.wav.shape[0], N), np.float32)
+        wav[:, : batch.wav.shape[1]] = batch.wav
+        return batch._replace(wav=wav)
 
     def _batches(self, dataset, batch_size: int, shuffle: bool, seed: int,
-                 skip: int = 0) -> Iterator[Batch]:
+                 skip: int = 0, data_shard: bool = False) -> Iterator[Batch]:
         """Collated batches in a seeded order, the first ``skip`` dropped
         (resume); ``num_workers`` > 1 collates that many batches ahead on
-        threads. The tail of the dataset is one smaller batch."""
+        threads. The tail of the dataset is one smaller batch.
+        ``data_shard``: this data rank's strided part of the order and of
+        each batch (see the module docstring)."""
         idx = np.arange(len(dataset))
         if shuffle:
             np.random.RandomState(seed).shuffle(idx)
+        D = self.mesh.data
+        if data_shard and D > 1:  # equal shards: every rank takes as many steps
+            idx = idx[self.mesh.data_rank::D][: len(idx) // D]
+            batch_size //= D
         bcfg = self.config.train.buckets
         n_ranges = max_pool_ranges(self.config, self.enc_setup)
 
@@ -315,8 +360,9 @@ class Trainer:
                 skip = self._resume_epoch_step if epoch == self.start_epoch else 0
                 self._epoch_step = skip
                 for batch in self._batches(self.train_ds, tcfg.batch_size, True,
-                                           cfg.seed_everything + epoch, skip=skip):
-                    metrics = self.train_step(batch)
+                                           cfg.seed_everything + epoch, skip=skip,
+                                           data_shard=True):
+                    metrics = self.train_step(self._agree_bucket(batch))
                     if prof_dir and self.step == 2:
                         window.enter_context(trace(prof_dir))
                     elif prof_dir and self.step == 2 + prof_steps:
@@ -334,8 +380,8 @@ class Trainer:
                     if val_int and self.step % val_int == 0:
                         self.validate(epoch)
                         t0 = time.time()  # step_time_s does not bill eval time
-                    # every rank stops at the same step (a collective in a ring)
-                    if any_rank(self._stop_requested, self.group):
+                    # every rank stops at the same step (a collective)
+                    if any_rank(self._stop_requested, self.world):
                         print("SIGTERM received: checkpointing and stopping")
                         ckpt.finalize_saves()
                         self._save(epoch, block=True)
@@ -362,9 +408,13 @@ class Trainer:
         n_batches = 0
         val_bs = min(cfg.train.batch_size, 8)
         for batch in self._batches(self.val_ds, val_bs, False, 0):
+            # this data rank's rows of the global batch, padded with rows
+            # of zero tokens to a multiple of the data ranks
+            batch = shard_batch(batch, self.mesh.data_rank, self.mesh.data)
             eval_fn = self._get_eval_step(batch.wav.shape[1])
-            a_sum, a_tok, t_sum, t_tok = (float(x) for x in eval_fn(
-                self.state.enc_params, self.llm_params, batch))
+            sums = all_reduce(torch.stack(eval_fn(self.state.enc_params, self.llm_params, batch)),
+                              self.mesh.data_group)
+            a_sum, a_tok, t_sum, t_tok = (float(x) for x in sums)
             audio_sum += a_sum
             audio_tok += a_tok
             text_sum += t_sum
@@ -379,15 +429,23 @@ class Trainer:
             print(f"[val] step {self.step}: audio_ppl={audio_ppl:.3f} text_ppl={text_ppl:.3f}")
 
         n_gen = cfg.log.num_generate_samples
-        if n_gen > 0 and len(self.val_ds) > 0 and self.mesh.is_main:
+        # rank 0's model group generates (the engine runs over it)
+        generates = self.mesh.data_rank == 0 and self.mesh.seq_rank == 0
+        if n_gen > 0 and len(self.val_ds) > 0 and generates:
             if self._val_engine is None:
                 from ..infer.engine import LLMSpeechTextInference
 
-                # one engine for every validate; its encoder params refresh
+                # one engine for every validate; its encoder params refresh.
+                # Under a model group the engine takes this rank's shard and
+                # the whole embedding table the prompts are built from.
+                table = self.embed_table
                 self._val_engine = LLMSpeechTextInference(
                     cfg, audio_encoder_params=self.state.enc_params,
                     llm_params=self.llm_params, llm_cfg=self.llm_cfg,
-                    encoder_cfg=self.enc_setup.encoder_cfg, device=self.device)
+                    encoder_cfg=self.enc_setup.encoder_cfg, device=self.device,
+                    mesh=self.mesh if self.mesh.model > 1 else None,
+                    prompt_table=(table["embed_tokens"], table.get("embed_tokens_scale"))
+                    if self.mesh.model > 1 else None)
             engine = self._val_engine
             engine.audio_encoder_params = self.state.enc_params
             use_ctc = self.enc_setup.downsample_method == "ctc_pool"
@@ -402,10 +460,11 @@ class Trainer:
                                                                 max_new_tokens=max_new))
                 prompts.append(ex["text"])
                 audios.append(ex["audio"])
-            self.writer.log_audio_text_responses(
-                self.step, prompt_audios=audios, prompt_texts=prompts,
-                audio_responses=audio_resps, text_responses=text_resps,
-                sampling_rate=cfg.audio.sampling_rate,
-            )
+            if self.writer is not None:
+                self.writer.log_audio_text_responses(
+                    self.step, prompt_audios=audios, prompt_texts=prompts,
+                    audio_responses=audio_resps, text_responses=text_resps,
+                    sampling_rate=cfg.audio.sampling_rate,
+                )
 
         self._save(epoch, block=not cfg.log.async_checkpoint)

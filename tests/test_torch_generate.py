@@ -282,19 +282,25 @@ def test_engine_prompt_ids_golden():
 @pytest.mark.parametrize("kwargs", [dict(mesh=Mesh(2, 1, 1, 0)), dict(llm_checkpoint="/ckpt/llm"),
                                     dict(encoder_checkpoint="/ckpt/encoder")])
 def test_engine_unported_options_raise(kwargs):
-    """A data-parallel mesh is still refused (a model group serves,
-    tests/test_torch_tp_serve.py); a checkpoint path is now loaded, so a
-    missing file raises FileNotFoundError instead of the old
-    NotImplementedError (tests/test_torch_convert.py loads real ones)."""
+    """A data-parallel mesh is no longer refused: the engine runs on its
+    model group (here one rank, so it decodes as the engine without a
+    mesh; a model group serves in tests/test_torch_tp_serve.py); a
+    checkpoint path is now loaded, so a missing file raises
+    FileNotFoundError instead of the old NotImplementedError
+    (tests/test_torch_convert.py loads real ones)."""
     cfg = load_config(str(TINY_YAML))
     kwargs = dict(kwargs)
-    ckpt = False
+    if "mesh" in kwargs:
+        eng = LLMSpeechTextInference(cfg, device="cpu", **kwargs)
+        plain = LLMSpeechTextInference(cfg, device="cpu")
+        assert eng.tp == 1 and eng.builds_prompts
+        assert (eng.generate_text_response("a data mesh", max_new_tokens=8)
+                == plain.generate_text_response("a data mesh", max_new_tokens=8))
+        return
     for key in ("llm_checkpoint", "encoder_checkpoint"):
         if key in kwargs:
             setattr(cfg.model, key, kwargs.pop(key))
-            ckpt = True
-    with pytest.raises(FileNotFoundError if ckpt else NotImplementedError,
-                       match="/ckpt/" if ckpt else "ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="/ckpt/"):
         LLMSpeechTextInference(cfg, device="cpu", **kwargs)
 
 

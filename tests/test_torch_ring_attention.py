@@ -80,12 +80,13 @@ def _tiny(**mesh):
 
 
 def test_mesh_and_backend_rules(monkeypatch):
-    # one process: seq 1 is the whole run; data parallelism raises, naming
-    # the training slice; a seq or model axis needs its ranks
+    # one process: seq 1 is the whole run; a data, seq or model axis needs
+    # its ranks
     m = make_mesh(_tiny())
     assert (m.data, m.seq, m.model, m.rank, m.seq_group, m.model_group, m.data_group,
             m.is_main) == (1, 1, 1, 0, None, None, None, True)
-    with pytest.raises(NotImplementedError, match="training slice of ROADMAP queue A item 11"):
+    assert (m.data_rank, m.seq_rank, m.model_rank) == (0, 0, 0)
+    with pytest.raises(ValueError, match="mesh 2,1,1 needs 2 ranks"):
         make_mesh(_tiny(data=2))
     for field in ("seq", "model"):
         with pytest.raises(ValueError, match="needs 2 ranks"):

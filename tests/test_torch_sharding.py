@@ -116,10 +116,19 @@ def test_widths_that_do_not_divide_raise():
 
 
 def test_data_axis_raises_naming_the_training_slice():
+    """A data axis is a mesh axis like the others (its ranks train the
+    slice's data-parallel step, tests/test_torch_parallel_train.py): in one
+    process a data axis of 2 asks for its ranks, data -1 takes the one
+    process, and a rank's coordinates follow rank = (d·seq + s)·model + m."""
     cfg = load_config(str(YAML_DIR / "tiny_test.yaml"))
     cfg.train.mesh.data = 2
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="needs 2 ranks.*--nproc_per_node 2"):
         make_mesh(cfg)
+    cfg.train.mesh.data = -1
+    assert make_mesh(cfg).data == 1
+    coords = [(m.data_rank, m.seq_rank, m.model_rank)
+              for m in (Mesh(2, 2, 2, r) for r in range(8))]
+    assert coords == [(d, s, t) for d in range(2) for s in range(2) for t in range(2)]
 
 
 @pytest.fixture(scope="module")

@@ -298,18 +298,23 @@ def test_async_checkpoint_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("field", ["model", "seq"])
 def test_parallel_configs_raise(tmp_path, field):
-    """Tensor parallelism in the training step is not ported (a mesh with a
-    model group of 2 raises in the trainer, naming the training slice); a
-    seq axis needs its ranks (one process per rank,
-    tests/test_torch_ring_trainer.py), and in one process it raises before
-    any work."""
+    """A model or seq axis (and a data axis) needs its ranks, one process
+    per rank (tests/test_torch_parallel_train.py,
+    tests/test_torch_ring_trainer.py): in one process the mesh raises
+    before any work. The data ranks draw equal shares of each batch, so a
+    batch size the data axis does not divide raises, as in the JAX
+    trainer's processes."""
     cfg = _tiny_trainer_cfg(tmp_path)
     if field == "model":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            Trainer(cfg, device="cpu", mesh=Mesh(1, 1, 2, 0))
-        setattr(cfg.train.mesh, "data", 2)
-        with pytest.raises(NotImplementedError, match="training slice"):
+        cfg.train.mesh.model = 2
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             Trainer(cfg, device="cpu")
+        cfg.train.mesh.model, cfg.train.mesh.data = 1, 2
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            Trainer(cfg, device="cpu")
+        cfg.train.batch_size = 3
+        with pytest.raises(ValueError, match="batch_size=3 does not divide"):
+            Trainer(cfg, device="cpu", mesh=Mesh(2, 1, 1, 0))
         return
     setattr(cfg.train.mesh, field, 2)
     with pytest.raises(ValueError, match="needs 2 ranks"):
