@@ -5,24 +5,31 @@
 
 Phases, in order; each prints one line and any failure raises:
   1. environment: the card's name and power limit, torch/CUDA versions;
-  2. build the seven CUDA kernel libraries from ``llm_speech_summarization_tpu_
+  2. build the eight CUDA kernel libraries from ``llm_speech_summarization_tpu_
      torch/kernels/csrc`` with nvcc, one process per library, all at once,
      and print the registers and spill bytes of the wgmma kernels (the
      flash forward, dq and dk/dv) at each Dh, failing on any spill, and
-     of the decode body's dense and paged instances (reported only), the
-     4-row paged instances MiniChat's group of 1 selects named apart;
+     of the decode body's dense and paged instances and B1's float32
+     instance (reported only), the 4-row paged instances MiniChat's group
+     of 1 selects named apart;
   3. flash attention (B1) against its plain version run in float32 at the
      main paths' six shapes (the Llama and MiniChat prefills, HuBERT-large,
      HuBERT-base and Whisper self-attention, one tensor-parallel rank's
      Llama prefill at 12/4), within B7's output bound, with injected faults the
      bound must reject, and the one PyTorch call that computes the same
-     attention (timed only);
+     attention (timed only); then B1's float32 instance at the HuBERT-CTC
+     model's shapes (10 s and 20 s clips, a bucket of four with edge
+     windows) and Llama's prefill against the plain version run in float64
+     within F32_OUT_ATOL + F32_OUT_RTOL (|out| + (P.|V|)/l), with injected
+     faults (TF32-rounded operands among them) the bound must reject,
+     REPEATS bit-equal repeats, and SDPA at float32 (timed only);
   4. the training attention kernels, B1 with its log-sum-exp and the
      backward B6 (dq; dk/dv), against their plain versions run in float32
      at the training shapes (the LLM at the trainer's spliced length, at
      24/8 heads and at one tensor-parallel rank's 12/4, HuBERT at 499
      frames), with injected faults the bound must reject,
-     bit-identical repeats, and SDPA forward + backward as the yardstick;
+     REPEATS rounds of the three kernels bit-equal to the first, and SDPA
+     forward + backward as the yardstick;
      then B7, the same kernels in offset mode (the ring-attention
      interior), at the long-audio ring's block shapes for a visiting block
      from a rank before, equal to and after the queries' rank, with
@@ -100,8 +107,11 @@ Phases, in order; each prints one line and any failure raises:
      runs B=8 x 10 s, its token rows equal to an engine handed the same
      trees in memory;
  13b. preprocess_full: ``iter_preprocess_examples`` over 32 synthetic 6-10 s
-     examples and one 21 s clip (filtered) on the converted engine and CTC
-     model; one clip's CTC ids against the plain attention, margin-aware;
+     examples and one 21 s clip (filtered) on the converted engine and the
+     converted bf16 CTC file, which ``load_ctc_fn`` runs in float32 (B1's
+     float32 instance, TF32 off); one clip's float32 CTC ids against the
+     plain float32 attention, margin-aware, the frames the file's bf16
+     forward flips counted, CTC ms a clip in float32 and bf16 in turns;
  13c. eval_full: ``evaluate_engine`` over 16 synthetic examples with the
      full-width ``LlamaEmbedder``;
  13d. ckpt_full: ``cli/infer.py -p`` with 13's exported encoder over the
@@ -186,6 +196,10 @@ PAGED_ATOL, PAGED_RTOL = 1e-3, 1e-2
 # tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# float32 work at float32 accuracy: 3xTF32 on the tensor cores (each operand
+# a TF32 high part and a TF32 residual, three products), the fastest such
+# route on the card: the dense TF32 rate 494.7 TFLOP/s over 3
+F32_FLOPS_PER_S = 494.7e12 / 3
 # B1 + LSE and B6 are held to their plain versions run in float32 on the
 # same bf16 inputs. The lse is float32 on both sides (different summation
 # order only): LSE_ATOL + LSE_RTOL * |lse|. The backward rounds p and ds to
@@ -213,6 +227,25 @@ NEG_LSE = -1e30  # the lse of a row that sees no key (float32)
 # emulation at the ring's shapes came to 1.79x that bound). The phases show
 # the bound rejects V of the wrong KV head and a k tile dropped from P.V.
 B7_OUT_ATOL, B7_OUT_RTOL = 1e-5, 2.0 ** -8
+# B1's float32 instance is held to the plain version run in float64 on the
+# same float32 inputs, within F32_OUT_ATOL + F32_OUT_RTOL * (|out| +
+# (P.|V|)/l). From the kernel's arithmetic, with u = 2^-24 (float32's unit
+# roundoff) and rounding errors of either sign adding as a random walk (the
+# probabilistic bound of Higham and Mary): a score is a chain of Dh FFMAs,
+# off by about sqrt(Dh) u S, S = max over (query, key) of Dh^-0.5 sum_d
+# |q_d k_d|; the scale, the subtraction of m and exp2f add ~4 u to each
+# p's relative error; l and P.V are sums of up to n terms, sqrt(n) u of
+# their |terms|. o / l then moves by at most the relative error of p times
+# (|out| + (P.|V|)/l), the sums' errors on the same scale: u (sqrt(Dh) S +
+# sqrt(n) + 4). At the phase's inputs (randn q, k, v; S <= 10.4 at Dh = 64
+# with n of 499-999 keys, S <= 12.5 at Dh = 128 with n <= 320) that is
+# 6.5e-6 to 9.7e-6: 2e-5 is 2.1-3.1x that (the phase reports each case's
+# S). TF32 (2^-11) errs 2^13 times as much in each operand;
+# tests/test_torch_ctc_f32.py emulates the kernel's tiles and sums on the
+# CPU (under half this bound) and TF32-rounded operands (over 4x it), and
+# the phase shows the bound rejects them on the card, with a window end off
+# by one, a k tile dropped from P.V and the KV head of the wrong group.
+F32_OUT_ATOL, F32_OUT_RTOL = 1e-7, 2e-5
 
 
 # train_small: one KD step on the CPU (plain versions) and on the card
@@ -230,10 +263,11 @@ TRAIN_SIGN_AGREE = 0.9
 
 
 
-def bound_ms(n_bytes: float, flops: float):
-    """(least milliseconds the card could take, "bytes" or "operations")."""
+def bound_ms(n_bytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
+    """(least milliseconds the card could take, "bytes" or "operations"),
+    the operations at ``flops_per_s`` (bf16 products by default)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -351,6 +385,8 @@ def phase_build(card, require_no_spill=True):
     t0 = time.perf_counter()
     libs = (flash_attention._lib, flash_attention._bwd_lib, flash_attention._dkv_lib,
             fused_decode._lib, paged_attention._lib, fused_paged._lib, decode_attention._lib)
+    f32_lib = getattr(flash_attention, "_f32_lib", None)  # None in an older checkout (A/B)
+    libs += (f32_lib,) if f32_lib else ()
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(lib) for lib in libs]:
             fut.result()
@@ -395,9 +431,16 @@ def phase_build(card, require_no_spill=True):
                 for lib, T in (("paged_attention", 4), ("fused_paged", 1))}
     if require_no_spill and None in paged_g1.values():
         raise AssertionError(f"build: no 4-row paged instance with {nw} warps: {paged_g1}")
+    # B1's float32 instance (FFMA, reported only)
+    f32 = {}
+    if f32_lib:
+        for kernel, n_regs, spill in build.ptxas_report("flash_attention_f32",
+                                                         flash_attention.F32_SOURCES):
+            dh = int(re.search(r"Li(\d+)E", kernel).group(1))
+            f32[f"Dh={dh}"] = [n_regs, spill]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()},
-         wgmma_kernels=regs, decode_kernels=decode,
+         wgmma_kernels=regs, decode_kernels=decode, f32_kernels_registers_spill=f32,
          paged_g1_instances=dict(rows=4, warps=nw, splits=nsplit, registers_spill=paged_g1),
          card=card)
 
@@ -488,6 +531,110 @@ def phase_flash(torch, card):
     return results
 
 
+# B1's float32 instance (the HuBERT-CTC model): (B, T, Hq, Hkv, Dh, causal,
+# starts, ends). The CTC buckets clips to whole seconds and the
+# preprocessing drops clips over 20 s: a 10 s and a 20 s clip (the main
+# path), and a bucket of four with windows at its edges; Llama's prefill
+# shape shows the function is general (kernel phase only)
+F32_CASES = {
+    "ctc_10s": (1, 499, 16, 16, 64, False, [0], [499]),
+    "ctc_20s": (1, 999, 16, 16, 64, False, [0], [999]),
+    "ctc_bucket_edges": (4, 499, 16, 16, 64, False, [0] * 4, [499, 400, 1, 250]),
+    "llm_prefill": (4, 320, 24, 8, 128, True, [0, 319, 37, 130], [320] * 4),
+}
+REPEATS = 200  # identical calls per shape, each held bit-equal to the first
+
+
+def tf32_round(torch, x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits, to nearest)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def phase_flash_f32(torch, card):
+    """B1's float32 instance at F32_CASES against the plain version run in
+    float64 on the same float32 inputs, within F32_OUT_ATOL + F32_OUT_RTOL
+    (|out| + (P.|V|)/l) on the valid rows; the bound must reject TF32-rounded
+    operands, a window end off by one, the first k tile dropped from P.V and
+    the KV head of the wrong group (each through the float64 plain
+    version); REPEATS identical calls bit-equal; device times beside the
+    float32 plain version and SDPA at float32 on the same mask."""
+    from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_f32, flash_attention_lse_reference,
+        flash_attention_reference,
+    )
+
+    rng = np.random.RandomState(5)
+    dev = torch.device("cuda")
+    results = {}
+    for name, (B, T, Hq, Hkv, Dh, causal, st, en) in F32_CASES.items():
+        q, k, v = (torch.from_numpy(rng.randn(B, T, h, Dh).astype(np.float32)).to(dev)
+                   for h in (Hq, Hkv, Hkv))
+        starts = torch.tensor(st, dtype=torch.int32, device=dev)
+        ends = torch.tensor(en, dtype=torch.int32, device=dev)
+        before = flash_attention_fwd_f32.launches
+        got = flash_attention_fwd(q, k, v, starts, ends, causal=causal)
+        torch.cuda.synchronize()
+        if flash_attention_fwd_f32.launches != before + 1 or got.dtype != torch.float32:
+            raise AssertionError(f"B1 f32 {name}: flash_attention_fwd did not take the float32 "
+                                 f"kernel ({got.dtype})")
+
+        def f64(q_, k_, v_, ends_=ends):
+            return flash_attention_lse_reference(q_.double(), k_.double(), v_.double(), starts,
+                                                 ends_, causal)[0]
+
+        ref = f64(q, k, v)
+        bound = F32_OUT_ATOL + F32_OUT_RTOL * (ref.abs() + f64(q, k, v.abs()))
+        pos = torch.arange(T, device=dev)[None, :]
+        rows = (pos >= starts[:, None]) & (pos < ends[:, None])  # valid query rows
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"B1 f32 {name}: non-finite output")
+        ratio = _out_ratio(torch, got, ref, bound, rows)
+        err = (got.double() - ref).abs().amax(dim=(2, 3))[rows].max().item()
+        plain = flash_attention_reference(q, k, v, starts, ends, causal=causal)
+        plain_ratio = _out_ratio(torch, plain, ref, bound, rows)
+        del plain
+        if not ratio <= 1:
+            raise AssertionError(f"B1 f32 {name}: {ratio} x the output bound (max |err| {err})")
+        v_tile = v.clone()
+        v_tile[:, :64] = 0
+        faults = {}
+        for fname, args in (
+                ("operands rounded to tf32", [tf32_round(torch, x) for x in (q, k, v)]),
+                ("window end off by one", (q, k, v, ends - 1)),
+                ("first k tile dropped from P.V", (q, k, v_tile)),
+                ("KV head of the wrong group", (q, k.roll(1, dims=2), v.roll(1, dims=2)))):
+            faults[fname] = _out_ratio(torch, f64(*args), ref, bound, rows)
+        del v_tile, bound
+        if min(faults.values()) <= 1:
+            raise AssertionError(f"B1 f32 {name}: the bound does not reject every fault: "
+                                 f"{faults}")
+        unequal = sum(not torch.equal(flash_attention_fwd(q, k, v, starts, ends, causal=causal),
+                                      got) for _ in range(REPEATS))
+        if unequal:
+            raise AssertionError(f"B1 f32 {name}: {unequal} of {REPEATS} repeats differ")
+        # S of the bound's derivation: the largest Dh^-0.5 sum_d |q_d k_d|
+        G = Hq // Hkv
+        s_max = (q.abs().transpose(1, 2) @ k.abs().repeat_interleave(G, 2).permute(0, 2, 3, 1)
+                 ).max().item() * Dh ** -0.5
+        t = timings(torch, lambda: flash_attention_fwd(q, k, v, starts, ends, causal=causal),
+                    lambda: flash_attention_reference(q, k, v, starts, ends, causal=causal))
+        t["library_ms"] = device_ms(torch, _sdpa_call(torch, q, k, v, rows, causal),
+                                    whole=False)
+        c = dict(B=B, Hq=Hq, Hkv=Hkv, Dh=Dh, causal=causal, starts=st, ends=en)
+        n_bytes, flops = _flash_work(c, T, elem_bytes=4)
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+        results[name] = dict(max_abs_err=err, **t)
+        emit("flash_attention_f32", case=name, shape=[B, T, Hq, Hkv, Dh], causal=causal,
+             ends=en, max_abs_err=err, out_err_over_bound=ratio,
+             plain_f32_err_over_bound=plain_ratio, out_atol=F32_OUT_ATOL,
+             out_rtol_of_abs_out_plus_abs_pv=F32_OUT_RTOL, s_max=s_max,
+             faults_over_bound=faults, repeats=REPEATS, unequal_repeats=unequal,
+             bytes=n_bytes, flops=flops, pct_of_bound=100 * t["bound_ms"] / t["ms"], **t,
+             card=card)
+    return results
+
+
 def _sdpa_call(torch, q, k, v, rows, causal):
     """``scaled_dot_product_attention`` over the same windows and GQA
     grouping, as a yardstick (the port never calls it)."""
@@ -502,12 +649,13 @@ def _sdpa_call(torch, q, k, v, rows, causal):
                                                   enable_gqa=kt.shape[1] != qt.shape[1])
 
 
-def _flash_work(c, T):
-    """(bytes, flops) of one B1 call: q, k, v read and out written once in
-    bf16; 2 flops per multiply-add of q.k and p.v over the valid
-    (query, key) pairs of each window."""
+def _flash_work(c, T, elem_bytes=2):
+    """(bytes, flops) of one B1 call: q, k, v read and out written once
+    (``elem_bytes`` each element: bf16, or 4 for float32); 2 flops per
+    multiply-add of q.k and p.v over the valid (query, key) pairs of each
+    window."""
     B, Hq, Hkv, Dh = c["B"], c["Hq"], c["Hkv"], c["Dh"]
-    n_bytes = 2 * B * T * Dh * (2 * Hq + 2 * Hkv)
+    n_bytes = elem_bytes * B * T * Dh * (2 * Hq + 2 * Hkv)
     pairs = 0
     for s0, e0 in zip(c["starts"], c["ends"]):
         n = e0 - s0
@@ -1589,15 +1737,21 @@ def phase_flash_train(torch, card):
         if min(faults.values()) <= 1:
             raise AssertionError(f"{name}: the bound does not reject every fault: {faults}")
 
-        # bit-identical repeats (the remat recompute relies on it)
-        out2, lse2 = flash_attention_fwd_lse(q, k, v, starts, ends, causal)
-        dq2 = flash_attention_bwd_dq(q, k, v, g, lse, delta, starts, ends, causal)
-        dk2, dv2 = flash_attention_bwd_dkv(q, k, v, g, lse, delta, starts, ends, causal)
-        same = {"out": torch.equal(out, out2), "lse": torch.equal(lse, lse2),
-                "dq": torch.equal(dq, dq2), "dk": torch.equal(dk, dk2),
-                "dv": torch.equal(dv, dv2)}
+        # bit-identical repeats (the remat recompute relies on it): REPEATS
+        # rounds of the three kernels in the training order, each output
+        # held to the first round's, the unequal ones counted
+        unequal = dict.fromkeys(("out", "lse", "dq", "dk", "dv"), 0)
+        for _ in range(REPEATS):
+            out2, lse2 = flash_attention_fwd_lse(q, k, v, starts, ends, causal)
+            dq2 = flash_attention_bwd_dq(q, k, v, g, lse, delta, starts, ends, causal)
+            dk2, dv2 = flash_attention_bwd_dkv(q, k, v, g, lse, delta, starts, ends, causal)
+            for key, a, b in (("out", out, out2), ("lse", lse, lse2), ("dq", dq, dq2),
+                              ("dk", dk, dk2), ("dv", dv, dv2)):
+                unequal[key] += not torch.equal(a, b)
+        same = {key: n == 0 for key, n in unequal.items()}
         if not all(same.values()):
-            raise AssertionError(f"{name}: two identical calls differ: {same}")
+            raise AssertionError(f"{name}: of {REPEATS} identical calls, these many differ from "
+                                 f"the first: {unequal}")
 
         work = _train_attn_work(c, T)
         sdpa_fwd, sdpa_fwd_bwd = _sdpa_train_calls(torch, q, k, v, g, rows, causal)
@@ -1631,7 +1785,8 @@ def phase_flash_train(torch, card):
              lse_atol=LSE_ATOL, lse_rtol=LSE_RTOL, out_max_abs_err=out_err,
              bwd_err_over_bound=ratios, bwd_rtol=BWD_RTOL, bwd_atol_of_row_rms=BWD_ATOL,
              bwd_floor_of_rms=BWD_FLOOR,
-             faults_over_bound=faults, bit_identical=same, sdpa_fwd_ms=sdpa_f,
+             faults_over_bound=faults, bit_identical=same, repeats=REPEATS,
+             unequal_repeats=unequal, sdpa_fwd_ms=sdpa_f,
              sdpa_fwd_bwd_ms=sdpa_fb, kernels=res, card=card)
     return results
 
@@ -2872,7 +3027,8 @@ def _wrappers():
     from llm_speech_summarization_tpu_torch.kernels.fused_paged import fused_paged_decode
     from llm_speech_summarization_tpu_torch.kernels.paged_attention import paged_decode_attention
 
-    return {"flash_attention": fa.flash_attention_fwd, "fused_decode": fused_decode,
+    return {"flash_attention": fa.flash_attention_fwd,
+            "flash_attention_f32": fa.flash_attention_fwd_f32, "fused_decode": fused_decode,
             "paged_attention": paged_decode_attention, "fused_paged": fused_paged_decode,
             "flash_attention_lse": fa.flash_attention_fwd_lse,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
@@ -4408,6 +4564,9 @@ AB_RUN = ("import importlib.util, sys, torch\n"
           "card = cs.phase_env(torch)\n"
           "cs.phase_build(card, require_no_spill=False)\n"
           "cs.phase_flash(torch, card)\n"
+          "import llm_speech_summarization_tpu_torch.kernels.flash_attention as fa\n"
+          "if hasattr(fa, 'flash_attention_fwd_f32'):\n"
+          "    cs.phase_flash_f32(torch, card)\n"
           "with torch.enable_grad():\n"
           "    cs.phase_flash_train(torch, card)\n"
           "    cs.phase_flash_ring(torch, card)\n"
@@ -4425,6 +4584,8 @@ def _ab_times(lines) -> dict:
     for x in lines:
         if x.get("phase") == "flash_attention":
             times[f"B1 {x['case']}"] = x
+        elif x.get("phase") == "flash_attention_f32":
+            times[f"B1 f32 {x['case']}"] = x
         elif x.get("phase") == "fused_decode":
             heads = "" if x["shape"][3] == 8 else f" Hkv={x['shape'][3]}"
             times[f"B2 B={x['shape'][1]} T={x['T']} S={x['shape'][4]}{heads}"] = x
@@ -4533,7 +4694,11 @@ def split_sweep() -> int:
 
 OFFLINE_DISK_GB = 15.0  # the most the offline phases hold on disk at once
 ST_DTYPES = {"BF16": (2, "bfloat16"), "F32": (4, "float32")}
-CTC_LOGIT_TOL = LOGIT_TOL  # bf16 kernel vs plain attention, per CTC logit
+# the CTC model's float32 logits through B1's float32 instance against the
+# same forward with the plain attention (both float32, TF32 off), per logit:
+# the attention differs by at most F32_OUT_RTOL relative per layer, and the
+# logits of the drawn model are ~1 in size
+CTC_F32_LOGIT_TOL = 1e-3
 
 
 def write_safetensors(torch, path, specs, make):
@@ -4817,16 +4982,23 @@ def phase_preprocess_full(torch, card, eng, ctc_file):
     engine (``llama3_hubert.yaml``, int8) generates the responses in one
     length-sorted batch of 32 (budget 2x the prompt), the converted
     HuBERT-large CTC model gives each clip's word offsets and pool ranges;
-    the 21 s clip is filtered. Counted: B1 per LLM layer per prefill and per
-    HuBERT layer per CTC clip, B2 per LLM layer per decode step. Then one
-    clip's CTC logits through B1 against the same forward with the plain
-    attention on the card: the argmax may differ only where the plain
-    logits' top-2 margin is at most 2 * CTC_LOGIT_TOL."""
+    the 21 s clip is filtered; ``load_ctc_fn`` runs the bf16 file in
+    float32. Counted: B1 per LLM layer per prefill, B1's float32 instance
+    per HuBERT layer per CTC clip, B2 per LLM layer per decode step. Then
+    one clip's float32 CTC logits through the float32 B1 against the same
+    forward with the plain float32 attention on the card: the argmax may
+    differ only where the plain logits' top-2 margin is at most 2 *
+    CTC_F32_LOGIT_TOL; the frames whose argmax the file's bf16 forward
+    flips are counted, TF32 is shown off inside the CTC forward and the
+    caller's setting back after it, and CTC ms per clip in float32 and
+    bf16 are timed in turns over 8 clips."""
     from llm_speech_summarization_tpu_torch.data.preprocess import (
         iter_preprocess_examples, load_ctc_fn,
     )
+    from llm_speech_summarization_tpu_torch.models import hubert as hubert_mod
     from llm_speech_summarization_tpu_torch.models.hubert import hubert_ctc_logits, hubert_preset
     from llm_speech_summarization_tpu_torch.train.checkpoint import load_params
+    from llm_speech_summarization_tpu_torch.train.state import tree_map
     from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
 
     rng = np.random.RandomState(9)
@@ -4877,7 +5049,7 @@ def phase_preprocess_full(torch, card, eng, ctc_file):
     # ---
     L, H = eng.llm_cfg.num_layers, hubert_preset("hubert_large").num_layers
     check_launches("preprocess_full", launches, {
-        "flash_attention": L * counts["prefills"] + H * len(ctc_s),
+        "flash_attention": L * counts["prefills"], "flash_attention_f32": H * len(ctc_s),
         "fused_decode": L * counts["decode_steps"]})
     if len(out) != PREPROCESS_EXAMPLES or len(ctc_s) != PREPROCESS_EXAMPLES:
         raise AssertionError(f"preprocess_full: {len(out)} rows, {len(ctc_s)} CTC clips")
@@ -4888,21 +5060,65 @@ def phase_preprocess_full(torch, card, eng, ctc_file):
             raise AssertionError("preprocess_full: a row out of the schema")
     generated = sum(len(x) for x in rows[:PREPROCESS_EXAMPLES])
 
-    # one clip: B1 against the plain attention, margin-aware
-    payload = load_params(ctc_file, "cuda")
-    enc, head = payload["enc_params"], payload["head_params"]
-    wav = torch.from_numpy(examples[0]["audio"][None]).to("cuda", torch.bfloat16)
+    # one clip: the float32 B1 against the plain attention, margin-aware
+    cfg = hubert_preset("hubert_large")
+    payload = load_params(ctc_file, "cuda")  # as stored: bf16
+    enc16, head16 = payload["enc_params"], payload["head_params"]
+    enc, head = (tree_map(lambda t: t.float(), x) for x in (enc16, head16))
+    wav = torch.from_numpy(examples[0]["audio"][None]).to("cuda")
+    forward, inside = hubert_mod.hubert_forward, []
+
+    def recorded(*a, **k):  # the TF32 settings the CTC forward runs under
+        inside.append((torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()))
+        return forward(*a, **k)
+
+    caller = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the package default, as a caller would leave it
+    hubert_mod.hubert_forward = recorded
     logits = {}
-    for plain in (False, True):
-        with torch.no_grad(), (plain_attention() if plain else contextlib.nullcontext()):
-            logits[plain] = hubert_ctc_logits(enc, head, hubert_preset("hubert_large"), wav)[0][0]
+    try:
+        for plain in (False, True):
+            with torch.no_grad(), (plain_attention() if plain else contextlib.nullcontext()):
+                logits[plain] = hubert_ctc_logits(enc, head, cfg, wav)[0][0]
+        restored = torch.backends.cudnn.allow_tf32
+    finally:
+        hubert_mod.hubert_forward = forward
+        torch.backends.cudnn.allow_tf32 = caller
+    if inside != [(False, "highest")] * 2 or restored is not True:
+        raise AssertionError(f"preprocess_full: TF32 settings inside the CTC forward {inside}, "
+                             f"cuDNN's after it {restored}")
+    with torch.no_grad():
+        logits_bf16 = hubert_ctc_logits(enc16, head16, cfg, wav.bfloat16())[0][0]
     ids_k, ids_p = logits[False].argmax(-1), logits[True].argmax(-1)
     top2 = torch.topk(logits[True], 2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
     flips = (ids_k != ids_p)
-    if bool((flips & (margin > 2 * CTC_LOGIT_TOL)).any()):
+    if bool((flips & (margin > 2 * CTC_F32_LOGIT_TOL)).any()):
         raise AssertionError(f"preprocess_full: CTC ids flip where the plain margin exceeds "
-                             f"{2 * CTC_LOGIT_TOL}: {int(flips.sum())} flips")
+                             f"{2 * CTC_F32_LOGIT_TOL}: {int(flips.sum())} flips")
+    bf16_flips = int((logits_bf16.argmax(-1) != ids_k).sum())
+
+    # CTC ms per clip, float32 (``ctc_fn``) and the file's bf16, in turns
+    def bf16_ctc(audio):  # make_ctc_fn's bucketing on the bf16 trees
+        n = len(audio)
+        padded = np.zeros((1, max(16000, -(-n // 16000) * 16000)), np.float32)
+        padded[0, :n] = audio
+        mask = torch.zeros(padded.shape, dtype=torch.bool)
+        mask[0, :n] = True
+        mask = mask.to("cuda")
+        with torch.no_grad():
+            lg, fm = hubert_ctc_logits(enc16, head16, cfg,
+                                       torch.from_numpy(padded).to("cuda", torch.bfloat16), mask)
+            return lg[0, :int(fm[0].sum())].argmax(-1).cpu().numpy()
+
+    turns = {"float32": [], "bfloat16": []}
+    for i, e in enumerate(examples[:8]):
+        order = (("float32", ctc_fn), ("bfloat16", bf16_ctc))
+        for dt, fn in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(e["audio"])  # ends in a copy to the host
+            turns[dt].append(1e3 * (time.perf_counter() - t0))
     emit("preprocess_full", config="llama3_hubert.yaml", llm="converted checkpoint, int8",
          ctc="converted hubert-large CTC, vocab 32", examples=len(examples),
          rows_kept=len(out), response_batch_size=32, response_s=sum(gen_s),
@@ -4910,9 +5126,15 @@ def phase_preprocess_full(torch, card, eng, ctc_file):
          decode_steps=counts["decode_steps"], ctc_clips=len(ctc_s),
          ctc_ms_per_clip=1e3 * statistics.mean(ctc_s), ctc_ms_max=1e3 * max(ctc_s),
          wall_s=wall, ranges_per_clip=statistics.mean(len(r["pool_ranges_4"]) for r in out),
-         ctc_frames_checked=int(ids_k.numel()), ctc_id_flips=int(flips.sum()),
+         ctc_dtype="float32", ctc_frames_checked=int(ids_k.numel()),
+         ctc_id_flips=int(flips.sum()),
          ctc_max_abs_logit_diff=float((logits[False] - logits[True]).abs().max()),
-         ctc_logit_tol=CTC_LOGIT_TOL, launches=launches, engine_counts=counts, card=card)
+         ctc_logit_tol=CTC_F32_LOGIT_TOL, ctc_id_flips_bf16_vs_f32=bf16_flips,
+         ctc_max_abs_logit_diff_bf16_vs_f32=float((logits_bf16 - logits[False]).abs().max()),
+         tf32_inside_ctc_forward=inside, cudnn_tf32_after=restored,
+         ctc_ms_per_clip_turns={dt: statistics.mean(v) for dt, v in turns.items()},
+         ctc_turns_clips=len(turns["float32"]), launches=launches, engine_counts=counts,
+         card=card)
     return launches
 
 
@@ -4998,8 +5220,9 @@ def phase_ckpt_full(torch, card, export_file, ctc_file):
     ``llama3_hubert.yaml`` (counted), its rows equal to per-batch calls of
     an engine handed the same encoder tree; then ``cli/infer.py --ctc
     <converted CTC>`` on BASELINE config #1 (``minichat_hubert.yaml``,
-    hubert-base, ``ctc_pool``, int8) over 8 of those clips (counted): CTC ms
-    per clip and utt/s."""
+    hubert-base, ``ctc_pool``, int8) over 8 of those clips (counted; the CTC
+    model in float32, B1's float32 instance per HuBERT-large layer per
+    clip): CTC ms per clip and utt/s."""
     import shutil
     import tempfile
 
@@ -5083,7 +5306,7 @@ def phase_ckpt_full(torch, card, export_file, ctc_file):
         launches8 = read_launches()
         counts8 = dict(eng.counts)
         want8 = _expected_batch_launches(eng, counts8)
-        want8["flash_attention"] += hubert_preset("hubert_large").num_layers * 8
+        want8["flash_attention_f32"] = hubert_preset("hubert_large").num_layers * 8
         check_launches("ckpt_full --ctc", launches8, want8)
         runs.append(launches8)
         with open(out8) as f:
@@ -5232,6 +5455,7 @@ def main() -> int:
     torch.set_grad_enabled(False)
     phase_build(card)
     flash = phase_flash(torch, card)
+    flash_f32 = phase_flash_f32(torch, card)
     with torch.enable_grad():  # the SDPA yardstick's backward
         flash_train = phase_flash_train(torch, card)
         flash_ring = phase_flash_ring(torch, card)
@@ -5340,6 +5564,9 @@ def main() -> int:
     kernels = [
         entry("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:37",
               "flash_attention", flash["llm_prefill"], [r["max_abs_err"] for r in flash.values()]),
+        entry("flash_attention_fwd_f32", "flash_attention_f32.cu", "flash_attention.py:37",
+              "flash_attention_f32", flash_f32["ctc_10s"],
+              [r["max_abs_err"] for r in flash_f32.values()]),
         entry("fused_decode", "fused_decode.cu", "fused_decode.py:375", "fused_decode",
               fused[(16, 1, 384)], [r["max_abs_err"] for r in fused.values()]),
         entry("paged_decode_attention", "paged_attention.cu", "paged_attention.py:115",

@@ -13,7 +13,8 @@ are written and flushed as the batch completes.
 ``-p`` loads the audio encoder from a file (``export_encoder`` or
 ``cli/convert.py encoder``). A ``ctc_pool`` config needs ``--ctc``, a
 ``cli/convert.py ctc`` file: each clip's pool ranges come from its HuBERT-CTC
-word offsets (``data/preprocess.py::pool_ranges_for_audio``).
+word offsets (``data/preprocess.py::pool_ranges_for_audio``), the CTC model
+run in float32 as the JAX package runs it.
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ def main(argv=None):
                         "(0 = off; the same tokens)")
     parser.add_argument("--ctc", type=str, default=None,
                         help="HuBERT-CTC file (cli/convert.py ctc), required for ctc_pool "
-                        "configs: each clip's pool ranges from its CTC word offsets")
+                        "configs: each clip's pool ranges from its CTC word offsets; the model "
+                        "runs in float32 whatever dtype the file stores")
     parser.add_argument("--ctc_preset", type=str, default="hubert_large")
     parser.add_argument("--ctc_vocab", type=int, default=32)
     parser.add_argument("--device", type=str, default=None,

@@ -33,7 +33,8 @@ def main(argv=None) -> int:
     parser.add_argument("--limit", type=int, default=None)
     parser.add_argument("--ctc", type=str, default=None,
                         help="HuBERT-CTC file (cli/convert.py ctc) -> word offsets and "
-                        "pool_ranges_4 (steps 3-4); without it those columns are empty, the "
+                        "pool_ranges_4 (steps 3-4); the model runs in float32 whatever dtype "
+                        "the file stores; without it those columns are empty, the "
                         "reference's Llama-3 variant")
     parser.add_argument("--ctc_preset", type=str, default="hubert_large",
                         help="HuBERT preset of the --ctc checkpoint")

@@ -150,14 +150,21 @@ def get_ctc_pool_ranges(word_offsets: List[Dict[str, int]],
 def make_ctc_fn(enc_params, head_params, enc_cfg, blank_id: int = 0, word_delim_id: int = 4):
     """The ``ctc_fn(audio) -> (pred_ids, blank_id, word_delim_id)`` of
     :func:`iter_preprocess_examples` from a HuBERT-CTC tree
-    (``models/convert.py::convert_hubert_ctc``), run on the device and in
-    the dtype of its parameters. Each clip is zero-padded to a whole number
-    of seconds (at least one, as the JAX package buckets it) with a
+    (``models/convert.py::convert_hubert_ctc``), run on the device of its
+    parameters and in float32 whatever dtype they come in (the JAX package
+    restores the model into a float32 template): on the card through B1's
+    float32 instance, without TF32. Each clip is zero-padded to a whole
+    number of seconds (at least one, as the JAX package buckets it) with a
     sample mask; the argmax runs over its valid frames. The default ids
     are the wav2vec2/HuBERT CTC vocabulary's: ``<pad>`` = 0 is the blank,
     ``|`` = 4 the word delimiter."""
     from ..models.hubert import hubert_ctc_logits
+    from ..train.state import tree_map
 
+    def f32(t):
+        return t.float() if t.is_floating_point() else t
+
+    enc_params, head_params = tree_map(f32, enc_params), tree_map(f32, head_params)
     ref = enc_params["fp_w"]
     bucket = 16000  # 1 s at 16 kHz
 
@@ -183,8 +190,9 @@ def make_ctc_fn(enc_params, head_params, enc_cfg, blank_id: int = 0, word_delim_
 def load_ctc_fn(checkpoint_path: str, preset: str = "hubert_large", vocab_size: int = 32,
                 device=None):
     """A ``cli/convert.py ctc`` file → a ready ``ctc_fn`` on ``device``
-    (None: the CUDA card, raising without one), in the file's dtype. The
-    head must have ``vocab_size`` classes."""
+    (None: the CUDA card, raising without one), in float32 whatever dtype
+    the file stores (``cli/convert.py`` writes bf16 by default), as the JAX
+    package restores it. The head must have ``vocab_size`` classes."""
     from ..device import resolve_device
     from ..models.hubert import hubert_preset
     from ..train.checkpoint import load_params

@@ -22,6 +22,14 @@ row with no valid key gets -1e30, as the TPU kernel writes. CPU tensors
 take the plain versions; CUDA tensors launch the kernels, and any shape,
 dtype or layout the kernels do not take raises.
 
+B1 has a float32 instance, ``flash_attention_fwd_f32`` (``csrc/
+flash_attention_f32.cu``, its own library and launch count), for models the
+JAX package runs in float32 (the HuBERT-CTC model): the forward alone, no
+log-sum-exp, offset mode or backward. ``flash_attention_fwd`` and
+``flash_attention`` route CUDA tensors by dtype: bfloat16 to the bf16
+kernel, float32 to the float32 one; float16, mixed dtypes and float32 with
+a log-sum-exp, offsets or a gradient raise, naming what is not ported.
+
 Offset mode (B7): ``flash_attention_fwd_lse_offset``,
 ``flash_attention_bwd_dq_offset`` and ``flash_attention_bwd_dkv_offset``
 take ``offsets`` = (q_off, k_off), two host ints that place the queries and
@@ -43,6 +51,7 @@ from .build import check_status, count_launch, load_library
 SOURCES = ("flash_attention.cu", "flash_sm90.cuh")
 BWD_SOURCES = ("flash_attention_bwd.cu", "flash_sm90.cuh")
 DKV_SOURCES = ("flash_attention_bwd_dkv.cu", "flash_sm90.cuh")
+F32_SOURCES = ("flash_attention_f32.cu",)
 
 
 def flash_attention_reference(
@@ -63,13 +72,14 @@ def flash_attention_reference(
 
 
 def _masked_scores(q, k, starts, ends, causal, offsets=None):
-    """float32 scores (B, Hkv, G, T, S) = scale * q.k^T and the key mask
-    (B, 1, 1, T, S) of the window and the causal rule, shifted by
-    ``offsets`` = (q_off, k_off) when given."""
+    """float32 (float64 for float64 q) scores (B, Hkv, G, T, S) = scale *
+    q.k^T and the key mask (B, 1, 1, T, S) of the window and the causal
+    rule, shifted by ``offsets`` = (q_off, k_off) when given."""
     B, T, Hq, Dh = q.shape
     Hkv = k.shape[2]
-    qg = q.reshape(B, T, Hkv, Hq // Hkv, Dh).float()
-    s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * Dh ** -0.5
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, Dh).to(acc)
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k.to(acc)) * Dh ** -0.5
     pos = torch.arange(T, dtype=torch.int32, device=q.device)
     mask = (pos[None, :] >= starts[:, None]) & (pos[None, :] < ends[:, None])  # keys
     mask = mask[:, None, None, None, :]
@@ -83,14 +93,15 @@ def flash_attention_lse_reference(q, k, v, starts, ends, causal=True, offsets=No
     """Plain version of the forward with log-sum-exp: (out (B, T, Hq, Dh) in
     q's dtype, lse (B, Hq, T) float32). As the TPU kernel: masked scores are
     -1e30, p is rounded to v's dtype before the value product, the
-    denominator and the log are floored at 1e-30."""
+    denominator and the log are floored at 1e-30. float64 inputs run in
+    float64 throughout (the float32 kernel's yardstick)."""
     B, T, Hq, Dh = q.shape
     s, mask = _masked_scores(q, k, starts, ends, causal, offsets)
     s = torch.where(mask, s, NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bhgts,bshd->bthgd", p.to(v.dtype).float(), v.float()) / (
+    out = torch.einsum("bhgts,bshd->bthgd", p.to(v.dtype).to(s.dtype), v.to(s.dtype)) / (
         l.permute(0, 3, 1, 2, 4))
     lse = (m + torch.log(l))[..., 0].reshape(B, Hq, T)
     return out.reshape(B, T, Hq, Dh).to(q.dtype), lse
@@ -133,11 +144,23 @@ def flash_attention_fwd(
     ends: torch.Tensor,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Attention over per-sample key windows; (B, T, Hq, Dh) out."""
+    """Attention over per-sample key windows; (B, T, Hq, Dh) out in q's
+    dtype. CUDA tensors go to the bf16 kernel or, in float32, to
+    ``flash_attention_fwd_f32``."""
     if _devices("flash_attention_fwd", (q, k, v, starts, ends)) == "cpu":
         return flash_attention_reference(q, k, v, starts, ends, causal)
+    if _route("flash_attention_fwd", q, k, v, float32=True) == torch.float32:
+        return _launch_fwd_f32(flash_attention_fwd_f32, q, k, v, starts, ends, causal)
     out, _ = _launch_fwd(flash_attention_fwd, q, k, v, starts, ends, causal, with_lse=False)
     return out
+
+
+def flash_attention_fwd_f32(q, k, v, starts, ends, causal=True):
+    """B1's float32 instance: float32 q, k, v in, float32 out, every score,
+    p and sum in float32 (the TPU kernel at float32 operands)."""
+    if _devices("flash_attention_fwd_f32", (q, k, v, starts, ends)) == "cpu":
+        return flash_attention_reference(q, k, v, starts, ends, causal)
+    return _launch_fwd_f32(flash_attention_fwd_f32, q, k, v, starts, ends, causal)
 
 
 def flash_attention_fwd_lse(q, k, v, starts, ends, causal=True):
@@ -191,8 +214,8 @@ def _bwd(wrapper, tensors, causal, offsets):
     return _launch_bwd(wrapper, *tensors, causal, offsets)
 
 
-for _wrapper in (flash_attention_fwd, flash_attention_fwd_lse, flash_attention_bwd_dq,
-                 flash_attention_bwd_dkv, flash_attention_fwd_lse_offset,
+for _wrapper in (flash_attention_fwd, flash_attention_fwd_f32, flash_attention_fwd_lse,
+                 flash_attention_bwd_dq, flash_attention_bwd_dkv, flash_attention_fwd_lse_offset,
                  flash_attention_bwd_dq_offset, flash_attention_bwd_dkv_offset):
     _wrapper.launches = 0
 _DKV_WRAPPERS = (flash_attention_bwd_dkv, flash_attention_bwd_dkv_offset)
@@ -226,8 +249,9 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, starts, ends, causal: bool = True) -> torch.Tensor:
     """Differentiable attention over per-sample key windows. Where no
     gradient is wanted (grad mode off, or no input requires one) it is the
-    plain forward kernel ``flash_attention_fwd``; otherwise the forward also
-    writes the log-sum-exp and the backward runs kernel B6."""
+    plain forward kernel ``flash_attention_fwd`` (bf16 or float32);
+    otherwise the forward also writes the log-sum-exp and the backward runs
+    kernel B6 (bf16 only: float32 with a gradient raises on the card)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, starts, ends, causal)
     return flash_attention_fwd(q, k, v, starts, ends, causal)
@@ -242,6 +266,16 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _f32_lib():
+    """B1's float32 library: ``lss_flash_attention_f32_fwd``."""
+    fn = load_library("flash_attention_f32", F32_SOURCES).lss_flash_attention_f32_fwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -266,20 +300,40 @@ def _bwd_entry(fn, outs):
     return fn
 
 
-def _check_operand(what: str, name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: {name} must be bfloat16, got {t.dtype}")
-    # TMA's rules: 16-byte aligned base and byte strides that are positive
-    # multiples of 16 (a dimension of size 1 never uses its stride)
-    bad = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1 and (s <= 0 or s % 8)]
+def _route(what, q, k, v, float32=False):
+    """The dtype a CUDA call runs in: bfloat16, or float32 where
+    ``float32`` (B1's forward, the one float32 instance). Anything else
+    raises, naming what is not ported."""
+    dtypes = {q.dtype, k.dtype, v.dtype}
+    if len(dtypes) > 1:
+        raise ValueError(f"{what}: mixed dtypes q {q.dtype}, k {k.dtype}, v {v.dtype} are not "
+                         f"ported; q, k and v must share bfloat16 or float32")
+    dtype = dtypes.pop()
+    if dtype == torch.float32 and not float32:
+        raise ValueError(f"{what}: float32 is not ported here; B1's forward alone has a float32 "
+                         f"instance (no log-sum-exp, offset mode or backward)")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: {dtype} is not ported; the kernels take bfloat16, and B1's "
+                         f"forward float32")
+    return dtype
+
+
+def _check_operand(what: str, name: str, t: torch.Tensor, dtype=torch.bfloat16) -> None:
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: {name} must be {str(dtype)[6:]}, got {t.dtype}")
+    # 16-byte aligned base and byte strides that are positive multiples of
+    # 16 (a dimension of size 1 never uses its stride): TMA's rules for the
+    # bf16 kernels, the float4 row loads of the float32 one
+    step = 16 // t.element_size()
+    bad = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1 and (s <= 0 or s % step)]
     if t.stride(-1) != 1 or bad or t.data_ptr() % 16:
         raise ValueError(
             f"{what}: {name} needs a unit last stride, (b, t, h) strides that are positive "
-            f"multiples of 8 and a 16-byte aligned base; got strides {t.stride()}"
+            f"multiples of {step} and a 16-byte aligned base; got strides {t.stride()}"
         )
 
 
-def _check_shapes(what, q, k, v, starts, ends, others=()):
+def _check_shapes(what, q, k, v, starts, ends, others=(), dtype=torch.bfloat16):
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{what}: q, k, v must be (B, T, H, Dh)")
     B, T, Hq, Dh = q.shape
@@ -292,7 +346,7 @@ def _check_shapes(what, q, k, v, starts, ends, others=()):
     if Dh not in (64, 128):
         raise ValueError(f"{what}: the kernel takes Dh in (64, 128), got {Dh}")
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(others):
-        _check_operand(what, name, t)
+        _check_operand(what, name, t, dtype)
     for name, t in (("starts", starts), ("ends", ends)):
         if t.dtype != torch.int32 or t.shape != (B,) or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous ({B},) int32 tensor")
@@ -302,6 +356,7 @@ def _check_shapes(what, q, k, v, starts, ends, others=()):
 
 
 def _launch_fwd(wrapper, q, k, v, starts, ends, causal, with_lse, offsets=None):
+    _route(wrapper.__name__, q, k, v)
     B, T, Hq, Hkv, Dh = _check_shapes(wrapper.__name__, q, k, v, starts, ends)
     out = torch.empty((B, T, Hq, Dh), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
@@ -321,6 +376,22 @@ def _launch_fwd(wrapper, q, k, v, starts, ends, causal, with_lse, offsets=None):
     return out, lse
 
 
+def _launch_fwd_f32(wrapper, q, k, v, starts, ends, causal):
+    B, T, Hq, Hkv, Dh = _check_shapes(wrapper.__name__, q, k, v, starts, ends,
+                                      dtype=torch.float32)
+    out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
+                                         + out.stride()[:3]))
+    fn = _f32_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), starts.data_ptr(),
+                    ends.data_ptr(), B, T, Hq, Hkv, Dh, strides, int(causal), Dh ** -0.5, stream)
+    count_launch(wrapper)
+    check_status(status, wrapper.__name__)
+    return out
+
+
 def _offsets(what, offsets):
     """(q_off, k_off) as host ints; (0, 0) without offset mode."""
     if offsets is None:
@@ -332,6 +403,7 @@ def _offsets(what, offsets):
 
 def _launch_bwd(wrapper, q, k, v, dout, lse, delta, starts, ends, causal, offsets=None):
     what = wrapper.__name__
+    _route(what, q, k, v)
     B, T, Hq, Hkv, Dh = _check_shapes(what, q, k, v, starts, ends, (("dout", dout),))
     if dout.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(dout.shape)} does not match q {tuple(q.shape)}")

@@ -8,6 +8,8 @@ attention (B1 forward, B6 backward) with per-sample windows ``[0,
 n_valid)``, so padded frames are masked and any frame count runs without
 padding. GELU is exact (erf). ``remat`` recomputes each transformer layer
 in the backward (``torch.utils.checkpoint``, the JAX ``jax.checkpoint``).
+A float32 forward on the card (the HuBERT-CTC model, ``hubert_ctc_logits``)
+runs B1's float32 instance, and its convolutions and products without TF32.
 
 Sequence parallelism (``sp_group``, the long-audio trainer): the waveform
 and the frames shard over the group's ranks. The conv stem borrows its
@@ -29,6 +31,7 @@ the large one for tests.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -382,6 +385,24 @@ def init_hubert_ctc_head(generator: torch.Generator, cfg: HubertConfig, vocab_si
             "ctc_b": torch.zeros((vocab_size,), dtype=dtype, device=device)}
 
 
+@contextlib.contextmanager
+def full_float32(x: torch.Tensor):
+    """Where ``x`` is a float32 CUDA tensor, the block's float32 products
+    and cuDNN convolutions run in float32, not TF32 (cuDNN's default); the
+    caller's settings come back afterwards."""
+    if not (x.is_cuda and x.dtype == torch.float32):
+        yield
+        return
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
 def hubert_ctc_logits(
     params: Params,
     head: Params,
@@ -390,7 +411,9 @@ def hubert_ctc_logits(
     wav_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """waveform → (framewise CTC logits (B, T, V) float32, frame_mask); the
-    HuBERT forward inside runs B1 on the card."""
-    frames, frame_mask = hubert_forward(params, cfg, wav, wav_mask)
-    logits = frames @ head["ctc_w"].to(frames.dtype) + head["ctc_b"]
+    HuBERT forward inside runs B1 on the card, in float32 (B1's float32
+    instance, no TF32) for a float32 waveform and tree."""
+    with full_float32(wav):
+        frames, frame_mask = hubert_forward(params, cfg, wav, wav_mask)
+        logits = frames @ head["ctc_w"].to(frames.dtype) + head["ctc_b"]
     return logits.float(), frame_mask

@@ -545,3 +545,47 @@ def test_wgmma_wrappers_refuse_views_tma_cannot_take_on_card(card):
             flash_attention_bwd_dq(ok, bad, ok, ok, lse, lse, idx, end)
     assert (flash_attention_fwd.launches, flash_attention_bwd_dkv.launches) == before[:2]
     assert flash_attention_bwd_dq.launches == before[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("name", sorted(FLASH_EDGE_CASES))
+def test_f32_kernel_at_tile_edges_on_card(card, name, fused):
+    """B1's float32 instance (``csrc/flash_attention_f32.cu``, reached
+    through ``flash_attention_fwd`` and ``flash_attention`` by dtype) at the
+    tile edges above against the plain version run in float64, within
+    chip_smoke.py's F32_OUT_ATOL + F32_OUT_RTOL (|out| + (P.|V|)/l) = 1e-7 +
+    2e-5 (...) on the valid rows; rows that see no key are zeros; one launch
+    a call under its own count; repeats bit-identical; float32 with a
+    gradient raises without a launch."""
+    spec, causal = FLASH_EDGE_CASES[name]
+    arrays = _flash_case(23, **spec)
+    B, T, Hq, Dh = arrays[0].shape
+    Hkv = arrays[1].shape[2]
+    if fused:
+        qkv = torch.from_numpy(np.concatenate([a.reshape(B, T, -1) for a in arrays[:3]], -1))
+        qkv = qkv.to(card)
+        q = qkv[..., :Hq * Dh].unflatten(-1, (Hq, Dh))
+        k = qkv[..., Hq * Dh:(Hq + Hkv) * Dh].unflatten(-1, (Hkv, Dh))
+        v = qkv[..., (Hq + Hkv) * Dh:].unflatten(-1, (Hkv, Dh))
+    else:
+        q, k, v = (torch.from_numpy(a).to(card) for a in arrays[:3])
+    st, en = (torch.from_numpy(a).to(card) for a in arrays[3:])
+    before = (fa_mod.flash_attention_fwd_f32.launches, flash_attention_fwd.launches)
+    out = torch_flash_attention(q, k, v, st, en, causal)
+    assert out.dtype == torch.float32
+    assert (fa_mod.flash_attention_fwd_f32.launches - before[0],
+            flash_attention_fwd.launches - before[1]) == (1, 0)
+    f64 = [t.double() for t in (q, k, v)]
+    ref, lse = fa_mod.flash_attention_lse_reference(*f64, st, en, causal)
+    abs_pv = fa_mod.flash_attention_lse_reference(*f64[:2], f64[2].abs(), st, en, causal)[0]
+    rows = torch.from_numpy(_valid_rows(arrays[3], arrays[4], T)).to(card)
+    bound = 1e-7 + 2e-5 * (ref.abs() + abs_pv)
+    assert ((out.double() - ref).abs() <= bound)[rows].all()
+    keyless = (lse < -1e29).transpose(1, 2)  # (B, T, Hq)
+    assert (out[keyless] == 0).all() and torch.isfinite(out).all()
+    assert torch.equal(out, fa_mod.flash_attention_fwd_f32(q, k, v, st, en, causal))
+    launches = fa_mod.flash_attention_fwd_f32.launches
+    with pytest.raises(ValueError, match="float32 is not ported here"):
+        torch_flash_attention(q.detach().clone().requires_grad_(), k, v, st, en, causal)
+    assert fa_mod.flash_attention_fwd_f32.launches == launches
