@@ -5,13 +5,13 @@
 
 Phases, in order; each prints one line and any failure raises:
   1. environment: the card's name and power limit, torch/CUDA versions;
-  2. build the eight CUDA kernel libraries from ``llm_speech_summarization_tpu_
+  2. build the nine CUDA kernel libraries from ``llm_speech_summarization_tpu_
      torch/kernels/csrc`` with nvcc, one process per library, all at once,
      and print the registers and spill bytes of the wgmma kernels (the
      flash forward, dq and dk/dv) at each Dh, failing on any spill, and
-     of the decode body's dense and paged instances and B1's float32
-     instance (reported only), the 4-row paged instances MiniChat's group
-     of 1 selects named apart;
+     of the decode body's dense and paged instances, B1's float32
+     instance and the float32 decode body's instances (reported only), the
+     4-row paged instances MiniChat's group of 1 selects named apart;
   3. flash attention (B1) against its plain version run in float32 at the
      main paths' six shapes (the Llama and MiniChat prefills, HuBERT-large,
      HuBERT-base and Whisper self-attention, one tensor-parallel rank's
@@ -54,6 +54,16 @@ Phases, in order; each prints one line and any failure raises:
      T=3 and over an int8 cache with one layer's scales, B8 over a bf16
      and an int8 cache, writes bit-exact, with injected faults the bound
      must reject;
+  7a. the float32 decode instances (B2, B3, B4, B5 and B8 at a float32
+     query, ``csrc/decode_f32.cu``) at the float32 serving path's shapes
+     (Llama's 24/8 heads: B2 over the int8 cache at B=8, 16, 128 and B=16
+     T=3; B3 over float32, bf16 and int8 caches; B4 at T=4 and B5 over
+     int8, float32 and bf16 pools; B8 over float32, int8 and bf16 caches)
+     against the plain version run in float64 within F32_OUT_ATOL +
+     F32_OUT_RTOL (|out| + (P.|V|)/l), with faults the bound must reject
+     (TF32-rounded operands, p rounded to bf16, a window end off by one,
+     the KV head of the wrong group), writes bit-exact, REPEATS bit-equal
+     repeats, torch.cat + SDPA at float32 timed beside B8;
   8. the slice at a small kernel-legal width on the card and on the CPU,
      from the same weights: the HuBERT batch path on an int8 cache, the
      Whisper one on a bf16 cache and BASELINE config #1's layout
@@ -75,6 +85,14 @@ Phases, in order; each prints one line and any failure raises:
      unsharded engine margin-aware, rank 1's rows equal to rank 0's, each
      rank's launches equal to its counts, the unsharded batch path and
      servers timed beside them;
+ 11e. f32_full: ``llama3_hubert.yaml`` at ``compute_dtype: float32`` on
+     the batch path's weights (the int8 LLM, float32 norms and encoder):
+     B=8 x 10 s over the int8 cache (B1 and B2 at float32) and over a
+     float32 cache (B3), each teacher-forced through the kernels and the
+     plain attention, greedy rows held margin-aware (F32_LOGIT_TOL);
+     ``attn_impl="pallas"`` (B8 at float32) held to the B3 rows; a paged
+     server with speculative chunks, a burst of 8 (B4 and B5 at float32);
+     the tokens that differ from the bf16 engine's rows, for information;
  11a. BASELINE config #1 at published widths (``minichat_hubert.yaml`` with
      hubert-base, int8 weights and cache): B=8 clips of 10 s through
      ``generate_audio_response_batch`` with the ``pool`` projector, then
@@ -387,6 +405,8 @@ def phase_build(card, require_no_spill=True):
             fused_decode._lib, paged_attention._lib, fused_paged._lib, decode_attention._lib)
     f32_lib = getattr(flash_attention, "_f32_lib", None)  # None in an older checkout (A/B)
     libs += (f32_lib,) if f32_lib else ()
+    decode_f32_lib = getattr(fused_decode, "_f32_lib", None)  # ditto
+    libs += (decode_f32_lib,) if decode_f32_lib else ()
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(lib) for lib in libs]:
             fut.result()
@@ -438,6 +458,15 @@ def phase_build(card, require_no_spill=True):
                                                          flash_attention.F32_SOURCES):
             dh = int(re.search(r"Li(\d+)E", kernel).group(1))
             f32[f"Dh={dh}"] = [n_regs, spill]
+    # the float32 decode body's instances (cache type, Dh, write, paged)
+    if decode_f32_lib:
+        cts = {"a": "int8", "f": "float32", "13__nv_bfloat16": "bf16"}
+        for kernel, n_regs, spill in build.ptxas_report("decode_f32", fused_decode.F32_SOURCES):
+            m = re.search(r"decode_f32_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELb(\d)ELb(\d)E",
+                          kernel)
+            if m:
+                f32[f"decode {cts[m.group(1)]} Dh={m.group(2)} write={m.group(3)} "
+                    f"paged={m.group(4)}"] = [n_regs, spill]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()},
          wgmma_kernels=regs, decode_kernels=decode, f32_kernels_registers_spill=f32,
@@ -1292,6 +1321,458 @@ def phase_dense_decode(torch, card):
              **check, atol=PAGED_ATOL, rtol=PAGED_RTOL, bytes=n_bytes, flops=flops, **t,
              library="torch.cat + scaled_dot_product_attention" if not quantized else None,
              card=card)
+    return results
+
+
+# The float32 decode instances (B2, B3, B4, B5 and B8 at a float32 query,
+# csrc/decode_f32.cu) at the float32 serving path's shapes: Llama-3.2-3B's
+# 24/8 heads at Dh=128, the batch path's S=384 dense cache and the paged
+# server's pools (ps=128, mp=7). B2 over the int8 cache at the batch path's
+# B=8, the server's B=16 (T=1 and the speculative T=3) and bench.py's
+# B=128; B3 over a float32 cache (kv_cache_dtype null at compute_dtype
+# float32) at T=1 and T=3, a bf16 cache and an int8 cache with one layer's
+# scales; B4 (T=4) and B5 (T=1) over int8, float32 and bf16 pools; B8 over
+# float32, int8 and bf16 caches at offset 368
+F32_DECODE_B2 = ((8, 1), (16, 1), (128, 1), (16, 3))  # (B, T), int8 cache, S=384
+F32_DECODE_B3 = (("float32", 1), ("float32", 3), ("bfloat16", 1), ("int8", 1))  # B=8
+F32_DECODE_POOLS = ("int8", "float32", "bfloat16")
+F32_DECODE_S = 384
+F32_DECODE_B8_OFFSET = 368
+
+
+def _f64_decode(torch, q, k, v, kn, vn, valid, p_round=None):
+    """float64 decode attention, the float32 instances' yardstick: q (B, T,
+    Hq, Dh) over the dense float64 k/v (B, Hkv, S, Dh), already times their
+    scales, where ``valid`` (B, S), plus the fresh block (B, T, Hkv, Dh)
+    causally. ``p_round`` ("tf32" or "bf16") rounds p before P.V (not in the
+    denominator): the faults of a kernel that rounds p."""
+    B, T, Hq, Dh = q.shape
+    Hkv = k.shape[1]
+    qg = q.double().reshape(B, T, Hkv, Hq // Hkv, Dh)
+    neg = torch.full((), float("-inf"), dtype=torch.float64, device=q.device)
+    s = torch.einsum("bthgd,bhsd->bthgs", qg, k) * Dh ** -0.5
+    s = torch.where(valid[:, None, None, None, :], s, neg)
+    s_f = torch.einsum("bthgd,bshd->bthgs", qg, kn.double()) * Dh ** -0.5
+    causal = torch.arange(T, device=q.device)[:, None] >= torch.arange(T, device=q.device)
+    s_f = torch.where(causal[None, :, None, None, :], s_f, neg)
+    m = torch.maximum(s.amax(-1, keepdim=True), s_f.amax(-1, keepdim=True))
+    p, p_f = torch.exp(s - m), torch.exp(s_f - m)
+    den = p.sum(-1, keepdim=True) + p_f.sum(-1, keepdim=True)
+    if p_round == "bf16":
+        p, p_f = (x.float().bfloat16().double() for x in (p, p_f))
+    elif p_round == "tf32":
+        p, p_f = (tf32_round(torch, x.float()).double() for x in (p, p_f))
+    o = (torch.einsum("bthgs,bhsd->bthgd", p, v)
+         + torch.einsum("bthgs,bshd->bthgd", p_f, vn.double()))
+    return (o / den).reshape(B, T, Hq, Dh)
+
+
+def _f64_dense(torch, c, layer):
+    """(k, v) of one layer of a dense case's cache as float64 times scales."""
+    k, v = c["kc"][layer].double(), c["vc"][layer].double()
+    if c["ks"] is not None:
+        ks, vs = ((x if x.dim() == 3 else x[layer]).double() for x in (c["ks"], c["vs"]))
+        k, v = k * ks[..., None], v * vs[..., None]
+    return k, v
+
+
+def _f64_paged(torch, c, layer):
+    """(k, v) of one layer of a paged case's pools gathered through the table
+    into dense (B, Hkv, mp * ps, Dh) float64, times scales."""
+    t = c["table"].long()
+    B, mp = t.shape
+    _, _, Hkv, ps, Dh = c["kp"].shape
+
+    def dense(pool, sc):
+        x = pool[layer][t].double()  # (B, mp, Hkv, ps, Dh)
+        if sc is not None:
+            x = x * sc[layer][t].double()[..., None]
+        return x.transpose(1, 2).reshape(B, Hkv, mp * ps, Dh)
+
+    return dense(c["kp"], c["ks"]), dense(c["vp"], c["vs"])
+
+
+def _f32_decode_check(torch, what, got, c, kv, rows):
+    """Hold ``got`` to the float64 plain version on ``rows`` (B,) within
+    F32_OUT_ATOL + F32_OUT_RTOL (|out| + (P.|V|)/l), and show the bound
+    rejects TF32-rounded operands (q, the fresh k/v and a float cache
+    rounded to TF32, an int8 cache being exact in it, and p rounded to
+    TF32), p rounded to bf16, a window end off by one and the KV head of
+    the wrong group. ``kv`` (k, v) are the case's dense float64 keys and
+    values, ``c`` holds q, kn, vn, valid, live (rows whose window is not
+    empty) and ``quantized``."""
+    q, kn, vn, valid = c["q"], c["kn"], c["vn"], c["valid"]
+    k, v = kv
+    ref = _f64_decode(torch, q, k, v, kn, vn, valid)
+    bound = F32_OUT_ATOL + F32_OUT_RTOL * (ref.abs() + _f64_decode(torch, q, k, v.abs(),
+                                                                    kn, vn.abs(), valid))
+    sel = rows[:, None].expand(-1, q.shape[1])  # (B, T)
+    if not torch.isfinite(got[rows]).all():
+        raise AssertionError(f"{what}: non-finite output")
+    ratio = _out_ratio(torch, got, ref, bound, sel)
+    err = (got.double() - ref).abs()[rows].max().item()
+    if not ratio <= 1:
+        raise AssertionError(f"{what}: {ratio} x the float32 bound (max |err| {err})")
+
+    def tf(x):
+        return tf32_round(torch, x.float()).double()
+
+    kt, vt = (k, v) if c["quantized"] else (tf(k), tf(v))
+    last = torch.cumsum(valid.int(), 1) == valid.int().sum(1, keepdim=True)
+    shorter = valid & ~(last & c["live"][:, None])  # each live window's last slot dropped
+    faults = {
+        "operands rounded to tf32": _f64_decode(torch, tf(q), kt, vt, tf(kn), tf(vn), valid,
+                                                "tf32"),
+        "p rounded to bf16": _f64_decode(torch, q, k, v, kn, vn, valid, "bf16"),
+        "window end off by one": _f64_decode(torch, q, k, v, kn, vn, shorter),
+        "KV head of the wrong group": _f64_decode(torch, q, k.roll(1, 1), v.roll(1, 1),
+                                                  kn.roll(1, 2), vn.roll(1, 2), valid),
+    }
+    faults = {name: _out_ratio(torch, m, ref, bound, sel) for name, m in faults.items()}
+    if min(faults.values()) <= 1:
+        raise AssertionError(f"{what}: the bound does not reject every fault: {faults}")
+    G = q.shape[2] // k.shape[1]
+    s_max = (torch.einsum("bthgd,bhsd->bthgs",
+                          q.double().abs().reshape(*q.shape[:2], k.shape[1], G, -1), k.abs())
+             .amax().item() * q.shape[-1] ** -0.5)
+    return dict(max_abs_err=err, err_over_bound=ratio, s_max=s_max, faults_over_bound=faults)
+
+
+def _f32_dense_case(torch, rng, B, T, S, cache, L=2, Hq=24, Hkv=8, Dh=128, device="cuda"):
+    """float32 q and fresh k/v over an (L, B, Hkv, S, Dh) cache of type
+    ``cache``: int8 with bf16 (L, B, Hkv, S) scales that keep |int8 x
+    scale| <= ~1.5, or unit-scale float32 / bf16 values; pads with one row
+    starting 40 slots in, offsets with one row at the last slot(s) and one
+    with nothing cached."""
+    dev = torch.device(device)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    if cache == "int8":
+        kc, vc = (torch.from_numpy(rng.randint(-127, 128, size=(L, B, Hkv, S, Dh))
+                                   .astype(np.int8)).to(dev) for _ in range(2))
+        ks, vs = (f32(0.002 + 0.01 * rng.rand(L, B, Hkv, S)).bfloat16() for _ in range(2))
+    else:
+        dt = torch.float32 if cache == "float32" else torch.bfloat16
+        kc, vc = (f32(rng.randn(L, B, Hkv, S, Dh)).to(dt) for _ in range(2))
+        ks = vs = None
+    pads = rng.randint(0, 5, size=(B,)).astype(np.int32)
+    if B > 2:
+        pads[2] = 40
+    offs = rng.randint(pads + 1, S - T + 1).astype(np.int32)
+    offs[0] = S - T
+    if B > 1:
+        offs[1] = pads[1]  # nothing cached: only the fresh block
+    q, kn, vn = (f32(rng.randn(B, T, h, Dh)) for h in (Hq, Hkv, Hkv))
+    pt, ot = (torch.from_numpy(a).to(dev) for a in (pads, offs))
+    slot = torch.arange(S, device=dev)
+    return dict(q=q, kn=kn, vn=vn, kc=kc, vc=vc, ks=ks, vs=vs, pads=pt, offs=ot,
+                pads_np=pads, offs_np=offs, quantized=cache == "int8",
+                valid=(slot >= pt[:, None]) & (slot < ot[:, None]), live=ot > pt)
+
+
+def _f32_paged_case(torch, rng, T, write, pools, device="cuda"):
+    """_paged_case's table, pads and lengths at PAGED_SHAPE (with its page
+    boundary, released and past-the-table rows where ``write``), float32 q
+    and fresh k/v, and pools of type ``pools``: int8 with realistic scales,
+    or unit-scale float32 / bf16 values."""
+    *_, lens_np, pads_np, table_np = _paged_case(torch, PAGED_SEED, T, write, device)
+    c = PAGED_SHAPE
+    B, Hq, Hkv, Dh, ps, mp, L = (c[k] for k in ("B", "Hq", "Hkv", "Dh", "ps", "mp", "L"))
+    P = 1 + B * mp
+    dev = torch.device(device)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    if pools == "int8":
+        kp, vp = (torch.from_numpy(rng.randint(-127, 128, size=(L, P, Hkv, ps, Dh))
+                                   .astype(np.int8)).to(dev) for _ in range(2))
+        ks, vs = (f32(0.002 + 0.01 * rng.rand(L, P, Hkv, ps)).bfloat16() for _ in range(2))
+    else:
+        dt = torch.float32 if pools == "float32" else torch.bfloat16
+        kp, vp = (f32(rng.randn(L, P, Hkv, ps, Dh)).to(dt) for _ in range(2))
+        ks = vs = None
+    q, kn, vn = (f32(rng.randn(B, T, h, Dh)) for h in (Hq, Hkv, Hkv))
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    lens, pads, table = to(lens_np), to(pads_np), to(table_np)
+    pos = torch.arange(mp * ps, device=dev)
+    valid = (pos >= pads[:, None]) & (pos < torch.clamp(lens, max=mp * ps)[:, None])
+    return dict(q=q, kn=kn, vn=vn, kp=kp, vp=vp, ks=ks, vs=vs, table=table, lens=lens,
+                pads=pads, lens_np=lens_np, pads_np=pads_np, table_np=table_np,
+                quantized=pools == "int8", valid=valid,
+                live=torch.clamp(lens, max=mp * ps) > pads)
+
+
+def _f32_work(valid, B, T, Hq, Hkv, Dh, elem_bytes, quantized, writes):
+    """(bytes, flops) of one float32-instance call: the valid slots' k and v
+    (with their bf16 scales when int8), the float32 q, fresh k/v and output,
+    and the written fresh rows; 2 flops per multiply-add of q.k and p.v
+    over the valid slots and the causal fresh block."""
+    slot_bytes = 2 * (Dh * elem_bytes + (2 if quantized else 0))  # k and v of one slot
+    n_bytes = int(valid) * Hkv * slot_bytes + 4 * B * T * (2 * Hq + 2 * Hkv) * Dh
+    if writes:
+        n_bytes += B * T * Hkv * slot_bytes
+    flops = 4 * Dh * Hq * T * (int(valid) + B * (T + 1) / 2)
+    return float(n_bytes), float(flops)
+
+
+ELEM_BYTES = {"int8": 1, "bfloat16": 2, "float32": 4}
+
+
+def _repeats_equal(torch, call, got, bufs, rows):
+    """How many of REPEATS identical calls differ from the first call's out
+    (on ``rows``) or leave the written buffers other than they were."""
+    after = [b.clone() for b in bufs]
+    unequal = 0
+    for _ in range(REPEATS):
+        out = call()
+        out = out[0] if isinstance(out, tuple) else out
+        unequal += not (torch.equal(out[rows], got[rows])
+                        and all(torch.equal(b, a) for b, a in zip(bufs, after)))
+    return unequal
+
+
+def phase_decode_f32(torch, card):
+    """The float32 instances of B2, B3, B4, B5 and B8 at the float32 serving
+    path's shapes, each reached through its public wrapper with a float32
+    query: held to the plain version run in float64 on the same inputs
+    within F32_OUT_ATOL + F32_OUT_RTOL (|out| + (P.|V|)/l), with the faults
+    that bound must reject (``_f32_decode_check``); cache, scale and page
+    writes bit-exact against the plain version; REPEATS identical calls
+    bit-equal; device times beside the float32 plain version and, for B8
+    over a float32 cache, torch.cat + SDPA at float32."""
+    from llm_speech_summarization_tpu_torch.kernels import (
+        decode_attention as da, fused_decode as fd, fused_paged as fp, paged_attention as pa,
+    )
+
+    rng = np.random.RandomState(15)
+    S, layer = F32_DECODE_S, 1
+    Hq, Hkv, Dh = 24, 8, 128
+    results = {}
+
+    def finish(name, kernel, inst, check, t, valid, B, T, elem, quantized, writes, **extra):
+        n_bytes, flops = _f32_work(valid, B, T, Hq, Hkv, Dh, elem, quantized, writes)
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+        t.setdefault("library_ms", None)
+        results[name] = dict(max_abs_err=check["max_abs_err"], **t)
+        emit("decode_f32", kernel=kernel, instance=inst, case=name, B=B, T=T,
+             heads=[Hq, Hkv], Dh=Dh, **check, out_atol=F32_OUT_ATOL,
+             out_rtol_of_abs_out_plus_abs_pv=F32_OUT_RTOL, bytes=n_bytes, flops=flops,
+             pct_of_bound=100 * t["bound_ms"] / t["ms"], **t, **extra, card=card)
+
+    def launched(wrapper, before, what):
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"{what}: the call did not launch {wrapper.__name__}")
+
+    def writes_equal(what, got_bufs, ref_bufs, snap, written):
+        for i, (g, r, s0) in enumerate(zip(got_bufs, ref_bufs, snap)):
+            if not torch.equal(g, r):
+                raise AssertionError(f"{what}: buffer {i} differs from the plain version's "
+                                     f"write at {int((g != r).sum())} elements")
+            w = written[..., None] if g.dim() == written.dim() + 1 else written
+            w = w.expand_as(g)
+            if not torch.equal(g[~w], s0[~w]) or torch.equal(g[w], s0[w]):
+                raise AssertionError(f"{what}: buffer {i} written outside the fresh slots, or "
+                                     f"not at them")
+
+    # ---- B2: the int8 cache with (L, B, Hkv, S) scales written in place
+    for B, T in F32_DECODE_B2:
+        name = f"b2_int8_B{B}_T{T}"
+        c = _f32_dense_case(torch, rng, B, T, S, "int8")
+        snap = [c[k].clone() for k in ("kc", "vc", "ks", "vs")]
+        got_bufs, ref_bufs = [t.clone() for t in snap], [t.clone() for t in snap]
+        mo = int(c["offs_np"].max())
+        before = fd.fused_decode_f32.launches
+
+        def call(bufs=got_bufs, c=c, mo=mo):
+            return fd.fused_decode(c["q"], *bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer,
+                                   max_offset=mo)
+
+        got = call()
+        torch.cuda.synchronize()
+        launched(fd.fused_decode_f32, before, name)
+        if got.dtype != torch.float32:
+            raise AssertionError(f"{name}: out is {got.dtype}")
+        fd.fused_decode_reference(c["q"], *ref_bufs, c["kn"], c["vn"], c["pads"], c["offs"],
+                                  layer)
+        written = torch.zeros(snap[2].shape, dtype=torch.bool, device="cuda")
+        for b in range(B):
+            written[layer, b, :, c["offs_np"][b]:c["offs_np"][b] + T] = True
+        writes_equal(name, got_bufs, ref_bufs, snap, written)
+        rows = torch.ones(B, dtype=torch.bool, device="cuda")
+        check = _f32_decode_check(torch, name, got, c, _f64_dense(torch, dict(c, kc=snap[0],
+                                  vc=snap[1], ks=snap[2], vs=snap[3]), layer), rows)
+        check["unequal_repeats"] = _repeats_equal(torch, call, got, got_bufs, rows)
+        if check["unequal_repeats"]:
+            raise AssertionError(f"{name}: {check['unequal_repeats']} of {REPEATS} repeats differ")
+        t = timings(torch, call, lambda c=c, bufs=ref_bufs: fd.fused_decode_reference(
+            c["q"], *bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer))
+        nsplit = fd.dense_splits(B, Hkv, mo, fd.sm_count(0))
+        finish(name, "B2", "fused_decode_f32", check, t,
+               np.clip(c["offs_np"] - c["pads_np"], 0, None).sum(), B, T, 1, True, True,
+               splits=nsplit, cache_writes="bit-exact")
+        del c, snap, got_bufs, ref_bufs
+
+    # ---- B3: a float32 or bf16 cache, or int8 with one layer's scales
+    for cache, T in F32_DECODE_B3:
+        B = 8
+        name = f"b3_{cache}_T{T}"
+        c = _f32_dense_case(torch, rng, B, T, S, cache)
+        quantized = cache == "int8"
+        sc = (c["ks"][layer], c["vs"][layer]) if quantized else ()
+        snap = [c["kc"].clone(), c["vc"].clone()]
+        got_bufs, ref_bufs = [t.clone() for t in snap], [t.clone() for t in snap]
+        mo = int(c["offs_np"].max())
+        before = fd.fused_decode_attention_write_f32.launches
+
+        def call(bufs=got_bufs, c=c, mo=mo, sc=sc):
+            return fd.fused_decode_attention_write(c["q"], *bufs, c["kn"], c["vn"], c["pads"],
+                                                   c["offs"], layer, *sc, max_offset=mo)
+
+        got = call()
+        torch.cuda.synchronize()
+        launched(fd.fused_decode_attention_write_f32, before, name)
+        plain = fd.fused_decode_attention_write_reference(
+            c["q"], *ref_bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer, *sc)
+        if quantized:  # the fresh (B, Hkv) scales, bit-exact
+            if not all(torch.equal(g, r) for g, r in zip(got[1:], plain[1:])):
+                raise AssertionError(f"{name}: the returned fresh scales differ")
+            got = got[0]
+        if got.dtype != torch.float32:
+            raise AssertionError(f"{name}: out is {got.dtype}")
+        written = torch.zeros(snap[0].shape[:4], dtype=torch.bool, device="cuda")
+        for b in range(B):
+            written[layer, b, :, c["offs_np"][b]:c["offs_np"][b] + T] = True
+        writes_equal(name, got_bufs, ref_bufs, snap, written)
+        rows = torch.ones(B, dtype=torch.bool, device="cuda")
+        check = _f32_decode_check(torch, name, got, c, _f64_dense(
+            torch, dict(c, kc=snap[0], vc=snap[1]), layer), rows)
+        check["unequal_repeats"] = _repeats_equal(torch, call, got, got_bufs, rows)
+        if check["unequal_repeats"]:
+            raise AssertionError(f"{name}: {check['unequal_repeats']} of {REPEATS} repeats differ")
+        t = timings(torch, call, lambda c=c, bufs=ref_bufs, sc=sc:
+                    fd.fused_decode_attention_write_reference(
+                        c["q"], *bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer, *sc))
+        finish(name, "B3", "fused_decode_attention_write_f32", check, t,
+               np.clip(c["offs_np"] - c["pads_np"], 0, None).sum(), B, T, ELEM_BYTES[cache],
+               quantized, True, cache_writes="bit-exact")
+        del c, snap, got_bufs, ref_bufs
+
+    # ---- B4 (T=4, read only) and B5 (T=1, the page write) over each pool type
+    for pools in F32_DECODE_POOLS:
+        for T, write in ((4, False), (1, True)):
+            kernel = "B5" if write else "B4"
+            name = f"{kernel.lower()}_{pools}_T{T}"
+            c = _f32_paged_case(torch, rng, T, write, pools)
+            quantized = pools == "int8"
+            bufs = [x for x in (c["kp"], c["vp"], c["ks"], c["vs"]) if x is not None]
+            snap = [x.clone() for x in bufs]
+            got_bufs, ref_bufs = [x.clone() for x in snap], [x.clone() for x in snap]
+            B = c["q"].shape[0]
+            if write:
+                wrapper = fp.fused_paged_decode_f32
+                pools_of = lambda b, q=quantized: (b if q else b + [None, None])  # noqa: E731
+
+                def call(bufs=got_bufs, c=c, pools_of=pools_of):
+                    return fp.fused_paged_decode(c["q"], *pools_of(bufs), c["table"], c["lens"],
+                                                 c["pads"], c["kn"], c["vn"], layer)
+
+                def plain(bufs=ref_bufs, c=c, pools_of=pools_of):
+                    return fp.fused_paged_reference(c["q"], *pools_of(bufs), c["table"],
+                                                    c["lens"], c["pads"], c["kn"], c["vn"],
+                                                    layer)
+            else:
+                wrapper = pa.paged_decode_attention_f32
+                sc = dict(k_scale=c["ks"][layer], v_scale=c["vs"][layer]) if quantized else {}
+
+                def call(c=c, sc=sc):
+                    return pa.paged_decode_attention(c["q"], c["kp"][layer], c["vp"][layer],
+                                                     c["table"], c["lens"], c["pads"], c["kn"],
+                                                     c["vn"], **sc)
+
+                def plain(c=c, sc=sc):
+                    return pa.paged_reference(c["q"], c["kp"][layer], c["vp"][layer],
+                                              c["table"], c["lens"], c["pads"], c["kn"],
+                                              c["vn"], sc.get("k_scale"), sc.get("v_scale"))
+            before = wrapper.launches
+            got = call()
+            torch.cuda.synchronize()
+            launched(wrapper, before, name)
+            plain()
+            if got.dtype != torch.float32:
+                raise AssertionError(f"{name}: out is {got.dtype}")
+            # the released row reads page 0 while other rows write it
+            rows = torch.from_numpy((c["table_np"] != 0).all(axis=1)).cuda()
+            kv = _f64_paged(torch, dict(c, kp=snap[0], vp=snap[1],
+                                        ks=snap[2] if quantized else None,
+                                        vs=snap[3] if quantized else None), layer)
+            check = _f32_decode_check(torch, name, got, c, kv, rows)
+            if write:
+                from llm_speech_summarization_tpu_torch.kernels.fused_paged import (
+                    _write_targets,
+                )
+
+                pid, slot = _write_targets(c["table"], c["lens"], PAGED_SHAPE["ps"])
+                written = torch.zeros(snap[0].shape[:4], dtype=torch.bool, device="cuda")
+                written[layer, pid, :, slot] = True
+                for i, (g, r, s0) in enumerate(zip(got_bufs, ref_bufs, snap)):
+                    w = (written[..., None] if g.dim() == 5 else written).expand_as(g)
+                    if not torch.equal(g[:, 1:], r[:, 1:]):
+                        raise AssertionError(f"{name}: buffer {i} differs from the plain "
+                                             f"version's write outside page 0")
+                    w = w.clone()
+                    w[:, 0] = True  # page 0 takes the boundary and released rows' tokens
+                    if not torch.equal(g[~w], s0[~w]):
+                        raise AssertionError(f"{name}: buffer {i} changed outside the written "
+                                             f"slots")
+            else:
+                for x, s0 in zip(bufs, snap):
+                    if not torch.equal(x, s0):
+                        raise AssertionError(f"{name} wrote into the pools")
+            check["unequal_repeats"] = _repeats_equal(torch, call, got, got_bufs, rows)
+            if check["unequal_repeats"]:
+                raise AssertionError(f"{name}: {check['unequal_repeats']} of {REPEATS} "
+                                     f"repeats differ")
+            t = timings(torch, call, plain)
+            valid = c["valid"].sum().item()
+            finish(name, kernel, wrapper.__name__, check, t, valid, B, T, ELEM_BYTES[pools],
+                   quantized, write, page_writes="bit-exact outside page 0" if write else None)
+            del c, snap, got_bufs, ref_bufs, bufs
+
+    # ---- B8: one layer's cache read in place, every row at one offset
+    for cache in ("float32", "int8", "bfloat16"):
+        B, offset = 8, F32_DECODE_B8_OFFSET
+        name = f"b8_{cache}"
+        c = _f32_dense_case(torch, rng, B, 1, S, cache)
+        c["offs"] = torch.full_like(c["pads"], offset)
+        slot = torch.arange(S, device="cuda")
+        c["valid"] = (slot >= c["pads"][:, None]) & (slot < offset)
+        c["live"] = c["offs"] > c["pads"]
+        quantized = cache == "int8"
+        sc = (c["ks"][layer], c["vs"][layer]) if quantized else ()
+        kc, vc = c["kc"][layer], c["vc"][layer]
+        before = da.decode_attention_f32.launches
+
+        def call(c=c, kc=kc, vc=vc, sc=sc):
+            return da.decode_attention(c["q"], kc, vc, c["kn"], c["vn"], c["pads"], offset, *sc)
+
+        got = call()
+        torch.cuda.synchronize()
+        launched(da.decode_attention_f32, before, name)
+        if got.dtype != torch.float32:
+            raise AssertionError(f"{name}: out is {got.dtype}")
+        rows = torch.ones(B, dtype=torch.bool, device="cuda")
+        check = _f32_decode_check(torch, name, got, c, _f64_dense(torch, c, layer), rows)
+        check["unequal_repeats"] = _repeats_equal(torch, call, got, [c["kc"], c["vc"]], rows)
+        if check["unequal_repeats"]:
+            raise AssertionError(f"{name}: {check['unequal_repeats']} of {REPEATS} repeats differ")
+        t = timings(torch, call, lambda c=c, kc=kc, vc=vc, sc=sc: da.decode_attention_reference(
+            c["q"], kc, vc, c["kn"], c["vn"], c["pads"], offset, *sc))
+        if cache == "float32":  # cat + SDPA at float32 computes the same; none takes int8
+            t["library_ms"] = device_ms(torch, _sdpa_decode_call(
+                torch, c["q"], kc, vc, c["kn"], c["vn"], c["pads"], offset), whole=False)
+        valid = np.clip(offset - c["pads_np"], 0, None).sum()
+        finish(name, "B8", "decode_attention_f32", check, t, valid, B, 1, ELEM_BYTES[cache],
+               quantized, False,
+               library="torch.cat + scaled_dot_product_attention" if cache == "float32"
+               else None)
+        del c
     return results
 
 
@@ -3027,6 +3508,15 @@ def _wrappers():
     from llm_speech_summarization_tpu_torch.kernels.fused_paged import fused_paged_decode
     from llm_speech_summarization_tpu_torch.kernels.paged_attention import paged_decode_attention
 
+    from llm_speech_summarization_tpu_torch.kernels.decode_attention import decode_attention_f32
+    from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
+        fused_decode_attention_write_f32, fused_decode_f32,
+    )
+    from llm_speech_summarization_tpu_torch.kernels.fused_paged import fused_paged_decode_f32
+    from llm_speech_summarization_tpu_torch.kernels.paged_attention import (
+        paged_decode_attention_f32,
+    )
+
     return {"flash_attention": fa.flash_attention_fwd,
             "flash_attention_f32": fa.flash_attention_fwd_f32, "fused_decode": fused_decode,
             "paged_attention": paged_decode_attention, "fused_paged": fused_paged_decode,
@@ -3037,7 +3527,10 @@ def _wrappers():
             "flash_attention_bwd_dq_offset": fa.flash_attention_bwd_dq_offset,
             "flash_attention_bwd_dkv_offset": fa.flash_attention_bwd_dkv_offset,
             "fused_decode_attention_write": fused_decode_attention_write,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention, "fused_decode_f32": fused_decode_f32,
+            "fused_decode_attention_write_f32": fused_decode_attention_write_f32,
+            "paged_attention_f32": paged_decode_attention_f32,
+            "fused_paged_f32": fused_paged_decode_f32, "decode_attention_f32": decode_attention_f32}
 
 
 def reset_launches() -> None:
@@ -3627,14 +4120,16 @@ def _serve_burst(torch, card, eng, name, requests, **server_kw):
     enc_layers = eng.encoder_setup.encoder_cfg.num_layers
     paged = server_kw.get("paged", False)
     steps, rounds = counts.get("steps", 0), counts.get("spec_rounds", 0)
-    # a dense step: B2 over an int8 cache, B3 over a bf16 one
+    # a dense step: B2 over an int8 cache, B3 over a float one; a float32
+    # engine takes every kernel's float32 instance
+    f32 = "_f32" if eng.dtype == torch.float32 else ""
     dense = "fused_decode" if eng.cache_dtype == torch.int8 else "fused_decode_attention_write"
     check_launches(name, launches, {
-        "flash_attention": L * counts.get("prefills", 0)
+        "flash_attention" + f32: L * counts.get("prefills", 0)
         + enc_layers * eng_counts.get("encoder_forwards", 0),
-        dense: 0 if paged else L * (steps + rounds),
-        "paged_attention": L * rounds if paged else 0,
-        "fused_paged": L * steps if paged else 0})
+        dense + f32: 0 if paged else L * (steps + rounds),
+        "paged_attention" + f32: L * rounds if paged else 0,
+        "fused_paged" + f32: L * steps if paged else 0})
     firsts = sorted(r[2] for (_, _, stream), r in zip(requests, results)
                     if stream and r[2] is not None)
     out = dict(requests=len(requests), wall_s=wall, requests_per_s=len(requests) / wall,
@@ -3682,6 +4177,226 @@ def phase_serving_full(torch, card, eng):
     if runs["paged_spec3"]["launches"]["paged_attention"] == 0:
         raise AssertionError("serving: the speculative paged path never launched B4")
     return runs
+
+
+# f32_full: the near-tie of the margin-aware contract between the float32
+# engine's greedy stream and the same engine with every attention on its
+# plain version (teacher-forced on the kernel stream, both in float32; a
+# token may differ only where the plain top-2 margin is under twice this).
+# The float32 decode instances sit at 0.4-2% of their 2e-5-relative output
+# bound (phase_decode_f32): over a float32 cache the two paths' logits
+# differed by 5.5e-5 on an NVIDIA H100, over the int8 cache by 1.4e-3, where a
+# value the two paths compute a hair apart lands on the other side of an
+# int8 rounding step of the cache quantizer
+F32_LOGIT_TOL = 5e-3
+F32_FULL_NEW = 32  # new tokens of the int8-cache batch; the float32-cache batch takes half
+F32_FULL_YAML = "llama3_hubert.yaml"
+
+
+def _float32_tree(tree):
+    """A copy of a parameter tree with every float leaf but the int8
+    weights' bf16 scales in float32: the tree a ``param_dtype: float32``
+    engine holds (its norms, an unquantized encoder), on the same values."""
+    if isinstance(tree, dict):
+        return {k: (v if k.endswith("_scale") else _float32_tree(v)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_float32_tree(v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _forced_logits(torch, eng, embeds, mask, tokens, steps):
+    """float32 logits (B, steps, V) of the streams ``tokens`` (B, steps)
+    teacher-forced through the prefill and steps - 1 decode steps on a
+    fresh cache of the engine's cache dtype."""
+    from llm_speech_summarization_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    B, Lp, _ = embeds.shape
+    cache = init_kv_cache(eng.llm_cfg, B, Lp + steps, eng.cache_dtype, device=embeds.device)
+    out = llama_forward(eng.llm_params, eng.llm_cfg, inputs_embeds=embeds, attn_mask=mask,
+                        kv_cache=cache, cache_offset=0, last_logit_only=True)
+    lens = mask.to(torch.int32).sum(1)
+    pads = (Lp - lens).to(torch.int32)
+    logits = [out.logits[:, -1]]
+    for step in range(steps - 1):
+        out = llama_forward(eng.llm_params, eng.llm_cfg, input_ids=tokens[:, step, None],
+                            positions=(lens + step)[:, None], kv_cache=cache,
+                            cache_offset=Lp + step, kv_pad_lens=pads)
+        logits.append(out.logits[:, 0])
+    return torch.stack(logits, 1)
+
+
+def _f32_batch_held(torch, eng, clips, max_new, what):
+    """The float32 engine's batch path on ``clips``, counted: B1's float32
+    instance in the encoder and the prefill, the float32 B2 (int8 cache) or
+    B3 (float32 cache) per decode step, nothing else; then its greedy rows
+    teacher-forced through the kernels (which must give the same rows) and
+    through the plain attention, the rows held to the latter under the
+    margin-aware contract (a row may differ only where the plain top-2
+    margin is under 2 * F32_LOGIT_TOL). Returns the phase's numbers."""
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    eng.generate_audio_response_batch(clips, max_new_tokens=max_new)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.counts.clear()
+    with recorded_tokens(ByteTokenizer) as rows:
+        t0 = time.perf_counter()
+        texts = eng.generate_audio_response_batch(clips, max_new_tokens=max_new)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+    launches, counts = read_launches(), dict(eng.counts)
+    L, enc_layers = eng.llm_cfg.num_layers, eng.encoder_setup.encoder_cfg.num_layers
+    dense = "fused_decode_f32" if eng.cache_dtype == torch.int8 else \
+        "fused_decode_attention_write_f32"
+    check_launches(what, launches, {
+        "flash_attention_f32": enc_layers * counts["encoder_forwards"]
+        + L * counts["prefills"], dense: L * counts["decode_steps"]})
+    if len(texts) != len(clips) or len(rows) != len(clips):
+        raise AssertionError(f"{what}: wrong number of responses")
+    embeds, mask = eng.build_audio_prompt_batch(clips)
+    if embeds.dtype != torch.float32:
+        raise AssertionError(f"{what}: the prompt is {embeds.dtype}")
+    B, eos = embeds.shape[0], eng.tokenizer.eos_id
+    n = [len(r) for r in rows]
+    forced = torch.full((B, max_new), eos, dtype=torch.int32, device=embeds.device)
+    for r, row in enumerate(rows):
+        forced[r, :len(row)] = torch.tensor(row, dtype=torch.int32)
+    got = _forced_logits(torch, eng, embeds, mask, forced, max_new)
+    with plain_attention():
+        plain = _forced_logits(torch, eng, embeds, mask, forced, max_new)
+    if not (torch.isfinite(got).all() and torch.isfinite(plain).all()):
+        raise AssertionError(f"{what}: logits are not finite")
+    k_arg, p_arg = got.argmax(-1).cpu(), plain.argmax(-1).cpu()
+    top2 = torch.topk(plain, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu()
+    delta = max((got[r, :n[r]] - plain[r, :n[r]]).abs().max().item() for r in range(B))
+    parted = {}
+    for r in range(B):
+        if k_arg[r, :n[r]].tolist() != rows[r]:
+            raise AssertionError(f"{what}: row {r} teacher-forced through the kernels is not "
+                                 f"the batch path's stream")
+        for t in (k_arg[r, :n[r]] != p_arg[r, :n[r]]).nonzero().flatten().tolist():
+            parted.setdefault(r, []).append(dict(step=t, margin=margin[r, t].item()))
+            if margin[r, t] > 2 * F32_LOGIT_TOL:
+                raise AssertionError(f"{what}: row {r} step {t}: the kernels pick another token "
+                                     f"than the plain attention where its top-2 margin is "
+                                     f"{margin[r, t].item()}")
+    return dict(batch=len(clips), max_new_tokens=max_new, prompt_len=embeds.shape[1],
+                batch_call_s=batch_s, utt_per_s=len(clips) / batch_s, launches=launches,
+                engine_counts=counts, rows=rows, plain_margin=margin,
+                max_logit_delta_vs_plain=delta, rows_parting_from_plain=parted,
+                min_plain_margin=min(margin[r, :n[r]].min().item() for r in range(B)))
+
+
+def phase_f32_full(torch, card, eng):
+    """``llama3_hubert.yaml`` at ``compute_dtype: float32`` on the card, on
+    the weights of the bf16 engine ``eng`` (its int8 LLM and bf16 scales,
+    its norms and HuBERT-large in float32, as a ``param_dtype: float32``
+    engine holds them: the JAX engine's decode steps run in the norms'
+    dtype, so float32 serving needs float32 parameters), the config built
+    as a dict through ``load_config``: (a) the batch path, B=8 x 10 s,
+    F32_FULL_NEW new tokens, over the published int8 cache (B1 float32 in
+    the encoder and the prefill, B2 float32 per step); (b) a shorter batch
+    with ``kv_cache_dtype`` null, a float32 cache (B3 float32), each held
+    to the plain attention (``_f32_batch_held``), and ``greedy_generate(
+    attn_impl="pallas")`` on its prompts (B8 float32), held to its B3
+    rows; (c) a paged server with
+    speculative chunks: a burst of 8 audio requests, two sampled with fewer
+    new tokens, whose launches show B4 and B5 at float32; (d) the tokens in
+    which (a) differs from the bf16 engine's batch path, for information."""
+    from collections import Counter
+
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.configs.config import config_to_dict
+    from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
+    from llm_speech_summarization_tpu_torch.infer.generate import greedy_generate
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    raw = config_to_dict(load_config(str(YAML_DIR / F32_FULL_YAML)))
+    raw["model"].update(compute_dtype="float32", param_dtype="float32")
+    llm32 = _float32_tree(eng.llm_params)
+    enc32 = _float32_tree(eng.audio_encoder_params)
+
+    def engine(kv_cache_dtype):
+        cfg = dict(raw, model=dict(raw["model"], kv_cache_dtype=kv_cache_dtype))
+        return LLMSpeechTextInference(load_config(cfg), llm_params=llm32,
+                                      audio_encoder_params=enc32, device=eng.device)
+
+    torch.cuda.reset_peak_memory_stats()
+    eng32 = engine("int8")
+    rng = np.random.RandomState(0)
+    clips = [(0.1 * rng.randn(160000)).astype(np.float32) for _ in range(8)]  # 8 x 10 s
+    int8_run = _f32_batch_held(torch, eng32, clips, F32_FULL_NEW, "f32_full int8 cache")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eng_fc = engine(None)
+    f32_run = _f32_batch_held(torch, eng_fc, clips, F32_FULL_NEW // 2,
+                              "f32_full float32 cache")
+
+    # B8 at float32: greedy_generate(attn_impl="pallas") on the same
+    # prompts over a float32 cache, counted, its rows held to the B3 rows
+    # margin-aware (the plain attention's margins on B3's stream)
+    embeds, mask = eng_fc.build_audio_prompt_batch(clips)
+    b8_counts = Counter()
+    reset_launches()
+    tok8, n8 = greedy_generate(eng_fc.llm_params, eng_fc.llm_cfg, embeds, mask,
+                               max_new_tokens=64, eos_id=eng_fc.tokenizer.eos_id,
+                               cache_dtype=torch.float32, num_steps=F32_FULL_NEW // 2,
+                               attn_impl="pallas", counts=b8_counts)
+    b8_launches = read_launches()
+    L = eng_fc.llm_cfg.num_layers
+    check_launches("f32_full attn_impl='pallas'", b8_launches, {
+        "flash_attention_f32": L * b8_counts["prefills"],
+        "decode_attention_f32": L * b8_counts["decode_steps"]})
+    b8_parted = {}
+    for r, row in enumerate(f32_run["rows"]):
+        got = tok8[r, :int(n8[r])].tolist()
+        t = next((i for i, (x, y) in enumerate(zip(got, row)) if x != y), None)
+        if t is None and len(got) != len(row):
+            raise AssertionError(f"f32_full: row {r}'s B8 stream ends at {len(got)}, the B3 "
+                                 f"stream at {len(row)}, on equal tokens")
+        if t is not None:
+            b8_parted[r] = dict(step=t, margin=f32_run["plain_margin"][r, t].item())
+            if b8_parted[r]["margin"] > 2 * F32_LOGIT_TOL:
+                raise AssertionError(f"f32_full: row {r}'s B8 stream parts from B3's at step {t} "
+                                     f"where the plain top-2 margin is {b8_parted[r]['margin']}")
+
+    srv_rng = np.random.RandomState(9)
+    srv_clips = [(0.1 * srv_rng.randn(int(16000 * srv_rng.uniform(6.0, 10.0))))
+                 .astype(np.float32) for _ in range(8)]
+    burst = [("/v1/audio_summary", {"audio": c.tolist(), "max_new_tokens": 32}, False)
+             for c in srv_clips[:6]]
+    burst += [("/v1/audio_summary", {"audio": c.tolist(), "max_new_tokens": 8,
+                                     "temperature": 0.8, "seed": 20 + i}, False)
+              for i, c in enumerate(srv_clips[6:])]
+    server = _serve_burst(torch, card, eng32, "f32_paged_spec3", burst, paged=True, spec_k=3,
+                          n_slots=16, max_new_tokens=64, device=eng.device.type)
+    if not (server["launches"]["paged_attention_f32"] and server["launches"]["fused_paged_f32"]):
+        raise AssertionError(f"f32_full: the paged server did not launch both B4 and B5 at "
+                             f"float32: {server['launches']}")
+
+    # for information: the tokens in which the float32 rows differ from the
+    # bf16 engine's on the same clips and weights
+    with recorded_tokens(ByteTokenizer) as bf16_rows:
+        eng.generate_audio_response_batch(clips, max_new_tokens=F32_FULL_NEW)
+    differ = [sum(a != b for a, b in zip(r32, r16)) + abs(len(r32) - len(r16))
+              for r32, r16 in zip(int8_run.pop("rows"), bf16_rows)]
+    for run in (int8_run, f32_run):
+        run.pop("plain_margin")
+        run.pop("rows", None)
+    emit("f32_full", config="llama3_hubert.yaml compute_dtype float32 (param_dtype float32: "
+         "the bf16 engine's int8 LLM, float32 norms and HuBERT-large)", clip_s=10,
+         int8_cache=int8_run, float32_cache=f32_run, max_memory_allocated_gb=peak_gb,
+         logit_tol=F32_LOGIT_TOL,
+         pallas_stream=dict(steps=b8_counts["decode_steps"], launches=b8_launches,
+                            rows_parted=b8_parted),
+         server=dict(requests_per_s=server["requests_per_s"],
+                     p50_first_token_s=server["p50_first_token_s"],
+                     decode_ms_per_step=server["decode_ms_per_step"],
+                     launches=server["launches"], decoder_counts=server["decoder_counts"]),
+         tokens_differing_from_bf16_engine=differ, phase_s=time.perf_counter() - t_phase,
+         card=card)
+    return [int8_run["launches"], f32_run["launches"], b8_launches, server["launches"]]
 
 
 TP_RANKS = 2
@@ -4955,23 +5670,44 @@ def phase_convert_full(torch, card, work):
 @contextlib.contextmanager
 def plain_attention():
     """Every model's ``flash_attention`` (LLM, HuBERT, Whisper) runs its
-    plain version (dense masked attention, differentiable) for the block."""
+    plain version (dense masked attention, differentiable) for the block,
+    and so does every decode attention the LLM calls (``models/llama.py``:
+    B2, B3, B8, B4 and B5, cache and page writes included)."""
+    from llm_speech_summarization_tpu_torch.kernels.decode_attention import (
+        decode_attention_reference,
+    )
     from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
         flash_attention_reference,
     )
+    from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
+        fused_decode_attention_write_reference, fused_decode_reference,
+    )
+    from llm_speech_summarization_tpu_torch.kernels.fused_paged import fused_paged_reference
+    from llm_speech_summarization_tpu_torch.kernels.paged_attention import paged_reference
     from llm_speech_summarization_tpu_torch.models import hubert, llama, whisper
 
     def plain(q, k, v, starts, ends, causal=True):
         return flash_attention_reference(q, k, v, starts, ends, causal=causal)
 
-    saved = [(m, m.flash_attention) for m in (hubert, llama, whisper)]
-    for m, _ in saved:
+    def host_bound(fn):  # the kernels' host-side bound of the offsets, unused here
+        return lambda *args, max_offset=None: fn(*args)
+
+    saved = [(m, "flash_attention", m.flash_attention) for m in (hubert, llama, whisper)]
+    for name, fn in (("fused_decode", host_bound(fused_decode_reference)),
+                     ("fused_decode_attention_write",
+                      host_bound(fused_decode_attention_write_reference)),
+                     ("decode_attention", decode_attention_reference),
+                     ("paged_decode_attention", paged_reference),
+                     ("fused_paged_decode", fused_paged_reference)):
+        saved.append((llama, name, getattr(llama, name)))
+        setattr(llama, name, fn)
+    for m in (hubert, llama, whisper):
         m.flash_attention = plain
     try:
         yield
     finally:
-        for m, fn in saved:
-            m.flash_attention = fn
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
 PREPROCESS_EXAMPLES = 32  # 6-10 s clips, 10-15 word transcripts, plus one of 21 s
@@ -5467,6 +6203,7 @@ def main() -> int:
     fpaged_mha = phase_fused_paged(torch, card, PAGED_MHA_SHAPE)
     fpaged_tp = phase_fused_paged(torch, card, PAGED_TP_SHAPE)
     dense = phase_dense_decode(torch, card)
+    decode32 = phase_decode_f32(torch, card)
     phase_serving_small(torch, card, *phase_slice(torch, card))
     phase_slice(torch, card, whisper=True)
     phase_slice(torch, card, base=True)
@@ -5477,6 +6214,8 @@ def main() -> int:
     serving = phase_serving_full(torch, card, eng)
     gc.collect()
     tp_launches = phase_serving_tp_full(torch, card, eng)
+    gc.collect()
+    f32_runs = phase_f32_full(torch, card, eng)
     del eng
     # the servers' threads leave the engine in reference cycles: collect
     # them, or its weights stay allocated into the next phase's peak memory
@@ -5536,14 +6275,16 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     # launches: the sum over the main-path runs (batch path, three servers,
-    # MiniChat + HuBERT-base with both projectors, its two replicas behind
+    # the tensor-parallel ranks, the float32 engine's two batches, B8 stream
+    # and paged server, MiniChat + HuBERT-base with both projectors, its two replicas behind
     # the router, the bulk CLI, the Whisper batch path, its B8 stream and
     # server, the trainer, the resumed trainer and the save_qkv trainer,
     # the converted-checkpoint engine, preprocessing, evaluation,
     # -p and --ctc through the CLI, the Whisper trainer and its resume, the
     # ring trainer's ranks in both its launches, and the data-parallel (with
     # its resume on mesh 1,1,1), tensor-parallel and 2,2,2 trainers' ranks)
-    for run in ([r["launches"] for r in serving.values()] + [tp_launches] + minichat_runs
+    for run in ([r["launches"] for r in serving.values()] + [tp_launches] + f32_runs
+                + minichat_runs
                 + [router_launches]
                 + [bulk_launches] + whisper_runs + list(train_runs) + [save_qkv_launches]
                 + [convert_launches, preprocess_launches, eval_launches] + ckpt_runs
@@ -5580,6 +6321,20 @@ def main() -> int:
               "decode_attention", dense["b8_bf16"],
               [r["max_abs_err"] for k, r in dense.items() if k.startswith("b8")]),
     ]
+    for name, replaces, key, case, prefix in (  # the float32 instances, decode_f32.cu
+            ("fused_decode_f32", "fused_decode.py:375", "fused_decode_f32", "b2_int8_B16_T1",
+             "b2"),
+            ("fused_decode_attention_write_f32", "fused_decode.py:169",
+             "fused_decode_attention_write_f32", "b3_float32_T1", "b3"),
+            ("paged_decode_attention_f32", "paged_attention.py:115", "paged_attention_f32",
+             "b4_int8_T4", "b4"),
+            ("fused_paged_decode_f32", "fused_paged.py:118", "fused_paged_f32", "b5_int8_T1",
+             "b5"),
+            ("decode_attention_f32", "decode_attention.py:47", "decode_attention_f32",
+             "b8_float32", "b8")):
+        kernels.append(entry(name, "decode_f32.cu", replaces, key, decode32[case],
+                             [r["max_abs_err"] for k, r in decode32.items()
+                              if k.startswith(prefix)]))
     for name, source, replaces, key in (
             ("flash_attention_lse", "flash_attention.cu", "flash_attention.py:37", "fwd_lse"),
             ("flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:202", "dq"),
@@ -5596,6 +6351,9 @@ def main() -> int:
         kernels.append(entry(name, source, replaces, name, flash_ring["llm_ring"][key],
                              [r[key]["max_abs_err"] for r in flash_ring.values()]))
     kernels[0]["sdpa_ms"] = kernels[0]["library_ms"]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"no main-path run launched {idle}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

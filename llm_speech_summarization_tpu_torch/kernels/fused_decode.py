@@ -16,6 +16,15 @@ H100 and how its split-S design meets that: the wrapper picks the number
 of blocks per (sample, kv head) window (``dense_splits``) and allocates
 the float32 scratch their results are merged from (``split_scratch``).
 
+A float32 query takes the float32 instances, ``fused_decode_f32`` and
+``fused_decode_attention_write_f32`` (each with its own launch count): the
+library ``csrc/decode_f32.cu`` over ``csrc/dense_decode_f32.cuh``, which
+B4, B5 and B8 share at float32 too (``launch_f32``). They take an int8, a
+float32 or a bfloat16 cache, float32 fresh k/v, and return a float32
+output; the int8 cache's scales stay bfloat16. A mixed call (a bfloat16
+query over a float32 cache, or a float32 query with bfloat16 fresh values)
+raises: it is not ported.
+
 For layer ``layer`` of the cache, each of the T >= 1 fresh queries attends
 the slots ``pad <= s < offset`` plus the fresh block causally; then the
 fresh k/v are written in place at ``[offset, offset + T)``: quantized like
@@ -41,6 +50,7 @@ import torch
 from .build import check_status, count_launch, load_library
 
 SOURCES = ("fused_decode.cu", "dense_decode.cuh", "int8.cuh", "flash_sm90.cuh")
+F32_SOURCES = ("decode_f32.cu", "dense_decode_f32.cuh", "int8.cuh")
 NEG_INF = -1e30
 MAX_ROWS = 32  # T * (Hq / Hkv) query rows per block
 MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use on sm_90
@@ -52,7 +62,11 @@ MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use on sm_90
 # extra blocks)
 MAX_SPLITS = 8  # the most the merge kernel takes (csrc/dense_decode.cuh)
 SPLIT_GAIN_SLOTS = 256
-CACHE_BYTES = {torch.int8: 1, torch.bfloat16: 2}  # cache types the kernels take
+CACHE_BYTES = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}
+# the cache types each route takes, by the query's dtype: the bf16 body's
+# and the float32 body's
+CACHE_TYPES = {torch.bfloat16: (torch.int8, torch.bfloat16),
+               torch.float32: (torch.int8, torch.bfloat16, torch.float32)}
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -229,11 +243,46 @@ def fused_decode(
     if _devices(what, (q, k_cache, v_cache, k_new, v_new, pad_lens, offsets)) == "cpu":
         return fused_decode_reference(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
                                       pad_lens, offsets, layer)
-    if k_cache.dtype != torch.int8 or k_scale is None or v_scale is None:
-        raise ValueError(f"{what}: the kernel takes the int8 cache with its (L, B, Hkv, S) "
-                         "scales; a bfloat16 cache goes to fused_decode_attention_write")
+    _check_int8_cache(what, k_cache, k_scale, v_scale)
+    if compute_dtype(what, q, k_new, v_new) == torch.float32:
+        return fused_decode_f32(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
+                                offsets, layer, max_offset=max_offset)
     return _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offsets,
                    layer, max_offset)
+
+
+def fused_decode_f32(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offsets,
+                     layer, *, max_offset=None):
+    """B2's float32 instance: float32 q and fresh k/v over the int8 cache
+    with its bf16 (L, B, Hkv, S) scales, written in place; returns a float32
+    out (B, T, Hq, Dh). Arguments as ``fused_decode``."""
+    what = "fused_decode_f32"
+    if _devices(what, (q, k_cache, v_cache, k_new, v_new, pad_lens, offsets)) == "cpu":
+        return fused_decode_reference(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
+                                      pad_lens, offsets, layer)
+    _check_int8_cache(what, k_cache, k_scale, v_scale)
+    return _launch_dense(fused_decode_f32, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
+                         pad_lens, offsets, layer, max_offset, per_layer_scales=False,
+                         float32=True)
+
+
+def _check_int8_cache(what, k_cache, k_scale, v_scale):
+    if k_cache.dtype != torch.int8 or k_scale is None or v_scale is None:
+        raise ValueError(f"{what}: the kernel takes the int8 cache with its (L, B, Hkv, S) "
+                         "scales; a bfloat16 or float32 cache goes to "
+                         "fused_decode_attention_write")
+
+
+def compute_dtype(what, q, k_new, v_new) -> torch.dtype:
+    """The route of a CUDA call, from the query's dtype: bfloat16 (the bf16
+    body) or float32 (the float32 body); the fresh k/v must share it."""
+    if q.dtype not in CACHE_TYPES:
+        raise ValueError(f"{what}: a {q.dtype} query is not ported; the kernels take bfloat16 "
+                         "or float32")
+    if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+        raise ValueError(f"{what}: mixed dtypes are not ported: a {q.dtype} query with "
+                         f"{k_new.dtype} / {v_new.dtype} fresh values")
+    return q.dtype
 
 
 def fused_decode_attention_write(
@@ -259,7 +308,8 @@ def fused_decode_attention_write(
     The TPU kernel takes T = 1 only and the JAX package sends a speculative
     verification forward over a float cache to XLA; this wrapper takes
     T >= 1 over a bfloat16 cache, so that forward launches the kernel too.
-    The int8 mode keeps the TPU signature: T = 1."""
+    The int8 mode keeps the TPU signature: T = 1. A float32 query goes to
+    ``fused_decode_attention_write_f32``."""
     what = "fused_decode_attention_write"
     if (k_scale_layer is None) != (v_scale_layer is None):
         raise ValueError(f"{what}: pass both layer scales or neither")
@@ -270,13 +320,40 @@ def fused_decode_attention_write(
         return fused_decode_attention_write_reference(q, k_cache, v_cache, k_new, v_new,
                                                       pad_lens, offsets, layer, k_scale_layer,
                                                       v_scale_layer)
+    if compute_dtype(what, q, k_new, v_new) == torch.float32:
+        return fused_decode_attention_write_f32(q, k_cache, v_cache, k_new, v_new, pad_lens,
+                                                offsets, layer, k_scale_layer, v_scale_layer,
+                                                max_offset=max_offset)
     return _launch_dense(fused_decode_attention_write, q, k_cache, v_cache, k_scale_layer,
                          v_scale_layer, k_new, v_new, pad_lens, offsets, layer, max_offset,
                          per_layer_scales=True)
 
 
-fused_decode.launches = 0
-fused_decode_attention_write.launches = 0
+def fused_decode_attention_write_f32(q, k_cache, v_cache, k_new, v_new, pad_lens, offsets,
+                                     layer, k_scale_layer=None, v_scale_layer=None, *,
+                                     max_offset=None):
+    """B3's float32 instance: float32 q and fresh k/v over a float32 or
+    bfloat16 cache (T >= 1), or an int8 one with that layer's (B, Hkv, S)
+    scales (T = 1; the fresh (B, Hkv) scales returned, bf16); the output is
+    float32. Arguments as ``fused_decode_attention_write``."""
+    what = "fused_decode_attention_write_f32"
+    if (k_scale_layer is None) != (v_scale_layer is None):
+        raise ValueError(f"{what}: pass both layer scales or neither")
+    if k_scale_layer is not None and q.shape[1] != 1:
+        raise ValueError(f"{what}: the int8 mode with layer scales takes T = 1, got T = "
+                         f"{q.shape[1]}")
+    if _devices(what, (q, k_cache, v_cache, k_new, v_new, pad_lens, offsets)) == "cpu":
+        return fused_decode_attention_write_reference(q, k_cache, v_cache, k_new, v_new,
+                                                      pad_lens, offsets, layer, k_scale_layer,
+                                                      v_scale_layer)
+    return _launch_dense(fused_decode_attention_write_f32, q, k_cache, v_cache, k_scale_layer,
+                         v_scale_layer, k_new, v_new, pad_lens, offsets, layer, max_offset,
+                         per_layer_scales=True, float32=True)
+
+
+for _wrapper in (fused_decode, fused_decode_f32, fused_decode_attention_write,
+                 fused_decode_attention_write_f32):
+    _wrapper.launches = 0
 
 
 def _lib():
@@ -289,6 +366,56 @@ def _lib():
         lib.lss_fused_decode_smem_bytes.argtypes = [i] * 5
         lib.lss_fused_decode_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def _f32_lib():
+    """The float32 decode library (B2, B3, B4, B5 and B8 at float32)."""
+    lib = load_library("decode_f32", F32_SOURCES)
+    fn = lib.lss_decode_f32
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 14 + [i] * 16 + [p, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        lib.lss_decode_f32_smem_bytes.argtypes = [i] * 2
+        lib.lss_decode_f32_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def launch_f32(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, nsplit,
+               part, *, offsets=None, offset=0, layer=0, scale_layer=0, page_table=None, P=0,
+               ps=0, mp=0, write=False, fresh_scales=(None, None)):
+    """One launch of the float32 decode library for ``wrapper`` (its count
+    goes up by one), on operands its checks passed: returns the float32 out
+    (B, T, Hq, Dh). Dense caches are (L, B, Hkv, S, Dh) read at ``layer``
+    (B8's one-layer view: L = 1); paged pools (L, P, Hkv, ps, Dh) through
+    ``page_table``. ``nsplit`` and ``part`` as the bf16 launches take them
+    (``split_scratch``). ``fresh_scales``: the (B, Hkv, T) bf16 outputs of
+    B3's int8 mode, else the int8 scales are written in place."""
+    what = wrapper.__name__
+    B, T, Hq, Dh = q.shape
+    Hkv = k_cache.shape[-3]
+    paged = page_table is not None
+    S = mp * ps if paged else k_cache.shape[-2]
+    lib = _f32_lib()
+    smem = lib.lss_decode_f32_smem_bytes(Dh, T * (Hq // Hkv))
+    if smem > MAX_SMEM:
+        raise ValueError(f"{what}: T={T} Hq/Hkv={Hq // Hkv} needs {smem} bytes of shared "
+                         f"memory (limit {MAX_SMEM})")
+    out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    strides = (ctypes.c_longlong * 9)(*(q.stride()[:3] + k_new.stride()[:3]
+                                        + v_new.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = lib.lss_decode_f32(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale),
+            *(ptr(f) for f in fresh_scales), k_new.data_ptr(), v_new.data_ptr(),
+            pad_lens.data_ptr(), ptr(offsets), ptr(page_table), out.data_ptr(), ptr(part),
+            nsplit, int(offset), B, T, Hq, Hkv, S, Dh, int(layer), int(scale_layer), P, ps, mp,
+            CACHE_BYTES[k_cache.dtype], int(paged), int(write), strides, Dh ** -0.5, stream)
+    count_launch(wrapper)
+    check_status(status, what)
+    return out
 
 
 def _storage_span(t: torch.Tensor) -> Tuple[int, int]:
@@ -307,12 +434,23 @@ def check_separate_storage(what: str, tensors) -> None:
                                  "storage (in-place writes would corrupt each other)")
 
 
+def cache_type_error(what, dtype, k_cache, v_cache, kind="cache"):
+    """The refusal of a cache (or pools) the ``dtype`` route does not take."""
+    if dtype == torch.bfloat16:
+        return ValueError(f"{what}: the kernel takes a bfloat16 or int8 {kind} under a "
+                          f"bfloat16 query, got {k_cache.dtype} and {v_cache.dtype} (a "
+                          "bfloat16 query over a float32 cache is not ported)")
+    return ValueError(f"{what}: the float32 kernel takes an int8, bfloat16 or float32 {kind}, "
+                      f"got {k_cache.dtype} and {v_cache.dtype}")
+
+
 def check_decode_operands(what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
-                          pad_lens, scale_shape):
-    """The checks the dense decode kernels share: shapes, bf16 or int8
-    caches (int8 with bf16 scales of ``scale_shape``, bf16 without), bf16
-    q and fresh k/v with a unit last stride, int32 pads, one device, and
-    the shared memory the sizes need. Returns (B, T, Hq, Hkv, S, Dh)."""
+                          pad_lens, scale_shape, dtype=torch.bfloat16):
+    """The checks the dense decode kernels share: shapes, caches of the
+    types the ``dtype`` route takes (int8 with bf16 scales of
+    ``scale_shape``, the others without), q and fresh k/v of ``dtype`` with
+    a unit last stride, int32 pads and one device. Returns (B, T, Hq, Hkv,
+    S, Dh)."""
     if q.dim() != 4 or k_cache.dim() < 4:
         raise ValueError(f"{what}: q must be (B, T, Hq, Dh), the cache (.., B, Hkv, S, Dh)")
     B, T, Hq, Dh = q.shape
@@ -324,24 +462,23 @@ def check_decode_operands(what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_
         raise ValueError(f"{what}: the kernel takes Dh in (64, 128) and "
                          f"1 <= T * Hq / Hkv <= {MAX_ROWS}; got T={T} Hq={Hq} Hkv={Hkv} "
                          f"Dh={Dh}")
-    if k_cache.dtype not in CACHE_BYTES or v_cache.dtype != k_cache.dtype:
-        raise ValueError(f"{what}: the kernel takes a bfloat16 or int8 cache, got "
-                         f"{k_cache.dtype} and {v_cache.dtype}")
+    if k_cache.dtype not in CACHE_TYPES[dtype] or v_cache.dtype != k_cache.dtype:
+        raise cache_type_error(what, dtype, k_cache, v_cache)
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()) or any(
             t.data_ptr() % 16 for t in (k_cache, v_cache)):
         raise ValueError(f"{what}: caches must be contiguous with a 16-byte aligned base")
     quantized = k_cache.dtype == torch.int8
     if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
-        raise ValueError(f"{what}: an int8 cache takes its k/v scales, a bfloat16 cache none")
+        raise ValueError(f"{what}: an int8 cache takes its k/v scales, a float cache none")
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if t is not None and (t.dtype != torch.bfloat16 or tuple(t.shape) != scale_shape
                               or not t.is_contiguous()):
             raise ValueError(f"{what}: {name} must be a contiguous {scale_shape} bfloat16 "
                              f"tensor")
     for name, t, heads in (("q", q, Hq), ("k_new", k_new, Hkv), ("v_new", v_new, Hkv)):
-        if t.dtype != torch.bfloat16 or t.shape != (B, T, heads, Dh) or t.stride(-1) != 1:
-            raise ValueError(f"{what}: {name} must be ({B}, {T}, {heads}, {Dh}) bfloat16 "
-                             f"with a unit last stride")
+        if t.dtype != dtype or t.shape != (B, T, heads, Dh) or t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} must be ({B}, {T}, {heads}, {Dh}) "
+                             f"{str(dtype)[6:]} with a unit last stride")
     if pad_lens.dtype != torch.int32 or pad_lens.shape != (B,) or not pad_lens.is_contiguous():
         raise ValueError(f"{what}: pad_lens must be a contiguous ({B},) int32 tensor")
     tensors = [t for t in (q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens)
@@ -359,14 +496,17 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offse
 
 
 def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
-                  offsets, layer, max_offset, per_layer_scales):
+                  offsets, layer, max_offset, per_layer_scales, float32=False):
+    """B2 (``per_layer_scales`` off) or B3 on CUDA tensors: the bf16 body,
+    or with ``float32`` the float32 one."""
     what = wrapper.__name__
     if k_cache.dim() != 5:
         raise ValueError(f"{what}: caches must be (L, B, Hkv, S, Dh)")
     L = k_cache.shape[0]
     B, T, Hq, Hkv, S, Dh = check_decode_operands(
         what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
-        tuple(k_cache.shape[1:4]) if per_layer_scales else tuple(k_cache.shape[:4]))
+        tuple(k_cache.shape[1:4]) if per_layer_scales else tuple(k_cache.shape[:4]),
+        torch.float32 if float32 else torch.bfloat16)
     if not 0 <= layer < L:
         raise ValueError(f"{what}: layer {layer} outside [0, {L})")
     check_separate_storage(what, [t for t in (k_cache, v_cache, k_scale, v_scale)
@@ -378,6 +518,31 @@ def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, 
     if max_offset is None:
         raise ValueError(f"{what}: pass max_offset (host-side bound of offsets) on CUDA")
     _check_offsets(int(max_offset), T, S)
+    nsplit = dense_splits(B, Hkv, max_offset, sm_count(q.device.index))
+    part = split_scratch(nsplit, B, Hkv, T * (Hq // Hkv), Dh, q.device)
+    fresh = None
+    if per_layer_scales and k_scale is not None:
+        fresh = [torch.empty((B, Hkv, T), dtype=torch.bfloat16, device=q.device)
+                 for _ in range(2)]
+    if float32:
+        out = launch_f32(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
+                         nsplit, part, offsets=offsets, layer=layer,
+                         scale_layer=0 if per_layer_scales else layer, write=True,
+                         fresh_scales=fresh or (None, None))
+    else:
+        out = _launch_bf16(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
+                           pad_lens, offsets, layer, per_layer_scales, nsplit, part, fresh)
+    if fresh is not None:
+        return out, fresh[0][..., 0], fresh[1][..., 0]
+    return out
+
+
+def _launch_bf16(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
+                 offsets, layer, per_layer_scales, nsplit, part, fresh):
+    """The bf16 body's launch for ``_launch_dense``; returns out."""
+    what = wrapper.__name__
+    B, T, Hq, Dh = q.shape
+    Hkv, S = k_cache.shape[2], k_cache.shape[3]
     cache_bytes = CACHE_BYTES[k_cache.dtype]
     lib = _lib()
     smem = lib.lss_fused_decode_smem_bytes(Dh, T, Hq // Hkv, S, cache_bytes)
@@ -385,12 +550,6 @@ def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, 
         raise ValueError(f"{what}: S={S} needs {smem} bytes of shared memory "
                          f"(limit {MAX_SMEM})")
     out = torch.empty((B, T, Hq, Dh), dtype=torch.bfloat16, device=q.device)
-    fresh = None
-    if per_layer_scales and k_scale is not None:
-        fresh = [torch.empty((B, Hkv, T), dtype=torch.bfloat16, device=q.device)
-                 for _ in range(2)]
-    nsplit = dense_splits(B, Hkv, max_offset, sm_count(q.device.index))
-    part = split_scratch(nsplit, B, Hkv, T * (Hq // Hkv), Dh, q.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     strides = (ctypes.c_longlong * 9)(*(q.stride()[:3] + k_new.stride()[:3]
                                         + v_new.stride()[:3]))
@@ -404,6 +563,4 @@ def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, 
             strides, Dh ** -0.5, stream)
     count_launch(wrapper)
     check_status(status, what)
-    if fresh is not None:
-        return out, fresh[0][..., 0], fresh[1][..., 0]
     return out

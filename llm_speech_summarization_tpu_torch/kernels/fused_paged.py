@@ -18,6 +18,12 @@ advanced: the decoder owns progression.
 The JAX kernel returns the fresh scales for one scatter after the layer
 scan; both versions here write them in place like the values, which leaves
 the same final state. bf16 pools take the fresh bf16 values and no scales.
+
+A float32 query takes ``fused_paged_decode_f32`` (its own launch count),
+the paged writing instance of the float32 decode library (``csrc/
+decode_f32.cu``, ``fused_decode.launch_f32``), over int8, float32 or
+bfloat16 pools, float32 fresh k/v and a float32 output; float32 pools take
+the fresh values bit for bit.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ from typing import Optional
 import torch
 
 from .build import check_status, count_launch, load_library
-from .fused_decode import MAX_SMEM, _quantize_kv
-from .paged_attention import check_paged_operands, paged_reference, paged_splits
+from .fused_decode import MAX_SMEM, _devices, _quantize_kv, compute_dtype, launch_f32
+from .paged_attention import _operands, check_paged_operands, paged_reference, paged_splits
 
 SOURCES = ("fused_paged.cu", "dense_decode.cuh", "int8.cuh", "flash_sm90.cuh")
 
@@ -98,19 +104,38 @@ def fused_paged_decode(
     None for bf16 pools; page_table (B, mp) int32; lengths/pad_lens (B,)
     int32; k_new/v_new (B, 1, Hkv, Dh). The wrapper never reads device
     values."""
-    tensors = [q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new]
-    devices = {t.device.type for t in tensors + [s for s in (k_scale, v_scale) if s is not None]}
-    if devices == {"cpu"}:
+    what = "fused_paged_decode"
+    if _devices(what, _operands(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
+                                pad_lens, k_new, v_new)) == "cpu":
         return fused_paged_reference(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
                                      pad_lens, k_new, v_new, layer)
-    if devices == {"cuda"}:
-        return _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens,
-                       k_new, v_new, layer)
-    raise ValueError(
-        f"fused_paged_decode: tensors on {sorted(devices)}; need all cpu or all cuda")
+    if compute_dtype(what, q, k_new, v_new) == torch.float32:
+        return fused_paged_decode_f32(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
+                                      pad_lens, k_new, v_new, layer)
+    return _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new,
+                   v_new, layer)
+
+
+def fused_paged_decode_f32(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens,
+                           k_new, v_new, layer):
+    """B5's float32 instance: float32 q and fresh k/v (T = 1) over int8,
+    float32 or bfloat16 pools, the fresh token written in place; returns a
+    float32 (B, 1, Hq, Dh). Arguments as ``fused_paged_decode``."""
+    what = "fused_paged_decode_f32"
+    if _devices(what, _operands(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
+                                pad_lens, k_new, v_new)) == "cpu":
+        return fused_paged_reference(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
+                                     pad_lens, k_new, v_new, layer)
+    B, Hq, Hkv, P, ps, mp, Dh = _check(what, q, k_pool, v_pool, k_scale, v_scale, page_table,
+                                       lengths, pad_lens, k_new, v_new, layer, torch.float32)
+    nsplit, part = paged_splits(B, 1, Hq, Hkv, ps, mp, Dh, q.device)
+    return launch_f32(fused_paged_decode_f32, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new,
+                      pad_lens, nsplit, part, offsets=lengths, layer=layer, scale_layer=layer,
+                      page_table=page_table, P=P, ps=ps, mp=mp, write=True)
 
 
 fused_paged_decode.launches = 0
+fused_paged_decode_f32.launches = 0
 
 
 def _lib():
@@ -125,16 +150,27 @@ def _lib():
     return lib
 
 
+def _check(what, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new,
+           v_new, layer, dtype):
+    """The checks of a CUDA call of the ``dtype`` route; returns (B, Hq, Hkv,
+    P, ps, mp, Dh)."""
+    L = k_pool.shape[0] if k_pool.dim() == 5 else 0
+    B, T, Hq, Hkv, P, ps, mp, Dh, _ = check_paged_operands(
+        what, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new, v_new,
+        pool_lead=(L,), dtype=dtype)
+    if T != 1:
+        raise ValueError(f"{what}: the kernel takes T == 1, got T={T}")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+    return B, Hq, Hkv, P, ps, mp, Dh
+
+
 def _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new, v_new,
             layer):
-    L = k_pool.shape[0] if k_pool.dim() == 5 else 0
-    B, T, Hq, Hkv, P, ps, mp, Dh, int8_pools = check_paged_operands(
-        "fused_paged_decode", q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
-        pad_lens, k_new, v_new, pool_lead=(L,))
-    if T != 1:
-        raise ValueError(f"fused_paged_decode: the kernel takes T == 1, got T={T}")
-    if not 0 <= layer < L:
-        raise ValueError(f"fused_paged_decode: layer {layer} outside [0, {L})")
+    B, Hq, Hkv, P, ps, mp, Dh = _check("fused_paged_decode", q, k_pool, v_pool, k_scale,
+                                       v_scale, page_table, lengths, pad_lens, k_new, v_new,
+                                       layer, torch.bfloat16)
+    int8_pools = k_pool.dtype == torch.int8
     lib = _lib()
     smem = lib.lss_fused_paged_smem_bytes(Dh, Hq // Hkv, ps, int(int8_pools))
     if smem > MAX_SMEM:

@@ -16,6 +16,13 @@ without; page_table (B, mp) int32; lengths/pad_lens (B,) int32; k_new/v_new
 ps]``, slot ``pos % ps``) plus the fresh block causally. Nothing is
 written: the caller scatters the fresh tokens (``infer/paged.py::
 write_tokens``).
+
+A float32 query takes ``paged_decode_attention_f32`` (its own launch
+count), the paged read-only instance of the float32 decode library
+(``csrc/decode_f32.cu``, ``fused_decode.launch_f32``), over int8, float32
+or bfloat16 pools; its output is float32. Its shared memory does not grow
+with the page size: it stages chunks of 64 slots, each slot through its
+page.
 """
 
 from __future__ import annotations
@@ -27,9 +34,24 @@ import torch
 
 from . import fused_decode
 from .build import check_status, count_launch, load_library
-from .fused_decode import MAX_ROWS, MAX_SMEM, NEG_INF, check_separate_storage
+from .fused_decode import (
+    CACHE_TYPES,
+    MAX_ROWS,
+    MAX_SMEM,
+    NEG_INF,
+    _devices,
+    cache_type_error,
+    check_separate_storage,
+    compute_dtype,
+    launch_f32,
+)
 
 SOURCES = ("paged_attention.cu", "dense_decode.cuh", "int8.cuh", "flash_sm90.cuh")
+
+
+def _operands(*tensors):
+    """The tensors of a paged call (scales may be None)."""
+    return [t for t in tensors if t is not None]
 
 
 def paged_reference(
@@ -99,19 +121,41 @@ def paged_decode_attention(
     """Attention over a paged KV cache for T >= 1 fresh queries; returns
     (B, T, Hq, Dh). CPU tensors take the plain version, CUDA tensors the
     kernel; the wrapper never reads device values."""
-    tensors = [q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new]
-    devices = {t.device.type for t in tensors + [s for s in (k_scale, v_scale) if s is not None]}
-    if devices == {"cpu"}:
+    what = "paged_decode_attention"
+    if _devices(what, _operands(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
+                                pad_lens, k_new, v_new)) == "cpu":
         return paged_reference(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new,
                                k_scale, v_scale)
-    if devices == {"cuda"}:
-        return _launch(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new,
-                       k_scale, v_scale)
-    raise ValueError(
-        f"paged_decode_attention: tensors on {sorted(devices)}; need all cpu or all cuda")
+    if compute_dtype(what, q, k_new, v_new) == torch.float32:
+        return paged_decode_attention_f32(q, k_pool, v_pool, page_table, lengths, pad_lens,
+                                          k_new, v_new, k_scale, v_scale)
+    return _launch(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new, k_scale,
+                   v_scale)
+
+
+def paged_decode_attention_f32(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new,
+                               k_scale=None, v_scale=None):
+    """B4's float32 instance: float32 q and fresh k/v over one layer's int8,
+    float32 or bfloat16 pools; returns a float32 (B, T, Hq, Dh). Arguments
+    as ``paged_decode_attention``."""
+    what = "paged_decode_attention_f32"
+    if _devices(what, _operands(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
+                                pad_lens, k_new, v_new)) == "cpu":
+        return paged_reference(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new,
+                               k_scale, v_scale)
+    B, T, Hq, Hkv, P, ps, mp, Dh, int8_pools = check_paged_operands(
+        what, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new, v_new,
+        pool_lead=(), dtype=torch.float32)
+    nsplit, part = paged_splits(B, T, Hq, Hkv, ps, mp, Dh, q.device)
+    # one layer's pools as pools of one layer
+    return launch_f32(paged_decode_attention_f32, q, k_pool[None], v_pool[None],
+                      k_scale[None] if int8_pools else None,
+                      v_scale[None] if int8_pools else None, k_new, v_new, pad_lens, nsplit,
+                      part, offsets=lengths, page_table=page_table, P=P, ps=ps, mp=mp)
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention_f32.launches = 0
 
 
 def _lib():
@@ -127,10 +171,11 @@ def _lib():
 
 
 def check_paged_operands(what, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
-                         pad_lens, k_new, v_new, pool_lead):
-    """Shape, type and layout checks shared by B4 and B5. ``pool_lead`` is
-    the pools' leading shape, () for B4's layer views and (L,) for B5.
-    Returns (B, T, Hq, Hkv, P, ps, mp, Dh, int8_pools)."""
+                         pad_lens, k_new, v_new, pool_lead, dtype=torch.bfloat16):
+    """Shape, type and layout checks shared by B4 and B5 on the ``dtype``
+    route (q and fresh k/v of that dtype, pools of a type it takes).
+    ``pool_lead`` is the pools' leading shape, () for B4's layer views and
+    (L,) for B5. Returns (B, T, Hq, Hkv, P, ps, mp, Dh, int8_pools)."""
     if q.dim() != 4 or k_pool.dim() != 4 + len(pool_lead):
         raise ValueError(f"{what}: q must be (B, T, Hq, Dh), pools {pool_lead} + (P, Hkv, ps, Dh)")
     B, T, Hq, Dh = q.shape
@@ -145,9 +190,8 @@ def check_paged_operands(what, q, k_pool, v_pool, k_scale, v_scale, page_table, 
     if ps % 16 or not 16 <= ps <= 256:
         raise ValueError(f"{what}: the kernel takes page sizes 16..256 in steps of 16, got {ps}")
     int8_pools = k_pool.dtype == torch.int8
-    if k_pool.dtype not in (torch.int8, torch.bfloat16) or v_pool.dtype != k_pool.dtype:
-        raise ValueError(f"{what}: pools must be int8 or bfloat16, got {k_pool.dtype}, "
-                         f"{v_pool.dtype}")
+    if k_pool.dtype not in CACHE_TYPES[dtype] or v_pool.dtype != k_pool.dtype:
+        raise cache_type_error(what, dtype, k_pool, v_pool, kind="pool")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError(f"{what}: pools must be contiguous")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
@@ -161,12 +205,12 @@ def check_paged_operands(what, q, k_pool, v_pool, k_scale, v_scale, page_table, 
         check_separate_storage(what, (k_pool, v_pool, k_scale, v_scale))
     else:
         if k_scale is not None or v_scale is not None:
-            raise ValueError(f"{what}: bfloat16 pools take no scales")
+            raise ValueError(f"{what}: {k_pool.dtype} pools take no scales")
         check_separate_storage(what, (k_pool, v_pool))
     for name, t, heads in (("q", q, Hq), ("k_new", k_new, Hkv), ("v_new", v_new, Hkv)):
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != (B, T, heads, Dh) or t.stride(-1) != 1:
-            raise ValueError(f"{what}: {name} must be ({B}, {T}, {heads}, {Dh}) bfloat16 with a "
-                             f"unit last stride")
+        if t.dtype != dtype or tuple(t.shape) != (B, T, heads, Dh) or t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} must be ({B}, {T}, {heads}, {Dh}) "
+                             f"{str(dtype)[6:]} with a unit last stride")
     if page_table.dtype != torch.int32 or page_table.dim() != 2 or page_table.shape[0] != B \
             or not page_table.is_contiguous():
         raise ValueError(f"{what}: page_table must be a contiguous ({B}, mp) int32 tensor")

@@ -11,13 +11,14 @@ padded to its 30 s budget, or with ``whisper_dynamic_frames`` sized to the
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..configs import Config
-from ..device import resolve_device
+from ..device import exact_float32, resolve_device
 from ..ops.pooling import avg_pool_time, ctc_segment_mean, stack_downsample
 from ..parallel.comm import group_size
 from .hubert import HubertConfig, hubert_forward, hubert_frame_count, hubert_preset, init_hubert_params
@@ -131,6 +132,19 @@ def _cast_floats(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+def _exact_float32(forward):
+    """``forward(params, setup, wav, ...)`` inside ``exact_float32(wav)``:
+    the HuBERT conv stem, Whisper's convolutions and every product in
+    float32 for a float32 waveform on the card."""
+    @functools.wraps(forward)
+    def wrapped(params, setup, wav, *args, **kw):
+        with exact_float32(wav):
+            return forward(params, setup, wav, *args, **kw)
+
+    return wrapped
+
+
+@_exact_float32
 def audio_encoder_forward(
     params: Params,
     setup: AudioEncoderParams,

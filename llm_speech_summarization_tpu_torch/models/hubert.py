@@ -31,7 +31,6 @@ the large one for tests.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -39,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..device import exact_float32
 from ..kernels.flash_attention import flash_attention
 from ..ops.norms import layer_norm
 from ..ops.ring_attention import ring_attention
@@ -385,24 +385,6 @@ def init_hubert_ctc_head(generator: torch.Generator, cfg: HubertConfig, vocab_si
             "ctc_b": torch.zeros((vocab_size,), dtype=dtype, device=device)}
 
 
-@contextlib.contextmanager
-def full_float32(x: torch.Tensor):
-    """Where ``x`` is a float32 CUDA tensor, the block's float32 products
-    and cuDNN convolutions run in float32, not TF32 (cuDNN's default); the
-    caller's settings come back afterwards."""
-    if not (x.is_cuda and x.dtype == torch.float32):
-        yield
-        return
-    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(saved[0])
-        torch.backends.cudnn.allow_tf32 = saved[1]
-
-
 def hubert_ctc_logits(
     params: Params,
     head: Params,
@@ -413,7 +395,7 @@ def hubert_ctc_logits(
     """waveform → (framewise CTC logits (B, T, V) float32, frame_mask); the
     HuBERT forward inside runs B1 on the card, in float32 (B1's float32
     instance, no TF32) for a float32 waveform and tree."""
-    with full_float32(wav):
+    with exact_float32(wav):
         frames, frame_mask = hubert_forward(params, cfg, wav, wav_mask)
         logits = frames @ head["ctc_w"].to(frames.dtype) + head["ctc_b"]
     return logits.float(), frame_mask

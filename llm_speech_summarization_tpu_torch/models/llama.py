@@ -21,7 +21,12 @@ after it. Over the paged cache (``infer/paged.py``), a T == 1 step calls
 verification forward calls ``paged_decode_attention``, after which
 ``write_tokens`` writes the fresh tokens. On CPU the plain versions are the
 JAX package's ``"bias"``, ``decode_xla_q`` and ``paged_reference``
-formulations.
+formulations. Every decode kernel takes a float32 query too (a model whose
+activations are float32: its norm weights, or float32 prompt embeddings),
+through its float32 instance, over an int8, float32 or bfloat16 cache; the
+forward of float32 activations on the card runs its products in float32,
+not TF32 (``device.exact_float32``), as the JAX package asks for
+``Precision.HIGHEST`` at float32.
 
 Training (the cache-free forward of the KD step): ``return_hidden`` /
 ``hidden_window`` return the hidden-state stack of the last W positions,
@@ -59,12 +64,14 @@ backward, every rank in the same (reverse layer) order. With a
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Any, Dict, NamedTuple, Optional, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..device import exact_float32
 from ..infer.paged import PagedKVCache, write_tokens
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
@@ -337,6 +344,20 @@ def _write_cache(cache: KVCache, layer: int, offset: int, k: torch.Tensor, v: to
             buf[layer, :, :, window] = new.to(buf.dtype)
 
 
+def _exact_float32(forward):
+    """``forward(params, cfg, **kw)`` inside ``exact_float32`` of its
+    activations: the given embeddings, else the norm weights (the
+    embedding lookup's dtype)."""
+    @functools.wraps(forward)
+    def wrapped(params, cfg, **kw):
+        x = kw.get("inputs_embeds")
+        with exact_float32(x if x is not None else params["final_norm"]):
+            return forward(params, cfg, **kw)
+
+    return wrapped
+
+
+@_exact_float32
 def llama_forward(
     params: Params,
     cfg: LlamaConfig,
