@@ -5,12 +5,15 @@
 
 Phases, in order; each prints one line and any failure raises:
   1. environment: the card's name and power limit, torch/CUDA versions;
-  2. build the nine CUDA kernel libraries from ``llm_speech_summarization_tpu_
-     torch/kernels/csrc`` with nvcc, one process per library, all at once,
-     and print the registers and spill bytes of the wgmma kernels (the
+  2. build the ten CUDA kernel libraries from ``llm_speech_summarization_tpu_
+     torch/kernels/csrc`` with nvcc, one process per library, all at once
+     (phases 3 to 4b run as soon as the flash libraries are built, while
+     the decode libraries build on; this line comes after them), and
+     print the registers and spill bytes of the wgmma kernels (the
      flash forward, dq and dk/dv) at each Dh, failing on any spill, and
      of the decode body's dense and paged instances, B1's float32
-     instance and the float32 decode body's instances (reported only), the
+     forward (with and without the lse), the float32 backward's dq and
+     dk/dv and the float32 decode body's instances (reported only), the
      4-row paged instances MiniChat's group of 1 selects named apart;
   3. flash attention (B1) against its plain version run in float32 at the
      main paths' six shapes (the Llama and MiniChat prefills, HuBERT-large,
@@ -34,6 +37,16 @@ Phases, in order; each prints one line and any failure raises:
      interior), at the long-audio ring's block shapes for a visiting block
      from a rank before, equal to and after the queries' rank, with
      injected offset faults and SDPA under the block's mask;
+  4b. the float32 training kernels (B1 + LSE, B6 dq and dk/dv at
+     float32, ``csrc/flash_attention_f32.cu`` and ``csrc/flash_attention_
+     bwd_f32.cu``) through the bf16 entry points at the LLM's, HuBERT's and
+     Whisper's training shapes, then B7 at float32 at the ring's three
+     block relations (the LLM's block as published, HuBERT's cut to 1000
+     frames), against the plain versions run in float64 within the F32
+     bounds (see F32_OUT_ATOL: the output's, the lse's and the backward's
+     own), with faults the bounds must reject (TF32-rounded operands, p and
+     ds rounded to bf16, a window end off by one, the KV head of the wrong
+     group), REPEATS bit-equal rounds, and SDPA at float32 timed beside;
   5. fused decode (B2) against its plain version, including the in-place
      cache writes, and against the plain version run in float32 with
      injected faults, at B=8, 16 and 128 (T=1), B=16, T=3, and B=1 over
@@ -76,10 +89,13 @@ Phases, in order; each prints one line and any failure raises:
  11. the full-width serving path: ``SummarizationServer`` over HTTP with
      the paged cache, then with speculative chunks, then with the dense
      cache;
- 11d. serving_tp_full: ``llama3_hubert.yaml`` on a tensor-parallel model
-     group of two ranks sharing the card over gloo (this file with
-     ``--tp-rank`` is each rank's program, launched by
-     ``torch.distributed.run``): the batch path (B=8 x 10 s), then
+ 11d. serving_tp_full: ``llama3_hubert.yaml`` (Llama-3.2-3B cut to
+     TP_SERVE_LAYERS blocks) on a tensor-parallel model group of two ranks
+     sharing the card over gloo (``tp_rank`` is each rank's program, in
+     ``torch.distributed.run``'s environment; every rank of every launch
+     runs in a process of this file started ahead, which imports and runs
+     a small train step while an earlier phase runs: ``_RankPool``): the
+     batch path (B=8 x 10 s), then
      ``cli/serve.py --tp 2`` on the dense cache and with ``--paged
      --speculative_k 3``, a burst of 8 each; greedy rows held to the
      unsharded engine margin-aware, rank 1's rows equal to rank 0's, each
@@ -105,7 +121,7 @@ Phases, in order; each prints one line and any failure raises:
  11b. the bulk entry point: ``cli/infer.py --audio_dir`` over 32 WAV and
      FLAC clips on ``llama3_hubert.yaml``, its JSONL held to per-batch
      engine calls, then the pipelined ``generate_audio_response_batches``
-     against serial per-batch calls (4 batches of 32 10 s clips, ABBA);
+     against serial per-batch calls (2 batches of 32 10 s clips, ABBA);
  12. the full-width ``llama3_whisper.yaml`` batch path on a bf16 KV cache
      (B1 and B3), ``greedy_generate(attn_impl="pallas")`` on its prompts
      (B8) held to the B3 stream, and a dense HTTP server on it;
@@ -117,7 +133,10 @@ Phases, in order; each prints one line and any failure raises:
      "save_qkv", 4 steps with the trace window (LSS_PROFILE_DIR,
      LSS_PROFILE_STEPS=2) on steps 3 and 4, its kernel events counted;
      then one step's forward and backward under "full" and "save_qkv" in
-     turns, bit-equal;
+     turns, bit-equal; then train_f32_full: the trainer at
+     ``compute_dtype: float32`` (int8 LLM, HuBERT-large, remat, B=8): two
+     steps and validate through the float32 instances, its first step held
+     to the plain attention's, the TF32 flags read at every backward;
  13a. convert_full: Llama-3.2-3B (bf16, two shards), HuBERT-large and
      HuBERT-large CTC drawn at published widths under their HF names,
      written as safetensors and converted by ``cli/convert.py``; an engine
@@ -138,27 +157,32 @@ Phases, in order; each prints one line and any failure raises:
  13e. train_whisper_full: ``llama3_whisper.yaml`` KD training (int8 LLM,
      B=16, 500 encoder frames): steps, validate, resume, a profiled step,
      and one step held to the same step with the plain attention;
- 14. the long-audio trainer (``llama3_hubert_long.yaml``, published widths
-     and depth, 118-120 s synthetic clips) on a sequence-parallel ring of
-     two ranks sharing the card over gloo, launched by
-     ``torch.distributed.run`` through the training CLI (``--mesh 1,2,1``;
-     this file with ``--train-rank`` is each rank's program): two steps,
+ 14. the long-audio trainer (``llama3_hubert_long.yaml``, published widths,
+     Llama-3.2-3B and HuBERT-large cut to RANK_LAYERS blocks, 118-120 s
+     synthetic clips) on a sequence-parallel ring of
+     two ranks sharing the card over gloo, started in
+     ``torch.distributed.run``'s environment through the training CLI
+     (``--mesh 1,2,1``; ``train_rank`` is each rank's program): two steps,
      validate and a checkpoint, then a launch that resumes and takes one
      more step; then one unsharded step in this process on the same weights
      and batch, which the ring's first step must match;
- 14b. train_dp_full: ``llama3_hubert.yaml`` (published widths and depth,
-     int8 LLM, remat) through the CLI at ``--mesh 2,1,1``: two gloo ranks
-     on the card, 8 rows each of every global batch of 16, ZeRO-1; two
+ 14b. train_dp_full: ``llama3_hubert.yaml`` (published widths, the models
+     cut to RANK_LAYERS blocks, int8 LLM, remat) through the CLI at
+     ``--mesh 2,1,1``: two gloo ranks on the card, 8 rows each of every global batch of 16, ZeRO-1; two
      steps, validate and a checkpoint, which a trainer on mesh 1,1,1 in
      this process resumes for one step; the three steps held to three
      unsharded steps on the same weights and batches (DP_RTOL);
  14c. train_tp_full: the same at ``--mesh 1,1,2`` (the LLM sharded, 12/4
-     heads a rank, the fused loss vocab-parallel), two steps (no validate)
-     held to two unsharded steps within TP_RTOL;
+     heads a rank, the fused loss vocab-parallel), two steps (no validate) held to two unsharded
+     steps within TP_RTOL;
  14d. train_3d_small: ``--mesh 2,2,2`` on eight ranks (the ring and
      encoder SP, the sharded LLM, ZeRO-1), the models cut to
      SHALLOW_LAYERS blocks, one step (no validate) held to its unsharded
-     step.
+     step;
+ 14e. train_ring_f32: ``--mesh 1,2,1`` (the ring and encoder SP) at
+     ``compute_dtype: float32``, the models cut to SHALLOW_LAYERS blocks,
+     B=4: one step, B7's float32 instances on both ranks, held to the
+     unsharded float32 step within F32_RING_RTOL.
 Every main-path run is driven with the launch counts set to 0 just before it
 and checked just after against what the engine, decoder or trainer ran.
 Then the card line, one JSON line with every kernel's summary, and the
@@ -177,10 +201,16 @@ median device and call ms of each kernel and shape per checkout.
 
 times B2 at small batches for each split count of the window (the numbers
 ``fused_decode.dense_splits`` is set from), then runs phase 5.
+
+    python3 chip_smoke.py --f32-train-kernels [TL]
+
+runs only B1's float32 phase and phase 4b with HuBERT's float32 ring block
+at TL frames, printing each ring case's wall and peak device memory.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import json
@@ -264,6 +294,31 @@ B7_OUT_ATOL, B7_OUT_RTOL = 1e-5, 2.0 ** -8
 # the phase shows the bound rejects them on the card, with a window end off
 # by one, a k tile dropped from P.V and the KV head of the wrong group.
 F32_OUT_ATOL, F32_OUT_RTOL = 1e-7, 2e-5
+# The float32 training kernels (B1 + LSE, B6 dq and dk/dv, B7) are held to
+# the float64 plain versions on the same float32 inputs (the backward's on
+# the kernel's own lse and delta = rowsum(dO * O)) with the constants above.
+# out: the bound above. lse = m + log(l): the scores' and the sum's errors
+# above, now absolute, u (sqrt(Dh) S + sqrt(n) + 4), and the rounding of m
+# (a few u |lse|): F32_OUT_ATOL + F32_OUT_RTOL (1 + |lse|). The backward,
+# per (query i, key j), p = exp(s - lse), dp = dO_i.v_j, ds = p (dp - delta):
+# the exponent s Dh^-0.5 log2(e) - lse log2(e) is off by u (sqrt(Dh) S +
+# 2 S + 2 |lse|) and exp2f by 2 u, which is p's relative error e_p; dp is a
+# chain of Dh FFMAs, off by sqrt(Dh) u D, D = sum_d |dO_d v_d|; so ds is
+# off by at most (e_p + (sqrt(Dh) + 2) u) M, M = p (D + |delta|) >= |ds|.
+# dq_i = Dh^-0.5 sum_j ds k_j, dk_j = Dh^-0.5 sum_i ds q_i (summed over the
+# G heads of the group: n G terms) and dv_j = sum_i p dO_i add sqrt(n G) u
+# of their |terms|. Each output is then off by at most u (sqrt(Dh) S + 2 S
+# + 2 |lse| + sqrt(Dh) + sqrt(n G) + 8) times its magnitude: Dh^-0.5 M.|K|
+# for dq, Dh^-0.5 M^T.|Q| for dk, P^T.|dO| for dv (the float64 plain version
+# run on absolute values, _f64_bwd_magnitudes). At the phase's inputs
+# (randn; S <= 12.5 at Dh = 128 and 10.4 at 64, |lse| <= S + log n, n G <=
+# 2880 terms at Dh = 128, the ring block of 960 rows x 3 heads) that is 278
+# u = 1.7e-5 at most: the bound is F32_OUT_ATOL + F32_OUT_RTOL times the
+# magnitude. TF32 operands,
+# p or ds rounded to bf16, a window end off by one and the KV head of the
+# wrong group must fall outside every bound (tests/test_torch_flash_f32_
+# train.py emulates the kernels' tiles and sums on the CPU under half of
+# it, and shows bf16 ds over it).
 
 
 # train_small: one KD step on the CPU (plain versions) and on the card
@@ -389,27 +444,48 @@ def phase_env(torch) -> str:
     return card
 
 
-def phase_build(card, require_no_spill=True):
-    """One nvcc per kernel library, all started together; the wgmma
-    kernels' registers and spill bytes, a spill failing the phase unless
-    ``require_no_spill`` is off (an A/B run of an older checkout), and the
-    decode body's dense and paged instances' beside them."""
+def start_builds():
+    """One nvcc per kernel library, all started together on threads of
+    their own; returns the flash libraries' futures and the decode
+    libraries'. The flash libraries build in ~7 s and the decode ones in
+    ~30 s (the build line on an H100 host), so the flash phases run while
+    the decode libraries are still building; their device times are the
+    profiler's, which the compilers on the host do not enter."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from llm_speech_summarization_tpu_torch.kernels import (
+        decode_attention, flash_attention, fused_decode, fused_paged, paged_attention,
+    )
+
+    flash = (flash_attention._lib, flash_attention._bwd_lib, flash_attention._dkv_lib)
+    decode = (fused_decode._lib, paged_attention._lib, fused_paged._lib, decode_attention._lib)
+    f32_lib = getattr(flash_attention, "_f32_lib", None)  # None in an older checkout (A/B)
+    flash += (f32_lib,) if f32_lib else ()
+    bwd_f32_lib = getattr(flash_attention, "_bwd_f32_lib", None)  # ditto
+    flash += (lambda: bwd_f32_lib(True),) if bwd_f32_lib else ()
+    decode_f32_lib = getattr(fused_decode, "_f32_lib", None)  # ditto
+    decode += (decode_f32_lib,) if decode_f32_lib else ()
+    pool = ThreadPoolExecutor(max_workers=len(flash) + len(decode))
+    futures = [pool.submit(lib) for lib in flash], [pool.submit(lib) for lib in decode]
+    pool.shutdown(wait=False)
+    return futures
+
+
+def phase_build(card, require_no_spill=True, builds=None):
+    """Every kernel library built (``builds``: ``start_builds()``'s
+    futures, else started here); the wgmma kernels' registers and spill
+    bytes, a spill failing the phase unless ``require_no_spill`` is off (an
+    A/B run of an older checkout), and the decode body's dense and paged
+    instances' beside them."""
     from llm_speech_summarization_tpu_torch.kernels import (
         build, decode_attention, flash_attention, fused_decode, fused_paged, paged_attention,
     )
 
-    t0 = time.perf_counter()
-    libs = (flash_attention._lib, flash_attention._bwd_lib, flash_attention._dkv_lib,
-            fused_decode._lib, paged_attention._lib, fused_paged._lib, decode_attention._lib)
+    for fut in sum(builds or start_builds(), []):
+        fut.result()
     f32_lib = getattr(flash_attention, "_f32_lib", None)  # None in an older checkout (A/B)
-    libs += (f32_lib,) if f32_lib else ()
+    bwd_f32_lib = getattr(flash_attention, "_bwd_f32_lib", None)  # ditto
     decode_f32_lib = getattr(fused_decode, "_f32_lib", None)  # ditto
-    libs += (decode_f32_lib,) if decode_f32_lib else ()
-    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
-        for fut in [pool.submit(lib) for lib in libs]:
-            fut.result()
     # the wgmma designs (the forward, dq, dk/dv) keep their accumulators in
     # registers: ptxas must place them without a spill at either Dh
     regs = {}
@@ -451,13 +527,20 @@ def phase_build(card, require_no_spill=True):
                 for lib, T in (("paged_attention", 4), ("fused_paged", 1))}
     if require_no_spill and None in paged_g1.values():
         raise AssertionError(f"build: no 4-row paged instance with {nw} warps: {paged_g1}")
-    # B1's float32 instance (FFMA, reported only)
+    # B1's float32 forward (with or without the lse) and the float32
+    # backward's dq and dk/dv (FFMA, reported only)
     f32 = {}
     if f32_lib:
         for kernel, n_regs, spill in build.ptxas_report("flash_attention_f32",
                                                          flash_attention.F32_SOURCES):
             dh = int(re.search(r"Li(\d+)E", kernel).group(1))
-            f32[f"Dh={dh}"] = [n_regs, spill]
+            f32[f"fwd Dh={dh}"] = [n_regs, spill]
+    if bwd_f32_lib:
+        for kernel, n_regs, spill in build.ptxas_report("flash_attention_bwd_f32",
+                                                         flash_attention.BWD_F32_SOURCES):
+            name = re.search(r"(bwd_dq_f32_kernel|bwd_dkv_f32_kernel)", kernel).group(1)
+            dh = int(re.search(r"Li(\d+)E", kernel).group(1))
+            f32[f"{name} Dh={dh}"] = [n_regs, spill]
     # the float32 decode body's instances (cache type, Dh, write, paged)
     if decode_f32_lib:
         cts = {"a": "int8", "f": "float32", "13__nv_bfloat16": "bf16"}
@@ -467,7 +550,7 @@ def phase_build(card, require_no_spill=True):
             if m:
                 f32[f"decode {cts[m.group(1)]} Dh={m.group(2)} write={m.group(3)} "
                     f"paged={m.group(4)}"] = [n_regs, spill]
-    emit("build", seconds=round(time.perf_counter() - t0, 3),
+    emit("build", seconds=round(max(build.build_seconds.values(), default=0.0), 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()},
          wgmma_kernels=regs, decode_kernels=decode, f32_kernels_registers_spill=f32,
          paged_g1_instances=dict(rows=4, warps=nw, splits=nsplit, registers_spill=paged_g1),
@@ -2112,24 +2195,27 @@ def _sdpa_train_calls(torch, q, k, v, g, rows, causal):
     return fwd, fwd_bwd
 
 
-def _train_attn_work(c, T):
+def _train_attn_work(c, T, elem_bytes=2, pairs=None):
     """(bytes, flops) of B1 + LSE, B6 dq and B6 dk/dv at case ``c``: each
-    input read once and each output written once (bf16 tensors, float32 lse
-    and delta), 2 flops per multiply-add over the valid (query, key) pairs:
-    two products in the forward, three for dq (s, dp, dq), four for dk/dv
-    (s, dp, dv, dk)."""
+    input read once and each output written once (q, k, v, dout and the
+    outputs ``elem_bytes`` an element: bf16, or 4 for float32; float32 lse
+    and delta), 2 flops per multiply-add over the valid (query, key) pairs
+    (``pairs``, else counted from the case's windows): two products in the
+    forward, three for dq (s, dp, dq), four for dk/dv (s, dp, dv, dk); and
+    "bwd", the whole backward's five (s, dp, dq, dk, dv)."""
     B, Hq, Hkv, Dh = c["B"], c["Hq"], c["Hkv"], c["Dh"]
-    pairs = 0
-    for s0, e0 in zip(c["starts"], c["ends"]):
-        n = e0 - s0
-        pairs += n * (n + 1) // 2 if c["causal"] else n * n
-    qo = 2 * B * T * Hq * Dh  # one (B, T, Hq, Dh) bf16 tensor
-    kv = 2 * B * T * Hkv * Dh
+    if pairs is None:
+        pairs = sum(n * (n + 1) // 2 if c["causal"] else n * n
+                    for n in (e0 - s0 for s0, e0 in zip(c["starts"], c["ends"])))
+    qo = elem_bytes * B * T * Hq * Dh  # one (B, T, Hq, Dh) tensor
+    kv = elem_bytes * B * T * Hkv * Dh
     rowf = 4 * B * Hq * T  # one (B, Hq, T) float32 tensor
+    f = 2 * Dh * Hq * pairs  # one product
     return {
-        "fwd_lse": (float(2 * qo + 2 * kv + rowf), float(4 * Dh * Hq * pairs)),
-        "dq": (float(3 * qo + 2 * kv + 2 * rowf), float(6 * Dh * Hq * pairs)),
-        "dkv": (float(2 * qo + 4 * kv + 2 * rowf), float(8 * Dh * Hq * pairs)),
+        "fwd_lse": (float(2 * qo + 2 * kv + rowf), float(2 * f)),
+        "dq": (float(3 * qo + 2 * kv + 2 * rowf), float(3 * f)),
+        "dkv": (float(2 * qo + 4 * kv + 2 * rowf), float(4 * f)),
+        "bwd": (float(3 * qo + 4 * kv + 2 * rowf), float(5 * f)),
     }
 
 
@@ -2485,6 +2571,332 @@ def phase_flash_ring(torch, card):
     return results
 
 
+# float32 training kernels: B1 + LSE and B6 at the training shapes (the LLM
+# at the trainer's spliced length, HuBERT-large at 499 frames, Whisper's
+# encoder at 500), then B7 at the ring's block relations
+F32_TRAIN_HUBERT_RING_TL = 1000  # HuBERT's ring block, cut from RING_SHAPES' 3000
+
+
+def _f32_train_cases(T_llm):
+    return {
+        "llm_train": dict(B=4, T=T_llm, Hq=24, Hkv=8, Dh=128, causal=True,
+                          starts=[0, T_llm // 2, 37, 130], ends=[T_llm] * 4),
+        "hubert_train": dict(B=4, T=499, Hq=16, Hkv=16, Dh=64, causal=False,
+                             starts=[0] * 4, ends=[499, 300, 411, 77]),
+        "whisper_train": dict(B=4, T=500, Hq=16, Hkv=16, Dh=64, causal=False,
+                              starts=[0] * 4, ends=[500, 350, 431, 97]),
+    }
+
+
+def _f32_ring_shapes(tl=F32_TRAIN_HUBERT_RING_TL):
+    """RING_SHAPES, HuBERT's block cut to ``tl`` frames (its windows scaled
+    with it), the LLM's as published."""
+    return {"llm_ring": RING_SHAPES["llm_ring"],
+            "hubert_ring": dict(RING_SHAPES["hubert_ring"], Tl=tl,
+                                ends=[2 * tl - 1, 4 * tl // 3, tl - 1, tl // 30])}
+
+
+def _f64_bwd_magnitudes(torch, q, k, v, g, lse, delta, starts, ends, causal, offsets=None):
+    """The magnitudes of the backward bound, float64 (see F32_OUT_ATOL): with
+    p = exp(s - lse) in the mask and M = p (|dO|.|V|^T + |delta|),
+    (Dh^-0.5 M.|K|, Dh^-0.5 M^T.|Q| over the group, P^T.|dO|)."""
+    from llm_speech_summarization_tpu_torch.kernels.flash_attention import _masked_scores
+    from llm_speech_summarization_tpu_torch.ops.attention import NEG_INF
+
+    B, T, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    s, mask = _masked_scores(q.double(), k.double(), starts, ends, causal, offsets)
+    p = torch.exp(torch.where(mask, s - lse.double().reshape(B, Hkv, G, T, 1), NEG_INF))
+    del s, mask
+    ag = g.double().abs().reshape(B, T, Hkv, G, Dh)
+    m = torch.einsum("bthgd,bshd->bhgts", ag, v.double().abs())
+    m += delta.double().abs().reshape(B, Hkv, G, T, 1)
+    dv = torch.einsum("bhgts,bthgd->bshd", p, ag)
+    m *= p
+    del p
+    scale = Dh ** -0.5
+    dq = torch.einsum("bhgts,bshd->bthgd", m, k.double().abs()).reshape(B, T, Hq, Dh) * scale
+    dk = torch.einsum("bhgts,bthgd->bshd", m, q.double().abs().reshape(B, T, Hkv, G, Dh)) * scale
+    return dq, dk, dv
+
+
+def _f64_bf16_p(torch, q, k, v, g, lse, delta, starts, ends, causal, offsets=None):
+    """A fault: the float64 forward out and backward (dq, dk, dv) with p
+    rounded to bf16 before P.V and P^T.dO, and ds before its products (the
+    bf16 kernels' rounding on float32 operands)."""
+    from llm_speech_summarization_tpu_torch.kernels.flash_attention import _masked_scores
+    from llm_speech_summarization_tpu_torch.ops.attention import NEG_INF
+
+    B, T, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+
+    def bf(x):
+        return x.to(torch.bfloat16).double()
+
+    s, mask = _masked_scores(q.double(), k.double(), starts, ends, causal, offsets)
+    sm = torch.where(mask, s, NEG_INF)
+    mx = sm.amax(-1, keepdim=True)
+    pf = torch.exp(sm - mx)
+    del sm
+    lf = pf.sum(-1, keepdim=True).clamp(min=1e-30)
+    out = torch.einsum("bhgts,bshd->bthgd", bf(pf), v.double()) / lf.permute(0, 3, 1, 2, 4)
+    del pf
+    p = torch.exp(torch.where(mask, s - lse.double().reshape(B, Hkv, G, T, 1), NEG_INF))
+    gg = g.double().reshape(B, T, Hkv, G, Dh)
+    dv = torch.einsum("bhgts,bthgd->bshd", bf(p), gg)
+    ds = bf(p * (torch.einsum("bthgd,bshd->bhgts", gg, v.double())
+                 - delta.double().reshape(B, Hkv, G, T, 1)))
+    scale = Dh ** -0.5
+    dq = torch.einsum("bhgts,bshd->bthgd", ds, k.double()).reshape(B, T, Hq, Dh) * scale
+    dk = torch.einsum("bhgts,bthgd->bshd", ds, q.double().reshape(B, T, Hkv, G, Dh)) * scale
+    return out.reshape(B, T, Hq, Dh), dq, dk, dv
+
+
+def _f32_train_case(torch, name, c, q, k, v, g, starts, ends, offsets, rows, entries):
+    """One case of phase_flash_train_f32: the float32 kernels through the
+    bf16 entry points (``entries``: fwd, dq, dkv; the counts must move on
+    their float32 instances alone), held to the float64 plain versions
+    within the F32 bounds; the faults through the float64 plain versions;
+    returns the case's record and what the timings need."""
+    from llm_speech_summarization_tpu_torch.kernels import flash_attention as fa
+
+    causal = c["causal"]
+    fwd, dq_fn, dkv_fn = entries
+    extra = () if offsets is None else (offsets,)
+    watched = [fa._F32_INSTANCES[w] for w in entries] + list(entries)
+    before = [w.launches for w in watched]
+    out, lse = fwd(q, k, v, starts, ends, *extra, causal)
+    delta = (g * out).sum(-1).transpose(1, 2).contiguous()  # as FlashAttention.backward
+    args = (q, k, v, g, lse, delta, starts, ends, *extra, causal)
+    dq = dq_fn(*args)
+    dk, dv = dkv_fn(*args)
+    torch.cuda.synchronize()
+    moved = [w.launches - b for w, b in zip(watched, before)]
+    if moved != [1, 1, 1, 0, 0, 0] or {t.dtype for t in (out, dq, dk, dv)} != {torch.float32}:
+        raise AssertionError(f"f32 train {name}: launches {moved} (float32 instances, bf16 "
+                             f"entries), dtypes {[t.dtype for t in (out, dq, dk, dv)]}")
+    f64 = [t.double() for t in (q, k, v, g)]
+    ref_out, ref_lse = fa.flash_attention_lse_reference(*f64[:3], starts, ends, causal, offsets)
+    abs_pv = fa.flash_attention_lse_reference(*f64[:2], f64[2].abs(), starts, ends, causal,
+                                              offsets)[0]
+    out_bound = F32_OUT_ATOL + F32_OUT_RTOL * (ref_out.abs() + abs_pv)
+    del abs_pv
+    lse_bound = F32_OUT_ATOL + F32_OUT_RTOL * (1 + ref_lse.abs())
+    ref = fa.flash_attention_bwd_reference(*f64, lse, delta, starts, ends, causal, offsets)
+    bwd_bounds = [F32_OUT_ATOL + F32_OUT_RTOL * m for m in _f64_bwd_magnitudes(
+        torch, q, k, v, g, lse, delta, starts, ends, causal, offsets)]
+    seen = ref_lse > -1e29  # (B, Hq, T): rows that see a key
+    if rows is None:  # offset mode: the rows that see a key of the block
+        rows = seen.any(1)
+
+    def ratios(o, l_, grads):
+        """err / bound of each output: out on ``rows``, lse on the rows that
+        see a key, the gradients everywhere (NaN counts as infinitely far)."""
+        r = {"out": _out_ratio(torch, o, ref_out, out_bound, rows)}
+        if l_ is not None:
+            r["lse"] = (torch.nan_to_num((l_.double() - ref_lse).abs() / lse_bound,
+                                         nan=float("inf"))[seen].max().item()
+                        if seen.any() else 0.0)
+        for key, got, want, bound in zip(("dq", "dk", "dv"), grads, ref, bwd_bounds):
+            r[key] = torch.nan_to_num((got.double() - want).abs() / bound,
+                                      nan=float("inf")).max().item()
+        return r
+
+    got = ratios(out, lse, (dq, dk, dv))
+    unseen_exact = bool((lse[~seen] == NEG_LSE).all())
+    finite = all(torch.isfinite(t).all() for t in (out, lse, dq, dk, dv))
+    if not (finite and unseen_exact and max(got.values()) <= 1):
+        raise AssertionError(f"f32 train {name}: {got} x the bounds, rows without a key at "
+                             f"lse -1e30 {unseen_exact}, finite {finite}")
+    errs = {"fwd_lse": max((out.double() - ref_out).abs().amax(dim=(2, 3))[rows].max().item()
+                           if rows.any() else 0.0,
+                           (lse.double() - ref_lse)[seen].abs().max().item()
+                           if seen.any() else 0.0),
+            "dq": (dq.double() - ref[0]).abs().max().item(),
+            "dkv": max((dk.double() - ref[1]).abs().max().item(),
+                       (dv.double() - ref[2]).abs().max().item())}
+
+    # faults a kernel could make, each through the float64 plain versions
+    def plain(q_, k_, v_, g_, ends_=ends):
+        o, l_ = fa.flash_attention_lse_reference(q_, k_, v_, starts, ends_, causal, offsets)
+        return o, l_, fa.flash_attention_bwd_reference(q_, k_, v_, g_, lse, delta, starts, ends_,
+                                                       causal, offsets)
+
+    faults = {}  # none where no row sees a key (the causal src>rank block): all outputs 0
+    for fname, make in () if not rows.any() else (
+            ("operands rounded to tf32", lambda: plain(
+                *[tf32_round(torch, x).double() for x in (q, k, v, g)])),
+            ("p and ds rounded to bf16", lambda: (lambda r: (r[0], None, r[1:]))(_f64_bf16_p(
+                torch, *f64, lse, delta, starts, ends, causal, offsets))),
+            ("window end off by one", lambda: plain(*f64, ends - 1)),
+            ("KV head of the wrong group", lambda: plain(f64[0], f64[1].roll(1, dims=2),
+                                                        f64[2].roll(1, dims=2), f64[3]))):
+        o, l_, grads = make()
+        faults[fname] = ratios(o, l_, grads)
+        del o, l_, grads
+    worst = {f: max(r.values()) for f, r in faults.items()}
+    if min(worst.values(), default=2) <= 1:
+        raise AssertionError(f"f32 train {name}: the bounds do not reject every fault: {faults}")
+    del ref, bwd_bounds, out_bound, lse_bound
+    # S of the bounds' derivation: the largest Dh^-0.5 sum_d |q_d k_d|
+    G = c["Hq"] // c["Hkv"]
+    s_max = (q.abs().transpose(1, 2) @ k.abs().repeat_interleave(G, 2).permute(0, 2, 3, 1)
+             ).max().item() * c["Dh"] ** -0.5
+    record = dict(err_over_bound=got, faults_over_bound=faults, worst_fault_over_bound=worst,
+                  s_max=s_max, lse_max_abs=ref_lse[seen].abs().max().item() if seen.any() else 0,
+                  rows_seeing_a_key=int(rows.sum()))
+    return record, errs, (out, lse, dq, dk, dv, delta, args)
+
+
+def _f32_repeats(torch, entries, fwd_args, args, outs):
+    """REPEATS rounds of the three kernels in the training order, each
+    output held bit for bit to the first round's; the unequal ones counted."""
+    fwd, dq_fn, dkv_fn = entries
+    unequal = dict.fromkeys(("out", "lse", "dq", "dk", "dv"), 0)
+    for _ in range(REPEATS):
+        again = (*fwd(*fwd_args), dq_fn(*args), *dkv_fn(*args))
+        for key, a, b in zip(unequal, outs, again):
+            unequal[key] += not torch.equal(a, b)
+    return unequal
+
+
+def _f32_timings(torch, entries, fwd_args, args, plain_fwd, plain_bwd, sdpa, work):
+    """Device ms of the three kernels beside the bound (3xTF32), the float32
+    plain versions and SDPA at float32 (forward; forward + backward less
+    forward for both backward kernels, which it computes in one call)."""
+    fwd, dq_fn, dkv_fn = entries
+    sdpa_f = device_ms(torch, sdpa[0], whole=False)
+    sdpa_fb = device_ms(torch, sdpa[1], whole=False)
+    plain_b = device_ms(torch, plain_bwd, whole=False)
+    res = {}
+    for kname, fn, lib, plain_ms in (
+            ("fwd_lse", lambda: fwd(*fwd_args), sdpa_f,
+             device_ms(torch, plain_fwd, whole=False)),
+            ("dq", lambda: dq_fn(*args), sdpa_fb - sdpa_f, plain_b),
+            ("dkv", lambda: dkv_fn(*args), sdpa_fb - sdpa_f, plain_b)):
+        b_ms, b_by = bound_ms(*work[kname], F32_FLOPS_PER_S)
+        res[kname] = dict(ms=device_ms(torch, fn), call_ms=call_ms(torch, fn), bound_ms=b_ms,
+                          bound_by=b_by, plain_ms=plain_ms, library_ms=lib,
+                          bytes=work[kname][0], flops=work[kname][1])
+    b_ms, b_by = bound_ms(*work["bwd"], F32_FLOPS_PER_S)
+    backward = dict(ms=res["dq"]["ms"] + res["dkv"]["ms"], bound_ms=b_ms, bound_by=b_by,
+                    five_products_flops=work["bwd"][1], sdpa_fwd_bwd_ms=sdpa_fb)
+    return res, backward
+
+
+def phase_flash_train_f32(torch, card, hubert_ring_tl=F32_TRAIN_HUBERT_RING_TL):
+    """The float32 training kernels: B1 + LSE, B6 dq and B6 dk/dv at the
+    training shapes (``_f32_train_cases``: the LLM at the trainer's spliced
+    length, HuBERT-large, Whisper's encoder), then B7 (the same three in
+    offset mode) at the ring's three block relations (``_f32_ring_shapes``),
+    every call through the bf16 entry points, which route float32 tensors
+    to the float32 instances; every output held to the float64 plain
+    version on the same float32 inputs within the F32 bounds (see
+    F32_OUT_ATOL), faults outside them, REPEATS rounds bit-equal, device
+    times beside the 3xTF32 bound, the float32 plain versions and SDPA at
+    float32 on the same mask."""
+    from llm_speech_summarization_tpu_torch.kernels import flash_attention as fa
+    from llm_speech_summarization_tpu_torch.ops.ring_attention import _block_windows
+
+    rng = np.random.RandomState(11)
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    train = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    ring = (fa.flash_attention_fwd_lse_offset, fa.flash_attention_bwd_dq_offset,
+            fa.flash_attention_bwd_dkv_offset)
+    results = {}
+    for name, c in _f32_train_cases(_train_total_len()).items():
+        B, T, causal = c["B"], c["T"], c["causal"]
+        q, k, v = randn(B, T, c["Hq"], c["Dh"]), randn(B, T, c["Hkv"], c["Dh"]), randn(
+            B, T, c["Hkv"], c["Dh"])
+        starts = torch.tensor(c["starts"], dtype=torch.int32, device=dev)
+        ends = torch.tensor(c["ends"], dtype=torch.int32, device=dev)
+        pos = torch.arange(T, device=dev)[None, :]
+        rows = (pos >= starts[:, None]) & (pos < ends[:, None])  # valid query rows
+        g = randn(B, T, c["Hq"], c["Dh"]) * rows[:, :, None, None]  # masked downstream
+        record, errs, (out, lse, dq, dk, dv, delta, args) = _f32_train_case(
+            torch, name, c, q, k, v, g, starts, ends, None, rows, train)
+        unequal = _f32_repeats(torch, train, (q, k, v, starts, ends, causal), args,
+                               (out, lse, dq, dk, dv))
+        if any(unequal.values()):
+            raise AssertionError(f"f32 train {name}: of {REPEATS} identical calls, these many "
+                                 f"differ from the first: {unequal}")
+        res, backward = _f32_timings(
+            torch, train, (q, k, v, starts, ends, causal), args,
+            lambda: fa.flash_attention_lse_reference(q, k, v, starts, ends, causal),
+            lambda: fa.flash_attention_bwd_reference(*args), _sdpa_train_calls(
+                torch, q, k, v, g, rows, causal),
+            _train_attn_work(c, T, elem_bytes=4))
+        for kname in res:
+            res[kname]["max_abs_err"] = errs[kname]
+        results[name] = res
+        emit("flash_train_f32", case=name, shape=[B, T, c["Hq"], c["Hkv"], c["Dh"]],
+             causal=causal, starts=c["starts"], ends=c["ends"], out_atol=F32_OUT_ATOL,
+             rtol=F32_OUT_RTOL, repeats=REPEATS, unequal_repeats=unequal, kernels=res,
+             backward=backward, **record, card=card)
+        del q, k, v, g, out, lse, dq, dk, dv, delta, args
+
+    for name, c in _f32_ring_shapes(hubert_ring_tl).items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        B, Tl, causal = c["B"], c["Tl"], c["causal"]
+        q, k, v = randn(B, Tl, c["Hq"], c["Dh"]), randn(B, Tl, c["Hkv"], c["Dh"]), randn(
+            B, Tl, c["Hkv"], c["Dh"])
+        g = randn(B, Tl, c["Hq"], c["Dh"])
+        starts_g = torch.tensor(c["starts"], dtype=torch.int32, device=dev)
+        ends_g = torch.tensor(c["ends"], dtype=torch.int32, device=dev)
+        blocks = {}
+        for rel, (r, src) in RING_BLOCKS.items():
+            offsets = (r * Tl, src * Tl)
+            starts, ends = _block_windows(starts_g, ends_g, src, Tl)
+            record, errs, kept = _f32_train_case(
+                torch, f"{name} {rel}", c, q, k, v, g, starts, ends, offsets, None, ring)
+            blocks[rel] = dict(offsets=offsets, errs=errs, **record)
+            if rel == "src<rank":  # the block with the most work: repeats and times
+                out, lse, dq, dk, dv, delta, args = kept
+                fwd_args = (q, k, v, starts, ends, offsets, causal)
+                unequal = _f32_repeats(torch, ring, fwd_args, args, (out, lse, dq, dk, dv))
+                if any(unequal.values()):
+                    raise AssertionError(f"f32 ring {name}: of {REPEATS} identical calls, these "
+                                         f"many differ from the first: {unequal}")
+                k_pos = torch.arange(Tl, device=dev) + src * Tl
+                q_pos = torch.arange(Tl, device=dev) + r * Tl
+                mask = ((k_pos[None, :] >= starts_g[:, None])
+                        & (k_pos[None, :] < ends_g[:, None]))[:, None]
+                if causal:
+                    mask = mask & (k_pos[None, :] <= q_pos[:, None])[None]
+                res, backward = _f32_timings(
+                    torch, ring, fwd_args, args,
+                    lambda: fa.flash_attention_lse_reference(q, k, v, starts, ends, causal,
+                                                             offsets),
+                    lambda: fa.flash_attention_bwd_reference(q, k, v, g, lse, delta, starts,
+                                                             ends, causal, offsets),
+                    _sdpa_masked_calls(torch, q, k, v, g, mask.expand(B, Tl, Tl)),
+                    _train_attn_work(c, Tl, 4, _ring_pairs(c, r, src)))
+                del kept, out, lse, dq, dk, dv, delta, args
+        for kname in res:
+            res[kname]["max_abs_err"] = max(b["errs"][kname] for b in blocks.values())
+        results[name] = res
+        emit("flash_ring_f32", case=name, n=RING_N, shape=[B, Tl, c["Hq"], c["Hkv"], c["Dh"]],
+             causal=causal, global_starts=c["starts"], global_ends=c["ends"], blocks=blocks,
+             out_atol=F32_OUT_ATOL, rtol=F32_OUT_RTOL, repeats=REPEATS, unequal_repeats=unequal,
+             timed_block="src<rank", kernels=res, backward=backward,
+             wall_s=time.perf_counter() - t0, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             reduced=([] if Tl == RING_SHAPES[name]["Tl"] else
+                      [f"HuBERT's ring block at Tl={Tl}, not {RING_SHAPES[name]['Tl']}: "
+                       f"chip_smoke's time (PERF.md)"]),
+             card=card)
+        del q, k, v, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 def _small_train_config(base=False):
     from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
 
@@ -2499,11 +2911,9 @@ def _small_train_config(base=False):
     return cfg
 
 
-def phase_train_small(torch, card, base=False):
-    """One KD train step at a small kernel-legal width (2 layers, Dh 128 in
-    the LLM and 64 in HuBERT) on the CPU and on the card; with ``base``,
-    BASELINE config #1's layout (hubert-base under remat, the ``ctc_pool``
-    projector over the collated ``pool_ranges_4``, an MHA LLM)."""
+def _small_train_setup(torch, base=False):
+    """train_small's config, encoder setup, LLM config, weights (the int8
+    LLM, the float32 encoder), prompt ids, batch and spliced length."""
     import dataclasses
 
     from llm_speech_summarization_tpu_torch.data.collate import collate_batch
@@ -2515,14 +2925,10 @@ def phase_train_small(torch, card, base=False):
     from llm_speech_summarization_tpu_torch.models.llama import (
         LlamaConfig, init_llama_params, quantize_llama_params,
     )
-    from llm_speech_summarization_tpu_torch.train import make_train_state, make_train_step
-    from llm_speech_summarization_tpu_torch.train.state import tree_leaves
     from llm_speech_summarization_tpu_torch.train.trainer import max_pool_ranges, spliced_length
     from llm_speech_summarization_tpu_torch.utils.prompts import prompt_template_for
     from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = _small_train_config(base)
     llm_cfg = LlamaConfig(hidden_size=256, intermediate_size=1024, num_layers=2, num_heads=6,
                           num_kv_heads=2, head_dim=128)
@@ -2543,6 +2949,21 @@ def phase_train_small(torch, card, base=False):
                           max_response_tokens=b.max_response_tokens,
                           max_pool_ranges=max_pool_ranges(cfg, setup))
     total_len = spliced_length(cfg, setup, len(prefix), len(suffix), batch.wav.shape[1])
+    return cfg, setup, llm_cfg, llm, enc, prefix, suffix, batch, total_len
+
+
+def phase_train_small(torch, card, base=False):
+    """One KD train step at a small kernel-legal width (2 layers, Dh 128 in
+    the LLM and 64 in HuBERT) on the CPU and on the card; with ``base``,
+    BASELINE config #1's layout (hubert-base under remat, the ``ctc_pool``
+    projector over the collated ``pool_ranges_4``, an MHA LLM)."""
+    from llm_speech_summarization_tpu_torch.train import make_train_state, make_train_step
+    from llm_speech_summarization_tpu_torch.train.state import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, setup, llm_cfg, llm, enc, prefix, suffix, batch, total_len = _small_train_setup(
+        torch, base)
     runs = {}
     for dev in ("cpu", "cuda"):
         state, opt = make_train_state(cfg, _to(enc, dev), total_opt_steps=100)
@@ -2576,18 +2997,25 @@ def phase_train_small(torch, card, base=False):
          params_moved=moved, tf32=False, card=card)
 
 
+def _f32_names(counts, f32):
+    """``counts`` under the float32 instances' names where ``f32`` (a
+    float32 run launches those and not the bf16 kernels)."""
+    return {f"{k}_f32": v for k, v in counts.items()} if f32 else counts
+
+
 def _expected_train_launches(enc_layers, llm_layers, remat, steps, n_eval_batches, eng_counts,
-                             remat_policy="full"):
+                             remat_policy="full", f32=False):
     """What a trainer run launches: per train step the student's LLM and
     HuBERT layers run B1 + LSE once, and with remat once more in the
     backward's recompute (except the LLM's under ``remat_policy``
     "save_qkv", whose backward reads the saved attention), and B6 once
     each; the teacher's LLM layers B1; every validate's eval batch runs B1
     in HuBERT and the stacked (audio, text) LLM forward; the generations
-    run B1 per encoder forward and prefill and B2 per decode step."""
+    run B1 per encoder forward and prefill and B2 per decode step. ``f32``:
+    a run at compute_dtype float32, which launches the float32 instances."""
     both = enc_layers + llm_layers
     llm_fwd = 2 if remat and remat_policy != "save_qkv" else 1
-    return {
+    return _f32_names({
         "flash_attention": llm_layers * steps + both * n_eval_batches
         + enc_layers * eng_counts.get("encoder_forwards", 0)
         + llm_layers * eng_counts.get("prefills", 0),
@@ -2595,7 +3023,7 @@ def _expected_train_launches(enc_layers, llm_layers, remat, steps, n_eval_batche
         "flash_attention_bwd_dq": both * steps,
         "flash_attention_bwd_dkv": both * steps,
         "fused_decode": llm_layers * eng_counts.get("decode_steps", 0),
-    }
+    }, f32)
 
 
 def _trainer_run(torch, trainer, what):
@@ -2619,7 +3047,8 @@ def _trainer_run(torch, trainer, what):
     n_eval = -(-len(trainer.val_ds) // val_bs)  # one validate per run here
     check_launches(what, launches, _expected_train_launches(
         trainer.enc_setup.encoder_cfg.num_layers, trainer.llm_cfg.num_layers,
-        trainer.config.train.remat, steps, n_eval, eng_counts, trainer.config.train.remat_policy))
+        trainer.config.train.remat, steps, n_eval, eng_counts, trainer.config.train.remat_policy,
+        trainer.config.model.compute_dtype == "float32"))
     records = [json.loads(line) for line in open(os.path.join(trainer.log_dir, "metrics.jsonl"))]
     per_step = {}
     for r in records:
@@ -2688,7 +3117,8 @@ def phase_train_full(torch, card, export_to):
     (and validates). Launch counts are checked for both runs; then one
     profiled step of the resumed trainer gives the device-busy share, and
     its encoder is exported to the file ``export_to`` (``export_encoder``)
-    for ckpt_full."""
+    for ckpt_full. Returns the two runs' launches and the first run's ms a
+    step and peak memory (train_f32_full prints them beside its own)."""
     import copy
     import shutil
     import tempfile
@@ -2747,7 +3177,9 @@ def phase_train_full(torch, card, export_to):
          resumed=dict(steps=second["steps"], per_step=second["per_step"],
                       wall_s=second["wall_s"], launches=second["launches"]),
          profiled_step=profile_, card=card)
-    return first["launches"], second["launches"]
+    summary = dict(batch=B, total_len=total_len, ms_per_step=[1e3 * t for t in times],
+                   steady_ms_per_step=1e3 * min(times[1:]), max_memory_allocated_gb=peak_gb)
+    return first["launches"], second["launches"], summary
 
 
 SAVE_QKV_STEPS = 4  # the trace window covers steps 3 and 4
@@ -2907,10 +3339,19 @@ def phase_train_save_qkv_full(torch, card):
 # state do not fit 80 GB). The CLI's synthetic source makes 1-8 s clips; the
 # ranks make them RING_CLIP_S long, all in the 1,920,000-sample bucket.
 RING_RANKS = 2
+# train_ring_full, train_dp_full and train_tp_full: Llama-3.2-3B and
+# HuBERT-large cut to RANK_LAYERS blocks at their published widths. Every
+# block's exchanges are staged through the host (27.4 GB a ring step at the
+# published 28 + 24 blocks, 24.6 s of a 24.6 s step; NVIDIA H100 80GB HBM3,
+# 700 W), so at full depth the three took 290 s of chip_smoke's 1200 s on a
+# fast host and more than twice that on a slow one. The single-process
+# trainers (train_full, train_f32_full, train_whisper_full) run the
+# published depth.
+RANK_LAYERS = 4
 RING_STEPS = 2  # the first launch; the resumed launch takes one more
 RING_CLIP_S = (118.0, 120.0)
 RING_BUCKET = 1920000
-RING_TIMEOUT_S = 420  # per torch.distributed.run launch
+RING_TIMEOUT_S = 420  # per launch of the ranks
 # the ring step's losses and grad_norm against one unsharded step in one
 # process on the same weights and batch: within RING_RTOL * max(1, |a|),
 # the bound of the CPU test against the JAX package's unsharded step
@@ -2936,11 +3377,12 @@ def _ring_data():
 
 
 def train_rank(report_dir: str, mode: str, cli_args) -> int:
-    """One rank of a multi-process training phase, launched by
-    torch.distributed.run: the training CLI's main() (``mode`` "ring": on
-    the ring's 118-120 s synthetic clips; "3d": with Llama-3.2-3B and
-    HuBERT-large cut to SHALLOW_LAYERS blocks; "dp", "tp": as the config
-    says; "tp" and "3d" take their steps and skip the closing validate:
+    """One rank of a multi-process training phase, started by
+    ``_rank_launch``: the training CLI's main() with Llama-3.2-3B and
+    HuBERT-large cut to RANK_LAYERS blocks (``mode`` "ring": on the ring's
+    118-120 s synthetic clips; "dp", "tp") or SHALLOW_LAYERS ("3d",
+    "ring_f32"); "tp", "3d" and "ring_f32" take their
+    steps and skip the closing validate:
     no eval, generation or checkpoint); each train step is timed and its
     host-staged bytes recorded; the rank's launch counts, the validation
     engine's counts, its peak memory, its optimizer-state bytes, the steps
@@ -2962,8 +3404,8 @@ def train_rank(report_dir: str, mode: str, cli_args) -> int:
     patches = contextlib.ExitStack()  # open for the rank's whole run
     if mode == "ring":
         patches.enter_context(_ring_data())
-    elif mode == "3d":
-        patches.enter_context(_shallow(SHALLOW_LAYERS))
+    patches.enter_context(_shallow(RANK_LAYERS if mode in ("ring", "dp", "tp")
+                                   else SHALLOW_LAYERS))
     steps, seen = [], {"validate_s": 0.0}
     train_step, validate = Trainer.train_step, Trainer.validate
 
@@ -2984,7 +3426,7 @@ def train_rank(report_dir: str, mode: str, cli_args) -> int:
         return metrics
 
     def counted_validate(self, epoch):
-        if mode in ("tp", "3d"):
+        if mode in ("tp", "3d", "ring_f32"):
             return
         t0 = time.time()
         seen["validations"] = seen.get("validations", 0) + 1
@@ -3000,7 +3442,7 @@ def train_rank(report_dir: str, mode: str, cli_args) -> int:
     cli.main(cli_args)
     trainer = seen["trainer"]
     # epoch seconds: the launcher reads the process's start from entered_at
-    stages = dict(entered_at=entered, imports_s=started - entered,
+    stages = dict(entered_at=entered, imports_s=started - entered, warm_cuda_s=_WARM_S,
                   init_s=seen["first_step_at"] - started,
                   steps_s=sum(st["ms"] for st in steps) / 1e3, validate_s=seen["validate_s"],
                   main_s=time.time() - started)
@@ -3013,6 +3455,7 @@ def train_rank(report_dir: str, mode: str, cli_args) -> int:
                   staged=dict(COMM_STATS), enc_layers=trainer.enc_setup.encoder_cfg.num_layers,
                   llm_layers=trainer.llm_cfg.num_layers, remat=trainer.config.train.remat,
                   remat_policy=trainer.config.train.remat_policy,
+                  compute_dtype=trainer.config.model.compute_dtype,
                   mesh=[trainer.mesh.data, trainer.mesh.seq, trainer.mesh.model],
                   stages=stages, opt_state_bytes=sum(t.numel() * t.element_size() for k in ("mu", "nu", "acc")
                                       if k in opt for t in tree_leaves(opt[k])),
@@ -3036,13 +3479,13 @@ def _expected_ring_launches(r):
     n, enc, llm = RING_RANKS, r["enc_layers"], r["llm_layers"]
     steps, evals, eng = len(r["steps"]), r["eval_batches"], r["engine_counts"]
     rm = 2 if r["remat"] else 1
-    return {
+    return _f32_names({
         "flash_attention_lse_offset": n * (steps * (rm * (llm + enc) + llm) + evals * (enc + llm)),
         "flash_attention_bwd_dq_offset": n * steps * (llm + enc),
         "flash_attention_bwd_dkv_offset": n * steps * (llm + enc),
         "flash_attention": enc * eng.get("encoder_forwards", 0) + llm * eng.get("prefills", 0),
         "fused_decode": llm * eng.get("decode_steps", 0),
-    }
+    }, r["compute_dtype"] == "float32")
 
 
 def _edited_yaml(what, name, tmp, edits):
@@ -3065,49 +3508,209 @@ def _ring_yaml(tmp):
     """llama3_hubert_long.yaml with the cell's settings: synthetic data (16
     clips: 4 train batches and one validation batch of 2), the 120 s
     bucket alone, logs and checkpoints under ``tmp``, a log line per step,
-    one sampled generation per validate."""
+    one sampled generation per validate, the feature-distillation layers
+    of an LLM of RANK_LAYERS blocks."""
     return _edited_yaml("train_ring_full", "llama3_hubert_long.yaml", tmp, [
         ("data:\n", "data:\n  source: synthetic\n  synthetic_num_samples: 16\n"),
         ("audio_samples: [320000, 960000, 1920000]", f"audio_samples: [{RING_BUCKET}]"),
         ("checkpoint_dir: checkpoints", f"checkpoint_dir: {tmp}/ckpt"),
         ("log_dir: logs", f"log_dir: {tmp}/logs"),
         ("log_interval: 10", "log_interval: 1"),
-        ("num_generate_samples: 5", "num_generate_samples: 1")])
+        ("num_generate_samples: 5", "num_generate_samples: 1"),
+        ("fd_loss_connector_layers: [0, 5, 11, 17, 23]",
+         f"fd_loss_connector_layers: {list(range(RANK_LAYERS + 1))}")])
+
+
+def _start_ranks(torch, n, argv, log):
+    """Start n processes of this file with ``argv``: the ranks of one group,
+    in the environment torch.distributed.run gives its workers
+    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, OMP_NUM_THREADS 1), but without its agent, which
+    took ~8 s to start the ranks of a launch and ~2.5 s to stop on the
+    card's host. The rendezvous store is hosted here as the agent hosts
+    it, on a port of the system's choosing that stays bound until the
+    ranks are joined, and every rank joins it as a client. Each rank in a
+    session of its own (``_stop_ranks`` kills what it started), its output
+    to ``log``. Returns the processes and the store, to be kept until they
+    end."""
+    store = torch.distributed.TCPStore("127.0.0.1", 0, n, is_master=True,
+                                       wait_for_workers=False)
+    envs = [dict(MASTER_PORT=str(store.port), WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                 RANK=str(r), LOCAL_RANK=str(r)) for r in range(n)]
+    return _POOL.take(argv, envs, log.name), store
+
+
+class _RankPool:
+    """Processes of this file (``--pooled-rank``) that have imported torch
+    and the port's training and serving modules and run one small train
+    step on the card (``_warm_cuda``), and wait for a rank's job: a launch
+    takes them, and the pool starts as many again, which get ready while
+    that launch runs. A rank so starts ~7 s sooner (torch's import took
+    6.7 s on an H100 host) and its first step runs as fast as its second.
+    An idle process exits when this one ends."""
+
+    def __init__(self, keep):
+        import tempfile
+
+        self.keep, self.idle, self.started = keep, [], 0
+        self.dir = tempfile.mkdtemp(prefix="lss_pool_")
+
+    def fill(self, n=None):
+        """Start processes until ``n`` (default ``keep``) wait idle."""
+        # torch.distributed.run's environment, without its agent: the
+        # launcher hosts the store
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", TORCHELASTIC_USE_AGENT_STORE="True",
+                   TORCHELASTIC_RESTART_COUNT="0")
+        env.setdefault("OMP_NUM_THREADS", "1")
+        while len(self.idle) < (self.keep if n is None else n):
+            job = os.path.join(self.dir, f"job{self.started}.json")
+            self.started += 1
+            with open(job + ".log", "w") as out:
+                proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                         "--pooled-rank", job], env=env, stdout=out,
+                                        stderr=subprocess.STDOUT, start_new_session=True)
+            self.idle.append((proc, job))
+
+    def take(self, argv, envs, log_path):
+        """One process per entry of ``envs`` (a rank's own environment)
+        runs this file with ``argv``, its output appended to
+        ``log_path``; returns the processes."""
+        self.fill(len(envs))
+        taken, self.idle = self.idle[:len(envs)], self.idle[len(envs):]
+        for (_, job), env in zip(taken, envs):
+            with open(job + ".tmp", "w") as f:
+                json.dump(dict(argv=argv, env=env, log=log_path), f)
+            os.replace(job + ".tmp", job)
+        self.fill()
+        return [proc for proc, _ in taken]
+
+    def close(self):
+        import shutil
+
+        _stop_ranks([proc for proc, _ in self.idle])
+        self.idle = []
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+_POOL = None  # main()'s _RankPool, which every launch takes its ranks from
+_WARM_S = None  # a pooled rank's seconds in _warm_cuda, reported by the rank
+
+
+def _warm_cuda(torch):
+    """What a rank's first step would otherwise load on first use: one KD
+    train step at train_small's width on the card (bf16, remat), which
+    runs the kernels of the full-width step at other shapes. On an NVIDIA
+    H100 80GB HBM3 host at 700 W a fresh rank's first train step took 8-19
+    s more than its second, outside the host-staged exchanges; a
+    convolution and a product in each dtype did not shorten it, this step
+    does (PERF.md §6, PR 16)."""
+    from llm_speech_summarization_tpu_torch.train import make_train_state, make_train_step
+
+    cfg, setup, llm_cfg, llm, enc, prefix, suffix, batch, total_len = _small_train_setup(torch)
+    cfg.train.remat = True
+    state, opt = make_train_state(cfg, _to(enc, "cuda"), total_opt_steps=100)
+    step = make_train_step(cfg, setup, llm_cfg, opt, prefix, suffix, total_len, device="cuda")
+    float(step(state, _to(llm, "cuda"), batch)[1]["total_loss"])
+    del state, opt, step
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def pooled_rank(job_path: str) -> int:
+    """A process of ``_RankPool``: import what a rank runs, load the card's
+    libraries, wait for the job file, then run the rank with its
+    environment and output."""
+    global _WARM_S
+    parent = os.getppid()
+    sys.modules["transformers"] = None  # as train_rank and tp_rank keep it out
+    import torch
+
+    from llm_speech_summarization_tpu_torch.cli import serve, train  # noqa: F401
+    from llm_speech_summarization_tpu_torch.infer import engine, generate, slots  # noqa: F401
+    from llm_speech_summarization_tpu_torch.train import trainer  # noqa: F401
+
+    t0 = time.perf_counter()
+    _warm_cuda(torch)
+    _WARM_S = time.perf_counter() - t0
+    while not os.path.exists(job_path):
+        if os.getppid() != parent:  # the launcher is gone
+            return 1
+        time.sleep(0.02)
+    with open(job_path) as f:
+        job = json.load(f)
+    os.environ.update(job["env"])
+    sys.stdout.flush()
+    sys.stderr.flush()
+    fd = os.open(job["log"], os.O_WRONLY | os.O_APPEND)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    return _rank_main(job["argv"])
+
+
+def _rank_main(argv) -> int:
+    if argv[0] == "--train-rank":  # one rank of a multi-process training phase
+        return train_rank(argv[1], argv[2], argv[4:])
+    return tp_rank(argv[1], argv[2], argv[4:])  # "--tp-rank": one rank of serving_tp_full
+
+
+def _stop_ranks(procs):
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+    for p in procs:
+        p.wait()
+
+
+def _join_ranks(procs, deadline):
+    """Wait for the ranks until every one has ended, one has failed (the
+    agent stops the others then too) or ``deadline`` (time.monotonic())
+    has passed; no rank runs after it returns. Returns the exit codes (None
+    for a rank that was still running), or None past the deadline."""
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(codes):
+                return codes
+            if time.monotonic() > deadline:
+                return None
+            time.sleep(0.1)
+    finally:
+        _stop_ranks(procs)
 
 
 def _rank_launch(what, mode, yaml_path, steps, report_dir, mesh, expected, timeout):
-    """Launch a training phase's ranks (``train_rank`` in ``mode``) through
-    torch.distributed.run and the training CLI at ``--mesh D,S,M`` (the CLI
-    picks gloo, as the ranks share the card); every process is killed if
+    """Launch a training phase's ranks (``train_rank`` in ``mode``, started
+    by ``_start_ranks``) through the training CLI at ``--mesh D,S,M`` (the
+    CLI picks gloo, as the ranks share the card); every process is killed if
     the launch outlives ``timeout`` s, and a rank's failure fails the
     phase. Each rank's launch counts must equal ``expected(report)``.
     Returns the ranks' reports (with each rank's stage seconds) and the
     wall seconds."""
-    import signal
-    import socket
+    import torch
 
     n = mesh[0] * mesh[1] * mesh[2]
     os.makedirs(report_dir, exist_ok=True)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-           "--nproc_per_node", str(n), "--master_addr", "127.0.0.1",
-           "--master_port", str(port), os.path.abspath(__file__), "--train-rank", report_dir,
-           mode, "--", "-c", yaml_path, "-n", mode, "--mesh", ",".join(map(str, mesh)),
-           "--steps", str(steps)]
+    argv = ["--train-rank", report_dir, mode, "--", "-c", yaml_path, "-n", mode, "--mesh",
+            ",".join(map(str, mesh)), "--steps", str(steps)]
+    log_path = os.path.join(report_dir, "launch.log")
     t0, t0_epoch = time.perf_counter(), time.time()
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
-        raise AssertionError(f"{what}: the ranks outlived {timeout} s:\n{out[-6000:]}")
+    with open(log_path, "w") as log:
+        procs, store = _start_ranks(torch, n, argv, log)
+        codes = _join_ranks(procs, time.monotonic() + timeout)
+    del store
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"{what}: the launch exited {proc.returncode}:\n{out[-6000:]}")
+    with open(log_path) as f:
+        out = f.read()
+    if codes is None:
+        raise AssertionError(f"{what}: the ranks outlived {timeout} s:\n{out[-6000:]}")
+    if any(codes):
+        raise AssertionError(f"{what}: the ranks exited {codes}:\n{out[-6000:]}")
     reports = []
     for r in range(n):
         with open(os.path.join(report_dir, f"rank{r}.json")) as f:
@@ -3134,7 +3737,8 @@ def _logged_steps(log_dir):
 
 
 def phase_train_ring_full(torch, card):
-    """``llama3_hubert_long.yaml`` at published widths and depth on a ring
+    """``llama3_hubert_long.yaml`` at published widths, the models cut to
+    RANK_LAYERS blocks, on a ring
     of RING_RANKS ranks on the one card: RING_STEPS steps, validate and a
     checkpoint; a second launch resumes and takes one step. Then, in this
     process, one unsharded step (seq 1, no ring) on the same weights and
@@ -3172,7 +3776,7 @@ def phase_train_ring_full(torch, card):
         cfg.log.checkpoint_dir = os.path.join(tmp, "plain_ckpt")
         cfg.log.log_dir = os.path.join(tmp, "plain_logs")
         torch.cuda.reset_peak_memory_stats()
-        with _ring_data():  # the datasets are made here
+        with _ring_data(), _shallow(RANK_LAYERS):  # the datasets are made here
             trainer = Trainer(cfg, run_name="plain")
         batch = next(trainer._batches(trainer.train_ds, cfg.train.batch_size, True,
                                       cfg.seed_everything))
@@ -3200,6 +3804,8 @@ def phase_train_ring_full(torch, card):
          clip_s=list(RING_CLIP_S), audio_samples=RING_BUCKET, batch=steps0[0]["B"],
          total_len=steps0[0]["total_len"], ranks=RING_RANKS, backend="gloo",
          reduced=[f"seq {RING_RANKS} instead of 8 (two ranks share the one card)",
+                  f"Llama-3.2-3B and HuBERT-large cut to {RANK_LAYERS} of their 28 and 24 "
+                  f"blocks (every block's exchanges are staged through the host)",
                   "synthetic data, random weights"],
          llm_layers=first[0]["llm_layers"], encoder_layers=first[0]["enc_layers"],
          ms_per_step=ms, tokens_per_s=[tokens / (m / 1e3) for m in ms],
@@ -3218,20 +3824,21 @@ def phase_train_ring_full(torch, card):
 
 
 MESH_STEPS = 2  # train_dp_full and train_tp_full; the dp resume takes one more
-MESH_TIMEOUT_S = 480  # per torch.distributed.run launch of the dp, tp and 3-D phases
+MESH_TIMEOUT_S = 480  # per launch of the ranks of the dp, tp and 3-D phases
 # synthetic 1-8 s clips of the mesh phases: 4 train batches of 16 and 8
 # validation clips for the dp phase (its resume's third step stays inside
 # the first epoch), 2 and 4 for the tp and 3-D phases
 MESH_CLIPS = {"dp": 64, "tp": 32, "3d": 32}
-SHALLOW_LAYERS = 2  # train_3d_small: Llama-3.2-3B and HuBERT-large blocks
+# train_3d_small and train_ring_f32: Llama-3.2-3B and HuBERT-large blocks
+SHALLOW_LAYERS = 2
 # Each multi-rank step against the unsharded step on the same weights and
 # global batch, within rtol * max(1, |unsharded|). Only the order of
 # summation differs; the card's kernels are not bit-reproducible run to run.
 # The first data-parallel step: its losses equal the unsharded step's to
 # the bit and grad_norm came within 3.1e-6 to 4.1e-5 in seven runs (NVIDIA
-# H100 80GB HBM3, 700 W). The first tensor-parallel step (28 blocks): the
-# bf16 partial sums of a rank's heads round apart, losses within 1.2e-4
-# and grad_norm 1.0e-4 to 3.1e-4 in five runs.
+# H100 80GB HBM3, 700 W; 28 + 24 blocks). The first tensor-parallel step
+# (28 blocks): the bf16 partial sums of a rank's heads round apart, losses
+# within 1.2e-4 and grad_norm 1.0e-4 to 3.1e-4 in five runs.
 DP_RTOL = 1e-4
 TP_RTOL = 1e-3
 # Steps after an optimizer update (the data-parallel steps 2 and 3, whose
@@ -3247,10 +3854,10 @@ UPDATED_RTOL = 2e-3
 
 
 @contextlib.contextmanager
-def _shallow(layers):
-    """Llama-3.2-3B and HuBERT-large cut to ``layers`` blocks at their
-    published widths while the context is open (the presets the configs
-    name)."""
+def _shallow(layers, encoder=True):
+    """Llama-3.2-3B and (with ``encoder``) HuBERT-large cut to ``layers``
+    blocks at their published widths while the context is open (the
+    presets the configs name)."""
     import dataclasses
 
     from llm_speech_summarization_tpu_torch.models import hubert, llama
@@ -3258,8 +3865,9 @@ def _shallow(layers):
     saved = dict(llama._PRESETS), dict(hubert._PRESETS)
     llama._PRESETS["llama3_3b"] = dataclasses.replace(llama._PRESETS["llama3_3b"],
                                                       num_layers=layers)
-    hubert._PRESETS["hubert_large"] = dataclasses.replace(hubert._PRESETS["hubert_large"],
-                                                          num_layers=layers)
+    if encoder:
+        hubert._PRESETS["hubert_large"] = dataclasses.replace(hubert._PRESETS["hubert_large"],
+                                                              num_layers=layers)
     try:
         yield
     finally:
@@ -3292,7 +3900,8 @@ def _expected_mesh_launches(r):
     does for its steps, eval batches and generations (each at its rows or
     its heads)."""
     return _expected_train_launches(r["enc_layers"], r["llm_layers"], r["remat"], len(r["steps"]),
-                                    r["eval_batches"], r["engine_counts"], r["remat_policy"])
+                                    r["eval_batches"], r["engine_counts"], r["remat_policy"],
+                                    r["compute_dtype"] == "float32")
 
 
 def _plain_mesh_steps(torch, yaml_path, n):
@@ -3372,8 +3981,8 @@ def _held(what, got, plain, first_rtol):
 
 
 def phase_train_dp_full(torch, card):
-    """``llama3_hubert.yaml`` at published widths and depth (int8 LLM, remat
-    "full") over ``--mesh 2,1,1``: two gloo ranks on the card, each 8 rows
+    """``llama3_hubert.yaml`` at published widths, the models cut to
+    RANK_LAYERS blocks (int8 LLM, remat "full"), over ``--mesh 2,1,1``: two gloo ranks on the card, each 8 rows
     of every global batch of 16, ZeRO-1 optimizer slices; MESH_STEPS steps,
     validate and a checkpoint (the whole state, gathered). Then in this
     process a trainer on mesh 1,1,1 resumes from that file and takes one
@@ -3390,7 +3999,7 @@ def phase_train_dp_full(torch, card):
 
     tmp = tempfile.mkdtemp(prefix="lss_dp_")
     try:
-        yaml_path = _mesh_yaml(tmp, "dp")
+        yaml_path = _mesh_yaml(tmp, "dp", fd_layers=range(RANK_LAYERS + 1))
         reports, wall = _rank_launch("train_dp_full", "dp", yaml_path, MESH_STEPS,
                                      os.path.join(tmp, "r1"), (2, 1, 1), _expected_mesh_launches,
                                      MESH_TIMEOUT_S)
@@ -3400,19 +4009,22 @@ def phase_train_dp_full(torch, card):
         cfg = load_config(yaml_path)
         cfg.train.steps = MESH_STEPS + 1
         cfg.log.num_generate_samples = 0
-        resumed = Trainer(cfg, run_name="dp")  # mesh 1,1,1: this process alone
-        whole = all(m.shape == p.shape for m, p in zip(tree_leaves(resumed.state.opt_state["mu"]),
-                                                       tree_leaves(resumed.state.enc_params)))
-        if resumed.step != MESH_STEPS or not whole:
-            raise AssertionError(f"train_dp_full: the 1,1,1 trainer resumed at step "
-                                 f"{resumed.step} (whole moments: {whole})")
-        resumed_run = _trainer_run(torch, resumed, "train_dp_full resumed on mesh 1,1,1")
-        if resumed.step != MESH_STEPS + 1:
-            raise AssertionError(f"train_dp_full: the resumed run ended at step {resumed.step}")
-        del resumed
-        gc.collect()
-        torch.cuda.empty_cache()
-        plain = _plain_mesh_steps(torch, yaml_path, MESH_STEPS + 1)
+        with _shallow(RANK_LAYERS):
+            resumed = Trainer(cfg, run_name="dp")  # mesh 1,1,1: this process alone
+            whole = all(m.shape == p.shape
+                        for m, p in zip(tree_leaves(resumed.state.opt_state["mu"]),
+                                        tree_leaves(resumed.state.enc_params)))
+            if resumed.step != MESH_STEPS or not whole:
+                raise AssertionError(f"train_dp_full: the 1,1,1 trainer resumed at step "
+                                     f"{resumed.step} (whole moments: {whole})")
+            resumed_run = _trainer_run(torch, resumed, "train_dp_full resumed on mesh 1,1,1")
+            if resumed.step != MESH_STEPS + 1:
+                raise AssertionError(f"train_dp_full: the resumed run ended at step "
+                                     f"{resumed.step}")
+            del resumed
+            gc.collect()
+            torch.cuda.empty_cache()
+            plain = _plain_mesh_steps(torch, yaml_path, MESH_STEPS + 1)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rel = _held("train_dp_full", {**logged, **resumed_run["per_step"]}, plain[0], DP_RTOL)
@@ -3421,8 +4033,9 @@ def phase_train_dp_full(torch, card):
                            for k, v in summary["launches"].items()}
     emit("train_dp_full", config="llama3_hubert.yaml", data="synthetic", mesh=[2, 1, 1],
          ranks=2, backend="gloo", zero1=True, audio_samples=reports[0]["steps"][0]["audio_samples"],
-         reduced=["data 2 on one card: two ranks share it over gloo, every exchange staged "
-                  "through the host", "synthetic data, random weights"],
+         reduced=[f"Llama-3.2-3B and HuBERT-large cut to {RANK_LAYERS} of their 28 and 24 "
+                  f"blocks", "data 2 on one card: two ranks share it over gloo, every "
+                  "exchange staged through the host", "synthetic data, random weights"],
          launch_wall_s=wall, resumed_on_111=dict(steps=resumed_run["steps"],
                                                   per_step=resumed_run["per_step"],
                                                   wall_s=resumed_run["wall_s"]),
@@ -3431,24 +4044,26 @@ def phase_train_dp_full(torch, card):
 
 
 def phase_train_tp_full(torch, card):
-    """The same config over ``--mesh 1,1,2`` at published depth: the frozen
-    int8 LLM sharded over two gloo ranks on the card (12/4 heads, half the
-    MLP and the vocab each; the fused loss vocab-parallel); MESH_STEPS
-    steps and no validate (every block's exchanges are staged through the
-    host; train_dp_full validates and checkpoints). The steps are held to
-    MESH_STEPS unsharded steps: the first within TP_RTOL, the second within
-    UPDATED_RTOL."""
+    """The same config over ``--mesh 1,1,2``, the models cut to RANK_LAYERS
+    blocks at their published widths: the frozen int8 LLM sharded over two gloo ranks on the card
+    (12/4 heads, half the MLP and the vocab each; the fused loss
+    vocab-parallel); MESH_STEPS steps and no validate (every block's
+    exchanges are staged through the host; train_dp_full validates and
+    checkpoints). The steps are held to MESH_STEPS unsharded steps: the
+    first within TP_RTOL, the second within UPDATED_RTOL."""
     import shutil
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="lss_tp_")
     try:
-        yaml_path = _mesh_yaml(tmp, "tp", generations=0)
+        yaml_path = _mesh_yaml(tmp, "tp", generations=0,
+                               fd_layers=range(RANK_LAYERS + 1))
         reports, wall = _rank_launch("train_tp_full", "tp", yaml_path, MESH_STEPS,
                                      os.path.join(tmp, "r1"), (1, 1, 2), _expected_mesh_launches,
                                      MESH_TIMEOUT_S)
         logged = _logged_steps(os.path.join(tmp, "logs", "tp"))
-        plain = _plain_mesh_steps(torch, yaml_path, MESH_STEPS)
+        with _shallow(RANK_LAYERS):
+            plain = _plain_mesh_steps(torch, yaml_path, MESH_STEPS)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if sorted(logged) != list(range(1, MESH_STEPS + 1)):
@@ -3457,8 +4072,9 @@ def phase_train_tp_full(torch, card):
     summary = _mesh_summary(reports, logged, plain, rel)
     emit("train_tp_full", config="llama3_hubert.yaml", data="synthetic", mesh=[1, 1, 2],
          ranks=2, backend="gloo", llm_heads_per_rank=[12, 4],
-         reduced=["model 2 on one card: two ranks share it over gloo, every exchange staged "
-                  "through the host", "synthetic data, random weights"],
+         reduced=[f"Llama-3.2-3B and HuBERT-large cut to {RANK_LAYERS} of their 28 and 24 "
+                  f"blocks", "model 2 on one card: two ranks share it over gloo, every "
+                  "exchange staged through the host", "synthetic data, random weights"],
          launch_wall_s=wall, rtol=TP_RTOL, updated_rtol=UPDATED_RTOL, card=card, **summary)
     return summary["launches"]
 
@@ -3499,6 +4115,191 @@ def phase_train_3d_small(torch, card):
     return summary["launches"]
 
 
+# train_f32_full: llama3_hubert.yaml at compute_dtype float32 (param_dtype
+# float32: the encoder, the norms and the LLM's activations in float32; the
+# published int8 LLM weights). Its first step against the same step (same
+# state, same batch) through the plain attention on the card, both in
+# float32 with TF32 off: only the summation order differs, so the losses
+# and grad_norm agree within F32_TRAIN_RTOL * max(1, |plain|), 22x what a
+# run of this phase read (grad_norm 4.5e-7, the losses equal; NVIDIA H100
+# 80GB HBM3, 700 W). The tolerance catches a wrong attention, not a
+# rounding: no run showed that TF32 operands or p and ds rounded to bf16
+# would move a step past it. Those faults are rejected by the kernel
+# bounds of phase_flash_train_f32, and TF32 in the backward by the spy on
+# its flags below.
+F32_TRAIN_STEPS = 2
+# B=8, not the published 16: chip_smoke's time (a float32 step at B=16 takes
+# 7.2-8.4 s on an NVIDIA H100 80GB HBM3 at 700 W)
+F32_TRAIN_BATCH = 8
+F32_TRAIN_RTOL = 1e-5
+
+
+def _f32_train_raw(tmp, batch, samples, steps, generations):
+    """llama3_hubert.yaml as a dict at param_dtype and compute_dtype float32,
+    on synthetic data, logs and checkpoints under ``tmp``."""
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.configs.config import config_to_dict
+
+    raw = config_to_dict(load_config(str(YAML_DIR / "llama3_hubert.yaml")))
+    raw["model"].update(compute_dtype="float32", param_dtype="float32")
+    raw["data"].update(source="synthetic", synthetic_num_samples=samples)
+    raw["train"].update(steps=steps, batch_size=batch)
+    raw["log"].update(checkpoint_dir=os.path.join(tmp, "ckpt"), log_dir=os.path.join(tmp, "logs"),
+                      log_interval=1, num_generate_samples=generations)
+    return raw
+
+
+def phase_train_f32_full(torch, card, bf16):
+    """The full-width trainer at compute_dtype float32 (``_f32_train_raw``:
+    the published int8 LLM, HuBERT-large, remat, B=F32_TRAIN_BATCH, the
+    published buckets). First one step from the trainer's initial state on
+    its first batch through the plain attention (``plain_attention``, no
+    kernel launched); then the trainer's F32_TRAIN_STEPS optimizer steps and
+    the closing validate (eval, a generation through the float32 decode
+    instances, a checkpoint), every launch counted under the float32
+    instances (B1 + LSE, B6 dq and dk/dv, B1 and B2), its first step held to
+    the plain one within F32_TRAIN_RTOL, and every backward under a spy on
+    ``torch.autograd.grad`` that reads the TF32 flags as it starts (cuDNN's
+    is on outside, as PyTorch leaves it, and must be off inside). ``bf16``:
+    train_full's numbers, printed beside these."""
+    import shutil
+    import tempfile
+
+    from llm_speech_summarization_tpu_torch.configs import load_config
+    from llm_speech_summarization_tpu_torch.train import make_train_state
+    from llm_speech_summarization_tpu_torch.train.state import tree_leaves, tree_map
+    from llm_speech_summarization_tpu_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="lss_f32_train_")
+    grad, seen = torch.autograd.grad, []
+    saved_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default; train_small turns it off
+    outside = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+    def spy(*args, **kw):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return grad(*args, **kw)
+
+    try:
+        cfg = load_config(_f32_train_raw(tmp, F32_TRAIN_BATCH, 4 * F32_TRAIN_BATCH,
+                                         F32_TRAIN_STEPS, 1))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, run_name="f32")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if not any(t.dtype == torch.int8 for t in tree_leaves(trainer.llm_params)):
+            raise AssertionError("train_f32_full: the LLM is not the published int8 one")
+        # the trainer's first step, from its state on its first batch, through
+        # the plain attention
+        batch = next(trainer._batches(trainer.train_ds, cfg.train.batch_size, True,
+                                      cfg.seed_everything))
+        bucket = int(batch.wav.shape[1])
+        params = tree_map(lambda p: p.detach().clone().requires_grad_(),
+                          trainer.state.enc_params)
+        state, _ = make_train_state(cfg, params, trainer.total_opt_steps)
+        reset_launches()
+        with plain_attention():
+            plain = {k: v.item() for k, v in trainer._get_train_step(bucket)(
+                state, trainer.llm_params, batch)[1].items()}
+        plain_launches = {k: v for k, v in read_launches().items() if v}
+        del state, params
+        torch.autograd.grad = spy
+        try:
+            run = _trainer_run(torch, trainer, "train_f32_full")
+        finally:
+            torch.autograd.grad = grad
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        total_len = trainer.total_len(bucket)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved_tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+    first = {k: run["per_step"][1][k] for k in plain}
+    rel = {k: abs(first[k] - plain[k]) / max(1.0, abs(plain[k])) for k in plain}
+    finite = all(np.isfinite(v) for v in (*first.values(), *plain.values()))
+    if not (finite and max(rel.values()) <= F32_TRAIN_RTOL) or plain_launches:
+        raise AssertionError(f"train_f32_full: step 1 {first} vs plain attention {plain}: "
+                             f"{rel} x max(1, |plain|) over {F32_TRAIN_RTOL}; the plain step "
+                             f"launched {plain_launches}")
+    if len(seen) != run["steps"] or any(any(flags) for flags in seen) or not outside[0]:
+        raise AssertionError(f"train_f32_full: TF32 flags (cuDNN, matmul) {seen} as the "
+                             f"backwards started, {outside} outside the steps")
+    times = [run["per_step"][s]["step_time_s"] for s in sorted(run["per_step"])]
+    B = cfg.train.batch_size
+    tokens = B * total_len
+    emit("train_f32_full", config="llama3_hubert.yaml", compute_dtype="float32",
+         param_dtype="float32", llm_weight_dtype=cfg.model.llm_weight_dtype,
+         remat=cfg.train.remat, data="synthetic", batch=B, audio_samples=bucket,
+         total_len=total_len, init_s=init_s, steps=run["steps"], per_step=run["per_step"],
+         ms_per_step=[1e3 * t for t in times], tokens_per_s=[tokens / t for t in times],
+         steady_ms_per_step=1e3 * min(times[1:] or times), run_wall_s=run["wall_s"],
+         max_memory_allocated_gb=peak_gb, launches=run["launches"],
+         engine_counts=run["engine_counts"], eval_batches=run["eval_batches"],
+         plain_check=dict(kernels_step1=first, plain=plain, rel_diff=rel, rtol=F32_TRAIN_RTOL),
+         tf32_flags_at_backward=seen, tf32_flags_outside=outside,
+         bf16_train_full=bf16, card=card)
+    return run["launches"]
+
+
+# the float32 ring step against the unsharded float32 step: only the order
+# of summation differs (1.4e-7 at most in a run on the same card)
+F32_RING_RTOL = 1e-5
+
+
+def phase_train_ring_f32(torch, card):
+    """``cli/train.py --mesh 1,2,1`` on two gloo ranks on the card at the
+    float32 config (``llama3_hubert.yaml`` at param_dtype and compute_dtype
+    float32, the ring and encoder SP), Llama-3.2-3B and HuBERT-large cut to
+    SHALLOW_LAYERS blocks at published widths, B=4: one step (no validate),
+    B7's float32 instances launched on both ranks, held to the unsharded
+    float32 step on the same weights and batch within F32_RING_RTOL."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="lss_ring_f32_")
+    try:
+        yaml_path = _edited_yaml("train_ring_f32", "llama3_hubert.yaml", tmp, [
+            ("data:\n", "data:\n  source: synthetic\n  synthetic_num_samples: 16\n"),
+            ("param_dtype: bfloat16", "param_dtype: float32"),
+            ("compute_dtype: bfloat16", "compute_dtype: float32"),
+            ("  batch_size: 16\n",
+             "  batch_size: 4\n  use_ring_attention: True\n  encoder_sp: True\n"),
+            ("fd_loss_connector_layers: [0, 5, 11, 17, 23]",
+             f"fd_loss_connector_layers: {list(range(SHALLOW_LAYERS + 1))}"),
+            ("checkpoint_dir: checkpoints", f"checkpoint_dir: {tmp}/ckpt"),
+            ("log_dir: logs", f"log_dir: {tmp}/logs"),
+            ("log_interval: 10", "log_interval: 1"),
+            ("num_generate_samples: 5", "num_generate_samples: 0")])
+        reports, wall = _rank_launch("train_ring_f32", "ring_f32", yaml_path, 1,
+                                     os.path.join(tmp, "r1"), (1, 2, 1), _expected_ring_launches,
+                                     MESH_TIMEOUT_S)
+        logged = _logged_steps(os.path.join(tmp, "logs", "ring_f32"))
+        with _shallow(SHALLOW_LAYERS):
+            plain = _plain_mesh_steps(torch, yaml_path, 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if sorted(logged) != [1]:
+        raise AssertionError(f"train_ring_f32: logged steps {sorted(logged)}")
+    offsets = [k for k in ("flash_attention_lse_offset_f32", "flash_attention_bwd_dq_offset_f32",
+                           "flash_attention_bwd_dkv_offset_f32")
+               if not all(rep["launches"][k] for rep in reports)]
+    if offsets:
+        raise AssertionError(f"train_ring_f32: a rank did not launch {offsets}")
+    rel = _held("train_ring_f32", logged, plain[0], F32_RING_RTOL)
+    summary = _mesh_summary(reports, logged, plain, rel)
+    emit("train_ring_f32", config="llama3_hubert.yaml", compute_dtype="float32",
+         param_dtype="float32", data="synthetic", mesh=[1, 2, 1], ranks=2, backend="gloo",
+         ring=True, encoder_sp=True,
+         reduced=[f"Llama-3.2-3B and HuBERT-large cut to {SHALLOW_LAYERS} blocks, B=4 (the "
+                  f"ranks share the one card, every exchange staged through the host)",
+                  "synthetic data, random weights"],
+         launch_wall_s=wall, rtol=F32_RING_RTOL, card=card, **summary)
+    return summary["launches"]
+
+
 def _wrappers():
     from llm_speech_summarization_tpu_torch.kernels import flash_attention as fa
     from llm_speech_summarization_tpu_torch.kernels.decode_attention import decode_attention
@@ -3519,6 +4320,12 @@ def _wrappers():
 
     return {"flash_attention": fa.flash_attention_fwd,
             "flash_attention_f32": fa.flash_attention_fwd_f32, "fused_decode": fused_decode,
+            "flash_attention_lse_f32": fa.flash_attention_fwd_lse_f32,
+            "flash_attention_bwd_dq_f32": fa.flash_attention_bwd_dq_f32,
+            "flash_attention_bwd_dkv_f32": fa.flash_attention_bwd_dkv_f32,
+            "flash_attention_lse_offset_f32": fa.flash_attention_fwd_lse_offset_f32,
+            "flash_attention_bwd_dq_offset_f32": fa.flash_attention_bwd_dq_offset_f32,
+            "flash_attention_bwd_dkv_offset_f32": fa.flash_attention_bwd_dkv_offset_f32,
             "paged_attention": paged_decode_attention, "fused_paged": fused_paged_decode,
             "flash_attention_lse": fa.flash_attention_fwd_lse,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
@@ -3741,7 +4548,7 @@ def recorded_tokens(tokenizer_cls):
 
 
 BULK_CLIPS = 32  # half WAV, half FLAC, 6-10 s
-BULK_AB_BATCHES = 4  # x B=32 x 10 s clips, 64 new tokens, for pipelined vs serial
+BULK_AB_BATCHES = 2  # x B=32 x 10 s clips, 64 new tokens, for pipelined vs serial
 
 
 def _write_clips(d, n, seed):
@@ -4400,7 +5207,12 @@ def phase_f32_full(torch, card, eng):
 
 
 TP_RANKS = 2
-TP_TIMEOUT_S = 420  # per torch.distributed.run launch
+# serving_tp_full's Llama-3.2-3B blocks (HuBERT-large as published): each
+# block's two all-reduces a decode step are staged through the host, 178 ms
+# a step at the published 28 blocks against 44 ms unsharded (NVIDIA H100
+# 80GB HBM3, 700 W), a correctness path on one card
+TP_SERVE_LAYERS = 8
+TP_TIMEOUT_S = 420  # per launch of the ranks
 TP_MAX_NEW = 32
 TP_PORT_WAIT_S = 300  # rank 0's engine init at full width, before it serves
 TP_TOPK = 8  # the rank's top logits per row and step, compared teacher-forced
@@ -4488,12 +5300,12 @@ def _tp_burst_clips():
 
 
 def tp_rank(report_dir: str, mode: str, cli_args) -> int:
-    """One rank of serving_tp_full, launched by torch.distributed.run.
+    """One rank of serving_tp_full, started by ``_tp_launch``.
     ``batch``: the tensor-parallel engine on ``llama3_hubert.yaml`` (a mesh
     with a model group of every rank), one warm-up and one counted
     ``generate_audio_response_batch`` over ``_tp_batch_clips``; ``serve``:
-    ``cli/serve.py`` with ``cli_args`` (rank 0 writes its pid to
-    ``report_dir/rank0.pid``; SIGTERM to it drains the server). Each rank
+    ``cli/serve.py`` with ``cli_args`` (SIGTERM to rank 0 drains the
+    server). Each rank
     writes ``report_dir/<mode>_rank<r>.json``: its launch counts, the
     engine's and decoder's counts, the host-staged exchanges and wall of
     every decode step (batch) or decode chunk (serve), the token rows (per
@@ -4516,8 +5328,11 @@ def tp_rank(report_dir: str, mode: str, cli_args) -> int:
     from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
 
     rank = int(os.environ["RANK"])
+    patches = contextlib.ExitStack()  # open for the rank's whole run
+    patches.enter_context(_shallow(TP_SERVE_LAYERS, encoder=False))
     seen = {"decoders": []}
-    report = {"rank": rank, "mode": mode, "steps": [], "chunks": [], "requests": []}
+    report = {"rank": rank, "mode": mode, "steps": [], "chunks": [], "requests": [],
+              "warm_cuda_s": _WARM_S}
 
     def staged():
         return COMM_STATS["calls"], COMM_STATS["bytes"], COMM_STATS["ms"]
@@ -4533,6 +5348,7 @@ def tp_rank(report_dir: str, mode: str, cli_args) -> int:
         report["init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         seen["engine"] = self
+        report["backend"] = torch.distributed.get_backend()  # the CLI leaves its group
 
     decoder_init, decode_chunk = SlotDecoder.__init__, SlotDecoder.decode_chunk
     harvest = SlotDecoder.harvest
@@ -4583,7 +5399,6 @@ def tp_rank(report_dir: str, mode: str, cli_args) -> int:
         )
 
         distributed_init()
-        report["backend"] = torch.distributed.get_backend()
         eng = LLMSpeechTextInference(load_config(str(YAML_DIR / "llama3_hubert.yaml")),
                                      mesh=mesh_from_ranks(model=TP_RANKS))
         clips = _tp_batch_clips()
@@ -4602,9 +5417,6 @@ def tp_rank(report_dir: str, mode: str, cli_args) -> int:
     else:
         from llm_speech_summarization_tpu_torch.cli import serve as cli
 
-        if rank == 0:
-            with open(os.path.join(report_dir, "rank0.pid"), "w") as f:
-                f.write(str(os.getpid()))
         # rank 0: each request's row, keyed by its payload, and its TTFT
         last = threading.local()
         decode = ByteTokenizer.decode
@@ -4625,7 +5437,6 @@ def tp_rank(report_dir: str, mode: str, cli_args) -> int:
         ByteTokenizer.decode = recorded_decode
         server_mod._Request.__setattr__ = recorded_setattr
         cli.main(cli_args)
-        report["backend"] = torch.distributed.get_backend()
     eng = seen["engine"]
     report.update(launches=read_launches(), engine_counts=dict(eng.counts),
                   decoder_counts=[dict(d.counts) for d in seen["decoders"]],
@@ -4641,42 +5452,36 @@ def tp_rank(report_dir: str, mode: str, cli_args) -> int:
 
 
 def _tp_launch(mode, report_dir, cli_args=(), port=None, drive=None):
-    """Run the TP_RANKS ranks of ``tp_rank`` through torch.distributed.run
-    (the CLI picks gloo: the ranks share the card). With ``drive``, a
+    """Run the TP_RANKS ranks of ``tp_rank`` (started by ``_start_ranks``;
+    the CLI picks gloo: the ranks share the card). With ``drive``, a
     function of the server's port, it runs once rank 0 answers /healthz,
     then SIGTERM drains rank 0 and the other ranks stop with it. Every
     process is killed past TP_TIMEOUT_S; a nonzero exit fails the phase.
     Returns the ranks' reports, the launch's wall seconds and what
     ``drive`` returned."""
     import signal
-    import socket
+
+    import torch
 
     os.makedirs(report_dir, exist_ok=True)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        master = s.getsockname()[1]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-           "--nproc_per_node", str(TP_RANKS), "--master_addr", "127.0.0.1",
-           "--master_port", str(master), os.path.abspath(__file__), "--tp-rank", report_dir,
-           mode, "--", *cli_args]
     log_path = os.path.join(report_dir, "launch.log")
     t0 = time.perf_counter()
     result = None
+
+    def tail():
+        with open(log_path) as f:
+            return f.read()[-6000:]
+
     with open(log_path, "w") as log:
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                start_new_session=True)
-
-        def tail():
-            with open(log_path) as f:
-                return f.read()[-6000:]
-
+        procs, store = _start_ranks(torch, TP_RANKS, ["--tp-rank", report_dir, mode, "--",
+                                                      *cli_args], log)
         try:
             if drive is not None:
                 deadline = time.monotonic() + TP_PORT_WAIT_S
                 while True:
-                    if proc.poll() is not None:
+                    if any(p.poll() is not None for p in procs):
                         raise AssertionError(f"serving_tp_full: the ranks exited "
-                                             f"{proc.returncode} before serving:\n{tail()}")
+                                             f"{[p.poll() for p in procs]} before serving")
                     try:
                         if _http(port, "/healthz")[0] == 200:
                             break
@@ -4684,21 +5489,22 @@ def _tp_launch(mode, report_dir, cli_args=(), port=None, drive=None):
                         pass
                     if time.monotonic() > deadline:
                         raise AssertionError(f"serving_tp_full: rank 0 did not serve within "
-                                             f"{TP_PORT_WAIT_S} s:\n{tail()}")
+                                             f"{TP_PORT_WAIT_S} s")
                     time.sleep(0.5)
                 result = drive(port)
-                with open(os.path.join(report_dir, "rank0.pid")) as f:
-                    os.kill(int(f.read()), signal.SIGTERM)
-            proc.wait(timeout=max(TP_TIMEOUT_S - (time.perf_counter() - t0), 1))
-        except BaseException:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-            raise AssertionError(f"serving_tp_full {mode}: the launch failed or outlived "
-                                 f"{TP_TIMEOUT_S} s:\n{tail()}")
+                os.kill(procs[0].pid, signal.SIGTERM)
+            codes = _join_ranks(procs, time.monotonic() + TP_TIMEOUT_S - (time.perf_counter()
+                                                                          - t0))
+        except BaseException as e:
+            _stop_ranks(procs)
+            raise AssertionError(f"serving_tp_full {mode}: the launch failed ({e!r}):\n"
+                                 f"{tail()}")
+        finally:
+            del store
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"serving_tp_full {mode}: the launch exited {proc.returncode}:\n"
-                             f"{tail()}")
+    if codes is None or any(codes):
+        raise AssertionError(f"serving_tp_full {mode}: the ranks exited {codes} (None: outlived "
+                             f"{TP_TIMEOUT_S} s):\n{tail()}")
     reports = []
     for r in range(TP_RANKS):
         with open(os.path.join(report_dir, f"{mode}_rank{r}.json")) as f:
@@ -4817,15 +5623,16 @@ def _per_step(entries):
                 staged_ms_per_step=staged[2])
 
 
-def phase_serving_tp_full(torch, card, eng):
-    """``llama3_hubert.yaml`` at published widths and depth (int8 weights
-    and cache, random weights from the seed) on a model group of TP_RANKS
-    ranks sharing the card over gloo, each holding its shard (12 query and
-    4 KV heads): (a) the batch path, B=8 x 10 s, TP_MAX_NEW new tokens; (b)
+def phase_serving_tp_full(torch, card):
+    """``llama3_hubert.yaml`` at published widths, Llama-3.2-3B cut to
+    TP_SERVE_LAYERS blocks (int8 weights and cache, random weights from the
+    seed), on a model group of TP_RANKS ranks sharing the card over gloo,
+    each holding its shard (12 query and 4 KV heads): (a) the batch path, B=8 x 10 s, TP_MAX_NEW new tokens; (b)
     ``cli/serve.py --tp`` on the dense cache and (c) with ``--paged
     --speculative_k 3``, a burst of 8 audio requests each after one warm-up
-    request. The reference is the unsharded engine ``eng`` (the same
-    weights: the same seed) in the group's arithmetic (``tp_rounding``):
+    request. The reference is the unsharded engine ``eng``, built here at
+    the same depth (the same weights: the same seed), in the group's
+    arithmetic (``tp_rounding``):
     the batch path's logits on the group's tokens within TP_EXACT_TOL where
     both launch alike and TP_NOISE_TOL elsewhere, every greedy row under
     the margin-aware contract; rank 1's rows and logits equal rank 0's;
@@ -4838,10 +5645,13 @@ def phase_serving_tp_full(torch, card, eng):
     import tempfile
     import threading
 
-    from llm_speech_summarization_tpu_torch.configs import YAML_DIR
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
     from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
 
     t_phase = time.perf_counter()
+    with _shallow(TP_SERVE_LAYERS, encoder=False):
+        eng = LLMSpeechTextInference(load_config(str(YAML_DIR / "llama3_hubert.yaml")))
     marks, failures, out = {}, [], {}
 
     def mark(stage):
@@ -5006,8 +5816,9 @@ def phase_serving_tp_full(torch, card, eng):
         emit("serving_tp_full", config="llama3_hubert.yaml", ranks=TP_RANKS, backend="gloo",
              llm_heads_per_rank=[eng.llm_cfg.num_heads // TP_RANKS,
                                  eng.llm_cfg.num_kv_heads // TP_RANKS],
-             reduced=[f"{TP_RANKS} ranks share the one card over gloo (NCCL refuses two ranks "
-                      f"on one card)", "random weights"], **out, launches=launches,
+             reduced=[f"Llama-3.2-3B cut to {TP_SERVE_LAYERS} of its 28 blocks (HuBERT-large "
+                      f"as published)", f"{TP_RANKS} ranks share the one card over gloo (NCCL "
+                      f"refuses two ranks on one card)", "random weights"], **out, launches=launches,
              marks=marks, failures=failures, card=card)
     if failures:
         raise AssertionError("serving_tp_full: " + "; ".join(failures))
@@ -5401,6 +6212,22 @@ def split_sweep() -> int:
     return 0
 
 
+def f32_train_kernels(argv) -> int:
+    """``python3 chip_smoke.py --f32-train-kernels [TL]``: B1's float32
+    phase, then the float32 training kernels' phase with HuBERT's ring
+    block at TL frames (default F32_TRAIN_HUBERT_RING_TL; RING_SHAPES has
+    3000), each ring case's wall and peak device memory in its line: what
+    that block's cut is read from. The libraries build at first use."""
+    import torch
+
+    card = phase_env(torch)
+    torch.set_grad_enabled(False)
+    phase_flash_f32(torch, card)
+    with torch.enable_grad():
+        phase_flash_train_f32(torch, card, int(argv[0]) if argv else F32_TRAIN_HUBERT_RING_TL)
+    return 0
+
+
 # ---------------------------------------------------------------------------
 # the offline pipeline: convert_full, preprocess_full, eval_full, ckpt_full,
 # train_whisper_full. The HF checkpoints are drawn at published widths from
@@ -5672,7 +6499,10 @@ def plain_attention():
     """Every model's ``flash_attention`` (LLM, HuBERT, Whisper) runs its
     plain version (dense masked attention, differentiable) for the block,
     and so does every decode attention the LLM calls (``models/llama.py``:
-    B2, B3, B8, B4 and B5, cache and page writes included)."""
+    B2, B3, B8, B4 and B5, cache and page writes included). A train step
+    under it launches no kernel: the forward with a gradient (B1 + LSE
+    where the kernels run) and its backward (B6) go through autograd on
+    the dense attention, in bf16 or float32."""
     from llm_speech_summarization_tpu_torch.kernels.decode_attention import (
         decode_attention_reference,
     )
@@ -6189,12 +7019,16 @@ def main() -> int:
 
     card = phase_env(torch)
     torch.set_grad_enabled(False)
-    phase_build(card)
+    builds = start_builds()
+    for fut in builds[0]:  # the flash libraries; the decode ones build on
+        fut.result()
     flash = phase_flash(torch, card)
     flash_f32 = phase_flash_f32(torch, card)
     with torch.enable_grad():  # the SDPA yardstick's backward
         flash_train = phase_flash_train(torch, card)
         flash_ring = phase_flash_ring(torch, card)
+        flash_train_f32 = phase_flash_train_f32(torch, card)
+    phase_build(card, builds=builds)
     fused = phase_fused(torch, card)
     paged = phase_paged(torch, card)
     paged_mha = phase_paged(torch, card, PAGED_MHA_SHAPE)
@@ -6204,6 +7038,12 @@ def main() -> int:
     fpaged_tp = phase_fused_paged(torch, card, PAGED_TP_SHAPE)
     dense = phase_dense_decode(torch, card)
     decode32 = phase_decode_f32(torch, card)
+    # serving_tp_full's ranks get ready from here on, after the timed
+    # kernel phases
+    global _POOL
+    _POOL = _RankPool(keep=TP_RANKS)
+    atexit.register(_POOL.close)
+    _POOL.fill(3 * TP_RANKS)
     phase_serving_small(torch, card, *phase_slice(torch, card))
     phase_slice(torch, card, whisper=True)
     phase_slice(torch, card, base=True)
@@ -6213,7 +7053,7 @@ def main() -> int:
     launches, eng = phase_full(torch, card)
     serving = phase_serving_full(torch, card, eng)
     gc.collect()
-    tp_launches = phase_serving_tp_full(torch, card, eng)
+    tp_launches = phase_serving_tp_full(torch, card)
     gc.collect()
     f32_runs = phase_f32_full(torch, card, eng)
     del eng
@@ -6241,15 +7081,19 @@ def main() -> int:
     try:
         export = os.path.join(work, "train_full_encoder.pt")
         with torch.enable_grad():
-            train_runs = phase_train_full(torch, card, export)
+            *train_runs, train_bf16 = phase_train_full(torch, card, export)
             gc.collect()
             torch.cuda.empty_cache()
             save_qkv_launches = phase_train_save_qkv_full(torch, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            f32_train_launches = phase_train_f32_full(torch, card, train_bf16)
         gc.collect()
         torch.cuda.empty_cache()
         convert_launches, eng, files = phase_convert_full(torch, card, work)
         os.remove(files["llm"])  # the engine holds the LLM now
         preprocess_launches = phase_preprocess_full(torch, card, eng, files["ctc"])
+        _POOL.fill(2 * RING_RANKS + 2 + 2)  # ring (two launches), dp, tp
         eval_launches = phase_eval_full(torch, card, eng)
         del eng
         gc.collect()
@@ -6267,9 +7111,11 @@ def main() -> int:
         ring_launches = phase_train_ring_full(torch, card)
         gc.collect()
         torch.cuda.empty_cache()
+        _POOL.fill(2 + 2 + 8)  # dp, tp and the eight of 3-D
         dp_launches = phase_train_dp_full(torch, card)
         tp_launches_train = phase_train_tp_full(torch, card)
         td_launches = phase_train_3d_small(torch, card)
+        ring_f32_launches = phase_train_ring_f32(torch, card)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "llm_speech_summarization_tpu"))
     if leaked:
@@ -6279,17 +7125,19 @@ def main() -> int:
     # and paged server, MiniChat + HuBERT-base with both projectors, its two replicas behind
     # the router, the bulk CLI, the Whisper batch path, its B8 stream and
     # server, the trainer, the resumed trainer and the save_qkv trainer,
-    # the converted-checkpoint engine, preprocessing, evaluation,
-    # -p and --ctc through the CLI, the Whisper trainer and its resume, the
-    # ring trainer's ranks in both its launches, and the data-parallel (with
-    # its resume on mesh 1,1,1), tensor-parallel and 2,2,2 trainers' ranks)
+    # the float32 trainer, the converted-checkpoint engine, preprocessing,
+    # evaluation, -p and --ctc through the CLI, the Whisper trainer and its
+    # resume, the ring trainer's ranks in both its launches, the
+    # data-parallel (with its resume on mesh 1,1,1), tensor-parallel and
+    # 2,2,2 trainers' ranks, and the float32 ring trainer's ranks)
     for run in ([r["launches"] for r in serving.values()] + [tp_launches] + f32_runs
                 + minichat_runs
                 + [router_launches]
-                + [bulk_launches] + whisper_runs + list(train_runs) + [save_qkv_launches]
+                + [bulk_launches] + whisper_runs + train_runs + [save_qkv_launches]
+                + [f32_train_launches]
                 + [convert_launches, preprocess_launches, eval_launches] + ckpt_runs
                 + list(whisper_train_runs) + [ring_launches, dp_launches, tp_launches_train,
-                                               td_launches]):
+                                               td_launches, ring_f32_launches]):
         for k, v in run.items():
             launches[k] += v
     csrc = "llm_speech_summarization_tpu_torch/kernels/csrc/"
@@ -6350,6 +7198,23 @@ def main() -> int:
              "flash_attention.py:257", "dkv")):
         kernels.append(entry(name, source, replaces, name, flash_ring["llm_ring"][key],
                              [r[key]["max_abs_err"] for r in flash_ring.values()]))
+    f32_train = {k: r for k, r in flash_train_f32.items() if not k.endswith("_ring")}
+    f32_ring = {k: r for k, r in flash_train_f32.items() if k.endswith("_ring")}
+    for name, source, replaces, key, results, case in (  # the float32 training instances
+            ("flash_attention_lse_f32", "flash_attention_f32.cu", "flash_attention.py:37",
+             "fwd_lse", f32_train, "llm_train"),
+            ("flash_attention_bwd_dq_f32", "flash_attention_bwd_f32.cu",
+             "flash_attention.py:202", "dq", f32_train, "llm_train"),
+            ("flash_attention_bwd_dkv_f32", "flash_attention_bwd_f32.cu",
+             "flash_attention.py:257", "dkv", f32_train, "llm_train"),
+            ("flash_attention_lse_offset_f32", "flash_attention_f32.cu", "flash_attention.py:37",
+             "fwd_lse", f32_ring, "llm_ring"),
+            ("flash_attention_bwd_dq_offset_f32", "flash_attention_bwd_f32.cu",
+             "flash_attention.py:202", "dq", f32_ring, "llm_ring"),
+            ("flash_attention_bwd_dkv_offset_f32", "flash_attention_bwd_f32.cu",
+             "flash_attention.py:257", "dkv", f32_ring, "llm_ring")):
+        kernels.append(entry(name, source, replaces, name, results[case][key],
+                             [r[key]["max_abs_err"] for r in results.values()]))
     kernels[0]["sdpa_ms"] = kernels[0]["library_ms"]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
@@ -6363,12 +7228,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--train-rank"]:  # one rank of a multi-process training phase
-        sys.exit(train_rank(sys.argv[2], sys.argv[3], sys.argv[5:]))
-    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of serving_tp_full
-        sys.exit(tp_rank(sys.argv[2], sys.argv[3], sys.argv[5:]))
+    if sys.argv[1:2] == ["--pooled-rank"]:  # a rank of a launch, waiting for its job
+        sys.exit(pooled_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-kernels"]:  # parent vs this checkout, kernel phases
         sys.exit(ab_kernels(sys.argv[2:]))
     if sys.argv[1:2] == ["--split-sweep"]:  # B2's split counts, timed
         sys.exit(split_sweep())
+    if sys.argv[1:2] == ["--f32-train-kernels"]:  # the float32 kernel phases alone
+        sys.exit(f32_train_kernels(sys.argv[2:]))
     sys.exit(main())

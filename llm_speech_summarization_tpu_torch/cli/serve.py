@@ -62,36 +62,46 @@ def main(argv=None):
     from ..configs import load_config
     from ..serve.server import serve
 
-    mesh = None
+    mesh, joined = None, False
     if args.tp > 1:
         from ..parallel.mesh import distributed_init, mesh_from_ranks
 
-        distributed_init(cpu=args.device == "cpu")
+        joined = distributed_init(cpu=args.device == "cpu")
         mesh = mesh_from_ranks(data=1, model=args.tp)
 
     continuous = {"auto": "auto", "continuous": True, "request": False}[args.scheduler]
     config = load_config(args.config)
     if args.kv_cache_dtype is not None:
         config.model.kv_cache_dtype = args.kv_cache_dtype
-    serve(
-        config,
-        host=args.host,
-        port=args.port,
-        warmup=not args.no_warmup,
-        server_kwargs=dict(
-            continuous=continuous,
-            paged=args.paged,
-            n_slots=args.slots,
-            max_new_tokens=args.max_new_tokens,
-            spec_k=args.speculative_k,
-        ),
-        drain_timeout=args.drain_timeout,
-        device=args.device,
-        audio_encoder_checkpoint=args.audio_encoder_checkpoint,
-        repetition_penalty=args.repetition_penalty,
-        speculative_k=args.speculative_k,
-        mesh=mesh,
-    )
+    try:
+        serve(
+            config,
+            host=args.host,
+            port=args.port,
+            warmup=not args.no_warmup,
+            server_kwargs=dict(
+                continuous=continuous,
+                paged=args.paged,
+                n_slots=args.slots,
+                max_new_tokens=args.max_new_tokens,
+                spec_k=args.speculative_k,
+            ),
+            drain_timeout=args.drain_timeout,
+            device=args.device,
+            audio_encoder_checkpoint=args.audio_encoder_checkpoint,
+            repetition_penalty=args.repetition_penalty,
+            speculative_k=args.speculative_k,
+            mesh=mesh,
+        )
+    finally:
+        # leave the group before exit: a process group left to the
+        # interpreter's teardown aborted a follower rank now and then
+        # ("terminate called without an active exception", after its last
+        # Python frame), as cli/train.py leaves its group
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

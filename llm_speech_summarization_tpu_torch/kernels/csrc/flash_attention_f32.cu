@@ -39,14 +39,32 @@
 //   * no atomics and a fixed order of every sum: repeats are bit-identical.
 // A row that sees no key writes zeros (as the bf16 kernel). The output is
 // o / max(l, 1e-30), as the TPU kernel divides.
+//
+// Training (B1 + LSE, and B7's forward): where the caller passes an lse
+// buffer, the kernel also writes the float32 per-row log-sum-exp m +
+// log(max(l, 1e-30)) as (B, Hq, T) (the TPU kernel's return_lse output;
+// -1e30 for a row that sees no key). The global offsets (q_off, k_off) of
+// the ring's interior make the causal rule k + k_off <= q + q_off, so the
+// causal frontier of a q tile moves by q_off - k_off, as in the bf16 B7.
+// The TPU kernel loops over every k block in offset mode and lets the mask
+// decide; the tiles past the moved frontier are wholly masked for every
+// row of the q tile, and such a tile changes neither m, l nor o of a row
+// that has seen a key (p = 2^(-1e30 - m) = 0, alpha = 1), so skipping them
+// gives the same bits. One entry serves B1 (no lse, offsets 0), B1 + LSE
+// and B7's forward, as the bf16 entry does. flash_attention_bwd_f32.cu is
+// the backward that reads the lse.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_f32.cuh"
+
 namespace {
 
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float NEG_INF = -1e30f;  // a masked score (never -inf)
+using lss_f32::LN2;
+using lss_f32::LOG2E;
+using lss_f32::NEG_INF;
+using lss_f32::load_rows;
 
 template <int DH_>
 struct F32Cfg {
@@ -71,29 +89,13 @@ struct F32Cfg {
 struct F32Args {
   const float *q, *k, *v;
   float* out;
+  float* lse;  // (B, Hq, T), or null: no lse
   const int *starts, *ends;
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh;
   int T, Hq, Hkv, causal;
+  int diag;          // q_off - k_off
   float scale_log2;  // Dh^-0.5 * log2(e)
 };
-
-// rows [r0, r0 + R) of one head of a (B, T, H, DH) tensor into shared memory
-// at row stride S floats; rows at or past T are zeros
-template <int DH, int R, int S>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long st, int r0,
-                                          int T) {
-  constexpr int V4 = DH / 4;  // float4 per row
-  for (int idx = threadIdx.x; idx < R * V4; idx += 256) {
-    const int r = idx / V4, c = 4 * (idx % V4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T) x = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * st + c);
-    float* d = dst + r * S + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
-}
 
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 2) flash_f32_kernel(const F32Args a) {
@@ -111,8 +113,9 @@ __global__ void __launch_bounds__(C::THREADS, 2) flash_f32_kernel(const F32Args 
   const int T = a.T;
   const int start = max(a.starts[b], 0);
   const int end = min(a.ends[b], T);
-  int k_stop = end;  // keys in [start, k_stop); causal: none past the tile's last query
-  if (a.causal) k_stop = min(k_stop, q0 + BQ);
+  const int diag = a.diag;
+  int k_stop = end;  // keys in [start, k_stop); causal: none past the tile's frontier
+  if (a.causal) k_stop = min(k_stop, q0 + BQ + diag);
   const int kt_begin = start / BK;
   const int kt_end = k_stop > 0 ? (k_stop + BK - 1) / BK : 0;
 
@@ -169,7 +172,7 @@ __global__ void __launch_bounds__(C::THREADS, 2) flash_f32_kernel(const F32Args 
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
         const int kp = k0 + tx + 16 * j;
-        const bool ok = kp >= start && kp < end && (!a.causal || kp <= qp);
+        const bool ok = kp >= start && kp < end && (!a.causal || kp <= qp + diag);
         s[i][j] = ok ? s[i][j] * a.scale_log2 : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -222,6 +225,9 @@ __global__ void __launch_bounds__(C::THREADS, 2) flash_f32_kernel(const F32Args 
     const float den = fmaxf(li, 1e-30f);
 #pragma unroll
     for (int j = 0; j < CO; ++j) ob[(long long)qp * a.o_st + 16 * j] = seen ? o[i][j] / den : 0.f;
+    if (a.lse != nullptr && tx == 0) {
+      a.lse[((long long)b * a.Hq + h) * T + qp] = seen ? m[i] * LN2 + logf(den) : NEG_INF;
+    }
   }
 }
 
@@ -238,17 +244,21 @@ int launch(const F32Args& a, int B, cudaStream_t stream) {
 }  // namespace
 
 // strides: 12 element strides (b, t, h) for q, k, v, out, in that order
-// (multiples of 4, with 16-byte aligned bases: rows are read as float4).
-// Returns the cudaError_t of the launch (0 on success).
+// (multiples of 4, with 16-byte aligned bases: rows are read as float4);
+// lse: a contiguous (B, Hq, T) float32 buffer, or null; q_off, k_off: the
+// global offsets of the queries and the keys (0, 0 but in B7's offset
+// mode). Returns the cudaError_t of the launch (0 on success).
 extern "C" int lss_flash_attention_f32_fwd(const void* q, const void* k, const void* v, void* out,
-                                           const void* starts, const void* ends, int B, int T,
-                                           int Hq, int Hkv, int Dh, const long long* strides,
-                                           int causal, float scale, void* stream) {
+                                           void* lse, const void* starts, const void* ends,
+                                           int B, int T, int Hq, int Hkv, int Dh,
+                                           const long long* strides, int causal, int q_off,
+                                           int k_off, float scale, void* stream) {
   F32Args a;
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
   a.v = static_cast<const float*>(v);
   a.out = static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
   a.starts = static_cast<const int*>(starts);
   a.ends = static_cast<const int*>(ends);
   a.q_sb = strides[0];
@@ -267,6 +277,7 @@ extern "C" int lss_flash_attention_f32_fwd(const void* q, const void* k, const v
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.causal = causal;
+  a.diag = q_off - k_off;
   a.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh == 128) return launch<F32Cfg<128>>(a, B, s);

@@ -22,13 +22,19 @@ row with no valid key gets -1e30, as the TPU kernel writes. CPU tensors
 take the plain versions; CUDA tensors launch the kernels, and any shape,
 dtype or layout the kernels do not take raises.
 
-B1 has a float32 instance, ``flash_attention_fwd_f32`` (``csrc/
-flash_attention_f32.cu``, its own library and launch count), for models the
-JAX package runs in float32 (the HuBERT-CTC model): the forward alone, no
-log-sum-exp, offset mode or backward. ``flash_attention_fwd`` and
-``flash_attention`` route CUDA tensors by dtype: bfloat16 to the bf16
-kernel, float32 to the float32 one; float16, mixed dtypes and float32 with
-a log-sum-exp, offsets or a gradient raise, naming what is not ported.
+Every entry point has a float32 instance, for models the JAX package runs
+in float32 (its kernels are dtype-generic: at float32 operands nothing in
+them rounds below float32), each with its own launch count:
+``flash_attention_fwd_f32`` (B1 alone: the HuBERT-CTC model and the
+teacher's no-grad forward) and ``flash_attention_fwd_lse_f32`` (B1 + LSE)
+in ``csrc/flash_attention_f32.cu``, ``flash_attention_bwd_dq_f32`` and
+``flash_attention_bwd_dkv_f32`` (B6) in ``csrc/flash_attention_bwd_f32.cu``
+(FFMA on shared-memory tiles, each in its own library), and B7's
+``*_offset_f32``. Every entry point routes CUDA tensors by dtype: bfloat16
+to the bf16 kernel, float32 to its float32 instance; float16 and mixed
+dtypes raise, naming what is ported. ``FlashAttention`` and the ring's
+interior (``ops/ring_attention.py``) thus train in float32 through the
+same calls.
 
 Offset mode (B7): ``flash_attention_fwd_lse_offset``,
 ``flash_attention_bwd_dq_offset`` and ``flash_attention_bwd_dkv_offset``
@@ -51,7 +57,8 @@ from .build import check_status, count_launch, load_library
 SOURCES = ("flash_attention.cu", "flash_sm90.cuh")
 BWD_SOURCES = ("flash_attention_bwd.cu", "flash_sm90.cuh")
 DKV_SOURCES = ("flash_attention_bwd_dkv.cu", "flash_sm90.cuh")
-F32_SOURCES = ("flash_attention_f32.cu",)
+F32_SOURCES = ("flash_attention_f32.cu", "flash_f32.cuh")
+BWD_F32_SOURCES = ("flash_attention_bwd_f32.cu", "flash_f32.cuh")
 
 
 def flash_attention_reference(
@@ -111,21 +118,25 @@ def flash_attention_bwd_reference(q, k, v, dout, lse, delta, starts, ends, causa
                                   offsets=None):
     """Plain version of both backward kernels: the TPU ``_bwd_*`` formulas
     written densely. ``delta`` = rowsum(dO * O) as (B, Hq, T) float32.
-    Returns (dq, dk, dv) in q's dtype, dk/dv summed over the GQA group."""
+    Returns (dq, dk, dv) in q's dtype, dk/dv summed over the GQA group. As
+    the TPU kernels, p and ds are rounded to the operands' dtype before
+    their products; float64 inputs run in float64 throughout (the float32
+    kernels' yardstick)."""
     B, T, Hq, Dh = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     s, mask = _masked_scores(q, k, starts, ends, causal, offsets)
+    acc = s.dtype  # float32, or float64 for float64 q
     lse_g = lse.reshape(B, Hkv, G, T, 1)
     p = torch.exp(torch.where(mask, s - lse_g, NEG_INF))  # masked → exactly 0
-    dog = dout.reshape(B, T, Hkv, G, Dh).float()
-    dv = torch.einsum("bhgts,bthgd->bshd", p.to(dout.dtype).float(), dog)
-    dp = torch.einsum("bthgd,bshd->bhgts", dog, v.float())
+    dog = dout.reshape(B, T, Hkv, G, Dh).to(acc)
+    dv = torch.einsum("bhgts,bthgd->bshd", p.to(dout.dtype).to(acc), dog)
+    dp = torch.einsum("bthgd,bshd->bhgts", dog, v.to(acc))
     ds = p * (dp - delta.reshape(B, Hkv, G, T, 1))
     scale = Dh ** -0.5
-    dq = torch.einsum("bhgts,bshd->bthgd", ds.to(k.dtype).float(), k.float()) * scale
-    qg = q.reshape(B, T, Hkv, G, Dh).float()
-    dk = torch.einsum("bhgts,bthgd->bshd", ds.to(q.dtype).float(), qg) * scale
+    dq = torch.einsum("bhgts,bshd->bthgd", ds.to(k.dtype).to(acc), k.to(acc)) * scale
+    qg = q.reshape(B, T, Hkv, G, Dh).to(acc)
+    dk = torch.einsum("bhgts,bthgd->bshd", ds.to(q.dtype).to(acc), qg) * scale
     return dq.reshape(B, T, Hq, Dh).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -149,10 +160,7 @@ def flash_attention_fwd(
     ``flash_attention_fwd_f32``."""
     if _devices("flash_attention_fwd", (q, k, v, starts, ends)) == "cpu":
         return flash_attention_reference(q, k, v, starts, ends, causal)
-    if _route("flash_attention_fwd", q, k, v, float32=True) == torch.float32:
-        return _launch_fwd_f32(flash_attention_fwd_f32, q, k, v, starts, ends, causal)
-    out, _ = _launch_fwd(flash_attention_fwd, q, k, v, starts, ends, causal, with_lse=False)
-    return out
+    return _launch_fwd(_pick(flash_attention_fwd, q, k, v), q, k, v, starts, ends, causal)[0]
 
 
 def flash_attention_fwd_f32(q, k, v, starts, ends, causal=True):
@@ -160,23 +168,48 @@ def flash_attention_fwd_f32(q, k, v, starts, ends, causal=True):
     p and sum in float32 (the TPU kernel at float32 operands)."""
     if _devices("flash_attention_fwd_f32", (q, k, v, starts, ends)) == "cpu":
         return flash_attention_reference(q, k, v, starts, ends, causal)
-    return _launch_fwd_f32(flash_attention_fwd_f32, q, k, v, starts, ends, causal)
+    return _launch_fwd(flash_attention_fwd_f32, q, k, v, starts, ends, causal)[0]
 
 
 def flash_attention_fwd_lse(q, k, v, starts, ends, causal=True):
     """The forward for training: (out, lse (B, Hq, T) float32) in one
-    launch of the B1 kernel."""
+    launch of the B1 kernel (``flash_attention_fwd_lse_f32`` in float32)."""
     return _fwd_lse(flash_attention_fwd_lse, q, k, v, starts, ends, causal, None)
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, starts, ends, causal=True):
-    """dq (B, T, Hq, Dh) from the saved lse and delta = rowsum(dO * O)."""
+    """dq (B, T, Hq, Dh) from the saved lse and delta = rowsum(dO * O)
+    (``flash_attention_bwd_dq_f32`` in float32)."""
     return _bwd(flash_attention_bwd_dq, (q, k, v, dout, lse, delta, starts, ends), causal, None)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, starts, ends, causal=True):
-    """(dk, dv) (B, T, Hkv, Dh), summed over each KV head's q-head group."""
+    """(dk, dv) (B, T, Hkv, Dh), summed over each KV head's q-head group
+    (``flash_attention_bwd_dkv_f32`` in float32)."""
     return _bwd(flash_attention_bwd_dkv, (q, k, v, dout, lse, delta, starts, ends), causal, None)
+
+
+# the float32 instances of the training kernels (B1 + LSE and B6), each with
+# its own launch count; the bf16 entry points route float32 tensors here
+
+
+def flash_attention_fwd_lse_f32(q, k, v, starts, ends, causal=True):
+    """B1 + LSE's float32 instance: float32 out and lse, every score, p and
+    sum in float32."""
+    return _fwd_lse(flash_attention_fwd_lse_f32, q, k, v, starts, ends, causal, None)
+
+
+def flash_attention_bwd_dq_f32(q, k, v, dout, lse, delta, starts, ends, causal=True):
+    """B6 dq's float32 instance: p, dp, ds and dq in float32."""
+    return _bwd(flash_attention_bwd_dq_f32, (q, k, v, dout, lse, delta, starts, ends), causal,
+                None)
+
+
+def flash_attention_bwd_dkv_f32(q, k, v, dout, lse, delta, starts, ends, causal=True):
+    """B6 dk/dv's float32 instance: float32 throughout, the group summed in
+    a fixed order."""
+    return _bwd(flash_attention_bwd_dkv_f32, (q, k, v, dout, lse, delta, starts, ends), causal,
+                None)
 
 
 # B7: the three entry points in offset mode, each with its own launch count
@@ -201,24 +234,55 @@ def flash_attention_bwd_dkv_offset(q, k, v, dout, lse, delta, starts, ends, offs
                 tuple(offsets))
 
 
+def flash_attention_fwd_lse_offset_f32(q, k, v, starts, ends, offsets, causal=True):
+    """B7 forward's float32 instance."""
+    return _fwd_lse(flash_attention_fwd_lse_offset_f32, q, k, v, starts, ends, causal,
+                    tuple(offsets))
+
+
+def flash_attention_bwd_dq_offset_f32(q, k, v, dout, lse, delta, starts, ends, offsets,
+                                      causal=True):
+    """B7 dq's float32 instance."""
+    return _bwd(flash_attention_bwd_dq_offset_f32, (q, k, v, dout, lse, delta, starts, ends),
+                causal, tuple(offsets))
+
+
+def flash_attention_bwd_dkv_offset_f32(q, k, v, dout, lse, delta, starts, ends, offsets,
+                                       causal=True):
+    """B7 dk/dv's float32 instance."""
+    return _bwd(flash_attention_bwd_dkv_offset_f32, (q, k, v, dout, lse, delta, starts, ends),
+                causal, tuple(offsets))
+
+
 def _fwd_lse(wrapper, q, k, v, starts, ends, causal, offsets):
     if _devices(wrapper.__name__, (q, k, v, starts, ends)) == "cpu":
         return flash_attention_lse_reference(q, k, v, starts, ends, causal, offsets)
-    return _launch_fwd(wrapper, q, k, v, starts, ends, causal, with_lse=True, offsets=offsets)
+    return _launch_fwd(_pick(wrapper, q, k, v), q, k, v, starts, ends, causal, with_lse=True,
+                       offsets=offsets)
 
 
 def _bwd(wrapper, tensors, causal, offsets):
     if _devices(wrapper.__name__, tensors) == "cpu":
         dq, dk, dv = flash_attention_bwd_reference(*tensors, causal, offsets)
         return (dk, dv) if wrapper in _DKV_WRAPPERS else dq
-    return _launch_bwd(wrapper, *tensors, causal, offsets)
+    return _launch_bwd(_pick(wrapper, *tensors[:3]), *tensors, causal, offsets)
 
 
-for _wrapper in (flash_attention_fwd, flash_attention_fwd_f32, flash_attention_fwd_lse,
-                 flash_attention_bwd_dq, flash_attention_bwd_dkv, flash_attention_fwd_lse_offset,
-                 flash_attention_bwd_dq_offset, flash_attention_bwd_dkv_offset):
+# each bf16 entry point's float32 instance, which its float32 calls count under
+_F32_INSTANCES = {
+    flash_attention_fwd: flash_attention_fwd_f32,
+    flash_attention_fwd_lse: flash_attention_fwd_lse_f32,
+    flash_attention_bwd_dq: flash_attention_bwd_dq_f32,
+    flash_attention_bwd_dkv: flash_attention_bwd_dkv_f32,
+    flash_attention_fwd_lse_offset: flash_attention_fwd_lse_offset_f32,
+    flash_attention_bwd_dq_offset: flash_attention_bwd_dq_offset_f32,
+    flash_attention_bwd_dkv_offset: flash_attention_bwd_dkv_offset_f32,
+}
+for _wrapper in (*_F32_INSTANCES, *_F32_INSTANCES.values()):
     _wrapper.launches = 0
-_DKV_WRAPPERS = (flash_attention_bwd_dkv, flash_attention_bwd_dkv_offset)
+_DKV_WRAPPERS = (flash_attention_bwd_dkv, flash_attention_bwd_dkv_offset,
+                 flash_attention_bwd_dkv_f32, flash_attention_bwd_dkv_offset_f32)
+_F32_WRAPPERS = frozenset(_F32_INSTANCES.values())
 
 
 class FlashAttention(torch.autograd.Function):
@@ -251,7 +315,8 @@ def flash_attention(q, k, v, starts, ends, causal: bool = True) -> torch.Tensor:
     gradient is wanted (grad mode off, or no input requires one) it is the
     plain forward kernel ``flash_attention_fwd`` (bf16 or float32);
     otherwise the forward also writes the log-sum-exp and the backward runs
-    kernel B6 (bf16 only: float32 with a gradient raises on the card)."""
+    kernel B6; CUDA tensors take the bf16 kernels or, in float32, their
+    float32 instances."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, starts, ends, causal)
     return flash_attention_fwd(q, k, v, starts, ends, causal)
@@ -271,13 +336,23 @@ def _lib():
 
 
 def _f32_lib():
-    """B1's float32 library: ``lss_flash_attention_f32_fwd``."""
+    """B1's float32 library: ``lss_flash_attention_f32_fwd``, for B1, B1 +
+    LSE and B7's forward (the bf16 forward's arguments)."""
     fn = load_library("flash_attention_f32", F32_SOURCES).lss_flash_attention_f32_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_f32_lib(dkv):
+    """The float32 backward library: ``lss_flash_attention_bwd_dq_f32`` or,
+    with ``dkv``, ``lss_flash_attention_bwd_dkv_f32``."""
+    lib = load_library("flash_attention_bwd_f32", BWD_F32_SOURCES)
+    if dkv:
+        return _bwd_entry(lib.lss_flash_attention_bwd_dkv_f32, 2)
+    return _bwd_entry(lib.lss_flash_attention_bwd_dq_f32, 1)
 
 
 def _bwd_lib():
@@ -300,22 +375,26 @@ def _bwd_entry(fn, outs):
     return fn
 
 
-def _route(what, q, k, v, float32=False):
-    """The dtype a CUDA call runs in: bfloat16, or float32 where
-    ``float32`` (B1's forward, the one float32 instance). Anything else
-    raises, naming what is not ported."""
+def _route(what, q, k, v):
+    """The dtype a CUDA call runs in: bfloat16 or float32 (every entry point
+    has an instance of each). Anything else raises, naming what is ported."""
     dtypes = {q.dtype, k.dtype, v.dtype}
     if len(dtypes) > 1:
         raise ValueError(f"{what}: mixed dtypes q {q.dtype}, k {k.dtype}, v {v.dtype} are not "
                          f"ported; q, k and v must share bfloat16 or float32")
     dtype = dtypes.pop()
-    if dtype == torch.float32 and not float32:
-        raise ValueError(f"{what}: float32 is not ported here; B1's forward alone has a float32 "
-                         f"instance (no log-sum-exp, offset mode or backward)")
     if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{what}: {dtype} is not ported; the kernels take bfloat16, and B1's "
-                         f"forward float32")
+        raise ValueError(f"{what}: {dtype} is not ported; the kernels take bfloat16 or float32")
     return dtype
+
+
+def _pick(wrapper, q, k, v):
+    """The wrapper whose kernel a CUDA call launches and counts: a bf16
+    entry point's float32 instance for float32 tensors, else itself (whose
+    launch then checks the operands' dtype)."""
+    if _route(wrapper.__name__, q, k, v) == torch.float32:
+        return _F32_INSTANCES.get(wrapper, wrapper)
+    return wrapper
 
 
 def _check_operand(what: str, name: str, t: torch.Tensor, dtype=torch.bfloat16) -> None:
@@ -355,41 +434,27 @@ def _check_shapes(what, q, k, v, starts, ends, others=(), dtype=torch.bfloat16):
     return B, T, Hq, Hkv, Dh
 
 
-def _launch_fwd(wrapper, q, k, v, starts, ends, causal, with_lse, offsets=None):
-    _route(wrapper.__name__, q, k, v)
-    B, T, Hq, Hkv, Dh = _check_shapes(wrapper.__name__, q, k, v, starts, ends)
-    out = torch.empty((B, T, Hq, Dh), dtype=torch.bfloat16, device=q.device)
+def _launch_fwd(wrapper, q, k, v, starts, ends, causal, with_lse=False, offsets=None):
+    """One forward launch: the bf16 kernel, or ``wrapper``'s float32
+    instance."""
+    what = wrapper.__name__
+    dtype = torch.float32 if wrapper in _F32_WRAPPERS else torch.bfloat16
+    B, T, Hq, Hkv, Dh = _check_shapes(what, q, k, v, starts, ends, dtype=dtype)
+    out = torch.empty((B, T, Hq, Dh), dtype=dtype, device=q.device)
     lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
     strides = (ctypes.c_longlong * 12)(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
                                          + out.stride()[:3]))
-    q_off, k_off = _offsets(wrapper.__name__, offsets)
-    fn = _lib()
+    q_off, k_off = _offsets(what, offsets)
+    fn = _f32_lib() if dtype == torch.float32 else _lib()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    None if lse is None else lse.data_ptr(), starts.data_ptr(),
-                    ends.data_ptr(), B, T, Hq, Hkv, Dh, strides, int(causal), q_off, k_off,
-                    Dh ** -0.5, stream)
+                    None if lse is None else lse.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+                    B, T, Hq, Hkv, Dh, strides, int(causal), q_off, k_off, Dh ** -0.5,
+                    torch.cuda.current_stream(q.device).cuda_stream)
     count_launch(wrapper)
-    check_status(status, wrapper.__name__)
+    check_status(status, what)
     return out, lse
-
-
-def _launch_fwd_f32(wrapper, q, k, v, starts, ends, causal):
-    B, T, Hq, Hkv, Dh = _check_shapes(wrapper.__name__, q, k, v, starts, ends,
-                                      dtype=torch.float32)
-    out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
-                                         + out.stride()[:3]))
-    fn = _f32_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), starts.data_ptr(),
-                    ends.data_ptr(), B, T, Hq, Hkv, Dh, strides, int(causal), Dh ** -0.5, stream)
-    count_launch(wrapper)
-    check_status(status, wrapper.__name__)
-    return out
 
 
 def _offsets(what, offsets):
@@ -403,8 +468,9 @@ def _offsets(what, offsets):
 
 def _launch_bwd(wrapper, q, k, v, dout, lse, delta, starts, ends, causal, offsets=None):
     what = wrapper.__name__
-    _route(what, q, k, v)
-    B, T, Hq, Hkv, Dh = _check_shapes(what, q, k, v, starts, ends, (("dout", dout),))
+    dtype = torch.float32 if wrapper in _F32_WRAPPERS else torch.bfloat16
+    B, T, Hq, Hkv, Dh = _check_shapes(what, q, k, v, starts, ends, (("dout", dout),),
+                                      dtype=dtype)
     if dout.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(dout.shape)} does not match q {tuple(q.shape)}")
     for name, t in (("lse", lse), ("delta", delta)):
@@ -415,16 +481,19 @@ def _launch_bwd(wrapper, q, k, v, dout, lse, delta, starts, ends, causal, offset
         raise ValueError(f"{what}: all tensors must be on one device")
     dkv = wrapper in _DKV_WRAPPERS
     if dkv:
-        outs = tuple(torch.empty((B, T, Hkv, Dh), dtype=torch.bfloat16, device=q.device)
+        outs = tuple(torch.empty((B, T, Hkv, Dh), dtype=dtype, device=q.device)
                      for _ in range(2))
         dq_s, dk_s, dv_s = (0, 0, 0), outs[0].stride()[:3], outs[1].stride()[:3]
     else:
-        outs = (torch.empty((B, T, Hq, Dh), dtype=torch.bfloat16, device=q.device),)
+        outs = (torch.empty((B, T, Hq, Dh), dtype=dtype, device=q.device),)
         dq_s, dk_s, dv_s = outs[0].stride()[:3], (0, 0, 0), (0, 0, 0)
     strides = (ctypes.c_longlong * 21)(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
                                          + dout.stride()[:3] + dq_s + dk_s + dv_s))
     q_off, k_off = _offsets(what, offsets)
-    fn = _dkv_lib() if dkv else _bwd_lib()
+    if dtype == torch.float32:
+        fn = _bwd_f32_lib(dkv)
+    else:
+        fn = _dkv_lib() if dkv else _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),

@@ -48,7 +48,7 @@ import torch
 
 from ..configs import Config
 from ..data.batch import Batch
-from ..device import resolve_device
+from ..device import exact_float32, resolve_device
 from ..models.audio_encoder import AudioEncoderParams, audio_encoder_forward
 from ..models.llama import LlamaConfig, llama_forward
 from ..ops.losses import (
@@ -208,6 +208,9 @@ def make_train_step(
     _check_table(tp_group, embed_table)
     dev = resolve_device(device)
     prefix_ids, suffix_ids = _device_ids(prefix_ids, dev), _device_ids(suffix_ids, dev)
+    # the compute dtype on the device: at float32 on the card the backward,
+    # remat's recompute included, runs without TF32, as the forward does
+    compute = torch.empty(0, dtype=_DTYPES[cfg.model.compute_dtype], device=dev)
 
     def step_fn(state: TrainState, llm_params, batch: Batch):
         batch = batch.to_device(dev)
@@ -218,7 +221,8 @@ def make_train_step(
             tp_group=tp_group, embed_table=embed_table,
         )
         leaves = tree_leaves(state.enc_params)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        with exact_float32(compute):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         # before the clip: the full gradient of the global batch
         grads = all_reduce_grads(all_reduce_grads(grads, group), data_group)

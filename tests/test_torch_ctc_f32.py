@@ -214,33 +214,29 @@ def _meta(shape, dtype):
 
 
 def test_card_route_refuses_what_is_not_ported(monkeypatch):
-    """On the card's route float16, mixed dtypes, and float32 with a
-    log-sum-exp (training's B1 + LSE, a gradient), offsets (B7) or a
-    backward (B6) raise a ValueError naming what is not ported; float32
-    alone takes B1's float32 instance."""
+    """On the card's route float16 and mixed dtypes raise a ValueError
+    naming what is ported; float32 takes each entry point's float32
+    instance (B1's alone; with a log-sum-exp, offsets or a backward, the
+    training instances), bfloat16 the bf16 kernels."""
     q32, q16, qbf = (_meta((1, 16, 2, 64), dt)
                      for dt in (torch.float32, torch.float16, torch.bfloat16))
     idx = torch.zeros((1,), dtype=torch.int32, device="meta")
-    lse = _meta((1, 2, 16), torch.float32)
     monkeypatch.setattr(fa, "_devices", lambda what, tensors: "cuda")  # meta stands for cuda
     with pytest.raises(ValueError, match="float16 is not ported"):
         fa.flash_attention_fwd(q16, q16, q16, idx, idx)
     with pytest.raises(ValueError, match="mixed dtypes"):
         fa.flash_attention_fwd(qbf, q32, q32, idx, idx)
-    float32_here = "float32 is not ported here"
-    with pytest.raises(ValueError, match=float32_here):
-        fa.flash_attention_fwd_lse(q32, q32, q32, idx, idx)
-    with pytest.raises(ValueError, match=float32_here):
-        fa.flash_attention_fwd_lse_offset(q32, q32, q32, idx, idx, (3, 0))
-    for bwd in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
-        with pytest.raises(ValueError, match=float32_here):
-            bwd(q32, q32, q32, q32, lse, lse, idx, idx)
-    with pytest.raises(ValueError, match=float32_here):
-        fa.flash_attention(q32.clone().requires_grad_(), q32, q32, idx, idx)
-    assert fa._route("w", q32, q32, q32, float32=True) == torch.float32
+    for wrapper, f32 in ((fa.flash_attention_fwd, fa.flash_attention_fwd_f32),
+                         (fa.flash_attention_fwd_lse, fa.flash_attention_fwd_lse_f32),
+                         (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_f32),
+                         (fa.flash_attention_bwd_dkv_offset,
+                          fa.flash_attention_bwd_dkv_offset_f32)):
+        assert fa._pick(wrapper, q32, q32, q32) is f32
+        assert fa._pick(wrapper, qbf, qbf, qbf) is wrapper
+    assert fa._route("w", q32, q32, q32) == torch.float32
     assert fa._route("w", qbf, qbf, qbf) == torch.bfloat16
     with pytest.raises(ValueError, match="must be float32"):
-        fa._launch_fwd_f32(fa.flash_attention_fwd_f32, qbf, qbf, qbf, idx, idx, False)
+        fa._launch_fwd(fa.flash_attention_fwd_f32, qbf, qbf, qbf, idx, idx, False)
 
 
 def test_f32_wrapper_refuses_views_its_row_loads_cannot_take():
@@ -253,4 +249,4 @@ def test_f32_wrapper_refuses_views_its_row_loads_cannot_take():
     odd_t = big.as_strided((1, 16, 2, 64), (16 * 130, 130, 64, 1))
     for bad in (odd_t, big.as_strided((1, 16, 2, 64), (16 * 64, 64, 0, 1))):
         with pytest.raises(ValueError, match="positive multiples of 4"):
-            fa._launch_fwd_f32(fa.flash_attention_fwd_f32, ok, bad, ok, idx, idx, False)
+            fa._launch_fwd(fa.flash_attention_fwd_f32, ok, bad, ok, idx, idx, False)

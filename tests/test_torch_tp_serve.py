@@ -18,6 +18,7 @@ rank 1's rows must equal rank 0's exactly.
 
 import json
 import os
+import re
 import signal
 import threading
 import time
@@ -29,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_ring_worker import free_port, run_ranks
+from torch_ring_worker import run_ranks
 from torch_streams import LOGIT_DELTA, assert_streams_agree, recorded_rows
 from torch_tp_worker import start_torchrun
 
@@ -246,23 +247,29 @@ def test_tp_http_e2e_under_torchrun(ref, tmp_path):
     yaml = (YAML_DIR / "tiny_test.yaml").read_text().replace(
         "  llm_preset: tiny\n", f"  llm_preset: tiny\n  llm_checkpoint: {llm}\n")
     (tmp_path / "tiny.yaml").write_text(yaml)
-    port = free_port()
+    # port 0: rank 0's server binds a port of its own and names it in its
+    # "serving on" line (a port picked here and released could be taken by
+    # another process before the server binds it)
     proc = start_torchrun([WORKER, "serve_cli", str(tmp_path), "--", "-c",
                            str(tmp_path / "tiny.yaml"), "-p", enc, "--tp", "2",
                            "--device", "cpu", "--no_warmup", "--scheduler", "continuous",
-                           "--host", "127.0.0.1", "--port", str(port), "--slots", "4",
+                           "--host", "127.0.0.1", "--port", "0", "--slots", "4",
                            "--max_new_tokens", "16"], 2)
     log = []
     reader = threading.Thread(target=lambda: log.extend(proc.stdout), daemon=True)
     reader.start()
     try:
-        deadline = time.monotonic() + 120
+        deadline, port = time.monotonic() + 120, None
         while True:
             assert proc.poll() is None, "".join(log)[-4000:]
+            bound = re.search(r"serving on 127\.0\.0\.1:(\d+)", "".join(log))
+            port = port or (bound and int(bound.group(1)))
             try:
-                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
-                    if r.status == 200:
-                        break
+                if port:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                                timeout=5) as r:
+                        if r.status == 200:
+                            break
             except OSError:
                 pass
             assert time.monotonic() < deadline, "".join(log)[-4000:]

@@ -7,7 +7,10 @@ n)`` starts n processes of this file over gloo
 on the CPU (``torch.distributed.run``'s environment: MASTER_ADDR,
 MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK), each with one thread, and
 joins them with a timeout of its own: a rank that fails or hangs fails the
-call, and every rank is killed. Each case reads ``workdir/inputs.pt``
+call, and every rank is killed. Neither launcher picks a port and releases
+it for the ranks to bind (under load another process took such a port
+first): ``run_ranks`` hosts the rendezvous store itself on a port it binds
+and keeps, and torchrun's agent binds its own (``LOCAL_RENDEZVOUS``). Each case reads ``workdir/inputs.pt``
 (written by the test with ``torch.save``) and writes ``workdir/out_<rank>.pt``.
 
 Cases: ``ring_attention`` (outputs and q/k/v gradients of this rank's
@@ -20,7 +23,6 @@ step over the seq group: metrics and updated encoder parameters).
 from __future__ import annotations
 
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -28,18 +30,18 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(case: str, workdir, n: int, timeout: float = 120.0, script: str = None) -> list:
     """Run ``case`` on n ranks of ``script`` (default: this file); returns
     each rank's ``out_<rank>.pt``."""
     import torch
 
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+    # the store the ranks rendezvous on, bound here on a port of the
+    # system's choosing and held until they have joined: every rank is a
+    # client of it, as under torchrun's agent
+    store = torch.distributed.TCPStore("127.0.0.1", 0, n, is_master=True,
+                                       wait_for_workers=False)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port),
+               TORCHELASTIC_USE_AGENT_STORE="True",
                WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n), OMP_NUM_THREADS="1",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = [subprocess.Popen([sys.executable, os.path.abspath(script or __file__), case,
@@ -59,6 +61,7 @@ def run_ranks(case: str, workdir, n: int, timeout: float = 120.0, script: str = 
             if p.poll() is None:
                 p.kill()
         logs = [p.communicate()[0] for p in procs]
+        del store
     failed = [r for r, p in enumerate(procs) if p.returncode != 0]
     if hung or failed:
         raise AssertionError(f"{case}: ranks {hung} hung past {timeout} s, ranks {failed} "
@@ -66,6 +69,14 @@ def run_ranks(case: str, workdir, n: int, timeout: float = 120.0, script: str = 
                                                      for r, log in enumerate(logs)))
     return [torch.load(os.path.join(workdir, f"out_{r}.pt"), weights_only=False)
             for r in range(n)]
+
+
+# torch.distributed.run's rendezvous on this host: its agent binds the store
+# on a port of its own (port 0) and hands it to the ranks, so no port is
+# picked here and released for the launch to take (under load another
+# process took such a port first)
+LOCAL_RENDEZVOUS = ("--rdzv-backend", "c10d", "--rdzv-endpoint", "127.0.0.1:0",
+                    "--local-addr", "127.0.0.1")
 
 
 def run_torchrun(module_args, n: int, timeout: float = 150.0, cwd=ROOT, path_first=()) -> str:
@@ -76,8 +87,7 @@ def run_torchrun(module_args, n: int, timeout: float = 150.0, cwd=ROOT, path_fir
     import signal
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-           "--nproc_per_node", str(n), "--master_addr", "127.0.0.1",
-           "--master_port", str(free_port()), "-m", *module_args]
+           "--nproc_per_node", str(n), *LOCAL_RENDEZVOUS, "-m", *module_args]
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [*map(str, path_first), ROOT, os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,

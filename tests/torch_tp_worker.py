@@ -29,15 +29,15 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from torch_ring_worker import free_port  # noqa: E402
+from torch_ring_worker import LOCAL_RENDEZVOUS  # noqa: E402
 
 
 def start_torchrun(script_args, n: int, cwd=ROOT) -> subprocess.Popen:
     """``python -m torch.distributed.run --nproc_per_node n <script_args>``
-    in its own session (kill it with ``os.killpg``), output to a pipe."""
+    in its own session (kill it with ``os.killpg``), output to a pipe; the
+    rendezvous store on a port the launcher binds itself."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-           "--nproc_per_node", str(n), "--master_addr", "127.0.0.1",
-           "--master_port", str(free_port()), *script_args]
+           "--nproc_per_node", str(n), *LOCAL_RENDEZVOUS, *script_args]
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
     return subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
