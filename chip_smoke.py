@@ -77,6 +77,15 @@ Phases, in order; each prints one line and any failure raises:
      (TF32-rounded operands, p rounded to bf16, a window end off by one,
      the KV head of the wrong group), writes bit-exact, REPEATS bit-equal
      repeats, torch.cat + SDPA at float32 timed beside B8;
+  7b. decode_mixed: the mixed decode instances (B3, B8, B4 and B5 with a
+     bf16 query over a float32 cache, ``csrc/decode_f32.cu``) at the
+     serving path's shapes (B3 at B=8 over 384 slots at T=1 and T=4, B8
+     at offset 368, B4 at B=16 T=4 over 7 pages of 128, B5 at T=1 over two
+     layers) against their plain versions within MIXED_OUT_ATOL +
+     MIXED_OUT_RTOL (|out| + (P.|V|)/l), writes bit-exact, MIXED_REPEATS
+     bit-equal repeats, each instance's registers and spill bytes, the
+     distance to two faults (the cache read unrounded, p left unrounded)
+     for information, torch.cat + SDPA at bf16 timed beside B8;
   8. the slice at a small kernel-legal width on the card and on the CPU,
      from the same weights: the HuBERT batch path on an int8 cache, the
      Whisper one on a bf16 cache and BASELINE config #1's layout
@@ -94,9 +103,9 @@ Phases, in order; each prints one line and any failure raises:
      sharing the card over gloo (``tp_rank`` is each rank's program, in
      ``torch.distributed.run``'s environment; every rank of every launch
      runs in a process of this file started ahead, which imports and runs
-     a small train step while an earlier phase runs: ``_RankPool``): the
-     batch path (B=8 x 10 s), then
-     ``cli/serve.py --tp 2`` on the dense cache and with ``--paged
+     a small train step while an earlier phase runs: ``_RankPool``), one
+     launch of the ranks on one engine build: the batch path (B=8 x 10 s),
+     then ``cli/serve.py --tp 2`` on the dense cache and with ``--paged
      --speculative_k 3``, a burst of 8 each; greedy rows held to the
      unsharded engine margin-aware, rank 1's rows equal to rank 0's, each
      rank's launches equal to its counts, the unsharded batch path and
@@ -109,6 +118,14 @@ Phases, in order; each prints one line and any failure raises:
      ``attn_impl="pallas"`` (B8 at float32) held to the B3 rows; a paged
      server with speculative chunks, a burst of 8 (B4 and B5 at float32);
      the tokens that differ from the bf16 engine's rows, for information;
+ 11f. mixed_full: ``llama3_hubert.yaml`` at ``compute_dtype: float32`` with
+     the rest as published (bf16 parameters, the int8 LLM, a float32
+     cache), on the batch path's trees: B=8 x 10 s (B1 float32, then B3's
+     mixed instance per step: the decode steps run in the norms' bf16),
+     held to the plain attention margin-aware (MIXED_LOGIT_TOL);
+     ``attn_impl="pallas"`` (B8 mixed) and the engine with
+     ``speculative_k=3`` (B3 mixed at T=4) held to its rows; a paged server
+     with speculative chunks, a burst of 8 (B4 and B5 mixed);
  11a. BASELINE config #1 at published widths (``minichat_hubert.yaml`` with
      hubert-base, int8 weights and cache): B=8 clips of 10 s through
      ``generate_audio_response_batch`` with the ``pool`` projector, then
@@ -541,20 +558,32 @@ def phase_build(card, require_no_spill=True, builds=None):
             name = re.search(r"(bwd_dq_f32_kernel|bwd_dkv_f32_kernel)", kernel).group(1)
             dh = int(re.search(r"Li(\d+)E", kernel).group(1))
             f32[f"{name} Dh={dh}"] = [n_regs, spill]
-    # the float32 decode body's instances (cache type, Dh, write, paged)
+    # the float32 decode body's instances (cache type, Dh, write, paged; the
+    # mixed ones, a bf16 query over a float32 cache, as "mixed")
     if decode_f32_lib:
-        cts = {"a": "int8", "f": "float32", "13__nv_bfloat16": "bf16"}
-        for kernel, n_regs, spill in build.ptxas_report("decode_f32", fused_decode.F32_SOURCES):
-            m = re.search(r"decode_f32_kernelI(a|f|13__nv_bfloat16)Li(\d+)ELb(\d)ELb(\d)E",
-                          kernel)
-            if m:
-                f32[f"decode {cts[m.group(1)]} Dh={m.group(2)} write={m.group(3)} "
-                    f"paged={m.group(4)}"] = [n_regs, spill]
+        f32.update({k: v for k, v in decode_f32_registers(build, fused_decode).items()
+                    if k.startswith("decode")})
     emit("build", seconds=round(max(build.build_seconds.values(), default=0.0), 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()},
          wgmma_kernels=regs, decode_kernels=decode, f32_kernels_registers_spill=f32,
          paged_g1_instances=dict(rows=4, warps=nw, splits=nsplit, registers_spill=paged_g1),
          card=card)
+
+
+def decode_f32_registers(build, fused_decode) -> dict:
+    """[registers, spill bytes] of each instance of the float32 decode body
+    in its build log: "decode <cache> Dh= write= paged=" for a float32
+    query, "mixed float32 Dh= ..." for a bf16 query over a float32 cache."""
+    cts = {"a": "int8", "f": "float32", "13__nv_bfloat16": "bf16"}
+    out = {}
+    for kernel, n_regs, spill in build.ptxas_report("decode_f32", fused_decode.F32_SOURCES):
+        m = re.search(r"decode_f32_kernelI(a|f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)?"
+                      r"Li(\d+)ELb(\d)ELb(\d)E", kernel)
+        if m:
+            kind = "decode" if m.group(2) in (None, "f") else "mixed"
+            out[f"{kind} {cts[m.group(1)]} Dh={m.group(3)} write={m.group(4)} "
+                f"paged={m.group(5)}"] = [n_regs, spill]
+    return out
 
 
 def phase_flash(torch, card):
@@ -1582,13 +1611,14 @@ def _f32_paged_case(torch, rng, T, write, pools, device="cuda"):
                 live=torch.clamp(lens, max=mp * ps) > pads)
 
 
-def _f32_work(valid, B, T, Hq, Hkv, Dh, elem_bytes, quantized, writes):
-    """(bytes, flops) of one float32-instance call: the valid slots' k and v
-    (with their bf16 scales when int8), the float32 q, fresh k/v and output,
-    and the written fresh rows; 2 flops per multiply-add of q.k and p.v
-    over the valid slots and the causal fresh block."""
+def _f32_work(valid, B, T, Hq, Hkv, Dh, elem_bytes, quantized, writes, q_bytes=4):
+    """(bytes, flops) of one float32-body call: the valid slots' k and v
+    (with their bf16 scales when int8), q, the fresh k/v and the output
+    (``q_bytes`` each: float32, or bf16 for the mixed instances), and the
+    written fresh rows; 2 flops per multiply-add of q.k and p.v over the
+    valid slots and the causal fresh block."""
     slot_bytes = 2 * (Dh * elem_bytes + (2 if quantized else 0))  # k and v of one slot
-    n_bytes = int(valid) * Hkv * slot_bytes + 4 * B * T * (2 * Hq + 2 * Hkv) * Dh
+    n_bytes = int(valid) * Hkv * slot_bytes + q_bytes * B * T * (2 * Hq + 2 * Hkv) * Dh
     if writes:
         n_bytes += B * T * Hkv * slot_bytes
     flops = 4 * Dh * Hq * T * (int(valid) + B * (T + 1) / 2)
@@ -1598,12 +1628,12 @@ def _f32_work(valid, B, T, Hq, Hkv, Dh, elem_bytes, quantized, writes):
 ELEM_BYTES = {"int8": 1, "bfloat16": 2, "float32": 4}
 
 
-def _repeats_equal(torch, call, got, bufs, rows):
-    """How many of REPEATS identical calls differ from the first call's out
-    (on ``rows``) or leave the written buffers other than they were."""
+def _repeats_equal(torch, call, got, bufs, rows, repeats=REPEATS):
+    """How many of ``repeats`` identical calls differ from the first call's
+    out (on ``rows``) or leave the written buffers other than they were."""
     after = [b.clone() for b in bufs]
     unequal = 0
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         out = call()
         out = out[0] if isinstance(out, tuple) else out
         unequal += not (torch.equal(out[rows], got[rows])
@@ -1856,6 +1886,254 @@ def phase_decode_f32(torch, card):
                library="torch.cat + scaled_dot_product_attention" if cache == "float32"
                else None)
         del c
+    return results
+
+
+# decode_mixed: the mixed instances (B3, B8, B4, B5 at a bf16 query over a
+# float32 cache) are held to their plain versions on the card within
+# MIXED_OUT_ATOL + MIXED_OUT_RTOL (|out| + (P.|V|)/l), |out| and (P.|V|)/l
+# from the float64 attention over the cache rounded to bf16 (tests/
+# test_torch_decode_mixed.py holds the plain versions to the JAX kernels in
+# interpret mode within the same bound). Both sides round every cached
+# value to bf16 and take the same exact products; what parts them is where
+# each rounds p over the cache to bf16 (the kernel at its running max of a
+# chunk of 64 slots, the plain version at the row's max), whether the
+# fresh p is rounded (the plain version rounds it, the kernel does not, as
+# the Pallas kernels do not), the order of the float32 sums, and the bf16
+# rounding of the output: each at most 2^-8 relative of the term it
+# rounds, so the bound is their worst case
+MIXED_OUT_ATOL, MIXED_OUT_RTOL = 1e-5, 2.0 ** -8
+MIXED_REPEATS = 10  # identical calls per case, each held bit-equal to the first
+MIXED_DECODE_B3_T = (1, 4)  # B3 at B=8 over F32_DECODE_S slots; T=4: the spec chunks
+
+
+def _bf16_cache(torch, kv):
+    """(k, v) float64 rounded to bf16 (nearest even), as the mixed
+    instances and the TPU kernels read a float32 cache under a bf16 query."""
+    return tuple(x.float().bfloat16().double() for x in kv)
+
+
+def _mixed_check(torch, what, got, plain, c, kv, rows):
+    """Hold the mixed instance's bf16 ``got`` to its plain version's
+    ``plain`` on ``rows`` (B,) within MIXED_OUT_ATOL + MIXED_OUT_RTOL (|out|
+    + (P.|V|)/l); for information, how far (in units of the bound) two
+    faults lie from the plain version: the cache read without rounding to
+    bf16, and p over the cache left unrounded. ``kv``: the dense float64
+    (k, v) of the float32 cache as stored."""
+    q, kn, vn, valid = c["q"], c["kn"], c["vn"], c["valid"]
+    kr, vr = _bf16_cache(torch, kv)
+    ref = _f64_decode(torch, q, kr, vr, kn, vn, valid)
+    bound = MIXED_OUT_ATOL + MIXED_OUT_RTOL * (
+        ref.abs() + _f64_decode(torch, q, kr, vr.abs(), kn, vn.abs(), valid))
+    sel = rows[:, None].expand(-1, q.shape[1])
+    if got.dtype != torch.bfloat16 or got.shape != plain.shape:
+        raise AssertionError(f"{what}: out is {got.dtype} {tuple(got.shape)}")
+    if not torch.isfinite(got[rows]).all():
+        raise AssertionError(f"{what}: non-finite output")
+    ratio = _out_ratio(torch, got, plain.double(), bound, sel)
+    err = (got.double() - plain.double()).abs()[rows].max().item()
+    if not ratio <= 1:
+        raise AssertionError(f"{what}: {ratio} x the mixed bound (max |err| {err})")
+
+    def out_bf16(x):
+        return x.float().bfloat16().double()
+
+    faults = {
+        "cache not rounded to bf16": out_bf16(_f64_decode(torch, q, *kv, kn, vn, valid, "bf16")),
+        "p over the cache unrounded": out_bf16(ref),
+    }
+    faults = {name: _out_ratio(torch, m, plain.double(), bound, sel)
+              for name, m in faults.items()}
+    return dict(max_abs_err=err, err_over_bound=ratio, faults_over_bound=faults)
+
+
+def phase_decode_mixed(torch, card):
+    """The mixed instances of B3, B8, B4 and B5 (``csrc/decode_f32.cu``: a
+    bf16 query over a float32 cache, the decode of bf16 parameters at
+    compute_dtype float32) at the serving path's shapes, each reached
+    through its public wrapper: held to the plain version on the same
+    inputs within MIXED_OUT_ATOL + MIXED_OUT_RTOL (|out| + (P.|V|)/l);
+    cache and page writes bit-exact against the plain version's;
+    MIXED_REPEATS identical calls bit-equal; device times beside the plain
+    version and, for B8, torch.cat + SDPA at bf16 on the cache cast to bf16
+    ahead of the timed calls; each instance's registers and spill bytes."""
+    from llm_speech_summarization_tpu_torch.kernels import (
+        build, decode_attention as da, fused_decode as fd, fused_paged as fp,
+        paged_attention as pa,
+    )
+
+    t_phase = time.perf_counter()
+    regs = {k: v for k, v in decode_f32_registers(build, fd).items() if k.startswith("mixed")}
+    rng = np.random.RandomState(17)
+    S, layer = F32_DECODE_S, 1
+    Hq, Hkv, Dh = 24, 8, 128
+    results = {}
+
+    def bf16_inputs(c):
+        for k in ("q", "kn", "vn"):
+            c[k] = c[k].bfloat16()
+        return c
+
+    def finish(name, kernel, wrapper, before, check, t, valid, B, T, writes, reg_key, **extra):
+        if wrapper.launches != before + 1 + MIXED_REPEATS:
+            raise AssertionError(f"{name}: {wrapper.launches - before} launches of "
+                                 f"{wrapper.__name__}, expected {1 + MIXED_REPEATS}")
+        n_bytes, flops = _f32_work(valid, B, T, Hq, Hkv, Dh, 4, False, writes, q_bytes=2)
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, flops)
+        t.setdefault("library_ms", None)
+        results[name] = dict(max_abs_err=check["max_abs_err"], **t)
+        emit("decode_mixed", kernel=kernel, instance=wrapper.__name__, case=name, B=B, T=T,
+             heads=[Hq, Hkv], Dh=Dh, cache="float32", query="bfloat16", **check,
+             out_atol=MIXED_OUT_ATOL, out_rtol_of_abs_out_plus_abs_pv=MIXED_OUT_RTOL,
+             repeats=MIXED_REPEATS, bytes=n_bytes, flops=flops,
+             pct_of_bound=100 * t["bound_ms"] / t["ms"], registers_spill=regs.get(reg_key),
+             **t, **extra, card=card)
+
+    # ---- B3: T=1 (each decode step) and T=4 (the speculative chunks)
+    for T in MIXED_DECODE_B3_T:
+        B = 8
+        name = f"b3_mixed_T{T}"
+        c = bf16_inputs(_f32_dense_case(torch, rng, B, T, S, "float32"))
+        snap = [c["kc"].clone(), c["vc"].clone()]
+        got_bufs, ref_bufs = [x.clone() for x in snap], [x.clone() for x in snap]
+        mo = int(c["offs_np"].max())
+        before = fd.fused_decode_attention_write_mixed.launches
+
+        def call(bufs=got_bufs, c=c, mo=mo):
+            return fd.fused_decode_attention_write(c["q"], *bufs, c["kn"], c["vn"], c["pads"],
+                                                   c["offs"], layer, max_offset=mo)
+
+        got = call()
+        plain = fd.fused_decode_attention_write_reference(
+            c["q"], *ref_bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer)
+        torch.cuda.synchronize()
+        for i, (g, r, s0) in enumerate(zip(got_bufs, ref_bufs, snap)):
+            written = torch.zeros(s0.shape[:4], dtype=torch.bool, device="cuda")
+            for b in range(B):
+                written[layer, b, :, c["offs_np"][b]:c["offs_np"][b] + T] = True
+            w = written[..., None].expand_as(g)
+            fresh = (c["kn"], c["vn"])[i].float().transpose(1, 2)  # (B, Hkv, T, Dh)
+            if not torch.equal(g, r) or not torch.equal(g[~w], s0[~w]):
+                raise AssertionError(f"{name}: buffer {i} differs from the plain version's write")
+            for b in range(B):
+                o = int(c["offs_np"][b])
+                if not torch.equal(g[layer, b, :, o:o + T], fresh[b]):
+                    raise AssertionError(f"{name}: row {b}'s fresh values are not widened "
+                                         "bit for bit")
+        rows = torch.ones(B, dtype=torch.bool, device="cuda")
+        check = _mixed_check(torch, name, got, plain, c,
+                             _f64_dense(torch, dict(c, kc=snap[0], vc=snap[1]), layer), rows)
+        check["unequal_repeats"] = _repeats_equal(torch, call, got, got_bufs, rows,
+                                                  MIXED_REPEATS)
+        if check["unequal_repeats"]:
+            raise AssertionError(f"{name}: {check['unequal_repeats']} of {MIXED_REPEATS} "
+                                 "repeats differ")
+        launches = fd.fused_decode_attention_write_mixed.launches
+        t = timings(torch, call, lambda c=c, bufs=ref_bufs:
+                    fd.fused_decode_attention_write_reference(
+                        c["q"], *bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer))
+        fd.fused_decode_attention_write_mixed.launches = launches  # the timed calls not counted
+        finish(name, "B3", fd.fused_decode_attention_write_mixed, before, check, t,
+               np.clip(c["offs_np"] - c["pads_np"], 0, None).sum(), B, T, True,
+               "mixed float32 Dh=128 write=1 paged=0",
+               splits=fd.dense_splits(B, Hkv, mo, fd.sm_count(0)), cache_writes="bit-exact")
+        del c, snap, got_bufs, ref_bufs
+
+    # ---- B8: one layer's cache read in place, every row at one offset
+    B, offset = 8, F32_DECODE_B8_OFFSET
+    name = "b8_mixed"
+    c = bf16_inputs(_f32_dense_case(torch, rng, B, 1, S, "float32"))
+    c["offs"] = torch.full_like(c["pads"], offset)
+    slot = torch.arange(S, device="cuda")
+    c["valid"] = (slot >= c["pads"][:, None]) & (slot < offset)
+    kc, vc = c["kc"][layer], c["vc"][layer]
+    before = da.decode_attention_mixed.launches
+
+    def call(c=c, kc=kc, vc=vc):
+        return da.decode_attention(c["q"], kc, vc, c["kn"], c["vn"], c["pads"], offset)
+
+    def plain_fn(c=c, kc=kc, vc=vc):
+        return da.decode_attention_reference(c["q"], kc, vc, c["kn"], c["vn"], c["pads"], offset)
+
+    got = call()
+    plain = plain_fn()
+    torch.cuda.synchronize()
+    rows = torch.ones(B, dtype=torch.bool, device="cuda")
+    check = _mixed_check(torch, name, got, plain, c, _f64_dense(torch, c, layer), rows)
+    check["unequal_repeats"] = _repeats_equal(torch, call, got, [c["kc"], c["vc"]], rows,
+                                              MIXED_REPEATS)
+    if check["unequal_repeats"]:
+        raise AssertionError(f"{name}: {check['unequal_repeats']} of {MIXED_REPEATS} repeats "
+                             "differ")
+    launches = da.decode_attention_mixed.launches
+    t = timings(torch, call, plain_fn)
+    kc16, vc16 = kc.bfloat16(), vc.bfloat16()  # cast ahead, outside the timed calls
+    t["library_ms"] = device_ms(torch, _sdpa_decode_call(
+        torch, c["q"], kc16, vc16, c["kn"], c["vn"], c["pads"], offset), whole=False)
+    da.decode_attention_mixed.launches = launches
+    finish(name, "B8", da.decode_attention_mixed, before, check, t,
+           np.clip(offset - c["pads_np"], 0, None).sum(), B, 1, False,
+           "mixed float32 Dh=128 write=0 paged=0",
+           library="torch.cat + scaled_dot_product_attention at bf16 on the cache cast to "
+                   "bf16 ahead of the timed calls")
+    del c, kc16, vc16
+
+    # ---- B4 (T=4, read only) and B5 (T=1, L=2, the page write) over float32 pools
+    for T, write in ((4, False), (1, True)):
+        kernel = "B5" if write else "B4"
+        name = f"{kernel.lower()}_mixed_T{T}"
+        c = bf16_inputs(_f32_paged_case(torch, rng, T, write, "float32"))
+        snap = [c["kp"].clone(), c["vp"].clone()]
+        got_bufs, ref_bufs = [x.clone() for x in snap], [x.clone() for x in snap]
+        B = c["q"].shape[0]
+        if write:
+            wrapper = fp.fused_paged_decode_mixed
+
+            def call(bufs=got_bufs, c=c):
+                return fp.fused_paged_decode(c["q"], *bufs, None, None, c["table"], c["lens"],
+                                             c["pads"], c["kn"], c["vn"], layer)
+
+            def plain_fn(bufs=ref_bufs, c=c):
+                return fp.fused_paged_reference(c["q"], *bufs, None, None, c["table"],
+                                                c["lens"], c["pads"], c["kn"], c["vn"], layer)
+        else:
+            wrapper = pa.paged_decode_attention_mixed
+
+            def call(c=c):
+                return pa.paged_decode_attention(c["q"], c["kp"][layer], c["vp"][layer],
+                                                 c["table"], c["lens"], c["pads"], c["kn"],
+                                                 c["vn"])
+
+            def plain_fn(c=c):
+                return pa.paged_reference(c["q"], c["kp"][layer], c["vp"][layer], c["table"],
+                                          c["lens"], c["pads"], c["kn"], c["vn"])
+        before = wrapper.launches
+        got = call()
+        plain = plain_fn()
+        torch.cuda.synchronize()
+        rows = torch.from_numpy((c["table_np"] != 0).all(axis=1)).cuda()
+        kv = _f64_paged(torch, dict(c, kp=snap[0], vp=snap[1], ks=None, vs=None), layer)
+        check = _mixed_check(torch, name, got, plain, c, kv, rows)
+        if write:
+            for i, (g, r) in enumerate(zip(got_bufs, ref_bufs)):
+                if not torch.equal(g[:, 1:], r[:, 1:]):
+                    raise AssertionError(f"{name}: buffer {i} differs from the plain version's "
+                                         "write outside page 0")
+        elif not all(torch.equal(x, s0) for x, s0 in zip((c["kp"], c["vp"]), snap)):
+            raise AssertionError(f"{name} wrote into the pools")
+        check["unequal_repeats"] = _repeats_equal(torch, call, got, got_bufs, rows,
+                                                  MIXED_REPEATS)
+        if check["unequal_repeats"]:
+            raise AssertionError(f"{name}: {check['unequal_repeats']} of {MIXED_REPEATS} "
+                                 "repeats differ")
+        launches = wrapper.launches
+        t = timings(torch, call, plain_fn)
+        wrapper.launches = launches
+        finish(name, kernel, wrapper, before, check, t, c["valid"].sum().item(), B, T, write,
+               f"mixed float32 Dh=128 write={int(write)} paged=1",
+               page_writes="bit-exact outside page 0" if write else None)
+        del c, snap, got_bufs, ref_bufs
+    emit("decode_mixed_wall", seconds=time.perf_counter() - t_phase, card=card)
     return results
 
 
@@ -4309,13 +4587,17 @@ def _wrappers():
     from llm_speech_summarization_tpu_torch.kernels.fused_paged import fused_paged_decode
     from llm_speech_summarization_tpu_torch.kernels.paged_attention import paged_decode_attention
 
-    from llm_speech_summarization_tpu_torch.kernels.decode_attention import decode_attention_f32
-    from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
-        fused_decode_attention_write_f32, fused_decode_f32,
+    from llm_speech_summarization_tpu_torch.kernels.decode_attention import (
+        decode_attention_f32, decode_attention_mixed,
     )
-    from llm_speech_summarization_tpu_torch.kernels.fused_paged import fused_paged_decode_f32
+    from llm_speech_summarization_tpu_torch.kernels.fused_decode import (
+        fused_decode_attention_write_f32, fused_decode_attention_write_mixed, fused_decode_f32,
+    )
+    from llm_speech_summarization_tpu_torch.kernels.fused_paged import (
+        fused_paged_decode_f32, fused_paged_decode_mixed,
+    )
     from llm_speech_summarization_tpu_torch.kernels.paged_attention import (
-        paged_decode_attention_f32,
+        paged_decode_attention_f32, paged_decode_attention_mixed,
     )
 
     return {"flash_attention": fa.flash_attention_fwd,
@@ -4337,7 +4619,21 @@ def _wrappers():
             "decode_attention": decode_attention, "fused_decode_f32": fused_decode_f32,
             "fused_decode_attention_write_f32": fused_decode_attention_write_f32,
             "paged_attention_f32": paged_decode_attention_f32,
-            "fused_paged_f32": fused_paged_decode_f32, "decode_attention_f32": decode_attention_f32}
+            "fused_paged_f32": fused_paged_decode_f32, "decode_attention_f32": decode_attention_f32,
+            "fused_decode_attention_write_mixed": fused_decode_attention_write_mixed,
+            "decode_attention_mixed": decode_attention_mixed,
+            "paged_attention_mixed": paged_decode_attention_mixed,
+            "fused_paged_mixed": fused_paged_decode_mixed}
+
+
+def decode_suffix(torch, eng) -> str:
+    """The launch-count suffix of the decode instances ``eng`` takes: its
+    decode steps run in the norms' dtype (as the JAX engine's), so "_f32"
+    for float32 norms, "_mixed" for bf16 norms over a float32 cache, ""
+    (the bf16 kernels) for bf16 norms over an int8 or bf16 cache."""
+    if eng.llm_params["final_norm"].dtype == torch.float32:
+        return "_f32"
+    return "_mixed" if eng.cache_dtype == torch.float32 else ""
 
 
 def reset_launches() -> None:
@@ -4928,15 +5224,17 @@ def _serve_burst(torch, card, eng, name, requests, **server_kw):
     paged = server_kw.get("paged", False)
     steps, rounds = counts.get("steps", 0), counts.get("spec_rounds", 0)
     # a dense step: B2 over an int8 cache, B3 over a float one; a float32
-    # engine takes every kernel's float32 instance
+    # engine prefills with B1's float32 instance and decodes with the
+    # instances of its norms' dtype over its cache (decode_suffix)
     f32 = "_f32" if eng.dtype == torch.float32 else ""
+    dec = decode_suffix(torch, eng)
     dense = "fused_decode" if eng.cache_dtype == torch.int8 else "fused_decode_attention_write"
     check_launches(name, launches, {
         "flash_attention" + f32: L * counts.get("prefills", 0)
         + enc_layers * eng_counts.get("encoder_forwards", 0),
-        dense + f32: 0 if paged else L * (steps + rounds),
-        "paged_attention" + f32: L * rounds if paged else 0,
-        "fused_paged" + f32: L * steps if paged else 0})
+        dense + dec: 0 if paged else L * (steps + rounds),
+        "paged_attention" + dec: L * rounds if paged else 0,
+        "fused_paged" + dec: L * steps if paged else 0})
     firsts = sorted(r[2] for (_, _, stream), r in zip(requests, results)
                     if stream and r[2] is not None)
     out = dict(requests=len(requests), wall_s=wall, requests_per_s=len(requests) / wall,
@@ -5032,14 +5330,16 @@ def _forced_logits(torch, eng, embeds, mask, tokens, steps):
     return torch.stack(logits, 1)
 
 
-def _f32_batch_held(torch, eng, clips, max_new, what):
-    """The float32 engine's batch path on ``clips``, counted: B1's float32
-    instance in the encoder and the prefill, the float32 B2 (int8 cache) or
-    B3 (float32 cache) per decode step, nothing else; then its greedy rows
+def _f32_batch_held(torch, eng, clips, max_new, what, tol=F32_LOGIT_TOL):
+    """The batch path of an engine at compute_dtype float32 on ``clips``,
+    counted: B1's float32 instance in the encoder and the prefill, B2 (int8
+    cache) or B3 (float32 cache) per decode step in the instance of the
+    engine's norms' dtype (``decode_suffix``: float32, or the mixed one for
+    bf16 norms over a float32 cache), nothing else; then its greedy rows
     teacher-forced through the kernels (which must give the same rows) and
     through the plain attention, the rows held to the latter under the
     margin-aware contract (a row may differ only where the plain top-2
-    margin is under 2 * F32_LOGIT_TOL). Returns the phase's numbers."""
+    margin is under 2 * ``tol``). Returns the phase's numbers."""
     from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
 
     eng.generate_audio_response_batch(clips, max_new_tokens=max_new)  # warm-up
@@ -5053,8 +5353,8 @@ def _f32_batch_held(torch, eng, clips, max_new, what):
         batch_s = time.perf_counter() - t0
     launches, counts = read_launches(), dict(eng.counts)
     L, enc_layers = eng.llm_cfg.num_layers, eng.encoder_setup.encoder_cfg.num_layers
-    dense = "fused_decode_f32" if eng.cache_dtype == torch.int8 else \
-        "fused_decode_attention_write_f32"
+    dense = ("fused_decode" if eng.cache_dtype == torch.int8 else
+             "fused_decode_attention_write") + decode_suffix(torch, eng)
     check_launches(what, launches, {
         "flash_attention_f32": enc_layers * counts["encoder_forwards"]
         + L * counts["prefills"], dense: L * counts["decode_steps"]})
@@ -5084,7 +5384,7 @@ def _f32_batch_held(torch, eng, clips, max_new, what):
                                  f"the batch path's stream")
         for t in (k_arg[r, :n[r]] != p_arg[r, :n[r]]).nonzero().flatten().tolist():
             parted.setdefault(r, []).append(dict(step=t, margin=margin[r, t].item()))
-            if margin[r, t] > 2 * F32_LOGIT_TOL:
+            if margin[r, t] > 2 * tol:
                 raise AssertionError(f"{what}: row {r} step {t}: the kernels pick another token "
                                      f"than the plain attention where its top-2 margin is "
                                      f"{margin[r, t].item()}")
@@ -5093,6 +5393,26 @@ def _f32_batch_held(torch, eng, clips, max_new, what):
                 engine_counts=counts, rows=rows, plain_margin=margin,
                 max_logit_delta_vs_plain=delta, rows_parting_from_plain=parted,
                 min_plain_margin=min(margin[r, :n[r]].min().item() for r in range(B)))
+
+
+def _held_to_rows(rows, got, margins, what, tol):
+    """Each row of ``got`` equal to the same row of ``rows`` or parting
+    only at a step where ``margins`` (the plain attention's top-2 margin on
+    ``rows``' stream) is at most 2 * ``tol``; returns {row: parting}."""
+    parted = {}
+    for r, row in enumerate(got):
+        want = rows[r]
+        t = next((j for j, (x, y) in enumerate(zip(row, want)) if x != y), None)
+        if t is None:
+            if len(row) != len(want):
+                raise AssertionError(f"{what}: row {r} ends at {len(row)}, the batch row at "
+                                     f"{len(want)}, on equal tokens")
+            continue
+        parted[r] = dict(step=t, margin=margins[r, t].item())
+        if parted[r]["margin"] > 2 * tol:
+            raise AssertionError(f"{what}: row {r} parts from the batch row at step {t}, where "
+                                 f"the plain top-2 margin is {parted[r]['margin']}")
+    return parted
 
 
 def phase_f32_full(torch, card, eng):
@@ -5155,18 +5475,10 @@ def phase_f32_full(torch, card, eng):
     check_launches("f32_full attn_impl='pallas'", b8_launches, {
         "flash_attention_f32": L * b8_counts["prefills"],
         "decode_attention_f32": L * b8_counts["decode_steps"]})
-    b8_parted = {}
-    for r, row in enumerate(f32_run["rows"]):
-        got = tok8[r, :int(n8[r])].tolist()
-        t = next((i for i, (x, y) in enumerate(zip(got, row)) if x != y), None)
-        if t is None and len(got) != len(row):
-            raise AssertionError(f"f32_full: row {r}'s B8 stream ends at {len(got)}, the B3 "
-                                 f"stream at {len(row)}, on equal tokens")
-        if t is not None:
-            b8_parted[r] = dict(step=t, margin=f32_run["plain_margin"][r, t].item())
-            if b8_parted[r]["margin"] > 2 * F32_LOGIT_TOL:
-                raise AssertionError(f"f32_full: row {r}'s B8 stream parts from B3's at step {t} "
-                                     f"where the plain top-2 margin is {b8_parted[r]['margin']}")
+    b8_parted = _held_to_rows(f32_run["rows"],
+                              [tok8[r, :int(n8[r])].tolist() for r in range(len(clips))],
+                              f32_run["plain_margin"], "f32_full attn_impl='pallas'",
+                              F32_LOGIT_TOL)
 
     srv_rng = np.random.RandomState(9)
     srv_clips = [(0.1 * srv_rng.randn(int(16000 * srv_rng.uniform(6.0, 10.0))))
@@ -5206,13 +5518,151 @@ def phase_f32_full(torch, card, eng):
     return [int8_run["launches"], f32_run["launches"], b8_launches, server["launches"]]
 
 
+# mixed_full: llama3_hubert.yaml at compute_dtype float32 and kv_cache_dtype
+# null with its published bf16 parameters, so the prefill (float32) fills a
+# float32 cache and the decode steps run in the norms' bf16 over it (the
+# mixed instances). The rows are held to the plain attention's under the
+# margin-aware contract at the bf16 tolerance: the decode runs in bf16
+MIXED_LOGIT_TOL = LOGIT_TOL
+MIXED_FULL_NEW = 16  # new tokens of the batch path, the B8 stream and the spec engine
+MIXED_SPEC_CLIPS = 2  # clips of the speculative engine (speculative_k=3)
+
+
+def phase_mixed_full(torch, card, eng):
+    """``llama3_hubert.yaml`` at ``compute_dtype: float32`` and
+    ``kv_cache_dtype`` null (a float32 cache; the published int8 cache
+    would decode through B2), the rest as published (bf16 parameters, the
+    int8 LLM), on the trees of the bf16 engine ``eng`` (no float32
+    copy: the parameters stay bf16, as the JAX engine keeps them): (a) the
+    batch path, B=8 x 10 s, MIXED_FULL_NEW new tokens (B1 float32 in the
+    encoder and the prefill, B3's mixed instance per decode step), held to
+    the plain attention (``_f32_batch_held`` at MIXED_LOGIT_TOL); (b)
+    ``greedy_generate(attn_impl="pallas")`` on its prompts (B8's mixed
+    instance), held to the batch rows; (c) the engine with
+    ``speculative_k=3`` on MIXED_SPEC_CLIPS clips (B3's mixed instance at T
+    = 4), held to their batch rows; (d) a paged server with speculative
+    chunks, a burst of 8 audio requests, two sampled with fewer new tokens
+    (B4's and B5's mixed instances)."""
+    from collections import Counter
+
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.configs.config import config_to_dict
+    from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
+    from llm_speech_summarization_tpu_torch.infer.generate import greedy_generate
+    from llm_speech_summarization_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    marks = {}
+
+    def mark(stage):
+        marks[stage] = round(time.perf_counter() - t_phase, 3)
+
+    raw = config_to_dict(load_config(str(YAML_DIR / "llama3_hubert.yaml")))
+    if raw["model"]["param_dtype"] != "bfloat16" or raw["model"]["llm_weight_dtype"] != "int8":
+        raise AssertionError(f"mixed_full: llama3_hubert.yaml is not the published config: "
+                             f"{raw['model']}")
+    raw["model"].update(compute_dtype="float32", kv_cache_dtype=None)
+
+    def engine(**kw):
+        return LLMSpeechTextInference(load_config(raw), llm_params=eng.llm_params,
+                                      audio_encoder_params=eng.audio_encoder_params,
+                                      device=eng.device, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    emx = engine()
+    if emx.cache_dtype != torch.float32 or emx.llm_params["final_norm"].dtype != torch.bfloat16 \
+            or decode_suffix(torch, emx) != "_mixed":
+        raise AssertionError(f"mixed_full: the engine decodes in {emx.llm_params['final_norm'].dtype} "
+                             f"over a {emx.cache_dtype} cache")
+    rng = np.random.RandomState(0)
+    clips = [(0.1 * rng.randn(160000)).astype(np.float32) for _ in range(8)]  # 8 x 10 s
+    run = _f32_batch_held(torch, emx, clips, MIXED_FULL_NEW, "mixed_full batch",
+                          tol=MIXED_LOGIT_TOL)
+    rows, margins = run.pop("rows"), run.pop("plain_margin")
+    mark("batch")
+
+    # B8's mixed instance: greedy_generate(attn_impl="pallas") on the same
+    # prompts over a float32 cache, held to the batch rows margin-aware
+    embeds, mask = emx.build_audio_prompt_batch(clips)
+    b8_counts = Counter()
+    reset_launches()
+    tok8, n8 = greedy_generate(emx.llm_params, emx.llm_cfg, embeds, mask, max_new_tokens=64,
+                               eos_id=emx.tokenizer.eos_id, cache_dtype=torch.float32,
+                               num_steps=MIXED_FULL_NEW, attn_impl="pallas", counts=b8_counts)
+    b8_launches = read_launches()
+    L, enc_layers = emx.llm_cfg.num_layers, emx.encoder_setup.encoder_cfg.num_layers
+    check_launches("mixed_full attn_impl='pallas'", b8_launches, {
+        "flash_attention_f32": L * b8_counts["prefills"],
+        "decode_attention_mixed": L * b8_counts["decode_steps"]})
+    b8_parted = _held_to_rows(rows, [tok8[r, :int(n8[r])].tolist() for r in range(len(clips))],
+                              margins, "mixed_full attn_impl='pallas'", MIXED_LOGIT_TOL)
+    mark("pallas")
+
+    # B3's mixed instance at T = k + 1 = 4: the speculative engine
+    spec = engine(speculative_k=3)
+    spec_clips = clips[:MIXED_SPEC_CLIPS]
+    spec.generate_audio_response_batch(spec_clips, max_new_tokens=MIXED_FULL_NEW)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    spec.counts.clear()
+    with recorded_tokens(ByteTokenizer) as spec_rows:
+        t0 = time.perf_counter()
+        spec.generate_audio_response_batch(spec_clips, max_new_tokens=MIXED_FULL_NEW)
+        torch.cuda.synchronize()
+        spec_s = time.perf_counter() - t0
+    spec_launches, spec_counts = read_launches(), dict(spec.counts)
+    check_launches("mixed_full speculative_k=3", spec_launches, {
+        "flash_attention_f32": enc_layers * spec_counts["encoder_forwards"]
+        + L * spec_counts["prefills"],
+        "fused_decode_attention_write_mixed": L * spec_counts["spec_rounds"]})
+    if not spec_counts.get("spec_rounds"):
+        raise AssertionError("mixed_full: the speculative engine ran no verification round")
+    spec_parted = _held_to_rows(rows, spec_rows, margins, "mixed_full speculative_k=3",
+                                MIXED_LOGIT_TOL)
+    del spec
+    mark("speculative")
+
+    srv_rng = np.random.RandomState(9)
+    srv_clips = [(0.1 * srv_rng.randn(int(16000 * srv_rng.uniform(6.0, 10.0))))
+                 .astype(np.float32) for _ in range(8)]
+    burst = [("/v1/audio_summary", {"audio": c.tolist(), "max_new_tokens": 32}, False)
+             for c in srv_clips[:6]]
+    burst += [("/v1/audio_summary", {"audio": c.tolist(), "max_new_tokens": 8,
+                                     "temperature": 0.8, "seed": 20 + i}, False)
+              for i, c in enumerate(srv_clips[6:])]
+    server = _serve_burst(torch, card, emx, "mixed_paged_spec3", burst, paged=True, spec_k=3,
+                          n_slots=16, max_new_tokens=64, device=eng.device.type)
+    if not (server["launches"]["paged_attention_mixed"]
+            and server["launches"]["fused_paged_mixed"]):
+        raise AssertionError(f"mixed_full: the paged server did not launch both B4 and B5's "
+                             f"mixed instances: {server['launches']}")
+    mark("server")
+    emit("mixed_full", config="llama3_hubert.yaml at compute_dtype float32 (param_dtype "
+         "bfloat16, llm_weight_dtype int8 as published; kv_cache_dtype null: a float32 cache; "
+         "decode steps in bf16)", clip_s=10, batch=run, logit_tol=MIXED_LOGIT_TOL,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         pallas_stream=dict(steps=b8_counts["decode_steps"], launches=b8_launches,
+                            rows_parted=b8_parted),
+         speculative=dict(clips=len(spec_clips), k=3, batch_call_s=spec_s,
+                          utt_per_s=len(spec_clips) / spec_s, launches=spec_launches,
+                          engine_counts=spec_counts, rows_parted=spec_parted),
+         server=dict(requests_per_s=server["requests_per_s"],
+                     p50_first_token_s=server["p50_first_token_s"],
+                     decode_ms_per_step=server["decode_ms_per_step"],
+                     max_memory_allocated_gb=server["max_memory_allocated_gb"],
+                     launches=server["launches"], decoder_counts=server["decoder_counts"]),
+         marks=marks, phase_s=time.perf_counter() - t_phase, card=card)
+    del emx
+    return [run["launches"], b8_launches, spec_launches, server["launches"]]
+
+
 TP_RANKS = 2
 # serving_tp_full's Llama-3.2-3B blocks (HuBERT-large as published): each
 # block's two all-reduces a decode step are staged through the host, 178 ms
 # a step at the published 28 blocks against 44 ms unsharded (NVIDIA H100
 # 80GB HBM3, 700 W), a correctness path on one card
 TP_SERVE_LAYERS = 8
-TP_TIMEOUT_S = 420  # per launch of the ranks
+TP_TIMEOUT_S = 600  # the one launch of the ranks (batch path and both servers)
 TP_MAX_NEW = 32
 TP_PORT_WAIT_S = 300  # rank 0's engine init at full width, before it serves
 TP_TOPK = 8  # the rank's top logits per row and step, compared teacher-forced
@@ -5300,17 +5750,21 @@ def _tp_burst_clips():
 
 
 def tp_rank(report_dir: str, mode: str, cli_args) -> int:
-    """One rank of serving_tp_full, started by ``_tp_launch``.
-    ``batch``: the tensor-parallel engine on ``llama3_hubert.yaml`` (a mesh
-    with a model group of every rank), one warm-up and one counted
-    ``generate_audio_response_batch`` over ``_tp_batch_clips``; ``serve``:
-    ``cli/serve.py`` with ``cli_args`` (SIGTERM to rank 0 drains the
-    server). Each rank
-    writes ``report_dir/<mode>_rank<r>.json``: its launch counts, the
-    engine's and decoder's counts, the host-staged exchanges and wall of
-    every decode step (batch) or decode chunk (serve), the token rows (per
-    request on rank 0 of the server: its clip length or text, its row, its
-    time to first token), and the peak memory after the engine was built.
+    """One rank of serving_tp_full, started by ``_tp_launch``: the stages of
+    one launch on one engine build. First ``batch``: the tensor-parallel
+    engine on ``llama3_hubert.yaml`` (a mesh with a model group of every
+    rank), one warm-up and one counted ``generate_audio_response_batch``
+    over ``_tp_batch_clips``; then one server stage for each part of
+    ``cli_args`` (split at "--then", named by ``mode``'s comma-separated
+    names): ``cli/serve.py`` with those arguments on the same engine
+    (SIGTERM to rank 0 drains the server, and the ranks go on to the next
+    stage). Each rank writes ``report_dir/<stage>_rank<r>.json`` at the end
+    of each stage: its launch counts, the engine's and decoder's counts, the
+    host-staged exchanges and wall of every decode step (batch) or decode
+    chunk (serve), the token rows (per request on rank 0 of the server: its
+    clip length or text, its row, its time to first token), the stage's
+    seconds and peak memory, and the peak memory after the engine was
+    built.
     ``transformers`` is kept from importing, as in ``train_rank``: offline
     with no local HF tokenizer ``load_tokenizer`` falls back to bytes
     either way (the unsharded engine it is compared with too), and the
@@ -5331,7 +5785,7 @@ def tp_rank(report_dir: str, mode: str, cli_args) -> int:
     patches = contextlib.ExitStack()  # open for the rank's whole run
     patches.enter_context(_shallow(TP_SERVE_LAYERS, encoder=False))
     seen = {"decoders": []}
-    report = {"rank": rank, "mode": mode, "steps": [], "chunks": [], "requests": [],
+    report = {"rank": rank, "mode": "batch", "steps": [], "chunks": [], "requests": [],
               "warm_cuda_s": _WARM_S}
 
     def staged():
@@ -5392,73 +5846,112 @@ def tp_rank(report_dir: str, mode: str, cli_args) -> int:
     SlotDecoder.harvest = recorded_harvest
     generate.llama_forward = timed_forward
     reset_launches()
-    if mode == "batch":
-        from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
-        from llm_speech_summarization_tpu_torch.parallel.mesh import (
-            distributed_init, mesh_from_ranks,
-        )
+    from llm_speech_summarization_tpu_torch.cli import serve as cli
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.infer import engine as engine_mod
+    from llm_speech_summarization_tpu_torch.parallel.mesh import (
+        distributed_init, mesh_from_ranks,
+    )
 
-        distributed_init()
-        eng = LLMSpeechTextInference(load_config(str(YAML_DIR / "llama3_hubert.yaml")),
-                                     mesh=mesh_from_ranks(model=TP_RANKS))
-        clips = _tp_batch_clips()
-        eng.generate_audio_response_batch(clips, max_new_tokens=TP_MAX_NEW)  # warm-up
+    t_stage = time.perf_counter()
+
+    def finish_stage(stage):
+        """Write this stage's report and start the next one from zero."""
+        nonlocal t_stage
+        eng = seen["engine"]
+        report.update(
+            stage_s=time.perf_counter() - t_stage, launches=read_launches(),
+            engine_counts=dict(eng.counts),
+            decoder_counts=[dict(d.counts) for d in seen["decoders"]],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9, llm_layers=eng.llm_cfg.num_layers,
+            enc_layers=eng.encoder_setup.encoder_cfg.num_layers,
+            builds_prompts=eng.builds_prompts,
+            kv_heads=[int((d.state.cache.k_pool if d.paged else d.state.cache.k).shape[2])
+                      for d in seen["decoders"]])
+        with open(os.path.join(report_dir, f"{stage}_rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+        for key in ("steps", "chunks", "requests", "top", "harvested"):
+            report[key] = []
+        report.pop("rows", None)
+        report["mode"] = "serve"
+        seen["decoders"] = []
+        gc.collect()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
         eng.counts.clear()
-        report["steps"].clear()
-        report["top"].clear()
-        with recorded_tokens(ByteTokenizer) as rows:
-            t0 = time.perf_counter()
-            eng.generate_audio_response_batch(clips, max_new_tokens=TP_MAX_NEW)
-            torch.cuda.synchronize()
-            report["batch_s"] = time.perf_counter() - t0
-        report["rows"] = [[int(t) for t in r] for r in rows]
-    else:
-        from llm_speech_summarization_tpu_torch.cli import serve as cli
+        t_stage = time.perf_counter()
 
-        # rank 0: each request's row, keyed by its payload, and its TTFT
-        last = threading.local()
-        decode = ByteTokenizer.decode
+    distributed_init()
+    eng = LLMSpeechTextInference(load_config(str(YAML_DIR / "llama3_hubert.yaml")),
+                                 mesh=mesh_from_ranks(model=TP_RANKS))
+    clips = _tp_batch_clips()
+    eng.generate_audio_response_batch(clips, max_new_tokens=TP_MAX_NEW)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.counts.clear()
+    report["steps"].clear()
+    report["top"].clear()
+    with recorded_tokens(ByteTokenizer) as rows:
+        t0 = time.perf_counter()
+        eng.generate_audio_response_batch(clips, max_new_tokens=TP_MAX_NEW)
+        torch.cuda.synchronize()
+        report["batch_s"] = time.perf_counter() - t0
+    report["rows"] = [[int(t) for t in r] for r in rows]
+    finish_stage("batch")
 
-        def recorded_decode(self, ids, *a, **kw):
-            last.ids = [int(i) for i in ids]
-            return decode(self, ids, *a, **kw)
+    # the servers on the same engine: cli/serve.py builds none (it is handed
+    # this one) and leaves the group only after the last stage
+    # rank 0: each request's row, keyed by its payload, and its TTFT
+    last = threading.local()
+    decode = ByteTokenizer.decode
 
-        def recorded_setattr(self, name, value):
-            if name == "result" and getattr(last, "ids", None) is not None:
-                ttft = (self.t_first_token - self.t_submit) if self.t_first_token else None
-                report["requests"].append(dict(
-                    key=len(self.payload) if self.kind == "audio" else self.payload,
-                    row=last.ids, ttft_s=ttft))
-                last.ids = None
-            object.__setattr__(self, name, value)
+    def recorded_decode(self, ids, *a, **kw):
+        last.ids = [int(i) for i in ids]
+        return decode(self, ids, *a, **kw)
 
-        ByteTokenizer.decode = recorded_decode
-        server_mod._Request.__setattr__ = recorded_setattr
-        cli.main(cli_args)
-    eng = seen["engine"]
-    report.update(launches=read_launches(), engine_counts=dict(eng.counts),
-                  decoder_counts=[dict(d.counts) for d in seen["decoders"]],
-                  peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                  llm_layers=eng.llm_cfg.num_layers,
-                  enc_layers=eng.encoder_setup.encoder_cfg.num_layers,
-                  builds_prompts=eng.builds_prompts,
-                  kv_heads=[int((d.state.cache.k_pool if d.paged else d.state.cache.k).shape[2])
-                            for d in seen["decoders"]])
-    with open(os.path.join(report_dir, f"{mode}_rank{rank}.json"), "w") as f:
-        json.dump(report, f)
+    def recorded_setattr(self, name, value):
+        if name == "result" and getattr(last, "ids", None) is not None:
+            ttft = (self.t_first_token - self.t_submit) if self.t_first_token else None
+            report["requests"].append(dict(
+                key=len(self.payload) if self.kind == "audio" else self.payload,
+                row=last.ids, ttft_s=ttft))
+            last.ids = None
+        object.__setattr__(self, name, value)
+
+    ByteTokenizer.decode = recorded_decode
+    server_mod._Request.__setattr__ = recorded_setattr
+    engine_mod.LLMSpeechTextInference = lambda *a, **kw: eng
+    leave = torch.distributed.destroy_process_group
+    torch.distributed.destroy_process_group = lambda *a, **kw: None
+    servers, args = [], []
+    for a in [*cli_args, "--then"]:
+        if a == "--then":
+            servers.append(args)
+            args = []
+        else:
+            args.append(a)
+    try:
+        for stage, server_args in zip(mode.split(","), servers):
+            cli.main(server_args)
+            finish_stage(stage)
+    finally:
+        torch.distributed.destroy_process_group = leave
+        leave()
     return 0
 
 
-def _tp_launch(mode, report_dir, cli_args=(), port=None, drive=None):
+def _tp_launch(report_dir, servers):
     """Run the TP_RANKS ranks of ``tp_rank`` (started by ``_start_ranks``;
-    the CLI picks gloo: the ranks share the card). With ``drive``, a
-    function of the server's port, it runs once rank 0 answers /healthz,
-    then SIGTERM drains rank 0 and the other ranks stop with it. Every
-    process is killed past TP_TIMEOUT_S; a nonzero exit fails the phase.
-    Returns the ranks' reports, the launch's wall seconds and what
-    ``drive`` returned."""
+    the CLI picks gloo: the ranks share the card), one launch: the batch
+    stage, then a server stage for each of ``servers`` ((name, cli args,
+    port, drive), ``drive`` a function of the port): each ``drive`` runs
+    once rank 0 answers /healthz on its port, then SIGTERM drains rank 0
+    and the ranks go on to the next stage. Every process is killed past
+    TP_TIMEOUT_S; a nonzero exit fails the phase. Returns the ranks'
+    reports by stage, the launch's wall seconds, the seconds from its start
+    to each server's first answer, and what each ``drive`` returned."""
     import signal
 
     import torch
@@ -5466,54 +5959,59 @@ def _tp_launch(mode, report_dir, cli_args=(), port=None, drive=None):
     os.makedirs(report_dir, exist_ok=True)
     log_path = os.path.join(report_dir, "launch.log")
     t0 = time.perf_counter()
-    result = None
+    results, serving_at = {}, {}
 
     def tail():
         with open(log_path) as f:
             return f.read()[-6000:]
 
+    argv = ["--tp-rank", report_dir, ",".join(name for name, *_ in servers), "--"]
+    for i, (_, cli_args, _, _) in enumerate(servers):
+        argv += (["--then"] if i else []) + list(cli_args)
     with open(log_path, "w") as log:
-        procs, store = _start_ranks(torch, TP_RANKS, ["--tp-rank", report_dir, mode, "--",
-                                                      *cli_args], log)
+        procs, store = _start_ranks(torch, TP_RANKS, argv, log)
         try:
-            if drive is not None:
+            for name, _, port, drive in servers:
                 deadline = time.monotonic() + TP_PORT_WAIT_S
                 while True:
                     if any(p.poll() is not None for p in procs):
                         raise AssertionError(f"serving_tp_full: the ranks exited "
-                                             f"{[p.poll() for p in procs]} before serving")
+                                             f"{[p.poll() for p in procs]} before serving "
+                                             f"{name}")
                     try:
                         if _http(port, "/healthz")[0] == 200:
                             break
                     except OSError:
                         pass
                     if time.monotonic() > deadline:
-                        raise AssertionError(f"serving_tp_full: rank 0 did not serve within "
-                                             f"{TP_PORT_WAIT_S} s")
-                    time.sleep(0.5)
-                result = drive(port)
+                        raise AssertionError(f"serving_tp_full: rank 0 did not serve {name} "
+                                             f"within {TP_PORT_WAIT_S} s")
+                    time.sleep(0.2)
+                serving_at[name] = time.perf_counter() - t0
+                results[name] = drive(port)
                 os.kill(procs[0].pid, signal.SIGTERM)
             codes = _join_ranks(procs, time.monotonic() + TP_TIMEOUT_S - (time.perf_counter()
                                                                           - t0))
         except BaseException as e:
             _stop_ranks(procs)
-            raise AssertionError(f"serving_tp_full {mode}: the launch failed ({e!r}):\n"
-                                 f"{tail()}")
+            raise AssertionError(f"serving_tp_full: the launch failed ({e!r}):\n{tail()}")
         finally:
             del store
     wall = time.perf_counter() - t0
     if codes is None or any(codes):
-        raise AssertionError(f"serving_tp_full {mode}: the ranks exited {codes} (None: outlived "
+        raise AssertionError(f"serving_tp_full: the ranks exited {codes} (None: outlived "
                              f"{TP_TIMEOUT_S} s):\n{tail()}")
-    reports = []
-    for r in range(TP_RANKS):
-        with open(os.path.join(report_dir, f"{mode}_rank{r}.json")) as f:
-            reports.append(json.load(f))
-    for rep in reports:
+    reports = {}
+    for stage in ["batch"] + [name for name, *_ in servers]:
+        reports[stage] = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(report_dir, f"{stage}_rank{r}.json")) as f:
+                reports[stage].append(json.load(f))
+    for rep in reports["batch"]:
         if rep["backend"] != "gloo":
             raise AssertionError(f"serving_tp_full: rank {rep['rank']} ran over "
                                  f"{rep['backend']}, not gloo, with ranks that share a card")
-    return reports, wall, result
+    return reports, wall, serving_at, results
 
 
 def _tp_logit_delta(torch, eng, clips, rows, top):
@@ -5684,9 +6182,44 @@ def phase_serving_tp_full(torch, card):
     yaml_path = str(YAML_DIR / "llama3_hubert.yaml")
     launches = {k: 0 for k in read_launches()}
     tmp = tempfile.mkdtemp(prefix="lss_tp_")
+    servers = []
+    for name, flags in (("dense", []), ("paged_spec3", ["--paged", "--speculative_k", "3"])):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+
+        def drive(port, name=name):
+            if _http(port, "/v1/text_response",
+                     {"text": "warm up", "max_new_tokens": 2})[0] != 200:
+                raise AssertionError(f"serving_tp_full {name}: the warm-up failed")
+            results = [None] * len(burst)
+
+            def send(i, path, body, stream):
+                results[i] = _http(port, path, body, stream)
+
+            threads = [threading.Thread(target=send, args=(i, *r)) for i, r in enumerate(burst)]
+            t_start, t0 = time.time(), time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            return dict(t_start=t_start, wall=wall, results=results,
+                        metrics=_http(port, "/metrics")[1])
+
+        cli_args = ["-c", yaml_path, "--tp", str(TP_RANKS), "--host", "127.0.0.1",
+                    "--port", str(port), "--no_warmup", "--scheduler", "continuous",
+                    "--slots", "16", "--max_new_tokens", "64", *flags]
+        servers.append((name, cli_args, port, drive))
     try:
-        reports, wall, _ = _tp_launch("batch", os.path.join(tmp, "batch"))
-        mark("batch launch")
+        # one launch of the ranks and one engine build: the batch path,
+        # then the dense server, then the paged one with speculative chunks
+        stage_reports, wall, serving_at, runs = _tp_launch(os.path.join(tmp, "tp"), servers)
+        mark("launch")
+        out["launch"] = dict(wall_s=wall, serving_at_s=serving_at,
+                             stage_s={stage: [rep["stage_s"] for rep in reps]
+                                      for stage, reps in stage_reports.items()})
+        reports = stage_reports["batch"]
         for rep in reports:
             want = {**{k: 0 for k in rep["launches"]}, **_tp_expected_launches(rep, False)}
             check(rep["launches"] == want, f"batch rank {rep['rank']}: launches "
@@ -5725,7 +6258,7 @@ def phase_serving_tp_full(torch, card):
             plain_logit_delta_per_step=plain_deltas,
             rows_equal=[a == b for a, b in zip(rows0, want_batch)], parted=parted,
             rows_equal_plain=[a == b for a, b in zip(rows0, plain_batch_rows)],
-            launch_wall_s=wall, batch_s=reports[0]["batch_s"],
+            stage_s=reports[0]["stage_s"], batch_s=reports[0]["batch_s"],
             utt_per_s=len(batch_clips) / reports[0]["batch_s"],
             plain_utt_per_s=len(batch_clips) / plain_batch_s,
             plain_decode_ms_per_step=plain_decode_ms,
@@ -5734,39 +6267,9 @@ def phase_serving_tp_full(torch, card):
                            launches=rep["launches"], engine_counts=rep["engine_counts"])
                       for rep in reports])
 
-        for name, flags, kw in (("dense", [], dict(paged=False)),
-                                ("paged_spec3", ["--paged", "--speculative_k", "3"],
-                                 dict(paged=True, spec_k=3))):
-            with socket.socket() as sock:
-                sock.bind(("127.0.0.1", 0))
-                port = sock.getsockname()[1]
-
-            def drive(port, name=name):
-                if _http(port, "/v1/text_response",
-                         {"text": "warm up", "max_new_tokens": 2})[0] != 200:
-                    raise AssertionError(f"serving_tp_full {name}: the warm-up failed")
-                results = [None] * len(burst)
-
-                def send(i, path, body, stream):
-                    results[i] = _http(port, path, body, stream)
-
-                threads = [threading.Thread(target=send, args=(i, *r))
-                           for i, r in enumerate(burst)]
-                t_start, t0 = time.time(), time.perf_counter()
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join(600)
-                wall = time.perf_counter() - t0
-                return dict(t_start=t_start, wall=wall, results=results,
-                            metrics=_http(port, "/metrics")[1])
-
-            cli_args = ["-c", yaml_path, "--tp", str(TP_RANKS), "--host", "127.0.0.1",
-                        "--port", str(port), "--no_warmup", "--scheduler", "continuous",
-                        "--slots", "16", "--max_new_tokens", "64", *flags]
-            reports, wall, run = _tp_launch("serve", os.path.join(tmp, name), cli_args, port,
-                                            drive)
-            mark(f"{name} launch")
+        for name, kw in (("dense", dict(paged=False)),
+                         ("paged_spec3", dict(paged=True, spec_k=3))):
+            reports, run = stage_reports[name], runs[name]
             check(all(r is not None and r[0] == 200 for r in run["results"]),
                   f"{name}: a request failed: {run['results']}")
             for rep in reports:
@@ -5797,7 +6300,7 @@ def phase_serving_tp_full(torch, card):
             for k, v in plain["launches"].items():
                 launches[k] += v
             out[name] = dict(
-                launch_wall_s=wall, requests=len(burst), burst_wall_s=run["wall"],
+                stage_s=reports[0]["stage_s"], requests=len(burst), burst_wall_s=run["wall"],
                 requests_per_s=len(burst) / run["wall"],
                 p50_first_token_s=statistics.median(ttft),
                 rows_equal=[a == b for a, b in zip(got, want_burst)], parted=parted,
@@ -7008,6 +7511,19 @@ def phase_train_whisper_full(torch, card):
     return first["launches"], second["launches"]
 
 
+_WALLS = []  # (phase, seconds) of every phase main() ran, in order
+
+
+def run_phase(fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds kept under its name (without
+    ``phase_``; repeated phases numbered) for the closing "walls" line."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        _WALLS.append((fn.__name__[len("phase_"):], round(time.perf_counter() - t0, 1)))
+
+
 def main() -> int:
     # the tokenizer loader looks for a local HF tokenizer; never reach out
     os.environ.setdefault("HF_HUB_OFFLINE", "1")
@@ -7017,61 +7533,64 @@ def main() -> int:
     # outside a checkout of the repo this import fails before any output
     import llm_speech_summarization_tpu_torch  # noqa: F401
 
-    card = phase_env(torch)
+    card = run_phase(phase_env, torch)
     torch.set_grad_enabled(False)
     builds = start_builds()
     for fut in builds[0]:  # the flash libraries; the decode ones build on
         fut.result()
-    flash = phase_flash(torch, card)
-    flash_f32 = phase_flash_f32(torch, card)
+    flash = run_phase(phase_flash, torch, card)
+    flash_f32 = run_phase(phase_flash_f32, torch, card)
     with torch.enable_grad():  # the SDPA yardstick's backward
-        flash_train = phase_flash_train(torch, card)
-        flash_ring = phase_flash_ring(torch, card)
-        flash_train_f32 = phase_flash_train_f32(torch, card)
-    phase_build(card, builds=builds)
-    fused = phase_fused(torch, card)
-    paged = phase_paged(torch, card)
-    paged_mha = phase_paged(torch, card, PAGED_MHA_SHAPE)
-    paged_tp = phase_paged(torch, card, PAGED_TP_SHAPE)
-    fpaged = phase_fused_paged(torch, card)
-    fpaged_mha = phase_fused_paged(torch, card, PAGED_MHA_SHAPE)
-    fpaged_tp = phase_fused_paged(torch, card, PAGED_TP_SHAPE)
-    dense = phase_dense_decode(torch, card)
-    decode32 = phase_decode_f32(torch, card)
+        flash_train = run_phase(phase_flash_train, torch, card)
+        flash_ring = run_phase(phase_flash_ring, torch, card)
+        flash_train_f32 = run_phase(phase_flash_train_f32, torch, card)
+    run_phase(phase_build, card, builds=builds)
+    fused = run_phase(phase_fused, torch, card)
+    paged = run_phase(phase_paged, torch, card)
+    paged_mha = run_phase(phase_paged, torch, card, PAGED_MHA_SHAPE)
+    paged_tp = run_phase(phase_paged, torch, card, PAGED_TP_SHAPE)
+    fpaged = run_phase(phase_fused_paged, torch, card)
+    fpaged_mha = run_phase(phase_fused_paged, torch, card, PAGED_MHA_SHAPE)
+    fpaged_tp = run_phase(phase_fused_paged, torch, card, PAGED_TP_SHAPE)
+    dense = run_phase(phase_dense_decode, torch, card)
+    decode32 = run_phase(phase_decode_f32, torch, card)
+    mixed = run_phase(phase_decode_mixed, torch, card)
     # serving_tp_full's ranks get ready from here on, after the timed
     # kernel phases
     global _POOL
     _POOL = _RankPool(keep=TP_RANKS)
     atexit.register(_POOL.close)
-    _POOL.fill(3 * TP_RANKS)
-    phase_serving_small(torch, card, *phase_slice(torch, card))
-    phase_slice(torch, card, whisper=True)
-    phase_slice(torch, card, base=True)
+    _POOL.fill(TP_RANKS)
+    run_phase(phase_serving_small, torch, card, *run_phase(phase_slice, torch, card))
+    run_phase(phase_slice, torch, card, whisper=True)
+    run_phase(phase_slice, torch, card, base=True)
     with torch.enable_grad():
-        phase_train_small(torch, card)
-        phase_train_small(torch, card, base=True)
-    launches, eng = phase_full(torch, card)
-    serving = phase_serving_full(torch, card, eng)
+        run_phase(phase_train_small, torch, card)
+        run_phase(phase_train_small, torch, card, base=True)
+    launches, eng = run_phase(phase_full, torch, card)
+    serving = run_phase(phase_serving_full, torch, card, eng)
     gc.collect()
-    tp_launches = phase_serving_tp_full(torch, card)
+    tp_launches = run_phase(phase_serving_tp_full, torch, card)
     gc.collect()
-    f32_runs = phase_f32_full(torch, card, eng)
+    f32_runs = run_phase(phase_f32_full, torch, card, eng)
+    gc.collect()
+    mixed_runs = run_phase(phase_mixed_full, torch, card, eng)
     del eng
     # the servers' threads leave the engine in reference cycles: collect
     # them, or its weights stay allocated into the next phase's peak memory
     gc.collect()
     torch.cuda.empty_cache()
-    minichat_runs = phase_minichat_base_full(torch, card)
+    minichat_runs = run_phase(phase_minichat_base_full, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    router_launches = phase_router_full(torch, card)
+    router_launches = run_phase(phase_router_full, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    bulk_launches, eng = phase_bulk_full(torch, card)
+    bulk_launches, eng = run_phase(phase_bulk_full, torch, card)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    whisper_runs = phase_whisper_full(torch, card)
+    whisper_runs = run_phase(phase_whisper_full, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     import shutil
@@ -7081,48 +7600,49 @@ def main() -> int:
     try:
         export = os.path.join(work, "train_full_encoder.pt")
         with torch.enable_grad():
-            *train_runs, train_bf16 = phase_train_full(torch, card, export)
+            *train_runs, train_bf16 = run_phase(phase_train_full, torch, card, export)
             gc.collect()
             torch.cuda.empty_cache()
-            save_qkv_launches = phase_train_save_qkv_full(torch, card)
+            save_qkv_launches = run_phase(phase_train_save_qkv_full, torch, card)
             gc.collect()
             torch.cuda.empty_cache()
-            f32_train_launches = phase_train_f32_full(torch, card, train_bf16)
+            f32_train_launches = run_phase(phase_train_f32_full, torch, card, train_bf16)
         gc.collect()
         torch.cuda.empty_cache()
-        convert_launches, eng, files = phase_convert_full(torch, card, work)
+        convert_launches, eng, files = run_phase(phase_convert_full, torch, card, work)
         os.remove(files["llm"])  # the engine holds the LLM now
-        preprocess_launches = phase_preprocess_full(torch, card, eng, files["ctc"])
+        preprocess_launches = run_phase(phase_preprocess_full, torch, card, eng, files["ctc"])
         _POOL.fill(2 * RING_RANKS + 2 + 2)  # ring (two launches), dp, tp
-        eval_launches = phase_eval_full(torch, card, eng)
+        eval_launches = run_phase(phase_eval_full, torch, card, eng)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-        ckpt_runs = phase_ckpt_full(torch, card, export, files["ctc"])
+        ckpt_runs = run_phase(phase_ckpt_full, torch, card, export, files["ctc"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     with torch.enable_grad():
-        whisper_train_runs = phase_train_whisper_full(torch, card)
+        whisper_train_runs = run_phase(phase_train_whisper_full, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     with torch.enable_grad():
-        ring_launches = phase_train_ring_full(torch, card)
+        ring_launches = run_phase(phase_train_ring_full, torch, card)
         gc.collect()
         torch.cuda.empty_cache()
-        _POOL.fill(2 + 2 + 8)  # dp, tp and the eight of 3-D
-        dp_launches = phase_train_dp_full(torch, card)
-        tp_launches_train = phase_train_tp_full(torch, card)
-        td_launches = phase_train_3d_small(torch, card)
-        ring_f32_launches = phase_train_ring_f32(torch, card)
+        _POOL.fill(2 + 2 + 8 + 2)  # dp, tp, the eight of 3-D and the float32 ring
+        dp_launches = run_phase(phase_train_dp_full, torch, card)
+        tp_launches_train = run_phase(phase_train_tp_full, torch, card)
+        td_launches = run_phase(phase_train_3d_small, torch, card)
+        ring_f32_launches = run_phase(phase_train_ring_f32, torch, card)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "llm_speech_summarization_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     # launches: the sum over the main-path runs (batch path, three servers,
     # the tensor-parallel ranks, the float32 engine's two batches, B8 stream
-    # and paged server, MiniChat + HuBERT-base with both projectors, its two replicas behind
+    # and paged server, the mixed engine's batch, B8 stream, speculative
+    # engine and paged server, MiniChat + HuBERT-base with both projectors, its two replicas behind
     # the router, the bulk CLI, the Whisper batch path, its B8 stream and
     # server, the trainer, the resumed trainer and the save_qkv trainer,
     # the float32 trainer, the converted-checkpoint engine, preprocessing,
@@ -7131,7 +7651,7 @@ def main() -> int:
     # data-parallel (with its resume on mesh 1,1,1), tensor-parallel and
     # 2,2,2 trainers' ranks, and the float32 ring trainer's ranks)
     for run in ([r["launches"] for r in serving.values()] + [tp_launches] + f32_runs
-                + minichat_runs
+                + mixed_runs + minichat_runs
                 + [router_launches]
                 + [bulk_launches] + whisper_runs + train_runs + [save_qkv_launches]
                 + [f32_train_launches]
@@ -7183,6 +7703,18 @@ def main() -> int:
         kernels.append(entry(name, "decode_f32.cu", replaces, key, decode32[case],
                              [r["max_abs_err"] for k, r in decode32.items()
                               if k.startswith(prefix)]))
+    for name, replaces, key, case, prefix in (  # the mixed instances, decode_f32.cu
+            ("fused_decode_attention_write_mixed", "fused_decode.py:169",
+             "fused_decode_attention_write_mixed", "b3_mixed_T1", "b3"),
+            ("paged_decode_attention_mixed", "paged_attention.py:115", "paged_attention_mixed",
+             "b4_mixed_T4", "b4"),
+            ("fused_paged_decode_mixed", "fused_paged.py:118", "fused_paged_mixed",
+             "b5_mixed_T1", "b5"),
+            ("decode_attention_mixed", "decode_attention.py:47", "decode_attention_mixed",
+             "b8_mixed", "b8")):
+        kernels.append(entry(name, "decode_f32.cu", replaces, key, mixed[case],
+                             [r["max_abs_err"] for k, r in mixed.items()
+                              if k.startswith(prefix)]))
     for name, source, replaces, key in (
             ("flash_attention_lse", "flash_attention.cu", "flash_attention.py:37", "fwd_lse"),
             ("flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:202", "dq"),
@@ -7219,6 +7751,8 @@ def main() -> int:
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"no main-path run launched {idle}")
+    emit("walls", phases=[dict(phase=name, seconds=sec) for name, sec in _WALLS],
+         total_s=round(time.perf_counter() - _START, 1), card=card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

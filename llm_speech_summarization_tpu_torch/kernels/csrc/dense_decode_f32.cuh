@@ -2,7 +2,9 @@
 // KV cache or of page-major (L, P, Hkv, ps, Dh) pools, for Hopper
 // (sm_90a): the body of the float32 instances of B2 and B3 (dense, with the
 // in-place write of the fresh tokens), B8 (dense, read only), B4 (paged,
-// read only) and B5 (paged, with the page write), all in decode_f32.cu.
+// read only) and B5 (paged, with the page write), and of the mixed
+// instances of B3, B8, B4 and B5 (a bf16 query over a float32 cache), all
+// in decode_f32.cu.
 //
 // Replaces the TPU kernels of llm_speech_summarization_tpu/kernels/
 // fused_decode.py (_fused_kernel_aliased, _fused_kernel),
@@ -11,6 +13,31 @@
 // kernels cast the cache to q's dtype, accumulate in float32 and cast p to
 // q's dtype, so at float32 nothing in them rounds below float32. The bf16
 // instances are dense_decode.cuh's; it stays as it is.
+//
+// The mixed instances (QT = bf16; the query type is a template parameter)
+// replace the same TPU kernels at a bf16 query over a float32 cache, the
+// mix the JAX engine decodes at with bf16 parameters at compute_dtype
+// float32 (the decode steps run in the norms' dtype, the cache in
+// float32). What those kernels compute there, and so these instances:
+//   * q and the fresh k/v are read as bf16 and widened exactly;
+//   * each cached k and v is rounded to bf16 (round to nearest even) as it
+//     is staged, before any product: the kernels cast the cache to q's
+//     dtype. The products of two bf16 values are exact in float32, so FFMA
+//     over them is a bf16 x bf16 -> float32 MMA up to the order of the sums;
+//   * p over the cache is rounded to bf16 before P . V (the kernels cast p
+//     to q's dtype); the denominator sums it unrounded;
+//   * the fresh block's p and values are attended unrounded, as the Pallas
+//     kernels do (the port's plain versions follow fused_reference, which
+//     rounds the fresh p to bf16 too; the test bound covers both);
+//   * the output is rounded to bf16 once, after the split merge (the merge
+//     kernel writes bf16);
+//   * the write (B3, B5) widens the bf16 fresh values into the float32
+//     cache or pages, bit for bit.
+// What bounds them: the float32 cache bytes, 512 B a row at Dh = 128 (k
+// and v: 1 KiB a slot), as for the float32 instances over a float32 cache;
+// their products are the float32 instances' less the q rounding. The FFMA
+// design is the simple one; tensor cores (bf16 mma over the rounded tiles)
+// and asynchronous copies are left to a later change.
 //
 // What it computes, per (sample b, kv head h): the R = T * G query rows
 // (ordered (t, g), G = Hq / Hkv) attend the cache slots pad[b] <= s <
@@ -114,19 +141,19 @@ struct Cache<__nv_bfloat16> {
 };
 
 struct Args {
-  const float* q;  // (B, T, Hq, Dh), strides below
+  const void* q;   // (B, T, Hq, Dh) of the query type QT, strides below
   void* kc;        // dense (L, B, Hkv, S, Dh), paged (L, P, Hkv, ps, Dh) values
   void* vc;
   __nv_bfloat16* ks;  // int8: per-slot scales, dense (.., B, Hkv, S) at scale_layer,
   __nv_bfloat16* vs;  // paged (L, P, Hkv, ps) at layer
   __nv_bfloat16* ks_new;  // int8 + WRITE: (B, Hkv, T) fresh scales, or null to write
   __nv_bfloat16* vs_new;  // them into ks / vs at the fresh slots
-  const float* kn;  // (B, T, Hkv, Dh) fresh keys / values, strides below
-  const float* vn;
+  const void* kn;  // (B, T, Hkv, Dh) fresh keys / values of type QT, strides below
+  const void* vn;
   const int* pads;     // (B,)
   const int* offsets;  // (B,) offsets (paged: lengths), or null: every row at `offset`
   int offset;
-  float* out;   // contiguous (B, T, Hq, Dh)
+  void* out;    // contiguous (B, T, Hq, Dh) of type QT
   float* part;  // nsplit > 1: (B * Hkv, nsplit, R, Dh + 2), else null
   int nsplit;
   int B, T, Hq, Hkv, S, layer, scale_layer;
@@ -187,6 +214,25 @@ __device__ __forceinline__ float4 quad_to_float(typename Cache<CT>::Quad w) {
   }
 }
 
+// a query, fresh or output element of type QT as a float (exact), and a
+// float into one (bf16: round to nearest even)
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename QT>
+__device__ __forceinline__ QT from_float(float x) {
+  if constexpr (sizeof(QT) == 4) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// x rounded to bf16 (nearest even) and widened back: the mixed instances'
+// cached values and p over the cache
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // a float32 value into a cache slot of type CT (int8 is quantized apart)
 template <typename CT>
 __device__ __forceinline__ CT store_as(float x) {
@@ -208,9 +254,13 @@ __device__ __forceinline__ int page_id(const Args& a, int b, int t) {
   return pid < 0 || pid >= a.P ? 0 : pid;
 }
 
-template <typename CT, int DH, bool WRITE, bool PAGED>
+template <typename CT, typename QT, int DH, bool WRITE, bool PAGED>
 __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
   constexpr bool QUANT = Cache<CT>::QUANT;
+  constexpr bool MIXED = sizeof(QT) == 2;  // a bf16 query: cache values and p rounded to bf16
+  const QT* qp = static_cast<const QT*>(a.q);
+  const QT* knp = static_cast<const QT*>(a.kn);
+  const QT* vnp = static_cast<const QT*>(a.vn);
   constexpr int Q4 = DH / 4;              // float4 groups of a row
   constexpr int PER = CH * Q4 / THREADS;  // groups of a K (or V) chunk per thread
   constexpr int RPW = MAXR / NWARP;       // softmax: rows per warp
@@ -243,7 +293,7 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
   for (int i = tid; i < R * DH; i += THREADS) {
     const int r = i / DH, d = i % DH;
     const int t = r / G, g = r % G;
-    q_s[i] = a.q[b * a.q_sb + t * a.q_st + (h * G + g) * a.q_sh + d];
+    q_s[i] = to_float(qp[b * a.q_sb + t * a.q_st + (h * G + g) * a.q_sh + d]);
     acc_s[i] = 0.f;
   }
   const int pad = max(a.pads[b], 0);
@@ -317,8 +367,8 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
     if (fresh) {
       for (int i = tid; i < T * DH; i += THREADS) {
         const int j = i / DH, d = i % DH;
-        k_s[j * (DH + 1) + d] = a.kn[b * a.kn_sb + j * a.kn_st + h * a.kn_sh + d];
-        v_s[i] = a.vn[b * a.vn_sb + j * a.vn_st + h * a.vn_sh + d];
+        k_s[j * (DH + 1) + d] = to_float(knp[b * a.kn_sb + j * a.kn_st + h * a.kn_sh + d]);
+        v_s[i] = to_float(vnp[b * a.vn_sb + j * a.vn_st + h * a.vn_sh + d]);
       }
       if (tid < T) ksc[tid] = vsc[tid] = 1.f;
     } else {
@@ -327,13 +377,20 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
         const int i = tid + THREADS * u;
         const int j = i / Q4, c = 4 * (i % Q4);
         if (j < n) {
-          const float4 kx = quad_to_float<CT>(kq[u]);
+          float4 kx = quad_to_float<CT>(kq[u]);
+          float4 vx = quad_to_float<CT>(vq[u]);
+          if constexpr (MIXED) {
+            kx = make_float4(bf16_round(kx.x), bf16_round(kx.y), bf16_round(kx.z),
+                             bf16_round(kx.w));
+            vx = make_float4(bf16_round(vx.x), bf16_round(vx.y), bf16_round(vx.z),
+                             bf16_round(vx.w));
+          }
           float* kr = k_s + j * (DH + 1) + c;
           kr[0] = kx.x;
           kr[1] = kx.y;
           kr[2] = kx.z;
           kr[3] = kx.w;
-          *reinterpret_cast<float4*>(v_s + j * DH + c) = quad_to_float<CT>(vq[u]);
+          *reinterpret_cast<float4*>(v_s + j * DH + c) = vx;
         }
       }
       if (tid < n) {
@@ -363,7 +420,9 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
     }
     __syncthreads();
 
-    // ---- the online softmax, a warp per row: p = 2^(s - m) by selection
+    // ---- the online softmax, a warp per row: p = 2^(s - m) by selection;
+    // the mixed instances round p over the cache to bf16 for P . V
+    const bool round_p = MIXED && !fresh;
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = warp + NWARP * i;
@@ -381,8 +440,14 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
         const float p1 = ok1 ? exp2f(s1 - m_new) : 0.f;
         l_run[i] = l_run[i] * alpha + warp_sum(p0 + p1);
         m_run[i] = m_new;
-        if (j0 < n) p_s[r * CH + j0] = p0 * vsc[j0];
-        if (j1 < n) p_s[r * CH + j1] = p1 * vsc[j1];
+        if (j0 < n) {
+          const float w = p0 * vsc[j0];
+          p_s[r * CH + j0] = round_p ? bf16_round(w) : w;
+        }
+        if (j1 < n) {
+          const float w = p1 * vsc[j1];
+          p_s[r * CH + j1] = round_p ? bf16_round(w) : w;
+        }
         if (lane == 0) al_s[r] = alpha;
       }
     }
@@ -421,7 +486,8 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
     const int r = e / DH, d = e - r * DH;
     if (nsplit == 1) {
       const int t = r / G, g = r % G;
-      a.out[(((size_t)b * T + t) * a.Hq + h * G + g) * DH + d] = acc_s[e] / l_s[r];
+      static_cast<QT*>(a.out)[(((size_t)b * T + t) * a.Hq + h * G + g) * DH + d] =
+          from_float<QT>(acc_s[e] / l_s[r]);
     } else {
       float* part = a.part + (((size_t)blockIdx.x * nsplit + split) * R + r) * (DH + 2);
       part[2 + d] = acc_s[e];
@@ -439,8 +505,8 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
       for (int i = warp; i < 2 * T; i += NWARP) {
         const int t = i / 2;
         const bool is_v = (i % 2) == 1;
-        const float* src = is_v ? a.vn + b * a.vn_sb + t * a.vn_st + h * a.vn_sh
-                                : a.kn + b * a.kn_sb + t * a.kn_st + h * a.kn_sh;
+        const QT* src = is_v ? vnp + b * a.vn_sb + t * a.vn_st + h * a.vn_sh
+                             : knp + b * a.kn_sb + t * a.kn_st + h * a.kn_sh;
         const int slot = off + t;
         bool inside = slot >= 0 && slot < S;  // the wrapper guarantees offsets + T <= S
         CT* dst = const_cast<CT*>(is_v ? vslab : kslab) + (size_t)slot * DH;
@@ -453,7 +519,7 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
         }
         float x[EPL];
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) x[e] = src[lane * EPL + e];
+        for (int e = 0; e < EPL; ++e) x[e] = to_float(src[lane * EPL + e]);
         if constexpr (QUANT) {
           float amax = 0.f;
 #pragma unroll
@@ -485,9 +551,10 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
 }
 
 // the splits of each (sample, kv head) merged in split order into the
-// float32 output: a block per (sample, kv head), a thread per (row, head
-// dim); a split without a slot has max -1e30 and sum 0 and adds nothing
-template <int DH>
+// output of type QT (rounded once, here): a block per (sample, kv head), a
+// thread per (row, head dim); a split without a slot has max -1e30 and sum
+// 0 and adds nothing
+template <typename QT, int DH>
 __global__ void __launch_bounds__(MERGE_THREADS) decode_f32_merge_kernel(const Args a) {
   const int Hkv = a.Hkv, T = a.T, G = a.Hq / Hkv, R = T * G, n = a.nsplit;
   const int b = blockIdx.x / Hkv;
@@ -516,32 +583,33 @@ __global__ void __launch_bounds__(MERGE_THREADS) decode_f32_merge_kernel(const A
       }
     }
     const int t = r / G, g = r % G;
-    a.out[(((size_t)b * T + t) * a.Hq + h * G + g) * DH + d] = A / L;
+    static_cast<QT*>(a.out)[(((size_t)b * T + t) * a.Hq + h * G + g) * DH + d] =
+        from_float<QT>(A / L);
   }
 }
 
-template <typename CT, int DH, bool WRITE, bool PAGED>
+template <typename CT, typename QT, int DH, bool WRITE, bool PAGED>
 int launch(const Args& a, cudaStream_t stream) {
   const int smem = Layout<DH>(a.T * (a.Hq / a.Hkv)).bytes;
-  auto kernel = decode_f32_kernel<CT, DH, WRITE, PAGED>;
+  auto kernel = decode_f32_kernel<CT, QT, DH, WRITE, PAGED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(a.B * a.Hkv, a.nsplit), THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.nsplit == 1) return (int)err;
-  decode_f32_merge_kernel<DH><<<a.B * a.Hkv, MERGE_THREADS, 0, stream>>>(a);
+  decode_f32_merge_kernel<QT, DH><<<a.B * a.Hkv, MERGE_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// the instance for the cache type, head dim and layout of `a`
-template <typename CT, bool WRITE, bool PAGED>
+// the instance for the cache type, query type, head dim and layout of `a`
+template <typename CT, typename QT, bool WRITE, bool PAGED>
 int dispatch(const Args& a, int Dh, cudaStream_t s) {
   if (a.nsplit < 1 || a.nsplit > MAX_SPLITS || a.T * (a.Hq / a.Hkv) > MAXR) {
     return (int)cudaErrorInvalidValue;
   }
-  if (Dh == 128) return launch<CT, 128, WRITE, PAGED>(a, s);
-  if (Dh == 64) return launch<CT, 64, WRITE, PAGED>(a, s);
+  if (Dh == 128) return launch<CT, QT, 128, WRITE, PAGED>(a, s);
+  if (Dh == 64) return launch<CT, QT, 64, WRITE, PAGED>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,10 @@ fresh k/v into the cache after it.
 A float32 query takes ``decode_attention_f32`` (its own launch count), the
 read-only dense instance of the float32 decode library (``csrc/
 decode_f32.cu``, ``fused_decode.launch_f32``), over a float32, int8 or
-bfloat16 cache; its output is float32.
+bfloat16 cache; its output is float32. A bfloat16 query over a float32
+cache takes ``decode_attention_mixed`` (its own launch count), the same
+library's bf16-query instance (each cached value and p over the cache
+rounded to bf16, as the TPU kernel casts them; a bfloat16 output).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from .fused_decode import (
     MAX_SMEM,
     _devices,
     check_decode_operands,
-    compute_dtype,
+    decode_route,
     dense_attention_reference,
     dense_splits,
     launch_f32,
@@ -90,11 +93,12 @@ def decode_attention(
     if _devices(what, (q, k_cache, v_cache, k_new, v_new, pad_lens)) == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, k_new, v_new, pad_lens, offset,
                                           k_scale, v_scale)
-    if compute_dtype(what, q, k_new, v_new) == torch.float32:
-        return decode_attention_f32(q, k_cache, v_cache, k_new, v_new, pad_lens, offset,
-                                    k_scale, v_scale)
+    route = decode_route(what, q, k_new, v_new, k_cache.dtype)
+    if route != "bf16":
+        wrapper = decode_attention_f32 if route == "f32" else decode_attention_mixed
+        return wrapper(q, k_cache, v_cache, k_new, v_new, pad_lens, offset, k_scale, v_scale)
     B, Hq, Hkv, S, Dh, offset = _check_call(what, q, k_cache, v_cache, k_new, v_new, pad_lens,
-                                            offset, k_scale, v_scale, torch.bfloat16)
+                                            offset, k_scale, v_scale, "bf16")
     cache_bytes = CACHE_BYTES[k_cache.dtype]
     lib = _lib()
     smem = lib.lss_decode_attention_smem_bytes(Dh, Hq // Hkv, S, cache_bytes)
@@ -123,37 +127,56 @@ def decode_attention_f32(q, k_cache, v_cache, k_new, v_new, pad_lens, offset, k_
     """B8's float32 instance: float32 q (B, 1, Hq, Dh) and fresh k/v over
     one layer's float32, bfloat16 or int8 cache; returns a float32 out.
     Arguments as ``decode_attention``."""
-    what = "decode_attention_f32"
+    return _launch_body(decode_attention_f32, "f32", q, k_cache, v_cache, k_new, v_new, pad_lens,
+                        offset, k_scale, v_scale)
+
+
+def decode_attention_mixed(q, k_cache, v_cache, k_new, v_new, pad_lens, offset, k_scale=None,
+                           v_scale=None):
+    """B8's mixed instance: a bfloat16 q (B, 1, Hq, Dh) and fresh k/v over
+    one layer's float32 cache, each cached value and p over the cache
+    rounded to bf16 as the TPU kernel casts them; returns a bfloat16 out.
+    Arguments as ``decode_attention``."""
+    return _launch_body(decode_attention_mixed, "mixed", q, k_cache, v_cache, k_new, v_new,
+                        pad_lens, offset, k_scale, v_scale)
+
+
+def _launch_body(wrapper, route, q, k_cache, v_cache, k_new, v_new, pad_lens, offset, k_scale,
+                 v_scale):
+    """B8 through the float32 decode library on the ``route`` ("f32" or
+    "mixed"): the plain version for CPU tensors."""
+    what = wrapper.__name__
     if _devices(what, (q, k_cache, v_cache, k_new, v_new, pad_lens)) == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, k_new, v_new, pad_lens, offset,
                                           k_scale, v_scale)
     B, Hq, Hkv, S, Dh, offset = _check_call(what, q, k_cache, v_cache, k_new, v_new, pad_lens,
-                                            offset, k_scale, v_scale, torch.float32)
+                                            offset, k_scale, v_scale, route)
     nsplit = dense_splits(B, Hkv, offset, sm_count(q.device.index))
     part = split_scratch(nsplit, B, Hkv, Hq // Hkv, Dh, q.device)
     # the one-layer view as a cache of one layer, every row at `offset`
-    return launch_f32(decode_attention_f32, q, k_cache[None], v_cache[None],
+    return launch_f32(wrapper, q, k_cache[None], v_cache[None],
                       None if k_scale is None else k_scale[None],
                       None if v_scale is None else v_scale[None], k_new, v_new, pad_lens,
                       nsplit, part, offset=offset)
 
 
 def _check_call(what, q, k_cache, v_cache, k_new, v_new, pad_lens, offset, k_scale, v_scale,
-                dtype):
-    """The checks of a CUDA call of the ``dtype`` route; returns (B, Hq,
-    Hkv, S, Dh, offset)."""
+                route):
+    """The checks of a CUDA call of the ``route``; returns (B, Hq, Hkv, S,
+    Dh, offset)."""
     if k_cache.dim() != 4 or q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"{what}: the kernel takes q (B, 1, Hq, Dh) and one layer's "
                          f"(B, Hkv, S, Dh) cache; got q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)}")
     B, _, Hq, Hkv, S, Dh = check_decode_operands(
         what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
-        tuple(k_cache.shape[:3]), dtype)
+        tuple(k_cache.shape[:3]), route)
     return B, Hq, Hkv, S, Dh, _check_offset(offset, S)
 
 
 decode_attention.launches = 0
 decode_attention_f32.launches = 0
+decode_attention_mixed.launches = 0
 
 
 def _lib():

@@ -21,9 +21,17 @@ A float32 query takes the float32 instances, ``fused_decode_f32`` and
 library ``csrc/decode_f32.cu`` over ``csrc/dense_decode_f32.cuh``, which
 B4, B5 and B8 share at float32 too (``launch_f32``). They take an int8, a
 float32 or a bfloat16 cache, float32 fresh k/v, and return a float32
-output; the int8 cache's scales stay bfloat16. A mixed call (a bfloat16
-query over a float32 cache, or a float32 query with bfloat16 fresh values)
-raises: it is not ported.
+output; the int8 cache's scales stay bfloat16.
+
+A bfloat16 query over a float32 cache (bf16 parameters at
+``compute_dtype: float32``: the prefill fills a float32 cache, the decode
+steps run in the norms' bf16) takes B3's mixed instance,
+``fused_decode_attention_write_mixed`` (its own launch count): the same
+library's bf16-query instance, which rounds each cached value and p over
+the cache to bf16 as the TPU kernel casts them to q's dtype, returns a
+bfloat16 output and widens the fresh values into the cache bit for bit.
+``decode_route`` picks the route from the query's dtype and the cache's;
+a float32 query with bfloat16 fresh values, and float16, raise.
 
 For layer ``layer`` of the cache, each of the T >= 1 fresh queries attends
 the slots ``pad <= s < offset`` plus the fresh block causally; then the
@@ -63,10 +71,12 @@ MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use on sm_90
 MAX_SPLITS = 8  # the most the merge kernel takes (csrc/dense_decode.cuh)
 SPLIT_GAIN_SLOTS = 256
 CACHE_BYTES = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}
-# the cache types each route takes, by the query's dtype: the bf16 body's
-# and the float32 body's
-CACHE_TYPES = {torch.bfloat16: (torch.int8, torch.bfloat16),
-               torch.float32: (torch.int8, torch.bfloat16, torch.float32)}
+# each route's query dtype and the cache types it takes: the bf16 body's,
+# the float32 body's, and the float32 body's bf16-query (mixed) instances
+ROUTE_QUERY = {"bf16": torch.bfloat16, "f32": torch.float32, "mixed": torch.bfloat16}
+CACHE_TYPES = {"bf16": (torch.int8, torch.bfloat16),
+               "f32": (torch.int8, torch.bfloat16, torch.float32),
+               "mixed": (torch.float32,)}
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -244,7 +254,7 @@ def fused_decode(
         return fused_decode_reference(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
                                       pad_lens, offsets, layer)
     _check_int8_cache(what, k_cache, k_scale, v_scale)
-    if compute_dtype(what, q, k_new, v_new) == torch.float32:
+    if decode_route(what, q, k_new, v_new, k_cache.dtype) == "f32":
         return fused_decode_f32(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
                                 offsets, layer, max_offset=max_offset)
     return _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offsets,
@@ -263,7 +273,7 @@ def fused_decode_f32(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_le
     _check_int8_cache(what, k_cache, k_scale, v_scale)
     return _launch_dense(fused_decode_f32, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
                          pad_lens, offsets, layer, max_offset, per_layer_scales=False,
-                         float32=True)
+                         route="f32")
 
 
 def _check_int8_cache(what, k_cache, k_scale, v_scale):
@@ -273,16 +283,21 @@ def _check_int8_cache(what, k_cache, k_scale, v_scale):
                          "fused_decode_attention_write")
 
 
-def compute_dtype(what, q, k_new, v_new) -> torch.dtype:
-    """The route of a CUDA call, from the query's dtype: bfloat16 (the bf16
-    body) or float32 (the float32 body); the fresh k/v must share it."""
-    if q.dtype not in CACHE_TYPES:
+def decode_route(what, q, k_new, v_new, cache_dtype) -> str:
+    """The route of a CUDA call, from the query's dtype and the cache's:
+    "f32" (the float32 body) for a float32 query; "mixed" (the float32
+    body's bf16-query instances) for a bfloat16 query over a float32 cache
+    or pools; "bf16" (the bf16 body) for a bfloat16 query over any other.
+    The fresh k/v must share the query's dtype."""
+    if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what}: a {q.dtype} query is not ported; the kernels take bfloat16 "
                          "or float32")
     if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise ValueError(f"{what}: mixed dtypes are not ported: a {q.dtype} query with "
                          f"{k_new.dtype} / {v_new.dtype} fresh values")
-    return q.dtype
+    if q.dtype == torch.float32:
+        return "f32"
+    return "mixed" if cache_dtype == torch.float32 else "bf16"
 
 
 def fused_decode_attention_write(
@@ -309,7 +324,8 @@ def fused_decode_attention_write(
     verification forward over a float cache to XLA; this wrapper takes
     T >= 1 over a bfloat16 cache, so that forward launches the kernel too.
     The int8 mode keeps the TPU signature: T = 1. A float32 query goes to
-    ``fused_decode_attention_write_f32``."""
+    ``fused_decode_attention_write_f32``, a bfloat16 one over a float32
+    cache to ``fused_decode_attention_write_mixed``."""
     what = "fused_decode_attention_write"
     if (k_scale_layer is None) != (v_scale_layer is None):
         raise ValueError(f"{what}: pass both layer scales or neither")
@@ -320,10 +336,15 @@ def fused_decode_attention_write(
         return fused_decode_attention_write_reference(q, k_cache, v_cache, k_new, v_new,
                                                       pad_lens, offsets, layer, k_scale_layer,
                                                       v_scale_layer)
-    if compute_dtype(what, q, k_new, v_new) == torch.float32:
+    route = decode_route(what, q, k_new, v_new, k_cache.dtype)
+    if route == "f32":
         return fused_decode_attention_write_f32(q, k_cache, v_cache, k_new, v_new, pad_lens,
                                                 offsets, layer, k_scale_layer, v_scale_layer,
                                                 max_offset=max_offset)
+    if route == "mixed":
+        return fused_decode_attention_write_mixed(q, k_cache, v_cache, k_new, v_new, pad_lens,
+                                                  offsets, layer, k_scale_layer, v_scale_layer,
+                                                  max_offset=max_offset)
     return _launch_dense(fused_decode_attention_write, q, k_cache, v_cache, k_scale_layer,
                          v_scale_layer, k_new, v_new, pad_lens, offsets, layer, max_offset,
                          per_layer_scales=True)
@@ -348,11 +369,29 @@ def fused_decode_attention_write_f32(q, k_cache, v_cache, k_new, v_new, pad_lens
                                                       v_scale_layer)
     return _launch_dense(fused_decode_attention_write_f32, q, k_cache, v_cache, k_scale_layer,
                          v_scale_layer, k_new, v_new, pad_lens, offsets, layer, max_offset,
-                         per_layer_scales=True, float32=True)
+                         per_layer_scales=True, route="f32")
+
+
+def fused_decode_attention_write_mixed(q, k_cache, v_cache, k_new, v_new, pad_lens, offsets,
+                                       layer, k_scale_layer=None, v_scale_layer=None, *,
+                                       max_offset=None):
+    """B3's mixed instance: a bfloat16 q and fresh k/v (T >= 1) over a
+    float32 cache (which takes no scales), each cached value and p over the
+    cache rounded to bf16 as the TPU kernel casts them, the fresh values
+    widened into the cache bit for bit; returns a bfloat16 out (B, T, Hq,
+    Dh). Arguments as ``fused_decode_attention_write``."""
+    what = "fused_decode_attention_write_mixed"
+    if _devices(what, (q, k_cache, v_cache, k_new, v_new, pad_lens, offsets)) == "cpu":
+        return fused_decode_attention_write_reference(q, k_cache, v_cache, k_new, v_new,
+                                                      pad_lens, offsets, layer, k_scale_layer,
+                                                      v_scale_layer)
+    return _launch_dense(fused_decode_attention_write_mixed, q, k_cache, v_cache, k_scale_layer,
+                         v_scale_layer, k_new, v_new, pad_lens, offsets, layer, max_offset,
+                         per_layer_scales=True, route="mixed")
 
 
 for _wrapper in (fused_decode, fused_decode_f32, fused_decode_attention_write,
-                 fused_decode_attention_write_f32):
+                 fused_decode_attention_write_f32, fused_decode_attention_write_mixed):
     _wrapper.launches = 0
 
 
@@ -369,12 +408,13 @@ def _lib():
 
 
 def _f32_lib():
-    """The float32 decode library (B2, B3, B4, B5 and B8 at float32)."""
+    """The float32 decode library (B2, B3, B4, B5 and B8 at float32; B3,
+    B4, B5 and B8 at a bf16 query over a float32 cache)."""
     lib = load_library("decode_f32", F32_SOURCES)
     fn = lib.lss_decode_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 14 + [i] * 16 + [p, ctypes.c_float, p]
+        fn.argtypes = [p] * 14 + [i] * 17 + [p, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         lib.lss_decode_f32_smem_bytes.argtypes = [i] * 2
         lib.lss_decode_f32_smem_bytes.restype = ctypes.c_longlong
@@ -385,8 +425,9 @@ def launch_f32(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad
                part, *, offsets=None, offset=0, layer=0, scale_layer=0, page_table=None, P=0,
                ps=0, mp=0, write=False, fresh_scales=(None, None)):
     """One launch of the float32 decode library for ``wrapper`` (its count
-    goes up by one), on operands its checks passed: returns the float32 out
-    (B, T, Hq, Dh). Dense caches are (L, B, Hkv, S, Dh) read at ``layer``
+    goes up by one), on operands its checks passed: returns the out (B, T,
+    Hq, Dh) in q's dtype (float32, or bfloat16 for the mixed instances over
+    a float32 cache). Dense caches are (L, B, Hkv, S, Dh) read at ``layer``
     (B8's one-layer view: L = 1); paged pools (L, P, Hkv, ps, Dh) through
     ``page_table``. ``nsplit`` and ``part`` as the bf16 launches take them
     (``split_scratch``). ``fresh_scales``: the (B, Hkv, T) bf16 outputs of
@@ -401,7 +442,7 @@ def launch_f32(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad
     if smem > MAX_SMEM:
         raise ValueError(f"{what}: T={T} Hq/Hkv={Hq // Hkv} needs {smem} bytes of shared "
                          f"memory (limit {MAX_SMEM})")
-    out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, T, Hq, Dh), dtype=q.dtype, device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     strides = (ctypes.c_longlong * 9)(*(q.stride()[:3] + k_new.stride()[:3]
                                         + v_new.stride()[:3]))
@@ -412,7 +453,8 @@ def launch_f32(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad
             *(ptr(f) for f in fresh_scales), k_new.data_ptr(), v_new.data_ptr(),
             pad_lens.data_ptr(), ptr(offsets), ptr(page_table), out.data_ptr(), ptr(part),
             nsplit, int(offset), B, T, Hq, Hkv, S, Dh, int(layer), int(scale_layer), P, ps, mp,
-            CACHE_BYTES[k_cache.dtype], int(paged), int(write), strides, Dh ** -0.5, stream)
+            CACHE_BYTES[k_cache.dtype], int(paged), int(write), q.element_size(), strides,
+            Dh ** -0.5, stream)
     count_launch(wrapper)
     check_status(status, what)
     return out
@@ -434,23 +476,26 @@ def check_separate_storage(what: str, tensors) -> None:
                                  "storage (in-place writes would corrupt each other)")
 
 
-def cache_type_error(what, dtype, k_cache, v_cache, kind="cache"):
-    """The refusal of a cache (or pools) the ``dtype`` route does not take."""
-    if dtype == torch.bfloat16:
+def cache_type_error(what, route, k_cache, v_cache, kind="cache"):
+    """The refusal of a cache (or pools) the ``route`` does not take."""
+    if route == "bf16":
         return ValueError(f"{what}: the kernel takes a bfloat16 or int8 {kind} under a "
                           f"bfloat16 query, got {k_cache.dtype} and {v_cache.dtype} (a "
-                          "bfloat16 query over a float32 cache is not ported)")
+                          f"bfloat16 query over a float32 {kind} takes the mixed instance)")
+    if route == "mixed":
+        return ValueError(f"{what}: the mixed kernel takes a float32 {kind} under a bfloat16 "
+                          f"query, got {k_cache.dtype} and {v_cache.dtype}")
     return ValueError(f"{what}: the float32 kernel takes an int8, bfloat16 or float32 {kind}, "
                       f"got {k_cache.dtype} and {v_cache.dtype}")
 
 
 def check_decode_operands(what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
-                          pad_lens, scale_shape, dtype=torch.bfloat16):
+                          pad_lens, scale_shape, route="bf16"):
     """The checks the dense decode kernels share: shapes, caches of the
-    types the ``dtype`` route takes (int8 with bf16 scales of
-    ``scale_shape``, the others without), q and fresh k/v of ``dtype`` with
-    a unit last stride, int32 pads and one device. Returns (B, T, Hq, Hkv,
-    S, Dh)."""
+    types the ``route`` takes (int8 with bf16 scales of ``scale_shape``,
+    the others without), q and fresh k/v of the route's query dtype with a
+    unit last stride, int32 pads and one device. Returns (B, T, Hq, Hkv, S,
+    Dh)."""
     if q.dim() != 4 or k_cache.dim() < 4:
         raise ValueError(f"{what}: q must be (B, T, Hq, Dh), the cache (.., B, Hkv, S, Dh)")
     B, T, Hq, Dh = q.shape
@@ -462,8 +507,8 @@ def check_decode_operands(what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_
         raise ValueError(f"{what}: the kernel takes Dh in (64, 128) and "
                          f"1 <= T * Hq / Hkv <= {MAX_ROWS}; got T={T} Hq={Hq} Hkv={Hkv} "
                          f"Dh={Dh}")
-    if k_cache.dtype not in CACHE_TYPES[dtype] or v_cache.dtype != k_cache.dtype:
-        raise cache_type_error(what, dtype, k_cache, v_cache)
+    if k_cache.dtype not in CACHE_TYPES[route] or v_cache.dtype != k_cache.dtype:
+        raise cache_type_error(what, route, k_cache, v_cache)
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()) or any(
             t.data_ptr() % 16 for t in (k_cache, v_cache)):
         raise ValueError(f"{what}: caches must be contiguous with a 16-byte aligned base")
@@ -475,6 +520,7 @@ def check_decode_operands(what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_
                               or not t.is_contiguous()):
             raise ValueError(f"{what}: {name} must be a contiguous {scale_shape} bfloat16 "
                              f"tensor")
+    dtype = ROUTE_QUERY[route]
     for name, t, heads in (("q", q, Hq), ("k_new", k_new, Hkv), ("v_new", v_new, Hkv)):
         if t.dtype != dtype or t.shape != (B, T, heads, Dh) or t.stride(-1) != 1:
             raise ValueError(f"{what}: {name} must be ({B}, {T}, {heads}, {Dh}) "
@@ -496,17 +542,17 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens, offse
 
 
 def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
-                  offsets, layer, max_offset, per_layer_scales, float32=False):
-    """B2 (``per_layer_scales`` off) or B3 on CUDA tensors: the bf16 body,
-    or with ``float32`` the float32 one."""
+                  offsets, layer, max_offset, per_layer_scales, route="bf16"):
+    """B2 (``per_layer_scales`` off) or B3 on CUDA tensors: the bf16 body
+    (``route`` "bf16"), or the float32 body's float32 ("f32") or
+    bf16-query ("mixed") instance."""
     what = wrapper.__name__
     if k_cache.dim() != 5:
         raise ValueError(f"{what}: caches must be (L, B, Hkv, S, Dh)")
     L = k_cache.shape[0]
     B, T, Hq, Hkv, S, Dh = check_decode_operands(
         what, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
-        tuple(k_cache.shape[1:4]) if per_layer_scales else tuple(k_cache.shape[:4]),
-        torch.float32 if float32 else torch.bfloat16)
+        tuple(k_cache.shape[1:4]) if per_layer_scales else tuple(k_cache.shape[:4]), route)
     if not 0 <= layer < L:
         raise ValueError(f"{what}: layer {layer} outside [0, {L})")
     check_separate_storage(what, [t for t in (k_cache, v_cache, k_scale, v_scale)
@@ -524,7 +570,7 @@ def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, 
     if per_layer_scales and k_scale is not None:
         fresh = [torch.empty((B, Hkv, T), dtype=torch.bfloat16, device=q.device)
                  for _ in range(2)]
-    if float32:
+    if route != "bf16":
         out = launch_f32(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad_lens,
                          nsplit, part, offsets=offsets, layer=layer,
                          scale_layer=0 if per_layer_scales else layer, write=True,

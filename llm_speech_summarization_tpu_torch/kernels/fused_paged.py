@@ -23,7 +23,11 @@ A float32 query takes ``fused_paged_decode_f32`` (its own launch count),
 the paged writing instance of the float32 decode library (``csrc/
 decode_f32.cu``, ``fused_decode.launch_f32``), over int8, float32 or
 bfloat16 pools, float32 fresh k/v and a float32 output; float32 pools take
-the fresh values bit for bit.
+the fresh values bit for bit. A bfloat16 query over float32 pools takes
+``fused_paged_decode_mixed`` (its own launch count), the same library's
+bf16-query instance (each cached value and p over the pages rounded to
+bf16, as the TPU kernel casts them; a bfloat16 output; the bf16 fresh
+values widened into the pages bit for bit).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import Optional
 import torch
 
 from .build import check_status, count_launch, load_library
-from .fused_decode import MAX_SMEM, _devices, _quantize_kv, compute_dtype, launch_f32
+from .fused_decode import MAX_SMEM, _devices, _quantize_kv, decode_route, launch_f32
 from .paged_attention import _operands, check_paged_operands, paged_reference, paged_splits
 
 SOURCES = ("fused_paged.cu", "dense_decode.cuh", "int8.cuh", "flash_sm90.cuh")
@@ -109,9 +113,11 @@ def fused_paged_decode(
                                 pad_lens, k_new, v_new)) == "cpu":
         return fused_paged_reference(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
                                      pad_lens, k_new, v_new, layer)
-    if compute_dtype(what, q, k_new, v_new) == torch.float32:
-        return fused_paged_decode_f32(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
-                                      pad_lens, k_new, v_new, layer)
+    route = decode_route(what, q, k_new, v_new, k_pool.dtype)
+    if route != "bf16":
+        wrapper = fused_paged_decode_f32 if route == "f32" else fused_paged_decode_mixed
+        return wrapper(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new,
+                       v_new, layer)
     return _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new,
                    v_new, layer)
 
@@ -121,21 +127,41 @@ def fused_paged_decode_f32(q, k_pool, v_pool, k_scale, v_scale, page_table, leng
     """B5's float32 instance: float32 q and fresh k/v (T = 1) over int8,
     float32 or bfloat16 pools, the fresh token written in place; returns a
     float32 (B, 1, Hq, Dh). Arguments as ``fused_paged_decode``."""
-    what = "fused_paged_decode_f32"
+    return _launch_body(fused_paged_decode_f32, "f32", q, k_pool, v_pool, k_scale, v_scale,
+                        page_table, lengths, pad_lens, k_new, v_new, layer)
+
+
+def fused_paged_decode_mixed(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens,
+                             k_new, v_new, layer):
+    """B5's mixed instance: a bfloat16 q and fresh k/v (T = 1) over float32
+    pools (which take no scales), each cached value and p over the pages
+    rounded to bf16 as the TPU kernel casts them, the fresh token widened
+    into its page bit for bit; returns a bfloat16 (B, 1, Hq, Dh). Arguments
+    as ``fused_paged_decode``."""
+    return _launch_body(fused_paged_decode_mixed, "mixed", q, k_pool, v_pool, k_scale, v_scale,
+                        page_table, lengths, pad_lens, k_new, v_new, layer)
+
+
+def _launch_body(wrapper, route, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
+                 pad_lens, k_new, v_new, layer):
+    """B5 through the float32 decode library on the ``route`` ("f32" or
+    "mixed"): the plain version for CPU tensors."""
+    what = wrapper.__name__
     if _devices(what, _operands(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
                                 pad_lens, k_new, v_new)) == "cpu":
         return fused_paged_reference(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
                                      pad_lens, k_new, v_new, layer)
     B, Hq, Hkv, P, ps, mp, Dh = _check(what, q, k_pool, v_pool, k_scale, v_scale, page_table,
-                                       lengths, pad_lens, k_new, v_new, layer, torch.float32)
+                                       lengths, pad_lens, k_new, v_new, layer, route)
     nsplit, part = paged_splits(B, 1, Hq, Hkv, ps, mp, Dh, q.device)
-    return launch_f32(fused_paged_decode_f32, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new,
-                      pad_lens, nsplit, part, offsets=lengths, layer=layer, scale_layer=layer,
+    return launch_f32(wrapper, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, pad_lens,
+                      nsplit, part, offsets=lengths, layer=layer, scale_layer=layer,
                       page_table=page_table, P=P, ps=ps, mp=mp, write=True)
 
 
 fused_paged_decode.launches = 0
 fused_paged_decode_f32.launches = 0
+fused_paged_decode_mixed.launches = 0
 
 
 def _lib():
@@ -151,13 +177,13 @@ def _lib():
 
 
 def _check(what, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new,
-           v_new, layer, dtype):
-    """The checks of a CUDA call of the ``dtype`` route; returns (B, Hq, Hkv,
-    P, ps, mp, Dh)."""
+           v_new, layer, route):
+    """The checks of a CUDA call of the ``route``; returns (B, Hq, Hkv, P,
+    ps, mp, Dh)."""
     L = k_pool.shape[0] if k_pool.dim() == 5 else 0
     B, T, Hq, Hkv, P, ps, mp, Dh, _ = check_paged_operands(
         what, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new, v_new,
-        pool_lead=(L,), dtype=dtype)
+        pool_lead=(L,), route=route)
     if T != 1:
         raise ValueError(f"{what}: the kernel takes T == 1, got T={T}")
     if not 0 <= layer < L:
@@ -169,7 +195,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, 
             layer):
     B, Hq, Hkv, P, ps, mp, Dh = _check("fused_paged_decode", q, k_pool, v_pool, k_scale,
                                        v_scale, page_table, lengths, pad_lens, k_new, v_new,
-                                       layer, torch.bfloat16)
+                                       layer, "bf16")
     int8_pools = k_pool.dtype == torch.int8
     lib = _lib()
     smem = lib.lss_fused_paged_smem_bytes(Dh, Hq // Hkv, ps, int(int8_pools))

@@ -22,7 +22,10 @@ count), the paged read-only instance of the float32 decode library
 (``csrc/decode_f32.cu``, ``fused_decode.launch_f32``), over int8, float32
 or bfloat16 pools; its output is float32. Its shared memory does not grow
 with the page size: it stages chunks of 64 slots, each slot through its
-page.
+page. A bfloat16 query over float32 pools takes
+``paged_decode_attention_mixed`` (its own launch count), the same
+library's bf16-query instance (each cached value and p over the pages
+rounded to bf16, as the TPU kernel casts them; a bfloat16 output).
 """
 
 from __future__ import annotations
@@ -40,9 +43,10 @@ from .fused_decode import (
     MAX_SMEM,
     NEG_INF,
     _devices,
+    ROUTE_QUERY,
     cache_type_error,
     check_separate_storage,
-    compute_dtype,
+    decode_route,
     launch_f32,
 )
 
@@ -126,9 +130,11 @@ def paged_decode_attention(
                                 pad_lens, k_new, v_new)) == "cpu":
         return paged_reference(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new,
                                k_scale, v_scale)
-    if compute_dtype(what, q, k_new, v_new) == torch.float32:
-        return paged_decode_attention_f32(q, k_pool, v_pool, page_table, lengths, pad_lens,
-                                          k_new, v_new, k_scale, v_scale)
+    route = decode_route(what, q, k_new, v_new, k_pool.dtype)
+    if route != "bf16":
+        wrapper = paged_decode_attention_f32 if route == "f32" else paged_decode_attention_mixed
+        return wrapper(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new, k_scale,
+                       v_scale)
     return _launch(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new, k_scale,
                    v_scale)
 
@@ -138,17 +144,35 @@ def paged_decode_attention_f32(q, k_pool, v_pool, page_table, lengths, pad_lens,
     """B4's float32 instance: float32 q and fresh k/v over one layer's int8,
     float32 or bfloat16 pools; returns a float32 (B, T, Hq, Dh). Arguments
     as ``paged_decode_attention``."""
-    what = "paged_decode_attention_f32"
+    return _launch_body(paged_decode_attention_f32, "f32", q, k_pool, v_pool, page_table,
+                        lengths, pad_lens, k_new, v_new, k_scale, v_scale)
+
+
+def paged_decode_attention_mixed(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new,
+                                 k_scale=None, v_scale=None):
+    """B4's mixed instance: a bfloat16 q and fresh k/v over one layer's
+    float32 pools, each cached value and p over the pages rounded to bf16
+    as the TPU kernel casts them; returns a bfloat16 (B, T, Hq, Dh).
+    Arguments as ``paged_decode_attention``."""
+    return _launch_body(paged_decode_attention_mixed, "mixed", q, k_pool, v_pool, page_table,
+                        lengths, pad_lens, k_new, v_new, k_scale, v_scale)
+
+
+def _launch_body(wrapper, route, q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new,
+                 k_scale, v_scale):
+    """B4 through the float32 decode library on the ``route`` ("f32" or
+    "mixed"): the plain version for CPU tensors."""
+    what = wrapper.__name__
     if _devices(what, _operands(q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
                                 pad_lens, k_new, v_new)) == "cpu":
         return paged_reference(q, k_pool, v_pool, page_table, lengths, pad_lens, k_new, v_new,
                                k_scale, v_scale)
     B, T, Hq, Hkv, P, ps, mp, Dh, int8_pools = check_paged_operands(
         what, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new, v_new,
-        pool_lead=(), dtype=torch.float32)
+        pool_lead=(), route=route)
     nsplit, part = paged_splits(B, T, Hq, Hkv, ps, mp, Dh, q.device)
     # one layer's pools as pools of one layer
-    return launch_f32(paged_decode_attention_f32, q, k_pool[None], v_pool[None],
+    return launch_f32(wrapper, q, k_pool[None], v_pool[None],
                       k_scale[None] if int8_pools else None,
                       v_scale[None] if int8_pools else None, k_new, v_new, pad_lens, nsplit,
                       part, offsets=lengths, page_table=page_table, P=P, ps=ps, mp=mp)
@@ -156,6 +180,7 @@ def paged_decode_attention_f32(q, k_pool, v_pool, page_table, lengths, pad_lens,
 
 paged_decode_attention.launches = 0
 paged_decode_attention_f32.launches = 0
+paged_decode_attention_mixed.launches = 0
 
 
 def _lib():
@@ -171,9 +196,9 @@ def _lib():
 
 
 def check_paged_operands(what, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths,
-                         pad_lens, k_new, v_new, pool_lead, dtype=torch.bfloat16):
-    """Shape, type and layout checks shared by B4 and B5 on the ``dtype``
-    route (q and fresh k/v of that dtype, pools of a type it takes).
+                         pad_lens, k_new, v_new, pool_lead, route="bf16"):
+    """Shape, type and layout checks shared by B4 and B5 on the ``route``
+    (q and fresh k/v of its query dtype, pools of a type it takes).
     ``pool_lead`` is the pools' leading shape, () for B4's layer views and
     (L,) for B5. Returns (B, T, Hq, Hkv, P, ps, mp, Dh, int8_pools)."""
     if q.dim() != 4 or k_pool.dim() != 4 + len(pool_lead):
@@ -190,8 +215,8 @@ def check_paged_operands(what, q, k_pool, v_pool, k_scale, v_scale, page_table, 
     if ps % 16 or not 16 <= ps <= 256:
         raise ValueError(f"{what}: the kernel takes page sizes 16..256 in steps of 16, got {ps}")
     int8_pools = k_pool.dtype == torch.int8
-    if k_pool.dtype not in CACHE_TYPES[dtype] or v_pool.dtype != k_pool.dtype:
-        raise cache_type_error(what, dtype, k_pool, v_pool, kind="pool")
+    if k_pool.dtype not in CACHE_TYPES[route] or v_pool.dtype != k_pool.dtype:
+        raise cache_type_error(what, route, k_pool, v_pool, kind="pool")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError(f"{what}: pools must be contiguous")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
@@ -207,6 +232,7 @@ def check_paged_operands(what, q, k_pool, v_pool, k_scale, v_scale, page_table, 
         if k_scale is not None or v_scale is not None:
             raise ValueError(f"{what}: {k_pool.dtype} pools take no scales")
         check_separate_storage(what, (k_pool, v_pool))
+    dtype = ROUTE_QUERY[route]
     for name, t, heads in (("q", q, Hq), ("k_new", k_new, Hkv), ("v_new", v_new, Hkv)):
         if t.dtype != dtype or tuple(t.shape) != (B, T, heads, Dh) or t.stride(-1) != 1:
             raise ValueError(f"{what}: {name} must be ({B}, {T}, {heads}, {Dh}) "

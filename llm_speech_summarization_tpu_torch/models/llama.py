@@ -261,11 +261,14 @@ def _mm(h: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
     """``h @ lp[name]`` with int8 weight-only quantization: the weight is
     converted to h's dtype and the per-out-channel scale multiplies the
     result (the JAX package leaves this product to XLA; here it is a plain
-    ``torch.matmul``)."""
+    ``torch.matmul``). A float weight meets h in their promoted type, as
+    JAX's ``h @ w`` does: a float32 h (a float32 prefill) against bf16
+    weights is a float32 product."""
     w = lp[name]
     if w.dtype == torch.int8:
         return (h @ w.to(h.dtype)) * lp[name + "_scale"].to(h.dtype)
-    return h @ w
+    dt = torch.result_type(h, w)
+    return h.to(dt) @ w.to(dt)
 
 
 def _block(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_cos, rope_sin, attend,

@@ -12,9 +12,10 @@ the CPU, before any card time:
     four interleaved partial sums, the splits merged in order) held to the
     JAX kernel within half of chip_smoke.py's float32 bound, and the same
     emulation with p rounded to bf16 outside it;
-  * the wrappers' refusals of what is not ported (mixed dtypes, float16)
-    and their routing of a float32 query to the float32 instance, on meta
-    tensors, before any build;
+  * the wrappers' refusals of what is not ported (a float32 query with
+    bf16 fresh values, float16) and their routing of a float32 query to
+    the float32 instance, and of a bf16 query over a float32 cache to the
+    mixed instance, on meta tensors, before any build;
   * the engine's batch path and the dense and paged slot decoders at the
     tiny float32 config, with a float32 and an int8 cache, held to the JAX
     package's under the margin-aware contract (``torch_streams.py``), every
@@ -513,9 +514,10 @@ def test_float32_queries_take_the_float32_instances(meta_route):
 
 
 def test_wrappers_refuse_what_is_not_ported(meta_route):
-    """Mixed dtypes (a float32 query with bf16 fresh values, a bf16 query
-    over a float32 cache or pools) and float16 raise a ValueError naming
-    what is not ported, before any build; B2 sends a float cache to B3, and
+    """A float32 query with bf16 fresh values and float16 raise a
+    ValueError naming what is not ported, before any build; a bf16 query
+    over a float32 cache or pools is ported (the mixed instances) and
+    reaches their launches, nothing else; B2 sends a float cache to B3, and
     B3's int8 mode keeps T = 1 at float32 too."""
     f32, bf16, i8, f16 = torch.float32, torch.bfloat16, torch.int8, torch.float16
     mixed = "mixed dtypes are not ported"
@@ -533,18 +535,19 @@ def test_wrappers_refuse_what_is_not_ported(meta_route):
     q, kp, vp, _, table, idx, kn, vn = _meta_paged(f32, f32, fresh=bf16, L=2)
     with pytest.raises(ValueError, match=mixed):
         fp.fused_paged_decode(q, kp, vp, None, None, table, idx, idx, kn, vn, 1)
-    not_ported = "a bfloat16 query over a float32 cache is not ported"
+    assert meta_route == []  # nothing reached a launch
+    # a bf16 query over a float32 cache or pools: the mixed instances
     q, kc, vc, _, kn, vn, idx = _meta_dense(bf16, f32)
-    with pytest.raises(ValueError, match=not_ported):
-        fd.fused_decode_attention_write(q, kc, vc, kn, vn, idx, idx, 1, max_offset=8)
-    with pytest.raises(ValueError, match=not_ported):
-        da.decode_attention(q, kc[1], vc[1], kn, vn, idx, 8)
+    fd.fused_decode_attention_write(q, kc, vc, kn, vn, idx, idx, 1, max_offset=8)
+    da.decode_attention(q, kc[1], vc[1], kn, vn, idx, 8)
     q, kp, vp, _, table, idx, kn, vn = _meta_paged(bf16, f32, T=4)
-    with pytest.raises(ValueError, match=not_ported):
-        pa.paged_decode_attention(q, kp, vp, table, idx, idx, kn, vn)
+    pa.paged_decode_attention(q, kp, vp, table, idx, idx, kn, vn)
     q, kp, vp, _, table, idx, kn, vn = _meta_paged(bf16, f32, L=2)
-    with pytest.raises(ValueError, match=not_ported):
-        fp.fused_paged_decode(q, kp, vp, None, None, table, idx, idx, kn, vn, 1)
+    fp.fused_paged_decode(q, kp, vp, None, None, table, idx, idx, kn, vn, 1)
+    assert [(c["wrapper"].__name__, c["cache"]) for c in meta_route] == [
+        ("fused_decode_attention_write_mixed", f32), ("decode_attention_mixed", f32),
+        ("paged_decode_attention_mixed", f32), ("fused_paged_decode_mixed", f32)]
+    meta_route.clear()
     q, kc, vc, _, kn, vn, idx = _meta_dense(f16, f16)
     with pytest.raises(ValueError, match="float16 query is not ported"):
         fd.fused_decode_attention_write(q, kc, vc, kn, vn, idx, idx, 1, max_offset=8)
