@@ -207,17 +207,22 @@ status line.
 
 Needs one CUDA card of compute capability 9.0; exits nonzero otherwise.
 
-    python3 chip_smoke.py --ab-kernels BASE_DIR [ORDER]
+    python3 chip_smoke.py --ab-kernels BASE_DIR [ORDER] [f32]
 
 runs only the kernel phases (3 to 7: the flash kernels, B2, B4, B5, B3 and
-B8) of another checkout (BASE_DIR, e.g. the parent commit unpacked with
-``git archive``) and of this one, in ORDER (default ABBA), and prints the
-median device and call ms of each kernel and shape per checkout.
+B8; with ``f32`` the float32 and mixed ones: B1 float32, the float32
+training kernels, the float32 and mixed decode instances) of another
+checkout (BASE_DIR, e.g. the parent commit unpacked with ``git archive``)
+and of this one, in ORDER (default ABBA), and prints the median device and
+call ms of each kernel and shape per checkout.
 
-    python3 chip_smoke.py --split-sweep
+    python3 chip_smoke.py --split-sweep [f32]
 
 times B2 at small batches for each split count of the window (the numbers
-``fused_decode.dense_splits`` is set from), then runs phase 5.
+``fused_decode.dense_splits`` is set from), then runs phase 5; then (with
+``f32`` only) the float32 decode body's B2 and mixed B8 at B = 1-128 for
+each split count (the numbers ``fused_decode.f32_splits`` is set from), and
+its phases decode_f32 and decode_mixed.
 
     python3 chip_smoke.py --f32-train-kernels [TL]
 
@@ -399,12 +404,13 @@ def device_ms(torch, fn, reps: int = 20, sessions: int = 3, tries: int = 16,
     """Device milliseconds per call of ``fn``: the summed duration of the
     GPU work it launched (torch.profiler), without host dispatch gaps.
     A profiling session now and then loses device events, which lowers
-    its sum and its event count, so a session counts only if it recorded
-    as many device events as the fullest session, a whole number per
-    call (``whole=False`` drops that second rule for calls of many
-    kernels, where a session was seen to record one event fewer than a
-    whole number per call every time); the median of ``sessions`` such
-    sessions, out of at most ``tries``."""
+    its sum and its event count, and was seen to record one stray event
+    more, so a session counts only if it recorded as many device events
+    as the fullest session whose count is a whole number per call
+    (``whole=False`` drops that rule for calls of many kernels, where a
+    session was seen to record one event fewer than a whole number per
+    call every time: then the fullest session); the median of
+    ``sessions`` such sessions, out of at most ``tries``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -412,8 +418,8 @@ def device_ms(torch, fn, reps: int = 20, sessions: int = 3, tries: int = 16,
     runs = []  # (device events, device microseconds) per session
 
     def complete():
-        most = max(n for n, _ in runs)
-        return [us for n, us in runs if n == most and (n % reps == 0 or not whole) and n > 0]
+        counts = [n for n, _ in runs if n > 0 and (n % reps == 0 or not whole)]
+        return [us for n, us in runs if counts and n == max(counts)]
 
     while not runs or (len(runs) < tries and len(complete()) < sessions):
         # a warm-up cycle first: a session that starts tracing on the timed
@@ -546,12 +552,7 @@ def phase_build(card, require_no_spill=True, builds=None):
         raise AssertionError(f"build: no 4-row paged instance with {nw} warps: {paged_g1}")
     # B1's float32 forward (with or without the lse) and the float32
     # backward's dq and dk/dv (FFMA, reported only)
-    f32 = {}
-    if f32_lib:
-        for kernel, n_regs, spill in build.ptxas_report("flash_attention_f32",
-                                                         flash_attention.F32_SOURCES):
-            dh = int(re.search(r"Li(\d+)E", kernel).group(1))
-            f32[f"fwd Dh={dh}"] = [n_regs, spill]
+    f32 = flash_f32_registers(build, flash_attention) if f32_lib else {}
     if bwd_f32_lib:
         for kernel, n_regs, spill in build.ptxas_report("flash_attention_bwd_f32",
                                                          flash_attention.BWD_F32_SOURCES):
@@ -561,13 +562,35 @@ def phase_build(card, require_no_spill=True, builds=None):
     # the float32 decode body's instances (cache type, Dh, write, paged; the
     # mixed ones, a bf16 query over a float32 cache, as "mixed")
     if decode_f32_lib:
-        f32.update({k: v for k, v in decode_f32_registers(build, fused_decode).items()
-                    if k.startswith("decode")})
+        f32.update(decode_f32_registers(build, fused_decode))
+    # the float32 forward and the float32 decode body stream their tiles
+    # through shared memory and keep their accumulators in registers: ptxas
+    # must place every instance without a spill
+    streamed = {k: r for k, r in f32.items() if k.startswith(("fwd", "decode", "mixed"))}
+    if require_no_spill and (len(streamed) != 2 + 24 + 8
+                             or any(spill for _, spill in streamed.values())):
+        raise AssertionError(f"build: the float32 forward or decode body spills or misses an "
+                             f"instance: {streamed}")
     emit("build", seconds=round(max(build.build_seconds.values(), default=0.0), 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()},
          wgmma_kernels=regs, decode_kernels=decode, f32_kernels_registers_spill=f32,
          paged_g1_instances=dict(rows=4, warps=nw, splits=nsplit, registers_spill=paged_g1),
          card=card)
+
+
+def flash_f32_registers(build, fa) -> dict:
+    """[registers, spill bytes] of the float32 forward's instances in its
+    build log, as "fwd Dh=64" and "fwd Dh=128"."""
+    return {f"fwd Dh={int(re.search(r'Li(\d+)E', kernel).group(1))}": [n_regs, spill]
+            for kernel, n_regs, spill in build.ptxas_report("flash_attention_f32",
+                                                            fa.F32_SOURCES)}
+
+
+def f32_split_count(fd, B, Hkv, max_offset) -> int:
+    """The float32 decode body's split count for a call (``f32_splits``; an
+    older checkout's float32 body took the bf16 rule)."""
+    rule = getattr(fd, "f32_splits", fd.dense_splits)
+    return rule(B, Hkv, max_offset, fd.sm_count(0))
 
 
 def decode_f32_registers(build, fused_decode) -> dict:
@@ -700,11 +723,13 @@ def phase_flash_f32(torch, card):
     the KV head of the wrong group (each through the float64 plain
     version); REPEATS identical calls bit-equal; device times beside the
     float32 plain version and SDPA at float32 on the same mask."""
+    from llm_speech_summarization_tpu_torch.kernels import build, flash_attention as fa
     from llm_speech_summarization_tpu_torch.kernels.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_f32, flash_attention_lse_reference,
         flash_attention_reference,
     )
 
+    regs = flash_f32_registers(build, fa)
     rng = np.random.RandomState(5)
     dev = torch.device("cuda")
     results = {}
@@ -771,8 +796,8 @@ def phase_flash_f32(torch, card):
              plain_f32_err_over_bound=plain_ratio, out_atol=F32_OUT_ATOL,
              out_rtol_of_abs_out_plus_abs_pv=F32_OUT_RTOL, s_max=s_max,
              faults_over_bound=faults, repeats=REPEATS, unequal_repeats=unequal,
-             bytes=n_bytes, flops=flops, pct_of_bound=100 * t["bound_ms"] / t["ms"], **t,
-             card=card)
+             bytes=n_bytes, flops=flops, pct_of_bound=100 * t["bound_ms"] / t["ms"],
+             registers_spill=regs.get(f"fwd Dh={Dh}"), **t, card=card)
     return results
 
 
@@ -823,15 +848,16 @@ FUSED_TP_SHAPES = ((8, 1, 384, 12, 4), (16, 1, 384, 12, 4), (16, 3, 384, 12, 4),
 
 
 @contextlib.contextmanager
-def forced_splits(fd_mod, n):
-    """B2 launched with ``n`` splits of each window, whatever
-    ``dense_splits`` would choose."""
-    rule = fd_mod.dense_splits
-    fd_mod.dense_splits = lambda *args: n
+def forced_splits(fd_mod, n, rule="dense_splits"):
+    """Every launch in the block takes ``n`` splits of each window where
+    ``fd_mod.<rule>`` (the bf16 body's ``dense_splits``, or the float32
+    body's ``f32_splits``) would choose."""
+    chosen = getattr(fd_mod, rule)
+    setattr(fd_mod, rule, lambda *args: n)
     try:
         yield
     finally:
-        fd_mod.dense_splits = rule
+        setattr(fd_mod, rule, chosen)
 
 
 def kernel_ms(torch, fn, reps: int = 20) -> dict:
@@ -1651,23 +1677,29 @@ def phase_decode_f32(torch, card):
     bit-equal; device times beside the float32 plain version and, for B8
     over a float32 cache, torch.cat + SDPA at float32."""
     from llm_speech_summarization_tpu_torch.kernels import (
-        decode_attention as da, fused_decode as fd, fused_paged as fp, paged_attention as pa,
+        build, decode_attention as da, fused_decode as fd, fused_paged as fp,
+        paged_attention as pa,
     )
 
     rng = np.random.RandomState(15)
     S, layer = F32_DECODE_S, 1
     Hq, Hkv, Dh = 24, 8, 128
     results = {}
+    regs = decode_f32_registers(build, fd)
+    cache_of = {1: "int8", 2: "bf16", 4: "float32"}
 
     def finish(name, kernel, inst, check, t, valid, B, T, elem, quantized, writes, **extra):
         n_bytes, flops = _f32_work(valid, B, T, Hq, Hkv, Dh, elem, quantized, writes)
         t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
         t.setdefault("library_ms", None)
         results[name] = dict(max_abs_err=check["max_abs_err"], **t)
+        paged = kernel in ("B4", "B5")
+        reg_key = f"decode {cache_of[elem]} Dh={Dh} write={int(writes)} paged={int(paged)}"
         emit("decode_f32", kernel=kernel, instance=inst, case=name, B=B, T=T,
              heads=[Hq, Hkv], Dh=Dh, **check, out_atol=F32_OUT_ATOL,
              out_rtol_of_abs_out_plus_abs_pv=F32_OUT_RTOL, bytes=n_bytes, flops=flops,
-             pct_of_bound=100 * t["bound_ms"] / t["ms"], **t, **extra, card=card)
+             pct_of_bound=100 * t["bound_ms"] / t["ms"], registers_spill=regs.get(reg_key),
+             **t, **extra, card=card)
 
     def launched(wrapper, before, what):
         if wrapper.launches != before + 1:
@@ -1716,7 +1748,7 @@ def phase_decode_f32(torch, card):
             raise AssertionError(f"{name}: {check['unequal_repeats']} of {REPEATS} repeats differ")
         t = timings(torch, call, lambda c=c, bufs=ref_bufs: fd.fused_decode_reference(
             c["q"], *bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer))
-        nsplit = fd.dense_splits(B, Hkv, mo, fd.sm_count(0))
+        nsplit = f32_split_count(fd, B, Hkv, mo)
         finish(name, "B2", "fused_decode_f32", check, t,
                np.clip(c["offs_np"] - c["pads_np"], 0, None).sum(), B, T, 1, True, True,
                splits=nsplit, cache_writes="bit-exact")
@@ -1764,7 +1796,8 @@ def phase_decode_f32(torch, card):
                         c["q"], *bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer, *sc))
         finish(name, "B3", "fused_decode_attention_write_f32", check, t,
                np.clip(c["offs_np"] - c["pads_np"], 0, None).sum(), B, T, ELEM_BYTES[cache],
-               quantized, True, cache_writes="bit-exact")
+               quantized, True, splits=f32_split_count(fd, B, Hkv, mo),
+               cache_writes="bit-exact")
         del c, snap, got_bufs, ref_bufs
 
     # ---- B4 (T=4, read only) and B5 (T=1, the page write) over each pool type
@@ -1845,7 +1878,9 @@ def phase_decode_f32(torch, card):
             t = timings(torch, call, plain)
             valid = c["valid"].sum().item()
             finish(name, kernel, wrapper.__name__, check, t, valid, B, T, ELEM_BYTES[pools],
-                   quantized, write, page_writes="bit-exact outside page 0" if write else None)
+                   quantized, write,
+                   splits=f32_split_count(fd, B, Hkv, PAGED_SHAPE["mp"] * PAGED_SHAPE["ps"]),
+                   page_writes="bit-exact outside page 0" if write else None)
             del c, snap, got_bufs, ref_bufs, bufs
 
     # ---- B8: one layer's cache read in place, every row at one offset
@@ -1882,7 +1917,7 @@ def phase_decode_f32(torch, card):
                 torch, c["q"], kc, vc, c["kn"], c["vn"], c["pads"], offset), whole=False)
         valid = np.clip(offset - c["pads_np"], 0, None).sum()
         finish(name, "B8", "decode_attention_f32", check, t, valid, B, 1, ELEM_BYTES[cache],
-               quantized, False,
+               quantized, False, splits=f32_split_count(fd, B, Hkv, offset),
                library="torch.cat + scaled_dot_product_attention" if cache == "float32"
                else None)
         del c
@@ -2036,7 +2071,7 @@ def phase_decode_mixed(torch, card):
         finish(name, "B3", fd.fused_decode_attention_write_mixed, before, check, t,
                np.clip(c["offs_np"] - c["pads_np"], 0, None).sum(), B, T, True,
                "mixed float32 Dh=128 write=1 paged=0",
-               splits=fd.dense_splits(B, Hkv, mo, fd.sm_count(0)), cache_writes="bit-exact")
+               splits=f32_split_count(fd, B, Hkv, mo), cache_writes="bit-exact")
         del c, snap, got_bufs, ref_bufs
 
     # ---- B8: one layer's cache read in place, every row at one offset
@@ -2073,7 +2108,7 @@ def phase_decode_mixed(torch, card):
     da.decode_attention_mixed.launches = launches
     finish(name, "B8", da.decode_attention_mixed, before, check, t,
            np.clip(offset - c["pads_np"], 0, None).sum(), B, 1, False,
-           "mixed float32 Dh=128 write=0 paged=0",
+           "mixed float32 Dh=128 write=0 paged=0", splits=f32_split_count(fd, B, Hkv, offset),
            library="torch.cat + scaled_dot_product_attention at bf16 on the cache cast to "
                    "bf16 ahead of the timed calls")
     del c, kc16, vc16
@@ -2131,6 +2166,7 @@ def phase_decode_mixed(torch, card):
         wrapper.launches = launches
         finish(name, kernel, wrapper, before, check, t, c["valid"].sum().item(), B, T, write,
                f"mixed float32 Dh=128 write={int(write)} paged=1",
+               splits=f32_split_count(fd, B, Hkv, PAGED_SHAPE["mp"] * PAGED_SHAPE["ps"]),
                page_writes="bit-exact outside page 0" if write else None)
         del c, snap, got_bufs, ref_bufs
     emit("decode_mixed_wall", seconds=time.perf_counter() - t_phase, card=card)
@@ -3075,9 +3111,10 @@ def phase_flash_train_f32(torch, card, hubert_ring_tl=F32_TRAIN_HUBERT_RING_TL):
     F32_OUT_ATOL), faults outside them, REPEATS rounds bit-equal, device
     times beside the 3xTF32 bound, the float32 plain versions and SDPA at
     float32 on the same mask."""
-    from llm_speech_summarization_tpu_torch.kernels import flash_attention as fa
+    from llm_speech_summarization_tpu_torch.kernels import build, flash_attention as fa
     from llm_speech_summarization_tpu_torch.ops.ring_attention import _block_windows
 
+    fwd_regs = flash_f32_registers(build, fa)
     rng = np.random.RandomState(11)
     dev = torch.device("cuda")
 
@@ -3112,6 +3149,7 @@ def phase_flash_train_f32(torch, card, hubert_ring_tl=F32_TRAIN_HUBERT_RING_TL):
             _train_attn_work(c, T, elem_bytes=4))
         for kname in res:
             res[kname]["max_abs_err"] = errs[kname]
+        res["fwd_lse"]["registers_spill"] = fwd_regs.get(f"fwd Dh={c['Dh']}")
         results[name] = res
         emit("flash_train_f32", case=name, shape=[B, T, c["Hq"], c["Hkv"], c["Dh"]],
              causal=causal, starts=c["starts"], ends=c["ends"], out_atol=F32_OUT_ATOL,
@@ -3159,6 +3197,7 @@ def phase_flash_train_f32(torch, card, hubert_ring_tl=F32_TRAIN_HUBERT_RING_TL):
                 del kept, out, lse, dq, dk, dv, delta, args
         for kname in res:
             res[kname]["max_abs_err"] = max(b["errs"][kname] for b in blocks.values())
+        res["fwd_lse"]["registers_spill"] = fwd_regs.get(f"fwd Dh={c['Dh']}")
         results[name] = res
         emit("flash_ring_f32", case=name, n=RING_N, shape=[B, Tl, c["Hq"], c["Hkv"], c["Dh"]],
              causal=causal, global_starts=c["starts"], global_ends=c["ends"], blocks=blocks,
@@ -6592,17 +6631,22 @@ AB_RUN = ("import importlib.util, sys, torch\n"
           "torch.set_grad_enabled(False)\n"
           "card = cs.phase_env(torch)\n"
           "cs.phase_build(card, require_no_spill=False)\n"
-          "cs.phase_flash(torch, card)\n"
-          "import llm_speech_summarization_tpu_torch.kernels.flash_attention as fa\n"
-          "if hasattr(fa, 'flash_attention_fwd_f32'):\n"
-          "    cs.phase_flash_f32(torch, card)\n"
-          "with torch.enable_grad():\n"
-          "    cs.phase_flash_train(torch, card)\n"
-          "    cs.phase_flash_ring(torch, card)\n"
-          "cs.phase_fused(torch, card)\n"
-          "cs.phase_paged(torch, card)\n"
-          "cs.phase_fused_paged(torch, card)\n"
-          "cs.phase_dense_decode(torch, card)\n")
+          "f32 = sys.argv[2] == 'f32'\n"
+          "if not f32:\n"
+          "    cs.phase_flash(torch, card)\n"
+          "cs.phase_flash_f32(torch, card)\n"
+          "if f32:\n"
+          "    cs.phase_flash_train_f32(torch, card)\n"
+          "    cs.phase_decode_f32(torch, card)\n"
+          "    cs.phase_decode_mixed(torch, card)\n"
+          "else:\n"
+          "    with torch.enable_grad():\n"
+          "        cs.phase_flash_train(torch, card)\n"
+          "        cs.phase_flash_ring(torch, card)\n"
+          "    cs.phase_fused(torch, card)\n"
+          "    cs.phase_paged(torch, card)\n"
+          "    cs.phase_fused_paged(torch, card)\n"
+          "    cs.phase_dense_decode(torch, card)\n")
 
 
 def _ab_times(lines) -> dict:
@@ -6627,27 +6671,37 @@ def _ab_times(lines) -> dict:
             for k, r in x["kernels"].items():
                 name = names[k] if k in ("fwd_lse", "fwd") else f"{tag} {names[k]}"
                 times[f"{name} {x['case']}"] = r
+        elif x.get("phase") in ("flash_train_f32", "flash_ring_f32"):
+            tag = "B6" if x["phase"] == "flash_train_f32" else "B7"
+            for k, r in x["kernels"].items():
+                name = ("B1 + LSE" if tag == "B6" else "B7 fwd") if k == "fwd_lse" else \
+                    f"{tag} {names[k]}"
+                times[f"{name} f32 {x['case']}"] = r
+        elif x.get("phase") in ("decode_f32", "decode_mixed"):
+            times[f"{x['kernel']} {x['case']}"] = x
     return {k: {"ms": r["ms"], "call_ms": r["call_ms"]} for k, r in times.items()}
 
 
 def ab_kernels(argv) -> int:
-    """``python3 chip_smoke.py --ab-kernels BASE_DIR [ORDER]``: the kernel
-    phases (flash, flash_train, flash_ring, fused, paged, fused_paged,
-    dense_decode) of two
-    checkouts on one
-    card, each run a fresh process in its checkout that imports that
-    checkout's own chip_smoke.py (A = BASE_DIR, B = this checkout), in ORDER
-    (default ABBA, so drift spreads over both). Prints one line per run and
-    a last line with the median device ms and call ms (CUDA events around
-    one call, host dispatch included) of each kernel and shape per
-    checkout, device ms B over A, and the card's name and power limit."""
+    """``python3 chip_smoke.py --ab-kernels BASE_DIR [ORDER] [f32]``: the
+    kernel phases (flash, flash_f32, flash_train, flash_ring, fused, paged,
+    fused_paged, dense_decode; with ``f32``: the float32 ones, flash_f32,
+    flash_train_f32, decode_f32 and decode_mixed) of two checkouts on one
+    card, each run a fresh process in its checkout that runs this
+    chip_smoke.py's phases on that checkout's package (A = BASE_DIR, B =
+    this checkout), in ORDER (default ABBA, so drift spreads over both).
+    Prints one line per run and a last line with the median device ms and
+    call ms (CUDA events around one call, host dispatch included) of each
+    kernel and shape per checkout, device ms B over A, and the card's name
+    and power limit."""
     roots = {"A": os.path.abspath(argv[0]), "B": os.path.dirname(os.path.abspath(__file__))}
     order = argv[1] if len(argv) > 1 else "ABBA"
+    phases = argv[2] if len(argv) > 2 else "all"
     env = dict(os.environ, HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
     runs = {"A": [], "B": []}
     card = None
     for tag in order:
-        proc = subprocess.run([sys.executable, "-c", AB_RUN, os.path.abspath(__file__)],
+        proc = subprocess.run([sys.executable, "-c", AB_RUN, os.path.abspath(__file__), phases],
                               cwd=roots[tag], env=env, capture_output=True, text=True,
                               timeout=900)
         if proc.returncode != 0:
@@ -6669,17 +6723,80 @@ def ab_kernels(argv) -> int:
 SWEEP_BATCHES = (1, 2, 4, 8)
 SWEEP_OFFSETS = (255, 383, 511, 767, 1023, 1663, 2047)
 SWEEP_SPLITS = (1, 2, 3, 4, 6, 8)
+# the float32 body: B2's float32 instance over an int8 cache and B8's mixed
+# instance over a float32 cache (a bf16 query: the serving path of bf16
+# parameters at compute_dtype float32), at these batches, SWEEP_OFFSETS and
+# these split counts and the rule's (those that leave at most 8 blocks an
+# SM, and 1 and 2)
+SWEEP_F32_BATCHES = (1, 8, 16, 128)
+SWEEP_F32_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
 
 
-def split_sweep() -> int:
-    """``python3 chip_smoke.py --split-sweep``: B2's device ms per call
+def split_sweep_f32(torch, card) -> None:
+    """The float32 body's device ms per call (the split body and the merge
+    kernel together) at T=1 and the llama3 widths (24/8 heads, Dh=128),
+    every row at one max offset, for each split count forced in place of
+    ``f32_splits``' choice, which is printed beside them with its ms over
+    the fastest: the numbers its constants come from."""
+    from llm_speech_summarization_tpu_torch.kernels import decode_attention as da
+    from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
+
+    rng = np.random.RandomState(6)
+    dev = torch.device("cuda")
+    Hq, Hkv, Dh, S = 24, 8, 128, max(SWEEP_OFFSETS) + 1
+    sms = fd_mod.sm_count(0)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    for B in SWEEP_F32_BATCHES:
+        q, kn, vn = (randn(B, 1, h, Dh) for h in (Hq, Hkv, Hkv))
+        kc8, vc8 = (torch.from_numpy(rng.randint(-127, 128, size=(1, B, Hkv, S, Dh))
+                                     .astype(np.int8)).to(dev) for _ in range(2))
+        ks, vs = (torch.from_numpy((0.02 + 0.1 * rng.rand(1, B, Hkv, S)).astype(np.float32))
+                  .to(dev, torch.bfloat16) for _ in range(2))
+        kc32, vc32 = (randn(B, Hkv, S, Dh) for _ in range(2))
+        q16, kn16, vn16 = (x.bfloat16() for x in (q, kn, vn))
+        pads = torch.zeros(B, dtype=torch.int32, device=dev)
+        calls = {
+            "b2_f32_int8": lambda mo, offs: fd_mod.fused_decode(
+                q, kc8, vc8, ks, vs, kn, vn, pads, offs, 0, max_offset=mo),
+            "b8_mixed_float32": lambda mo, offs: da.decode_attention(
+                q16, kc32, vc32, kn16, vn16, pads, mo),
+        }
+        for inst, fn in calls.items():
+            for mo in SWEEP_OFFSETS:
+                offs = torch.full((B,), mo, dtype=torch.int32, device=dev)
+                ms = {}
+                rule = fd_mod.f32_splits(B, Hkv, mo, sms)
+                for n in sorted(set(SWEEP_F32_SPLITS) | {rule}):
+                    if n > 2 and B * Hkv * n > 8 * sms:
+                        continue
+                    with forced_splits(fd_mod, n, "f32_splits"):
+                        try:
+                            ms[n] = device_ms(torch, lambda fn=fn, mo=mo, offs=offs:
+                                              fn(mo, offs), whole=False)
+                        except AssertionError:  # the profiler lost events: not timed
+                            continue
+                fastest = min(ms, key=ms.get)
+                emit("split_sweep_f32", instance=inst, B=B, max_offset=mo, ms_by_splits=ms,
+                     rule=rule, rule_over_fastest=ms[rule] / ms[fastest] if rule in ms else None,
+                     fastest=fastest, card=card)
+        del q, kn, vn, kc8, vc8, ks, vs, kc32, vc32, q16, kn16, vn16
+        torch.cuda.empty_cache()
+
+
+def split_sweep(argv=()) -> int:
+    """``python3 chip_smoke.py --split-sweep [f32]``: B2's device ms per call
     (the split body and the merge kernel together) at T=1 and the llama3
     widths (24/8 heads, Dh=128, int8 cache), every row at one max offset,
     for each batch of SWEEP_BATCHES, each offset of SWEEP_OFFSETS and each
     split count of SWEEP_SPLITS forced in place of ``dense_splits``'
     choice, which is printed beside them: the numbers its thresholds come
     from. Then phase_fused, which holds the split shapes to the plain
-    version."""
+    version. Then (or, with ``f32``, only) the float32 body's sweep
+    (``split_sweep_f32``) and its phases, decode_f32 and decode_mixed, which
+    hold the rule's split shapes to the plain versions."""
     import torch
 
     from llm_speech_summarization_tpu_torch.kernels import fused_decode as fd_mod
@@ -6688,7 +6805,18 @@ def split_sweep() -> int:
     torch.set_grad_enabled(False)
     t0 = time.perf_counter()
     fd_mod._lib()
+    fd_mod._f32_lib()
     emit("build", seconds=round(time.perf_counter() - t0, 3), card=card)
+    if list(argv[:1]) != ["f32"]:
+        bf16_split_sweep(torch, card, fd_mod)
+    split_sweep_f32(torch, card)
+    phase_decode_f32(torch, card)
+    phase_decode_mixed(torch, card)
+    return 0
+
+
+def bf16_split_sweep(torch, card, fd_mod) -> None:
+    """The bf16 body's sweep of ``split_sweep``, then phase_fused."""
     rng = np.random.RandomState(5)
     dev = torch.device("cuda")
     Hq, Hkv, Dh, S = 24, 8, 128, max(SWEEP_OFFSETS) + 1
@@ -6712,7 +6840,6 @@ def split_sweep() -> int:
                  rule=fd_mod.dense_splits(B, Hkv, mo, sms), fastest=min(ms, key=ms.get),
                  card=card)
     phase_fused(torch, card)
-    return 0
 
 
 def f32_train_kernels(argv) -> int:
@@ -7767,7 +7894,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab-kernels"]:  # parent vs this checkout, kernel phases
         sys.exit(ab_kernels(sys.argv[2:]))
     if sys.argv[1:2] == ["--split-sweep"]:  # B2's split counts, timed
-        sys.exit(split_sweep())
+        sys.exit(split_sweep(sys.argv[2:]))
     if sys.argv[1:2] == ["--f32-train-kernels"]:  # the float32 kernel phases alone
         sys.exit(f32_train_kernels(sys.argv[2:]))
     sys.exit(main())

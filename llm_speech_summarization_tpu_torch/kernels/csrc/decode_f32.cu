@@ -4,8 +4,9 @@
 // write), and the mixed instances of B3, B8, B4 and B5 (a bf16 query over a
 // float32 cache or pools), one library over the body in
 // dense_decode_f32.cuh, whose header note gives the computation, the TPU
-// kernels it replaces, what bounds it on the H100 and its design (FFMA on
-// shared-memory tiles, split-S with a float32 merge).
+// kernels it replaces, what bounds it on the H100 and its design (the cache
+// streamed through a cp.async ring of shared-memory stages, FFMA, split-S
+// with a float32 merge).
 //
 // The wrappers (kernels/fused_decode.py, decode_attention.py,
 // paged_attention.py, fused_paged.py) send a float32 query here, and a bf16
@@ -14,11 +15,12 @@
 
 #include "dense_decode_f32.cuh"
 
-// Shared memory bytes a launch needs for Dh and R = T * G query rows (the
-// wrapper checks it against the device limit before launching); they grow
-// with neither the cache length nor the page size.
-extern "C" long long lss_decode_f32_smem_bytes(int Dh, int R) {
-  return decode_f32::smem_for(Dh, R);
+// Shared memory bytes a launch needs for Dh, T fresh tokens, R = T * G
+// query rows and a cache of cache_bytes per value (the wrapper checks it
+// against the device limit before launching); they grow with neither the
+// cache length nor the page size.
+extern "C" long long lss_decode_f32_smem_bytes(int Dh, int T, int R, int cache_bytes) {
+  return decode_f32::smem_for(Dh, T, R, cache_bytes);
 }
 
 // q, k_new, v_new float32 (q_bytes 4) or bf16 (q_bytes 2, over a float32

@@ -21,9 +21,10 @@
 // float32). What those kernels compute there, and so these instances:
 //   * q and the fresh k/v are read as bf16 and widened exactly;
 //   * each cached k and v is rounded to bf16 (round to nearest even) as it
-//     is staged, before any product: the kernels cast the cache to q's
-//     dtype. The products of two bf16 values are exact in float32, so FFMA
-//     over them is a bf16 x bf16 -> float32 MMA up to the order of the sums;
+//     is read from shared memory, before any product: the kernels cast the
+//     cache to q's dtype. The products of two bf16 values are exact in
+//     float32, so FFMA over them is a bf16 x bf16 -> float32 MMA up to the
+//     order of the sums;
 //   * p over the cache is rounded to bf16 before P . V (the kernels cast p
 //     to q's dtype); the denominator sums it unrounded;
 //   * the fresh block's p and values are attended unrounded, as the Pallas
@@ -35,9 +36,7 @@
 //     cache or pages, bit for bit.
 // What bounds them: the float32 cache bytes, 512 B a row at Dh = 128 (k
 // and v: 1 KiB a slot), as for the float32 instances over a float32 cache;
-// their products are the float32 instances' less the q rounding. The FFMA
-// design is the simple one; tensor cores (bf16 mma over the rounded tiles)
-// and asynchronous copies are left to a later change.
+// their products are the float32 instances' less the q rounding.
 //
 // What it computes, per (sample b, kv head h): the R = T * G query rows
 // (ordered (t, g), G = Hq / Hkv) attend the cache slots pad[b] <= s <
@@ -66,39 +65,52 @@
 // through the table, or to the null page 0 outside it, as dense_decode.cuh
 // routes it (kernels/fused_paged.py::_write_targets).
 //
-// What bounds it on the H100: the cache bytes in principle (a float32 row
-// is 512 B at Dh = 128, four times an int8 row), and the float32 products
-// (2 FMAs per cached value per query row) against the float32-accurate
-// tensor-core route (3xTF32, 165 TFLOP/s; chip_smoke.py takes that as the
-// bound). Single-pass TF32 or bf16 mma would round the operands, which is
-// not a float32 kernel. This design is the simple one: FFMA on the CUDA
-// cores from shared-memory tiles, no tensor cores, no asynchronous copies.
-//   * the grid is (B * Hkv, nsplit) blocks of 256 threads; the wrapper picks
-//     nsplit as for the bf16 body (fused_decode.dense_splits), each split
-//     taking an even share of the window, the last one also the fresh keys
-//     and the write;
-//   * a split walks its share in chunks of CH = 64 slots. Each thread
-//     fetches its groups of the next chunk's K and V rows (any cache type,
-//     converted to float32 exactly; each slot through its page when paged,
-//     so a chunk may cross pages and shared memory does not grow with the
-//     page size) and the slots' k / v scales into registers a step ahead,
-//     so that the loads are in flight while the block computes; then, per
-//     step: the rows go to shared memory (K padded to Dh + 1 floats: no
-//     bank conflicts); scores, a thread per (query row, key) with FFMA over
-//     Dh in four interleaved partial sums, a warp's lanes on consecutive
-//     keys of one row (the query row a broadcast); the online softmax in
-//     base 2, a warp per query row (max and sum by shuffles); P . V, a
-//     thread per (row, head dim) over the step's keys in four partial sums,
-//     added to its accumulator in shared memory rescaled by alpha. The
-//     loops run over the R = T * G rows the call has, not a bucket, so
-//     one instance per cache type, Dh and layout serves every row count;
+// What bounds it on the H100: the cache bytes (a float32 row is 512 B at
+// Dh = 128, four times an int8 row); the products are 2 FMAs per cached
+// value per query row, about 1.5 FLOP a byte at G = 3, far below the
+// card's ridge, so FFMA on the CUDA cores stays (tensor cores would add
+// nothing a byte-bound body can use, and single-pass TF32 or bf16 would
+// round the operands). The design streams the cache:
+//   * the grid is (B * Hkv, nsplit) blocks of 256 threads, two an SM; the
+//     wrapper picks nsplit with the float32 body's own rule
+//     (fused_decode.f32_splits: a float32 slot carries four times an int8
+//     slot's bytes, so it splits where the bf16 body's rule would not),
+//     each split taking an even share of the window, the last one also the
+//     fresh keys and the write;
+//   * a split walks its share in chunks of CH = 32 slots through a ring of
+//     STAGES shared-memory stages (3 for a float32 cache at Dh = 128, up to
+//     8 for smaller rows: ~100 KB a block, ~200 KB in flight an SM, where
+//     Little's law asks ~25 KB to approach 3.35 TB/s). Each stage takes a
+//     chunk's K and V rows as stored (int8, bf16 or float32), by cp.async
+//     at 16 B a thread-copy, slot by slot (paged: each slot through its
+//     page, so a chunk may cross pages and shared memory does not grow
+//     with the page size); an int8 chunk's scales follow a step later
+//     through registers. STAGES - 1 chunks are in flight while one is
+//     computed. Rows are padded by 16 B, so the score loop's 16-byte reads
+//     of 8 consecutive rows hit 32 distinct banks;
+//   * values are converted at use, from shared memory: int8 and bf16
+//     widened exactly (the k scale multiplies the score, the v scale p),
+//     the mixed instances' rounded to bf16; the fresh keys and values sit
+//     in float32 rows of their own, loaded when the block starts;
+//   * per chunk: scores, a lane pair per (query row, key), each lane FFMA
+//     over its half of Dh in four interleaved partial sums (element d into
+//     sum d % 4, combined (s0 + s1) + (s2 + s3)), the halves added by a
+//     shuffle, the query row a broadcast; the online softmax in base 2, a
+//     warp per query row, a lane per key (max and sum by shuffles); P . V,
+//     a thread per (query row, four consecutive head dims), p read four
+//     keys at a time, summing the chunk's keys in order into registers,
+//     then acc = acc * alpha + that sum in shared memory. Each step is a
+//     chain of short latencies, so every loop is laid out for independent
+//     loads and products; the loops run over the R = T * G rows the call
+//     has, so one instance per cache type, Dh and layout serves every row
+//     count;
 //   * the fresh block is one more step of T keys in the last split, with
 //     the causal rule (a key the rule masks takes p = 0 by selection); no
 //     loop reads past a step's keys;
 //   * one split writes out = acc / l; several write (max, sum,
 //     accumulator) per row to a float32 scratch from the wrapper and a
-//     second kernel merges them in split order into the float32 output.
-//     No atomics and a fixed order of every sum: repeats are bit-identical.
+//     second kernel merges them in split order into the output. No atomics
+//     and a fixed order of every sum: repeats are bit-identical.
 // The writes touch only slots >= offset (paged: position length, or the
 // null page 0, which no valid row attends), which no split reads.
 
@@ -114,30 +126,28 @@ namespace decode_f32 {
 
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
-constexpr int CH = 64;     // slots per chunk
+constexpr int CH = 32;     // slots per chunk: a lane per key in the softmax
 constexpr int MAXR = 32;   // query rows T * G a block takes
-constexpr int MAX_SPLITS = 8;      // the most splits the merge takes
+constexpr int MAX_SPLITS = 16;     // the most splits the merge takes
 constexpr int MERGE_THREADS = 256;
+constexpr int RING_BYTES = 104 * 1024;  // a block's ring: two blocks an SM
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// per cache element type: quantized or not, and the word that holds 4
-// consecutive values as loaded (kept so in registers until they are stored)
-template <typename CT>
-struct Cache {
-  static constexpr bool QUANT = false;
-  using Quad = float4;
-};
-template <>
-struct Cache<int8_t> {
-  static constexpr bool QUANT = true;
-  using Quad = uint32_t;
-};
-template <>
-struct Cache<__nv_bfloat16> {
-  static constexpr bool QUANT = false;
-  using Quad = uint2;
+// a ring of chunks of cache type CT at head dim DH: a slot's K (or V) row
+// as stored, padded by 16 B; a stage holds CH K rows, CH V rows and, for
+// int8, the chunk's k and v scales as floats
+template <typename CT, int DH>
+struct Ring {
+  static constexpr bool QUANT = sizeof(CT) == 1;
+  static constexpr int SEGS = DH * (int)sizeof(CT) / 16;  // 16-byte copies a row
+  static constexpr int ROWB = DH * (int)sizeof(CT) + 16;
+  static constexpr int SCB = QUANT ? 2 * CH * 4 : 0;
+  static constexpr int STAGE = 2 * CH * ROWB + SCB;
+  static constexpr int STAGES =
+      RING_BYTES / STAGE < 3 ? 3 : (RING_BYTES / STAGE > 8 ? 8 : RING_BYTES / STAGE);
+  static constexpr int BYTES = STAGES * STAGE;
 };
 
 struct Args {
@@ -163,25 +173,21 @@ struct Args {
   float scale;
 };
 
-// shared-memory layout in floats: V rows first (16-byte aligned for the
-// float4 stores), K rows padded to DH + 1, the R query rows, P (R x CH), the
-// rows' accumulators (R x DH), the chunk's k / v scales, and per row alpha,
-// max and sum
-template <int DH>
+// shared-memory layout in bytes: the ring, the fresh K and V rows (float32,
+// padded by 16 B), the R query rows, their P . V accumulators, P (R x CH),
+// and per row alpha, max and sum
+template <typename CT, int DH>
 struct Layout {
-  int v, k, q, p, acc, ksc, vsc, al, m, l, bytes;
-  __host__ __device__ explicit Layout(int R) {
-    v = 0;
-    k = v + CH * DH;
-    q = k + CH * (DH + 1);  // 16-byte aligned: rows are read as float4
-    p = q + R * DH;
-    acc = p + R * CH;
-    ksc = acc + R * DH;
-    vsc = ksc + CH;
-    al = vsc + CH;
-    m = al + MAXR;
-    l = m + MAXR;
-    bytes = (l + MAXR) * 4;
+  int fresh, q, acc, p, al, m, l, bytes;
+  __host__ __device__ Layout(int T, int R) {
+    fresh = Ring<CT, DH>::BYTES;
+    q = fresh + 2 * T * (DH * 4 + 16);
+    acc = q + R * DH * 4;
+    p = acc + R * DH * 4;
+    al = p + R * CH * 4;
+    m = al + MAXR * 4;
+    l = m + MAXR * 4;
+    bytes = l + MAXR * 4;
   }
 };
 
@@ -194,24 +200,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
   return x;
-}
-
-// 4 consecutive cache values as loaded, and as floats (exact for every
-// cache type)
-template <typename CT>
-__device__ __forceinline__ typename Cache<CT>::Quad quad_at(const CT* p) {
-  return *reinterpret_cast<const typename Cache<CT>::Quad*>(p);
-}
-template <typename CT>
-__device__ __forceinline__ float4 quad_to_float(typename Cache<CT>::Quad w) {
-  if constexpr (Cache<CT>::QUANT) {
-    return int8x4_to_float4(w);
-  } else if constexpr (sizeof(CT) == 4) {
-    return w;
-  } else {  // a bf16 is a float's top half
-    return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                       __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
-  }
 }
 
 // a query, fresh or output element of type QT as a float (exact), and a
@@ -231,6 +219,46 @@ __device__ __forceinline__ QT from_float(float x) {
 // cached values and p over the cache
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the 16 / sizeof(ST) values of a 16-byte word of a row of type ST, as
+// floats (exact), rounded to bf16 when ROUND
+template <typename ST, bool ROUND>
+__device__ __forceinline__ void widen16(const uint4 w, float* x) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(ST) == 1) {
+      const float4 f = int8x4_to_float4(u[i]);
+      x[4 * i] = f.x;
+      x[4 * i + 1] = f.y;
+      x[4 * i + 2] = f.z;
+      x[4 * i + 3] = f.w;
+    } else if constexpr (sizeof(ST) == 2) {  // a bf16 is a float's top half
+      x[2 * i] = __uint_as_float(u[i] << 16);
+      x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    } else {
+      x[i] = ROUND ? bf16_round(__uint_as_float(u[i])) : __uint_as_float(u[i]);
+    }
+  }
+}
+
+// values d .. d + 3 of a row of type ST as floats (exact), rounded to bf16
+// when ROUND
+template <typename ST, bool ROUND>
+__device__ __forceinline__ float4 widen4(const unsigned char* row, int d) {
+  if constexpr (sizeof(ST) == 1) {
+    return int8x4_to_float4(*reinterpret_cast<const uint32_t*>(row + d));
+  } else if constexpr (sizeof(ST) == 2) {
+    const uint2 w = *reinterpret_cast<const uint2*>(row + 2 * d);
+    return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                       __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+  } else {
+    const float4 x = *reinterpret_cast<const float4*>(row + 4 * d);
+    return ROUND ? make_float4(bf16_round(x.x), bf16_round(x.y), bf16_round(x.z),
+                               bf16_round(x.w))
+                 : x;
+  }
 }
 
 // a float32 value into a cache slot of type CT (int8 is quantized apart)
@@ -254,17 +282,138 @@ __device__ __forceinline__ int page_id(const Args& a, int b, int t) {
   return pid < 0 || pid >= a.P ? 0 : pid;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// one step over n keys whose K and V rows (type ST, row stride rowb bytes)
+// start at kb and vb: the scores into p_s, the online softmax (a warp per
+// row), then P . V into the accumulators acc_s. SCALED: an int8 chunk,
+// whose k / v scales are ksc / vsc; ROUND: the mixed instances' rounding
+// of the cached values and of p; FRESH: the fresh block, under the causal
+// rule. The caller synchronised the block before the step.
+template <typename ST, int DH, bool SCALED, bool ROUND, bool FRESH>
+__device__ __forceinline__ void attend_step(const unsigned char* kb, const unsigned char* vb,
+                                            int rowb, const float* ksc, const float* vsc, int n,
+                                            int R, int G, float scale2, const float* q_s,
+                                            float* p_s, float* al_s, float* m_run, float* l_run,
+                                            float* acc_s) {
+  constexpr int VPW = 16 / (int)sizeof(ST);  // values a 16-byte word holds
+  constexpr int RPW = MAXR / NWARP;          // softmax: rows per warp
+  constexpr int D4 = DH / 4;                 // P . V: four head dims a thread
+  constexpr int HALF = DH / 2;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // ---- scores (base 2), a lane pair per (row, key): the even lane sums the
+  // first half of Dh, the odd lane the second, each in four interleaved
+  // partial sums (element d into d % 4); a warp shares one query row
+  const int items = 2 * R * n;
+  for (int base = warp * 32; base < items; base += THREADS) {  // warp-uniform
+    const int it = base + lane;
+    const int pr = min(it, items - 1) >> 1, hf = it & 1;
+    const int r = pr / n, j = pr - r * n;
+    const float* qr = q_s + r * DH + hf * HALF;
+    const unsigned char* kr = kb + j * rowb + hf * HALF * (int)sizeof(ST);
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int c = 0; c < HALF; c += VPW) {
+      float x[VPW];
+      widen16<ST, ROUND>(*reinterpret_cast<const uint4*>(kr + c * (int)sizeof(ST)), x);
+#pragma unroll
+      for (int e = 0; e < VPW; e += 4) {
+        const float4 qd = *reinterpret_cast<const float4*>(qr + c + e);
+        s[0] = fmaf(qd.x, x[e], s[0]);
+        s[1] = fmaf(qd.y, x[e + 1], s[1]);
+        s[2] = fmaf(qd.z, x[e + 2], s[2]);
+        s[3] = fmaf(qd.w, x[e + 3], s[3]);
+      }
+    }
+    float dot = (s[0] + s[1]) + (s[2] + s[3]);
+    dot += __shfl_xor_sync(FULL, dot, 1);  // the two halves (the same sum on both lanes)
+    if (it < items && hf == 0) p_s[r * CH + j] = (SCALED ? dot * ksc[j] : dot) * scale2;
+  }
+  __syncthreads();
+
+  // ---- the online softmax, a warp per row, a lane per key: p = 2^(s - m)
+  // by selection; the mixed instances round p over the cache to bf16
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int r = warp + NWARP * i;
+    if (r < R) {  // warp-uniform
+      const bool ok = FRESH ? lane < n && lane <= r / G : lane < n;
+      const float s = ok ? p_s[r * CH + lane] : NEG_INF;
+      const float m_new = fmaxf(m_run[i], warp_max(s));
+      const float alpha = exp2f(m_run[i] - m_new);
+      const float p = ok ? exp2f(s - m_new) : 0.f;
+      l_run[i] = l_run[i] * alpha + warp_sum(p);
+      m_run[i] = m_new;
+      if (lane < n) {
+        const float w = SCALED ? p * vsc[lane] : p;
+        p_s[r * CH + lane] = ROUND ? bf16_round(w) : w;
+      }
+      if (lane == 0) al_s[r] = alpha;
+    }
+  }
+  __syncthreads();
+
+  // ---- acc = acc * alpha + P . V: a thread per (row, four consecutive head
+  // dims), the step's keys summed in order, p read four keys at a time
+  for (int it = tid; it < R * D4; it += THREADS) {
+    const int r = it / D4, d = 4 * (it - r * D4);
+    const float* pr = p_s + r * CH;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    int j = 0;
+    for (; j + 4 <= n; j += 4) {
+      const float4 p4 = *reinterpret_cast<const float4*>(pr + j);
+      const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+      float4 v[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) v[jj] = widen4<ST, ROUND>(vb + (j + jj) * rowb, d);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        x[0] = fmaf(pj[jj], v[jj].x, x[0]);
+        x[1] = fmaf(pj[jj], v[jj].y, x[1]);
+        x[2] = fmaf(pj[jj], v[jj].z, x[2]);
+        x[3] = fmaf(pj[jj], v[jj].w, x[3]);
+      }
+    }
+    for (; j < n; ++j) {
+      const float4 v = widen4<ST, ROUND>(vb + j * rowb, d);
+      x[0] = fmaf(pr[j], v.x, x[0]);
+      x[1] = fmaf(pr[j], v.y, x[1]);
+      x[2] = fmaf(pr[j], v.z, x[2]);
+      x[3] = fmaf(pr[j], v.w, x[3]);
+    }
+    float4* a4 = reinterpret_cast<float4*>(acc_s + r * DH + d);
+    float4 acc = *a4;
+    const float al = al_s[r];
+    acc.x = fmaf(acc.x, al, x[0]);
+    acc.y = fmaf(acc.y, al, x[1]);
+    acc.z = fmaf(acc.z, al, x[2]);
+    acc.w = fmaf(acc.w, al, x[3]);
+    *a4 = acc;
+  }
+}
+
 template <typename CT, typename QT, int DH, bool WRITE, bool PAGED>
 __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
-  constexpr bool QUANT = Cache<CT>::QUANT;
+  using RingT = Ring<CT, DH>;
+  constexpr bool QUANT = RingT::QUANT;
   constexpr bool MIXED = sizeof(QT) == 2;  // a bf16 query: cache values and p rounded to bf16
+  constexpr int STAGES = RingT::STAGES, ROWB = RingT::ROWB, SEGS = RingT::SEGS;
+  constexpr int RPW = MAXR / NWARP;            // softmax: rows per warp
+  constexpr int EPL = DH / 32;                 // write pass: elements per lane
+  constexpr int FROWB = DH * 4 + 16;           // a fresh row, float32
+  static_assert(STAGES >= 3, "an int8 chunk's scales land a step after its rows");
   const QT* qp = static_cast<const QT*>(a.q);
   const QT* knp = static_cast<const QT*>(a.kn);
   const QT* vnp = static_cast<const QT*>(a.vn);
-  constexpr int Q4 = DH / 4;              // float4 groups of a row
-  constexpr int PER = CH * Q4 / THREADS;  // groups of a K (or V) chunk per thread
-  constexpr int RPW = MAXR / NWARP;       // softmax: rows per warp
-  constexpr int EPL = DH / 32;            // write pass: elements per lane
   const int T = a.T, Hkv = a.Hkv, S = a.S;
   const int b = blockIdx.x / Hkv;
   const int h = blockIdx.x % Hkv;
@@ -277,25 +426,17 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  extern __shared__ __align__(16) float sm[];
-  const Layout<DH> lay(R);
-  float* v_s = sm + lay.v;      // [CH][DH]
-  float* k_s = sm + lay.k;      // [CH][DH + 1]
-  float* q_s = sm + lay.q;      // [R][DH]
-  float* p_s = sm + lay.p;      // [R][CH] scores, then p (times the v scale)
-  float* acc_s = sm + lay.acc;  // [R][DH] the rows' P . V accumulators
-  float* ksc = sm + lay.ksc;    // [CH]
-  float* vsc = sm + lay.vsc;    // [CH]
-  float* al_s = sm + lay.al;    // [MAXR] alpha of the step
-  float* m_s = sm + lay.m;      // [MAXR] final max (base 2)
-  float* l_s = sm + lay.l;      // [MAXR] final sum
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout<CT, DH> lay(T, R);
+  unsigned char* fresh_k = smem + lay.fresh;            // [T][FROWB]
+  unsigned char* fresh_v = fresh_k + T * FROWB;
+  float* q_s = reinterpret_cast<float*>(smem + lay.q);  // [R][DH]
+  float* acc_s = reinterpret_cast<float*>(smem + lay.acc);  // [R][DH] the rows' P . V
+  float* p_s = reinterpret_cast<float*>(smem + lay.p);  // [R][CH] scores, then p
+  float* al_s = reinterpret_cast<float*>(smem + lay.al);  // [MAXR] alpha of the step
+  float* m_s = reinterpret_cast<float*>(smem + lay.m);    // [MAXR] final max (base 2)
+  float* l_s = reinterpret_cast<float*>(smem + lay.l);    // [MAXR] final sum
 
-  for (int i = tid; i < R * DH; i += THREADS) {
-    const int r = i / DH, d = i % DH;
-    const int t = r / G, g = r % G;
-    q_s[i] = to_float(qp[b * a.q_sb + t * a.q_st + (h * G + g) * a.q_sh + d]);
-    acc_s[i] = 0.f;
-  }
   const int pad = max(a.pads[b], 0);
   const int off = a.offsets ? a.offsets[b] : a.offset;
   const int c_end = min(off, S);  // valid cache slots [pad, c_end)
@@ -312,165 +453,103 @@ __global__ void __launch_bounds__(THREADS, 2) decode_f32_kernel(const Args a) {
   const CT* vslab = PAGED ? nullptr : static_cast<const CT*>(a.vc) + row0 * DH;
   const float scale2 = a.scale * LOG2E;
 
+  // the (L, B, Hkv, S) or (L, P, Hkv, ps) slot index of cache position pos
+  auto slot_of = [&](int pos) -> size_t {
+    if constexpr (PAGED) {
+      const int t = pos / a.ps;
+      return page_slot(a, page_id(a, b, t), h, pos - t * a.ps);
+    } else {
+      return row0 + pos;
+    }
+  };
+  // chunk c's K and V rows into ring stage c % STAGES by cp.async (no
+  // commit); an empty chunk copies nothing
+  auto issue = [&](int c) {
+    const int c0 = lo + c * CH;
+    const int n = c < n_chunks ? min(CH, hi - c0) : 0;
+    unsigned char* st = smem + (c % STAGES) * RingT::STAGE;
+    for (int i = tid; i < n * SEGS; i += THREADS) {
+      const int j = i / SEGS, sg = i - j * SEGS;
+      const size_t x = slot_of(c0 + j) * DH * sizeof(CT) + 16 * sg;
+      cp_async16(st + j * ROWB + 16 * sg, static_cast<const unsigned char*>(a.kc) + x);
+      cp_async16(st + CH * ROWB + j * ROWB + 16 * sg,
+                 static_cast<const unsigned char*>(a.vc) + x);
+    }
+  };
+  // int8: chunk c's k scale (threads [0, CH)) or v scale ([CH, 2 CH)) of
+  // slot tid % CH, loaded into a register, and its place in the stage
+  auto scale_load = [&](int c) -> float {
+    const int c0 = lo + c * CH, j = tid % CH;
+    if (tid >= 2 * CH || c >= n_chunks || c0 + j >= hi) return 1.f;
+    size_t x = srow0 + c0 + j;
+    if constexpr (PAGED) x = slot_of(c0 + j);
+    return __bfloat162float((tid < CH ? a.ks : a.vs)[x]);
+  };
+  auto scale_store = [&](int c, float s) {
+    if (tid < 2 * CH) {
+      reinterpret_cast<float*>(smem + (c % STAGES) * RingT::STAGE + 2 * CH * ROWB)[tid] = s;
+    }
+  };
+
+  // ---- the ring's first STAGES - 1 chunks in flight, then the query and
+  // fresh rows as floats while they land
+#pragma unroll 1
+  for (int c = 0; c < STAGES - 1; ++c) {
+    issue(c);
+    cp_async_commit();
+  }
+  if constexpr (QUANT) {
+#pragma unroll 1
+    for (int c = 0; c < STAGES - 1; ++c) scale_store(c, scale_load(c));
+  }
+  for (int i = tid; i < R * DH; i += THREADS) {
+    const int r = i / DH, d = i % DH;
+    const int t = r / G, g = r % G;
+    q_s[i] = to_float(qp[b * a.q_sb + t * a.q_st + (h * G + g) * a.q_sh + d]);
+    acc_s[i] = 0.f;
+  }
+  if (last) {
+    for (int i = tid; i < T * DH; i += THREADS) {
+      const int j = i / DH, d = i % DH;
+      reinterpret_cast<float*>(fresh_k + j * FROWB)[d] =
+          to_float(knp[b * a.kn_sb + j * a.kn_st + h * a.kn_sh + d]);
+      reinterpret_cast<float*>(fresh_v + j * FROWB)[d] =
+          to_float(vnp[b * a.vn_sb + j * a.vn_st + h * a.vn_sh + d]);
+    }
+  }
+
   float m_run[RPW], l_run[RPW];  // the softmax warp's rows warp + NWARP i
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     m_run[i] = NEG_INF;
     l_run[i] = 0.f;
   }
+  float pend = 1.f;  // int8: the scale of chunk step + STAGES - 2, loaded a step ago
 
-  // the next cache chunk's K and V groups as loaded (row-contiguous, so
-  // that a warp reads whole rows) and, thread tid < CH, slot tid's scales:
-  // fetched into registers one step ahead, in flight while the block
-  // computes, and converted to float32 as they are stored
-  typename Cache<CT>::Quad kq[PER], vq[PER];
-  float ksr = 1.f, vsr = 1.f;
-  auto fetch = [&](int c0, int n) {
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int i = tid + THREADS * u;
-      const int j = i / Q4, c = 4 * (i % Q4);
-      if (j < n) {
-        const int pos = c0 + j;
-        if constexpr (PAGED) {
-          const int t = pos / a.ps;
-          const size_t x = page_slot(a, page_id(a, b, t), h, pos - t * a.ps) * DH + c;
-          kq[u] = quad_at<CT>(static_cast<const CT*>(a.kc) + x);
-          vq[u] = quad_at<CT>(static_cast<const CT*>(a.vc) + x);
-        } else {
-          kq[u] = quad_at<CT>(kslab + (size_t)pos * DH + c);
-          vq[u] = quad_at<CT>(vslab + (size_t)pos * DH + c);
-        }
-      }
-    }
-    if constexpr (QUANT) {
-      if (tid < n) {
-        const int pos = c0 + tid;
-        size_t x = srow0 + pos;
-        if constexpr (PAGED) {
-          const int t = pos / a.ps;
-          x = page_slot(a, page_id(a, b, t), h, pos - t * a.ps);
-        }
-        ksr = __bfloat162float(a.ks[x]);
-        vsr = __bfloat162float(a.vs[x]);
-      }
-    }
-  };
-  if (n_chunks > 0) fetch(lo, min(CH, hi - lo));
-
+#pragma unroll 1
   for (int step = 0; step < n_steps; ++step) {
-    const bool fresh = step == n_chunks;
-    const int c0 = lo + step * CH;
-    const int n = fresh ? T : min(CH, hi - c0);  // keys of this step
-    __syncthreads();  // the previous step is done with K, V and P
-    // ---- the step's K and V rows [0, n) and their scales
-    if (fresh) {
-      for (int i = tid; i < T * DH; i += THREADS) {
-        const int j = i / DH, d = i % DH;
-        k_s[j * (DH + 1) + d] = to_float(knp[b * a.kn_sb + j * a.kn_st + h * a.kn_sh + d]);
-        v_s[i] = to_float(vnp[b * a.vn_sb + j * a.vn_st + h * a.vn_sh + d]);
-      }
-      if (tid < T) ksc[tid] = vsc[tid] = 1.f;
-    } else {
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int i = tid + THREADS * u;
-        const int j = i / Q4, c = 4 * (i % Q4);
-        if (j < n) {
-          float4 kx = quad_to_float<CT>(kq[u]);
-          float4 vx = quad_to_float<CT>(vq[u]);
-          if constexpr (MIXED) {
-            kx = make_float4(bf16_round(kx.x), bf16_round(kx.y), bf16_round(kx.z),
-                             bf16_round(kx.w));
-            vx = make_float4(bf16_round(vx.x), bf16_round(vx.y), bf16_round(vx.z),
-                             bf16_round(vx.w));
-          }
-          float* kr = k_s + j * (DH + 1) + c;
-          kr[0] = kx.x;
-          kr[1] = kx.y;
-          kr[2] = kx.z;
-          kr[3] = kx.w;
-          *reinterpret_cast<float4*>(v_s + j * DH + c) = vx;
-        }
-      }
-      if (tid < n) {
-        ksc[tid] = ksr;
-        vsc[tid] = vsr;
-      }
-      if (step + 1 < n_chunks) fetch(c0 + CH, min(CH, hi - c0 - CH));
+    if (step == n_chunks) {  // the fresh block (last split)
+      __syncthreads();       // the previous step is done with P
+      attend_step<float, DH, false, false, true>(fresh_k, fresh_v, FROWB, nullptr, nullptr, T,
+                                                 R, G, scale2, q_s, p_s, al_s, m_run, l_run,
+                                                 acc_s);
+      continue;
     }
-    __syncthreads();
-
-    // ---- scores (base 2), a thread per (row, key): Q . K^T as FFMA over Dh
-    // in four interleaved partial sums; a warp shares one query row
-    for (int pr = tid; pr < R * n; pr += THREADS) {
-      const int r = pr / n, j = pr - r * n;
-      const float* qr = q_s + r * DH;
-      const float* kr = k_s + j * (DH + 1);
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH; d += 4) {
-        const float4 qd = *reinterpret_cast<const float4*>(qr + d);
-        s0 = fmaf(qd.x, kr[d], s0);
-        s1 = fmaf(qd.y, kr[d + 1], s1);
-        s2 = fmaf(qd.z, kr[d + 2], s2);
-        s3 = fmaf(qd.w, kr[d + 3], s3);
-      }
-      p_s[r * CH + j] = ((s0 + s1) + (s2 + s3)) * ksc[j] * scale2;
+    cp_async_wait<STAGES - 2>();  // chunk `step` landed for this thread
+    __syncthreads();  // ... for every thread, and stage (step - 1) % STAGES is free
+    if constexpr (QUANT) {
+      if (step > 0) scale_store(step + STAGES - 2, pend);
+      pend = scale_load(step + STAGES - 1);
     }
-    __syncthreads();
-
-    // ---- the online softmax, a warp per row: p = 2^(s - m) by selection;
-    // the mixed instances round p over the cache to bf16 for P . V
-    const bool round_p = MIXED && !fresh;
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp + NWARP * i;
-      if (r < R) {  // warp-uniform
-        const int tq = r / G;
-        const int j0 = lane, j1 = lane + 32;
-        const bool ok0 = fresh ? j0 < T && j0 <= tq : j0 < n;
-        const bool ok1 = fresh ? j1 < T && j1 <= tq : j1 < n;
-        const float s0 = ok0 ? p_s[r * CH + j0] : NEG_INF;
-        const float s1 = ok1 ? p_s[r * CH + j1] : NEG_INF;
-        const float mx = warp_max(fmaxf(s0, s1));
-        const float m_new = fmaxf(m_run[i], mx);
-        const float alpha = exp2f(m_run[i] - m_new);
-        const float p0 = ok0 ? exp2f(s0 - m_new) : 0.f;
-        const float p1 = ok1 ? exp2f(s1 - m_new) : 0.f;
-        l_run[i] = l_run[i] * alpha + warp_sum(p0 + p1);
-        m_run[i] = m_new;
-        if (j0 < n) {
-          const float w = p0 * vsc[j0];
-          p_s[r * CH + j0] = round_p ? bf16_round(w) : w;
-        }
-        if (j1 < n) {
-          const float w = p1 * vsc[j1];
-          p_s[r * CH + j1] = round_p ? bf16_round(w) : w;
-        }
-        if (lane == 0) al_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // ---- acc = acc * alpha + P . V, a thread per (row, head dim), the
-    // step's keys in four interleaved partial sums; a warp shares one row
-    for (int e = tid; e < R * DH; e += THREADS) {
-      const int r = e / DH, d = e - r * DH;
-      const float* pr = p_s + r * CH;
-      const float* vc = v_s + d;
-      float x0 = 0.f, x1 = 0.f, x2 = 0.f, x3 = 0.f;
-      int j = 0;
-      for (; j + 4 <= n; j += 4) {
-        x0 = fmaf(pr[j], vc[j * DH], x0);
-        x1 = fmaf(pr[j + 1], vc[(j + 1) * DH], x1);
-        x2 = fmaf(pr[j + 2], vc[(j + 2) * DH], x2);
-        x3 = fmaf(pr[j + 3], vc[(j + 3) * DH], x3);
-      }
-      for (; j < n; ++j) x0 = fmaf(pr[j], vc[j * DH], x0);
-      acc_s[e] = fmaf(acc_s[e], al_s[r], (x0 + x1) + (x2 + x3));
-    }
+    issue(step + STAGES - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (step % STAGES) * RingT::STAGE;
+    const float* sc = reinterpret_cast<const float*>(st + 2 * CH * ROWB);
+    const int n = min(CH, hi - (lo + step * CH));
+    attend_step<CT, DH, QUANT, MIXED, false>(st, st + CH * ROWB, ROWB, sc, sc + CH, n, R, G,
+                                             scale2, q_s, p_s, al_s, m_run, l_run, acc_s);
   }
+  cp_async_wait<0>();
 
   // ---- the block's rows: normalised out, or this split's (max, sum, acc)
 #pragma unroll
@@ -590,7 +669,7 @@ __global__ void __launch_bounds__(MERGE_THREADS) decode_f32_merge_kernel(const A
 
 template <typename CT, typename QT, int DH, bool WRITE, bool PAGED>
 int launch(const Args& a, cudaStream_t stream) {
-  const int smem = Layout<DH>(a.T * (a.Hq / a.Hkv)).bytes;
+  const int smem = Layout<CT, DH>(a.T, a.T * (a.Hq / a.Hkv)).bytes;
   auto kernel = decode_f32_kernel<CT, QT, DH, WRITE, PAGED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -613,10 +692,15 @@ int dispatch(const Args& a, int Dh, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-// shared memory bytes for R = T * G query rows; they grow with neither S
-// nor the page size
-inline long long smem_for(int Dh, int R) {
-  return Dh == 128 ? Layout<128>(R).bytes : Layout<64>(R).bytes;
+// shared memory bytes for T fresh tokens and R = T * G query rows of a
+// cache of cache_bytes per value; they grow with neither S nor the page size
+inline long long smem_for(int Dh, int T, int R, int cache_bytes) {
+#define LSS_F32_SMEM(CT)                                                        \
+  return Dh == 128 ? Layout<CT, 128>(T, R).bytes : Layout<CT, 64>(T, R).bytes;
+  if (cache_bytes == 1) LSS_F32_SMEM(int8_t)
+  if (cache_bytes == 2) LSS_F32_SMEM(__nv_bfloat16)
+  LSS_F32_SMEM(float)
+#undef LSS_F32_SMEM
 }
 
 }  // namespace decode_f32

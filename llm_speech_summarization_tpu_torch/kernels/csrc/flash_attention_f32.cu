@@ -17,25 +17,36 @@
 // TF32 (10 mantissa bits), which is not a float32 kernel; the float32-
 // accurate route on them is 3xTF32 (each operand split into a TF32 high
 // part and a TF32 residual, three products), which PERF.md takes as the
-// bound (495 / 3 = 165 TFLOP/s). This design is the simple one: FFMA on
-// the CUDA cores (67 TFLOP/s at most), operands from shared memory.
-//   * one block of 256 threads per (64-row q tile, q head, sample); the kv
-//     head is h / (Hq / Hkv). The threads form a 16 x 16 grid: thread
-//     (ty, tx) owns q rows 4 ty .. 4 ty + 3 of the tile, score columns
-//     tx + 16 j (j < 4) of each 64-key tile and output columns tx + 16 j
-//     (j < Dh / 16), so a row's 16 threads are one half-warp and its max
-//     and sum take four shuffles;
-//   * Q, K and V tiles are read from global memory as float4 (16-byte
-//     aligned rows) and stored to shared memory with Q and K rows padded to
-//     Dh + 1 floats and the P tile's to 68, so the score and value loops
-//     read shared memory without bank conflicts (a half-warp reads 16
-//     banks, the other half-warp the same words or the 16 others);
-//   * per k tile: S = Q.K^T as sequential FFMAs over Dh, scaled by
-//     Dh^-0.5 * log2(e), masked to -1e30 outside the window and past the
-//     causal frontier; the online softmax in base 2 (m, per-thread partial
-//     l, alpha rescales O); p = 2^(s - m) goes to shared memory in float32;
-//     O += P.V as sequential FFMAs over the tile's keys. Rows of K and V
-//     past T are zero-filled, so a masked key never carries NaN or Inf;
+// bound (495 / 3 = 165 TFLOP/s), and which this design takes. FFMA on the
+// CUDA cores peaks at 67 TFLOP/s, 40% of that bound.
+//   * one block of 4 warps per (64-row q tile, q head, sample); the kv head
+//     is h / (Hq / Hkv). Warp w owns q rows 16 w .. 16 w + 15 of the tile;
+//   * Q (once) and each k tile of K and V (32 keys at Dh = 128, 64 at Dh =
+//     64) go to shared memory by cp.async (16 B a thread-copy, rows at or
+//     past T zero-filled), K and V double-buffered: tile i + 1 is in flight
+//     while tile i is computed. Rows are padded to Dh + 4 floats, so every
+//     fragment load below reads 32 distinct banks. Q at 64 rows and two
+//     stages of K and V take 101,376 B at Dh = 128 (87,040 at 64), so two
+//     blocks fit an SM;
+//   * S = Q.K^T and O += P.V are mma.sync m16n8k8 TF32 products. Every
+//     operand x is split into hi = tf32(x) and lo = x - hi as its fragment
+//     is loaded; each k step of 8 adds lo.hi, hi.lo, then hi.hi into the
+//     register accumulator (lss_f32::mma_3xtf32): S from zero for each
+//     tile, O across every tile after alpha rescales it. hi + lo keeps 21 of
+//     an operand's 24 bits and the dropped lo.lo is 2^-22 of a product:
+//     tests/torch_f32_emulation.py models this arithmetic, with the tensor
+//     cores' sums cut toward zero at every step, within an eighth of
+//     chip_smoke's float32 bound, and single-pass TF32 over it;
+//   * P feeds P.V from the score registers without shared memory: a
+//     thread's accumulator holds keys 2t and 2t + 1 of each 8-key tile for
+//     rows g and g + 8, which is the A fragment of an 8-key k step whose
+//     k index t stands for key 2t and t + 4 for key 2t + 1; V's B fragment
+//     is read at those keys, so no transpose of V is needed;
+//   * per k tile: S scaled by Dh^-0.5 * log2(e), masked to -1e30 outside
+//     the window and past the causal frontier; the online softmax in base 2
+//     (the row's max over the quad of lanes that share it, a per-thread
+//     partial l, alpha rescales O); p = 2^(s - m) in float32. Rows of K and
+//     V past T are zeros, so a masked key never carries NaN or Inf;
 //   * no atomics and a fixed order of every sum: repeats are bit-identical.
 // A row that sees no key writes zeros (as the bf16 kernel). The output is
 // o / max(l, 1e-30), as the TPU kernel divides.
@@ -64,26 +75,19 @@ namespace {
 using lss_f32::LN2;
 using lss_f32::LOG2E;
 using lss_f32::NEG_INF;
-using lss_f32::load_rows;
 
 template <int DH_>
 struct F32Cfg {
   static constexpr int DH = DH_;
-  static constexpr int BQ = 64;  // q rows per block
-  static constexpr int BK = 64;  // keys per k tile
-  static constexpr int THREADS = 256;
-  static constexpr int RQ = 4;         // q rows per thread
-  static constexpr int CK = BK / 16;   // score columns per thread
-  static constexpr int CO = DH / 16;   // output columns per thread
-  static constexpr int QS = DH + 1;    // padded row strides, in floats
-  static constexpr int KS = DH + 1;
-  static constexpr int VS = DH;
-  static constexpr int PS = BK + 4;
+  static constexpr int BQ = 64;  // q rows per block: 16 per warp
+  static constexpr int BK = DH == 64 ? 64 : 32;  // keys per k tile
+  static constexpr int THREADS = 128;
+  static constexpr int RS = DH + 4;  // padded row stride of Q, K and V, in floats
+  static constexpr int NT = BK / 8;  // 8-key n tiles of S
+  static constexpr int ND = DH / 8;  // 8-column n tiles of O
   static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + BQ * QS;
-  static constexpr int v_off = k_off + BK * KS;
-  static constexpr int p_off = v_off + BK * VS;
-  static constexpr int bytes = (p_off + BQ * PS) * 4;
+  static constexpr int kv_off = BQ * RS;      // stage s: K at kv_off + s * 2 BK RS, V after
+  static constexpr int bytes = (BQ * RS + 2 * 2 * BK * RS) * 4;
 };
 
 struct F32Args {
@@ -97,14 +101,25 @@ struct F32Args {
   float scale_log2;  // Dh^-0.5 * log2(e)
 };
 
+// rows [r0, r0 + R) of one head into shared memory at row stride RS, by
+// cp.async; rows at or past T zero-filled
+template <class C, int R>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, long long st, int r0,
+                                          int T) {
+  constexpr int V4 = C::DH / 4;
+  for (int idx = threadIdx.x; idx < R * V4; idx += C::THREADS) {
+    const int r = idx / V4, c = 4 * (idx % V4);
+    const bool valid = r0 + r < T;
+    lss_f32::cp_async16(dst + r * C::RS + c, valid ? src + (long long)(r0 + r) * st + c : src,
+                        valid);
+  }
+}
+
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 2) flash_f32_kernel(const F32Args a) {
-  constexpr int DH = C::DH, BK = C::BK, BQ = C::BQ, RQ = C::RQ, CK = C::CK, CO = C::CO;
-  extern __shared__ float smem[];
+  constexpr int DH = C::DH, BK = C::BK, BQ = C::BQ, RS = C::RS, NT = C::NT, ND = C::ND;
+  extern __shared__ __align__(16) float smem[];
   float* qs = smem + C::q_off;
-  float* ks = smem + C::k_off;
-  float* vs = smem + C::v_off;
-  float* ps = smem + C::p_off;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -119,114 +134,146 @@ __global__ void __launch_bounds__(C::THREADS, 2) flash_f32_kernel(const F32Args 
   const int kt_begin = start / BK;
   const int kt_end = k_stop > 0 ? (k_stop + BK - 1) / BK : 0;
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int r0 = RQ * ty;  // this thread's first row in the tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // the fragments' group and thread in group
+  const int ra = 16 * warp + g;          // this thread's rows ra and ra + 8 of the tile
 
-  float o[RQ][CO];
-  float m[RQ], l[RQ];
+  float o[ND][4];  // O: rows ra (0, 1) and ra + 8 (2, 3), columns 8 nd + 2t, + 1
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CO; ++j) o[i][j] = 0.f;
-  }
+  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
 
-  if (kt_end > kt_begin) {
-    load_rows<DH, BQ, C::QS>(qs, a.q + b * a.q_sb + h * a.q_sh, a.q_st, q0, T);
-  }
   const float* kb = a.k + b * a.k_sb + hk * a.k_sh;
   const float* vb = a.v + b * a.v_sb + hk * a.v_sh;
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    load_rows<DH, BK, C::KS>(ks, kb, a.k_st, k0, T);
-    load_rows<DH, BK, C::VS>(vs, vb, a.v_st, k0, T);
-    __syncthreads();
+  auto stage_k = [&](int s) { return smem + C::kv_off + s * 2 * BK * RS; };
+  if (kt_end > kt_begin) {
+    copy_rows<C, BQ>(qs, a.q + b * a.q_sb + h * a.q_sh, a.q_st, q0, T);
+    copy_rows<C, BK>(stage_k(0), kb, a.k_st, kt_begin * BK, T);
+    copy_rows<C, BK>(stage_k(0) + BK * RS, vb, a.v_st, kt_begin * BK, T);
+  }
+  lss_f32::cp_async_commit();
 
-    // S (RQ rows, CK keys) of this thread = Q . K^T, FFMA over Dh in order
-    float s[RQ][CK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-#pragma unroll
-      for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int i = kt - kt_begin;
+    if (kt + 1 < kt_end) {  // the next tile into the other stage, freed at the end of i - 1
+      float* nk = stage_k((i + 1) & 1);
+      copy_rows<C, BK>(nk, kb, a.k_st, (kt + 1) * BK, T);
+      copy_rows<C, BK>(nk + BK * RS, vb, a.v_st, (kt + 1) * BK, T);
     }
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float qv[RQ], kv[CK];
+    lss_f32::cp_async_commit();
+    lss_f32::cp_async_wait<1>();  // tile i (and Q) landed for this thread
+    __syncthreads();              // ... and for every thread
+    const float* ks = stage_k(i & 1);
+    const float* vs = ks + BK * RS;
+    const int k0 = kt * BK;
+
+    // S (rows ra, ra + 8; keys 8 nt + 2t, + 1) = Q . K^T, 3xTF32
+    float s[NT][4];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) qv[i] = qs[(r0 + i) * C::QS + d];
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < DH; d0 += 8) {
+      uint32_t ahi[4], alo[4];
+      const float* qa = qs + ra * RS + d0 + t;
+      lss_f32::split_tf32(qa[0], ahi[0], alo[0]);
+      lss_f32::split_tf32(qa[8 * RS], ahi[1], alo[1]);
+      lss_f32::split_tf32(qa[4], ahi[2], alo[2]);
+      lss_f32::split_tf32(qa[8 * RS + 4], ahi[3], alo[3]);
 #pragma unroll
-      for (int j = 0; j < CK; ++j) kv[j] = ks[(tx + 16 * j) * C::KS + d];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-#pragma unroll
-        for (int j = 0; j < CK; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t bhi[2], blo[2];
+        const float* kr = ks + (8 * nt + g) * RS + d0 + t;
+        lss_f32::split_tf32(kr[0], bhi[0], blo[0]);
+        lss_f32::split_tf32(kr[4], bhi[1], blo[1]);
+        lss_f32::mma_3xtf32(s[nt], ahi, alo, bhi, blo);
       }
     }
 
-    // scale into base 2, mask, and the online softmax per row
+    // scale into base 2, mask, and the online softmax of rows ra, ra + 8; a
+    // tile inside the window and below every row's causal frontier takes no
+    // mask
+    const bool whole = k0 >= start && k0 + BK <= end && (!a.causal || k0 + BK - 1 <= q0 + diag);
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qp = q0 + r0 + i;
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qp = q0 + ra + 8 * rr;
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool ok = kp >= start && kp < end && (!a.causal || kp <= qp + diag);
-        s[i][j] = ok ? s[i][j] * a.scale_log2 : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int w = 1; w < 16; w *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float mn = fmaxf(m[i], mx);
-      const float alpha = exp2f(m[i] - mn);
-      m[i] = mn;
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * nt + 2 * t + e;
+          const bool ok =
+              whole || (kp >= start && kp < end && (!a.causal || kp <= qp + diag));
+          float& x = s[nt][2 * rr + e];
+          x = ok ? x * a.scale_log2 : NEG_INF;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[rr], mx);
+      const float alpha = exp2f(m[rr] - mn);
+      m[rr] = mn;
       float ls = 0.f;
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const float p = exp2f(s[i][j] - mn);
-        ps[(r0 + i) * C::PS + tx + 16 * j] = p;
-        ls += p;
-      }
-      l[i] = l[i] * alpha + ls;
+      for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int j = 0; j < CO; ++j) o[i][j] *= alpha;
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nt][2 * rr + e];
+          x = exp2f(x - mn);
+          ls += x;
+        }
+      }
+      l[rr] = l[rr] * alpha + ls;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        o[nd][2 * rr] *= alpha;
+        o[nd][2 * rr + 1] *= alpha;
+      }
     }
-    __syncthreads();
 
-    // O += P . V, FFMA over the tile's keys in order
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[RQ], vv[CO];
+    // O += P . V, 3xTF32, a k step of 8 keys at a time: A is the score registers of
+    // n tile kk (k index t: key 2t, t + 4: key 2t + 1), B is V at those keys
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = ps[(r0 + i) * C::PS + c];
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ahi[4], alo[4];
+      lss_f32::split_tf32(s[kk][0], ahi[0], alo[0]);
+      lss_f32::split_tf32(s[kk][2], ahi[1], alo[1]);
+      lss_f32::split_tf32(s[kk][1], ahi[2], alo[2]);
+      lss_f32::split_tf32(s[kk][3], ahi[3], alo[3]);
+      const float* vr = vs + (8 * kk + 2 * t) * RS + g;
 #pragma unroll
-      for (int j = 0; j < CO; ++j) vv[j] = vs[c * C::VS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-#pragma unroll
-        for (int j = 0; j < CO; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
+      for (int nd = 0; nd < ND; ++nd) {
+        uint32_t bhi[2], blo[2];
+        lss_f32::split_tf32(vr[8 * nd], bhi[0], blo[0]);
+        lss_f32::split_tf32(vr[RS + 8 * nd], bhi[1], blo[1]);
+        lss_f32::mma_3xtf32(o[nd], ahi, alo, bhi, blo);
       }
     }
-    __syncthreads();  // the next tile overwrites K, V and P
+    __syncthreads();  // the next iteration's copy overwrites this stage
   }
+  lss_f32::cp_async_wait<0>();
 
-  // the row sums were kept per thread: reduce over the half-warp; a row that
-  // saw no key (m still -1e30) writes zeros
-  float* ob = a.out + b * a.o_sb + h * a.o_sh + tx;
+  // the row sums were kept per thread: reduce over the quad; a row that saw
+  // no key (m still -1e30) writes zeros
+  float* ob = a.out + b * a.o_sb + h * a.o_sh + 2 * t;
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int w = 1; w < 16; w *= 2) li += __shfl_xor_sync(0xffffffffu, li, w);
-    const int qp = q0 + r0 + i;
+  for (int rr = 0; rr < 2; ++rr) {
+    float li = l[rr];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int qp = q0 + ra + 8 * rr;
     if (qp >= T) continue;
-    const bool seen = m[i] != NEG_INF;
+    const bool seen = m[rr] != NEG_INF;
     const float den = fmaxf(li, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < CO; ++j) ob[(long long)qp * a.o_st + 16 * j] = seen ? o[i][j] / den : 0.f;
-    if (a.lse != nullptr && tx == 0) {
-      a.lse[((long long)b * a.Hq + h) * T + qp] = seen ? m[i] * LN2 + logf(den) : NEG_INF;
+    for (int nd = 0; nd < ND; ++nd) {
+      const float2 x = seen ? make_float2(o[nd][2 * rr] / den, o[nd][2 * rr + 1] / den)
+                            : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(ob + (long long)qp * a.o_st + 8 * nd) = x;
+    }
+    if (a.lse != nullptr && t == 0) {
+      a.lse[((long long)b * a.Hq + h) * T + qp] = seen ? m[rr] * LN2 + logf(den) : NEG_INF;
     }
   }
 }

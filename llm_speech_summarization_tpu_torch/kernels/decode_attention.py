@@ -17,8 +17,9 @@ fresh k/v into the cache after it.
 
 A float32 query takes ``decode_attention_f32`` (its own launch count), the
 read-only dense instance of the float32 decode library (``csrc/
-decode_f32.cu``, ``fused_decode.launch_f32``), over a float32, int8 or
-bfloat16 cache; its output is float32. A bfloat16 query over a float32
+decode_f32.cu``, ``fused_decode.launch_f32``, split by
+``fused_decode.f32_splits``), over a float32, int8 or bfloat16 cache; its
+output is float32. A bfloat16 query over a float32
 cache takes ``decode_attention_mixed`` (its own launch count), the same
 library's bf16-query instance (each cached value and p over the cache
 rounded to bf16, as the TPU kernel casts them; a bfloat16 output).
@@ -31,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from . import fused_decode
 from .build import check_status, count_launch, load_library
 from .fused_decode import (
     CACHE_BYTES,
@@ -151,7 +153,8 @@ def _launch_body(wrapper, route, q, k_cache, v_cache, k_new, v_new, pad_lens, of
                                           k_scale, v_scale)
     B, Hq, Hkv, S, Dh, offset = _check_call(what, q, k_cache, v_cache, k_new, v_new, pad_lens,
                                             offset, k_scale, v_scale, route)
-    nsplit = dense_splits(B, Hkv, offset, sm_count(q.device.index))
+    # looked up on fused_decode at each call, where a caller may force it
+    nsplit = fused_decode.f32_splits(B, Hkv, offset, sm_count(q.device.index))
     part = split_scratch(nsplit, B, Hkv, Hq // Hkv, Dh, q.device)
     # the one-layer view as a cache of one layer, every row at `offset`
     return launch_f32(wrapper, q, k_cache[None], v_cache[None],

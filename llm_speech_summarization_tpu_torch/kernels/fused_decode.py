@@ -70,6 +70,16 @@ MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use on sm_90
 # extra blocks)
 MAX_SPLITS = 8  # the most the merge kernel takes (csrc/dense_decode.cuh)
 SPLIT_GAIN_SLOTS = 256
+# the float32 body's split (csrc/dense_decode_f32.cuh; PERF.md §6, chip_smoke
+# --split-sweep f32 over its float32 and mixed instances): a float32 slot
+# moves four times an int8 slot's bytes, and an SM holds F32_BLOCKS_PER_SM
+# of its blocks (each streams its share through a ~100 KB ring), so the
+# body splits as far as the grid stays one wave of that many blocks an SM
+# (a second wave cost 1.3-1.5x in the sweep), at most F32_MAX_SPLITS, each
+# split keeping F32_SPLIT_SLOTS slots or more (one chunk)
+F32_MAX_SPLITS = 16  # the most its merge kernel takes
+F32_BLOCKS_PER_SM = 2
+F32_SPLIT_SLOTS = 32
 CACHE_BYTES = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}
 # each route's query dtype and the cache types it takes: the bf16 body's,
 # the float32 body's, and the float32 body's bf16-query (mixed) instances
@@ -211,6 +221,14 @@ def dense_splits(B: int, Hkv: int, max_offset: int, sms: int) -> int:
     card's ``sms``."""
     n = max(1, min(sms // (B * Hkv), MAX_SPLITS))
     return n if int(max_offset) * (n - 1) >= SPLIT_GAIN_SLOTS * n else 1
+
+
+def f32_splits(B: int, Hkv: int, max_offset: int, sms: int) -> int:
+    """Blocks that share each (sample, kv head) window of the float32 decode
+    body (its float32 and mixed instances), from the batch, the host-side
+    bound of the offsets and the card's ``sms``."""
+    n = F32_BLOCKS_PER_SM * sms // (B * Hkv)
+    return max(1, min(n, F32_MAX_SPLITS, int(max_offset) // F32_SPLIT_SLOTS))
 
 
 def split_scratch(nsplit: int, B: int, Hkv: int, rows: int, Dh: int, device):
@@ -416,7 +434,7 @@ def _f32_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 14 + [i] * 17 + [p, ctypes.c_float, p]
         fn.restype = ctypes.c_int
-        lib.lss_decode_f32_smem_bytes.argtypes = [i] * 2
+        lib.lss_decode_f32_smem_bytes.argtypes = [i] * 4
         lib.lss_decode_f32_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -429,16 +447,17 @@ def launch_f32(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, pad
     Hq, Dh) in q's dtype (float32, or bfloat16 for the mixed instances over
     a float32 cache). Dense caches are (L, B, Hkv, S, Dh) read at ``layer``
     (B8's one-layer view: L = 1); paged pools (L, P, Hkv, ps, Dh) through
-    ``page_table``. ``nsplit`` and ``part`` as the bf16 launches take them
-    (``split_scratch``). ``fresh_scales``: the (B, Hkv, T) bf16 outputs of
-    B3's int8 mode, else the int8 scales are written in place."""
+    ``page_table``. ``nsplit`` from ``f32_splits``, ``part`` as the bf16
+    launches take it (``split_scratch``). ``fresh_scales``: the (B, Hkv, T)
+    bf16 outputs of B3's int8 mode, else the int8 scales are written in
+    place."""
     what = wrapper.__name__
     B, T, Hq, Dh = q.shape
     Hkv = k_cache.shape[-3]
     paged = page_table is not None
     S = mp * ps if paged else k_cache.shape[-2]
     lib = _f32_lib()
-    smem = lib.lss_decode_f32_smem_bytes(Dh, T * (Hq // Hkv))
+    smem = lib.lss_decode_f32_smem_bytes(Dh, T, T * (Hq // Hkv), CACHE_BYTES[k_cache.dtype])
     if smem > MAX_SMEM:
         raise ValueError(f"{what}: T={T} Hq/Hkv={Hq // Hkv} needs {smem} bytes of shared "
                          f"memory (limit {MAX_SMEM})")
@@ -564,7 +583,8 @@ def _launch_dense(wrapper, q, k_cache, v_cache, k_scale, v_scale, k_new, v_new, 
     if max_offset is None:
         raise ValueError(f"{what}: pass max_offset (host-side bound of offsets) on CUDA")
     _check_offsets(int(max_offset), T, S)
-    nsplit = dense_splits(B, Hkv, max_offset, sm_count(q.device.index))
+    rule = dense_splits if route == "bf16" else f32_splits
+    nsplit = rule(B, Hkv, max_offset, sm_count(q.device.index))
     part = split_scratch(nsplit, B, Hkv, T * (Hq // Hkv), Dh, q.device)
     fresh = None
     if per_layer_scales and k_scale is not None:

@@ -153,7 +153,7 @@ def _launch_body(wrapper, route, q, k_pool, v_pool, k_scale, v_scale, page_table
                                      pad_lens, k_new, v_new, layer)
     B, Hq, Hkv, P, ps, mp, Dh = _check(what, q, k_pool, v_pool, k_scale, v_scale, page_table,
                                        lengths, pad_lens, k_new, v_new, layer, route)
-    nsplit, part = paged_splits(B, 1, Hq, Hkv, ps, mp, Dh, q.device)
+    nsplit, part = paged_splits(B, 1, Hq, Hkv, ps, mp, Dh, q.device, route)
     return launch_f32(wrapper, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, pad_lens,
                       nsplit, part, offsets=lengths, layer=layer, scale_layer=layer,
                       page_table=page_table, P=P, ps=ps, mp=mp, write=True)

@@ -20,8 +20,9 @@ write_tokens``).
 A float32 query takes ``paged_decode_attention_f32`` (its own launch
 count), the paged read-only instance of the float32 decode library
 (``csrc/decode_f32.cu``, ``fused_decode.launch_f32``), over int8, float32
-or bfloat16 pools; its output is float32. Its shared memory does not grow
-with the page size: it stages chunks of 64 slots, each slot through its
+or bfloat16 pools; its output is float32, its split count the float32
+body's rule (``fused_decode.f32_splits``). Its shared memory does not grow
+with the page size: it streams chunks of 32 slots, each slot through its
 page. A bfloat16 query over float32 pools takes
 ``paged_decode_attention_mixed`` (its own launch count), the same
 library's bf16-query instance (each cached value and p over the pages
@@ -170,7 +171,7 @@ def _launch_body(wrapper, route, q, k_pool, v_pool, page_table, lengths, pad_len
     B, T, Hq, Hkv, P, ps, mp, Dh, int8_pools = check_paged_operands(
         what, q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, pad_lens, k_new, v_new,
         pool_lead=(), route=route)
-    nsplit, part = paged_splits(B, T, Hq, Hkv, ps, mp, Dh, q.device)
+    nsplit, part = paged_splits(B, T, Hq, Hkv, ps, mp, Dh, q.device, route)
     # one layer's pools as pools of one layer
     return launch_f32(wrapper, q, k_pool[None], v_pool[None],
                       k_scale[None] if int8_pools else None,
@@ -249,13 +250,17 @@ def check_paged_operands(what, q, k_pool, v_pool, k_scale, v_scale, page_table, 
     return B, T, Hq, Hkv, P, ps, page_table.shape[1], Dh, int8_pools
 
 
-def paged_splits(B: int, T: int, Hq: int, Hkv: int, ps: int, mp: int, Dh: int, device):
-    """(nsplit, scratch) of a B4 or B5 launch: the dense kernels' rule with
-    the windows' host-side bound ``mp * ps`` (looked up on ``fused_decode``
-    at each call, where a caller may force it), and the float32 scratch
-    for the split results (None for one split)."""
+def paged_splits(B: int, T: int, Hq: int, Hkv: int, ps: int, mp: int, Dh: int, device,
+                 route: str = "bf16"):
+    """(nsplit, scratch) of a B4 or B5 launch: the dense kernels' rule of
+    the ``route`` (the bf16 body's ``dense_splits``, the float32 body's
+    ``f32_splits`` for "f32" and "mixed") with the windows' host-side bound
+    ``mp * ps`` (looked up on ``fused_decode`` at each call, where a caller
+    may force it), and the float32 scratch for the split results (None for
+    one split)."""
     sms = fused_decode.sm_count(device.index)
-    nsplit = fused_decode.dense_splits(B, Hkv, mp * ps, sms)
+    rule = fused_decode.dense_splits if route == "bf16" else fused_decode.f32_splits
+    nsplit = rule(B, Hkv, mp * ps, sms)
     return nsplit, fused_decode.split_scratch(nsplit, B, Hkv, T * (Hq // Hkv), Dh, device)
 
 

@@ -13,12 +13,12 @@ against the JAX package.
   edges, and Llama's prefill (B=4, T=320, 24/8, Dh=128, causal, left pads).
   The JAX kernel tiles T only in multiples of 128 (else it falls back to
   XLA), so its inputs are zero-padded to that as the JAX HuBERT pads them.
-- An emulation of ``csrc/flash_attention_f32.cu``'s arithmetic: 64-key
-  tiles, each score a sum over Dh in order, the scale Dh^-0.5 log2(e), the
-  base-2 online softmax with p in float32, O rescaled by alpha then P.V
-  summed over the tile's keys in order, o / max(l, 1e-30) at the end. It
-  stays under half of chip_smoke's float32 bound against the JAX kernel;
-  the same arithmetic on TF32-rounded operands exceeds the bound.
+- An emulation of ``csrc/flash_attention_f32.cu``'s arithmetic
+  (``torch_f32_emulation.emulate_flash_3xtf32``: 32-key tiles, Q.K^T and
+  P.V as 3xTF32 tensor-core products per k step of 8 added in float32, the
+  base-2 online softmax with p in float32, o / max(l, 1e-30) at the end).
+  It stays under half of chip_smoke's float32 bound against the JAX
+  kernel; the same arithmetic on TF32-rounded operands exceeds the bound.
 - The refusals on the card's route (meta tensors stand for CUDA ones, so
   the checks run before any build): float16, mixed dtypes, and float32
   with a log-sum-exp, offsets, a backward or a gradient.
@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_f32_emulation import emulate_flash_3xtf32
 from llm_speech_summarization_tpu.data import preprocess as jpre
 from llm_speech_summarization_tpu.kernels.flash_attention import flash_attention as jax_flash
 from llm_speech_summarization_tpu.models import hubert as jhub
@@ -42,9 +43,6 @@ from llm_speech_summarization_tpu_torch.train.state import tree_leaves, tree_map
 
 torch.set_num_threads(2)
 
-LOG2E = 1.4426950408889634
-NEG = -1e30
-BK = 64  # keys per k tile of the float32 kernel
 
 SHAPES = chip_smoke.F32_CASES  # (B, T, Hq, Hkv, Dh, causal, starts, ends)
 
@@ -84,39 +82,10 @@ def _ratio(got, want, abs_pv, rows):
     return ((got.double() - want.double()).abs() / bound).amax((2, 3))[rows].max().item()
 
 
-def emulate_f32(q, k, v, starts, ends, causal):
-    """The float32 kernel's arithmetic, tile by tile (the kernel fuses each
-    multiply-add into one FFMA rounding; here it is two)."""
-    B, T, Hq, Dh = q.shape
-    G = Hq // k.shape[2]
-    kr, vr = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))  # (B, Hq, T, Dh)
-    qt = q.transpose(1, 2)
-    pos = torch.arange(T)
-    keys = (pos[None, :] >= starts[:, None].long()) & (pos[None, :] < ends[:, None].long())
-    mask = keys[:, None, None, :].expand(-1, 1, T, T)
-    if causal:
-        mask = mask & (pos[None, :] <= pos[:, None])
-    scale2 = torch.tensor(Dh ** -0.5, dtype=torch.float32) * torch.tensor(LOG2E,
-                                                                           dtype=torch.float32)
-    m = torch.full((B, Hq, T, 1), NEG)
-    l = torch.zeros((B, Hq, T, 1))
-    o = torch.zeros((B, Hq, T, Dh))
-    for k0 in range(0, T, BK):
-        n = min(BK, T - k0)
-        s = torch.zeros((B, Hq, T, n))
-        for d in range(Dh):
-            s = s + qt[..., d:d + 1] * kr[:, :, None, k0:k0 + n, d]
-        s = torch.where(mask[..., k0:k0 + n], s * scale2, torch.tensor(NEG))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha
-        for c in range(n):
-            o = o + p[..., c:c + 1] * vr[:, :, None, k0 + c]
-        m = m_new
-    out = torch.where(m > NEG / 2, o / torch.clamp(l, min=1e-30), torch.zeros(()))
-    return out.transpose(1, 2)
+def emulate_f32(q, k, v, starts, ends, causal, passes=3):
+    """The float32 kernel's output (3xTF32 products; ``passes=1``: hi.hi
+    alone, single-pass TF32)."""
+    return emulate_flash_3xtf32(q, k, v, starts, ends, causal, passes=passes)[0]
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
@@ -144,8 +113,9 @@ def test_f32_kernel_emulation_within_half_the_chip_bound(name):
     want = _jax_f32(q, k, v, starts, ends, causal)
     abs_pv = _jax_f32(q, k, v.abs(), starts, ends, causal)
     assert _ratio(emulate_f32(q, k, v, starts, ends, causal), want, abs_pv, rows) <= 0.5
+    # TF32 operands have no lo part: hi.hi alone is all three products
     tf32 = emulate_f32(*(chip_smoke.tf32_round(torch, x) for x in (q, k, v)), starts, ends,
-                       causal)
+                       causal, passes=1)
     assert _ratio(tf32, want, abs_pv, rows) > 4
 
 

@@ -7,11 +7,14 @@ the CPU, before any card time:
     JAX kernel in Pallas interpret mode on the same float32 inputs: outputs
     within atol 1e-5 (float32 on both sides, summed in another order),
     cache, scale and page writes bit-exact;
-  * a CPU emulation of the float32 body's arithmetic (chunks of 64 slots,
+  * a CPU emulation of the float32 body's arithmetic (chunks of 32 slots,
     the fresh block as the last split's last step, a base-2 online softmax,
-    four interleaved partial sums, the splits merged in order) held to the
-    JAX kernel within half of chip_smoke.py's float32 bound, and the same
-    emulation with p rounded to bf16 outside it;
+    scores a lane pair's two halves of Dh, each in four interleaved partial
+    sums, P . V summed over a chunk's keys in order, the splits merged in
+    order) held to the JAX kernel within half of chip_smoke.py's float32
+    bound, and the same emulation with p rounded to bf16 outside it;
+  * the float32 body's split rule (``fused_decode.f32_splits``) at the
+    shapes chip_smoke.py's split sweep times;
   * the wrappers' refusals of what is not ported (a float32 query with
     bf16 fresh values, float16) and their routing of a float32 query to
     the float32 instance, and of a bf16 query over a float32 cache to the
@@ -21,7 +24,10 @@ the CPU, before any card time:
     package's under the margin-aware contract (``torch_streams.py``), every
     decode attention call taking a float32 query;
   * marked ``cuda``: each float32 instance against its plain version run in
-    float64 on the card, within chip_smoke.py's float32 bound.
+    float64 on the card, within chip_smoke.py's float32 bound, at the serving
+    shapes and at the body's edges: windows ending on a ring stage, one slot
+    past the ring, on a chunk and on a split boundary, chunks crossing
+    pages, at Dh 64 and 128.
 """
 
 import jax
@@ -74,7 +80,7 @@ ATOL = 1e-5  # float32 plain version against the float32 TPU kernel
 CACHES = ("float32", "int8", "bfloat16")
 NEG = -1e30
 LOG2E = 1.4426950408889634
-CH = 64  # slots per chunk of the float32 body
+CH = 32  # slots per chunk of the float32 body
 
 
 def _cache(rng, shape, cache):
@@ -305,7 +311,7 @@ class _State:
         pw = p * p_weight
         if p_round:
             pw = pw.bfloat16().float()
-        self.acc = self.acc * alpha[:, None] + _partials(pw[:, :, None] * v[None], 1)
+        self.acc = self.acc * alpha[:, None] + _in_order(pw[:, :, None] * v[None], 1)
         self.m = m_new
 
     def merge(self, other):
@@ -323,6 +329,20 @@ def _partials(x, dim):
     parts = [x.narrow(dim, i, n - i).index_select(dim, torch.arange(0, n - i, 4)).sum(dim)
              if n > i else torch.zeros(()) for i in range(4)]
     return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
+def _score(x, dim):
+    """A score's sum over Dh (``dim``) as the kernel takes it: a lane for
+    each half of Dh, each in four interleaved partial sums, then the two
+    halves added."""
+    h = x.shape[dim] // 2
+    return _partials(x.narrow(dim, 0, h), dim) + _partials(x.narrow(dim, h, h), dim)
+
+
+def _in_order(x, dim):
+    """The sum over ``dim`` as P . V takes a chunk's keys: one after the
+    other."""
+    return x.cumsum(dim).select(dim, -1)
 
 
 def emulate_f32(q, k, v, ks, vs, kn, vn, pads, offs, nsplit, p_round=False):
@@ -348,11 +368,11 @@ def emulate_f32(q, k, v, ks, vs, kn, vn, pads, offs, nsplit, p_round=False):
                 st = _State(R, Dh)
                 for c0 in range(lo, hi, CH):
                     sl = slice(c0, min(c0 + CH, hi))
-                    s = _partials(qr[:, None, :] * k[b, h, sl][None], 2) * ks[b, h, sl] * scale2
+                    s = _score(qr[:, None, :] * k[b, h, sl][None], 2) * ks[b, h, sl] * scale2
                     st.step(s, torch.ones_like(s, dtype=torch.bool), vs[b, h, sl], v[b, h, sl],
                             p_round)
                 if split == nsplit - 1:  # the fresh block, causal, the last step
-                    s = _partials(qr[:, None, :] * kn[b, :, h][None], 2) * scale2
+                    s = _score(qr[:, None, :] * kn[b, :, h][None], 2) * scale2
                     ok = torch.arange(T)[None, :] <= torch.arange(R)[:, None] // G
                     st.step(s, ok, torch.ones(T), vn[b, :, h], p_round)
                 if total is None:
@@ -407,8 +427,8 @@ def test_f32_body_emulation_within_half_the_chip_bound(T, nsplit):
 def test_f32_paged_emulation_within_half_the_chip_bound(pools, nsplit):
     """The paged instance reads each slot through its page: its window,
     gathered, through the emulated body against the JAX B4 kernel (T = 4,
-    ps = 64: chunks of 64 cross pages wherever a pad is not a multiple of
-    64)."""
+    ps = 64: chunks of 32 cross pages wherever a pad is not a multiple of
+    32)."""
     T = 4
     q, kp, vp, table, lengths, pads, kn, vn, ks, vs = _paged_case(80, pools, T)
     args = [None if x is None else jnp.asarray(x)
@@ -430,6 +450,37 @@ def test_f32_paged_emulation_within_half_the_chip_bound(pools, nsplit):
     bound = _bound(qt, k * kst[..., None], v * vst[..., None], knt, vnt, pads, lengths)
     got = emulate_f32(qt, k, v, kst, vst, knt, vnt, pads, lengths, nsplit)
     assert ((got - want).abs() / bound).max().item() <= 0.5
+
+
+# ---- the float32 body's split rule at the split sweep's shapes
+
+
+@pytest.mark.parametrize("B,want", [(1, None), (8, 4), (16, 2), (128, 1)])
+def test_f32_splits_keep_one_wave_of_two_blocks_an_sm(B, want):
+    """``f32_splits`` at chip_smoke.py's --split-sweep f32 shapes (24/8
+    heads, max offsets 255-2047) on an H100's 132 SMs: as many splits as
+    keep the grid within two blocks an SM (B=8: 256 blocks, B=16: 256, B=128:
+    1024 blocks, one split), at most 16, each split keeping a chunk of 32
+    slots (B=1: offset // 32)."""
+    for mo in chip_smoke.SWEEP_OFFSETS:
+        n = fd.f32_splits(B, 8, mo, 132)
+        assert n == (want if want is not None else min(16, mo // 32))
+        assert B * 8 * n <= 2 * 132 or n == 1
+
+
+def test_f32_splits_at_the_serving_shapes():
+    """B8 mixed (B=8, offset 368): 4 splits, 256 blocks on 132 SMs; the
+    paged serving shape (B=16, the table bound 7 x 128): 2; MiniChat's 24
+    kv heads at B=16: 1; windows shorter than two chunks, nothing cached,
+    and a smaller card."""
+    assert fd.f32_splits(8, 8, 368, 132) == 4
+    assert fd.f32_splits(16, 8, 7 * 128, 132) == 2
+    assert fd.f32_splits(16, 24, 7 * 128, 132) == 1
+    assert fd.f32_splits(8, 8, 63, 132) == 1
+    assert fd.f32_splits(8, 8, 64, 132) == 2
+    assert fd.f32_splits(2, 2, 0, 132) == 1
+    assert fd.f32_splits(1, 8, 2047, 16) == 4
+    assert fd.F32_MAX_SPLITS == 16  # the merge kernel's MAX_SPLITS in csrc/dense_decode_f32.cuh
 
 
 # ---- the CUDA route's checks on meta tensors (they stand for CUDA ones)
@@ -760,3 +811,134 @@ def test_paged_f32_instances_on_card(card, pools):
                                                ks=snap[2] if q8 else None,
                                                vs=snap[3] if q8 else None), layer)
         assert _within(got, c, kv, rows) <= 1
+
+
+# the float32 body's ring of chunks of 32 slots: its stages at each cache
+# type and Dh (csrc/dense_decode_f32.cuh, Ring<CT, DH>::STAGES), so that the
+# edge cases below end windows and splits on a stage, a ring and a chunk
+RING_STAGES = {("float32", 128): 3, ("float32", 64): 6, ("bfloat16", 128): 6,
+               ("bfloat16", 64): 8, ("int8", 128): 8, ("int8", 64): 8}
+
+
+def _edge_windows(cache, Dh, S, T):
+    """(pads, offsets) of four rows: a window of exactly one ring, one
+    starting on a chunk boundary and one slot past a ring, one of two rings
+    from an odd start, and one a slot short of two rings."""
+    span = 32 * RING_STAGES[(cache, Dh)]
+    pads = np.array([0, 32, 5, 0], np.int32)
+    offs = np.minimum(np.array([span, 32 + span + 1, 5 + 2 * span, 2 * span - 1]), S - T)
+    return pads, offs.astype(np.int32)
+
+
+def _set_windows(c, pads, offs, device):
+    S = c["kc"].shape[3]
+    c["pads"], c["offs"] = (torch.from_numpy(a).to(device) for a in (pads, offs))
+    c["pads_np"], c["offs_np"] = pads, offs
+    slot = torch.arange(S, device=device)
+    c["valid"] = (slot >= c["pads"][:, None]) & (slot < c["offs"][:, None])
+    c["live"] = c["offs"] > c["pads"]
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsplit", [1, 2, 3])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("cache", CACHES)
+def test_dense_f32_ring_and_split_edges_on_card(card, cache, Dh, nsplit, monkeypatch):
+    """B3 (T = 1 and 3; over int8, B3 with one layer's scales at T = 1 and
+    B2 at T = 1 and 3) and B8 with windows that end on a ring stage, one
+    slot past the ring, on a chunk and on a split boundary (the split count
+    forced), at Dh 64 and 128: within the float32 bound, the writes equal
+    to the plain version's."""
+    monkeypatch.setattr(fd, "f32_splits", lambda *args: nsplit)
+    rng = np.random.RandomState(94)
+    layer, S = 1, 520
+    for T in (1, 3):
+        c = chip_smoke._f32_dense_case(torch, rng, 4, T, S, cache, Hq=6, Hkv=2, Dh=Dh)
+        c = _set_windows(c, *_edge_windows(cache, Dh, S, T), card)
+        mo = int(c["offs_np"].max())
+        if cache != "int8" or T == 1:
+            bufs = [c[k].clone() for k in ("kc", "vc")]
+            ref_bufs = [x.clone() for x in bufs]
+            sc = (c["ks"][layer], c["vs"][layer]) if cache == "int8" else ()
+            got = fd.fused_decode_attention_write(c["q"], *bufs, c["kn"], c["vn"], c["pads"],
+                                                  c["offs"], layer, *sc, max_offset=mo)
+            plain = fd.fused_decode_attention_write_reference(
+                c["q"], *ref_bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer, *sc)
+            if sc:
+                assert all(torch.equal(g, p) for g, p in zip(got[1:], plain[1:]))
+                got = got[0]
+            assert all(torch.equal(g, p) for g, p in zip(bufs, ref_bufs))
+            assert _within(got, c, chip_smoke._f64_dense(torch, c, layer)) <= 1
+        if cache == "int8":
+            bufs = [c[k].clone() for k in ("kc", "vc", "ks", "vs")]
+            ref_bufs = [x.clone() for x in bufs]
+            got = fd.fused_decode(c["q"], *bufs, c["kn"], c["vn"], c["pads"], c["offs"], layer,
+                                  max_offset=mo)
+            fd.fused_decode_reference(c["q"], *ref_bufs, c["kn"], c["vn"], c["pads"],
+                                      c["offs"], layer)
+            assert all(torch.equal(g, p) for g, p in zip(bufs, ref_bufs))
+            assert _within(got, c, chip_smoke._f64_dense(torch, c, layer)) <= 1
+    c = chip_smoke._f32_dense_case(torch, rng, 4, 1, S, cache, Hq=6, Hkv=2, Dh=Dh)
+    pads, offs = _edge_windows(cache, Dh, S, 1)
+    offset = int(offs[2])
+    c = _set_windows(c, pads, np.full_like(offs, offset), card)
+    sc = (c["ks"][layer], c["vs"][layer]) if cache == "int8" else ()
+    got = da.decode_attention(c["q"], c["kc"][layer], c["vc"][layer], c["kn"], c["vn"],
+                              c["pads"], offset, *sc)
+    assert _within(got, c, chip_smoke._f64_dense(torch, c, layer)) <= 1
+
+
+def _edge_paged_case(rng, pools, Dh, T, write, device, ps=16, mp=40, L=2, Hq=6, Hkv=2):
+    """Pools of ``pools`` at page size 16 (every chunk of 32 crosses a page)
+    under a shuffled table, with _edge_windows' rows as pads and lengths."""
+    B = 4
+    P = 1 + B * mp
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    if pools == "int8":
+        kp, vp = (torch.from_numpy(rng.randint(-127, 128, size=(L, P, Hkv, ps, Dh))
+                                   .astype(np.int8)).to(device) for _ in range(2))
+        ks, vs = (f32(0.002 + 0.01 * rng.rand(L, P, Hkv, ps)).bfloat16() for _ in range(2))
+    else:
+        dt = torch.float32 if pools == "float32" else torch.bfloat16
+        kp, vp = (f32(rng.randn(L, P, Hkv, ps, Dh)).to(dt) for _ in range(2))
+        ks = vs = None
+    table_np = (1 + rng.permutation(B * mp)).reshape(B, mp).astype(np.int32)
+    pads_np, lens_np = _edge_windows(pools, Dh, mp * ps, T)
+    q, kn, vn = (f32(rng.randn(B, T, h, Dh)) for h in (Hq, Hkv, Hkv))
+    lens, pads, table = (torch.from_numpy(a).to(device) for a in (lens_np, pads_np, table_np))
+    pos = torch.arange(mp * ps, device=device)
+    return dict(q=q, kn=kn, vn=vn, kp=kp, vp=vp, ks=ks, vs=vs, table=table, lens=lens,
+                pads=pads, table_np=table_np, quantized=pools == "int8",
+                valid=(pos >= pads[:, None]) & (pos < lens[:, None]), live=lens > pads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsplit", [1, 3])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("pools", CACHES)
+def test_paged_f32_ring_and_page_edges_on_card(card, pools, Dh, nsplit, monkeypatch):
+    """B4 (T = 4) and B5 (T = 1) over pages of 16 slots, so that every
+    chunk of 32 crosses a page, with the ring, chunk and split edges of the
+    dense test: within the float32 bound, B5's page write equal to the
+    plain version's."""
+    monkeypatch.setattr(fd, "f32_splits", lambda *args: nsplit)
+    rng = np.random.RandomState(95)
+    layer = 1
+    for T, write in ((4, False), (1, True)):
+        c = _edge_paged_case(rng, pools, Dh, T, write, card)
+        q8 = pools == "int8"
+        kv = chip_smoke._f64_paged(torch, c, layer)  # before the write
+        if write:
+            bufs = [x.clone() for x in (c["kp"], c["vp"], c["ks"], c["vs"]) if x is not None]
+            ref_bufs = [x.clone() for x in bufs]
+            extra = [] if q8 else [None, None]
+            args = (c["table"], c["lens"], c["pads"], c["kn"], c["vn"], layer)
+            got = fp.fused_paged_decode(c["q"], *bufs, *extra, *args)
+            fp.fused_paged_reference(c["q"], *ref_bufs, *extra, *args)
+            assert all(torch.equal(g, p) for g, p in zip(bufs, ref_bufs))
+        else:
+            got = pa.paged_decode_attention(c["q"], c["kp"][layer], c["vp"][layer], c["table"],
+                                            c["lens"], c["pads"], c["kn"], c["vn"],
+                                            *((c["ks"][layer], c["vs"][layer]) if q8 else ()))
+        assert _within(got, c, kv) <= 1

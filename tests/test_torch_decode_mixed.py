@@ -11,7 +11,7 @@ norms' bf16) on the CPU, before any card time:
     different maxima, the plain version also the fresh p, and sum in
     different orders); cache and page writes bit-exact, every other slot
     unchanged;
-  * a CPU emulation of the mixed CUDA instances' arithmetic (chunks of 64
+  * a CPU emulation of the mixed CUDA instances' arithmetic (chunks of 32
     slots, cached values and p over the cache rounded to bf16, the fresh
     block unrounded, the splits merged in order, the output rounded once)
     held to the JAX kernel within the same bound;
@@ -40,7 +40,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
-from test_torch_decode_f32 import _partials, _State
+from test_torch_decode_f32 import _score, _State
 from torch_streams import assert_streams_agree, recorded_rows
 
 import chip_smoke
@@ -73,7 +73,7 @@ torch.set_num_threads(1)
 
 BF16 = ml_dtypes.bfloat16
 LOG2E = 1.4426950408889634
-CH = 64  # slots per chunk of the float32 body
+CH = 32  # slots per chunk of the float32 body
 LLAMA_ATOL = 1e-4  # tests/test_torch_models.py's Llama tolerance
 
 
@@ -304,12 +304,12 @@ def emulate_mixed(q, k, v, kn, vn, pads, offs, nsplit):
                 st = _State(R, Dh)
                 for c0 in range(lo, hi, CH):
                     sl = slice(c0, min(c0 + CH, hi))
-                    s = _partials(qr[:, None, :] * k[b, h, sl][None], 2) * scale2
+                    s = _score(qr[:, None, :] * k[b, h, sl][None], 2) * scale2
                     n = s.shape[1]
                     st.step(s, torch.ones_like(s, dtype=torch.bool), torch.ones(n), v[b, h, sl],
                             True)
                 if split == nsplit - 1:
-                    s = _partials(qr[:, None, :] * kn[b, :, h][None], 2) * scale2
+                    s = _score(qr[:, None, :] * kn[b, :, h][None], 2) * scale2
                     ok = torch.arange(T)[None, :] <= torch.arange(R)[:, None] // G
                     st.step(s, ok, torch.ones(T), vn[b, :, h], False)
                 if total is None:

@@ -11,12 +11,17 @@ on the CPU against the JAX package, and, marked ``cuda``, on the card.
   ring's three block relations, with offsets.
 - The float64 plain backward against autograd through dense attention in
   float64.
-- An emulation of the CUDA kernels' arithmetic (64-key tiles; every score
-  and dp a sum over Dh in order; p = 2^(s Dh^-0.5 log2(e) - lse log2(e))
-  by selection inside the mask; dq summed over the keys in order; dk/dv
-  over the group's heads, then the rows, in order) within half of
-  chip_smoke.py's float32 bounds against the float64 plain version; the
-  same arithmetic with ds rounded to bf16 falls outside them.
+- An emulation of the CUDA kernels' arithmetic (the forward's 3xTF32
+  tensor-core products, ``torch_f32_emulation.emulate_flash_3xtf32``:
+  32-key tiles, Q.K^T and P.V per k step of 8 added in float32; the
+  backward's FFMA: every score and dp a sum over Dh in order; p = 2^(s
+  Dh^-0.5 log2(e) - lse log2(e)) by selection inside the mask; dq summed
+  over the keys in order; dk/dv over the group's heads, then the rows, in
+  order) within half of chip_smoke.py's float32 bounds against the
+  float64 plain version; the same arithmetic with ds rounded to bf16 falls
+  outside them. The forward's emulation is held to the JAX kernel in
+  interpret mode within half the out and lse bounds, and single-pass TF32
+  (hi.hi alone) falls outside them.
 - One float32 KD step on ``tiny_test.yaml`` with every flash call routed
   as on the card to the float32 instances, whose launches run the
   emulation here: the losses and grad_norm of the JAX step, and the
@@ -40,6 +45,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_f32_emulation import emulate_flash_3xtf32
 from llm_speech_summarization_tpu.configs import load_config as jax_load_config
 from llm_speech_summarization_tpu.data import SyntheticSpeechDataset, collate_batch
 from llm_speech_summarization_tpu.kernels.flash_attention import _flash_bwd_impl, _flash_impl
@@ -59,7 +65,6 @@ from llm_speech_summarization_tpu_torch.train import make_train_state, make_trai
 torch.set_num_threads(2)
 
 LOG2E = np.float32(1.4426950408889634)
-LN2 = np.float32(0.6931471805599453)
 NEG = -1e30
 ATOL, RTOL = chip_smoke.F32_OUT_ATOL, chip_smoke.F32_OUT_RTOL
 
@@ -276,40 +281,11 @@ def _mask(T, starts, ends, causal, offsets):
     return mask
 
 
-def emulate_fwd_lse(q, k, v, starts, ends, causal, offsets=None):
-    """``flash_attention_f32.cu``: 64-key tiles, each score a sum over Dh in
-    order, the scale Dh^-0.5 log2(e), the base-2 online softmax, O += P.V
-    over the tile's keys in order; o / max(l, 1e-30), lse = m ln 2 +
-    log(max(l, 1e-30)); a row that saw no key: zeros and -1e30 (the kernel
-    fuses each multiply-add into one FFMA rounding; here it is two)."""
-    B, T, Hq, Dh = q.shape
-    G = Hq // k.shape[2]
-    kr, vr = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))  # (B, Hq, T, Dh)
-    qt = q.transpose(1, 2)
-    mask = _mask(T, starts, ends, causal, offsets)
-    scale2 = torch.tensor(Dh ** -0.5, dtype=torch.float32) * torch.tensor(LOG2E)
-    m = torch.full((B, Hq, T, 1), NEG)
-    l = torch.zeros((B, Hq, T, 1))
-    o = torch.zeros((B, Hq, T, Dh))
-    for k0 in range(0, T, 64):
-        n = min(64, T - k0)
-        s = torch.zeros((B, Hq, T, n))
-        for d in range(Dh):
-            s = s + qt[..., d:d + 1] * kr[:, :, None, k0:k0 + n, d]
-        s = torch.where(mask[..., k0:k0 + n], s * scale2, torch.tensor(NEG))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha
-        for c in range(n):
-            o = o + p[..., c:c + 1] * vr[:, :, None, k0 + c]
-        m = m_new
-    seen = m > NEG / 2
-    den = torch.clamp(l, min=1e-30)
-    out = torch.where(seen, o / den, torch.zeros(()))
-    lse = torch.where(seen, m * torch.tensor(LN2) + torch.log(den), torch.tensor(NEG))
-    return out.transpose(1, 2), lse[..., 0]
+def emulate_fwd_lse(q, k, v, starts, ends, causal, offsets=None, passes=3):
+    """``flash_attention_f32.cu``: (out, lse) of the 3xTF32 forward
+    (``passes=1``: single-pass TF32); a row that saw no key: zeros and
+    -1e30."""
+    return emulate_flash_3xtf32(q, k, v, starts, ends, causal, offsets, passes=passes)
 
 
 def emulate_bwd(q, k, v, g, lse, delta, starts, ends, causal, offsets=None, ds_bf16=False):
@@ -375,6 +351,35 @@ def test_f32_kernel_emulation_within_half_the_chip_bound(name, ring):
     rounded = bounds.ratios(grads=emulate_bwd(q, k, v, g, lse, delta, starts, ends, causal,
                                               offsets, ds_bf16=True))
     assert max(rounded["dq"], rounded["dk"]) > 1, rounded
+
+
+@pytest.mark.parametrize("name,ring", EMULATED)
+def test_3xtf32_forward_emulation_held_to_jax(name, ring):
+    """The forward's 3xTF32 arithmetic against JAX's ``_flash_impl`` in
+    interpret mode at float32: out and lse within half of chip_smoke's
+    float32 bounds (set by the float64 plain version) of the JAX values on
+    the rows that see a key; single-pass TF32 (hi.hi alone, what the
+    tensor cores give a float32 operand without the split) leaves them."""
+    q, k, v, g, starts, ends, causal, offsets = (_ring_case(*ring, 128, seed=3) if ring
+                                                 else _case(name, seed=3))
+    out_j, lse_j, delta, _ = _jax(q, k, v, g, starts, ends, causal, offsets,
+                                  TL if ring else 16)
+    tq, tk, tv, tg, ts, te, t_lse, t_delta = _torch(q, k, v, g, starts, ends, lse_j, delta)
+    bounds = Bounds(tq, tk, tv, tg, t_lse, t_delta, ts, te, causal, offsets)
+    rows = bounds.seen.transpose(1, 2)  # (B, T, Hq)
+    want_out, want_lse = _torch(out_j, lse_j)
+
+    def ratios(passes):
+        out, lse = emulate_fwd_lse(tq, tk, tv, ts, te, causal, offsets, passes)
+        if not rows.any():
+            return {"out": 0.0, "lse": 0.0}
+        r_out = ((out.double() - want_out.double()).abs() / bounds.out_bound).amax(-1)[rows]
+        r_lse = ((lse.double() - want_lse.double()).abs() / bounds.lse_bound)[bounds.seen]
+        return {"out": r_out.max().item(), "lse": r_lse.max().item()}
+
+    assert max(ratios(3).values()) <= 0.5
+    if rows.any():
+        assert max(ratios(1).values()) > 1
 
 
 # ---- one KD step through the float32 instances
@@ -577,6 +582,10 @@ EDGES = {
     "t130_window": (2, 130, 4, 4, 64, False, [3, 0], [67, 130]),
     "t499_hubert": (2, 499, 16, 16, 64, False, [0, 0], [499, 77]),
     "t200_causal_left_pads": (3, 200, 24, 8, 128, True, [0, 199, 37], [200] * 3),
+    # windows on the forward's k tiles (32 keys at Dh = 128, 64 at Dh = 64)
+    # and a q tile plus one row or a tile past them
+    "t97_k_tiles_dh128": (2, 97, 6, 2, 128, True, [32, 0], [96, 97]),
+    "t129_k_tiles_dh64": (2, 129, 4, 4, 64, False, [64, 1], [128, 129]),
 }
 
 
