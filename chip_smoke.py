@@ -550,27 +550,21 @@ def phase_build(card, require_no_spill=True, builds=None):
                 for lib, T in (("paged_attention", 4), ("fused_paged", 1))}
     if require_no_spill and None in paged_g1.values():
         raise AssertionError(f"build: no 4-row paged instance with {nw} warps: {paged_g1}")
-    # B1's float32 forward (with or without the lse) and the float32
-    # backward's dq and dk/dv (FFMA, reported only)
+    # B1's float32 forward (with or without the lse), the float32 backward's
+    # dq and dk/dv, and the float32 decode body's instances (cache type, Dh,
+    # write, paged; the mixed ones, a bf16 query over a float32 cache, as
+    # "mixed")
     f32 = flash_f32_registers(build, flash_attention) if f32_lib else {}
     if bwd_f32_lib:
-        for kernel, n_regs, spill in build.ptxas_report("flash_attention_bwd_f32",
-                                                         flash_attention.BWD_F32_SOURCES):
-            name = re.search(r"(bwd_dq_f32_kernel|bwd_dkv_f32_kernel)", kernel).group(1)
-            dh = int(re.search(r"Li(\d+)E", kernel).group(1))
-            f32[f"{name} Dh={dh}"] = [n_regs, spill]
-    # the float32 decode body's instances (cache type, Dh, write, paged; the
-    # mixed ones, a bf16 query over a float32 cache, as "mixed")
+        f32.update(flash_bwd_f32_registers(build, flash_attention))
     if decode_f32_lib:
         f32.update(decode_f32_registers(build, fused_decode))
-    # the float32 forward and the float32 decode body stream their tiles
-    # through shared memory and keep their accumulators in registers: ptxas
-    # must place every instance without a spill
-    streamed = {k: r for k, r in f32.items() if k.startswith(("fwd", "decode", "mixed"))}
-    if require_no_spill and (len(streamed) != 2 + 24 + 8
-                             or any(spill for _, spill in streamed.values())):
-        raise AssertionError(f"build: the float32 forward or decode body spills or misses an "
-                             f"instance: {streamed}")
+    # every float32 kernel streams its tiles through shared memory and keeps
+    # its accumulators in registers: ptxas must place every instance without
+    # a spill
+    if require_no_spill and (len(f32) != 2 + 4 + 24 + 8
+                             or any(spill for _, spill in f32.values())):
+        raise AssertionError(f"build: a float32 kernel spills or misses an instance: {f32}")
     emit("build", seconds=round(max(build.build_seconds.values(), default=0.0), 3),
          nvcc_seconds={k: round(v, 3) for k, v in build.build_seconds.items()},
          wgmma_kernels=regs, decode_kernels=decode, f32_kernels_registers_spill=f32,
@@ -584,6 +578,17 @@ def flash_f32_registers(build, fa) -> dict:
     return {f"fwd Dh={int(re.search(r'Li(\d+)E', kernel).group(1))}": [n_regs, spill]
             for kernel, n_regs, spill in build.ptxas_report("flash_attention_f32",
                                                             fa.F32_SOURCES)}
+
+
+def flash_bwd_f32_registers(build, fa) -> dict:
+    """[registers, spill bytes] of the float32 backward's instances in its
+    build log, as "dq Dh=64", "dkv Dh=64", "dq Dh=128" and "dkv Dh=128"."""
+    out = {}
+    for kernel, n_regs, spill in build.ptxas_report("flash_attention_bwd_f32",
+                                                     fa.BWD_F32_SOURCES):
+        name = re.search(r"bwd_(dq|dkv)_f32_kernel", kernel).group(1)
+        out[f"{name} Dh={int(re.search(r'Li(\d+)E', kernel).group(1))}"] = [n_regs, spill]
+    return out
 
 
 def f32_split_count(fd, B, Hkv, max_offset) -> int:
@@ -729,6 +734,7 @@ def phase_flash_f32(torch, card):
         flash_attention_reference,
     )
 
+    fa._f32_lib()  # built, so that its log can be read
     regs = flash_f32_registers(build, fa)
     rng = np.random.RandomState(5)
     dev = torch.device("cuda")
@@ -3114,7 +3120,9 @@ def phase_flash_train_f32(torch, card, hubert_ring_tl=F32_TRAIN_HUBERT_RING_TL):
     from llm_speech_summarization_tpu_torch.kernels import build, flash_attention as fa
     from llm_speech_summarization_tpu_torch.ops.ring_attention import _block_windows
 
-    fwd_regs = flash_f32_registers(build, fa)
+    fa._f32_lib()
+    fa._bwd_f32_lib(True)  # built, so that their logs can be read
+    regs = {**flash_f32_registers(build, fa), **flash_bwd_f32_registers(build, fa)}
     rng = np.random.RandomState(11)
     dev = torch.device("cuda")
 
@@ -3149,7 +3157,7 @@ def phase_flash_train_f32(torch, card, hubert_ring_tl=F32_TRAIN_HUBERT_RING_TL):
             _train_attn_work(c, T, elem_bytes=4))
         for kname in res:
             res[kname]["max_abs_err"] = errs[kname]
-        res["fwd_lse"]["registers_spill"] = fwd_regs.get(f"fwd Dh={c['Dh']}")
+            res[kname]["registers_spill"] = regs.get(f"{kname.split('_')[0]} Dh={c['Dh']}")
         results[name] = res
         emit("flash_train_f32", case=name, shape=[B, T, c["Hq"], c["Hkv"], c["Dh"]],
              causal=causal, starts=c["starts"], ends=c["ends"], out_atol=F32_OUT_ATOL,
@@ -3197,7 +3205,7 @@ def phase_flash_train_f32(torch, card, hubert_ring_tl=F32_TRAIN_HUBERT_RING_TL):
                 del kept, out, lse, dq, dk, dv, delta, args
         for kname in res:
             res[kname]["max_abs_err"] = max(b["errs"][kname] for b in blocks.values())
-        res["fwd_lse"]["registers_spill"] = fwd_regs.get(f"fwd Dh={c['Dh']}")
+            res[kname]["registers_spill"] = regs.get(f"{kname.split('_')[0]} Dh={c['Dh']}")
         results[name] = res
         emit("flash_ring_f32", case=name, n=RING_N, shape=[B, Tl, c["Hq"], c["Hkv"], c["Dh"]],
              causal=causal, global_starts=c["starts"], global_ends=c["ends"], blocks=blocks,

@@ -1,8 +1,8 @@
 // Flash-attention backward in float32 for Hopper (sm_90a): dq, and dk/dv
 // summed over the GQA group, from the forward's saved float32 log-sum-exp,
 // per-sample key window [start, end), causal or bidirectional, with the
-// ring's offset mode. Every score, p, dp, ds and sum is float32, and so are
-// the outputs.
+// ring's offset mode. Every score, p, dp, ds and sum is float32 (products
+// at float32 accuracy, 3xTF32), and so are the outputs.
 //
 // Replaces the TPU kernels llm_speech_summarization_tpu/kernels/
 // flash_attention.py::_bwd_dq_kernel and ::_bwd_dkv_kernel (launched by
@@ -26,73 +26,105 @@
 //
 // What bounds it on the H100: the five products over the valid (query, key)
 // pairs, in float32 (q.k and dO.v in both kernels, ds.K in dq, p.dO and
-// ds.Q in dk/dv). As for the forward, the tensor cores run float32 only as
-// TF32 (10 mantissa bits), which is not a float32 kernel; PERF.md takes
-// 3xTF32 (165 TFLOP/s) as the bound. This design is the simple one: FFMA
-// on the CUDA cores (67 TFLOP/s at most), operands from shared memory, the
-// forward's thread layout.
-//   * 256 threads as a 16 x 16 grid; every tile is 64 rows, read from
-//     global memory as float4 and stored to shared memory at a row stride
-//     of Dh + 1 floats (the p and ds tiles at 68), so the product loops read
-//     shared memory without bank conflicts;
-//   * dq: one block per (64-row q tile, q head, sample); Q, dO, the tile's
-//     lse (pre-scaled by log2(e)) and delta stay in shared memory; for each
-//     64-key tile of K and V up to the causal frontier, thread (ty, tx)
-//     computes s and dp of rows 4 ty .. 4 ty + 3 and keys tx + 16 j as
-//     sequential FFMAs over Dh, p and ds in registers, ds to shared memory,
-//     then dQ (registers: 4 rows x Dh / 16 columns) += dS.K over the tile's
-//     keys in order; dq = Dh^-0.5 dQ;
-//   * dk/dv: one block per (64-key tile, kv head, sample); K and V stay in
-//     shared memory; for each q head of the group in order, and each 64-row
-//     q tile from the causal frontier on, Q, dO, lse and delta are loaded,
-//     thread (ty, tx) computes s and dp of keys 4 ty .. 4 ty + 3 and rows
-//     tx + 16 j, p and ds go to shared memory transposed, and dV += P^T.dO,
-//     dK += dS^T.Q (registers) over the tile's rows in order: the group is
-//     summed in the block in a fixed order (JAX sums per-head float32 dk/dv
-//     in XLA: the same sum in another order); dk = Dh^-0.5 dK;
+// ds.Q in dk/dv). The tensor cores run float32 only as TF32 (10 mantissa
+// bits), which is not a float32 kernel; the float32-accurate route on them
+// is 3xTF32, which PERF.md takes as the bound (495 / 3 = 165 TFLOP/s), and
+// which this design takes, as the forward does (FFMA on the CUDA cores
+// peaks at 67 TFLOP/s, 40% of it):
+//   * every product is mma.sync m16n8k8 with TF32 operands and float32
+//     sums in registers; each operand x is split into hi = tf32(x) and lo =
+//     x - hi as its fragment is loaded, and each k step of 8 adds lo.hi,
+//     hi.lo, then hi.hi (lss_f32::mma_3xtf32). tests/torch_f32_emulation.py
+//     (emulate_bwd_3xtf32) models this arithmetic, with the tensor cores'
+//     sums cut toward zero at every step, within a sixth of chip_smoke's
+//     float32 bounds, and single-pass TF32 over them;
+//   * each warp owns 16 rows of the block's own tile; rows of every shared
+//     tile are padded to Dh + 4 floats, so every fragment load reads 32
+//     distinct banks; the streamed tiles go to shared memory by cp.async
+//     (16 B a thread-copy, rows at or past T zero-filled) through two
+//     stages, tile i + 1 in flight while tile i is computed. The tile sizes
+//     (DqCfg, DkvCfg below) are the fastest of those timed on the card;
+//   * dq: one block per (q tile, q head, sample), 4 warps and 64-key tiles
+//     at Dh = 64 (two blocks an SM), 8 warps and 32-key tiles at Dh = 128
+//     (one); warp w owns q rows 16 w .. 16 w + 15. Q and dO stay in shared
+//     memory, lse and delta of the thread's two rows in registers; K/V
+//     tiles stream. Per tile: S = Q.K^T and dP = dO.V^T into register
+//     accumulators, p selected inside the mask and ds = p (dp - delta) in
+//     those registers, then dQ += dS.K with dS as the A fragment straight
+//     from the score registers (a thread's accumulator holds keys 2t and
+//     2t + 1 of each 8-key tile for rows g and g + 8: the A fragment of a k
+//     step whose index t stands for key 2t and t + 4 for key 2t + 1; K's B
+//     fragment is read at those keys, so K needs no transpose); dq =
+//     Dh^-0.5 dQ;
+//   * dk/dv: one block per (64-key tile, kv head, sample), 4 warps, q tiles
+//     of 64 rows at Dh = 64 and 16 at Dh = 128 (two blocks an SM at both);
+//     warp w owns keys 16 w .. 16 w + 15. K and V stay in shared memory;
+//     for each q head of the group in order and each q tile from the causal
+//     frontier on, Q, dO, lse and delta stream through the same two stages
+//     (the next head's first tile follows the last head's last). Per tile:
+//     S^T = K.Q^T and dP^T = V.dO^T, p and ds in those registers, then dV
+//     += P^T.dO and dK += dS^T.Q with P^T and dS^T as A fragments from the
+//     registers, as in dq; the group is summed in the block in a fixed
+//     order (JAX sums per-head float32 dk/dv in XLA: the same sum in another
+//     order); dk = Dh^-0.5 dK;
 //   * the causal frontier is the TPU kernels' (dq: no k tile past the q
 //     tile's last query, _bwd_dq_kernel's num_k_blocks; dk/dv: no q tile
 //     before the key tile's first key, _bwd_dkv_kernel's first_q_block),
 //     moved by q_off - k_off in offset mode, as the bf16 B7 does: the TPU
 //     kernels loop over every block in offset mode and let the mask decide,
 //     and the tiles past the moved frontier are wholly masked (p = ds = 0,
-//     an FFMA of 0 leaves a sum unchanged), so skipping them gives the same
-//     bits. A key tile outside the window writes zeros without a loop.
+//     and a k step of zero products leaves a sum's bits as they are), so
+//     skipping them gives the same bits; so does a warp that skips a tile
+//     wholly past its own rows' frontier. A key tile outside the window
+//     writes zeros without a loop. Under a causal mask the blocks start in
+//     order of decreasing work (the tile the slowest index of the launch
+//     order), which shortens the last wave; bidirectional launches keep
+//     the plain order, where the samples' windows set the work;
 //   * Query rows outside the window are not masked (the TPU kernels mask
 //     keys only; their dO is 0 where callers mask the output), rows past T
-//     are; keys past T are zero-filled and masked.
+//     are; keys past T are zero-filled and masked. Rows of K and V past T
+//     are zeros, so a masked key never carries NaN or Inf into a product.
 //   * no atomics and a fixed order of every sum: repeats are bit-identical.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_f32.cuh"
 
 namespace {
 
 using lss_f32::LOG2E;
-using lss_f32::NEG_INF;
-using lss_f32::THREADS;
-using lss_f32::load_rows;
+using lss_f32::copy_rows;
+using lss_f32::mma_3xtf32;
+using lss_f32::split_tf32;
 
-template <int DH_>
+// one kernel's tiles: Dh, warps a block (NW), rows of a streamed tile (BS)
+template <int DH_, int NW_, int BS_, bool DKV_>
 struct BwdCfg {
   static constexpr int DH = DH_;
-  static constexpr int BQ = 64;          // q rows per tile
-  static constexpr int BK = 64;          // keys per tile
-  static constexpr int R = 4;            // tile rows (dq: queries; dk/dv: keys) per thread
-  static constexpr int NCOL = 4;         // score columns per thread: tx + 16 j
-  static constexpr int CO = DH / 16;     // output columns per thread: tx + 16 j
-  static constexpr int AS = DH + 1;      // padded row stride of the operand tiles, in floats
-  static constexpr int PS = 64 + 4;      // padded row stride of the p and ds tiles
-  static constexpr int TILE = 64 * AS;   // one operand tile
-  static constexpr int PTILE = 64 * PS;  // one p or ds tile
-  // dq: Q, dO, K, V, dS, then lse (base 2) and delta of the q tile
-  static constexpr int dq_floats = 4 * TILE + PTILE + 2 * BQ;
-  // dk/dv: K, V, Q, dO, P^T, dS^T, then lse (base 2) and delta of the q tile
-  static constexpr int dkv_floats = 4 * TILE + 2 * PTILE + 2 * BQ;
-  static constexpr int MIN_BLOCKS = DH == 64 ? 2 : 1;  // blocks an SM (shared memory)
+  static constexpr int NW = NW_;
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int BT = 16 * NW;  // the block's own rows: q rows (dq), keys (dk/dv)
+  static constexpr int BS = BS_;      // rows of a streamed tile: keys (dq), q rows (dk/dv)
+  static constexpr int RS = DH + 4;   // padded row stride of every shared tile, in floats
+  static constexpr int NS = BS / 8;   // 8-wide n tiles of S (dq) or S^T (dk/dv)
+  static constexpr int ND = DH / 8;   // 8-column n tiles of dQ, dK, dV
+  static constexpr int OWN = 2 * BT * RS;  // Q and dO (dq), K and V (dk/dv)
+  // one stage: K and V (dq); Q, dO, then the tile's lse and delta (dk/dv)
+  static constexpr int STAGE = 2 * BS * RS + (DKV_ ? 2 * BS : 0);
+  static constexpr int bytes = (OWN + 2 * STAGE) * 4;
+  static constexpr int MIN_BLOCKS = bytes <= 113 * 1024 ? 2 : 1;  // blocks an SM
 };
+// dq: at Dh = 128, 8 warps and 32-key tiles, one block an SM (202,752 B);
+// dk/dv: 4 warps and 16-row tiles, two blocks an SM (101,632 B); at Dh = 64
+// both 4 warps and 64-row tiles, two blocks an SM (104,448 and 105,472 B):
+// the fastest of the layouts timed at the training and ring shapes (PERF.md)
+template <int DH>
+using DqCfg = BwdCfg<DH, DH == 64 ? 4 : 8, DH == 64 ? 64 : 32, false>;
+template <int DH>
+using DkvCfg = BwdCfg<DH, 4, DH == 64 ? 64 : 16, true>;
 
 struct BwdArgs {
   const float *q, *k, *v, *dout, *lse, *delta;
@@ -104,273 +136,319 @@ struct BwdArgs {
   float scale, scale_log2;       // Dh^-0.5, Dh^-0.5 * log2(e)
 };
 
-// lse (times log2(e)) and delta of q rows [r0, r0 + 64) of row ``row`` of
-// the (B, Hq, T) buffers into shared memory; rows past T get 0 (masked)
-__device__ __forceinline__ void load_row_stats(float* lse2, float* dl, const BwdArgs& a,
-                                               long long row, int r0) {
-  for (int i = threadIdx.x; i < 64; i += THREADS) {
-    const bool in = r0 + i < a.T;
-    lse2[i] = in ? a.lse[row * a.T + r0 + i] * LOG2E : 0.f;
-    dl[i] = in ? a.delta[row * a.T + r0 + i] : 0.f;
+// acc[n] += A . B over the n tiles of one k step of 8, 3xTF32: A (16 x 8)
+// is (rows g, g + 8) x (k 2t, 2t + 1) of the score registers ``c`` (a
+// thread's accumulator of one 8-wide n tile: the k index t stands for 2t
+// and t + 4 for 2t + 1), B is row 8 kk + 2t (and + 1) of ``src`` at the
+// columns 8 n + g
+template <class C>
+__device__ __forceinline__ void mma_from_scores(float (&acc)[C::ND][4], const float (&c)[4],
+                                                const float* src) {
+  uint32_t ahi[4], alo[4];
+  split_tf32(c[0], ahi[0], alo[0]);
+  split_tf32(c[2], ahi[1], alo[1]);
+  split_tf32(c[1], ahi[2], alo[2]);
+  split_tf32(c[3], ahi[3], alo[3]);
+#pragma unroll
+  for (int nd = 0; nd < C::ND; ++nd) {
+    uint32_t bhi[2], blo[2];
+    split_tf32(src[8 * nd], bhi[0], blo[0]);
+    split_tf32(src[C::RS + 8 * nd], bhi[1], blo[1]);
+    mma_3xtf32(acc[nd], ahi, alo, bhi, blo);
+  }
+}
+
+// x = A1 . B1^T and y = A2 . B2^T over Dh, 3xTF32, from zero: A1, A2 are
+// the warp's 16 rows (a1, a2 at its row g, column 0) and B1, B2 the
+// streamed tile's BS rows (b1, b2 at row 0, column 0), all at row stride RS
+template <class C>
+__device__ __forceinline__ void scores(float (&x)[C::NS][4], float (&y)[C::NS][4],
+                                       const float* a1, const float* a2, const float* b1,
+                                       const float* b2) {
+  constexpr int RS = C::RS;
+#pragma unroll
+  for (int nt = 0; nt < C::NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[nt][e] = y[nt][e] = 0.f;
+  }
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+#pragma unroll 2
+  for (int d0 = 0; d0 < C::DH; d0 += 8) {
+    uint32_t xhi[4], xlo[4], yhi[4], ylo[4];
+    const float* p1 = a1 + d0 + t;
+    const float* p2 = a2 + d0 + t;
+    split_tf32(p1[0], xhi[0], xlo[0]);
+    split_tf32(p1[8 * RS], xhi[1], xlo[1]);
+    split_tf32(p1[4], xhi[2], xlo[2]);
+    split_tf32(p1[8 * RS + 4], xhi[3], xlo[3]);
+    split_tf32(p2[0], yhi[0], ylo[0]);
+    split_tf32(p2[8 * RS], yhi[1], ylo[1]);
+    split_tf32(p2[4], yhi[2], ylo[2]);
+    split_tf32(p2[8 * RS + 4], yhi[3], ylo[3]);
+#pragma unroll
+    for (int nt = 0; nt < C::NS; ++nt) {
+      uint32_t bhi[2], blo[2];
+      const float* r1 = b1 + (8 * nt + g) * RS + d0 + t;
+      split_tf32(r1[0], bhi[0], blo[0]);
+      split_tf32(r1[4], bhi[1], blo[1]);
+      mma_3xtf32(x[nt], xhi, xlo, bhi, blo);
+      const float* r2 = b2 + (8 * nt + g) * RS + d0 + t;
+      split_tf32(r2[0], bhi[0], blo[0]);
+      split_tf32(r2[4], bhi[1], blo[1]);
+      mma_3xtf32(y[nt], yhi, ylo, bhi, blo);
+    }
   }
 }
 
 template <class C>
-__global__ void __launch_bounds__(THREADS, C::MIN_BLOCKS) bwd_dq_f32_kernel(const BwdArgs a) {
-  constexpr int DH = C::DH, BQ = C::BQ, BK = C::BK, R = C::R, NC = C::NCOL, CO = C::CO;
-  constexpr int AS = C::AS, PS = C::PS;
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS) bwd_dq_f32_kernel(const BwdArgs a) {
+  constexpr int BT = C::BT, BS = C::BS, RS = C::RS, NS = C::NS, ND = C::ND;
+  extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* dos = qs + C::TILE;
-  float* ks = dos + C::TILE;
-  float* vs = ks + C::TILE;
-  float* dss = vs + C::TILE;
-  float* lse2 = dss + C::PTILE;
-  float* dl = lse2 + BQ;
+  float* dos = qs + BT * RS;
+  auto stage = [&](int s) { return smem + C::OWN + s * C::STAGE; };  // K, then V
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // (q tile, q head, sample); under a causal mask the blocks start in order
+  // of decreasing work: the q tile is the slowest index, the last (most
+  // keys) first
+  int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  if (a.causal) {
+    const int L = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    const int heads = gridDim.y * gridDim.z;
+    q0 = (gridDim.x - 1 - L / heads) * BT;
+    h = L % heads % gridDim.y;
+    b = L % heads / gridDim.y;
+  }
   const int hk = h / (a.Hq / a.Hkv);
   const int T = a.T;
   const int start = max(a.starts[b], 0);
   const int end = min(a.ends[b], T);
+  const int diag = a.diag;
   int k_stop = end;  // keys in [start, k_stop); causal: none past the tile's frontier
-  if (a.causal) k_stop = min(k_stop, q0 + BQ + a.diag);
-  const int kt_begin = start / BK;
-  const int kt_end = k_stop > 0 ? (k_stop + BK - 1) / BK : 0;
+  if (a.causal) k_stop = min(k_stop, q0 + BT + diag);
+  const int kt_begin = start / BS;
+  const int kt_end = k_stop > 0 ? (k_stop + BS - 1) / BS : 0;
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int r0 = R * ty;  // this thread's first q row in the tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // the fragments' group and thread in group
+  const int ra = 16 * warp + g;          // this thread's rows ra and ra + 8 of the tile
 
-  float acc[R][CO];
+  // lse (times log2(e)) and delta of rows ra, ra + 8; rows past T: 0 (masked)
+  float l2[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qp = q0 + ra + 8 * rr;
+    const long long i = ((long long)b * a.Hq + h) * T + qp;
+    l2[rr] = qp < T ? a.lse[i] * LOG2E : 0.f;
+    dl[rr] = qp < T ? a.delta[i] : 0.f;
+  }
+  float acc[ND][4];  // dQ: rows ra (0, 1) and ra + 8 (2, 3), columns 8 nd + 2t, + 1
 #pragma unroll
-    for (int j = 0; j < CO; ++j) acc[i][j] = 0.f;
-  }
+  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
 
-  if (kt_end > kt_begin) {
-    load_rows<DH, BQ, AS>(qs, a.q + b * a.q_sb + h * a.q_sh, a.q_st, q0, T);
-    load_rows<DH, BQ, AS>(dos, a.dout + b * a.o_sb + h * a.o_sh, a.o_st, q0, T);
-    load_row_stats(lse2, dl, a, (long long)b * a.Hq + h, q0);
-  }
   const float* kb = a.k + b * a.k_sb + hk * a.k_sh;
   const float* vb = a.v + b * a.v_sb + hk * a.v_sh;
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    load_rows<DH, BK, AS>(ks, kb, a.k_st, k0, T);
-    load_rows<DH, BK, AS>(vs, vb, a.v_st, k0, T);
-    __syncthreads();
+  if (kt_end > kt_begin) {
+    copy_rows<C, BT>(qs, a.q + b * a.q_sb + h * a.q_sh, a.q_st, q0, T);
+    copy_rows<C, BT>(dos, a.dout + b * a.o_sb + h * a.o_sh, a.o_st, q0, T);
+    copy_rows<C, BS>(stage(0), kb, a.k_st, kt_begin * BS, T);
+    copy_rows<C, BS>(stage(0) + BS * RS, vb, a.v_st, kt_begin * BS, T);
+  }
+  lss_f32::cp_async_commit();
 
-    // s = Q.K^T and dp = dO.V^T of this thread's (row, key) pairs, FFMA over Dh in order
-    float s[R][NC], dp[R][NC];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < NC; ++j) s[i][j] = dp[i][j] = 0.f;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int i = kt - kt_begin;
+    if (kt + 1 < kt_end) {  // the next tile into the other stage, freed at the end of i - 1
+      float* nk = stage((i + 1) & 1);
+      copy_rows<C, BS>(nk, kb, a.k_st, (kt + 1) * BS, T);
+      copy_rows<C, BS>(nk + BS * RS, vb, a.v_st, (kt + 1) * BS, T);
     }
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float qv[R], dv[R], kv[NC], vv[NC];
+    lss_f32::cp_async_commit();
+    lss_f32::cp_async_wait<1>();  // tile i (and Q, dO) landed for this thread
+    __syncthreads();              // ... and for every thread
+    const float* ks = stage(i & 1);
+    const float* vs = ks + BS * RS;
+    const int k0 = kt * BS;
+
+    // a tile wholly past this warp's causal frontier adds only zeros: skipped
+    if (!a.causal || k0 <= q0 + 16 * warp + 15 + diag) {
+      // S and dP (rows ra, ra + 8; keys 8 nt + 2t, + 1)
+      float s[NS][4], dp[NS][4];
+      scores<C>(s, dp, qs + ra * RS, dos + ra * RS, ks, vs);
+
+      // p selected inside the mask, ds = p (dp - delta) into s; a tile inside
+      // the window, below every row's causal frontier and before T takes no mask
+      const bool whole = k0 >= start && k0 + BS <= end && q0 + BT <= T &&
+                         (!a.causal || k0 + BS - 1 <= q0 + diag);
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = qs[(r0 + i) * AS + d];
-        dv[i] = dos[(r0 + i) * AS + d];
-      }
+      for (int nt = 0; nt < NS; ++nt) {
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        kv[j] = ks[(tx + 16 * j) * AS + d];
-        vv[j] = vs[(tx + 16 * j) * AS + d];
-      }
+        for (int rr = 0; rr < 2; ++rr) {
+          const int qp = q0 + ra + 8 * rr;
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dv[i], vv[j], dp[i][j]);
+          for (int e = 0; e < 2; ++e) {
+            const int kp = k0 + 8 * nt + 2 * t + e;
+            const bool ok = whole || (kp >= start && kp < end && qp < T &&
+                                      (!a.causal || kp <= qp + diag));
+            const float p = ok ? exp2f(fmaf(s[nt][2 * rr + e], a.scale_log2, -l2[rr])) : 0.f;
+            s[nt][2 * rr + e] = p * (dp[nt][2 * rr + e] - dl[rr]);
+          }
         }
       }
-    }
 
-    // p by selection inside the mask, ds = p (dp - delta) to shared memory
+      // dQ += dS . K, a k step of 8 keys at a time (K at those keys)
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qp = q0 + r0 + i;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool ok = kp >= start && kp < end && qp < T && (!a.causal || kp <= qp + a.diag);
-        const float p = ok ? exp2f(s[i][j] * a.scale_log2 - lse2[r0 + i]) : 0.f;
-        dss[(r0 + i) * PS + tx + 16 * j] = p * (dp[i][j] - dl[r0 + i]);
+      for (int kk = 0; kk < NS; ++kk) {
+        mma_from_scores<C>(acc, s[kk], ks + (8 * kk + 2 * t) * RS + g);
       }
     }
-    __syncthreads();
-
-    // dQ += dS.K, FFMA over the tile's keys in order
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float dsv[R], kk[CO];
-#pragma unroll
-      for (int i = 0; i < R; ++i) dsv[i] = dss[(r0 + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < CO; ++j) kk[j] = ks[c * AS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-#pragma unroll
-        for (int j = 0; j < CO; ++j) acc[i][j] = fmaf(dsv[i], kk[j], acc[i][j]);
-      }
-    }
-    __syncthreads();  // the next tile overwrites K, V and dS
+    __syncthreads();  // the next iteration's copy overwrites this stage
   }
+  lss_f32::cp_async_wait<0>();
 
   // every row of the tile is written: zeros where it saw no key
-  float* out = a.dq + b * a.dq_sb + h * a.dq_sh + tx;
+  float* out = a.dq + b * a.dq_sb + h * a.dq_sh + 2 * t;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qp = q0 + r0 + i;
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qp = q0 + ra + 8 * rr;
     if (qp >= T) continue;
 #pragma unroll
-    for (int j = 0; j < CO; ++j) out[(long long)qp * a.dq_st + 16 * j] = acc[i][j] * a.scale;
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<float2*>(out + (long long)qp * a.dq_st + 8 * nd) =
+          make_float2(acc[nd][2 * rr] * a.scale, acc[nd][2 * rr + 1] * a.scale);
+    }
   }
 }
 
 template <class C>
-__global__ void __launch_bounds__(THREADS, C::MIN_BLOCKS) bwd_dkv_f32_kernel(const BwdArgs a) {
-  constexpr int DH = C::DH, BQ = C::BQ, BK = C::BK, R = C::R, NC = C::NCOL, CO = C::CO;
-  constexpr int AS = C::AS, PS = C::PS;
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS) bwd_dkv_f32_kernel(const BwdArgs a) {
+  constexpr int BT = C::BT, BS = C::BS, RS = C::RS, NS = C::NS, ND = C::ND;
+  extern __shared__ __align__(16) float smem[];
   float* ks = smem;
-  float* vs = ks + C::TILE;
-  float* qs = vs + C::TILE;
-  float* dos = qs + C::TILE;
-  float* pts = dos + C::TILE;  // P^T: (key, q row)
-  float* dts = pts + C::PTILE;  // dS^T
-  float* lse2 = dts + C::PTILE;
-  float* dl = lse2 + BQ;
+  float* vs = ks + BT * RS;
+  // Q, dO, lse, delta
+  auto stage = [&](int s) { return smem + C::OWN + s * C::STAGE; };
 
-  const int k0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  // (key tile, kv head, sample); under a causal mask the blocks start in
+  // order of decreasing work: the key tile is the slowest index, the first
+  // (most rows) first
+  int k0 = blockIdx.x * BT, hk = blockIdx.y, b = blockIdx.z;
+  if (a.causal) {
+    const int L = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    const int heads = gridDim.y * gridDim.z;
+    k0 = L / heads * BT;
+    hk = L % heads % gridDim.y;
+    b = L % heads / gridDim.y;
+  }
   const int G = a.Hq / a.Hkv;
   const int T = a.T;
   const int start = max(a.starts[b], 0);
   const int end = min(a.ends[b], T);
+  const int diag = a.diag;
   // the first q tile whose rows can see key k0 (the causal frontier, moved
   // by diag in offset mode); none where the key tile is outside the window
-  const bool keys_in = k0 < end && k0 + BK > start;
-  const int qt_begin = a.causal ? max(k0 - a.diag, 0) / BQ : 0;
-  const int qt_end = keys_in ? (T + BQ - 1) / BQ : 0;
+  const bool keys_in = k0 < end && k0 + BT > start;
+  const int qt_begin = a.causal ? max(k0 - diag, 0) / BS : 0;
+  const int qt_end = keys_in ? (T + BS - 1) / BS : 0;
+  const int nqt = max(qt_end - qt_begin, 0);
+  const int items = G * nqt;  // (head of the group, q tile), heads outer
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int r0 = R * ty;  // this thread's first key in the tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ka = 16 * warp + g;  // this thread's keys ka and ka + 8 of the tile
 
-  float dk[R][CO], dv[R][CO];
+  float dk[ND][4], dv[ND][4];  // keys ka (0, 1) and ka + 8 (2, 3), columns 8 nd + 2t, + 1
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
+  for (int nd = 0; nd < ND; ++nd) {
 #pragma unroll
-    for (int j = 0; j < CO; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
   }
 
-  if (qt_end > qt_begin) {
-    load_rows<DH, BK, AS>(ks, a.k + b * a.k_sb + hk * a.k_sh, a.k_st, k0, T);
-    load_rows<DH, BK, AS>(vs, a.v + b * a.v_sb + hk * a.v_sh, a.v_st, k0, T);
-  }
-  for (int g = 0; g < G && qt_end > qt_begin; ++g) {  // the group's q heads, in order
-    const int h = hk * G + g;
-    const float* qb = a.q + b * a.q_sb + h * a.q_sh;
-    const float* ob = a.dout + b * a.o_sb + h * a.o_sh;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      load_rows<DH, BQ, AS>(qs, qb, a.q_st, q0, T);
-      load_rows<DH, BQ, AS>(dos, ob, a.o_st, q0, T);
-      load_row_stats(lse2, dl, a, (long long)b * a.Hq + h, q0);
-      __syncthreads();
-
-      // s = K.Q^T and dp = V.dO^T of this thread's (key, row) pairs, FFMA over Dh in order
-      float s[R][NC], dp[R][NC];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-#pragma unroll
-        for (int j = 0; j < NC; ++j) s[i][j] = dp[i][j] = 0.f;
-      }
-#pragma unroll 4
-      for (int d = 0; d < DH; ++d) {
-        float kv[R], vv[R], qv[NC], ov[NC];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          kv[i] = ks[(r0 + i) * AS + d];
-          vv[i] = vs[(r0 + i) * AS + d];
-        }
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          qv[j] = qs[(tx + 16 * j) * AS + d];
-          ov[j] = dos[(tx + 16 * j) * AS + d];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-#pragma unroll
-          for (int j = 0; j < NC; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
-        }
-      }
-
-      // p by selection inside the mask, ds = p (dp - delta); both transposed
-      // to shared memory
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int kp = k0 + r0 + i;
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const int r = tx + 16 * j, qp = q0 + r;
-          const bool ok = kp >= start && kp < end && qp < T && (!a.causal || kp <= qp + a.diag);
-          const float p = ok ? exp2f(s[i][j] * a.scale_log2 - lse2[r]) : 0.f;
-          pts[(r0 + i) * PS + r] = p;
-          dts[(r0 + i) * PS + r] = p * (dp[i][j] - dl[r]);
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T.dO and dK += dS^T.Q, FFMA over the tile's rows in order
-#pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        float pv[R], dsv[R], ov[CO], qv[CO];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          pv[i] = pts[(r0 + i) * PS + r];
-          dsv[i] = dts[(r0 + i) * PS + r];
-        }
-#pragma unroll
-        for (int j = 0; j < CO; ++j) {
-          ov[j] = dos[r * AS + tx + 16 * j];
-          qv[j] = qs[r * AS + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-#pragma unroll
-          for (int j = 0; j < CO; ++j) {
-            dv[i][j] = fmaf(pv[i], ov[j], dv[i][j]);
-            dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
-          }
-        }
-      }
-      __syncthreads();  // the next tile overwrites Q, dO, P^T and dS^T
+  auto issue = [&](int item, float* st) {  // item's Q, dO, lse and delta into stage st
+    const int h = hk * G + item / nqt;
+    const int q0 = (qt_begin + item % nqt) * BS;
+    copy_rows<C, BS>(st, a.q + b * a.q_sb + h * a.q_sh, a.q_st, q0, T);
+    copy_rows<C, BS>(st + BS * RS, a.dout + b * a.o_sb + h * a.o_sh, a.o_st, q0, T);
+    const long long row = ((long long)b * a.Hq + h) * T;
+    for (int r = threadIdx.x; r < BS; r += C::THREADS) {
+      const bool in = q0 + r < T;
+      lss_f32::cp_async4(st + 2 * BS * RS + r, a.lse + (in ? row + q0 + r : 0), in);
+      lss_f32::cp_async4(st + 2 * BS * RS + BS + r, a.delta + (in ? row + q0 + r : 0), in);
     }
+  };
+  if (items > 0) {
+    copy_rows<C, BT>(ks, a.k + b * a.k_sb + hk * a.k_sh, a.k_st, k0, T);
+    copy_rows<C, BT>(vs, a.v + b * a.v_sb + hk * a.v_sh, a.v_st, k0, T);
+    issue(0, stage(0));
   }
+  lss_f32::cp_async_commit();
+
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) issue(i + 1, stage((i + 1) & 1));  // freed at the end of i - 1
+    lss_f32::cp_async_commit();
+    lss_f32::cp_async_wait<1>();  // item i (and K, V) landed for this thread
+    __syncthreads();              // ... and for every thread
+    const float* qs = stage(i & 1);
+    const float* dos = qs + BS * RS;
+    const float* lse = dos + BS * RS;
+    const float* dl = lse + BS;
+    const int q0 = (qt_begin + i % nqt) * BS;
+
+    // a tile wholly before this warp's causal frontier adds only zeros: skipped
+    if (!a.causal || k0 + 16 * warp <= q0 + BS - 1 + diag) {
+      // S^T and dP^T (keys ka, ka + 8; q rows 8 nt + 2t, + 1)
+      float s[NS][4], dp[NS][4];
+      scores<C>(s, dp, ks + ka * RS, vs + ka * RS, qs, dos);
+
+      // p selected inside the mask into s, ds = p (dp - delta) into dp; a
+      // tile inside the window, below every row's causal frontier and before T
+      // takes no mask
+      const bool whole = k0 >= start && k0 + BT <= end && q0 + BS <= T &&
+                         (!a.causal || k0 + BT - 1 <= q0 + diag);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 8 * nt + 2 * t + e, qp = q0 + r;
+          const float l2 = lse[r] * LOG2E;
+          const float dlt = dl[r];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int kp = k0 + ka + 8 * rr;
+            const bool ok = whole || (kp >= start && kp < end && qp < T &&
+                                      (!a.causal || kp <= qp + diag));
+            const float p = ok ? exp2f(fmaf(s[nt][2 * rr + e], a.scale_log2, -l2)) : 0.f;
+            s[nt][2 * rr + e] = p;
+            dp[nt][2 * rr + e] = p * (dp[nt][2 * rr + e] - dlt);
+          }
+        }
+      }
+
+      // dV += P^T . dO and dK += dS^T . Q, a k step of 8 q rows at a time
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        const int r = (8 * kk + 2 * t) * RS + g;
+        mma_from_scores<C>(dv, s[kk], dos + r);
+        mma_from_scores<C>(dk, dp[kk], qs + r);
+      }
+    }
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+  lss_f32::cp_async_wait<0>();
 
   // every key of the tile is written: zeros where no row saw it
-  float* dkb = a.dk + b * a.dk_sb + hk * a.dk_sh + tx;
-  float* dvb = a.dv + b * a.dv_sb + hk * a.dv_sh + tx;
+  float* dkb = a.dk + b * a.dk_sb + hk * a.dk_sh + 2 * t;
+  float* dvb = a.dv + b * a.dv_sb + hk * a.dv_sh + 2 * t;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int kp = k0 + r0 + i;
+  for (int rr = 0; rr < 2; ++rr) {
+    const int kp = k0 + ka + 8 * rr;
     if (kp >= T) continue;
 #pragma unroll
-    for (int j = 0; j < CO; ++j) {
-      dkb[(long long)kp * a.dk_st + 16 * j] = dk[i][j] * a.scale;
-      dvb[(long long)kp * a.dv_st + 16 * j] = dv[i][j];
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<float2*>(dkb + (long long)kp * a.dk_st + 8 * nd) =
+          make_float2(dk[nd][2 * rr] * a.scale, dk[nd][2 * rr + 1] * a.scale);
+      *reinterpret_cast<float2*>(dvb + (long long)kp * a.dv_st + 8 * nd) =
+          make_float2(dv[nd][2 * rr], dv[nd][2 * rr + 1]);
     }
   }
 }
@@ -403,21 +481,27 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   return a;
 }
 
-template <class C, bool DKV>
+template <bool DKV, int DH>
 int launch(const BwdArgs& a, int B, cudaStream_t stream) {
-  const auto kernel = DKV ? bwd_dkv_f32_kernel<C> : bwd_dq_f32_kernel<C>;
-  const int bytes = 4 * (DKV ? C::dkv_floats : C::dq_floats);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  using C = std::conditional_t<DKV, DkvCfg<DH>, DqCfg<DH>>;
+  void (*kernel)(const BwdArgs) = nullptr;
+  if constexpr (DKV) {
+    kernel = bwd_dkv_f32_kernel<C>;
+  } else {
+    kernel = bwd_dq_f32_kernel<C>;
+  }
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.T + 63) / 64, DKV ? a.Hkv : a.Hq, B);
-  kernel<<<grid, THREADS, bytes, stream>>>(a);
+  dim3 grid((a.T + C::BT - 1) / C::BT, DKV ? a.Hkv : a.Hq, B);
+  kernel<<<grid, C::THREADS, C::bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <bool DKV>
 int dispatch(const BwdArgs& a, int B, int Dh, cudaStream_t s) {
-  if (Dh == 128) return launch<BwdCfg<128>, DKV>(a, B, s);
-  if (Dh == 64) return launch<BwdCfg<64>, DKV>(a, B, s);
+  if (Dh == 128) return launch<DKV, 128>(a, B, s);
+  if (Dh == 64) return launch<DKV, 64>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -426,8 +510,8 @@ int dispatch(const BwdArgs& a, int B, int Dh, cudaStream_t s) {
 // The C entries take the bf16 backward's arguments (flash_attention_bwd.cu,
 // flash_attention_bwd_dkv.cu) over float32 tensors. strides: 21 element
 // strides (b, t, h) for q, k, v, dout, dq, dk, dv, in that order (the unused
-// outputs' are 0), multiples of 4 with 16-byte aligned bases (rows are read
-// as float4). lse, delta: contiguous (B, Hq, T) float32. q_off, k_off: the
+// outputs' are 0), multiples of 4 with 16-byte aligned bases (rows are
+// copied 16 bytes at a time). lse, delta: contiguous (B, Hq, T) float32. q_off, k_off: the
 // global offsets of the queries and the keys (0, 0 but in B7's offset
 // mode). Each returns the cudaError_t of the launch (0 on success).
 extern "C" int lss_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,

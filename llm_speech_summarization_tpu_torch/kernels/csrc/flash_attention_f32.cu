@@ -101,20 +101,6 @@ struct F32Args {
   float scale_log2;  // Dh^-0.5 * log2(e)
 };
 
-// rows [r0, r0 + R) of one head into shared memory at row stride RS, by
-// cp.async; rows at or past T zero-filled
-template <class C, int R>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src, long long st, int r0,
-                                          int T) {
-  constexpr int V4 = C::DH / 4;
-  for (int idx = threadIdx.x; idx < R * V4; idx += C::THREADS) {
-    const int r = idx / V4, c = 4 * (idx % V4);
-    const bool valid = r0 + r < T;
-    lss_f32::cp_async16(dst + r * C::RS + c, valid ? src + (long long)(r0 + r) * st + c : src,
-                        valid);
-  }
-}
-
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 2) flash_f32_kernel(const F32Args a) {
   constexpr int DH = C::DH, BK = C::BK, BQ = C::BQ, RS = C::RS, NT = C::NT, ND = C::ND;
@@ -147,9 +133,9 @@ __global__ void __launch_bounds__(C::THREADS, 2) flash_f32_kernel(const F32Args 
   const float* vb = a.v + b * a.v_sb + hk * a.v_sh;
   auto stage_k = [&](int s) { return smem + C::kv_off + s * 2 * BK * RS; };
   if (kt_end > kt_begin) {
-    copy_rows<C, BQ>(qs, a.q + b * a.q_sb + h * a.q_sh, a.q_st, q0, T);
-    copy_rows<C, BK>(stage_k(0), kb, a.k_st, kt_begin * BK, T);
-    copy_rows<C, BK>(stage_k(0) + BK * RS, vb, a.v_st, kt_begin * BK, T);
+    lss_f32::copy_rows<C, BQ>(qs, a.q + b * a.q_sb + h * a.q_sh, a.q_st, q0, T);
+    lss_f32::copy_rows<C, BK>(stage_k(0), kb, a.k_st, kt_begin * BK, T);
+    lss_f32::copy_rows<C, BK>(stage_k(0) + BK * RS, vb, a.v_st, kt_begin * BK, T);
   }
   lss_f32::cp_async_commit();
 
@@ -157,8 +143,8 @@ __global__ void __launch_bounds__(C::THREADS, 2) flash_f32_kernel(const F32Args 
     const int i = kt - kt_begin;
     if (kt + 1 < kt_end) {  // the next tile into the other stage, freed at the end of i - 1
       float* nk = stage_k((i + 1) & 1);
-      copy_rows<C, BK>(nk, kb, a.k_st, (kt + 1) * BK, T);
-      copy_rows<C, BK>(nk + BK * RS, vb, a.v_st, (kt + 1) * BK, T);
+      lss_f32::copy_rows<C, BK>(nk, kb, a.k_st, (kt + 1) * BK, T);
+      lss_f32::copy_rows<C, BK>(nk + BK * RS, vb, a.v_st, (kt + 1) * BK, T);
     }
     lss_f32::cp_async_commit();
     lss_f32::cp_async_wait<1>();  // tile i (and Q) landed for this thread

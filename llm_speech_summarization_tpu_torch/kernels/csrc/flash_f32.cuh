@@ -1,7 +1,7 @@
 // Shared pieces of the float32 flash kernels (flash_attention_f32.cu, the
 // forward with or without its log-sum-exp; flash_attention_bwd_f32.cu, dq
-// and dk/dv): constants, the synchronous tile loader of the backward, and
-// the forward's asynchronous copies and 3xTF32 tensor-core product.
+// and dk/dv): constants, the asynchronous row copies and the 3xTF32
+// tensor-core product.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,26 +12,6 @@ namespace lss_f32 {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG_INF = -1e30f;  // a masked score (never -inf)
-constexpr int THREADS = 256;       // every float32 backward block: 16 x 16 threads
-
-// rows [r0, r0 + R) of one head of a (B, T, H, DH) float32 tensor into
-// shared memory at row stride S floats; rows at or past T are zeros. Rows
-// are read as float4 (16-byte aligned, the wrappers check it).
-template <int DH, int R, int S>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long st, int r0,
-                                          int T) {
-  constexpr int V4 = DH / 4;  // float4 per row
-  for (int idx = threadIdx.x; idx < R * V4; idx += THREADS) {
-    const int r = idx / V4, c = 4 * (idx % V4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T) x = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * st + c);
-    float* d = dst + r * S + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
-}
 
 // 16 bytes from global to shared memory, asynchronously (L2 only); with
 // `valid` false nothing is read and the 16 bytes are zeros
@@ -39,6 +19,27 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0));
+}
+// 4 bytes likewise (through L1: the 4-byte form has no .cg); the lse and
+// delta rows, whose starts are not 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+// rows [r0, r0 + R) of one head of a (B, T, H, C::DH) float32 tensor into
+// shared memory at row stride C::RS floats, by cp.async over C::THREADS
+// threads; rows at or past T zero-filled (16-byte aligned rows: the
+// wrappers check the strides)
+template <class C, int R>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, long long st, int r0,
+                                          int T) {
+  constexpr int V4 = C::DH / 4;
+  for (int idx = threadIdx.x; idx < R * V4; idx += C::THREADS) {
+    const int r = idx / V4, c = 4 * (idx % V4);
+    const bool valid = r0 + r < T;
+    cp_async16(dst + r * C::RS + c, valid ? src + (long long)(r0 + r) * st + c : src, valid);
+  }
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 // wait until at most N of this thread's committed groups are in flight

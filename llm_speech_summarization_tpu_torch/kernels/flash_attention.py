@@ -30,7 +30,8 @@ teacher's no-grad forward) and ``flash_attention_fwd_lse_f32`` (B1 + LSE)
 in ``csrc/flash_attention_f32.cu`` (3xTF32 ``mma.sync`` products over a
 cp.async ring), ``flash_attention_bwd_dq_f32`` and
 ``flash_attention_bwd_dkv_f32`` (B6) in ``csrc/flash_attention_bwd_f32.cu``
-(FFMA on shared-memory tiles), each in its own library, and B7's
+(3xTF32 ``mma.sync`` products over a cp.async ring, the GQA group summed
+in the block), each in its own library, and B7's
 ``*_offset_f32``. Every entry point routes CUDA tensors by dtype: bfloat16
 to the bf16 kernel, float32 to its float32 instance; float16 and mixed
 dtypes raise, naming what is ported. ``FlashAttention`` and the ring's

@@ -14,14 +14,14 @@ on the CPU against the JAX package, and, marked ``cuda``, on the card.
 - An emulation of the CUDA kernels' arithmetic (the forward's 3xTF32
   tensor-core products, ``torch_f32_emulation.emulate_flash_3xtf32``:
   32-key tiles, Q.K^T and P.V per k step of 8 added in float32; the
-  backward's FFMA: every score and dp a sum over Dh in order; p = 2^(s
-  Dh^-0.5 log2(e) - lse log2(e)) by selection inside the mask; dq summed
-  over the keys in order; dk/dv over the group's heads, then the rows, in
-  order) within half of chip_smoke.py's float32 bounds against the
-  float64 plain version; the same arithmetic with ds rounded to bf16 falls
-  outside them. The forward's emulation is held to the JAX kernel in
-  interpret mode within half the out and lse bounds, and single-pass TF32
-  (hi.hi alone) falls outside them.
+  backward's, ``emulate_bwd_3xtf32``: S and dP 3xTF32 chains over Dh; p =
+  2^(s Dh^-0.5 log2(e) - lse log2(e)) by selection inside the mask; dQ a
+  3xTF32 chain over the keys in order; dK and dV over the group's heads,
+  then the rows, in order) within half of chip_smoke.py's float32 bounds
+  against the float64 plain version; the same arithmetic with ds rounded
+  to bf16 falls outside them. Both emulations are held to the JAX kernels
+  in interpret mode within half the bounds (out and lse; dq, dk and dv),
+  and single-pass TF32 (hi.hi alone) falls outside them.
 - One float32 KD step on ``tiny_test.yaml`` with every flash call routed
   as on the card to the float32 instances, whose launches run the
   emulation here: the losses and grad_norm of the JAX step, and the
@@ -45,7 +45,7 @@ import pytest
 import torch
 
 import chip_smoke
-from torch_f32_emulation import emulate_flash_3xtf32
+from torch_f32_emulation import emulate_bwd_3xtf32, emulate_flash_3xtf32
 from llm_speech_summarization_tpu.configs import load_config as jax_load_config
 from llm_speech_summarization_tpu.data import SyntheticSpeechDataset, collate_batch
 from llm_speech_summarization_tpu.kernels.flash_attention import _flash_bwd_impl, _flash_impl
@@ -269,18 +269,6 @@ def test_plain_backward_unchanged_below_float64(dtype):
 # ---- an emulation of the CUDA kernels' arithmetic
 
 
-def _mask(T, starts, ends, causal, offsets):
-    """(B, 1, T queries, T keys): the key window, and the causal rule moved
-    by the offsets."""
-    pos = torch.arange(T)
-    keys = (pos[None, :] >= starts[:, None].long()) & (pos[None, :] < ends[:, None].long())
-    mask = keys[:, None, None, :].expand(-1, 1, T, T)
-    if causal:
-        q_off, k_off = offsets or (0, 0)
-        mask = mask & (pos[None, :] + k_off <= pos[:, None] + q_off)
-    return mask
-
-
 def emulate_fwd_lse(q, k, v, starts, ends, causal, offsets=None, passes=3):
     """``flash_attention_f32.cu``: (out, lse) of the 3xTF32 forward
     (``passes=1``: single-pass TF32); a row that saw no key: zeros and
@@ -288,42 +276,13 @@ def emulate_fwd_lse(q, k, v, starts, ends, causal, offsets=None, passes=3):
     return emulate_flash_3xtf32(q, k, v, starts, ends, causal, offsets, passes=passes)
 
 
-def emulate_bwd(q, k, v, g, lse, delta, starts, ends, causal, offsets=None, ds_bf16=False):
-    """``flash_attention_bwd_f32.cu``: s and dp each a sum over Dh in order;
-    p = 2^(s Dh^-0.5 log2(e) - lse log2(e)) selected inside the mask, ds =
-    p (dp - delta); dq summed over the keys in order (the tiles past the
-    causal frontier add zeros), times Dh^-0.5; dk/dv summed over the
-    group's heads in order and, for each, the rows in order. ``ds_bf16``:
-    ds rounded to bf16 before its products (a fault)."""
-    B, T, Hq, Dh = q.shape
-    Hkv = k.shape[2]
-    G = Hq // Hkv
-    kr, vr = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))  # (B, Hq, T, Dh)
-    qt, gt = q.transpose(1, 2), g.transpose(1, 2)
-    s = torch.zeros((B, Hq, T, T))
-    dp = torch.zeros((B, Hq, T, T))
-    for d in range(Dh):
-        s = s + qt[..., d:d + 1] * kr[:, :, None, :, d]
-        dp = dp + gt[..., d:d + 1] * vr[:, :, None, :, d]
-    scale = torch.tensor(Dh ** -0.5, dtype=torch.float32)
-    mask = _mask(T, starts, ends, causal, offsets)
-    e = s * (scale * torch.tensor(LOG2E)) - (lse * torch.tensor(LOG2E))[..., None]
-    p = torch.where(mask, torch.exp2(e), torch.zeros(()))
-    ds = p * (dp - delta[..., None])
-    if ds_bf16:
-        ds = ds.bfloat16().float()
-    dq = torch.zeros((B, Hq, T, Dh))
-    for c in range(T):
-        dq = dq + ds[..., c:c + 1] * kr[:, :, None, c]
-    pg, dsg = (x.reshape(B, Hkv, G, T, T) for x in (p, ds))
-    qg, gg = (x.reshape(B, T, Hkv, G, Dh) for x in (q, g))
-    dk = torch.zeros((B, Hkv, T, Dh))
-    dv = torch.zeros((B, Hkv, T, Dh))
-    for h in range(G):
-        for i in range(T):
-            dv = dv + pg[:, :, h, i, :, None] * gg[:, i, :, h, None, :]
-            dk = dk + dsg[:, :, h, i, :, None] * qg[:, i, :, h, None, :]
-    return (dq * scale).transpose(1, 2), (dk * scale).transpose(1, 2), dv.transpose(1, 2)
+def emulate_bwd(q, k, v, g, lse, delta, starts, ends, causal, offsets=None, ds_bf16=False,
+                passes=3):
+    """``flash_attention_bwd_f32.cu``: the 3xTF32 backward
+    (``torch_f32_emulation.emulate_bwd_3xtf32``; ``passes=1``: single-pass
+    TF32). ``ds_bf16``: ds rounded to bf16 before its products (a fault)."""
+    return emulate_bwd_3xtf32(q, k, v, g, lse, delta, starts, ends, causal, offsets,
+                              passes=passes, ds_bf16=ds_bf16)
 
 
 EMULATED = [(name, None) for name in sorted(CASES)] + [
@@ -379,6 +338,32 @@ def test_3xtf32_forward_emulation_held_to_jax(name, ring):
 
     assert max(ratios(3).values()) <= 0.5
     if rows.any():
+        assert max(ratios(1).values()) > 1
+
+
+@pytest.mark.parametrize("name,ring", EMULATED)
+def test_3xtf32_backward_emulation_held_to_jax(name, ring):
+    """The backward's 3xTF32 arithmetic against JAX's ``_flash_bwd_impl`` in
+    interpret mode at float32, both from JAX's lse and delta: dq, dk and dv
+    within half of chip_smoke's float32 bounds (set by the float64 plain
+    version) of the JAX values; single-pass TF32 (hi.hi alone) leaves
+    them."""
+    q, k, v, g, starts, ends, causal, offsets = (_ring_case(*ring, 128, seed=4) if ring
+                                                 else _case(name, seed=4))
+    _, lse_j, delta, grads_j = _jax(q, k, v, g, starts, ends, causal, offsets,
+                                    TL if ring else 16)
+    tq, tk, tv, tg, ts, te, t_lse, t_delta = _torch(q, k, v, g, starts, ends, lse_j, delta)
+    bounds = Bounds(tq, tk, tv, tg, t_lse, t_delta, ts, te, causal, offsets)
+    want = _torch(*grads_j)
+
+    def ratios(passes):
+        got = emulate_bwd(tq, tk, tv, tg, t_lse, t_delta, ts, te, causal, offsets,
+                          passes=passes)
+        return {key: ((a.double() - b.double()).abs() / bound).max().item()
+                for key, a, b, bound in zip(("dq", "dk", "dv"), got, want, bounds.grad_bounds)}
+
+    assert max(ratios(3).values()) <= 0.5
+    if bounds.seen.any():
         assert max(ratios(1).values()) > 1
 
 
@@ -586,6 +571,10 @@ EDGES = {
     # and a q tile plus one row or a tile past them
     "t97_k_tiles_dh128": (2, 97, 6, 2, 128, True, [32, 0], [96, 97]),
     "t129_k_tiles_dh64": (2, 129, 4, 4, 64, False, [64, 1], [128, 129]),
+    # windows inside the backward's streamed tiles (at Dh = 128 dq's 32 keys
+    # and dk/dv's 16 rows, 64 at Dh = 64), T a 16-row tile plus one row
+    "t113_bwd_tiles_dh128": (2, 113, 6, 2, 128, True, [16, 0], [48, 113]),
+    "t127_bwd_tiles_dh64": (2, 127, 6, 2, 64, True, [1, 64], [127, 65]),
 }
 
 
