@@ -23,6 +23,7 @@ import argparse
 import json
 import os
 import sys
+from collections import Counter
 
 
 def main(argv=None):
@@ -133,6 +134,7 @@ def _bulk(engine, config, args, ranges_fn=None):
 
     sink = open(args.output, "w") if args.output else sys.stdout
     written = 0
+    before = Counter(engine.counts)
     try:
         for g, outs in zip(groups, engine.iter_audio_response_batches(
                 lazy_batches(), additional_text_prompt=args.text,
@@ -147,6 +149,20 @@ def _bulk(engine, config, args, ranges_fn=None):
             sink.close()
     if args.output:
         print(f"wrote {written} responses to {args.output}")
+    print(pipeline_report(engine.counts, before), file=sys.stderr)
+
+
+def pipeline_report(counts: Counter, before: Counter) -> str:
+    """What the batch stream's counters read between ``before`` and
+    ``counts``: how long the decoding thread waited for each batch's
+    prompt (the encoder keeping up or not) and how long each decode step
+    took to issue on the host."""
+    ran = Counter(counts)
+    ran.subtract(before)
+    batches, steps = ran["pipeline_batches"], ran["decode_steps"]
+    return (f"{batches} batches, {1e3 * ran['prompt_wait_s'] / max(batches, 1):.2f} ms a batch "
+            f"waiting for its prompt; {steps} decode steps, "
+            f"{1e3 * ran['decode_issue_s'] / max(steps, 1):.3f} ms a step issuing them")
 
 
 if __name__ == "__main__":

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator, List, Optional, Sequence, Union
@@ -63,6 +64,7 @@ from ..models.llama import (
     shard_config,
 )
 from ..models.whisper import WhisperConfig
+from ..obs.profile import annotate
 from ..ops.splice import concat_mid_buffers, splice_sequences
 from ..parallel.comm import broadcast_call, group_rank
 from ..parallel.sharding import shard_llama_params
@@ -156,7 +158,10 @@ class LLMSpeechTextInference:
         self.cache_dtype = _DTYPES[config.model.kv_cache_dtype or config.model.compute_dtype]
         param_dtype = _DTYPES[config.model.param_dtype]
         # "encoder_forwards", "prefills", "decode_steps", "spec_rounds": what
-        # the engine ran; prompt builders on other threads count under the lock
+        # the engine ran; "decode_issue_s" (``greedy_generate``), and
+        # "prompt_wait_s" and "pipeline_batches" (``iter_audio_response_
+        # batches``): host seconds; prompt builders on other threads count
+        # under the lock
         self.counts: Counter = Counter()
         self._counts_lock = threading.Lock()
         self._side_stream = None  # the pipelined batches' builder stream (cuda)
@@ -260,13 +265,14 @@ class LLMSpeechTextInference:
                 sampling=None if packed is None else sampling_tensors(packed, self.device),
                 **common,
             )
-        tokens = tokens.cpu().numpy()
-        lens = lens.cpu().numpy()
-        return [
-            self.tokenizer.decode(row[: min(int(n), max_new_tokens)].tolist(),
-                                  skip_special_tokens=True)
-            for row, n in zip(tokens, lens)
-        ]
+        with annotate("lss.batch.detokenize"):
+            tokens = tokens.cpu().numpy()
+            lens = lens.cpu().numpy()
+            return [
+                self.tokenizer.decode(row[: min(int(n), max_new_tokens)].tolist(),
+                                      skip_special_tokens=True)
+                for row, n in zip(tokens, lens)
+            ]
 
     def _splice(self, audio_embeds, emb_lens, txt_ids, txt_lens, total_len: int):
         """Optional text embeds + mid-buffer concat, then the [prefix | mid
@@ -390,7 +396,10 @@ class LLMSpeechTextInference:
         two batches of audio are held (the one decoding and the one being
         built), so ``batches`` may be a lazy generator over a corpus. The
         per-batch ``sampling`` and ``ctc_pool_ranges`` iterators are drawn
-        in step with ``batches``; one that runs short raises ValueError."""
+        in step with ``batches``; one that runs short raises ValueError.
+        ``counts`` gains "pipeline_batches", the batches taken from the
+        builder, and "prompt_wait_s", the host seconds this thread waited
+        for them (span ``lss.batch.wait_prompt``)."""
         samp_it = iter(sampling) if sampling is not None else None
         ranges_it = iter(ctc_pool_ranges) if ctc_pool_ranges is not None else None
         cuda = self.device.type == "cuda"
@@ -434,13 +443,17 @@ class LLMSpeechTextInference:
                 return
             fut = submit(ex, nxt)
             while True:
-                n_real, s, embeds, mask, ready = fut.result()
-                if ready is not None and embeds is not None:
-                    main = torch.cuda.current_stream(self.device)
-                    main.wait_event(ready)
-                    # made on the side stream, read and freed on this one
-                    embeds.record_stream(main)
-                    mask.record_stream(main)
+                waited = time.perf_counter()
+                with annotate("lss.batch.wait_prompt"):
+                    n_real, s, embeds, mask, ready = fut.result()
+                    if ready is not None and embeds is not None:
+                        main = torch.cuda.current_stream(self.device)
+                        main.wait_event(ready)
+                        # made on the side stream, read and freed on this one
+                        embeds.record_stream(main)
+                        mask.record_stream(main)
+                self.counts["prompt_wait_s"] += time.perf_counter() - waited
+                self.counts["pipeline_batches"] += 1
                 nxt = next(it, end)
                 if nxt is not end:
                     fut = submit(ex, nxt)
@@ -476,48 +489,53 @@ class LLMSpeechTextInference:
         projector needs ``ctc_pool_ranges`` (one (G_i, 2) array per clip,
         zero-padded to the longest; padded rows get none, so no valid
         embedding); other projectors ignore them. (None, None) on a rank of
-        a model group that builds no prompts."""
+        a model group that builds no prompts. Spans: ``lss.prompt.host``
+        (padding, float16 rounding, pinning, the upload's issue),
+        ``lss.prompt.encoder`` and ``lss.prompt.splice``."""
         if not self.builds_prompts:
             return None, None
-        n_real = len(audios)
-        B = _pad_batch(n_real)
-        audios = list(audios) + [audios[0]] * (B - n_real)
-        lens = np.array([len(a) for a in audios], np.int32)
-        N = _round_up(int(lens.max()), 1600)  # 100 ms audio buckets
-        wav = np.zeros((B, N), np.float32)
-        for b, a in enumerate(audios):
-            wav[b, : len(a)] = a
+        with annotate("lss.prompt.host"):
+            n_real = len(audios)
+            B = _pad_batch(n_real)
+            audios = list(audios) + [audios[0]] * (B - n_real)
+            lens = np.array([len(a) for a in audios], np.int32)
+            N = _round_up(int(lens.max()), 1600)  # 100 ms audio buckets
+            wav = np.zeros((B, N), np.float32)
+            for b, a in enumerate(audios):
+                wav[b, : len(a)] = a
 
-        dev = self.device
-        ranges = None
-        if self.encoder_setup.downsample_method == "ctc_pool":
-            if ctc_pool_ranges is None:
-                raise ValueError("the ctc_pool projector needs ctc_pool_ranges")
-            G = max(np.asarray(r).reshape(-1, 2).shape[0] for r in ctc_pool_ranges)
-            ranges_np = np.zeros((B, G, 2), np.int32)
-            for b, r in enumerate(ctc_pool_ranges):
-                r = np.asarray(r, np.int32).reshape(-1, 2)
-                ranges_np[b, : r.shape[0]] = r
-            ranges = torch.from_numpy(ranges_np).to(dev)
+            dev = self.device
+            ranges = None
+            if self.encoder_setup.downsample_method == "ctc_pool":
+                if ctc_pool_ranges is None:
+                    raise ValueError("the ctc_pool projector needs ctc_pool_ranges")
+                G = max(np.asarray(r).reshape(-1, 2).shape[0] for r in ctc_pool_ranges)
+                ranges_np = np.zeros((B, G, 2), np.int32)
+                for b, r in enumerate(ctc_pool_ranges):
+                    r = np.asarray(r, np.int32).reshape(-1, 2)
+                    ranges_np[b, : r.shape[0]] = r
+                ranges = torch.from_numpy(ranges_np).to(dev)
 
-        if additional_text_prompt:
-            # BOS-stripped, placed BEFORE the audio (reference: inference.py:113-122)
-            txt_row = self.tokenizer.encode(additional_text_prompt, add_bos=False)
-            txt_ids = torch.tensor([txt_row] * B, dtype=torch.int32, device=dev)
-        else:
-            txt_ids = torch.zeros((B, 0), dtype=torch.int32, device=dev)
-        txt_lens = torch.full((B,), txt_ids.shape[1], dtype=torch.int32, device=dev)
+            if additional_text_prompt:
+                # BOS-stripped, placed BEFORE the audio (reference: inference.py:113-122)
+                txt_row = self.tokenizer.encode(additional_text_prompt, add_bos=False)
+                txt_ids = torch.tensor([txt_row] * B, dtype=torch.int32, device=dev)
+            else:
+                txt_ids = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+            txt_lens = torch.full((B,), txt_ids.shape[1], dtype=torch.int32, device=dev)
 
-        M = audio_embed_buffer_len(self.encoder_setup, N,
-                                   None if ranges is None else ranges.shape[1])
-        P, S = self.prefix_ids.shape[0], self.suffix_ids.shape[0]
-        total_len = _round_up(P + M + txt_ids.shape[1] + S, BUCKET)
+            M = audio_embed_buffer_len(self.encoder_setup, N,
+                                       None if ranges is None else ranges.shape[1])
+            P, S = self.prefix_ids.shape[0], self.suffix_ids.shape[0]
+            total_len = _round_up(P + M + txt_ids.shape[1] + S, BUCKET)
 
-        wav_t = self._upload_wav(wav)
-        lens_t = torch.from_numpy(lens).to(dev)
-        audio_embeds, emb_lens = audio_encoder_forward(
-            self.audio_encoder_params, self.encoder_setup, wav_t, lens_t, ctc_pool_ranges=ranges
-        )
+            wav_t = self._upload_wav(wav)
+            lens_t = torch.from_numpy(lens).to(dev)
+        with annotate("lss.prompt.encoder"):
+            audio_embeds, emb_lens = audio_encoder_forward(
+                self.audio_encoder_params, self.encoder_setup, wav_t, lens_t,
+                ctc_pool_ranges=ranges)
         with self._counts_lock:
             self.counts["encoder_forwards"] += 1
-        return self._splice(audio_embeds, emb_lens, txt_ids, txt_lens, total_len)
+        with annotate("lss.prompt.splice"):
+            return self._splice(audio_embeds, emb_lens, txt_ids, txt_lens, total_len)

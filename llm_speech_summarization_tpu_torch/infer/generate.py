@@ -26,12 +26,14 @@ tokens (``models/llama.py``).
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Optional
 
 import torch
 
 from ..models.llama import LlamaConfig, init_kv_cache, llama_forward
+from ..obs.profile import annotate
 from ..parallel.comm import group_size
 from .sampling import sample_rows
 
@@ -101,7 +103,12 @@ def greedy_generate(
     ``(rngs, temps, top_ks, top_ps)`` tuple of tensors (``infer/
     sampling.py``) that overrides the one temperature: draw t of row b keys
     to the row's unpadded position. ``counts``, when given, gains
-    "prefills" and "decode_steps". ``attn_impl`` goes to every decode step
+    "prefills", "decode_steps" and "decode_issue_s": the host seconds from
+    the end of each step's device read to the start of the next (the
+    step's forward, pick and bookkeeping being issued). Spans (``annotate``):
+    ``lss.generate.prefill``, one ``lss.generate.decode_step`` a step and
+    ``lss.generate.done_read`` around each read of the rows' EOS flags.
+    ``attn_impl`` goes to every decode step
     (``llama_forward``): "pallas" reads the cache through kernel B8.
     ``tp_group``: ``params`` is this rank's shard (see the module docstring).
 
@@ -122,14 +129,15 @@ def greedy_generate(
             return _sample(logits, temperature, generator, top_k, top_p)
 
     cache = init_kv_cache(cfg, B, S, dtype=cache_dtype, device=dev, tp=group_size(tp_group))
-    out = llama_forward(
-        params, cfg, inputs_embeds=inputs_embeds, attn_mask=attn_mask,
-        kv_cache=cache, cache_offset=0, last_logit_only=True, tp_group=tp_group,
-    )
+    with annotate("lss.generate.prefill"):
+        out = llama_forward(
+            params, cfg, inputs_embeds=inputs_embeds, attn_mask=attn_mask,
+            kv_cache=cache, cache_offset=0, last_logit_only=True, tp_group=tp_group,
+        )
+        lens = attn_mask.to(torch.int32).sum(dim=1)
+        first = pick(out.logits[:, -1], lens - 1)
     if counts is not None:
         counts["prefills"] += 1
-    lens = attn_mask.to(torch.int32).sum(dim=1)
-    first = pick(out.logits[:, -1], lens - 1)
     pad_lens = (L - lens).to(torch.int32)
 
     tokens = torch.full((B, max_new_tokens), eos_id, dtype=torch.int32, device=dev)
@@ -143,26 +151,33 @@ def greedy_generate(
     last = first
     done = first == eos_id
     step = 1
-    while step < step_cap and not bool(done.all()):
-        out = llama_forward(
-            params, cfg, input_ids=last[:, None], attn_mask=None,
-            positions=(lens + step - 1)[:, None],
-            kv_cache=cache, cache_offset=L + step - 1, kv_pad_lens=pad_lens,
-            attn_impl=attn_impl, tp_group=tp_group,
-        )
+    while step < step_cap:
+        with annotate("lss.generate.done_read"):
+            finished = bool(done.all())
+        if finished:
+            break
+        issued = time.perf_counter()
+        with annotate("lss.generate.decode_step"):
+            out = llama_forward(
+                params, cfg, input_ids=last[:, None], attn_mask=None,
+                positions=(lens + step - 1)[:, None],
+                kv_cache=cache, cache_offset=L + step - 1, kv_pad_lens=pad_lens,
+                attn_impl=attn_impl, tp_group=tp_group,
+            )
+            logits = out.logits[:, 0]
+            if use_rep:
+                logits = _apply_repetition_penalty(logits, seen, repetition_penalty)
+            nxt = pick(logits, lens + step - 1)
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+            tokens[:, step] = nxt
+            if use_rep:
+                seen[rows, nxt.long()] = True
+            last = nxt
+            done = done | (nxt == eos_id)
+        step += 1
         if counts is not None:
             counts["decode_steps"] += 1
-        logits = out.logits[:, 0]
-        if use_rep:
-            logits = _apply_repetition_penalty(logits, seen, repetition_penalty)
-        nxt = pick(logits, lens + step - 1)
-        nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
-        tokens[:, step] = nxt
-        if use_rep:
-            seen[rows, nxt.long()] = True
-        last = nxt
-        done = done | (nxt == eos_id)
-        step += 1
+            counts["decode_issue_s"] += time.perf_counter() - issued
 
     before_eos = torch.cumsum((tokens == eos_id).to(torch.int32), dim=1) == 0
     num = torch.clamp(before_eos.to(torch.int32).sum(dim=1) + 1, max=step)  # incl. the EOS

@@ -105,6 +105,14 @@ def audio_embed_lengths(setup: AudioEncoderParams, audio_len_samples: torch.Tens
     return torch.clamp(num_frames // setup.downsample_factor - 1, min=0).to(torch.int32)
 
 
+def encoder_frame_count(setup: AudioEncoderParams, num_samples: int) -> int:
+    """Frames out of the encoder, before the projector, for N samples."""
+    if setup.base == "whisper":
+        return whisper_frame_count(mel_frame_budget(setup.encoder_cfg, num_samples,
+                                                    setup.whisper_dynamic_frames))
+    return hubert_frame_count(setup.encoder_cfg, num_samples)
+
+
 def audio_embed_buffer_len(setup: AudioEncoderParams, num_samples: int,
                            num_ranges: Optional[int] = None) -> int:
     """Length M of the right-padded embedding buffer for N samples, from
@@ -114,11 +122,7 @@ def audio_embed_buffer_len(setup: AudioEncoderParams, num_samples: int,
         if num_ranges is None:
             raise ValueError("the ctc_pool buffer is as long as the ranges: pass num_ranges")
         return num_ranges
-    if setup.base == "whisper":
-        T = whisper_frame_count(mel_frame_budget(setup.encoder_cfg, num_samples,
-                                                 setup.whisper_dynamic_frames))
-    else:
-        T = hubert_frame_count(setup.encoder_cfg, num_samples)
+    T = encoder_frame_count(setup, num_samples)
     if setup.downsample_method == "pool":
         return (T - setup.pool_kernel) // setup.pool_stride + 1
     return T // setup.downsample_factor

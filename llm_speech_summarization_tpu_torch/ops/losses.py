@@ -35,6 +35,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..obs.profile import annotate
 from ..parallel.comm import all_reduce, group_rank, group_size, tp_copy
 
 NEG = -1e30
@@ -168,28 +169,29 @@ class _FusedNtpLd(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_ntp, g_ld):
-        sh, th, head, scale, labels, lse_s, m_t, l_t, w_ntp, w_ld = ctx.saved_tensors
-        a = (g_ntp * w_ntp)[:, None]
-        b = (g_ld * w_ld)[:, None]
-        inv_l_t = 1.0 / torch.clamp(l_t, min=1e-30)
-        dh = torch.zeros(sh.shape, dtype=torch.float32, device=sh.device)
-        V = head.shape[0]
-        for c0 in range(0, V, ctx.vocab_chunk):
-            c1 = min(c0 + ctx.vocab_chunk, V)
-            ls = _chunk_logits(sh, head, scale, c0, c1)
-            p_s = torch.exp(ls - lse_s[:, None])
-            lt = _chunk_logits(th, head, scale, c0, c1)
-            p_t = torch.exp(lt - m_t[:, None]) * inv_l_t[:, None]
-            dls = (a + b) * p_s - b * p_t
-            rel = labels - c0
-            in_chunk = (rel >= 0) & (rel < c1 - c0)
-            dls.scatter_add_(1, rel.clamp(0, c1 - c0 - 1)[:, None], -a * in_chunk[:, None])
-            if scale is not None:
-                dls = dls * scale[c0:c1].float()
-            w = head[c0:c1]
-            w = w if w.dtype == torch.int8 else w.to(sh.dtype)
-            dh += dls @ w.float()
-        return dh.to(sh.dtype), None, None, None, None, None, None, None, None, None
+        with annotate("lss.train.loss_backward"):  # on autograd's thread on the card
+            sh, th, head, scale, labels, lse_s, m_t, l_t, w_ntp, w_ld = ctx.saved_tensors
+            a = (g_ntp * w_ntp)[:, None]
+            b = (g_ld * w_ld)[:, None]
+            inv_l_t = 1.0 / torch.clamp(l_t, min=1e-30)
+            dh = torch.zeros(sh.shape, dtype=torch.float32, device=sh.device)
+            V = head.shape[0]
+            for c0 in range(0, V, ctx.vocab_chunk):
+                c1 = min(c0 + ctx.vocab_chunk, V)
+                ls = _chunk_logits(sh, head, scale, c0, c1)
+                p_s = torch.exp(ls - lse_s[:, None])
+                lt = _chunk_logits(th, head, scale, c0, c1)
+                p_t = torch.exp(lt - m_t[:, None]) * inv_l_t[:, None]
+                dls = (a + b) * p_s - b * p_t
+                rel = labels - c0
+                in_chunk = (rel >= 0) & (rel < c1 - c0)
+                dls.scatter_add_(1, rel.clamp(0, c1 - c0 - 1)[:, None], -a * in_chunk[:, None])
+                if scale is not None:
+                    dls = dls * scale[c0:c1].float()
+                w = head[c0:c1]
+                w = w if w.dtype == torch.int8 else w.to(sh.dtype)
+                dh += dls @ w.float()
+            return dh.to(sh.dtype), None, None, None, None, None, None, None, None, None
 
 
 def fused_ntp_ld_losses(

@@ -42,15 +42,24 @@ out the same on every rank of the group and are not summed over it.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from collections import Counter
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs import Config
 from ..data.batch import Batch
 from ..device import exact_float32, resolve_device
-from ..models.audio_encoder import AudioEncoderParams, audio_encoder_forward
+from ..models.audio_encoder import (
+    AudioEncoderParams,
+    audio_embed_buffer_len,
+    audio_embed_lengths,
+    audio_encoder_forward,
+    encoder_frame_count,
+)
 from ..models.llama import LlamaConfig, llama_forward
+from ..obs.profile import annotate
 from ..ops.losses import (
     feature_distillation_loss,
     fused_ntp_ld_losses,
@@ -108,28 +117,40 @@ def _forward_losses(
     compute_dtype = _DTYPES[cfg.model.compute_dtype]
     table, table_scale = _embed_table(embed_table or llm_params, compute_dtype)
 
-    audio_embeds, emb_lens = audio_encoder_forward(
-        enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens,
-        ctc_pool_ranges=batch.ctc_pool_ranges, remat=remat,
-        sp_group=group if tcfg.encoder_sp else None)
-    student = splice_sequences(
-        table, prefix_ids, suffix_ids, audio_embeds, emb_lens,
-        batch.response_ids, batch.response_lens, total_len=total_len, table_scale=table_scale,
-    )
+    with annotate("lss.train.encoder"):
+        audio_embeds, emb_lens = audio_encoder_forward(
+            enc_params, enc_setup, batch.wav.to(compute_dtype), batch.wav_lens,
+            ctc_pool_ranges=batch.ctc_pool_ranges, remat=remat,
+            sp_group=group if tcfg.encoder_sp else None)
     W = batch.response_ids.shape[1] + 1
+    with_teacher = tcfg.use_ld_loss or tcfg.use_fd_loss
+    with annotate("lss.train.student"):
+        student = splice_sequences(
+            table, prefix_ids, suffix_ids, audio_embeds, emb_lens,
+            batch.response_ids, batch.response_lens, total_len=total_len,
+            table_scale=table_scale,
+        )
+        if with_teacher:
+            out = llama_forward(
+                llm_params, llm_cfg, inputs_embeds=student.embeds, attn_mask=student.attn_mask,
+                return_hidden=tcfg.use_fd_loss, hidden_window=W, compute_logits=False,
+                return_final_hidden=True, logit_window=W, remat=remat,
+                remat_policy=tcfg.remat_policy, ring_group=group, tp_group=tp_group,
+            )
+        else:
+            out = llama_forward(
+                llm_params, llm_cfg, inputs_embeds=student.embeds, attn_mask=student.attn_mask,
+                logit_window=W, remat=remat, remat_policy=tcfg.remat_policy, ring_group=group,
+                tp_group=tp_group,
+            )
     labels = student.labels[:, -W:]
     loss_mask = student.loss_mask[:, -W:]
     response_mask = student.response_mask[:, -W:]
     losses: Dict[str, torch.Tensor] = {}
 
-    if tcfg.use_ld_loss or tcfg.use_fd_loss:
-        out = llama_forward(
-            llm_params, llm_cfg, inputs_embeds=student.embeds, attn_mask=student.attn_mask,
-            return_hidden=tcfg.use_fd_loss, hidden_window=W, compute_logits=False,
-            return_final_hidden=True, logit_window=W, remat=remat,
-            remat_policy=tcfg.remat_policy, ring_group=group, tp_group=tp_group,
-        )
-        with torch.no_grad():  # the teacher: a constant target, no graph
+    if with_teacher:
+        # the teacher: a constant target, no graph
+        with torch.no_grad(), annotate("lss.train.teacher"):
             text_embeds = _embed_rows(table, table_scale, batch.text_ids, compute_dtype)
             teacher = splice_sequences(
                 table, prefix_ids, suffix_ids, text_embeds, batch.text_lens,
@@ -141,40 +162,55 @@ def _forward_losses(
                 return_hidden=tcfg.use_fd_loss, hidden_window=W, compute_logits=False,
                 return_final_hidden=True, logit_window=W, ring_group=group, tp_group=tp_group,
             )
-        if llm_cfg.tie_embeddings:
-            head_vd, head_scale = llm_params["embed_tokens"], llm_params.get("embed_tokens_scale")
-        else:
-            head_vd, head_scale = llm_params["lm_head"].t(), llm_params.get("lm_head_scale")
-        ntp, ld = fused_ntp_ld_losses(
-            out.final_hidden, t_out.final_hidden, head_vd, labels, loss_mask, response_mask,
-            head_scale=head_scale if head_vd.dtype == torch.int8 else None,
-            data_group=data_group, tp_group=tp_group,
-        )
-    else:
-        out = llama_forward(
-            llm_params, llm_cfg, inputs_embeds=student.embeds, attn_mask=student.attn_mask,
-            logit_window=W, remat=remat, remat_policy=tcfg.remat_policy, ring_group=group,
-            tp_group=tp_group,
-        )
-        ntp, ld = response_cross_entropy(out.logits, labels, loss_mask, data_group), None
 
-    losses["ntp_loss"] = ntp
-    total = tcfg.ntp_loss_weight * ntp
-    if tcfg.use_ld_loss:
-        losses["ld_loss"] = ld
-        total = total + tcfg.ld_loss_weight * ld
-    if tcfg.use_fd_loss:
-        fd = feature_distillation_loss(out.hidden_states, t_out.hidden_states,
-                                       tuple(tcfg.fd_loss_connector_layers), response_mask,
-                                       data_group)
-        losses["fd_loss"] = fd
-        total = total + tcfg.fd_loss_weight * fd
-    losses["total_loss"] = total
+    with annotate("lss.train.loss"):
+        if with_teacher:
+            if llm_cfg.tie_embeddings:
+                head_vd = llm_params["embed_tokens"]
+                head_scale = llm_params.get("embed_tokens_scale")
+            else:
+                head_vd, head_scale = llm_params["lm_head"].t(), llm_params.get("lm_head_scale")
+            ntp, ld = fused_ntp_ld_losses(
+                out.final_hidden, t_out.final_hidden, head_vd, labels, loss_mask, response_mask,
+                head_scale=head_scale if head_vd.dtype == torch.int8 else None,
+                data_group=data_group, tp_group=tp_group,
+            )
+        else:
+            ntp, ld = response_cross_entropy(out.logits, labels, loss_mask, data_group), None
+        losses["ntp_loss"] = ntp
+        total = tcfg.ntp_loss_weight * ntp
+        if tcfg.use_ld_loss:
+            losses["ld_loss"] = ld
+            total = total + tcfg.ld_loss_weight * ld
+        if tcfg.use_fd_loss:
+            fd = feature_distillation_loss(out.hidden_states, t_out.hidden_states,
+                                           tuple(tcfg.fd_loss_connector_layers), response_mask,
+                                           data_group)
+            losses["fd_loss"] = fd
+            total = total + tcfg.fd_loss_weight * fd
+        losses["total_loss"] = total
     return total, losses
 
 
 def _device_ids(ids, device) -> torch.Tensor:
     return torch.as_tensor(ids, dtype=torch.int32).to(device)
+
+
+def _valid_positions(batch: Batch, enc_setup: AudioEncoderParams, P: int, S: int) -> int:
+    """The valid positions of the student's splice (its attention mask's
+    sum) from the host batch's lengths: P + audio embeds + S + response a
+    row, the audio embeds as ``audio_encoder_forward`` counts them."""
+    N = batch.wav.shape[1]
+    if enc_setup.downsample_method == "ctc_pool":
+        r = np.asarray(batch.ctc_pool_ranges)
+        frames = encoder_frame_count(enc_setup, N)
+        mid = ((r[..., 1] > r[..., 0]) & (r[..., 0] < frames)).sum(axis=1)
+        M = r.shape[1]
+    else:
+        mid = audio_embed_lengths(enc_setup, torch.as_tensor(np.asarray(batch.wav_lens))).numpy()
+        M = audio_embed_buffer_len(enc_setup, N)
+    return int(len(mid) * (P + S) + np.minimum(mid, M).sum()
+               + np.asarray(batch.response_lens).sum())
 
 
 def make_train_step(
@@ -190,6 +226,7 @@ def make_train_step(
     data_group=None,
     tp_group=None,
     embed_table=None,
+    counts: Optional[Counter] = None,
 ):
     """The train step: (state, llm_params, batch) → (state, metrics).
     ``state`` is updated in place (parameters, optimizer state, step) and
@@ -204,7 +241,15 @@ def make_train_step(
     ``llm_params`` being this rank's shard (the module docstring), and
     ``embed_table`` the whole table the splice reads (required with a
     model group of more than one rank); the metrics are the global batch's
-    on every rank."""
+    on every rank. ``counts``, when given, gains "positions", the student's
+    B x T spliced positions, and "valid_positions", those its attention
+    mask holds, counted from the host batch's lengths. Spans:
+    ``lss.train.{to_device, encoder, student, teacher, loss, backward,
+    optimizer}``, and ``lss.train.loss_backward`` in the fused loss's
+    backward. On the card autograd runs the backward on a thread of its
+    own, so ``lss.train.backward`` on the caller's thread launches nothing
+    there: it labels the caller's wait, and only ``lss.train.loss_backward``
+    opens on autograd's thread."""
     _check_table(tp_group, embed_table)
     dev = resolve_device(device)
     prefix_ids, suffix_ids = _device_ids(prefix_ids, dev), _device_ids(suffix_ids, dev)
@@ -213,7 +258,12 @@ def make_train_step(
     compute = torch.empty(0, dtype=_DTYPES[cfg.model.compute_dtype], device=dev)
 
     def step_fn(state: TrainState, llm_params, batch: Batch):
-        batch = batch.to_device(dev)
+        if counts is not None:
+            counts["positions"] += batch.wav.shape[0] * total_len
+            counts["valid_positions"] += _valid_positions(batch, enc_setup, len(prefix_ids),
+                                                          len(suffix_ids))
+        with annotate("lss.train.to_device"):
+            batch = batch.to_device(dev)
         total, losses = _forward_losses(
             state.enc_params, llm_params, batch, enc_setup=enc_setup, llm_cfg=llm_cfg,
             cfg=cfg, prefix_ids=prefix_ids, suffix_ids=suffix_ids, total_len=total_len,
@@ -221,7 +271,7 @@ def make_train_step(
             tp_group=tp_group, embed_table=embed_table,
         )
         leaves = tree_leaves(state.enc_params)
-        with exact_float32(compute):
+        with exact_float32(compute), annotate("lss.train.backward"):
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         # before the clip: the full gradient of the global batch
@@ -230,7 +280,8 @@ def make_train_step(
         sums = all_reduce(torch.stack([losses[k].detach().float() for k in names]), data_group)
         metrics = dict(zip(names, sums.unbind(0)))
         metrics["grad_norm"] = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        optimizer.apply(state, grads)
+        with annotate("lss.train.optimizer"):
+            optimizer.apply(state, grads)
         state.step += 1
         return state, metrics
 

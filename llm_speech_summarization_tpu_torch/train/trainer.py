@@ -51,6 +51,7 @@ import os
 import random
 import signal
 import time
+from collections import Counter
 from typing import Iterator, Optional
 
 import numpy as np
@@ -194,6 +195,9 @@ class Trainer:
         del enc_params
 
         self._train_steps = {}
+        # "positions" and "valid_positions" of the student's splices
+        # (``make_train_step``'s counts), logged as valid_position_share
+        self.counts: Counter = Counter()
         self._eval_steps = {}
         self._val_engine = None
         self.step = 0
@@ -243,7 +247,7 @@ class Trainer:
             self._train_steps[audio_bucket] = make_train_step(
                 self.config, self.enc_setup, self.llm_cfg, self.optimizer, self.prefix_ids,
                 self.suffix_ids, total_len, device=self.device, data_group=self.mesh.data_group,
-                **self._mesh_args(total_len))
+                counts=self.counts, **self._mesh_args(total_len))
         return self._train_steps[audio_bucket]
 
     def _get_eval_step(self, audio_bucket: int):
@@ -352,6 +356,7 @@ class Trainer:
         prof_dir = os.environ.get("LSS_PROFILE_DIR")
         prof_steps = int(os.environ.get("LSS_PROFILE_STEPS", "3"))
         window = contextlib.ExitStack()
+        logged = Counter(self.counts)  # the counts at the last log
         try:
             # a resumed run finishes the configured epochs, no more
             for epoch in range(self.start_epoch, tcfg.epochs):
@@ -373,6 +378,14 @@ class Trainer:
                         host = {k: float(v) for k, v in metrics.items()}
                         host["step_time_s"] = (time.time() - t0) / log_int
                         t0 = time.time()
+                        # the share of the student's positions that held
+                        # prompt or response since the last log (the rest
+                        # is padding the step computes all the same)
+                        pos = self.counts["positions"] - logged["positions"]
+                        if pos:
+                            host["valid_position_share"] = (
+                                self.counts["valid_positions"] - logged["valid_positions"]) / pos
+                        logged = Counter(self.counts)
                         self.writer.log_training(host, self.step)
                         opt_step = self.step // max(tcfg.grad_accum_interval, 1)
                         self.writer.log_lr(lr_at(cfg, self.total_opt_steps, opt_step),

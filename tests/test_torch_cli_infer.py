@@ -10,6 +10,7 @@ audio, the same float32 path.
 
 import json
 import os
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -56,10 +57,10 @@ def test_single_file(tmp_path, capsys, engine, ext):
     assert eng.counts["encoder_forwards"] == 1
 
 
-def test_audio_dir_to_jsonl(tmp_path, engine):
+def test_audio_dir_to_jsonl(tmp_path, capsys, engine):
     """Five clips in batches of 2 (WAV and FLAC mixed), sorted by size:
     rows in that order, each the per-file engine's response and the
-    per-batch call's."""
+    per-batch call's; the batch stream's counters reported on stderr."""
     d = _corpus(tmp_path / "clips")
     out = tmp_path / "bulk.jsonl"
     eng = cli_infer.main(["-c", TINY, "--audio_dir", str(d), "--output", str(out),
@@ -69,6 +70,9 @@ def test_audio_dir_to_jsonl(tmp_path, engine):
     assert [r["file"] for r in rows] == paths and len(rows) == 5
     assert {os.path.splitext(p)[1] for p in paths} == {".wav", ".flac"}
     assert eng.counts["encoder_forwards"] == 3 and eng.counts["prefills"] == 3
+    report = capsys.readouterr().err.splitlines()[-1]
+    assert report == cli_infer.pipeline_report(eng.counts, Counter())
+    assert report.startswith("3 batches, ") and f"; {eng.counts['decode_steps']} decode " in report
     audio = [load_audio(p) for p in paths]
     for r, a in zip(rows, audio):
         assert r["response"] == engine.generate_audio_response(a, max_new_tokens=8)

@@ -1,6 +1,5 @@
 """The port's profiling on the CPU: ``obs/profile.py`` (``trace`` writes a
-trace file holding an ``annotate``d region; ``StepTimer`` gives the JAX
-``StepTimer``'s EMA on the same clock ticks), the trainer's trace window
+trace file holding an ``annotate``d region), the trainer's trace window
 (``LSS_PROFILE_DIR`` / ``LSS_PROFILE_STEPS``) and the serving scheduler's
 ``LSS_SCHED_TRACE`` lines."""
 
@@ -8,15 +7,13 @@ import glob
 import json
 import os
 import re
-import time
 
 import pytest
 import torch
 
-from llm_speech_summarization_tpu.obs import profile as jax_profile
 from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
 from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
-from llm_speech_summarization_tpu_torch.obs import StepTimer, annotate, trace
+from llm_speech_summarization_tpu_torch.obs import annotate, trace
 from llm_speech_summarization_tpu_torch.serve.server import ContinuousBatchingEngine, _Request
 from llm_speech_summarization_tpu_torch.train import Trainer
 
@@ -40,19 +37,6 @@ def test_trace_writes_annotated_region(tmp_path):
     assert prof is not None
     names = [e.get("name") for e in _trace_events(str(tmp_path))]
     assert "encoder" in names and "aten::matmul" in names
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    ticks = [10.0, 10.5, 11.25, 11.3, 13.0, 13.1]
-    emas = {}
-    for name, cls in (("jax", jax_profile.StepTimer), ("torch", StepTimer)):
-        clock = iter(ticks)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        timer = cls(alpha=0.2)
-        emas[name] = [timer.tick() for _ in ticks]
-        monkeypatch.undo()
-    assert emas["torch"] == emas["jax"]
-    assert emas["torch"][0] is None and emas["torch"][1] == 0.5
 
 
 def test_trainer_trace_window(tmp_path, monkeypatch, capsys):
