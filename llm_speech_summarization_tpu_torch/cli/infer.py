@@ -155,14 +155,16 @@ def _bulk(engine, config, args, ranges_fn=None):
 def pipeline_report(counts: Counter, before: Counter) -> str:
     """What the batch stream's counters read between ``before`` and
     ``counts``: how long the decoding thread waited for each batch's
-    prompt (the encoder keeping up or not) and how long each decode step
-    took to issue on the host."""
+    prompt (the encoder keeping up or not), how long each decode step
+    took to issue on the host, and the share of the steps replayed as
+    CUDA graphs."""
     ran = Counter(counts)
     ran.subtract(before)
     batches, steps = ran["pipeline_batches"], ran["decode_steps"]
     return (f"{batches} batches, {1e3 * ran['prompt_wait_s'] / max(batches, 1):.2f} ms a batch "
             f"waiting for its prompt; {steps} decode steps, "
-            f"{1e3 * ran['decode_issue_s'] / max(steps, 1):.3f} ms a step issuing them")
+            f"{1e3 * ran['decode_issue_s'] / max(steps, 1):.3f} ms a step issuing them, "
+            f"{100 * ran['decode_graph_steps'] / max(steps, 1):.1f}% replayed as CUDA graphs")
 
 
 if __name__ == "__main__":

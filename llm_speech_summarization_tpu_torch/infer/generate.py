@@ -105,9 +105,13 @@ def greedy_generate(
     to the row's unpadded position. ``counts``, when given, gains
     "prefills", "decode_steps" and "decode_issue_s": the host seconds from
     the end of each step's device read to the start of the next (the
-    step's forward, pick and bookkeeping being issued). Spans (``annotate``):
-    ``lss.generate.prefill``, one ``lss.generate.decode_step`` a step and
-    ``lss.generate.done_read`` around each read of the rows' EOS flags.
+    step's forward, pick and bookkeeping being issued); and, from the
+    decode steps' ``llama_forward`` on the card (without ``tp_group``),
+    "decode_graph_steps" (steps replayed as piecewise CUDA graphs) and
+    "decode_graph_captures" (piece sets captured, each after an eager
+    step). Spans (``annotate``): ``lss.generate.prefill``, one
+    ``lss.generate.decode_step`` a step and ``lss.generate.done_read``
+    around each read of the rows' EOS flags.
     ``attn_impl`` goes to every decode step
     (``llama_forward``): "pallas" reads the cache through kernel B8.
     ``tp_group``: ``params`` is this rank's shard (see the module docstring).
@@ -162,7 +166,7 @@ def greedy_generate(
                 params, cfg, input_ids=last[:, None], attn_mask=None,
                 positions=(lens + step - 1)[:, None],
                 kv_cache=cache, cache_offset=L + step - 1, kv_pad_lens=pad_lens,
-                attn_impl=attn_impl, tp_group=tp_group,
+                attn_impl=attn_impl, tp_group=tp_group, counts=counts,
             )
             logits = out.logits[:, 0]
             if use_rep:

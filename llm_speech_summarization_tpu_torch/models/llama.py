@@ -26,7 +26,9 @@ activations are float32: its norm weights, or float32 prompt embeddings),
 through its float32 instance, over an int8, float32 or bfloat16 cache; the
 forward of float32 activations on the card runs its products in float32,
 not TF32 (``device.exact_float32``), as the JAX package asks for
-``Precision.HIGHEST`` at float32.
+``Precision.HIGHEST`` at float32. A dense T == 1 step of the batch loop on
+the card replays CUDA graphs of the chains between its attentions, which
+are launched as above (``graphs_engage``, ``_graphed_step``).
 
 Training (the cache-free forward of the KD step): ``return_hidden`` /
 ``hidden_window`` return the hidden-state stack of the last W positions,
@@ -65,6 +67,9 @@ backward, every rank in the same (reverse layer) order. With a
 from __future__ import annotations
 
 import functools
+import threading
+import weakref
+from collections import Counter, OrderedDict
 from dataclasses import dataclass, replace
 from typing import Any, Dict, NamedTuple, Optional, Union
 
@@ -78,6 +83,7 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_decode import _quantize_kv, fused_decode, fused_decode_attention_write
 from ..kernels.fused_paged import fused_paged_decode
 from ..kernels.paged_attention import paged_decode_attention
+from ..obs.profile import annotate
 from ..ops.norms import rms_norm
 from ..ops.ring_attention import ring_attention
 from ..parallel.comm import (
@@ -347,6 +353,40 @@ def _write_cache(cache: KVCache, layer: int, offset: int, k: torch.Tensor, v: to
             buf[layer, :, :, window] = new.to(buf.dtype)
 
 
+def _dense_windows(cache_offset, cache_offset_bound, kv_pad_lens, B: int, dev):
+    """A dense decode step's (offsets, pad_lens) as contiguous (B,) int32
+    tensors and the host-side bound of the offsets."""
+    if isinstance(cache_offset, torch.Tensor):
+        if cache_offset_bound is None:
+            raise ValueError("a per-row cache_offset needs its host-side cache_offset_bound")
+        offsets = torch.broadcast_to(cache_offset.to(device=dev, dtype=torch.int32), (B,))
+        max_offset = int(cache_offset_bound)
+    else:
+        max_offset = int(cache_offset)
+        offsets = torch.full((B,), max_offset, dtype=torch.int32, device=dev)
+    pad_lens = kv_pad_lens.to(device=dev, dtype=torch.int32).contiguous()
+    return offsets.contiguous(), pad_lens, max_offset
+
+
+def _dense_attend(cache: KVCache, pad_lens, offsets, max_offset: int, pallas: bool, i: int,
+                  q, k, v):
+    """Layer ``i``'s attention in a decode step over the dense cache, the
+    fresh k/v written in place: B8 and then the write under ``pallas``, else
+    B2 over an int8 cache and B3 over a float one."""
+    if pallas:
+        quant = cache.quantized
+        out = decode_attention(q, cache.k[i], cache.v[i], k, v, pad_lens, max_offset,
+                               cache.k_scale[i] if quant else None,
+                               cache.v_scale[i] if quant else None)
+        _write_cache(cache, i, max_offset, k, v)
+        return out
+    if cache.quantized:
+        return fused_decode(q, cache.k, cache.v, cache.k_scale, cache.v_scale, k, v, pad_lens,
+                            offsets, i, max_offset=max_offset)
+    return fused_decode_attention_write(q, cache.k, cache.v, k, v, pad_lens, offsets, i,
+                                        max_offset=max_offset)
+
+
 def _exact_float32(forward):
     """``forward(params, cfg, **kw)`` inside ``exact_float32`` of its
     activations: the given embeddings, else the norm weights (the
@@ -384,6 +424,7 @@ def llama_forward(
     attn_impl: str = "auto",
     ring_group=None,
     tp_group=None,
+    counts: Optional[Counter] = None,
 ) -> LlamaOutput:
     """Run the decoder.
 
@@ -426,6 +467,15 @@ def llama_forward(
     Prefill, the cache-free forward and paged steps take the same kernels
     under every name.
 
+    A decode step on the card at T == 1 over the dense cache, at one scalar
+    ``cache_offset``, from ``input_ids``, without ``tp_group`` or a
+    gradient (``graphs_engage``), replays CUDA graphs of its dense chains
+    between eager launches of its attention (``_graphed_step``): the same
+    kernels in the same order, captured once per batch size, activation
+    dtype, widths and parameter tree after one eager step. Its logits are
+    then a static buffer, overwritten by the next such step; ``counts``,
+    when given, gains "decode_graph_steps" and "decode_graph_captures".
+
     The cache is updated in place and also returned. Logits are float32:
     the final hidden state and the head are upcast to float32 before the
     product, which is the JAX ``preferred_element_type=f32`` product of
@@ -433,28 +483,15 @@ def llama_forward(
     per-vocab scale multiplies them.
     """
     tp = group_size(tp_group)
-    if inputs_embeds is None:
-        if input_ids is None:
-            raise ValueError("llama_forward needs input_ids or inputs_embeds")
-        inputs_embeds = _embed_lookup(params, input_ids.long(), tp_group)
-    x = inputs_embeds
-    B, T, _ = x.shape
-    dev = x.device
+    if inputs_embeds is None and input_ids is None:
+        raise ValueError("llama_forward needs input_ids or inputs_embeds")
+    src = input_ids if inputs_embeds is None else inputs_embeds
+    B, T, dev = src.shape[0], src.shape[1], src.device
 
     is_paged = isinstance(kv_cache, PagedKVCache)
     is_decode = is_paged or (kv_cache is not None and kv_pad_lens is not None)
     if is_decode and attn_mask is not None:
         raise ValueError("a decode step treats its fresh tokens as real: pass attn_mask=None")
-    if attn_mask is None:
-        attn_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
-    if positions is None:
-        # HF-style left-pad positions: the first real token gets position 0
-        positions = torch.clamp(torch.cumsum(attn_mask.to(torch.int32), dim=1) - 1, min=0)
-    if positions.dim() == 1:
-        positions = positions[None, :]
-    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=dev)
-    rope_cos, rope_sin = rope_cos_sin(positions, inv_freq)
-
     if kv_cache is not None and not is_paged and cache_offset is None:
         raise ValueError("a forward with a kv_cache needs cache_offset")
     if kv_cache is not None and (return_hidden or remat):
@@ -473,6 +510,30 @@ def llama_forward(
         raise ValueError(
             f"attn_impl='pallas' runs kernel B8, which takes T == 1 and one scalar "
             f"cache_offset; got T={T} and {kind} offset (use 'auto' for the fused kernels)")
+
+    if is_decode and not is_paged:
+        offsets, pad_lens, max_offset = _dense_windows(cache_offset, cache_offset_bound,
+                                                       kv_pad_lens, B, dev)
+        attend_layer = functools.partial(_dense_attend, kv_cache, pad_lens, offsets, max_offset,
+                                         pallas_dense)
+        if (inputs_embeds is None and ring_group is None and compute_logits
+                and not return_final_hidden and not torch.is_grad_enabled()
+                and graphs_engage(dev, kv_cache, kv_pad_lens, cache_offset, T, tp_group)):
+            logits = _graphed_step(params, cfg, input_ids, positions, attend_layer, counts)
+            return LlamaOutput(logits=logits, kv_cache=kv_cache)
+
+    if inputs_embeds is None:
+        inputs_embeds = _embed_lookup(params, input_ids.long(), tp_group)
+    x = inputs_embeds
+    if attn_mask is None:
+        attn_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+    if positions is None:
+        # HF-style left-pad positions: the first real token gets position 0
+        positions = torch.clamp(torch.cumsum(attn_mask.to(torch.int32), dim=1) - 1, min=0)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=dev)
+    rope_cos, rope_sin = rope_cos_sin(positions, inv_freq)
 
     def window(t, w):
         return t[:, -w:] if w > 0 else t
@@ -497,25 +558,13 @@ def llama_forward(
         lengths = kv_cache.lengths.to(device=dev, dtype=torch.int32).contiguous()
         pad_lens = kv_cache.pad_lens.to(device=dev, dtype=torch.int32).contiguous()
         fresh_k, fresh_v = [], []
-    elif is_decode:
-        if isinstance(cache_offset, torch.Tensor):
-            if cache_offset_bound is None:
-                raise ValueError("a per-row cache_offset needs its host-side cache_offset_bound")
-            offsets = torch.broadcast_to(cache_offset.to(device=dev, dtype=torch.int32), (B,))
-            max_offset = int(cache_offset_bound)
-        else:
-            max_offset = int(cache_offset)
-            offsets = torch.full((B,), max_offset, dtype=torch.int32, device=dev)
-        offsets = offsets.contiguous()
-        pad_lens = kv_pad_lens.to(device=dev, dtype=torch.int32).contiguous()
-    else:
+    elif not is_decode:
         pad_lens = (T - attn_mask.to(torch.int32).sum(dim=1)).to(torch.int32)
         ends = torch.full((B,), T, dtype=torch.int32, device=dev)
 
-    layers = params["layers"]
     lcfg = shard_config(cfg, tp)
     for i in range(cfg.num_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+        lp = _layer(params, i)
         if is_paged and T == 1:
             def attend(q, k, v, i=i):
                 return fused_paged_decode(
@@ -532,26 +581,8 @@ def llama_forward(
                     pad_lens, k, v, kv_cache.k_scale[i] if quant else None,
                     kv_cache.v_scale[i] if quant else None,
                 )
-        elif pallas_dense:
-            def attend(q, k, v, i=i):
-                quant = kv_cache.quantized
-                out = decode_attention(
-                    q, kv_cache.k[i], kv_cache.v[i], k, v, pad_lens, max_offset,
-                    kv_cache.k_scale[i] if quant else None, kv_cache.v_scale[i] if quant else None,
-                )
-                _write_cache(kv_cache, i, max_offset, k, v)
-                return out
-        elif is_decode and kv_cache.quantized:
-            def attend(q, k, v, i=i):
-                return fused_decode(
-                    q, kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, k, v,
-                    pad_lens, offsets, i, max_offset=max_offset,
-                )
         elif is_decode:
-            def attend(q, k, v, i=i):
-                return fused_decode_attention_write(
-                    q, kv_cache.k, kv_cache.v, k, v, pad_lens, offsets, i, max_offset=max_offset,
-                )
+            attend = functools.partial(attend_layer, i)
         elif ring_group is not None:
             def attend(q, k, v):
                 return ring_attention(q, k, v, pad_lens, ring_group, causal=True)
@@ -591,6 +622,13 @@ def llama_forward(
     if not compute_logits:
         return out
     x = x[:, -1:, :] if last_logit_only else window(x, logit_window)
+    return out._replace(logits=_head(params, cfg, x, tp_group))
+
+
+def _head(params: Params, cfg: LlamaConfig, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+    """float32 logits of the normed final hidden states ``x``: both upcast
+    to float32 before the product; under a ``tp_group`` the ranks' vocab
+    slices gathered."""
     if cfg.tie_embeddings:
         head, head_scale = params["embed_tokens"], params.get("embed_tokens_scale")
         w_vd = head  # (V, D)
@@ -603,7 +641,7 @@ def llama_forward(
     logits = tp_copy(x, tp_group).float() @ w_vd.float().t()
     if head.dtype == torch.int8:
         logits = logits * head_scale.float()
-    return out._replace(logits=tp_all_gather(logits, -1, tp_group))
+    return tp_all_gather(logits, -1, tp_group)
 
 
 def _embed_lookup(params: Params, ids: torch.Tensor, tp_group=None) -> torch.Tensor:
@@ -625,6 +663,178 @@ def _embed_lookup(params: Params, ids: torch.Tensor, tp_group=None) -> torch.Ten
     if tp > 1:
         rows = tp_all_reduce(rows * inside[..., None].to(rows.dtype), tp_group)
     return rows
+
+
+# --- the piecewise CUDA graphs of a decode step ---------------------------
+#
+# A T = 1 decode step at B = 128 issues ~40 small ops a layer; on the card the
+# host took longer to issue them than the card to run them. Here the step is
+# cut at its attentions into num_layers + 1 pieces, each captured once as a
+# CUDA graph over static buffers and replayed; the attention between them
+# (B2, B3 or B8, which read and write the cache and whose split follows the
+# step's offset) is launched as it is in the eager step. A device's sets share
+# one memory pool, so their intermediates alias: one thread at a time decodes
+# through them on a device (the batch loop; the server's one batching thread).
+
+# captured piece sets kept, the least recently used dropped: the server's
+# warm-up ladder of power-of-two batches holds up to 8 sizes (1 to 128)
+GRAPH_SETS_MAX = 8
+_graph_sets: "OrderedDict[tuple, _DecodeGraphs]" = OrderedDict()
+_graph_lock = threading.Lock()
+_capture_state: Dict[int, tuple] = {}  # device index -> (capture stream, shared pool)
+
+
+def graphs_engage(device: torch.device, kv_cache, kv_pad_lens, cache_offset, T: int,
+                  tp_group) -> bool:
+    """Whether a decode forward replays the piecewise graphs: on the card,
+    a T == 1 step (``kv_pad_lens`` given) over the dense ``KVCache`` at one
+    scalar offset for every row (the batch loop's step; the slot decoders'
+    per-row offsets and the paged cache stay eager), on one rank."""
+    return (device.type == "cuda" and isinstance(kv_cache, KVCache) and kv_pad_lens is not None
+            and T == 1 and not isinstance(cache_offset, torch.Tensor) and tp_group is None)
+
+
+def _layer(params: Params, i: int) -> Params:
+    return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _piece_qkv(cfg: LlamaConfig, params: Params, i: int, x, rope_cos, rope_sin):
+    lp = _layer(params, i)
+    return _qkv(cfg, lp, rms_norm(x, lp["input_norm"], cfg.rms_eps), rope_cos, rope_sin)
+
+
+def _first_piece(params: Params, cfg: LlamaConfig, ids, positions):
+    """Piece 0: the embeddings of ``ids`` (B, 1), the rope tables at
+    ``positions`` (B, 1) and layer 0's q, k, v. Returns (x, q, k, v, cos,
+    sin)."""
+    x = _embed_lookup(params, ids)
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=ids.device)
+    rope = rope_cos_sin(positions, inv_freq)
+    return (x,) + _piece_qkv(cfg, params, 0, x, *rope) + rope
+
+
+def _piece(params: Params, cfg: LlamaConfig, i: int, x, attn, rope):
+    """Piece i (1 <= i <= num_layers): layer i - 1's block output from its
+    input ``x`` and attention ``attn``, then layer i's (x, q, k, v), or,
+    after the last layer, the final norm and the float32 logits (B, 1, V)."""
+    x = _block_out(cfg, _layer(params, i - 1), x, attn)
+    if i == cfg.num_layers:
+        return _head(params, cfg, rms_norm(x, params["final_norm"], cfg.rms_eps))
+    return (x,) + _piece_qkv(cfg, params, i, x, *rope)
+
+
+def piecewise_decode(params: Params, cfg: LlamaConfig, ids, positions, attend):
+    """A T = 1 decode step run eagerly piece by piece: ``attend(i, q, k, v)``
+    is layer i's attention (which writes the cache). The same operations in
+    the same order as ``llama_forward``'s step, so the same logits bit for
+    bit; the graphs' warm-up step."""
+    x, q, k, v, *rope = _first_piece(params, cfg, ids, positions)
+    for i in range(1, cfg.num_layers + 1):
+        out = _piece(params, cfg, i, x, attend(i - 1, q, k, v), rope)
+        if i < cfg.num_layers:
+            x, q, k, v = out
+    return out
+
+
+class _DecodeGraphs:
+    """One key's captured pieces: the static inputs (ids, positions, and
+    the attention output each piece after the first reads), and each
+    piece's graph and static outputs. Holds no parameter: ``refs`` are weak
+    references to the tree's leaves, and the set is dropped once one dies."""
+
+    def __init__(self, params: Params, cfg: LlamaConfig, B: int, leaves):
+        dev = params["final_norm"].device
+        dtype = params["final_norm"].dtype
+        self.refs = [weakref.ref(t) for t in leaves]
+        self.ids = torch.zeros((B, 1), dtype=torch.long, device=dev)
+        self.positions = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        self.attn = torch.zeros((B, 1, cfg.num_heads, cfg.head_dim), dtype=dtype, device=dev)
+        self.graphs, self.outs = [], []
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self.refs)
+
+    def capture(self, params: Params, cfg: LlamaConfig, stream, pool) -> None:
+        def one(fn):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                # thread_local: another thread (the prompt builder) may run
+                # its own stream's work while this one captures
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    out = fn()
+                finally:
+                    g.capture_end()
+            self.graphs.append(g)
+            self.outs.append(out)
+
+        one(lambda: _first_piece(params, cfg, self.ids, self.positions))
+        rope = self.outs[0][4:]
+        for i in range(1, cfg.num_layers + 1):
+            one(lambda: _piece(params, cfg, i, self.outs[-1][0], self.attn, rope))
+
+    def replay(self, ids, positions, attend) -> torch.Tensor:
+        """One step: the logits (B, 1, V) in the last piece's static buffer,
+        which the next replay overwrites."""
+        self.ids.copy_(ids)
+        self.positions.copy_(positions)
+        self.graphs[0].replay()
+        for i in range(1, len(self.graphs)):
+            self.attn.copy_(attend(i - 1, *self.outs[i - 1][1:4]))
+            self.graphs[i].replay()
+        return self.outs[-1]
+
+
+def _graphed_step(params: Params, cfg: LlamaConfig, ids, positions, attend,
+                  counts: Optional[Counter]) -> torch.Tensor:
+    """The step through its key's captured pieces (``counts``:
+    "decode_graph_steps"), or, for a new key, an eager warm-up step on the
+    capture stream and then the capture (``counts``: "decode_graph_captures";
+    span ``lss.generate.graph_capture``). A set is keyed by B, the
+    activation dtype, the widths and the identity of the tree's leaves, not
+    by the cache: each call allocates its own, and the attention is not
+    captured. Returns the step's float32 logits (B, 1, V)."""
+    B, dev = ids.shape[0], ids.device
+    if positions is None:
+        positions = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    leaves = [t for name, t in sorted(params.items()) if name != "layers"]
+    leaves += [t for _, t in sorted(params["layers"].items())]
+    key = (B, params["final_norm"].dtype, cfg, dev, tuple(id(t) for t in leaves))
+    with _graph_lock:
+        graphs = _graph_sets.get(key)
+        if graphs is not None and graphs.alive():
+            _graph_sets.move_to_end(key)
+        else:
+            graphs = None
+    if graphs is not None:
+        logits = graphs.replay(ids, positions, attend)
+        if counts is not None:
+            counts["decode_graph_steps"] += 1
+        return logits
+
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with _graph_lock:
+        if index not in _capture_state:
+            _capture_state[index] = (torch.cuda.Stream(dev), torch.cuda.graph_pool_handle())
+        stream, pool = _capture_state[index]
+    main = torch.cuda.current_stream(dev)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):  # warm-up: lazy set-up happens outside the capture
+        logits = piecewise_decode(params, cfg, ids.long(), positions, attend)
+    main.wait_stream(stream)
+    logits.record_stream(main)
+    graphs = _DecodeGraphs(params, cfg, B, leaves)
+    with annotate("lss.generate.graph_capture"):
+        graphs.capture(params, cfg, stream, pool)
+    with _graph_lock:
+        for k in [k for k, g in _graph_sets.items() if not g.alive()]:
+            del _graph_sets[k]
+        _graph_sets[key] = graphs
+        while len(_graph_sets) > GRAPH_SETS_MAX:
+            _graph_sets.popitem(last=False)
+    if counts is not None:
+        counts["decode_graph_captures"] += 1
+    return logits
 
 
 def fuse_llama_params(params: Params) -> Params:

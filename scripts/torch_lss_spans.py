@@ -12,7 +12,9 @@ does, and meanwhile keeps
   * the counters' change over the untraced phase of the run (the first call
     of the runner's ``_drive`` or ``_steps``): the engine's ``counts``
     (``prompt_wait_s``, ``pipeline_batches``, ``decode_issue_s``,
-    ``decode_steps``) or the trainer's (``positions``, ``valid_positions``);
+    ``decode_steps``, ``decode_graph_steps``) or the trainer's
+    (``positions``, ``valid_positions``), and the counters' totals at that
+    phase's end (set-up included: ``decode_graph_captures``);
   * the traced window's raw events, summarized a second time by
     ``portbench.trace.summarize`` with the ``lss.`` spans in among the
     ``pb.`` ranges: a span is credited with the device time of what was
@@ -29,7 +31,11 @@ instance, and the labelled idle gaps.
   * ``decode_device_ms_per_step``: mean device ms of ``lss.generate.decode_step``;
   * ``kd_loss_ms``: device ms of ``lss.train.loss`` and
     ``lss.train.loss_backward`` over the ``lss.train.loss`` instances;
-  * ``valid_position_share``: 100 x valid_positions / positions (untraced).
+  * ``valid_position_share``: 100 x valid_positions / positions (untraced);
+  * ``decode_graph_share``: 100 x decode_graph_steps / decode_steps, the
+    share of the untraced phase's decode steps replayed as CUDA graphs;
+  * ``decode_graph_captures``: piece sets captured from the start of the run
+    to the end of the untraced phase.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import json  # noqa: E402
 import sys  # noqa: E402
 from collections import Counter  # noqa: E402
 from pathlib import Path  # noqa: E402
+from typing import Optional  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -79,8 +86,9 @@ def span_summary(events, top: int = 12) -> dict:
     return {"device_ms": device, "host_ms": host, "gaps": gaps}
 
 
-def readings(counts: Counter, device_ms: dict) -> dict:
-    """The five quantities, each left out where its data is missing."""
+def readings(counts: Counter, device_ms: dict, totals: Optional[Counter] = None) -> dict:
+    """The quantities above, each left out where its data is missing:
+    ``counts`` over the untraced phase, ``totals`` from the run's start."""
     out = {}
     if counts["pipeline_batches"]:
         out["prompt_wait_ms"] = 1e3 * counts["prompt_wait_s"] / counts["pipeline_batches"]
@@ -95,10 +103,14 @@ def readings(counts: Counter, device_ms: dict) -> dict:
         out["kd_loss_ms"] = (sum(loss) + sum(back)) / len(loss)
     if counts["positions"]:
         out["valid_position_share"] = 100.0 * counts["valid_positions"] / counts["positions"]
+    if counts["decode_steps"] and "decode_graph_steps" in counts:
+        out["decode_graph_share"] = 100.0 * counts["decode_graph_steps"] / counts["decode_steps"]
+    if totals is not None and "decode_graph_captures" in totals:
+        out["decode_graph_captures"] = totals["decode_graph_captures"]
     return out
 
 
-def _spy(core, untraced: list, events: list) -> None:
+def _spy(core, untraced: list, totals: list, events: list) -> None:
     """Wrap the runners' first phase and ``summarize`` to keep what they
     do not hand back."""
     keep = pb_trace.summarize
@@ -125,7 +137,8 @@ def _spy(core, untraced: list, events: list) -> None:
             before = Counter(counts_of(*a))
             out = fn(*a)
             if not untraced:
-                ran = Counter(counts_of(*a))
+                totals.append(Counter(counts_of(*a)))
+                ran = Counter(totals[0])
                 ran.subtract(before)
                 untraced.append(ran)
             return out
@@ -156,15 +169,16 @@ def main() -> int:
     pb_run.environment()
     from portbench import core
 
-    untraced, events = [], []
-    _spy(core, untraced, events)
+    untraced, totals, events = [], [], []
+    _spy(core, untraced, totals, events)
     line = core.run_cell(core.Bench(ROOT), args.workload, args.seed, args.seconds, True,
                          "cuda", T_START)
     sp = span_summary(events)
     mean = lambda v: [len(v), sum(v) / len(v)]  # noqa: E731
     res = {"workload": args.workload, "seed": args.seed, "correct": line["correct"],
            "metrics": {k: v["value"] for k, v in line["metrics"].items()},
-           "readings": readings(untraced[0] if untraced else Counter(), sp["device_ms"]),
+           "readings": readings(untraced[0] if untraced else Counter(), sp["device_ms"],
+                                totals[0] if totals else Counter()),
            "untraced_counts": dict(untraced[0]) if untraced else {},
            "span_device_ms": {n: mean(v) for n, v in sorted(sp["device_ms"].items())},
            "span_host_ms": {n: mean(v) for n, v in sorted(sp["host_ms"].items())},

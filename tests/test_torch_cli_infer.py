@@ -73,6 +73,7 @@ def test_audio_dir_to_jsonl(tmp_path, capsys, engine):
     report = capsys.readouterr().err.splitlines()[-1]
     assert report == cli_infer.pipeline_report(eng.counts, Counter())
     assert report.startswith("3 batches, ") and f"; {eng.counts['decode_steps']} decode " in report
+    assert report.endswith(", 0.0% replayed as CUDA graphs")  # the CPU runs no graph
     audio = [load_audio(p) for p in paths]
     for r, a in zip(rows, audio):
         assert r["response"] == engine.generate_audio_response(a, max_new_tokens=8)

@@ -60,3 +60,17 @@ def test_readings():
         "decode_device_ms_per_step": 2.0, "kd_loss_ms": 30.0, "valid_position_share": 25.0})
     # a program without the counters and spans (the decode steps alone)
     assert lss.readings(Counter(decode_steps=20), {}) == {}
+
+
+def test_graph_readings():
+    """The share of decode steps replayed as CUDA graphs over the untraced
+    phase, and the captures from the run's start; none without the
+    counters (a program before them), 0 where no step replayed."""
+    ran = Counter(decode_steps=40, decode_graph_steps=30, decode_issue_s=0.2)
+    assert lss.readings(ran, {}, Counter(decode_graph_captures=1)) == pytest.approx({
+        "decode_issue_ms_per_step": 5.0, "decode_graph_share": 75.0,
+        "decode_graph_captures": 1})
+    ran = Counter(decode_steps=40, decode_graph_steps=0)
+    assert lss.readings(ran, {}, Counter(decode_graph_captures=0)) == {
+        "decode_graph_share": 0.0, "decode_graph_captures": 0}
+    assert lss.readings(Counter(decode_steps=40), {}, Counter(decode_steps=80)) == {}
