@@ -86,6 +86,17 @@ Phases, in order; each prints one line and any failure raises:
      bit-equal repeats, each instance's registers and spill bytes, the
      distance to two faults (the cache read unrounded, p left unrounded)
      for information, torch.cat + SDPA at bf16 timed beside B8;
+  7c. moe: K1 (the routed experts, ``csrc/moe_experts.cu``) at
+     Moonlight-16B-A3B's widths (64 experts, 2048 -> 2 x 1408, top 6) at a
+     decode step's pairs (B=128) and a prefill's (128 x 192 positions,
+     left pads not routed): the sort against its plain version, gate-up
+     and down within MOE_GATEUP_RTOL / MOE_DOWN_RTOL of theirs with
+     faults the bounds must reject, the combine bit-exact, repeats
+     bit-identical, each launch timed beside its plain version and
+     ``torch._grouped_mm``; latent: K2 (``csrc/latent_decode.cu``) at 16
+     heads over the int8 latent cache (576/512) against its plain version
+     and the plain version run in float32 with injected faults, writes
+     bit-exact, repeats bit-identical;
   8. the slice at a small kernel-legal width on the card and on the CPU,
      from the same weights: the HuBERT batch path on an int8 cache, the
      Whisper one on a bf16 cache and BASELINE config #1's layout
@@ -142,6 +153,11 @@ Phases, in order; each prints one line and any failure raises:
  12. the full-width ``llama3_whisper.yaml`` batch path on a bf16 KV cache
      (B1 and B3), ``greedy_generate(attn_impl="pallas")`` on its prompts
      (B8) held to the B3 stream, and a dense HTTP server on it;
+ 12a. moonlight_full: ``moonlight_whisper.yaml`` at full width (Moonlight-
+     16B-A3B with Whisper-medium, random weights): 128 clips of 4-16 s
+     through ``generate_audio_response_batch`` with graphed decode steps
+     (B1 in the encoder, K1 in the prefill and inside the graphs, K2 in
+     every layer of every step);
  13. the full-width trainer (``Trainer(...).train()`` on synthetic data): a
      few KD steps and the closing ``validate()``, then a second trainer
      that resumes from its checkpoint and takes one more step, and one
@@ -223,6 +239,11 @@ times B2 at small batches for each split count of the window (the numbers
 ``f32`` only) the float32 decode body's B2 and mixed B8 at B = 1-128 for
 each split count (the numbers ``fused_decode.f32_splits`` is set from), and
 its phases decode_f32 and decode_mixed.
+
+    python3 chip_smoke.py --moe-kernels
+
+runs only phases 7c and 12a and prints their kernels line: K1's two GEMM
+launches and K2.
 
     python3 chip_smoke.py --f32-train-kernels [TL]
 
@@ -488,6 +509,12 @@ def start_builds():
     flash += (lambda: bwd_f32_lib(True),) if bwd_f32_lib else ()
     decode_f32_lib = getattr(fused_decode, "_f32_lib", None)  # ditto
     decode += (decode_f32_lib,) if decode_f32_lib else ()
+    try:  # K1 and K2 (absent in an older checkout)
+        from llm_speech_summarization_tpu_torch.kernels import latent_decode, moe_experts
+
+        decode += (moe_experts._lib, latent_decode._lib)
+    except ImportError:
+        pass
     pool = ThreadPoolExecutor(max_workers=len(flash) + len(decode))
     futures = [pool.submit(lib) for lib in flash], [pool.submit(lib) for lib in decode]
     pool.shutdown(wait=False)
@@ -2177,6 +2204,372 @@ def phase_decode_mixed(torch, card):
         del c, snap, got_bufs, ref_bufs
     emit("decode_mixed_wall", seconds=time.perf_counter() - t_phase, card=card)
     return results
+
+
+# K1 (the routed experts) at Moonlight-16B-A3B's widths: a decode step's
+# pairs at B = 128 (768, one 32-row tile an expert) and a prefill's (a
+# batch of 128 prompts of 192 positions, left pads not routed: ~115k pairs
+# in 128-row tiles). gate-up rounds g, u, silu(g) and their product to bf16
+# as its plain version does; their float32 sums differ only in order, which
+# moves a rounding by a bf16 step or two: within MOE_GATEUP_RTOL |plain| +
+# MOE_ATOL_RMS rms(plain). down writes float32 from the same bf16 operands:
+# within MOE_DOWN_RTOL (|plain| + rms(plain)). The phase shows both bounds
+# reject an expert's rows under the next expert's weights, each row's token
+# off by one (gate-up), and the last 32-wide K slice dropped.
+MOE_SHAPE = dict(E=64, D=2048, I=1408, k=6)
+MOE_CASES = {"decode": (128, 0.0), "prefill": (128 * 192, 0.22)}  # tokens, left-pad share
+MOE_GATEUP_RTOL, MOE_ATOL_RMS = 2.0 ** -5, 1e-3
+MOE_DOWN_RTOL = 1e-4
+# K2 (the latent decode) at 16 heads over one latent row (576 k / 512 v):
+# (B, T, S), L = 2, layer 1; the last splits its windows 8 ways
+LATENT_SHAPES = ((128, 1, 320), (16, 1, 96), (4, 2, 320), (8, 1, 1024))
+# K2 rounds p (weighted by the c scale) to bf16 before p.c and its output to
+# bf16, as B7 does: held to its plain version run in float32 within B7's
+# bound, LATENT_OUT_ATOL + LATENT_OUT_RTOL (|out| + (P.|V|)/l)
+LATENT_OUT_ATOL, LATENT_OUT_RTOL = B7_OUT_ATOL, B7_OUT_RTOL
+
+
+def _moe_check(torch, what, got, plain, rtol, atol_rms, faults):
+    """``got`` within rtol |plain| + atol_rms rms(plain) of ``plain``, and
+    each of ``faults`` (name: a wrong result) outside that bound."""
+    plain = plain.float()
+    bound = rtol * plain.abs() + atol_rms * plain.pow(2).mean().sqrt()
+
+    def worst(x):
+        return ((x.float() - plain).abs() / bound).max().item()
+
+    ratio = worst(got)
+    if not torch.isfinite(got).all() or not ratio <= 1:
+        raise AssertionError(f"{what}: differs from the plain version by {ratio} x the bound")
+    rejected = {name: worst(x) for name, x in faults.items()}
+    if min(rejected.values()) <= 1:
+        raise AssertionError(f"{what}: the bound does not reject every fault: {rejected}")
+    return dict(max_abs_err=(got.float() - plain).abs().max().item(), err_over_bound=ratio,
+                faults_over_bound=rejected)
+
+
+def _grouped_mm_ms(torch, a, w_t, offsets):
+    """The library's grouped product (``torch._grouped_mm``: bf16 rows
+    against each group's weights, device-side group ends) timed alone, or
+    why it could not run."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm is absent"
+    ends = offsets[1:].contiguous()
+    try:
+        fn(a, w_t, offs=ends)
+        torch.cuda.synchronize()
+        return device_ms(torch, lambda: fn(a, w_t, offs=ends)), "torch._grouped_mm"
+    except Exception as e:  # noqa: BLE001  (a build without the sm90 route)
+        return None, f"torch._grouped_mm failed: {type(e).__name__}: {str(e)[:160]}"
+
+
+def phase_moe(torch, card):
+    """K1 at MOE_CASES: the sort against its plain version (the same
+    segments, each holding the same pairs), gate-up and down against theirs
+    within their bounds with faults the bounds must reject, the combine bit
+    for bit, repeats bit-identical; each launch's device ms beside its plain
+    version's, the library's grouped product's (``torch._grouped_mm``) and
+    its bound."""
+    from llm_speech_summarization_tpu_torch.kernels import moe_experts as mx
+
+    c = MOE_SHAPE
+    E, D, I, k = c["E"], c["D"], c["I"], c["k"]
+    g = torch.Generator(device="cuda").manual_seed(24)
+    wgu = (0.02 * torch.randn((E, 2 * I, D), device="cuda", generator=g)).to(torch.bfloat16)
+    wd = (0.02 * torch.randn((E, D, I), device="cuda", generator=g)).to(torch.bfloat16)
+    results = {}
+    for name, (N, pad_share) in MOE_CASES.items():
+        what = f"K1 {name} N={N}"
+        x = torch.randn((N, D), device="cuda", generator=g).to(torch.bfloat16)
+        sel = torch.rand((N, E), device="cuda", generator=g).topk(k, dim=-1).indices
+        valid = (torch.rand(N, device="cuda", generator=g) >= pad_share) if pad_share else None
+        w = torch.rand((N, k), device="cuda", generator=g)
+        # --- the sort
+        routing = mx.sort_by_expert(sel, E, valid)
+        want = mx.sort_by_expert_reference(sel, E, valid)
+        if not (torch.equal(routing.offsets, want.offsets)
+                and torch.equal(routing.counts, want.counts)):
+            raise AssertionError(f"{what}: the sort's segments differ from the plain version's")
+        keep = torch.ones(N, dtype=torch.bool, device="cuda") if valid is None else valid
+        routed = keep.repeat_interleave(k)
+        d = routing.dest.reshape(-1)[routed]
+        seg = torch.searchsorted(routing.offsets[1:].contiguous(), d.to(torch.int32), right=True)
+        if not (torch.all(routing.dest.reshape(-1)[~routed] == N * k)
+                and torch.equal(routing.tok[d].long(),
+                                torch.arange(N * k, device="cuda")[routed] // k)
+                and torch.equal(seg, sel.reshape(-1)[routed])):
+            raise AssertionError(f"{what}: a pair is not in its expert's segment")
+        rows = int(routing.offsets[E])  # the pairs routed
+        sets = int((routing.counts > 0).sum())
+        tok, offsets = routing.tok, routing.offsets
+        # --- gate-up
+        h = mx.moe_gateup(x, tok, offsets, wgu)
+        plain_h = mx.moe_gateup_reference(x, tok, offsets, wgu)[:rows]
+        x_cut = x.clone()
+        x_cut[:, -32:] = 0
+        gate_check = _moe_check(torch, f"{what} gate-up", h[:rows], plain_h, MOE_GATEUP_RTOL,
+                                MOE_ATOL_RMS, {
+            "next expert's weights": mx.moe_gateup_reference(x, tok, offsets,
+                                                             wgu.roll(1, 0))[:rows],
+            "token off by one": mx.moe_gateup_reference(x, (tok + 1) % N, offsets, wgu)[:rows],
+            "last K slice dropped": mx.moe_gateup_reference(x_cut, tok, offsets, wgu)[:rows]})
+        # --- down, from the kernel's h
+        y = mx.moe_down(h, offsets, wd)
+        if not torch.all(y[N * k] == 0):
+            raise AssertionError(f"{what}: down's zero row is not zero")
+        plain_y = mx.moe_down_reference(h, offsets, wd)[:rows]
+        h_cut = h.clone()
+        h_cut[:, -32:] = 0
+        down_check = _moe_check(torch, f"{what} down", y[:rows], plain_y, MOE_DOWN_RTOL,
+                                MOE_DOWN_RTOL, {
+            "next expert's weights": mx.moe_down_reference(h, offsets, wd.roll(1, 0))[:rows],
+            "last K slice dropped": mx.moe_down_reference(h_cut, offsets, wd)[:rows]})
+        # --- the combine, bit for bit
+        out = mx.combine(y, routing.dest, w)
+        if not torch.equal(out, mx.combine_reference(y, routing.dest, w, torch.bfloat16)):
+            raise AssertionError(f"{what}: the combine differs from its plain version")
+        same = {"sort": torch.equal(mx.sort_by_expert(sel, E, valid).offsets, offsets),
+                "gate-up": torch.equal(mx.moe_gateup(x, tok, offsets, wgu)[:rows], h[:rows]),
+                "down": torch.equal(mx.moe_down(h, offsets, wd)[:rows], y[:rows]),
+                "combine": torch.equal(mx.combine(y, routing.dest, w), out)}
+        if not all(same.values()):
+            raise AssertionError(f"{what}: two identical calls differ: {same}")
+        del plain_h, plain_y, x_cut, h_cut
+        # --- times: the plain versions compute every row against every
+        # expert (64x the work), timed in fewer calls at the prefill's size;
+        # the combine's bytes count the routed rows once (a pad token's
+        # choices all read the one zero row)
+        few = dict(reps=2, sessions=1) if name == "prefill" else {}
+        xs = x[tok.long()]
+        lib_gu, lib_gu_by = _grouped_mm_ms(torch, xs, wgu.transpose(1, 2), offsets)
+        lib_d, lib_d_by = _grouped_mm_ms(torch, h, wd.transpose(1, 2), offsets)
+        launches = {}
+        for key, fn, plain_fn, n_bytes, flops, lib in (
+                ("sort", lambda: mx.sort_by_expert(sel, E, valid),
+                 lambda: mx.sort_by_expert_reference(sel, E, valid),
+                 N * k * (8 + 4 + 4 + 8) + 4 * (2 * E + 1), 0.0, None),
+                ("gate-up", lambda: mx.moe_gateup(x, tok, offsets, wgu),
+                 lambda: mx.moe_gateup_reference(x, tok, offsets, wgu),
+                 sets * 2 * I * D * 2 + rows * (D + I) * 2, 2.0 * rows * D * 2 * I, lib_gu),
+                ("down", lambda: mx.moe_down(h, offsets, wd),
+                 lambda: mx.moe_down_reference(h, offsets, wd),
+                 sets * D * I * 2 + rows * (I * 2 + D * 4), 2.0 * rows * I * D, lib_d),
+                ("combine", lambda: mx.combine(y, routing.dest, w),
+                 lambda: mx.combine_reference(y, routing.dest, w, torch.bfloat16),
+                 rows * D * 4 + N * k * (8 + 4) + N * D * 2, 2.0 * N * k * D, None)):
+            t = {"ms": device_ms(torch, fn, whole=False), "plain_ms": device_ms(
+                torch, plain_fn, whole=False, **few), "call_ms": call_ms(torch, fn)}
+            t["bound_ms"], t["bound_by"] = bound_ms(float(n_bytes), float(flops))
+            t["library_ms"] = lib
+            launches[key] = t
+        launches["gate-up"]["library"], launches["down"]["library"] = lib_gu_by, lib_d_by
+        results[name] = dict(launches, max_abs_err=max(gate_check["max_abs_err"],
+                                                       down_check["max_abs_err"]))
+        emit("moe_experts", case=name, tokens=N, pairs=rows, expert_sets=sets,
+             max_rows=int(routing.counts.max()), shape=[E, D, I, k],
+             tile_rows=mx._tile_rows(N * k, E), gate_up_check=gate_check,
+             gate_up_rtol=MOE_GATEUP_RTOL, atol_rms=MOE_ATOL_RMS, down_check=down_check,
+             down_rtol=MOE_DOWN_RTOL, combine="bit-exact", bit_identical=same,
+             **{f"{key}_timing": t for key, t in launches.items()}, card=card)
+        del x, xs, h, y, out, routing, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def _latent_cache_only(torch, q, cc, cs, pc, ps, pads, offs, scale):
+    """float32 latent attention of q (B, T, H, R + r) over one layer's
+    cache window [pad, offset) alone: the fault of a kernel that drops the
+    fresh latents."""
+    R, S = cc.shape[-1], cc.shape[1]
+    kc = cc.float() * cs.float()[..., None]
+    kp = pc.float() * ps.float()[..., None]
+    qf = q.float()
+    s = (torch.einsum("bthr,bsr->bths", qf[..., :R], kc)
+         + torch.einsum("bthd,bsd->bths", qf[..., R:], kp)) * scale
+    slot = torch.arange(S, device=q.device)
+    valid = (slot[None, :] >= pads[:, None]) & (slot[None, :] < offs[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full((), -1e30, device=q.device))
+    return torch.einsum("bths,bsr->bthr", torch.softmax(s, -1), kc)
+
+
+def _latent_magnitude(torch, q, cc, cs, pc, ps, c_new, pe_new, pads, offs, scale):
+    """(P.|V|)/l of the float32 latent attention of q (B, T, H, R + r) over
+    one layer's cache window [pad, offset) and the fresh latents (causal):
+    what the rounding of p to bf16 is measured against."""
+    R, S, T = cc.shape[-1], cc.shape[1], q.shape[1]
+    kc = cc.float() * cs.float()[..., None]
+    kp = pc.float() * ps.float()[..., None]
+    qf, cn, pn = q.float(), c_new.float(), pe_new.float()
+    s_c = (torch.einsum("bthr,bsr->bths", qf[..., :R], kc)
+           + torch.einsum("bthd,bsd->bths", qf[..., R:], kp)) * scale
+    slot = torch.arange(S, device=q.device)
+    valid = (slot[None, :] >= pads[:, None]) & (slot[None, :] < offs[:, None])
+    s_c = torch.where(valid[:, None, None, :], s_c, torch.full((), -1e30, device=q.device))
+    s_f = (torch.einsum("bthr,bjr->bthj", qf[..., :R], cn)
+           + torch.einsum("bthd,bjd->bthj", qf[..., R:], pn)) * scale
+    causal = torch.arange(T, device=q.device)[:, None] >= torch.arange(T, device=q.device)
+    s_f = torch.where(causal[None, :, None, :], s_f, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(torch.cat([s_c, s_f], -1), -1)
+    return (torch.einsum("bths,bsr->bthr", p[..., :S], kc.abs())
+            + torch.einsum("bthj,bjr->bthr", p[..., S:], cn.abs()))
+
+
+def phase_latent(torch, card):
+    """K2 at LATENT_SHAPES against its plain version (bf16, B2_ATOL/B2_RTOL)
+    and against the plain version run in float32 (LATENT_OUT_ATOL +
+    LATENT_OUT_RTOL (|out| + (P.|V|)/l), with the faults that bound must reject: pad or offset off by
+    one, the wrong layer, the fresh latents dropped, the first split's
+    share of the window dropped), the fresh latents' int8 rows and scales
+    written bit for bit, repeats bit-identical; its device ms beside its
+    plain version's and its bound. Row 0 holds the longest window with
+    keys that dominate some heads at its first and last slots, and a fresh
+    latent along head 0's query, so that each fault shows there."""
+    from llm_speech_summarization_tpu_torch.kernels import latent_decode as ld
+    from llm_speech_summarization_tpu_torch.kernels.fused_decode import sm_count
+
+    rng = np.random.RandomState(2)
+    dev = torch.device("cuda")
+    L, H, R, r, layer = 2, ld.HEADS, ld.LATENT, ld.ROPE, 1
+    scale = (128 + 64) ** -0.5  # Moonlight's (nope + rope)^-1/2
+    results = {}
+
+    def arr(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    for B, T, S in LATENT_SHAPES:
+        q = arr(rng.randn(B, T, H, R + r).astype(np.float32), torch.bfloat16)
+        c_new = arr(rng.randn(B, T, R).astype(np.float32), torch.bfloat16)
+        pe_new = arr(rng.randn(B, T, r).astype(np.float32), torch.bfloat16)
+        cc = arr(rng.randint(-127, 128, size=(L, B, 1, S, R)).astype(np.int8), torch.int8)
+        pc = arr(rng.randint(-127, 128, size=(L, B, 1, S, r)).astype(np.int8), torch.int8)
+        cs = arr((0.02 + 0.1 * rng.rand(L, B, 1, S)).astype(np.float32), torch.bfloat16)
+        ps = arr((0.02 + 0.1 * rng.rand(L, B, 1, S)).astype(np.float32), torch.bfloat16)
+        pads_np = rng.randint(0, 5, size=(B,)).astype(np.int32)
+        offs_np = rng.randint(8, S - T, size=(B,)).astype(np.int32)
+        offs_np[0] = S - T
+        if B > 1:  # a pad past the offset: no cached slot, only the fresh latents
+            offs_np[1], pads_np[1] = 0, 2
+        cs[layer, 0, 0, pads_np[0]] = 1.0
+        cs[layer, 0, 0, offs_np[0] - 1] = 1.0
+        c_new[0, :] = q[0, :, 0, :R] * 8
+        pe_new[0, :] = q[0, :, 0, R:] * 8
+        pads, offs = arr(pads_np, torch.int32), arr(offs_np, torch.int32)
+        mo = int(offs_np.max())
+        nsplit = ld.latent_splits(B * T, mo, sm_count(0))
+        snap = [t.clone() for t in (cc, cs, pc, ps)]
+        ref_bufs = [t.clone() for t in snap]
+        got_bufs = [t.clone() for t in snap]
+        ref = ld.latent_decode_reference(q, *ref_bufs, c_new, pe_new, pads, offs, layer, scale)
+        got = ld.latent_decode(q, *got_bufs, c_new, pe_new, pads, offs, layer, max_offset=mo,
+                               scale=scale)
+        torch.cuda.synchronize()
+        what = f"K2 B={B} T={T} S={S}"
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.allclose(got.float(), ref.float(), atol=B2_ATOL, rtol=B2_RTOL):
+            raise AssertionError(f"{what}: out differs from the plain version (max |err| {err})")
+        written = torch.zeros((L, B, 1, S), dtype=torch.bool, device=dev)
+        for b in range(B):
+            written[layer, b, 0, offs_np[b]:offs_np[b] + T] = True
+        for name, gb, rb, s0 in zip(("c_cache", "c_scale", "pe_cache", "pe_scale"), got_bufs,
+                                    ref_bufs, snap):
+            if not torch.equal(gb, rb):
+                raise AssertionError(f"{what}: {name} differs from the plain version's write at "
+                                     f"{int((gb != rb).sum())} elements")
+            if not torch.equal(gb[~written], s0[~written]):
+                raise AssertionError(f"{what}: {name} changed outside the written slots")
+            if torch.equal(gb[written], s0[written]):
+                raise AssertionError(f"{what}: {name} was not written")
+
+        def exact_fn(pads=pads, offs=offs, layer=layer):
+            return ld.latent_decode_reference(q.float(), *(t.clone() for t in snap),
+                                              c_new.float(), pe_new.float(), pads, offs, layer,
+                                              scale)
+
+        live = arr((offs_np > pads_np).astype(np.int32), torch.int32)
+        parts = max(nsplit, 2)
+        share = arr(((np.clip(offs_np - pads_np, 0, None) + parts - 1) // parts)
+                    .astype(np.int32), torch.int32)
+        dropped = (f"split 0 of {nsplit} dropped" if nsplit > 1
+                   else "first half of the window dropped")
+        window = [t[layer, :, 0] for t in snap]
+        exact = exact_fn()
+        bound = LATENT_OUT_ATOL + LATENT_OUT_RTOL * (exact.abs() + _latent_magnitude(
+            torch, q, *window, c_new, pe_new, pads, offs, scale))
+
+        def worst(x):
+            return ((x.float() - exact).abs() / bound).max().item()
+
+        ratio = worst(got)
+        if not torch.isfinite(got).all() or not ratio <= 1:
+            raise AssertionError(f"{what}: out differs from the float32 plain version by "
+                                 f"{ratio} x the bound")
+        rejected = {name: worst(exact_fn(**kw)) for name, kw in (
+            ("pad+1", dict(pads=pads + live)), ("offset-1", dict(offs=offs - live)),
+            ("wrong layer", dict(layer=0)), (dropped, dict(pads=pads + share)))}
+        rejected["fresh latents dropped"] = worst(_latent_cache_only(
+            torch, q, *window, pads, offs, scale))
+        if min(rejected.values()) <= 1:
+            raise AssertionError(f"{what}: the bound does not reject every fault: {rejected}")
+        check = dict(max_abs_err=(got.float() - exact).abs().max().item(),
+                     err_over_bound=ratio, faults_over_bound=rejected)
+        again_bufs = [t.clone() for t in snap]
+        again = ld.latent_decode(q, *again_bufs, c_new, pe_new, pads, offs, layer, max_offset=mo,
+                                 scale=scale)
+        same = {"out": torch.equal(again, got),
+                "caches": all(torch.equal(a, b) for a, b in zip(again_bufs, got_bufs))}
+        if not all(same.values()):
+            raise AssertionError(f"{what}: two identical calls differ: {same}")
+
+        def call():
+            return ld.latent_decode(q, *got_bufs, c_new, pe_new, pads, offs, layer,
+                                    max_offset=mo, scale=scale)
+
+        t = timings(torch, call, lambda: ld.latent_decode_reference(
+            q, *ref_bufs, c_new, pe_new, pads, offs, layer, scale))
+        if nsplit > 1:  # the split body and its merge apart
+            t["kernel_ms"] = kernel_ms(torch, call)
+        # bytes: each (token, cached slot)'s int8 c and k_pe with their bf16
+        # scales, q, the fresh latents, the output and the written slots
+        valid = int(np.clip(offs_np - pads_np, 0, None).sum())
+        slot = R + r + 4
+        n_bytes = (T * valid * slot
+                   + B * T * (2 * H * (R + r) + 2 * (R + r) + 2 * H * R + slot))
+        flops = 2 * H * (2 * R + r) * (T * valid + B * T * (T + 1) / 2)
+        t["bound_ms"], t["bound_by"] = bound_ms(float(n_bytes), float(flops))
+        results[(B, T, S)] = dict(max_abs_err=max(err, check["max_abs_err"]), **t)
+        emit("latent_decode", B=B, T=T, shape=[L, B, H, R, r, S], splits=nsplit,
+             max_abs_err=err, atol=B2_ATOL, rtol=B2_RTOL, f32_check=check,
+             f32_atol=LATENT_OUT_ATOL, f32_rtol=LATENT_OUT_RTOL, cache_writes="bit-exact",
+             bit_identical=same, bytes=float(n_bytes), flops=float(flops), **t, card=card)
+        del cc, pc, snap, ref_bufs, got_bufs, again_bufs
+    return results
+
+
+def moe_kernel_entries(moe, latent, launches, replayed) -> list:
+    """The kernels line's rows of K1 (its two GEMM launches at a decode
+    step's pairs, the prefill's beside) and K2 (B = 128, T = 1)."""
+    csrc = "llm_speech_summarization_tpu_torch/kernels/csrc/"
+    rows = []
+    for name, key in (("moe_gateup", "gate-up"), ("moe_down", "down")):
+        d, p = moe["decode"][key], moe["prefill"][key]
+        rows.append({"name": name, "route": "cuda", "source": csrc + "moe_experts.cu",
+                     "replaces": None, "launches": launches[name],
+                     "graph_replays": replayed[name],
+                     "max_abs_err": max(moe["decode"]["max_abs_err"],
+                                        moe["prefill"]["max_abs_err"]),
+                     "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                     "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+                     "library": d.get("library"),
+                     "prefill": {x: p[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")}})
+    b = latent[(128, 1, 320)]
+    rows.append({"name": "latent_decode", "route": "cuda", "source": csrc + "latent_decode.cu",
+                 "replaces": None, "launches": launches["latent_decode"], "graph_replays": 0,
+                 "max_abs_err": max(r["max_abs_err"] for r in latent.values()), "ms": b["ms"],
+                 "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+                 "bound_by": b["bound_by"], "library_ms": None})
+    return rows
 
 
 def _sdpa_decode_call(torch, q, kc, vc, kn, vn, pads, offset):
@@ -4647,6 +5040,11 @@ def _wrappers():
         paged_decode_attention_f32, paged_decode_attention_mixed,
     )
 
+    from llm_speech_summarization_tpu_torch.kernels.latent_decode import latent_decode
+    from llm_speech_summarization_tpu_torch.kernels.moe_experts import (
+        combine, moe_down, moe_gateup, sort_by_expert,
+    )
+
     return {"flash_attention": fa.flash_attention_fwd,
             "flash_attention_f32": fa.flash_attention_fwd_f32, "fused_decode": fused_decode,
             "flash_attention_lse_f32": fa.flash_attention_fwd_lse_f32,
@@ -4670,7 +5068,9 @@ def _wrappers():
             "fused_decode_attention_write_mixed": fused_decode_attention_write_mixed,
             "decode_attention_mixed": decode_attention_mixed,
             "paged_attention_mixed": paged_decode_attention_mixed,
-            "fused_paged_mixed": fused_paged_decode_mixed}
+            "fused_paged_mixed": fused_paged_decode_mixed, "moe_align": sort_by_expert,
+            "moe_gateup": moe_gateup, "moe_down": moe_down, "moe_combine": combine,
+            "latent_decode": latent_decode}
 
 
 def decode_suffix(torch, eng) -> str:
@@ -5057,6 +5457,76 @@ def _b3_margins(torch, eng, embeds, mask, tokens, steps, cache_dtype=None):
                                 positions=(lens + step)[:, None], kv_cache=cache,
                                 cache_offset=Lp + step, kv_pad_lens=pads)
     return torch.stack(argmax, 1).cpu(), torch.stack(margin, 1).float().cpu()
+
+
+MOONLIGHT_CLIPS = 128  # the cell's batch, 4-16 s clips
+MOONLIGHT_NEW = 16
+
+
+def phase_moonlight_full(torch, card):
+    """``moonlight_whisper.yaml`` at full width (Moonlight-16B-A3B, random
+    weights, with Whisper-medium): MOONLIGHT_CLIPS clips through
+    ``generate_audio_response_batch`` once to warm up (the decode step's
+    graphs are captured there), then once counted: B1 in the encoder, K1's
+    sort, two GEMMs and combine in each MoE layer of the prefill (the
+    decode steps replay them inside their graphs), K2 in every layer of
+    every step, between the graph pieces. Returns the counted run's
+    launches and the K1 launches its graphs replayed."""
+    from llm_speech_summarization_tpu_torch.configs import YAML_DIR, load_config
+    from llm_speech_summarization_tpu_torch.infer.engine import LLMSpeechTextInference
+    from llm_speech_summarization_tpu_torch.models import mla_moe
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(str(YAML_DIR / "moonlight_whisper.yaml"))
+    t0 = time.perf_counter()
+    eng = LLMSpeechTextInference(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    enc_layers, L = eng.encoder_setup.encoder_cfg.num_layers, eng.llm_cfg.num_layers
+    Lm, E = eng.llm_cfg.num_moe_layers, eng.llm_cfg.n_routed_experts
+    rng = np.random.RandomState(5)
+    clips = [(0.1 * rng.randn(int(16000 * rng.uniform(4.0, 16.0)))).astype(np.float32)
+             for _ in range(MOONLIGHT_CLIPS)]
+    t0 = time.perf_counter()
+    eng.generate_audio_response_batch(clips, max_new_tokens=MOONLIGHT_NEW)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    before = mla_moe.read_moe_counters("cuda", E)
+
+    # --- the main path, counted
+    reset_launches()
+    eng.counts.clear()
+    t0 = time.perf_counter()
+    texts = eng.generate_audio_response_batch(clips, max_new_tokens=MOONLIGHT_NEW)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = read_launches()
+    counts = dict(eng.counts)
+    # ---
+    eager = counts["prefills"] + counts["decode_steps"] - counts.get("decode_graph_steps", 0)
+    k1 = Lm * eager
+    check_launches("moonlight batch path", launches, {
+        "flash_attention": enc_layers * counts["encoder_forwards"], "moe_align": k1,
+        "moe_gateup": k1, "moe_down": k1, "moe_combine": k1,
+        "latent_decode": L * counts["decode_steps"]})
+    if counts.get("decode_graph_steps", 0) != counts["decode_steps"]:
+        raise AssertionError(f"moonlight_full: {counts.get('decode_graph_steps', 0)} of "
+                             f"{counts['decode_steps']} decode steps replayed graphs")
+    if len(texts) != MOONLIGHT_CLIPS:
+        raise AssertionError("moonlight_full: wrong number of responses")
+    after = mla_moe.read_moe_counters("cuda", E)
+    work = {ph: {k: after[ph][k] - before[ph][k] for k in ("pairs", "expert_sets",
+                                                          "latent_slots")}
+            for ph in after}
+    replayed = {n: Lm * counts["decode_graph_steps"]
+                for n in ("moe_align", "moe_gateup", "moe_down", "moe_combine")}
+    emit("moonlight_full", clips=MOONLIGHT_CLIPS, new_tokens=MOONLIGHT_NEW,
+         init_s=round(init_s, 2), warm_s=round(warm_s, 2), batch_s=round(batch_s, 3),
+         counts={k: v for k, v in counts.items() if isinstance(v, int)}, launches={
+             k: v for k, v in launches.items() if v}, graph_replays=replayed, moe_work=work,
+         peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2), card=card)
+    del eng
+    return launches, replayed
 
 
 def phase_whisper_full(torch, card):
@@ -7690,6 +8160,8 @@ def main() -> int:
     dense = run_phase(phase_dense_decode, torch, card)
     decode32 = run_phase(phase_decode_f32, torch, card)
     mixed = run_phase(phase_decode_mixed, torch, card)
+    moe = run_phase(phase_moe, torch, card)
+    latent = run_phase(phase_latent, torch, card)
     # serving_tp_full's ranks get ready from here on, after the timed
     # kernel phases
     global _POOL
@@ -7726,6 +8198,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     whisper_runs = run_phase(phase_whisper_full, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moonlight_launches, moonlight_replayed = run_phase(phase_moonlight_full, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     import shutil
@@ -7779,7 +8254,8 @@ def main() -> int:
     # and paged server, the mixed engine's batch, B8 stream, speculative
     # engine and paged server, MiniChat + HuBERT-base with both projectors, its two replicas behind
     # the router, the bulk CLI, the Whisper batch path, its B8 stream and
-    # server, the trainer, the resumed trainer and the save_qkv trainer,
+    # server, the Moonlight batch path, the trainer, the resumed trainer and
+    # the save_qkv trainer,
     # the float32 trainer, the converted-checkpoint engine, preprocessing,
     # evaluation, -p and --ctc through the CLI, the Whisper trainer and its
     # resume, the ring trainer's ranks in both its launches, the
@@ -7788,7 +8264,8 @@ def main() -> int:
     for run in ([r["launches"] for r in serving.values()] + [tp_launches] + f32_runs
                 + mixed_runs + minichat_runs
                 + [router_launches]
-                + [bulk_launches] + whisper_runs + train_runs + [save_qkv_launches]
+                + [bulk_launches] + whisper_runs + [moonlight_launches] + train_runs
+                + [save_qkv_launches]
                 + [f32_train_launches]
                 + [convert_launches, preprocess_launches, eval_launches] + ckpt_runs
                 + list(whisper_train_runs) + [ring_launches, dp_launches, tp_launches_train,
@@ -7882,6 +8359,7 @@ def main() -> int:
              "flash_attention.py:257", "dkv", f32_ring, "llm_ring")):
         kernels.append(entry(name, source, replaces, name, results[case][key],
                              [r[key]["max_abs_err"] for r in results.values()]))
+    kernels += moe_kernel_entries(moe, latent, launches, moonlight_replayed)
     kernels[0]["sdpa_ms"] = kernels[0]["library_ms"]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
@@ -7896,6 +8374,32 @@ def main() -> int:
     return 0
 
 
+def moe_kernels(argv) -> int:
+    """Phases 7c and 12a alone (the K1 and K2 libraries and the flash
+    forward built first), then their kernels line."""
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+    import torch
+
+    from llm_speech_summarization_tpu_torch.kernels import (
+        flash_attention, latent_decode, moe_experts,
+    )
+
+    card = run_phase(phase_env, torch)
+    torch.set_grad_enabled(False)
+    for lib in (moe_experts._lib, latent_decode._lib, flash_attention._lib):
+        lib()
+    moe = run_phase(phase_moe, torch, card)
+    latent = run_phase(phase_latent, torch, card)
+    launches, replayed = run_phase(phase_moonlight_full, torch, card)
+    emit("walls", phases=[dict(phase=name, seconds=sec) for name, sec in _WALLS],
+         total_s=round(time.perf_counter() - _START, 1), card=card)
+    print(card, flush=True)
+    print(json.dumps({"kernels": moe_kernel_entries(moe, latent, launches, replayed)}),
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pooled-rank"]:  # a rank of a launch, waiting for its job
         sys.exit(pooled_rank(sys.argv[2]))
@@ -7903,6 +8407,8 @@ if __name__ == "__main__":
         sys.exit(ab_kernels(sys.argv[2:]))
     if sys.argv[1:2] == ["--split-sweep"]:  # B2's split counts, timed
         sys.exit(split_sweep(sys.argv[2:]))
+    if sys.argv[1:2] == ["--moe-kernels"]:  # K1 and K2 and the Moonlight batch path alone
+        sys.exit(moe_kernels(sys.argv[2:]))
     if sys.argv[1:2] == ["--f32-train-kernels"]:  # the float32 kernel phases alone
         sys.exit(f32_train_kernels(sys.argv[2:]))
     sys.exit(main())

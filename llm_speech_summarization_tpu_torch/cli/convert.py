@@ -8,6 +8,10 @@ Usage:
   python -m llm_speech_summarization_tpu_torch.cli.convert llm \
       --hf_dir /path/to/Llama-3.2-3B-Instruct --preset llama3_3b --output ckpts/llama3_3b.pt
 
+  # the DeepSeek-V3 layout (Moonlight-16B-A3B: latent attention, experts)
+  python -m llm_speech_summarization_tpu_torch.cli.convert llm \
+      --hf_dir /path/to/Moonlight-16B-A3B --preset moonlight_16b_a3b --output ckpts/moonlight.pt
+
   # the audio encoder backbone (HubertModel / Whisper layout) in a full
   # encoder tree, its projector freshly initialized
   python -m llm_speech_summarization_tpu_torch.cli.convert encoder \
@@ -48,6 +52,7 @@ def main(argv=None) -> str:
         convert_hubert,
         convert_hubert_ctc,
         convert_llama,
+        convert_mla_moe,
         convert_whisper_encoder,
         load_hf_state_dict,
     )
@@ -62,8 +67,13 @@ def main(argv=None) -> str:
 
     if args.kind == "llm":
         from ..models.llama import llama_preset
+        from ..models.mla_moe import is_mla_moe, mla_moe_preset
 
-        payload = {"llm_params": convert_llama(sd, llama_preset(args.preset), dtype)}
+        if is_mla_moe(args.preset):
+            llm = convert_mla_moe(sd, mla_moe_preset(args.preset), dtype)
+        else:
+            llm = convert_llama(sd, llama_preset(args.preset), dtype)
+        payload = {"llm_params": llm}
     elif args.kind == "ctc":
         from ..models.hubert import hubert_preset
 

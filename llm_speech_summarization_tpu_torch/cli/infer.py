@@ -132,9 +132,14 @@ def _bulk(engine, config, args, ranges_fn=None):
         for gi in range(len(groups)):
             yield [ranges_fn(a) for a in loaded.pop(gi)]
 
+    from ..models.mla_moe import MlaMoeConfig, read_moe_counters
+
     sink = open(args.output, "w") if args.output else sys.stdout
     written = 0
     before = Counter(engine.counts)
+    moe = isinstance(engine.llm_cfg, MlaMoeConfig)
+    if moe:
+        moe_before = read_moe_counters(engine.device, engine.llm_cfg.n_routed_experts)
     try:
         for g, outs in zip(groups, engine.iter_audio_response_batches(
                 lazy_batches(), additional_text_prompt=args.text,
@@ -149,22 +154,34 @@ def _bulk(engine, config, args, ranges_fn=None):
             sink.close()
     if args.output:
         print(f"wrote {written} responses to {args.output}")
-    print(pipeline_report(engine.counts, before), file=sys.stderr)
+    work = None
+    if moe:
+        after = read_moe_counters(engine.device, engine.llm_cfg.n_routed_experts)
+        work = {ph: {k: v - moe_before[ph][k] if k != "max_load" else v
+                     for k, v in after[ph].items()} for ph in after}
+    print(pipeline_report(engine.counts, before, work), file=sys.stderr)
 
 
-def pipeline_report(counts: Counter, before: Counter) -> str:
+def pipeline_report(counts: Counter, before: Counter, moe_work=None) -> str:
     """What the batch stream's counters read between ``before`` and
     ``counts``: how long the decoding thread waited for each batch's
     prompt (the encoder keeping up or not), how long each decode step
     took to issue on the host, and the share of the steps replayed as
-    CUDA graphs."""
+    CUDA graphs; with ``moe_work`` (the DeepSeek-V3 decoder's work
+    counters over the same batches, ``mla_moe.read_moe_counters``), per
+    phase the token-expert pairs, expert weight sets read, the largest load
+    of one expert in a call and the latent slots attended."""
     ran = Counter(counts)
     ran.subtract(before)
     batches, steps = ran["pipeline_batches"], ran["decode_steps"]
-    return (f"{batches} batches, {1e3 * ran['prompt_wait_s'] / max(batches, 1):.2f} ms a batch "
-            f"waiting for its prompt; {steps} decode steps, "
-            f"{1e3 * ran['decode_issue_s'] / max(steps, 1):.3f} ms a step issuing them, "
-            f"{100 * ran['decode_graph_steps'] / max(steps, 1):.1f}% replayed as CUDA graphs")
+    report = (f"{batches} batches, {1e3 * ran['prompt_wait_s'] / max(batches, 1):.2f} ms a batch "
+              f"waiting for its prompt; {steps} decode steps, "
+              f"{1e3 * ran['decode_issue_s'] / max(steps, 1):.3f} ms a step issuing them, "
+              f"{100 * ran['decode_graph_steps'] / max(steps, 1):.1f}% replayed as CUDA graphs")
+    for phase, w in (moe_work or {}).items():
+        report += (f"; {phase}: {w['pairs']} token-expert pairs, {w['expert_sets']} expert "
+                   f"weight sets, largest load {w['max_load']}, {w['latent_slots']} latent slots")
+    return report
 
 
 if __name__ == "__main__":

@@ -10,6 +10,11 @@
     on a builder thread (on the card, on a side CUDA stream) while batch i
     prefills and decodes, with the token streams of per-batch calls.
 
+The decoder is a Llama-family model or, for Moonlight-16B-A3B
+(``models/mla_moe.py``), DeepSeek-V3's latent attention and experts, run
+in bfloat16 over an int8 latent cache, greedy or sampled, without a model
+group, speculative decoding or int8 weights (each raises).
+
 Decoding is greedy, sampled at the engine's temperature / top-k / top-p,
 sampled per request (``sampling``), or, with ``speculative_k > 0`` and a
 greedy batch, self-speculative. The KV cache is ``kv_cache_dtype`` (or the
@@ -62,6 +67,13 @@ from ..models.llama import (
     llama_preset,
     quantize_llama_params,
     shard_config,
+)
+from ..models.mla_moe import (
+    MlaMoeConfig,
+    init_mla_moe_params,
+    is_mla_moe,
+    mla_moe_preset,
+    not_ported,
 )
 from ..models.whisper import WhisperConfig
 from ..obs.profile import annotate
@@ -166,16 +178,22 @@ class LLMSpeechTextInference:
         self._counts_lock = threading.Lock()
         self._side_stream = None  # the pipelined batches' builder stream (cuda)
 
-        self.llm_cfg = llm_cfg or llama_preset(config.model.llm_preset or config.model.llm_type)
-        shard_config(self.llm_cfg, self.tp)
+        name = config.model.llm_preset or config.model.llm_type
+        self.llm_cfg = llm_cfg or (mla_moe_preset(name) if is_mla_moe(name)
+                                   else llama_preset(name))
+        moe = isinstance(self.llm_cfg, MlaMoeConfig)
+        if moe:
+            self._refuse_for_moe(config)
+        else:
+            shard_config(self.llm_cfg, self.tp)
         if llm_params is None:
             if config.model.llm_checkpoint:
                 llm_params = load_params(config.model.llm_checkpoint, self.device,
                                          param_dtype)["llm_params"]
             else:
                 gen = torch.Generator(device=self.device).manual_seed(config.seed_everything)
-                llm_params = init_llama_params(gen, self.llm_cfg, dtype=param_dtype,
-                                               device=self.device)
+                init = init_mla_moe_params if moe else init_llama_params
+                llm_params = init(gen, self.llm_cfg, dtype=param_dtype, device=self.device)
             if config.model.llm_weight_dtype == "int8":
                 llm_params = quantize_llama_params(fuse_llama_params(llm_params))
         # the (V, D) table and its per-row scale the prompt rows come from
@@ -219,6 +237,18 @@ class LLMSpeechTextInference:
     # ------------------------------------------------------------------
     # internals
     # ------------------------------------------------------------------
+
+    def _refuse_for_moe(self, config: Config) -> None:
+        """The paths the DeepSeek-V3 (MLA + MoE) decoder does not take."""
+        cfg = self.llm_cfg
+        if self.tp > 1:
+            raise not_ported("tensor parallelism (a model group)", cfg)
+        if self.speculative_k > 0:
+            raise not_ported("speculative decoding", cfg)
+        if config.model.llm_weight_dtype == "int8":
+            raise not_ported("int8 weights (llm_weight_dtype: int8)", cfg)
+        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
+            raise not_ported(f"{config.model.compute_dtype} activations on the card", cfg)
 
     def _embed_rows(self, ids: torch.Tensor) -> torch.Tensor:
         """Token embeddings; an int8 table is gathered at int8 width and

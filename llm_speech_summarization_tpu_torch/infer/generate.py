@@ -18,6 +18,10 @@ advances by what it committed (the slot decoder's scheme), so the
 verification forward is the fused decode kernel's per-row window at
 T = k + 1.
 
+``greedy_generate`` takes the DeepSeek-V3 decoder too (``MlaMoeConfig``:
+``mla_moe_forward`` over its int8 latent cache); ``speculative_generate``
+raises for it.
+
 Both take the model group of a tensor-parallel engine (``tp_group``): every
 rank of it makes the same call on the same prompt with its parameter shard,
 holds a cache of its KV heads and gets the same full logits, so the same
@@ -28,11 +32,12 @@ from __future__ import annotations
 
 import time
 from collections import Counter
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from ..models.llama import LlamaConfig, init_kv_cache, llama_forward
+from ..models.mla_moe import MlaMoeConfig, init_latent_cache, mla_moe_forward, not_ported
 from ..obs.profile import annotate
 from ..parallel.comm import group_size
 from .sampling import sample_rows
@@ -76,10 +81,17 @@ def _sample(
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
+def _decoder(cfg):
+    """(forward, cache init) of the decoder ``cfg`` configures."""
+    if isinstance(cfg, MlaMoeConfig):
+        return mla_moe_forward, init_latent_cache
+    return llama_forward, init_kv_cache
+
+
 @torch.no_grad()
 def greedy_generate(
     params,
-    cfg: LlamaConfig,
+    cfg: Union[LlamaConfig, MlaMoeConfig],
     inputs_embeds: torch.Tensor,
     attn_mask: torch.Tensor,
     *,
@@ -132,9 +144,10 @@ def greedy_generate(
         def pick(logits, position):
             return _sample(logits, temperature, generator, top_k, top_p)
 
-    cache = init_kv_cache(cfg, B, S, dtype=cache_dtype, device=dev, tp=group_size(tp_group))
+    forward, init_cache = _decoder(cfg)
+    cache = init_cache(cfg, B, S, dtype=cache_dtype, device=dev, tp=group_size(tp_group))
     with annotate("lss.generate.prefill"):
-        out = llama_forward(
+        out = forward(
             params, cfg, inputs_embeds=inputs_embeds, attn_mask=attn_mask,
             kv_cache=cache, cache_offset=0, last_logit_only=True, tp_group=tp_group,
         )
@@ -162,7 +175,7 @@ def greedy_generate(
             break
         issued = time.perf_counter()
         with annotate("lss.generate.decode_step"):
-            out = llama_forward(
+            out = forward(
                 params, cfg, input_ids=last[:, None], attn_mask=None,
                 positions=(lens + step - 1)[:, None],
                 kv_cache=cache, cache_offset=L + step - 1, kv_pad_lens=pad_lens,
@@ -262,6 +275,8 @@ def speculative_generate(
 
     Returns (tokens (B, max_new) int32 EOS-padded, lengths (B,), rounds:
     the verification forwards run)."""
+    if isinstance(cfg, MlaMoeConfig):
+        raise not_ported("speculative decoding", cfg)
     B, L, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     cap = max_new_tokens if num_steps is None else min(int(num_steps), max_new_tokens)

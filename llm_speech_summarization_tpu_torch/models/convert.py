@@ -28,6 +28,7 @@ import torch
 
 from .hubert import HubertConfig
 from .llama import LlamaConfig
+from .mla_moe import MlaMoeConfig, rope_permutation
 from .whisper import WhisperConfig
 
 StateDict = Dict[str, torch.Tensor]
@@ -130,6 +131,78 @@ def convert_llama(sd: StateDict, cfg: LlamaConfig, dtype=torch.float32) -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = _own(sd["lm_head.weight"].t())
+    return _cast(params, dtype)
+
+
+def convert_mla_moe(sd: StateDict, cfg: MlaMoeConfig, dtype=torch.float32) -> dict:
+    """HF DeepseekV3ForCausalLM state dict (Moonlight-16B-A3B) →
+    ``init_mla_moe_params`` layout: (in, out) for the attention, dense and
+    shared weights; the routed experts' (out, in) rows as they are, gate and
+    up stacked; W_q's and W_kva's rope columns regrouped from interleaved
+    pairs to evens then odds (``mla_moe.rope_permutation``), the order the
+    published rope rotates them in, so the port's half-split rope applies.
+    The router weight and its ``e_score_correction_bias`` are kept as given
+    and cast with the rest."""
+    L, H, r = cfg.num_layers, cfg.num_heads, cfg.qk_rope_head_dim
+    Ld, E = cfg.first_k_dense, cfg.n_routed_experts
+    perm = rope_permutation(r)
+    p = "model.layers.{i}."
+
+    def rope_cols(w: torch.Tensor, heads: int) -> torch.Tensor:  # (L, D, heads * w) in place
+        Lw, D, cols = w.shape
+        v = w.view(Lw, D, heads, cols // heads)
+        v[..., -r:] = v[..., -r:][..., perm].clone()
+        return w
+
+    def moe_stack(fmt: str, transpose: bool = False) -> torch.Tensor:
+        first = sd[fmt.format(i=Ld)]
+        shape = tuple(reversed(first.shape)) if transpose else tuple(first.shape)
+        out = torch.empty((L - Ld, *shape), dtype=first.dtype)
+        for i in range(Ld, L):
+            m = sd[fmt.format(i=i)]
+            out[i - Ld].copy_(m.t() if transpose else m)
+        return out
+
+    def experts(name: str) -> torch.Tensor:
+        first = sd[(p + f"mlp.experts.0.{name}.weight").format(i=Ld)]
+        out = torch.empty((L - Ld, E, *first.shape), dtype=first.dtype)
+        for i in range(Ld, L):
+            for j in range(E):
+                out[i - Ld, j].copy_(sd[(p + f"mlp.experts.{j}.{name}.weight").format(i=i)])
+        return out
+
+    def dense_stack(name: str) -> torch.Tensor:
+        first = sd[(p + f"mlp.{name}.weight").format(i=0)]
+        out = torch.empty((Ld, first.shape[1], first.shape[0]), dtype=first.dtype)
+        for i in range(Ld):
+            out[i].copy_(sd[(p + f"mlp.{name}.weight").format(i=i)].t())
+        return out
+
+    params = {
+        "embed_tokens": _own(sd["model.embed_tokens.weight"]),
+        "final_norm": _own(sd["model.norm.weight"]),
+        "lm_head": _own(sd["lm_head.weight"].t()),
+        "layers": {
+            "input_norm": _stack(sd, p + "input_layernorm.weight", L),
+            "post_attn_norm": _stack(sd, p + "post_attention_layernorm.weight", L),
+            "wq": rope_cols(_stack(sd, p + "self_attn.q_proj.weight", L, transpose=True), H),
+            "wkv_a": rope_cols(_stack(sd, p + "self_attn.kv_a_proj_with_mqa.weight", L,
+                                      transpose=True), 1),
+            "kv_norm": _stack(sd, p + "self_attn.kv_a_layernorm.weight", L),
+            "wkv_b": _stack(sd, p + "self_attn.kv_b_proj.weight", L, transpose=True),
+            "wo": _stack(sd, p + "self_attn.o_proj.weight", L, transpose=True),
+        },
+        "dense": {name: dense_stack(f"{name[2:]}_proj") for name in ("w_gate", "w_up", "w_down")},
+        "moe": {
+            "router": moe_stack(p + "mlp.gate.weight"),
+            "router_bias": moe_stack(p + "mlp.gate.e_score_correction_bias"),
+            "w_gateup": torch.cat([experts("gate_proj"), experts("up_proj")], dim=2),
+            "w_down": experts("down_proj"),
+            "shared_gate": moe_stack(p + "mlp.shared_experts.gate_proj.weight", transpose=True),
+            "shared_up": moe_stack(p + "mlp.shared_experts.up_proj.weight", transpose=True),
+            "shared_down": moe_stack(p + "mlp.shared_experts.down_proj.weight", transpose=True),
+        },
+    }
     return _cast(params, dtype)
 
 

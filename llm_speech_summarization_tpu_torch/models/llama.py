@@ -723,17 +723,44 @@ def _piece(params: Params, cfg: LlamaConfig, i: int, x, attn, rope):
     return (x,) + _piece_qkv(cfg, params, i, x, *rope)
 
 
-def piecewise_decode(params: Params, cfg: LlamaConfig, ids, positions, attend):
-    """A T = 1 decode step run eagerly piece by piece: ``attend(i, q, k, v)``
+class GraphPieces(NamedTuple):
+    """A decoder's T = 1 step cut at its attentions: ``first(params, cfg,
+    ids, positions)`` gives (x, *args, *rope), the ``n_args`` args going to
+    ``attend(0, *args)``; ``piece(params, cfg, i, x, attn, rope)`` for 1 <= i
+    <= num_layers gives layer i - 1's output and layer i's (x, *args), or,
+    at i == num_layers, the float32 logits (B, 1, V); ``attn_shape(cfg, B)``
+    is the shape of an attention's output."""
+
+    first: Any
+    piece: Any
+    n_args: int
+    attn_shape: Any
+
+
+PIECES = GraphPieces(_first_piece, _piece, 3,
+                     lambda cfg, B: (B, 1, cfg.num_heads, cfg.head_dim))
+
+
+def piecewise_decode(params: Params, cfg, ids, positions, attend, pieces: GraphPieces = PIECES):
+    """A T = 1 decode step run eagerly piece by piece: ``attend(i, *args)``
     is layer i's attention (which writes the cache). The same operations in
-    the same order as ``llama_forward``'s step, so the same logits bit for
-    bit; the graphs' warm-up step."""
-    x, q, k, v, *rope = _first_piece(params, cfg, ids, positions)
+    the same order as the forward's step, so the same logits bit for bit;
+    the graphs' warm-up step."""
+    n = pieces.n_args
+    out = pieces.first(params, cfg, ids, positions)
+    x, args, rope = out[0], out[1:1 + n], out[1 + n:]
     for i in range(1, cfg.num_layers + 1):
-        out = _piece(params, cfg, i, x, attend(i - 1, q, k, v), rope)
+        out = pieces.piece(params, cfg, i, x, attend(i - 1, *args), rope)
         if i < cfg.num_layers:
-            x, q, k, v = out
+            x, args = out[0], out[1:]
     return out
+
+
+def _tree_leaves(tree) -> list:
+    """The tensors of a nested dict, in sorted key order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for _, sub in sorted(tree.items()) for t in _tree_leaves(sub)]
 
 
 class _DecodeGraphs:
@@ -742,19 +769,20 @@ class _DecodeGraphs:
     piece's graph and static outputs. Holds no parameter: ``refs`` are weak
     references to the tree's leaves, and the set is dropped once one dies."""
 
-    def __init__(self, params: Params, cfg: LlamaConfig, B: int, leaves):
+    def __init__(self, params: Params, cfg, B: int, leaves, pieces: GraphPieces):
         dev = params["final_norm"].device
         dtype = params["final_norm"].dtype
+        self.pieces = pieces
         self.refs = [weakref.ref(t) for t in leaves]
         self.ids = torch.zeros((B, 1), dtype=torch.long, device=dev)
         self.positions = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-        self.attn = torch.zeros((B, 1, cfg.num_heads, cfg.head_dim), dtype=dtype, device=dev)
+        self.attn = torch.zeros(pieces.attn_shape(cfg, B), dtype=dtype, device=dev)
         self.graphs, self.outs = [], []
 
     def alive(self) -> bool:
         return all(r() is not None for r in self.refs)
 
-    def capture(self, params: Params, cfg: LlamaConfig, stream, pool) -> None:
+    def capture(self, params: Params, cfg, stream, pool) -> None:
         def one(fn):
             g = torch.cuda.CUDAGraph()
             with torch.cuda.stream(stream):
@@ -768,37 +796,39 @@ class _DecodeGraphs:
             self.graphs.append(g)
             self.outs.append(out)
 
-        one(lambda: _first_piece(params, cfg, self.ids, self.positions))
-        rope = self.outs[0][4:]
+        p = self.pieces
+        one(lambda: p.first(params, cfg, self.ids, self.positions))
+        rope = self.outs[0][1 + p.n_args:]
         for i in range(1, cfg.num_layers + 1):
-            one(lambda: _piece(params, cfg, i, self.outs[-1][0], self.attn, rope))
+            one(lambda: p.piece(params, cfg, i, self.outs[-1][0], self.attn, rope))
 
     def replay(self, ids, positions, attend) -> torch.Tensor:
         """One step: the logits (B, 1, V) in the last piece's static buffer,
         which the next replay overwrites."""
+        n = self.pieces.n_args
         self.ids.copy_(ids)
         self.positions.copy_(positions)
         self.graphs[0].replay()
         for i in range(1, len(self.graphs)):
-            self.attn.copy_(attend(i - 1, *self.outs[i - 1][1:4]))
+            self.attn.copy_(attend(i - 1, *self.outs[i - 1][1:1 + n]))
             self.graphs[i].replay()
         return self.outs[-1]
 
 
-def _graphed_step(params: Params, cfg: LlamaConfig, ids, positions, attend,
-                  counts: Optional[Counter]) -> torch.Tensor:
+def _graphed_step(params: Params, cfg, ids, positions, attend, counts: Optional[Counter],
+                  pieces: GraphPieces = PIECES) -> torch.Tensor:
     """The step through its key's captured pieces (``counts``:
     "decode_graph_steps"), or, for a new key, an eager warm-up step on the
     capture stream and then the capture (``counts``: "decode_graph_captures";
     span ``lss.generate.graph_capture``). A set is keyed by B, the
-    activation dtype, the widths and the identity of the tree's leaves, not
-    by the cache: each call allocates its own, and the attention is not
-    captured. Returns the step's float32 logits (B, 1, V)."""
+    activation dtype, the config (its widths and kind) and the identity of
+    the tree's leaves, not by the cache: each call allocates its own, and
+    the attention is not captured. Returns the step's float32 logits (B, 1,
+    V)."""
     B, dev = ids.shape[0], ids.device
     if positions is None:
         positions = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-    leaves = [t for name, t in sorted(params.items()) if name != "layers"]
-    leaves += [t for _, t in sorted(params["layers"].items())]
+    leaves = _tree_leaves(params)
     key = (B, params["final_norm"].dtype, cfg, dev, tuple(id(t) for t in leaves))
     with _graph_lock:
         graphs = _graph_sets.get(key)
@@ -820,10 +850,10 @@ def _graphed_step(params: Params, cfg: LlamaConfig, ids, positions, attend,
     main = torch.cuda.current_stream(dev)
     stream.wait_stream(main)
     with torch.cuda.stream(stream):  # warm-up: lazy set-up happens outside the capture
-        logits = piecewise_decode(params, cfg, ids.long(), positions, attend)
+        logits = piecewise_decode(params, cfg, ids.long(), positions, attend, pieces)
     main.wait_stream(stream)
     logits.record_stream(main)
-    graphs = _DecodeGraphs(params, cfg, B, leaves)
+    graphs = _DecodeGraphs(params, cfg, B, leaves, pieces)
     with annotate("lss.generate.graph_capture"):
         graphs.capture(params, cfg, stream, pool)
     with _graph_lock:

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..device import check_engine_device
+from ..models.mla_moe import MlaMoeConfig, not_ported
 
 
 @dataclass
@@ -318,6 +319,8 @@ class ContinuousBatchingEngine:
         from .model_group import ModelGroupDecoder
 
         dev = check_engine_device("ContinuousBatchingEngine", engine.device, device)
+        if isinstance(engine.llm_cfg, MlaMoeConfig):
+            raise not_ported("the continuous-batching (slot and paged) server", engine.llm_cfg)
         self.engine = engine
         rep = getattr(engine, "repetition_penalty", 1.0)
         if spec_k > 0 and rep != 1.0:

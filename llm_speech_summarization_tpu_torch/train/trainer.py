@@ -69,6 +69,7 @@ from ..models.audio_encoder import (
     init_audio_encoder,
 )
 from ..models.llama import init_llama_params, llama_preset, quantize_llama_params
+from ..models.mla_moe import is_mla_moe, mla_moe_preset, not_ported
 from ..obs.profile import trace
 from ..obs.writer import MetricsWriter
 from ..parallel.comm import all_reduce, any_rank, max_over_ranks
@@ -158,7 +159,10 @@ class Trainer:
 
         # models: the LLM from one generator, the encoder from the next seed
         param_dtype = _DTYPES[config.model.param_dtype]
-        self.llm_cfg = llama_preset(config.model.llm_preset or config.model.llm_type)
+        name = config.model.llm_preset or config.model.llm_type
+        if is_mla_moe(name):
+            raise not_ported("KD training", mla_moe_preset(name))
+        self.llm_cfg = llama_preset(name)
         if config.model.llm_checkpoint:
             self.llm_params = ckpt.load_params(config.model.llm_checkpoint, self.device,
                                                param_dtype)["llm_params"]

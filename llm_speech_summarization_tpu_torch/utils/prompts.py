@@ -18,6 +18,9 @@ LLAMA_PROMPT_PREFIX = (
     "<|start_header_id|>user<|end_header_id|>\n\n"
 )
 LLAMA_PROMPT_SUFFIX = "<|eot_id|><|start_header_id|>assistant<|end_header_id|>\n\n"
+# Moonlight-16B-A3B-Instruct's chat markers (its tokenizer_config chat template)
+MOONLIGHT_PROMPT_PREFIX = f"{SYSTEM_PROMPT}<|im_user|>user<|im_middle|>"
+MOONLIGHT_PROMPT_SUFFIX = "<|im_end|><|im_assistant|>assistant<|im_middle|>"
 
 
 @dataclass(frozen=True)
@@ -33,6 +36,8 @@ class PromptTemplate:
 _TEMPLATES = {
     "GeneZC/MiniChat-2-3B": PromptTemplate(MINICHAT_PROMPT_PREFIX, MINICHAT_PROMPT_SUFFIX),
     "meta-llama/Llama-3.2-3B-Instruct": PromptTemplate(LLAMA_PROMPT_PREFIX, LLAMA_PROMPT_SUFFIX),
+    "moonshotai/Moonlight-16B-A3B": PromptTemplate(MOONLIGHT_PROMPT_PREFIX,
+                                                   MOONLIGHT_PROMPT_SUFFIX),
 }
 
 
